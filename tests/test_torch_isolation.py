@@ -1,0 +1,78 @@
+"""The port stands alone: tpusparse_torch and chip_smoke.py import nothing
+of JAX or of the JAX package, and `device=None` never runs on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import scipy.sparse as ssp
+import torch
+
+import tpusparse_torch as tt
+from tpusparse_torch.utils.matrices import block_sparse_csr
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
+
+
+def test_import_and_cpu_forward_load_no_jax():
+    code = (
+        "import sys, torch\n"
+        "import tpusparse_torch as tt\n"
+        "net = tt.MnistNet('sparse', hidden=256, device='cpu')\n"
+        "with torch.no_grad(): out = net(torch.zeros(4, 784))\n"
+        "assert out.shape == (4, 10)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    return sorted((ROOT / "tpusparse_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+ENTRY_POINTS = {
+    "resolve_device": lambda: tt.resolve_device(None),
+    "MnistNet": lambda: tt.MnistNet("sparse", hidden=8),
+    "DenseLinear": lambda: tt.DenseLinear(4, 3),
+    "SparseLinear": lambda: tt.SparseLinear.random(0, 8, 4, 0.5),
+    "BlockSparseLinear": lambda: tt.BlockSparseLinear.random(0, 8, 4, 0.5),
+    "CSR.from_dense": lambda: tt.CSR.from_dense(np.eye(3, dtype=np.float32)),
+    "CSR.from_scipy": lambda: tt.CSR.from_scipy(ssp.eye(3, format="csr")),
+    "COO.from_dense": lambda: tt.COO.from_dense(np.eye(3, dtype=np.float32)),
+    "random_csr": lambda: tt.random_csr(0, (4, 4), 0.5),
+    "block_sparse_csr": lambda: block_sparse_csr(0, (16, 16), (8, 8), 0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_device_none_means_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so device=None rightly runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
