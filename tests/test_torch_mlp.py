@@ -65,10 +65,19 @@ def test_seeded_generator_gives_same_weights_on_every_build():
 
 
 def test_sparse_model_backward_raises():
-    net = MnistNet("sparse", hidden=16, device="cpu")
-    loss = nll_loss(net(torch.zeros(4, 784)), torch.zeros(4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        loss.backward()
+    """The sparse model's backward no longer raises: it runs on the SDDMM
+    and transpose-plan kernels, and its gradients match jax.grad."""
+    x, _, tnet, params = _flagship("sparse")
+    labels = np.random.default_rng(1).integers(0, 10, 32)
+    jnet = JMnistNet(variant="sparse", hidden=256)
+    want = jax.grad(
+        lambda p: jnll_loss(jnet.apply(p, jnp.asarray(x)), jnp.asarray(labels))
+    )(params)["params"]
+    nll_loss(tnet(torch.from_numpy(x)), torch.from_numpy(labels)).backward()
+    for lname in ("fc1", "fc2"):
+        layer = getattr(tnet, lname)
+        for leaf, p in (("kernel_values", layer.kernel_values), ("bias", layer.bias)):
+            np.testing.assert_allclose(p.grad.numpy(), np.asarray(want[lname][leaf]), **TOL)
 
 
 @pytest.mark.parametrize("transa,transb", [(False, False), (True, False), (False, True), (True, True)])

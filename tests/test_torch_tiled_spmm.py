@@ -4,6 +4,7 @@ in interpret mode. On CPU tensors the port's wrappers run their plain
 PyTorch version; the CUDA kernel itself is checked on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,16 +200,28 @@ def test_3d_b_raises(call):
 
 @pytest.mark.parametrize("call", ["tiled_spmm", "spmm_blocks"])
 def test_backward_raises(call):
-    _, b, _, t, bs = _case("ragged_8x8")
+    """The backward no longer raises: d(values) and dB of sum(A @ B) match
+    jax.grad of the JAX op."""
+    _, b, j, t, bs = _case("ragged_8x8")
     data = t.data.clone().requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
     a = TCSR(data=data, indices=t.indices, indptr=t.indptr, shape=t.shape)
+
+    def jf(vals, bb):
+        if call == "spmm_blocks":
+            pj = jplan.build_plan(j, bs)
+            return jops.spmm_blocks(pj, pj.pack_values(vals), bb).sum()
+        return jops.tiled_spmm(JCSR(vals, j.indices, j.indptr, j.shape), bb, blocksize=bs).sum()
+
+    d_vals, d_b = jax.grad(jf, argnums=(0, 1))(j.data, jnp.asarray(b))
     if call == "spmm_blocks":
         plan = tplan.build_plan(a, bs)
-        out = tops.spmm_blocks(plan, plan.pack_values(data), torch.from_numpy(b))
+        out = tops.spmm_blocks(plan, plan.pack_values(data), bt)
     else:
-        out = tops.tiled_spmm(a, torch.from_numpy(b), blocksize=bs)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+        out = tops.tiled_spmm(a, bt, blocksize=bs)
+    out.sum().backward()
+    np.testing.assert_allclose(data.grad.numpy(), np.asarray(d_vals), **TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(d_b), **TOL)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -1,3 +1,9 @@
-from tpusparse_torch.models.mlp import MnistNet, nll_loss
+from tpusparse_torch.models.mlp import (
+    MnistNet,
+    make_train_state,
+    nll_loss,
+    train_epoch,
+    train_step,
+)
 
-__all__ = ["MnistNet", "nll_loss"]
+__all__ = ["MnistNet", "make_train_state", "nll_loss", "train_epoch", "train_step"]

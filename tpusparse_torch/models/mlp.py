@@ -1,9 +1,10 @@
-"""MNIST MLP (forward) for the port.
+"""MNIST MLP and its training step for the port.
 
-Counterpart of `tpusparse/models/mlp.py:26-66`: one model class with a
-backend variant, an optional hidden layer, log_softmax output, and the NLL
-loss. The training step (`make_train_state`, `train_step`, `train_epoch`)
-comes with the training slice (ROADMAP.md, "Next slice").
+Counterpart of `tpusparse/models/mlp.py:26-119`: one model class with a
+backend variant, an optional hidden layer, log_softmax output, the NLL
+loss, and SGD training (lr 0.01, momentum 0.9, batch 32). The JAX
+package's optax state becomes a `torch.optim.SGD`, its jitted step a plain
+eager step, and its `lax.scan` epoch a Python loop over stacked batches.
 """
 
 from __future__ import annotations
@@ -80,3 +81,35 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """NLLLoss on log_softmax outputs (mean over the batch)."""
     return -torch.gather(log_probs, 1, labels.long()[:, None]).mean()
 
+
+def make_train_state(
+    model: nn.Module, learning_rate: float = 0.01, momentum: float = 0.9
+) -> torch.optim.SGD:
+    """SGD with momentum over the model's parameters. It equals optax's
+    `sgd(learning_rate, momentum)` from a zero trace: on both sides the
+    first step's momentum buffer is the gradient itself."""
+    return torch.optim.SGD(model.parameters(), lr=learning_rate, momentum=momentum)
+
+
+def train_step(
+    model: nn.Module, optimizer: torch.optim.Optimizer,
+    images: torch.Tensor, labels: torch.Tensor,
+) -> torch.Tensor:
+    """One SGD step on the NLL loss of a batch; returns the loss (detached,
+    on the model's device, so that the step does not wait for the card)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = nll_loss(model(images), labels)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train_epoch(
+    model: nn.Module, optimizer: torch.optim.Optimizer,
+    images: torch.Tensor, labels: torch.Tensor,
+) -> torch.Tensor:
+    """`train_step` over stacked batches, images (S, B, 784) and labels
+    (S, B); returns the S losses."""
+    return torch.stack([
+        train_step(model, optimizer, images[i], labels[i]) for i in range(images.shape[0])
+    ])

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpusparse_torch import dense, ops
+from tpusparse_torch import ops
 from tpusparse_torch.plan import build_plan, build_plan_pair
 from tpusparse_torch.types import CSR
 from tpusparse_torch.utils.config import resolve_device
@@ -112,13 +112,20 @@ def _flat_batch(x: torch.Tensor, in_features: int) -> torch.Tensor:
 
 
 class DenseLinear(nn.Module):
-    """nn.Linear-compatible dense layer on `dense.matmul` (transb)."""
+    """nn.Linear-compatible dense layer on the port's `transb_mm` op.
+
+    use_kernel: the flax module's `use_pallas`. True runs the forward and
+    backward products on the GEMM kernel whatever the config says; False
+    (default) leaves the choice to the config's `use_gemm_kernel`.
+    """
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 use_kernel: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.in_features, self.features = in_features, features
+        self.use_kernel = use_kernel
         self.kernel = _param(_uniform((features, in_features), in_features, generator), device)
         self.bias = (
             _param(_uniform((features,), in_features, generator), device)
@@ -127,7 +134,9 @@ class DenseLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
-        y = dense.matmul(_flat_batch(x, self.in_features), self.kernel, transb=True)
+        # x @ Wᵀ through the transb op: Wᵀ is never materialised
+        y = ops.transb_mm(_flat_batch(x, self.in_features), self.kernel,
+                          use_kernel=True if self.use_kernel else None)
         y = y.reshape(*lead, self.features)
         return y + self.bias if self.bias is not None else y
 
@@ -135,7 +144,8 @@ class DenseLinear(nn.Module):
 class SparseLinear(nn.Module):
     """Linear layer with a static-sparse (out, in) weight; the parameter is
     the nnz value vector. forward: y = x @ Wᵀ + b computed as (W @ xᵀ)ᵀ
-    through the block-ELL executor."""
+    through the block-ELL executor; the backward runs the SDDMM kernel (dW)
+    and the executor on the transpose plan (dx)."""
 
     def __init__(self, pattern: Pattern, use_bias: bool = True,
                  method: str = "tiled", blocksize: Optional[Tuple[int, int]] = None,
@@ -172,7 +182,9 @@ class SparseLinear(nn.Module):
 class BlockSparseLinear(nn.Module):
     """Linear layer whose weight is the packed ELL block tensor
     (num_slots, bm, bk), with a fixed 0/1 mask (a buffer) that keeps it
-    inside the sparsity pattern; no per-call packing."""
+    inside the sparsity pattern; no per-call packing. The forward multiplies
+    by the mask, so the gradient of the blocks is zero outside the
+    pattern."""
 
     def __init__(self, pattern: Pattern, use_bias: bool = True,
                  blocksize: Optional[Tuple[int, int]] = None,

@@ -9,6 +9,10 @@ cached by a content fingerprint of the pattern.
 
 Values are not part of the plan: `pack_values` scatters the CSR value
 vector into block form on the values' device, every call.
+
+The backward of the block SpMM runs on transpose plans: `build_plan_pair`
+derives the Aᵀ plan from a CSR pattern, `block_transpose_plan` from a
+plan's block pattern alone.
 """
 
 from __future__ import annotations
@@ -63,18 +67,27 @@ class Plan:
     def num_slots(self) -> int:
         return self.num_row_blocks * self.ell_width
 
-    def index_tensor(self, name: str, device) -> torch.Tensor:
-        """`block_cols` (flattened), `nslots` or `scatter_idx` as a tensor on
-        `device`, copied there once and kept with the plan."""
+    def _device_copy(self, name: str, arr: np.ndarray, device) -> torch.Tensor:
         key = (name, str(torch.device(device)))
         t = self._on_device.get(key)
         if t is None:
-            arr = np.ascontiguousarray(getattr(self, name)).reshape(-1)
-            if name == "scatter_idx":
-                arr = arr.astype(np.int64)  # torch indexes with int64
-            t = torch.from_numpy(arr).to(device)
+            t = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)).to(device)
             self._on_device[key] = t
         return t
+
+    def index_tensor(self, name: str, device) -> torch.Tensor:
+        """`block_cols` (flattened), `nslots` or `scatter_idx` as a tensor on
+        `device`, copied there once and kept with the plan."""
+        arr = getattr(self, name)
+        if name == "scatter_idx":
+            arr = np.asarray(arr, dtype=np.int64)  # torch indexes with int64
+        return self._device_copy(name, arr, device)
+
+    def perm_tensor(self, name: str, perm: np.ndarray, device) -> torch.Tensor:
+        """A host permutation that belongs with this plan (the `t_perm` or
+        `t_slot_perm` that feeds a transpose plan) as an int64 tensor on
+        `device`, copied there once and kept with the plan under `name`."""
+        return self._device_copy(name, np.asarray(perm, dtype=np.int64), device)
 
     # -- value packing (every call, pattern-free) ---------------------------
     def pack_values(self, data: torch.Tensor) -> torch.Tensor:
@@ -245,8 +258,8 @@ _PAIR_CACHE: Dict[str, tuple] = {}
 def build_plan_pair(pattern: CSR, blocksize: Optional[Shape2] = None):
     """(plan for A, plan for Aᵀ, permutation mapping A.data -> Aᵀ.data).
 
-    The transpose plan drives the dB = Aᵀ·dC backward of the training
-    slice; the pair is cached by pattern fingerprint.
+    The transpose plan drives the dB = Aᵀ·dC backward of `tiled_spmm`;
+    the pair is cached by pattern fingerprint.
     """
     plan = build_plan(pattern, blocksize)
     indptr = np.asarray(pattern.indptr)
@@ -276,6 +289,65 @@ def build_plan_pair(pattern: CSR, blocksize: Optional[Shape2] = None):
     return out
 
 
+_BLOCK_T_CACHE: Dict[str, tuple] = {}
+
+
+def block_transpose_plan(plan: Plan):
+    """(transpose Plan, slot permutation) derived from a Plan's block
+    pattern alone, no CSR needed.
+
+    Drives the `spmm_blocks` backward dB = Aᵀ·dC: the block at (row-block
+    i, col-block j) becomes the (j, i) block of Aᵀ with its (bm, bk) tile
+    transposed, so the transpose operand is the `(bk, bm)` transposes of
+    the blocks gathered at `t_slot_perm`, whose pad slots point at index
+    `plan.num_slots`, a zero block appended by the caller. Pad slots of
+    `block_cols` here are 0 (not the last valid id as in `build_plan`),
+    as in the JAX package. The returned Plan has an empty `scatter_idx`;
+    executors never read it. Host-side, cached by block-pattern
+    fingerprint.
+    """
+    nbr, nbc = plan.num_row_blocks, plan.num_col_blocks
+    L = plan.ell_width
+    bc = np.asarray(plan.block_cols).reshape(nbr, L)
+    ns = np.asarray(plan.nslots)
+    key = _fingerprint(plan.shape, plan.blocksize, ns, bc)
+    hit = _BLOCK_T_CACHE.get(key)
+    if hit is not None:
+        return hit
+
+    valid = np.arange(L, dtype=np.int64)[None, :] < ns[:, None]
+    i_ids, l_ids = np.nonzero(valid)
+    j_ids = bc[i_ids, l_ids].astype(np.int64)
+    slot_ids = i_ids * L + l_ids
+    order = np.lexsort((i_ids, j_ids))  # (col-block, row-block): Aᵀ order
+    tj, ti, tslot = j_ids[order], i_ids[order], slot_ids[order]
+    counts = np.bincount(tj, minlength=nbc)
+    L_t = max(int(counts.max()) if counts.size else 1, 1)
+    row_start = np.zeros(nbc, dtype=np.int64)
+    np.cumsum(counts[:-1], out=row_start[1:])
+    pos = np.arange(tj.size, dtype=np.int64) - np.repeat(row_start, counts)
+    block_cols_t = np.zeros((nbc, L_t), np.int32)
+    block_cols_t[tj, pos] = ti
+    t_slot_perm = np.full((nbc * L_t,), plan.num_slots, np.int64)
+    t_slot_perm[tj * L_t + pos] = tslot
+
+    m, k = plan.shape
+    bm, bk = plan.blocksize
+    plan_t = Plan(
+        block_cols=np.ascontiguousarray(block_cols_t),
+        nslots=counts.astype(np.int32),
+        scatter_idx=np.zeros((0,), np.int32),
+        shape=(k, m),
+        blocksize=(bk, bm),
+        ell_width=L_t,
+        nnz=plan.nnz,
+        nblocks=plan.nblocks,
+    )
+    out = (plan_t, np.ascontiguousarray(t_slot_perm.astype(np.int32)))
+    _BLOCK_T_CACHE[key] = out
+    return out
+
+
 # -- plan cache ---------------------------------------------------------------
 
 _PLAN_CACHE: Dict[str, Plan] = {}
@@ -297,4 +369,5 @@ def plan_cache_info() -> Dict[str, int]:
 def clear_plan_cache():
     _PLAN_CACHE.clear()
     _PAIR_CACHE.clear()
+    _BLOCK_T_CACHE.clear()
     _CACHE_STATS.update(hits=0, misses=0)

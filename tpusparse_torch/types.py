@@ -2,7 +2,7 @@
 
 Counterpart of `tpusparse/types.py` (`COO` l.44-106, `CSR` l.109-305,
 `coo_to_csr`/`csr_to_coo` l.419-455, `random_csr` l.542, `spmm_reference`
-l.586-645). Plain dataclasses: the values are a torch tensor on the
+l.586-645, `sddmm_reference` l.646-660). Plain dataclasses: the values are a torch tensor on the
 caller's device, the index arrays stay host numpy int32, as the JAX plans
 keep them, because the inspector (`plan.py`) runs on the host.
 """
@@ -186,3 +186,13 @@ def spmm_reference(a: CSR, b: torch.Tensor, reduce: str = "sum") -> torch.Tensor
         (a.shape[0], b.shape[1]), dtype=gathered.dtype, device=dev
     )
     return out.index_add_(0, rows, gathered)
+
+
+def sddmm_reference(a_pattern: CSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense matmul: out[t] = (X @ Y)[row_t, col_t] for each
+    nonzero t of the pattern, in CSR order. The plain oracle of the SDDMM
+    kernel, on the device of its inputs; a_pattern's values are not read."""
+    dev = x.device
+    rows = torch.from_numpy(a_pattern.row_ids().astype(np.int64)).to(dev)
+    cols = torch.from_numpy(a_pattern.indices.astype(np.int64)).to(dev)
+    return (x[rows] * y[:, cols].transpose(0, 1)).sum(dim=1)

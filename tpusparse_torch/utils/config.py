@@ -1,10 +1,10 @@
 """Framework configuration for the PyTorch/CUDA port.
 
 Counterpart of `tpusparse/utils/config.py:19-110`. It keeps the SpMM block
-defaults and the precision tiers. The TPU-only knobs (`interpret`,
-`vmem_limit_bytes`) and the dense Pallas GEMM tiles are not carried: the
-first is the Pallas interpreter, the second a VMEM budget, the third an
-off-path kernel.
+defaults, the precision tiers and the switch of the dense GEMM kernel. The
+TPU-only knobs (`interpret`, `vmem_limit_bytes`) and the dense Pallas GEMM
+tiles (`gemm_block_*`) are not carried: the first is the Pallas
+interpreter, the second a VMEM budget, the third the TPU kernel's tiling.
 
 Device policy: every entry point that creates tensors takes `device`.
 `device=None` means the CUDA card; `resolve_device` raises when there is
@@ -41,6 +41,10 @@ class Config:
     #   'high' / 'highest' -- fp32 FFMA (never TF32);
     #   'default'          -- operands rounded to bf16 (RTN), fp32 accumulate.
     precision: str = "high"
+    # Whether the dense ops route 2-D products through the hand-written GEMM
+    # kernel (csrc/gemm.cu) instead of torch.matmul: the counterpart of the
+    # JAX config's `use_pallas_gemm`.
+    use_gemm_kernel: bool = False
 
 
 _config = Config()
