@@ -5,15 +5,20 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the three CUDA kernels from the repo's sources (one nvcc per
-     source, all started together; sm_90a), with ptxas's report;
+  2. build of the four CUDA sources from the repo (one nvcc per source, all
+     started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
      (128, 128), empty row-blocks, fp32 'high' and 'default', bf16; both
      entry points, which must agree bitwise), sddmm (the same blocksizes,
      ragged m/k/n, an empty row-block whose pad slots must be exactly 0,
      fp32 'high'/'highest'/'default', bf16) and gemm (all four transpose
-     flags, ragged (100, 70, 33), fp32 'high' and 'default', bf16);
+     flags, ragged (100, 70, 33), fp32 'high' and 'default', bf16) and the
+     three flash attention kernels (flash_fwd, flash_dq, flash_dkv) at
+     (b, h, s, d) = (2, 3, 256, 64), causal (1, 2, 384, 64), ragged
+     (1, 1, 200, 64), (2, 4, 128, 24), (1, 2, 128, 128) and a causal chunk
+     with q_offset 256, each in 'high' and 'default' with fp32 and with
+     bf16 inputs: o, lse, dq, dk, dv, each as max-abs error over scale;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -26,16 +31,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
         checked: 3 block_ell_spmm + 2 sddmm, or 5 gemm;
      c. the backward of the headline SpMM (dblocks by sddmm, dB by
         block_ell_spmm on the transpose plan) for a seeded dC;
+     d. the BERT-base attention layer (hidden 768, 12 heads of 64,
+        intermediate 3072, fp32 'high'), 'flash' and 'dense', batch 8 at seq
+        128 and 512: a forward and 10 SGD steps (loss mean(out²), lr 0.01,
+        momentum 0.9), the launches of each checked (1 flash_fwd per
+        forward; 1 flash_fwd + 1 flash_dq + 1 flash_dkv per 'flash' step,
+        none for 'dense');
+     e. the BERT-base encoder ('flash', 12 layers, vocab 30522, batch 8,
+        seq 512, seeded input_ids): a forward (12 flash_fwd) and 3 SGD steps
+        (12 of each flash kernel per step);
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
      against the same weights run on the CPU (rtol 1e-4, atol 5e-5); the
-     loss must drop over the 20 steps (last < 0.8 x first);
+     loss must drop over the 20 steps (last < 0.8 x first); the BERT
+     layer's loss must drop over its 10 steps and the encoder's outputs and
+     losses be finite; one full-width 'flash' layer at batch 1, seq 128 on
+     the card against the same weights on the CPU: the forward and 3
+     steps' losses and parameters (rtol 1e-4, atol 5e-5);
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
      MLP's, one training step per variant, and each kernel's bound from
-     this run's inputs;
+     this run's inputs; the flash kernels at (b, h, s, d) = (8, 12, 512, 64)
+     and (8, 12, 128, 64) against their plain versions, their bounds and
+     torch's scaled_dot_product_attention (forward, and its autograd
+     backward) in fp32, with the SDPA backend named; the BERT layer's
+     forward and step times ('flash' and 'dense', seq 128 and 512) and the
+     encoder's; a torch.profiler trace of the layer's steps at seq 512
+     (device busy and idle share, the kernels that take the most time);
   7. the `kernels` JSON line, then the device JSON line, last.
 
 Exits non-zero, printing no result, when no CUDA device is present or the
@@ -67,11 +91,26 @@ TRAIN_STEPS = 20
 PARITY_STEPS = 3
 # kernel launches of one training step, by variant (fc1, fc2 forward;
 # fc2's dB; both layers' dW; fc1's input is the data, so no dB for it)
+NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 STEP_LAUNCHES = {
-    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0},
-    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0},
-    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5},
+    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
+    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
+    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH},
 }
+# flash attention: max-abs error over scale of the kernel against its plain
+# version. fp32 'high': both sum in fp32, in other orders (the forward's
+# online softmax rescales per 64-key tile): 1e-5. 'default' tier and bf16
+# inputs: p is rounded to bf16 against its tile's running max in the kernel
+# and against the row max in the plain version, and bf16 outputs sit one ulp
+# (2^-8..2^-7) apart: 1e-2.
+FLASH_LIMIT_FP32 = 1e-5
+FLASH_LIMIT_ROUNDED = 1e-2
+BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
+BERT_BATCH = 8
+BERT_SEQS = (128, 512)
+BERT_LAYER_STEPS = 10
+BERT_ENCODER_STEPS = 3
+FLASH_STEP = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -88,6 +127,27 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms_queued(fn, reps: int = 20, warmup: int = 3, iters: int = 5) -> float:
+    """Median device time per call of `fn` over `reps` back-to-back calls
+    between two CUDA events. The host enqueues ahead of the card, so the
+    launch overhead hides behind kernels longer than it (`time_ms` events
+    one call, overhead included)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -118,7 +178,7 @@ def phase_build() -> None:
     from tpusparse_torch.kernels import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(["block_ell_spmm", "sddmm", "gemm"])
+    reports = _build.build(_build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in sorted(set(line.strip() for line in text.splitlines()
@@ -263,7 +323,7 @@ def phase_train(batches) -> dict:
     import tpusparse_torch as tt
     from tpusparse_torch import kernels
 
-    totals = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0}
+    totals = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH}
     for variant, expect in STEP_LAUNCHES.items():
         tt.set_config(use_gemm_kernel=variant == "dense")
         try:
@@ -326,7 +386,7 @@ def phase_headline_backward(plan, bv, b):
     torch.cuda.synchronize()
     counts = kernels.launches_by_kernel()
     print(f"headline backward launches: {json.dumps(counts)}")
-    if counts != {"block_ell_spmm": 2, "sddmm": 1, "gemm": 0}:
+    if counts != {"block_ell_spmm": 2, "sddmm": 1, "gemm": 0, **NO_FLASH}:
         raise AssertionError("headline backward: expected 2 block_ell_spmm and 1 sddmm")
     dblocks_ref = _sddmm_plain(plan, dc, b)
     d_err, d_rel = over_scale(blocks.grad, dblocks_ref)
@@ -343,6 +403,359 @@ def phase_headline_backward(plan, bv, b):
             and bool(torch.isfinite(blocks.grad).all()) and bool(torch.isfinite(bb.grad).all())):
         raise AssertionError("headline backward disagrees with its plain versions")
     return counts, d_err, dc, plan_t, bv_t
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(max-abs error, max-abs error / max |want|)."""
+    max_abs = float((got.float() - want.float()).abs().max())
+    return max_abs, max_abs / max(float(want.float().abs().max()), 1e-30)
+
+
+def _flash_pair(q, k, v, do, kw):
+    """(kernel, plain) results (o, lse, dq, dk, dv) on the same inputs; the
+    plain backward takes the kernel's lse and delta."""
+    from tpusparse_torch.kernels import flash_attention as fa
+
+    o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).to(q.dtype).float()
+    got = (o, lse, fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
+           *fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw))
+    want = (*fa._flash_fwd_plain(q, k, v, **kw),
+            fa._flash_dq_plain(q, k, v, do, lse, delta, **kw),
+            *fa._flash_dkv_plain(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _flash_operands(shape, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+            for _ in range(4)]
+
+
+def phase_small_flash() -> None:
+    """Each flash kernel against its plain version at small shapes, in both
+    tiers, with fp32 and with bf16 inputs."""
+    # name, (bh, s, d), causal, q_offset; the last is rows 256:512 of a
+    # 512-long causal attention against keys 0:256 (tests/test_attention.py:290)
+    cases = [
+        ("2x3x256x64", (6, 256, 64), False, 0),
+        ("causal_1x2x384x64", (2, 384, 64), True, 0),
+        ("ragged_1x1x200x64", (1, 200, 64), False, 0),
+        ("narrow_2x4x128x24", (8, 128, 24), False, 0),
+        ("wide_1x2x128x128", (2, 128, 128), True, 0),
+        ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256),
+    ]
+    names = ("o", "lse", "dq", "dk", "dv")
+    for seed, (name, shape, causal, q_off) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            for prec in ("high", "default"):
+                q, k, v, do = _flash_operands(shape, 300 + seed, dtype)
+                kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
+                          kv_offset=0, precision=prec)
+                got, want = _flash_pair(q, k, v, do, kw)
+                rounded = dtype == torch.bfloat16 or prec == "default"
+                limit = FLASH_LIMIT_ROUNDED if rounded else FLASH_LIMIT_FP32
+                errs = {n: rel_err(g, w)[1] for n, g, w in zip(names, got, want)}
+                ok = (all(e <= (FLASH_LIMIT_FP32 if n == "lse" else limit)
+                          for n, e in errs.items())
+                      and all(bool(torch.isfinite(g.float()).all()) for g in got)
+                      and all(g.dtype == w.dtype and g.shape == w.shape
+                              for g, w in zip(got, want)))
+                label = f"flash_{name}_{str(dtype).split('.')[1]}_{prec}"
+                print(f"case {label}: over scale " + ", ".join(
+                    f"{n} {e:.2e}" for n, e in errs.items())
+                    + f" (limit {limit:.0e}, lse {FLASH_LIMIT_FP32:.0e}), "
+                    + ("ok" if ok else "FAIL"))
+                if not ok:
+                    raise AssertionError(f"{label}: a flash kernel disagrees with its plain version")
+
+
+def _flash_counts() -> dict:
+    from tpusparse_torch import kernels
+
+    c = kernels.launches_by_kernel()
+    return {n: c[n] for n in NO_FLASH}
+
+
+def _bert_input(batch, seq, seed):
+    x = np.random.default_rng(seed).standard_normal((batch, seq, BERT["hidden"]), dtype=np.float32)
+    return torch.from_numpy(x)
+
+
+def _bert_layer(attention, device, seed=0):
+    import tpusparse_torch as tt
+
+    return tt.BertAttentionLayer(**BERT, attention=attention, device=device,
+                                 generator=torch.Generator().manual_seed(seed))
+
+
+def phase_bert_layers() -> dict:
+    """The BERT-base layer, 'flash' and 'dense', batch 8 at each seq: a
+    forward and BERT_LAYER_STEPS SGD steps, launches checked per call;
+    returns the flash launches counted."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+
+    totals = dict(NO_FLASH)
+    for seq in BERT_SEQS:
+        x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
+        for attention in ("flash", "dense"):
+            flash = attention == "flash"
+            layer = _bert_layer(attention, "cuda")
+            opt = tt.make_train_state(layer)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with torch.no_grad():
+                out = layer(x)
+            torch.cuda.synchronize()
+            fwd = _flash_counts()
+            if fwd != ({**NO_FLASH, "flash_fwd": 1} if flash else NO_FLASH):
+                raise AssertionError(f"bert layer {attention} seq {seq}: forward launched {fwd}")
+            if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"bert layer {attention} seq {seq}: bad forward output")
+            losses = []
+            for i in range(BERT_LAYER_STEPS):
+                before = _flash_counts()
+                losses.append(tt.bert_train_step(layer, opt, x))
+                after = _flash_counts()
+                step = {n: after[n] - before[n] for n in after}
+                if step != (FLASH_STEP if flash else NO_FLASH):
+                    raise AssertionError(f"bert layer {attention} seq {seq} step {i}: "
+                                         f"launches {step}")
+            torch.cuda.synchronize()
+            counts = _flash_counts()
+            for n in totals:
+                totals[n] += counts[n]
+            losses = [float(v) for v in losses]
+            print(f"bert layer {attention} seq {seq} batch {BERT_BATCH}: forward + "
+                  f"{BERT_LAYER_STEPS} steps, flash launches {json.dumps(counts)}, loss "
+                  f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"bert layer {attention} seq {seq}: loss did not drop")
+    return totals
+
+
+def phase_bert_encoder():
+    """BertEncoder('flash') at full size, batch 8, seq 512: a forward and
+    BERT_ENCODER_STEPS SGD steps; returns (flash launches, encoder,
+    optimizer, input_ids)."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+
+    enc = tt.BertEncoder(attention="flash", device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    n_layers = enc.num_layers
+    ids = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 30522, size=(BERT_BATCH, 512))).cuda()
+    opt = tt.make_train_state(enc)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = enc(ids)
+    torch.cuda.synchronize()
+    fwd = _flash_counts()
+    if fwd != {**NO_FLASH, "flash_fwd": n_layers}:
+        raise AssertionError(f"encoder forward launched {fwd}")
+    if out.shape != (BERT_BATCH, 512, BERT["hidden"]) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("encoder forward: bad output")
+    losses = []
+    for i in range(BERT_ENCODER_STEPS):
+        before = _flash_counts()
+        losses.append(tt.bert_train_step(enc, opt, ids))
+        after = _flash_counts()
+        step = {n: after[n] - before[n] for n in after}
+        if step != {n: n_layers for n in NO_FLASH}:
+            raise AssertionError(f"encoder step {i}: launches {step}")
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    losses = [float(v) for v in losses]
+    print(f"bert encoder flash ({n_layers} layers, batch {BERT_BATCH}, seq 512): forward + "
+          f"{BERT_ENCODER_STEPS} steps, flash launches {json.dumps(counts)}, losses "
+          + ", ".join(f"{v:.6f}" for v in losses))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("encoder: a loss is not finite")
+    return counts, enc, opt, ids
+
+
+def phase_bert_card_vs_cpu() -> None:
+    """One full-width 'flash' layer at batch 1, seq 128 from one seed, on the
+    card and on the CPU: the forward, then PARITY_STEPS steps' losses and
+    parameters."""
+    import tpusparse_torch as tt
+
+    x = _bert_input(1, 128, 7)
+    layers = {d: _bert_layer("flash", d, seed=2) for d in ("cuda", "cpu")}
+    with torch.no_grad():
+        got, want = layers["cuda"](x.cuda()).cpu(), layers["cpu"](x)
+    fwd_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **TOL_FP32):
+        raise AssertionError(f"bert layer card vs CPU forward: max_abs_err {fwd_err:.3e}")
+    opts = {d: tt.make_train_state(m) for d, m in layers.items()}
+    losses = {d: [float(tt.bert_train_step(layers[d], opts[d], x.to(d)))
+                  for _ in range(PARITY_STEPS)] for d in layers}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], **TOL_FP32)
+    err = 0.0
+    for (n_, p), (_, q) in zip(layers["cuda"].named_parameters(), layers["cpu"].named_parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), **TOL_FP32, msg=n_)
+        err = max(err, float((p.detach().cpu() - q.detach()).abs().max()))
+    print(f"bert layer flash card vs CPU (batch 1, seq 128): forward max_abs_err "
+          f"{fwd_err:.3e}; {PARITY_STEPS} steps' losses within tolerance, params "
+          f"max_abs_err {err:.3e} (ok)")
+
+
+def _sdpa_backend(q, k, v):
+    """The first SDPA backend, in the order flash, efficient, cudnn, math,
+    that takes these fp32 inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            return backend
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend takes fp32 inputs")
+
+
+def phase_flash_timings() -> dict:
+    """The three kernels, their plain versions and bounds, and SDPA in fp32,
+    at the BERT-base attention shapes; returns {seq: results}."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    out = {}
+    b, h, d = BERT_BATCH, BERT["num_heads"], BERT["hidden"] // BERT["num_heads"]
+    for seq in sorted(BERT_SEQS, reverse=True):
+        bh = b * h
+        q, k, v, do = _flash_operands((bh, seq, d), 500 + seq)
+        kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision="high")
+        got, want = _flash_pair(q, k, v, do, kw)
+        errs = {n: rel_err(g, w) for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+        if not all(e[1] <= FLASH_LIMIT_FP32 for e in errs.values()):
+            raise AssertionError(f"flash at seq {seq}: kernel vs plain {errs}")
+        o, lse = got[0], got[1]
+        delta = (do * o).sum(-1)
+        del got, want
+        r = {"err": errs}
+        r["ms"] = {
+            "fwd": time_ms_queued(lambda: fa.flash_fwd_kernel(q, k, v, **kw)),
+            "dq": time_ms_queued(lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw)),
+            "dkv": time_ms_queued(lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw)),
+        }
+        r["one_call_ms"] = {
+            "fwd": time_ms(lambda: fa.flash_fwd_kernel(q, k, v, **kw)),
+            "dq": time_ms(lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw)),
+            "dkv": time_ms(lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw)),
+        }
+        r["plain_ms"] = {
+            "fwd": time_ms_queued(lambda: fa._flash_fwd_plain(q, k, v, **kw)),
+            "dq": time_ms_queued(lambda: fa._flash_dq_plain(q, k, v, do, lse, delta, **kw)),
+            "dkv": time_ms_queued(
+                lambda: fa._flash_dkv_plain(q, k, v, do, lse, delta, **kw)),
+        }
+        qkv_bytes = 4.0 * bh * seq * d
+        stat_bytes = 4.0 * bh * seq
+        # flops: q.k^T and p.v (fwd); + do.v^T and dS.k (dq); q.k^T, do.v^T,
+        # p^T.do, dS^T.q (dk/dv); bytes: each input read once, each output
+        # written once
+        work = {
+            "fwd": (4.0 * bh * seq * seq * d, 4 * qkv_bytes + stat_bytes),
+            "dq": (6.0 * bh * seq * seq * d, 5 * qkv_bytes + 2 * stat_bytes),
+            "dkv": (8.0 * bh * seq * seq * d, 6 * qkv_bytes + 2 * stat_bytes),
+        }
+        r["bound"] = {kname: bound(*wk) for kname, wk in work.items()}
+        q4, k4, v4, do4 = (t.view(b, h, seq, d) for t in (q, k, v, do))
+        backend = _sdpa_backend(q4, k4, v4)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with sdpa_kernel([backend]), fp32_matmul():
+            r["sdpa_fwd_ms"] = time_ms_queued(lambda: sdpa(q4, k4, v4))
+            lib_err = rel_err(sdpa(q4, k4, v4).reshape(bh, seq, d), o)[1]
+            qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+            og = sdpa(qg, kg, vg)
+            r["sdpa_bwd_ms"] = time_ms_queued(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
+        r["sdpa_backend"] = backend.name
+        out[seq] = r
+        for kname in ("fwd", "dq", "dkv"):
+            bms, by = r["bound"][kname]
+            flops = work[kname][0]
+            print(f"flash_{kname} ({b}, {h}, {seq}, {d}) fp32 'high': kernel "
+                  f"{r['ms'][kname]:.4f} ms queued ({r['one_call_ms'][kname]:.4f} ms one "
+                  f"call), plain {r['plain_ms'][kname]:.4f} ms, bound "
+                  f"{bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+                  f"{work[kname][1] / 1e6:.1f} MB), kernel at "
+                  f"{flops / (r['ms'][kname] * 1e-3) / 1e12:.2f} TFLOP/s")
+        print(f"flash ({b}, {h}, {seq}, {d}): kernel vs plain over scale " + ", ".join(
+            f"{n} {e[1]:.2e}" for n, e in errs.items()))
+        print(f"sdpa ({b}, {h}, {seq}, {d}) fp32, backend {backend.name}: forward "
+              f"{r['sdpa_fwd_ms']:.4f} ms (vs kernel o {lib_err:.2e} of scale), autograd "
+              f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms")
+        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, og
+    return out
+
+
+def phase_bert_profile(seq: int = 512, steps: int = 3) -> None:
+    """Where a layer's training step spends the card's time: torch.profiler
+    over `steps` steps of each variant at batch 8; prints the device's busy
+    and idle share of the span from the first to the last kernel, and the
+    kernels that take the most time."""
+    import tpusparse_torch as tt
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
+    for attention in ("flash", "dense"):
+        layer = _bert_layer(attention, "cuda")
+        opt = tt.make_train_state(layer)
+        for _ in range(2):
+            tt.bert_train_step(layer, opt, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                tt.bert_train_step(layer, opt, x)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            print(f"profile bert layer {attention} seq {seq}: no device time recorded")
+            continue
+        busy = sum(e.time_range.end - e.time_range.start for e in kernels)
+        span = (max(e.time_range.end for e in kernels)
+                - min(e.time_range.start for e in kernels))
+        print(f"profile bert layer {attention} seq {seq} batch {BERT_BATCH}, {steps} steps: "
+              f"{len(kernels)} kernels, device busy {busy / 1e3 / steps:.4f} ms per step "
+              f"of a {span / 1e3 / steps:.4f} ms span, idle share {1 - busy / span:.3f}")
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+        for name_, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {t / 1e3 / steps:.4f} ms/step ({t / busy:.1%}) {name_[:90]}")
+
+
+def phase_bert_timings(enc, enc_opt, ids) -> None:
+    """Forward and step times of the layer ('flash' and 'dense', each seq)
+    and of the encoder, by CUDA events."""
+    import tpusparse_torch as tt
+
+    for seq in BERT_SEQS:
+        x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
+        for attention in ("flash", "dense"):
+            layer = _bert_layer(attention, "cuda")
+            opt = tt.make_train_state(layer)
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: layer(x))
+            step_ms = time_ms(lambda: tt.bert_train_step(layer, opt, x))
+            print(f"bert layer {attention} seq {seq} batch {BERT_BATCH}: forward "
+                  f"{fwd_ms:.4f} ms, train step {step_ms:.4f} ms")
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: enc(ids), warmup=2, iters=5)
+    step_ms = time_ms(lambda: tt.bert_train_step(enc, enc_opt, ids), warmup=2, iters=5)
+    print(f"bert encoder flash ({enc.num_layers} layers) seq 512 batch {BERT_BATCH}: forward "
+          f"{fwd_ms:.4f} ms, train step {step_ms:.4f} ms")
 
 
 def main() -> int:
@@ -366,6 +779,7 @@ def main() -> int:
     phase_small_cases()
     phase_small_sddmm()
     phase_small_gemm()
+    phase_small_flash()
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -436,6 +850,10 @@ def main() -> int:
     # -- the main path, counted: training and the headline backward -----------
     train_counts = phase_train(batches)
     bwd_counts, sddmm_err, dc, plan_t, bv_t = phase_headline_backward(plan, bv, b)
+    layer_counts = phase_bert_layers()
+    enc_counts, enc, enc_opt, enc_ids = phase_bert_encoder()
+    flash_launches = {n: layer_counts[n] + enc_counts[n] for n in NO_FLASH}
+    phase_bert_card_vs_cpu()
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -554,6 +972,12 @@ def main() -> int:
                  "xla": "xla (nn.Linear)"}.get(v, v)
         print(f"train step {label}: {ms:.4f} ms per step (batch 32)")
 
+    # -- timings: flash attention and the BERT layer and encoder -----------------
+    flash_t = phase_flash_timings()
+    phase_bert_timings(enc, enc_opt, enc_ids)
+    phase_bert_profile()
+    del enc, enc_opt, enc_ids
+
     kernels = [
         {
             "name": "block_ell_spmm",
@@ -597,6 +1021,28 @@ def main() -> int:
             "library_ms": gm_library_ms,
         },
     ]
+    main_seq = max(BERT_SEQS)
+    ft = flash_t[main_seq]
+    flash_rows = (
+        ("flash_fwd", "fwd", "53 (_flash_kernel)", ft["err"]["o"][0], ft["sdpa_fwd_ms"]),
+        ("flash_dq", "dq", "495 (_flash_dq_kernel)", ft["err"]["dq"][0], ft["sdpa_bwd_ms"]),
+        ("flash_dkv", "dkv", "538 (_flash_dkv_kernel)",
+         max(ft["err"]["dk"][0], ft["err"]["dv"][0]), ft["sdpa_bwd_ms"]),
+    )
+    for kname, key, line, err, lib_ms in flash_rows:
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "tpusparse_torch/csrc/flash_attention.cu",
+            "replaces": f"tpusparse/kernels/flash_attention.py:{line}",
+            "launches": flash_launches[kname],
+            "max_abs_err": err,
+            "ms": ft["ms"][key],
+            "plain_ms": ft["plain_ms"][key],
+            "bound_ms": ft["bound"][key][0],
+            "bound_by": ft["bound"][key][1],
+            "library_ms": lib_ms,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

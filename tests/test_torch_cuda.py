@@ -14,6 +14,7 @@ import torch
 
 import tpusparse_torch as tt
 from tpusparse_torch import kernels
+from tpusparse_torch.kernels import flash_attention as fa
 from tpusparse_torch.kernels import gemm as gk
 from tpusparse_torch.kernels import sddmm as sk
 from tpusparse_torch.kernels import tiled_spmm as tk
@@ -192,10 +193,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 # launches per step: 'sparse'/'blocksparse' run fc1 and fc2 forward, fc2's dB
 # and both dW (SDDMM); 'dense' with the GEMM kernel runs 2 forward products,
 # fc2's dX and dW, and fc1's dW.
+NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 STEP_LAUNCHES = {
-    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0},
-    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0},
-    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5},
+    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
+    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
+    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH},
 }
 
 
@@ -218,4 +220,123 @@ def test_train_step_on_card_matches_cpu(cuda, variant):
         tt.set_config(use_gemm_kernel=prev)
     torch.testing.assert_close(got.cpu(), want, **TOL)
     for (name, p), (_, q) in zip(nets[cuda].named_parameters(), nets["cpu"].named_parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), **TOL, msg=name)
+
+
+# -- flash attention --------------------------------------------------------------
+
+# (bh, s, d), causal, q_offset, kv_offset
+FLASH_CASES = {
+    "6x256x64": ((6, 256, 64), False, 0, 0),
+    "causal_2x384x64": ((2, 384, 64), True, 0, 0),
+    "ragged_causal_1x200x64": ((1, 200, 64), True, 0, 0),
+    "narrow_8x128x24": ((8, 128, 24), False, 0, 0),
+    "wide_causal_2x128x128": ((2, 128, 128), True, 0, 0),
+    "ragged_wide_2x130x100": ((2, 130, 100), False, 0, 0),
+    "offsets_1x256x64": ((1, 256, 64), True, 256, 0),
+    "no_key_rows_1x128x64": ((1, 128, 64), True, 0, 100),
+}
+# o of the 'default' tier and of bf16 inputs: p is rounded to bf16 against
+# the running max of its tile in the kernel and against the row max in the
+# plain version, and bf16 outputs are one ulp (2^-8..2^-7) apart
+FLASH_ROUNDED_LIMIT = 1e-2
+
+
+def _over_scale(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def _flash_args(name, device, dtype):
+    shape, causal, qo, ko = FLASH_CASES[name]
+    rng = np.random.default_rng(len(name))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+                   for _ in range(4))
+    kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=qo, kv_offset=ko)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name, dtype, precision):
+    q, k, v, do, kw = _flash_args(name, cuda, dtype)
+    kw["precision"] = precision
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).to(dtype).float()
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    po, plse = fa._flash_fwd_plain(q, k, v, **kw)
+    pdq = fa._flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    pdk, pdv = fa._flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, plse, **TOL)
+    rounded = dtype == torch.bfloat16 or precision == "default"
+    if rounded:
+        assert _over_scale(o, po) < FLASH_ROUNDED_LIMIT
+    else:
+        torch.testing.assert_close(o, po, **TOL)
+    for gname, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        if rounded:
+            assert _over_scale(got, want) < FLASH_ROUNDED_LIMIT, gname
+        else:
+            torch.testing.assert_close(got, want, **TOL, msg=gname)
+    if FLASH_CASES[name][3] > FLASH_CASES[name][2]:  # rows that see no key
+        blind = FLASH_CASES[name][3] - FLASH_CASES[name][2]
+        assert torch.count_nonzero(o[:, :blind]) == 0 and torch.count_nonzero(dq[:, :blind]) == 0
+        assert bool((lse[:, :blind] == -1e30).all())
+
+
+def test_flash_backward_repeats_bit_for_bit(cuda):
+    q, k, v, do, kw = _flash_args("causal_2x384x64", cuda, torch.float32)
+    o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    first = (fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
+             *fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw))
+    second = (fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
+              *fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v, do, kw = _flash_args("narrow_8x128x24", cuda, torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_fwd_kernel(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(TypeError, match="one type"):
+        fa.flash_fwd_kernel(q, k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError, match="same device"):
+        fa.flash_fwd_kernel(q, k.cpu(), v, **kw)
+    with pytest.raises(ValueError, match="shapes differ"):
+        fa.flash_fwd_kernel(q, k[:, :64], v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_kernel(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+    wide = torch.zeros(1, 16, 160, device=cuda)
+    with pytest.raises(ValueError, match="largest the kernels take is 128"):
+        fa.flash_fwd_kernel(wide, wide, wide, **kw)
+    o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    with pytest.raises(TypeError, match="lse"):
+        fa.flash_dq_kernel(q, k, v, do, lse[:, :64].contiguous(), lse, **kw)
+
+
+def test_flash_layer_train_step_on_card_matches_cpu(cuda):
+    """A BERT layer ('flash', hidden 96, 4 heads) SGD step on the card and on
+    the CPU from one seed: 1 flash_fwd, 1 flash_dq and 1 flash_dkv, and the
+    same loss and parameters."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 200, 96)).astype(np.float32))
+    layers = {d: tt.BertAttentionLayer(96, 4, 192, "flash", device=d,
+                                       generator=torch.Generator().manual_seed(0))
+              for d in ("cpu", cuda)}
+    opts = {d: tt.make_train_state(m) for d, m in layers.items()}
+    kernels.reset_launch_counts()
+    got = tt.bert_train_step(layers[cuda], opts[cuda], x.to(cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launches_by_kernel()
+    assert {n: counts[n] for n in NO_FLASH} == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    want = tt.bert_train_step(layers["cpu"], opts["cpu"], x)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    for (name, p), (_, q) in zip(layers[cuda].named_parameters(), layers["cpu"].named_parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), **TOL, msg=name)

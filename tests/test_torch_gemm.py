@@ -1,7 +1,8 @@
 """Parity of the port's dense GEMM kernel (plain version on the CPU),
-`dense.matmul`'s kernel route, the `use_gemm_kernel` switch and the
-autograd `mm` family with the JAX package: `gemm_pallas` runs in interpret
-mode, the gradients come from `jax.vjp` of the JAX ops."""
+`dense.matmul`'s kernel route and its 1-D, batched and mixed-rank forms,
+`bmm`, the `use_gemm_kernel` switch and the autograd `mm` family (2-D and
+N-D) with the JAX package: `gemm_pallas` runs in interpret mode, the
+gradients come from `jax.vjp` of the JAX ops."""
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpusparse.dense as jdense
 import tpusparse.ops as jops
 from tpusparse.kernels.gemm import gemm_pallas
 
@@ -168,8 +170,8 @@ def test_dense_op_needs_same_rank_operands():
         tops.mm(torch.zeros(3, 4), torch.zeros(4))
     with pytest.raises(ValueError, match="same-rank"):
         tops.mm(torch.zeros(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.mm(torch.zeros(2, 3, 4), torch.zeros(2, 4, 5))
+    # same-rank ≥3-D operands are taken (held against JAX below)
+    assert tops.mm(torch.zeros(2, 3, 4), torch.zeros(2, 4, 5)).shape == (2, 3, 5)
 
 
 def test_dense_linear_use_kernel_matches_the_default_route():
@@ -181,3 +183,101 @@ def test_dense_linear_use_kernel_matches_the_default_route():
     for out in outs:
         out.square().sum().backward()
     torch.testing.assert_close(layers[0].kernel.grad, layers[1].kernel.grad, **TOL)
+
+
+# -- 1-D, batched and mixed-rank dense products, and bmm ---------------------------
+
+# (a shape, b shape, transa, transb): the reference's 1-D fallback, batched
+# 3-D and 4-D (the attention layout), a mixed-rank broadcast, transposes
+RANK_CASES = {
+    "vec_mat": ((33,), (33, 70), False, False),
+    "mat_vec_transa": ((33, 100), (33,), True, False),
+    "vec_vec": ((33,), (33,), False, False),
+    "batched_3d": ((3, 40, 33), (3, 33, 20), False, False),
+    "attention_4d_transb": ((2, 3, 40, 24), (2, 3, 40, 24), False, True),
+    "attention_4d_transab": ((2, 3, 24, 40), (2, 3, 16, 24), True, True),
+    "mixed_3d_2d": ((4, 40, 33), (33, 20), False, False),
+    "broadcast_batch_4d": ((2, 1, 10, 8), (1, 3, 8, 5), False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RANK_CASES))
+def test_dense_matmul_every_rank_matches_jax(name, kernel_switch):
+    ash, bsh, transa, transb = RANK_CASES[name]
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal(ash).astype(np.float32)
+    b = rng.standard_normal(bsh).astype(np.float32)
+    want = np.asarray(jdense.matmul(jnp.asarray(a), jnp.asarray(b), transa=transa,
+                                    transb=transb))
+    # ranks other than 2-D never reach the GEMM kernel (its wrapper would
+    # refuse them), whatever the switch says
+    kernel_switch(True)
+    got = tdense.matmul(torch.from_numpy(a), torch.from_numpy(b), transa=transa,
+                        transb=transb)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_dense_matmul_default_tier_rounds_batched_operands():
+    rng = np.random.default_rng(10)
+    a, b = (rng.standard_normal((2, 3, 40, 33)).astype(np.float32) for _ in range(2))
+
+    def rnd(x):
+        return torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+
+    tt.set_config(precision="default")
+    try:
+        got = tdense.matmul(torch.from_numpy(a), torch.from_numpy(b), transb=True).numpy()
+    finally:
+        tt.set_config(precision="high")
+    np.testing.assert_allclose(got, rnd(a) @ np.swapaxes(rnd(b), -1, -2), **TOL)
+
+
+@pytest.mark.parametrize("transa,transb", TRANS)
+def test_bmm_matches_jax(transa, transb):
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((2, 3, 33, 40) if transa else (2, 3, 40, 33)).astype(np.float32)
+    b = rng.standard_normal((2, 3, 20, 33) if transb else (2, 3, 33, 20)).astype(np.float32)
+    want = jdense.bmm(jnp.asarray(a), jnp.asarray(b), transa=transa, transb=transb)
+    got = tdense.bmm(torch.from_numpy(a), torch.from_numpy(b), transa=transa, transb=transb)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="batch dims"):
+        tdense.bmm(torch.from_numpy(a)[:1], torch.from_numpy(b))
+
+
+# the attention products: transb_mm(q, k) and mm(probs, v) on (b, h, s, d),
+# and the other two flags on a 3-D batch
+ND_OPS = {
+    "transb_mm_4d": ("transb_mm", (2, 3, 40, 24), (2, 3, 40, 24)),
+    "mm_4d": ("mm", (2, 3, 40, 40), (2, 3, 40, 24)),
+    "transa_mm_3d": ("transa_mm", (4, 33, 40), (4, 33, 20)),
+    "transab_mm_3d": ("transab_mm", (4, 33, 40), (4, 20, 33)),
+    "mm_broadcast_batch": ("mm", (2, 1, 10, 8), (1, 3, 8, 5)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ND_OPS))
+def test_nd_dense_op_grads_match_jax_vjp(case):
+    op, ash, bsh = ND_OPS[case]
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal(ash).astype(np.float32)
+    b = rng.standard_normal(bsh).astype(np.float32)
+    at = torch.from_numpy(a).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    out = getattr(tops, op)(at, bt)
+    g = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    out.backward(torch.from_numpy(g))
+    if case == "mm_broadcast_batch":
+        # the JAX custom_vjp returns the broadcast cotangent, which jax.vjp
+        # refuses; hold the port against autograd of the plain product
+        want = np.asarray(jnp.matmul(jnp.asarray(a), jnp.asarray(b)))
+        ar = torch.from_numpy(a).double().requires_grad_(True)
+        br = torch.from_numpy(b).double().requires_grad_(True)
+        torch.matmul(ar, br).backward(torch.from_numpy(g).double())
+        da_want, db_want = ar.grad.numpy(), br.grad.numpy()
+    else:
+        want, vjp = jax.vjp(getattr(jops, op), jnp.asarray(a), jnp.asarray(b))
+        da_want, db_want = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(da_want), **TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(db_want), **TOL)

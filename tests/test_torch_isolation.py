@@ -20,12 +20,19 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
 
 
 def test_import_and_cpu_forward_load_no_jax():
+    """The MLP forward and a BERT encoder's forward and SGD step on the CPU,
+    in a fresh interpreter, load no forbidden module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
         "net = tt.MnistNet('sparse', hidden=256, device='cpu')\n"
         "with torch.no_grad(): out = net(torch.zeros(4, 784))\n"
         "assert out.shape == (4, 10)\n"
+        "enc = tt.BertEncoder(2, 48, 4, 96, 100, 64, attention='flash', device='cpu')\n"
+        "ids = torch.randint(0, 100, (2, 40))\n"
+        "opt = tt.make_train_state(enc)\n"
+        "loss = tt.bert_train_step(enc, opt, ids)\n"
+        "assert enc(ids).shape == (2, 40, 48) and torch.isfinite(loss)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -62,6 +69,11 @@ ENTRY_POINTS = {
     "DenseLinear": lambda: tt.DenseLinear(4, 3),
     "SparseLinear": lambda: tt.SparseLinear.random(0, 8, 4, 0.5),
     "BlockSparseLinear": lambda: tt.BlockSparseLinear.random(0, 8, 4, 0.5),
+    "SelfAttention": lambda: tt.SelfAttention(2, 4, hidden=8),
+    "BertAttentionLayer": lambda: tt.BertAttentionLayer(8, 2, 16, "flash"),
+    "BertEncoder": lambda: tt.BertEncoder(1, 8, 2, 16, 10, 8),
+    "LayerNorm": lambda: tt.LayerNorm(8),
+    "Embed": lambda: tt.Embed(10, 8),
     "CSR.from_dense": lambda: tt.CSR.from_dense(np.eye(3, dtype=np.float32)),
     "CSR.from_scipy": lambda: tt.CSR.from_scipy(ssp.eye(3, format="csr")),
     "COO.from_dense": lambda: tt.COO.from_dense(np.eye(3, dtype=np.float32)),

@@ -116,8 +116,18 @@ def test_set_config_validates():
 
 
 def test_dense_matmul_rejects_other_ranks():
-    with pytest.raises(NotImplementedError, match="2-D"):
-        tdense.matmul(torch.zeros(2, 3, 4), torch.zeros(4, 5))
+    # every rank is taken now (tests/test_torch_gemm.py holds them against
+    # JAX); what is refused is a transpose flag on a 1-D operand, and bmm of
+    # operands below 3-D or with unequal batch dims
+    with pytest.raises(ValueError, match="transa requires"):
+        tdense.matmul(torch.zeros(4), torch.zeros(4, 5), transa=True)
+    with pytest.raises(ValueError, match="transb requires"):
+        tdense.matmul(torch.zeros(3, 4), torch.zeros(4), transb=True)
+    with pytest.raises(ValueError, match="≥3-D"):
+        tdense.bmm(torch.zeros(2, 3, 4), torch.zeros(4, 5))
+    with pytest.raises(ValueError, match="batch dims"):
+        tdense.bmm(torch.zeros(2, 3, 4), torch.zeros(3, 4, 5))
+    assert tdense.matmul(torch.zeros(2, 3, 4), torch.zeros(4, 5)).shape == (2, 3, 5)
 
 
 def test_load_flax_params_rejects_mismatches():

@@ -140,7 +140,9 @@ def test_cpu_train_step_launches_no_kernel():
         kernels.reset_launch_counts()
         tt.train_step(net, tt.make_train_state(net), torch.from_numpy(images[0]),
                       torch.from_numpy(labels[0]))
-        assert kernels.launches_by_kernel() == {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0}
+        assert kernels.launches_by_kernel() == {
+            "block_ell_spmm": 0, "sddmm": 0, "gemm": 0,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -4,7 +4,10 @@ The sparse MNIST MLP trains and serves on three hand-written CUDA kernels:
 the block-ELL SpMM executor (`csrc/block_ell_spmm.cu`, the forward and the
 dB of the backward through the transpose plan), the block-pattern SDDMM
 (`csrc/sddmm.cu`, the dA) and the dense GEMM (`csrc/gemm.cu`, the dense
-ops when `use_gemm_kernel` is set). Tensors on the CPU take the plain
+ops when `use_gemm_kernel` is set). The BERT-base attention layer and
+encoder train and serve with attention='flash' on the fused attention
+kernels (`csrc/flash_attention.cu`: forward, dq, dk/dv) or with
+attention='dense' on the dense ops. Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
@@ -12,14 +15,27 @@ against; nothing here imports it.
 
 from tpusparse_torch import dense, kernels, ops
 from tpusparse_torch.convert import load_flax_params, to_flax_params
+from tpusparse_torch.dense import bmm, matmul
 from tpusparse_torch.models import (
+    BertAttentionLayer,
+    BertEncoder,
     MnistNet,
+    bert_loss,
+    bert_train_step,
     make_train_state,
     nll_loss,
     train_epoch,
     train_step,
 )
-from tpusparse_torch.nn import BlockSparseLinear, DenseLinear, Pattern, SparseLinear
+from tpusparse_torch.nn import (
+    BlockSparseLinear,
+    DenseLinear,
+    Embed,
+    LayerNorm,
+    Pattern,
+    SelfAttention,
+    SparseLinear,
+)
 from tpusparse_torch.ops import (
     mm,
     resident_spmm,
@@ -51,15 +67,23 @@ from tpusparse_torch.types import (
 from tpusparse_torch.utils.config import get_config, resolve_device, set_config
 
 __all__ = [
+    "BertAttentionLayer",
+    "BertEncoder",
     "BlockSparseLinear",
     "COO",
     "CSR",
     "DenseLinear",
+    "Embed",
+    "LayerNorm",
     "MnistNet",
     "Pattern",
     "Plan",
+    "SelfAttention",
     "SparseLinear",
+    "bert_loss",
+    "bert_train_step",
     "block_transpose_plan",
+    "bmm",
     "build_plan",
     "build_plan_pair",
     "clear_plan_cache",
@@ -70,6 +94,7 @@ __all__ = [
     "kernels",
     "load_flax_params",
     "make_train_state",
+    "matmul",
     "mm",
     "nll_loss",
     "ops",

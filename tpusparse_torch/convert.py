@@ -1,13 +1,19 @@
 """Carry parameters of the JAX package's flax models into the port's modules.
 
 `load_flax_params(module, params)` takes the flax parameter tree as numpy
-arrays, `{'params': {'fc1': {'kernel_values' | 'kernel_blocks' | 'kernel',
-'bias'}, ...}}`, and writes it into the port's module in place. The port's
-parameter names are the flax ones, except for a plain `nn.Linear` (the
-'xla' variant's flax `Dense`), whose `weight` is the transpose of flax's
-(in, out) `kernel`. Any missing or extra key, or a shape mismatch, raises.
-`to_flax_params(module)` is the inverse: the module's parameters as that
-numpy tree, so that the two packages' parameters can be compared.
+arrays, `{'params': {...}}`, and writes it into the port's module in
+place. The tree is nested as the modules are: a module's own parameters are
+leaves under their names, each child that holds parameters is a subtree
+under its attribute name. So the MLP's tree is `{'fc1': {'kernel_values' |
+'kernel_blocks' | 'kernel', 'bias'}, ...}` and the BERT encoder's is
+`{'tok_emb': {'embedding'}, 'emb_ln': {'scale', 'bias'}, 'layer0':
+{'attention': {'query': {'kernel', 'bias'}, ...}, 'ln1', 'ffn_in', ...},
+...}`. The port's parameter names are the flax ones, except for a plain
+`nn.Linear` (the 'xla' variant's flax `Dense`), whose `weight` is the
+transpose of flax's (in, out) `kernel`. Any missing or extra key, or a
+shape mismatch, raises, naming the path. `to_flax_params(module)` is the
+inverse: the module's parameters as that numpy tree, so that the two
+packages' parameters can be compared.
 """
 
 from __future__ import annotations
@@ -19,56 +25,63 @@ import torch
 from torch import nn
 
 
-def _leaf_map(child: nn.Module) -> dict:
-    """flax leaf name -> (port parameter, transpose?) for one layer."""
-    if isinstance(child, nn.Linear):
-        return {"kernel": (child.weight, True), "bias": (child.bias, False)}
-    return {name: (p, False) for name, p in child.named_parameters(recurse=False)}
+def _tree(module: nn.Module) -> dict:
+    """flax key -> (port parameter, transpose?) for a leaf, or -> subtree for
+    a child that holds parameters."""
+    if isinstance(module, nn.Linear):
+        return {"kernel": (module.weight, True), "bias": (module.bias, False)}
+    out = {name: (p, False) for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if any(True for _ in child.parameters()):
+            out[name] = _tree(child)
+    return out
 
 
-def _layers(module: nn.Module) -> dict:
-    """The children that hold parameters, by name."""
-    return {name: c for name, c in module.named_children()
-            if any(True for _ in c.parameters())}
+def _to_numpy(tree: dict) -> dict:
+    out = {}
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            out[key] = _to_numpy(node)
+        else:
+            p, transpose = node
+            arr = p.detach().cpu().numpy()
+            out[key] = np.ascontiguousarray(arr.T) if transpose else arr.copy()
+    return out
 
 
 def to_flax_params(module: nn.Module) -> dict:
-    """{'params': {layer: {leaf: np.ndarray}}}: the module's parameters in
-    the flax tree's names and layouts, copied to host numpy."""
-    tree = {}
-    for lname, child in _layers(module).items():
-        leaves = {}
-        for leaf, (p, transpose) in _leaf_map(child).items():
-            arr = p.detach().cpu().numpy()
-            leaves[leaf] = np.ascontiguousarray(arr.T) if transpose else arr.copy()
-        tree[lname] = leaves
-    return {"params": tree}
+    """{'params': nested tree of np.ndarray}: the module's parameters in the
+    flax tree's names and layouts, copied to host numpy."""
+    return {"params": _to_numpy(_tree(module))}
+
+
+def _load(tree: dict, src: Mapping, path: str) -> None:
+    if not isinstance(src, Mapping):
+        raise KeyError(f"{path or 'params'}: expected a subtree, got {type(src).__name__}")
+    if set(src) != set(tree):
+        raise KeyError(
+            f"layer mismatch at {path or 'params'}: flax has {sorted(src)}, "
+            f"module has {sorted(tree)}"
+        )
+    for key, node in tree.items():
+        where = f"{path}.{key}" if path else key
+        if isinstance(node, dict):
+            _load(node, src[key], where)
+            continue
+        p, transpose = node
+        if isinstance(src[key], Mapping):
+            raise KeyError(f"{where}: flax has a subtree, module has a parameter")
+        arr = np.asarray(src[key])
+        if transpose:
+            arr = arr.T
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{where}: shape {arr.shape} != module's {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.tensor(arr, dtype=p.dtype))
 
 
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     if set(params) != {"params"}:
         raise KeyError(f"expected {{'params': ...}}, got keys {sorted(params)}")
-    tree = params["params"]
-    layers = _layers(module)
-    if set(tree) != set(layers):
-        raise KeyError(
-            f"layer mismatch: flax has {sorted(tree)}, module has {sorted(layers)}"
-        )
-    for lname, child in layers.items():
-        leaves = _leaf_map(child)
-        src = tree[lname]
-        if set(src) != set(leaves):
-            raise KeyError(
-                f"{lname}: flax has {sorted(src)}, module has {sorted(leaves)}"
-            )
-        for leaf, (p, transpose) in leaves.items():
-            arr = np.asarray(src[leaf])
-            if transpose:
-                arr = arr.T
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{lname}.{leaf}: shape {arr.shape} != module's {tuple(p.shape)}"
-                )
-            with torch.no_grad():
-                p.copy_(torch.tensor(arr, dtype=p.dtype))
+    _load(_tree(module), params["params"], "")
     return module

@@ -1,0 +1,566 @@
+// Fused attention for NVIDIA Hopper (sm_90a): the forward
+// o = softmax(q k^T sm_scale) v with its per-row logsumexp, and the two
+// backward kernels that recompute the probabilities from that logsumexp,
+// dq and (dk, dv). The (s, s) score matrix never reaches device memory.
+//
+// Replaces three TPU kernels of tpusparse/kernels/flash_attention.py:
+//   flash_fwd  <- :53  _flash_kernel      (pallas_call l.283)
+//   flash_dq   <- :495 _flash_dq_kernel   (pallas_call l.684)
+//   flash_dkv  <- :538 _flash_dkv_kernel  (pallas_call l.704)
+// The TPU grids ran (bh, q-tile, k-tile) in order and carried the running
+// max, denominator and accumulator from one k step to the next in VMEM
+// scratch. Here one thread block owns one 64-row q-tile (flash_fwd,
+// flash_dq) or one 64-row k-tile (flash_dkv) of one (batch, head) and runs
+// the whole sequential loop over the other axis itself, keeping its
+// accumulators in registers. Nothing carries between blocks and there are
+// no atomics: every output element is summed by one thread in ascending
+// tile order, so runs repeat bit for bit.
+//
+// Contract. q, k, v, do: (bh, s, d) row-major, one type (fp32 or bf16);
+// lse and delta: (bh, s) fp32. d <= DMAX (64 or 128, picked by the entry
+// point); the TPU wrapper padded d to 128 and s to its tile, here both
+// ragged edges are masked in the loads and stores.
+//   - q is pre-scaled on load: q * scale_q, where scale_q is sm_scale in
+//     q's type, rounded to q's type (tpusparse l.239, l.662).
+//   - ROUND ('default' tier, or bf16 inputs): q (pre-scaled), k, v and do
+//     are rounded to bf16 on load, and so are p before p.v (forward), dS
+//     before dS.k (dq) and p, dS before p^T.do, dS^T.q (dk, dv); products
+//     of bf16 values are exact in fp32 and every sum is fp32. Without it
+//     ('high', 'highest' on fp32 inputs) everything is fp32 FFMA, never
+//     TF32.
+//   - Masking on global positions: key j of a row i is visible when
+//     j < s and, if causal, kv_off + j <= q_off + i. Masked scores are
+//     -1e30 and their probabilities exactly 0; whole tiles above the
+//     diagonal are skipped. A row that sees no key gets o = 0,
+//     lse = -1e30 and no gradient (the TPU kernel gives such a row the
+//     mean of v over the tiles it visits: exp(-1e30 - (-1e30)) = 1).
+//   - flash_fwd: o in q's type, lse = m + log(l) in fp32.
+//   - flash_dq: dq = sm_scale * sum_k P o (dP - delta) . k, with
+//     P = exp(q k^T - lse), dP = do v^T; dq in q's type.
+//   - flash_dkv: dv = sum_q P^T do, dk = sum_q dS^T (scaled q); padded q
+//     rows (i >= s) contribute nothing (tpusparse l.484).
+//
+// What bounds them. At BERT-base (bh = 96, s = 512, d = 64) the forward
+// does 4 bh s^2 d = 6.4 GFLOP (~0.096 ms at the H100's ~67 TFLOP/s fp32
+// FFMA datasheet rate) against ~50 MB of compulsory traffic (~0.015 ms at
+// 3.35 TB/s); dq does 6 bh s^2 d and dk/dv 8 bh s^2 d for about 1.4x and
+// 1.7x that traffic. All three are compute-bound for an FFMA design, with
+// expf per score on top. So the design spends its effort on FFMA issue:
+// each thread owns a 4x4 tile of the 64x64 score block (rows ty + 16a,
+// columns tx + 16j, so the 16-byte shared loads of both operands are free
+// of bank conflicts) and a 4 x d/16 slice of the output accumulator on the
+// same rows, so the row max and sum of the online softmax are four
+// shuffles inside a half-warp and the rescale touches only registers.
+// Tiles are staged row-major with padded rows; the score loop runs over d
+// rounded up to 4, not DMAX. Double-buffered staging (cp.async or TMA),
+// tensor cores (3xTF32 or bf16 wgmma) and a persistent schedule are later
+// work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // key rows per tile
+constexpr int NT = 256;       // threads per block: 16 x 16
+constexpr int LDP = BK + 4;   // padded row of a p / dS tile
+constexpr float NEG = -1e30f;  // the TPU kernel's masked score
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float rnd_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool ROUND>
+__device__ __forceinline__ float tier(float x) {
+  if constexpr (ROUND) {
+    return rnd_bf16(x);
+  } else {
+    return x;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Rows [r0, r0 + 64) of a (s, d) row-major matrix into a (64, DMAX + 4)
+// shared tile, each value times `scale` and then rounded by the tier; rows
+// past s and columns past d are 0.
+template <int DMAX, bool ROUND, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
+                                          int s, int d, float scale) {
+  constexpr int LD = DMAX + 4;
+  for (int e = threadIdx.x; e < 64 * DMAX; e += NT) {
+    const int r = e / DMAX, c = e % DMAX;
+    float x = 0.f;
+    if (r0 + r < s && c < d) x = tier<ROUND>(to_f32(src[static_cast<size_t>(r0 + r) * d + c]) * scale);
+    dst[r * LD + c] = x;
+  }
+}
+
+// acc[a][j] += sum_k A[ty + 16a][k] * B[tx + 16j][k] over k < kd (a multiple
+// of 4): both operands row-major, contracted along their rows.
+template <int LD>
+__device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* A, const float* B,
+                                       int kd, int ty, int tx) {
+  for (int k = 0; k < kd; k += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + k]);
+      b[i] = *reinterpret_cast<const float4*>(&B[(tx + 16 * i) * LD + k]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// acc[a][4g + c] += sum_j P[ty + 16a][j] * B[j][64g + 4tx + c] over j < 64:
+// P a (64, 64) tile with rows of LDP, B a (64, DMAX) tile with rows of
+// DMAX + 4.
+template <int DMAX>
+__device__ __forceinline__ void mma_nn(float (&acc)[4][DMAX / 16], const float* P,
+                                       const float* B, int ty, int tx) {
+  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  for (int j = 0; j < BK; j += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(&P[(ty + 16 * i) * LDP + j]);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 b = *reinterpret_cast<const float4*>(&B[(j + jj) * LD + 64 * g + 4 * tx]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pv = comp(p[i], jj);
+          acc[i][4 * g + 0] = fmaf(pv, b.x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(pv, b.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(pv, b.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(pv, b.w, acc[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Number of k-tiles a q-tile starting at row q0 visits: all of them, or
+// under causal masking those up to the last key its last row can see.
+__device__ __forceinline__ int visited_k_tiles(int s, int q0, int causal, int q_off,
+                                               int kv_off) {
+  const int nk = (s + BK - 1) / BK;
+  if (!causal) return nk;
+  const long long kmax = static_cast<long long>(q_off) + q0 + BQ - 1 - kv_off;
+  if (kmax < 0) return 0;
+  return static_cast<int>(min(static_cast<long long>(nk), kmax / BK + 1));
+}
+
+__device__ __forceinline__ bool visible(int qp, int kp, int s, int causal, int q_off,
+                                        int kv_off) {
+  return qp < s && kp < s &&
+         (!causal || static_cast<long long>(kv_off) + kp <= static_cast<long long>(q_off) + qp);
+}
+
+template <int DMAX>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
+}
+
+template <int DMAX, bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int s, int d, float scale_q, int causal,
+    int q_off, int kv_off) {
+  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // (BQ, LD) pre-scaled q
+  float* Ks = Qs + BQ * LD;    // (BK, LD)
+  float* Vs = Ks + BK * LD;    // (BK, LD)
+  float* Ps = Vs + BK * LD;    // (BQ, LDP) probabilities of this k-tile
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = (d + 3) & ~3;
+
+  load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
+  float m[4], l[4], acc[4][4 * G];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
+    load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
+    load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+    __syncthreads();
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty + 16 * i;
+      bool vis[4];
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        vis[j] = visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
+        if (!vis[j]) sc[i][j] = NEG;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = vis[j] ? expf(sc[i][j] - m_new) : 0.f;
+        rs += p;
+        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = tier<ROUND>(p);
+      }
+      l[i] = corr * l[i] + half_warp_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * G; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+    mma_nn<DMAX>(acc, Ps, Vs, ty, tx);
+  }
+
+  T* ob = o + base;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= s) continue;
+    const float den = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 64 * g + 4 * tx + c;
+        if (col < d) store(&ob[static_cast<size_t>(qp) * d + col], acc[i][4 * g + c] / den);
+      }
+    if (tx == 0) lse[static_cast<size_t>(bh) * s + qp] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG;
+  }
+}
+
+template <int DMAX>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
+}
+
+template <int DMAX, bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) flash_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int s, int d, float scale_q,
+    float sm_scale, int causal, int q_off, int kv_off) {
+  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // (BQ, LD) pre-scaled q
+  float* dOs = Qs + BQ * LD;    // (BQ, LD)
+  float* Ks = dOs + BQ * LD;    // (BK, LD)
+  float* Vs = Ks + BK * LD;     // (BK, LD)
+  float* dSs = Vs + BK * LD;    // (BQ, LDP)
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = (d + 3) & ~3;
+
+  load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
+  load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
+  float lse_r[4], delta_r[4], acc[4][4 * G];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    lse_r[i] = qp < s ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
+    delta_r[i] = qp < s ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
+    load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+    mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool vis = visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
+        const float p = vis ? expf(sc[i][j] - lse_r[i]) : 0.f;
+        dSs[(ty + 16 * i) * LDP + tx + 16 * j] = tier<ROUND>(p * (dp[i][j] - delta_r[i]));
+      }
+    }
+    __syncthreads();
+    mma_nn<DMAX>(acc, dSs, Ks, ty, tx);
+  }
+
+  T* out = dq + base;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= s) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 64 * g + 4 * tx + c;
+        if (col < d) store(&out[static_cast<size_t>(qp) * d + col], acc[i][4 * g + c] * sm_scale);
+      }
+  }
+}
+
+template <int DMAX>
+constexpr size_t dkv_smem() {
+  return sizeof(float) *
+         (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + 2 * BK * LDP + 2 * BQ);
+}
+
+template <int DMAX, bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) flash_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s, int d,
+    float scale_q, int causal, int q_off, int kv_off) {
+  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;             // (BK, LD)
+  float* Vs = Ks + BK * LD;     // (BK, LD)
+  float* Qs = Vs + BK * LD;     // (BQ, LD) pre-scaled q
+  float* dOs = Qs + BQ * LD;    // (BQ, LD)
+  float* Ps = dOs + BQ * LD;    // (BK, LDP): p^T of this q-tile, keys by queries
+  float* dSs = Ps + BK * LDP;   // (BK, LDP): dS^T
+  float* lse_s = dSs + BK * LDP;  // (BQ)
+  float* delta_s = lse_s + BQ;    // (BQ)
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = (d + 3) & ~3;
+
+  load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
+  load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+  float acc_k[4][4 * G], acc_v[4][4 * G];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * G; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  const int nq = (s + BQ - 1) / BQ;
+  for (int qt = 0; qt < nq; ++qt) {
+    const int q0 = qt * BQ;
+    // q-tiles whose last row sees no key of this k-tile (uniform per block)
+    if (causal && static_cast<long long>(q_off) + q0 + BQ - 1 < static_cast<long long>(kv_off) + k0)
+      continue;
+    __syncthreads();
+    load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
+    load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
+    if (threadIdx.x < BQ) {
+      const int qp = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = qp < s ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
+      delta_s[threadIdx.x] = qp < s ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
+    }
+    __syncthreads();
+    float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16j
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+    mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
+    mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kp = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qj = tx + 16 * j;
+        const bool vis = visible(q0 + qj, kp, s, causal, q_off, kv_off);
+        const float p = vis ? expf(st[i][j] - lse_s[qj]) : 0.f;
+        Ps[(ty + 16 * i) * LDP + qj] = tier<ROUND>(p);
+        dSs[(ty + 16 * i) * LDP + qj] = tier<ROUND>(p * (dpt[i][j] - delta_s[qj]));
+      }
+    }
+    __syncthreads();
+    mma_nn<DMAX>(acc_v, Ps, dOs, ty, tx);
+    mma_nn<DMAX>(acc_k, dSs, Qs, ty, tx);
+  }
+
+  T* dkb = dk + base;
+  T* dvb = dv + base;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = k0 + ty + 16 * i;
+    if (kp >= s) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 64 * g + 4 * tx + c;
+        if (col < d) {
+          store(&dkb[static_cast<size_t>(kp) * d + col], acc_k[i][4 * g + c]);
+          store(&dvb[static_cast<size_t>(kp) * d + col], acc_v[i][4 * g + c]);
+        }
+      }
+  }
+}
+
+// The kernel instance for (DMAX, ROUND, T) with its dynamic shared memory
+// allowed above 48 KB, launched on `stream`; returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, NT, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int bh, int s, int d) {
+  return bh <= 0 || s <= 0 || d <= 0 || d > 128 || bh > 65535 ||
+         static_cast<long long>(bh) * s * d > (1LL << 40);
+}
+
+template <int DMAX, bool ROUND, typename T>
+int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
+              int d, float scale_q, int causal, int q_off, int kv_off, cudaStream_t stream) {
+  const dim3 grid((s + BQ - 1) / BQ, bh);
+  return launch(flash_fwd_kernel<DMAX, ROUND, T>, fwd_smem<DMAX>(), grid, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<T*>(o), static_cast<float*>(lse), s, d, scale_q, causal, q_off,
+                kv_off);
+}
+
+template <int DMAX, bool ROUND, typename T>
+int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq, int bh, int s, int d, float scale_q, float sm_scale,
+             int causal, int q_off, int kv_off, cudaStream_t stream) {
+  const dim3 grid((s + BQ - 1) / BQ, bh);
+  return launch(flash_dq_kernel<DMAX, ROUND, T>, dq_smem<DMAX>(), grid, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dq), s, d, scale_q, sm_scale,
+                causal, q_off, kv_off);
+}
+
+template <int DMAX, bool ROUND, typename T>
+int dkv_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int bh, int s, int d, float scale_q,
+              int causal, int q_off, int kv_off, cudaStream_t stream) {
+  const dim3 grid((s + BK - 1) / BK, bh);
+  return launch(flash_dkv_kernel<DMAX, ROUND, T>, dkv_smem<DMAX>(), grid, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s,
+                d, scale_q, causal, q_off, kv_off);
+}
+
+// Calls F<DMAX, ROUND, T>::run(args...) for the instance that serves
+// (dtype, d, round_bf16): bf16 inputs always round (their p and dS are
+// rounded to bf16 in every tier, as on the TPU's non-3-pass tiers).
+#define FLASH_DISPATCH(FN, ...)                                                  \
+  do {                                                                           \
+    if (dtype == 0 && !round_bf16) {                                             \
+      return d <= 64 ? FN<64, false, float>(__VA_ARGS__)                         \
+                     : FN<128, false, float>(__VA_ARGS__);                       \
+    }                                                                            \
+    if (dtype == 0) {                                                            \
+      return d <= 64 ? FN<64, true, float>(__VA_ARGS__)                          \
+                     : FN<128, true, float>(__VA_ARGS__);                        \
+    }                                                                            \
+    if (dtype == 1) {                                                            \
+      return d <= 64 ? FN<64, true, __nv_bfloat16>(__VA_ARGS__)                  \
+                     : FN<128, true, __nv_bfloat16>(__VA_ARGS__);                \
+    }                                                                            \
+    return static_cast<int>(cudaErrorInvalidValue);                              \
+  } while (0)
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. dtype codes: 0 = float32,
+// 1 = bfloat16 (q, k, v, do and the outputs o, dq, dk, dv share it); lse
+// and delta are fp32. round_bf16 selects the 'default' tier for fp32
+// inputs. Each launches on `stream` (PyTorch's current stream), does not
+// synchronise, and returns cudaGetLastError() after the launch (0 =
+// launched).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int dtype, int bh, int s, int d, float scale_q, int causal, int q_off,
+                         int kv_off, int round_bf16, int device, void* stream) {
+  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(fwd_typed, q, k, v, o, lse, bh, s, d, scale_q, causal, q_off, kv_off, st);
+}
+
+extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, int dtype, int bh, int s,
+                        int d, float scale_q, float sm_scale, int causal, int q_off, int kv_off,
+                        int round_bf16, int device, void* stream) {
+  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, bh, s, d, scale_q, sm_scale, causal,
+                 q_off, kv_off, st);
+}
+
+extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv, int dtype,
+                         int bh, int s, int d, float scale_q, int causal, int q_off, int kv_off,
+                         int round_bf16, int device, void* stream) {
+  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(dkv_typed, q, k, v, dout, lse, delta, dk, dv, bh, s, d, scale_q, causal, q_off,
+                 kv_off, st);
+}

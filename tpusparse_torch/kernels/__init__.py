@@ -1,15 +1,21 @@
-from tpusparse_torch.kernels import gemm, sddmm, tiled_spmm
+from tpusparse_torch.kernels import flash_attention, gemm, sddmm, tiled_spmm
+from tpusparse_torch.kernels.flash_attention import (
+    flash_attention_diff,
+    flash_dkv_kernel,
+    flash_dq_kernel,
+    flash_fwd_kernel,
+)
 from tpusparse_torch.kernels.gemm import gemm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
 from tpusparse_torch.kernels.tiled_spmm import resident_spmm_kernel, tiled_spmm_kernel
 
-_MODULES = (tiled_spmm, sddmm, gemm)
+_MODULES = (tiled_spmm, sddmm, gemm, flash_attention)
 
 
 def launch_counts() -> dict:
     """Kernel launches per entry point of every kernel since the last reset:
-    'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu), 'sddmm'
-    and 'gemm'."""
+    'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu), 'sddmm',
+    'gemm', and 'flash_fwd', 'flash_dq', 'flash_dkv' (csrc/flash_attention.cu)."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -18,10 +24,10 @@ def launch_counts() -> dict:
 
 def launches_by_kernel() -> dict:
     """`launch_counts()` summed per CUDA kernel: 'block_ell_spmm' (both
-    executor entry points), 'sddmm' and 'gemm'."""
+    executor entry points), 'sddmm', 'gemm', 'flash_fwd', 'flash_dq' and
+    'flash_dkv'."""
     c = launch_counts()
-    return {"block_ell_spmm": c["tiled_spmm"] + c["resident_spmm"],
-            "sddmm": c["sddmm"], "gemm": c["gemm"]}
+    return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"), **c}
 
 
 def reset_launch_counts() -> None:
@@ -30,6 +36,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "flash_attention",
+    "flash_attention_diff",
+    "flash_dkv_kernel",
+    "flash_dq_kernel",
+    "flash_fwd_kernel",
     "gemm",
     "gemm_kernel",
     "launch_counts",

@@ -23,6 +23,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpusparse_torch"
+# every CUDA source of the port, by name (csrc/<name>.cu)
+SOURCES = ("block_ell_spmm", "sddmm", "gemm", "flash_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,425 @@
+"""Fused attention: forward, dq and dk/dv kernels, and their autograd.
+
+Counterpart of `tpusparse/kernels/flash_attention.py:53-775`: the TPU
+kernels `_flash_kernel` (l.53), `_flash_dq_kernel` (l.495) and
+`_flash_dkv_kernel` (l.538) become the three CUDA kernels of
+`csrc/flash_attention.cu`; `flash_attention` (l.157),
+`flash_attention_bwd` (l.587) and `flash_attention_diff` (l.763) keep
+their signatures, the last as a `torch.autograd.Function` that saves
+(q, k, v, o, lse) and runs its backward on the dq and dk/dv kernels.
+
+Contracts carried over (l.207-308, l.618-734):
+  - operands (..., s, d), all of one shape and type (fp32 or bf16); the
+    leading dims are flattened to bh. o has q's type, lse = m + log(l) is
+    fp32 of shape (..., s);
+  - `sm_scale` defaults to 1/sqrt(d); q is pre-scaled by it in q's type
+    before any product, dq gets it in its epilogue, dk uses the pre-scaled q;
+  - `delta = sum_d do * o` is computed outside the kernels, in the result
+    type of do and o, then fp32;
+  - causal masking on global positions, `kv_offset + key <= q_offset +
+    query`; masked scores are -1e30 and whole tiles above the diagonal are
+    skipped; keys at or past s are masked, as are padded q rows in the
+    backward;
+  - tiers: 'high' and 'highest' are fp32 FFMA, never TF32. 'default' on
+    fp32 inputs stores the pre-scaled q, k, v (and do) as bf16 and rounds
+    p (forward) and dS (dq, dk) to bf16 before their products, with fp32
+    sums; bf16 inputs do so in every tier (the TPU's non-3-pass tiers cast
+    p and dS to the operands' type).
+  - d is taken as it is (the TPU wrapper padded it to 128); the kernels
+    take d <= MAX_HEAD_DIM.
+
+One deliberate difference: a row that sees no key (reachable only through
+the offsets, e.g. causal with kv_offset > q_offset) gets o = 0,
+lse = -1e30 and no gradient. The TPU kernel gives such a row the mean of
+v over the tiles it visits, since exp(-1e30 - (-1e30)) = 1, which depends
+on its tile size (ROADMAP section 3).
+
+The TPU tile knobs `block_q`/`block_k` are accepted and ignored: the CUDA
+kernels use 64-row tiles of their own. `autotune_flash` tunes those TPU
+tiles and is not carried (ROADMAP queue 1, item 13).
+
+A wrapper given CPU tensors runs the plain PyTorch version of its kernel
+(`_flash_fwd_plain`, `_flash_dq_plain`, `_flash_dkv_plain`: a dense masked
+softmax in fp32 with TF32 off, rounded as the tier says). Given CUDA
+tensors it launches the kernel or raises. It counts its launches
+(`launch_counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
+
+KERNEL = "flash_attention"
+MAX_HEAD_DIM = 128
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+# ----------------------------------------------------------------------------
+# Checks and the tier
+# ----------------------------------------------------------------------------
+
+
+def _rounds(dtype: torch.dtype, precision: str | None) -> bool:
+    """Whether operands, p and dS are rounded to bf16: the 'default' tier,
+    or bf16 inputs in any tier."""
+    return resolve_precision(precision) == "default" or dtype == torch.bfloat16
+
+
+def _scale_in(dtype: torch.dtype, sm_scale: float) -> float:
+    """sm_scale rounded to `dtype`, the factor q is pre-scaled by."""
+    return torch.tensor(sm_scale, dtype=dtype).item()
+
+
+def _check_qkv(q, k, v) -> None:
+    if q.ndim < 2:
+        raise ValueError(f"need (..., seq, head_dim), got {tuple(q.shape)}")
+    if q.shape != k.shape or k.shape != v.shape:
+        raise ValueError(
+            f"q/k/v shapes differ: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
+        )
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head_dim {q.shape[-1]} is not supported: the largest the kernels "
+            f"take is {MAX_HEAD_DIM}"
+        )
+
+
+def _check_kernel_args(tensors: dict, stats: dict) -> None:
+    """3-D (bh, s, d) operands of one type and shape, fp32 (bh, s) stats,
+    all contiguous on one device."""
+    first = next(iter(tensors.values()))
+    if first.ndim != 3:
+        raise ValueError(f"kernel operands are (bh, s, d), got {tuple(first.shape)}")
+    _check_qkv(*list(tensors.values())[:3])
+    for name, t in tensors.items():
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{name} dtype {t.dtype} not supported (float32, bfloat16)")
+        if t.dtype != first.dtype or t.shape != first.shape:
+            raise TypeError(
+                f"{name} is {t.dtype} {tuple(t.shape)}, q is {first.dtype} "
+                f"{tuple(first.shape)}: one type and shape needed"
+            )
+    for name, t in stats.items():
+        if t.dtype != torch.float32 or t.shape != first.shape[:2]:
+            raise TypeError(f"{name} must be float32 of shape {tuple(first.shape[:2])}")
+    for name, t in {**tensors, **stats}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != first.device:
+            raise ValueError(f"{name} on {t.device} and q on {first.device}: same device needed")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+
+
+# ----------------------------------------------------------------------------
+# Kernel wrappers on (bh, s, d) operands
+# ----------------------------------------------------------------------------
+
+
+def flash_fwd_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float,
+    causal: bool = False, q_offset: int = 0, kv_offset: int = 0,
+    precision: str | None = None,
+):
+    """(o, lse) of softmax(q kᵀ sm_scale) v for contiguous (bh, s, d)
+    operands: o in q's type, lse fp32 (bh, s)."""
+    _check_kernel_args({"q": q, "k": k, "v": v}, {})
+    kw = dict(sm_scale=sm_scale, causal=causal, q_offset=int(q_offset),
+              kv_offset=int(kv_offset), precision=precision)
+    if q.device.type == "cpu":
+        return _flash_fwd_plain(q, k, v, **kw)
+    bh, s, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return o, lse
+    rc = _kernel_fns()["flash_fwd"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _DTYPE_CODE[q.dtype], bh, s, d, _scale_in(q.dtype, sm_scale), int(causal),
+        kw["q_offset"], kw["kv_offset"], int(_rounds(q.dtype, precision)),
+        q.device.index or 0, _stream(q),
+    )
+    _raise_on(rc, "flash_fwd")
+    _LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_dq_kernel(
+    q, k, v, do, lse, delta, *, sm_scale: float, causal: bool = False,
+    q_offset: int = 0, kv_offset: int = 0, precision: str | None = None,
+) -> torch.Tensor:
+    """dq for contiguous (bh, s, d) q, k, v, do and fp32 (bh, s) lse, delta."""
+    _check_kernel_args({"q": q, "k": k, "v": v, "do": do}, {"lse": lse, "delta": delta})
+    kw = dict(sm_scale=sm_scale, causal=causal, q_offset=int(q_offset),
+              kv_offset=int(kv_offset), precision=precision)
+    if q.device.type == "cpu":
+        return _flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    bh, s, d = q.shape
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    rc = _kernel_fns()["flash_dq"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], bh, s, d,
+        _scale_in(q.dtype, sm_scale), float(sm_scale), int(causal), kw["q_offset"],
+        kw["kv_offset"], int(_rounds(q.dtype, precision)), q.device.index or 0, _stream(q),
+    )
+    _raise_on(rc, "flash_dq")
+    _LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def flash_dkv_kernel(
+    q, k, v, do, lse, delta, *, sm_scale: float, causal: bool = False,
+    q_offset: int = 0, kv_offset: int = 0, precision: str | None = None,
+):
+    """(dk, dv) for contiguous (bh, s, d) q, k, v, do and fp32 (bh, s) lse,
+    delta."""
+    _check_kernel_args({"q": q, "k": k, "v": v, "do": do}, {"lse": lse, "delta": delta})
+    kw = dict(sm_scale=sm_scale, causal=causal, q_offset=int(q_offset),
+              kv_offset=int(kv_offset), precision=precision)
+    if q.device.type == "cpu":
+        return _flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+    bh, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dk, dv
+    rc = _kernel_fns()["flash_dkv"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], bh, s, d,
+        _scale_in(q.dtype, sm_scale), int(causal), kw["q_offset"], kw["kv_offset"],
+        int(_rounds(q.dtype, precision)), q.device.index or 0, _stream(q),
+    )
+    _raise_on(rc, "flash_dkv")
+    _LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+@functools.cache
+def _kernel_fns() -> dict:
+    """The C entry points of csrc/flash_attention.cu, built on first use."""
+    from tpusparse_torch.kernels import _build
+
+    lib = _build.load(KERNEL)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # pointers..., dtype, bh, s, d, scale_q, [sm_scale,] causal, q_off,
+    # kv_off, round_bf16, device, stream
+    argtypes = {
+        "flash_fwd": [p] * 5 + [i, i, i, i, f, i, i, i, i, i, p],
+        "flash_dq": [p] * 7 + [i, i, i, i, f, f, i, i, i, i, i, p],
+        "flash_dkv": [p] * 8 + [i, i, i, i, f, i, i, i, i, i, p],
+    }
+    fns = {}
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = types
+        fns[name] = fn
+    return fns
+
+
+# ----------------------------------------------------------------------------
+# Plain PyTorch versions
+# ----------------------------------------------------------------------------
+
+
+def _tier(x: torch.Tensor, round_bf16: bool) -> torch.Tensor:
+    return x.to(torch.bfloat16).float() if round_bf16 else x
+
+
+def _staged(q, k, v, sm_scale, round_bf16):
+    """fp32 copies of the operands as the kernels read them: q pre-scaled in
+    its own type, then all three rounded by the tier."""
+    qs = (q.float() * _scale_in(q.dtype, sm_scale)).to(q.dtype).float()
+    return _tier(qs, round_bf16), _tier(k.float(), round_bf16), _tier(v.float(), round_bf16)
+
+
+def _visible(s: int, causal: bool, q_offset: int, kv_offset: int, device) -> torch.Tensor:
+    """(s, s) bool: which key each query row sees (keys past s are not there)."""
+    if not causal:
+        return torch.ones((s, s), dtype=torch.bool, device=device)
+    pos = torch.arange(s, device=device)
+    return kv_offset + pos[None, :] <= q_offset + pos[:, None]
+
+
+def _flash_fwd_plain(
+    q, k, v, *, sm_scale: float, causal: bool = False, q_offset: int = 0,
+    kv_offset: int = 0, precision: str | None = None,
+):
+    """Plain version of the forward, on the inputs' device: a dense masked
+    softmax over the whole row (one tile), p rounded as the tier says."""
+    round_bf16 = _rounds(q.dtype, precision)
+    qf, kf, vf = _staged(q, k, v, sm_scale, round_bf16)
+    vis = _visible(q.shape[-2], causal, q_offset, kv_offset, q.device)
+    with fp32_matmul():
+        sc = torch.where(vis, qf @ kf.transpose(-1, -2), NEG_INF)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(vis, torch.exp(sc - m), 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = (_tier(p, round_bf16) @ vf) / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l > 0, m + torch.log(l), NEG_INF)[..., 0]
+    return o.to(q.dtype), lse
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, *, sm_scale, causal, q_offset, kv_offset,
+                  round_bf16):
+    """(staged q, staged k, staged do, P, dS) of the backward, in fp32."""
+    qf, kf, vf = _staged(q, k, v, sm_scale, round_bf16)
+    dof = _tier(do.float(), round_bf16)
+    vis = _visible(q.shape[-2], causal, q_offset, kv_offset, q.device)
+    with fp32_matmul():
+        p = torch.where(vis, torch.exp(qf @ kf.transpose(-1, -2) - lse[..., None]), 0.0)
+        ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    return qf, kf, dof, p, ds
+
+
+def _flash_dq_plain(
+    q, k, v, do, lse, delta, *, sm_scale: float, causal: bool = False,
+    q_offset: int = 0, kv_offset: int = 0, precision: str | None = None,
+):
+    """Plain version of the dq kernel: sm_scale · round(dS) · k."""
+    round_bf16 = _rounds(q.dtype, precision)
+    _, kf, _, _, ds = _probs_and_ds(
+        q, k, v, do, lse, delta, sm_scale=sm_scale, causal=causal,
+        q_offset=q_offset, kv_offset=kv_offset, round_bf16=round_bf16)
+    with fp32_matmul():
+        return ((_tier(ds, round_bf16) @ kf) * sm_scale).to(q.dtype)
+
+
+def _flash_dkv_plain(
+    q, k, v, do, lse, delta, *, sm_scale: float, causal: bool = False,
+    q_offset: int = 0, kv_offset: int = 0, precision: str | None = None,
+):
+    """Plain version of the dk/dv kernel: dv = round(P)ᵀ·do,
+    dk = round(dS)ᵀ·(scaled q)."""
+    round_bf16 = _rounds(q.dtype, precision)
+    qf, _, dof, p, ds = _probs_and_ds(
+        q, k, v, do, lse, delta, sm_scale=sm_scale, causal=causal,
+        q_offset=q_offset, kv_offset=kv_offset, round_bf16=round_bf16)
+    with fp32_matmul():
+        dv = _tier(p, round_bf16).transpose(-1, -2) @ dof
+        dk = _tier(ds, round_bf16).transpose(-1, -2) @ qf
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Public functions, with the JAX signatures
+# ----------------------------------------------------------------------------
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """(..., s, d) -> contiguous (bh, s, d)."""
+    return x.reshape(-1, *x.shape[-2:]).contiguous()
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    block_q: int | None = None,
+    block_k: int | None = None,
+    return_lse: bool = False,
+    q_offset=0,
+    kv_offset=0,
+    precision: str | None = None,
+):
+    """softmax(q·kᵀ·sm_scale)·v for (..., s, d) operands, on the forward
+    kernel. Returns o, or (o, lse) with `return_lse`. q_offset/kv_offset
+    shift the global positions of causal masking (ring attention passes its
+    shard bases). `block_q`/`block_k` are the TPU kernel's tile knobs,
+    accepted and ignored: the CUDA kernel picks its own tile."""
+    del block_q, block_k
+    _check_qkv(q, k, v)
+    *lead, s, d = q.shape
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    o, lse = flash_fwd_kernel(
+        _flat(q), _flat(k), _flat(v), sm_scale=sm_scale, causal=causal,
+        q_offset=q_offset, kv_offset=kv_offset, precision=precision)
+    o = o.reshape(*lead, s, d)
+    return (o, lse.reshape(*lead, s)) if return_lse else o
+
+
+def flash_attention_bwd(
+    q, k, v, o, lse, do,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    block_q: int | None = None,
+    block_k: int | None = None,
+    q_offset=0,
+    kv_offset=0,
+    precision: str | None = None,
+):
+    """(dq, dk, dv) from the saved per-row logsumexp, on the dq and dk/dv
+    kernels. `precision` must be the forward's. do is taken in q's type.
+    `block_q`/`block_k` are accepted and ignored, as in `flash_attention`."""
+    del block_q, block_k
+    _check_qkv(q, k, v)
+    *lead, s, d = q.shape
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    do = do.to(q.dtype)
+    out_dtype = torch.result_type(do, o)
+    delta = (do.float() * o.float()).sum(-1).to(out_dtype).float()
+    args = (_flat(q), _flat(k), _flat(v), _flat(do),
+            lse.reshape(-1, s).float().contiguous(), delta.reshape(-1, s).contiguous())
+    kw = dict(sm_scale=sm_scale, causal=causal, q_offset=q_offset,
+              kv_offset=kv_offset, precision=precision)
+    dq = flash_dq_kernel(*args, **kw)
+    dk, dv = flash_dkv_kernel(*args, **kw)
+    return tuple(x.reshape(*lead, s, d) for x in (dq, dk, dv))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = flash_attention(q, k, v); saves (q, k, v, o, lse) and runs the
+    backward on the dq and dk/dv kernels (tpusparse l.737-760)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, precision):
+        o, lse = flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                 return_lse=True, precision=precision)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, sm_scale=sm_scale, precision=precision)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(q, k, v, causal=False, sm_scale=None, precision=None):
+    """Differentiable fused attention: forward and backward on the kernels,
+    only the per-row logsumexp saved beside the operands. The tier is
+    resolved once, here, so the backward's score recompute matches the
+    forward's."""
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, resolve_precision(precision))

@@ -1,6 +1,7 @@
-"""Linear layers on the port's ops, as `torch.nn.Module`s.
+"""Linear layers on the port's ops, and flax's LayerNorm and Embed, as
+`torch.nn.Module`s.
 
-Counterpart of `tpusparse/nn/layers.py:33-271`. Each forward is
+Counterpart of `tpusparse/nn/layers.py:33-271`. Each linear forward is
 ``op(x, Wᵀ) + b``. Weights and biases start from the reference init
 U(±1/√fan_in) (layers.py:118-131), drawn on the CPU from `generator` (the
 default CPU generator when None) and then moved to `device`, so one seed
@@ -8,7 +9,8 @@ gives the same weights on the CPU and on the card. `device=None` means the
 CUDA card (see `utils.config.resolve_device`).
 
 Parameter names follow the flax modules ('kernel', 'kernel_values',
-'kernel_blocks', 'bias'), so `convert.load_flax_params` maps them one to one.
+'kernel_blocks', 'bias'; 'scale' and 'bias' of `LayerNorm`, 'embedding' of
+`Embed`), so `convert.load_flax_params` maps them one to one.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpusparse_torch import ops
@@ -219,3 +222,38 @@ class BlockSparseLinear(nn.Module):
         y = ops.spmm_blocks(self.plan, self.kernel_blocks * self.mask, xt)
         y = y.transpose(0, 1).reshape(*x.shape[:-1], out_features)
         return y + self.bias if self.bias is not None else y
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last dim: eps 1e-6 (torch's default is
+    1e-5), scale 1 and bias 0 at init. flax takes the variance as
+    mean(x²) − mean(x)², torch in two passes; the two agree within the fp32
+    tier for rows whose mean is not large against their spread."""
+
+    EPS = 1e-6  # flax's default
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.features = features
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, (self.features,), self.scale, self.bias, self.EPS)
+
+
+class Embed(nn.Module):
+    """flax `nn.Embed`: an (num_embeddings, features) table looked up by
+    index, drawn from flax's default init N(0, 1/features) on the CPU from
+    `generator`."""
+
+    def __init__(self, num_embeddings: int, features: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        w = torch.randn((num_embeddings, features), generator=generator) / np.sqrt(features)
+        self.embedding = _param(w, device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding)

@@ -1,10 +1,10 @@
 """Public op surface of the port, with autograd.
 
-Counterpart of `tpusparse/ops.py` l.59-100 (dense `mm` family), l.108-163
-(`_block_exec`, `_tiled_spmm` with its backward), l.228-269
-(`resident_spmm`), l.332-455 (`tiled_spmm`, `spmm_blocks` with its
-backward), l.605 (`_check_spmm_b`), l.831-867 (`sddmm`) and l.1173-1311
-(`spmm`), for 2-D operands.
+Counterpart of `tpusparse/ops.py` l.59-100 (dense `mm` family, same-rank
+operands of any rank ≥ 2), l.108-163 (`_block_exec`, `_tiled_spmm` with its
+backward), l.228-269 (`resident_spmm`), l.332-455 (`tiled_spmm`,
+`spmm_blocks` with its backward), l.605 (`_check_spmm_b`), l.831-867
+(`sddmm`) and l.1173-1311 (`spmm`), the SpMM ops for 2-D operands.
 
 Every op is a `torch.autograd.Function` whose backward runs on the port's
 kernels, with the JAX package's gradient algebra:
@@ -90,11 +90,19 @@ def _make_dense_op(transa: bool, transb: bool):
                     db = mm(g, a, transa=True)
                 else:
                     db = mm(g, a, transa=True, transb=True)
+            # batch dims that the forward broadcast are summed back
+            if da is not None and da.shape != a.shape:
+                da = da.sum_to_size(a.shape)
+            if db is not None and db.shape != b.shape:
+                db = db.sum_to_size(b.shape)
             return da, db, None
 
     def checked(a: torch.Tensor, b: torch.Tensor, use_kernel: Optional[bool] = None):
-        """`use_kernel` is passed to every `dense.matmul` of the forward and
-        the backward (None: the config's `use_gemm_kernel`)."""
+        """op_a(a) @ op_b(b) for same-rank ≥2-D operands, op = transpose of
+        the last two dims; batch dims broadcast as in `torch.matmul`.
+        `use_kernel` is passed to every `dense.matmul` of the forward and the
+        backward (None: the config's `use_gemm_kernel`); it reaches the GEMM
+        kernel for 2-D operands only."""
         if a.ndim != b.ndim or a.ndim < 2:
             raise ValueError(
                 f"dense ops need same-rank ≥2-D operands, got {tuple(a.shape)} x "
