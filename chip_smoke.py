@@ -5,7 +5,7 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the four CUDA sources from the repo (one nvcc per source, all
+  2. build of the five CUDA sources from the repo (one nvcc per source, all
      started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
@@ -18,7 +18,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (b, h, s, d) = (2, 3, 256, 64), causal (1, 2, 384, 64), ragged
      (1, 1, 200, 64), (2, 4, 128, 24), (1, 2, 128, 128) and a causal chunk
      with q_offset 256, each in 'high' and 'default' with fp32 and with
-     bf16 inputs: o, lse, dq, dk, dv, each as max-abs error over scale;
+     bf16 inputs: o, lse, dq, dk, dv, each as max-abs error over scale; and
+     the three block-pattern kernels (blk_flash_fwd, blk_flash_dq,
+     blk_flash_dkv) on mask-free plans ('bigbird' block masks at blocks 32
+     and 64, a block mask at s = 160) and token-exact masked plans (band
+     patterns at blocks 64, 64x32, 128x256 and 256, s = 160 and 1000 off
+     the block, the 'sparse' layer's plan at seq 4096), d from 24 to 128,
+     each in fp32 'high', fp32 'default' and bf16, with dq, dk and dv run
+     twice and required bitwise equal;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -40,6 +47,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
      e. the BERT-base encoder ('flash', 12 layers, vocab 30522, batch 8,
         seq 512, seeded input_ids): a forward (12 flash_fwd) and 3 SGD steps
         (12 of each flash kernel per step);
+     f. the BERT-base layer with attention='bigbird' (block = window = 64),
+        batch 8, seq 512: a forward and 10 SGD steps (1 blk_flash_fwd per
+        forward, 1 of each block kernel per step, no other launch); the
+        'bigbird' encoder (12 layers, batch 8, seq 512): a forward and 3
+        steps (12 of each per step);
+     g. the long-seq grid of benchmarks/bert_attention_benchmark.py
+        (--long-seq: seq 4096, batch 2): 'bigbird' with window 256,
+        'sparse' with window 64 (routed to 'blockflash' with token masks,
+        1 of each block kernel per step) and 'local' with window 128 (no
+        kernel), a forward and 3 steps each; and the seq-512 routes at
+        batch 8: 'sparse' (routed to 'dense', no kernel) and 'local';
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -48,7 +66,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      layer's loss must drop over its 10 steps and the encoder's outputs and
      losses be finite; one full-width 'flash' layer at batch 1, seq 128 on
      the card against the same weights on the CPU: the forward and 3
-     steps' losses and parameters (rtol 1e-4, atol 5e-5);
+     steps' losses and parameters (rtol 1e-4, atol 5e-5); the same for a
+     full-width 'bigbird' layer and a 'sparse' layer forced onto
+     'blockflash', each at batch 1, seq 512;
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -56,10 +76,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      this run's inputs; the flash kernels at (b, h, s, d) = (8, 12, 512, 64)
      and (8, 12, 128, 64) against their plain versions, their bounds and
      torch's scaled_dot_product_attention (forward, and its autograd
-     backward) in fp32, with the SDPA backend named; the BERT layer's
-     forward and step times ('flash' and 'dense', seq 128 and 512) and the
-     encoder's; a torch.profiler trace of the layer's steps at seq 512
-     (device busy and idle share, the kernels that take the most time);
+     backward) in fp32, with the SDPA backend named; the block kernels at
+     the 'bigbird' shapes (bh 96, seq 512, block 64; bh 24, seq 4096, block
+     256) and at the 'sparse' layer's masked seq-4096 plan, against their
+     plain versions, their bounds from the covered tiles and
+     scaled_dot_product_attention with the token-exact boolean mask; the
+     BERT layer's forward and step times in every variant and shape of 4d,
+     4f and 4g, the seq-512 variants' steps queued back to back in turns,
+     and the 'flash' and 'bigbird' encoders' times; a torch.profiler trace of the layer's steps at seq 512 ('flash',
+     'dense', 'bigbird': device busy and idle share, the kernels that take
+     the most time);
   7. the `kernels` JSON line, then the device JSON line, last.
 
 Exits non-zero, printing no result, when no CUDA device is present or the
@@ -92,10 +118,13 @@ PARITY_STEPS = 3
 # kernel launches of one training step, by variant (fc1, fc2 forward;
 # fc2's dB; both layers' dW; fc1's input is the data, so no dB for it)
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
+# every kernel's count, all 0
+NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK}
 STEP_LAUNCHES = {
-    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
-    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
-    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH},
+    "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
+    "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
+    "dense": {**NO_LAUNCH, "gemm": 5},
 }
 # flash attention: max-abs error over scale of the kernel against its plain
 # version. fp32 'high': both sum in fp32, in other orders (the forward's
@@ -110,7 +139,16 @@ BERT_BATCH = 8
 BERT_SEQS = (128, 512)
 BERT_LAYER_STEPS = 10
 BERT_ENCODER_STEPS = 3
-FLASH_STEP = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+# the attention kernels of a path: (forward, dq, dk/dv)
+FLASH = tuple(NO_FLASH)
+BLK = tuple(NO_BLK)
+# the pattern variants' window (the layer's default; 'bigbird' takes it as
+# its block) and the long-seq grid of benchmarks/bert_attention_benchmark.py
+# (--long-seq, l.71-99): variant, window
+PATTERN_WINDOW = 64
+LONG_SEQ, LONG_BATCH, LONG_STEPS = 4096, 2, 3
+LONG_GRID = (("bigbird", 256), ("sparse", 64), ("local", 128))
+ROUTE_STEPS = 3
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -386,7 +424,7 @@ def phase_headline_backward(plan, bv, b):
     torch.cuda.synchronize()
     counts = kernels.launches_by_kernel()
     print(f"headline backward launches: {json.dumps(counts)}")
-    if counts != {"block_ell_spmm": 2, "sddmm": 1, "gemm": 0, **NO_FLASH}:
+    if counts != {**NO_LAUNCH, "block_ell_spmm": 2, "sddmm": 1}:
         raise AssertionError("headline backward: expected 2 block_ell_spmm and 1 sddmm")
     dblocks_ref = _sddmm_plain(plan, dc, b)
     d_err, d_rel = over_scale(blocks.grad, dblocks_ref)
@@ -446,7 +484,6 @@ def phase_small_flash() -> None:
         ("wide_1x2x128x128", (2, 128, 128), True, 0),
         ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256),
     ]
-    names = ("o", "lse", "dq", "dk", "dv")
     for seed, (name, shape, causal, q_off) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             for prec in ("high", "default"):
@@ -454,28 +491,112 @@ def phase_small_flash() -> None:
                 kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
                           kv_offset=0, precision=prec)
                 got, want = _flash_pair(q, k, v, do, kw)
-                rounded = dtype == torch.bfloat16 or prec == "default"
-                limit = FLASH_LIMIT_ROUNDED if rounded else FLASH_LIMIT_FP32
-                errs = {n: rel_err(g, w)[1] for n, g, w in zip(names, got, want)}
-                ok = (all(e <= (FLASH_LIMIT_FP32 if n == "lse" else limit)
-                          for n, e in errs.items())
-                      and all(bool(torch.isfinite(g.float()).all()) for g in got)
-                      and all(g.dtype == w.dtype and g.shape == w.shape
-                              for g, w in zip(got, want)))
-                label = f"flash_{name}_{str(dtype).split('.')[1]}_{prec}"
-                print(f"case {label}: over scale " + ", ".join(
-                    f"{n} {e:.2e}" for n, e in errs.items())
-                    + f" (limit {limit:.0e}, lse {FLASH_LIMIT_FP32:.0e}), "
-                    + ("ok" if ok else "FAIL"))
-                if not ok:
-                    raise AssertionError(f"{label}: a flash kernel disagrees with its plain version")
+                _check_attention_case(f"flash_{name}_{str(dtype).split('.')[1]}_{prec}",
+                                      got, want, dtype == torch.bfloat16 or prec == "default")
 
 
-def _flash_counts() -> dict:
-    from tpusparse_torch import kernels
+def _check_attention_case(label, got, want, rounded, extra="") -> None:
+    """Kernel results (o, lse, dq, dk, dv) against the plain version's, each
+    as max-abs error over scale: lse within FLASH_LIMIT_FP32 always, the
+    rest within FLASH_LIMIT_ROUNDED where the tier rounds to bf16."""
+    names = ("o", "lse", "dq", "dk", "dv")
+    limit = FLASH_LIMIT_ROUNDED if rounded else FLASH_LIMIT_FP32
+    errs = {n: rel_err(g, w)[1] for n, g, w in zip(names, got, want)}
+    ok = (all(e <= (FLASH_LIMIT_FP32 if n == "lse" else limit) for n, e in errs.items())
+          and all(bool(torch.isfinite(g.float()).all()) for g in got)
+          and all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want)))
+    print(f"case {label}: over scale " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (limit {limit:.0e}, lse {FLASH_LIMIT_FP32:.0e}){extra}, "
+          + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{label}: a kernel disagrees with its plain version")
 
-    c = kernels.launches_by_kernel()
-    return {n: c[n] for n in NO_FLASH}
+
+def _blk_pair(q, k, v, do, plan, kw):
+    """(kernel, plain) results (o, lse, dq, dk, dv) of the block-pattern
+    attention on the same inputs; the plain backward takes the kernel's lse
+    and delta."""
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+
+    o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+    delta = _delta(do, o)
+    got = (o, lse, bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw),
+           *bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw))
+    want = (*bfa._blk_fwd_plain(q, k, v, plan, **kw),
+            bfa._blk_dq_plain(q, k, v, do, lse, delta, plan, **kw),
+            *bfa._blk_dkv_plain(q, k, v, do, lse, delta, plan, **kw))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _blk_plan(name):
+    """The small cases' plans: 'bigbird' block masks and a block mask at an
+    unpadded seq (mask-free), band token patterns (token-exact tile masks)
+    at blocks 64, 64x32, 128x256 and 256 with s on and off the block, and
+    the 'sparse' layer's plan at seq 4096 (what its router builds)."""
+    import tpusparse_torch as tt
+
+    if name == "bigbird_512_b64":
+        return tt.BlockAttnPlan(tt.bigbird_block_mask(512, 64), 64, 64, 512)
+    if name == "bigbird_256_b32":
+        return tt.BlockAttnPlan(tt.bigbird_block_mask(256, 32, 3, 1, 1), 32, 32, 256)
+    if name == "maskfree_unpadded_160_b64":
+        mask = np.array([[1, 0, 1], [0, 1, 0], [1, 0, 1]], bool)
+        return tt.BlockAttnPlan(mask, 64, 64, 160)
+    s, bq, bk, window, glob = {
+        "band_masked_256_b64": (256, 64, 64, 20, 3),
+        "band_masked_unpadded_160_b64x32": (160, 64, 32, 20, 3),
+        "band_masked_512_b128x256": (512, 128, 256, 40, 2),
+        "band_masked_unpadded_1000_b256": (1000, 256, 256, 64, 0),
+        "sparse_layer_4096_b256": (LONG_SEQ, 256, 256, PATTERN_WINDOW, 0),
+    }[name]
+    ind, ptr = tt.local_global_pattern(s, window, glob)
+    return tt.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk)
+
+
+# name: (bh, d)
+BLK_SMALL_CASES = {
+    "bigbird_512_b64": (4, 64),
+    "bigbird_256_b32": (2, 128),
+    "maskfree_unpadded_160_b64": (3, 40),
+    "band_masked_256_b64": (3, 64),
+    "band_masked_unpadded_160_b64x32": (2, 24),
+    "band_masked_512_b128x256": (2, 128),
+    "band_masked_unpadded_1000_b256": (2, 64),
+    "sparse_layer_4096_b256": (2, 64),
+}
+
+
+def phase_small_block_flash() -> None:
+    """Each block-pattern kernel against its plain version on every kind of
+    plan, in fp32 'high' and 'default' and with bf16 inputs; dq, dk and dv
+    of the fp32 'high' run repeated and required bitwise equal."""
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+
+    for seed, (name, (bh, d)) in enumerate(BLK_SMALL_CASES.items()):
+        plan = _blk_plan(name)
+        kind = "masked" if plan.tile_masks is not None else "mask-free"
+        for dtype, prec in ((torch.float32, "high"), (torch.float32, "default"),
+                            (torch.bfloat16, "high")):
+            q, k, v, do = _flash_operands((bh, plan.seq, d), 700 + seed, dtype)
+            kw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+            got, want = _blk_pair(q, k, v, do, plan, kw)
+            extra = ""
+            if dtype == torch.float32 and prec == "high":
+                lse, delta = got[1], _delta(do, got[0])
+                again = (bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw),
+                         *bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
+                    raise AssertionError(f"blk_{name}: dq, dk, dv do not repeat bit for bit")
+                extra = ", dq/dk/dv repeat bitwise"
+            _check_attention_case(
+                f"blk_{name}_{kind}_L{plan.L}_{str(dtype).split('.')[1]}_{prec}", got, want,
+                dtype == torch.bfloat16 or prec == "default", extra)
+
+
+def _delta(do, o):
+    return (do.float() * o.float()).sum(-1).to(do.dtype).float()
 
 
 def _bert_input(batch, seq, seed):
@@ -483,114 +604,113 @@ def _bert_input(batch, seq, seed):
     return torch.from_numpy(x)
 
 
-def _bert_layer(attention, device, seed=0):
+def _bert_layer(attention, device, seed=0, window=PATTERN_WINDOW):
     import tpusparse_torch as tt
 
-    return tt.BertAttentionLayer(**BERT, attention=attention, device=device,
+    return tt.BertAttentionLayer(**BERT, attention=attention, window=window, device=device,
                                  generator=torch.Generator().manual_seed(seed))
+
+
+def _launches() -> dict:
+    from tpusparse_torch import kernels
+
+    return kernels.launches_by_kernel()
+
+
+def _only(counts, names) -> dict:
+    return {n: counts[n] for n in names}
+
+
+def _drive(label, model, inp, steps, path=(), layers=1, must_drop=False):
+    """A forward and `steps` SGD steps of `model` on `inp`, with the launch
+    counts set to 0 just before and read just after. `path` names the
+    path's (forward, dq, dk/dv) kernels: the forward must launch the first
+    `layers` times and each step each of them `layers` times, and no other
+    kernel may launch. Prints and returns (counts, losses)."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+
+    fwd_expect = {**NO_LAUNCH, **{n: layers for n in path[:1]}}
+    step_expect = {**NO_LAUNCH, **{n: layers for n in path}}
+    opt = tt.make_train_state(model)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = model(inp)
+    torch.cuda.synchronize()
+    if _launches() != fwd_expect:
+        raise AssertionError(f"{label}: forward launched {_launches()}")
+    if out.shape != (*inp.shape[:2], BERT["hidden"]) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: bad forward output {tuple(out.shape)}")
+    losses = []
+    for i in range(steps):
+        before = _launches()
+        losses.append(tt.bert_train_step(model, opt, inp))
+        after = _launches()
+        step = {n: after[n] - before[n] for n in after}
+        if step != step_expect:
+            raise AssertionError(f"{label} step {i}: launches {step}, expected {step_expect}")
+    torch.cuda.synchronize()
+    counts = _launches()
+    losses = [float(v) for v in losses]
+    print(f"{label}: forward + {steps} steps, launches "
+          f"{json.dumps(_only(counts, path)) if path else 'none'}, losses "
+          + ", ".join(f"{v:.6f}" for v in losses))
+    if not all(np.isfinite(losses)) or (must_drop and not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: loss not finite or did not drop: {losses}")
+    return counts, losses
 
 
 def phase_bert_layers() -> dict:
     """The BERT-base layer, 'flash' and 'dense', batch 8 at each seq: a
     forward and BERT_LAYER_STEPS SGD steps, launches checked per call;
     returns the flash launches counted."""
-    import tpusparse_torch as tt
-    from tpusparse_torch import kernels
-
     totals = dict(NO_FLASH)
     for seq in BERT_SEQS:
         x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
         for attention in ("flash", "dense"):
-            flash = attention == "flash"
-            layer = _bert_layer(attention, "cuda")
-            opt = tt.make_train_state(layer)
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            with torch.no_grad():
-                out = layer(x)
-            torch.cuda.synchronize()
-            fwd = _flash_counts()
-            if fwd != ({**NO_FLASH, "flash_fwd": 1} if flash else NO_FLASH):
-                raise AssertionError(f"bert layer {attention} seq {seq}: forward launched {fwd}")
-            if out.shape != x.shape or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"bert layer {attention} seq {seq}: bad forward output")
-            losses = []
-            for i in range(BERT_LAYER_STEPS):
-                before = _flash_counts()
-                losses.append(tt.bert_train_step(layer, opt, x))
-                after = _flash_counts()
-                step = {n: after[n] - before[n] for n in after}
-                if step != (FLASH_STEP if flash else NO_FLASH):
-                    raise AssertionError(f"bert layer {attention} seq {seq} step {i}: "
-                                         f"launches {step}")
-            torch.cuda.synchronize()
-            counts = _flash_counts()
+            counts, _ = _drive(f"bert layer {attention} seq {seq} batch {BERT_BATCH}",
+                               _bert_layer(attention, "cuda"), x, BERT_LAYER_STEPS,
+                               FLASH if attention == "flash" else (), must_drop=True)
             for n in totals:
                 totals[n] += counts[n]
-            losses = [float(v) for v in losses]
-            print(f"bert layer {attention} seq {seq} batch {BERT_BATCH}: forward + "
-                  f"{BERT_LAYER_STEPS} steps, flash launches {json.dumps(counts)}, loss "
-                  f"{losses[0]:.6f} -> {losses[-1]:.6f}")
-            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-                raise AssertionError(f"bert layer {attention} seq {seq}: loss did not drop")
     return totals
 
 
-def phase_bert_encoder():
-    """BertEncoder('flash') at full size, batch 8, seq 512: a forward and
-    BERT_ENCODER_STEPS SGD steps; returns (flash launches, encoder,
-    optimizer, input_ids)."""
+def phase_bert_encoder(attention):
+    """BertEncoder(attention) ('flash' or 'bigbird') at full size, batch 8,
+    seq 512: a forward and BERT_ENCODER_STEPS SGD steps, each layer
+    launching its attention kernels; returns (launches, encoder,
+    input_ids)."""
     import tpusparse_torch as tt
-    from tpusparse_torch import kernels
 
-    enc = tt.BertEncoder(attention="flash", device="cuda",
+    enc = tt.BertEncoder(attention=attention, window=PATTERN_WINDOW, device="cuda",
                          generator=torch.Generator().manual_seed(1))
-    n_layers = enc.num_layers
     ids = torch.from_numpy(np.random.default_rng(12).integers(
         0, 30522, size=(BERT_BATCH, 512))).cuda()
-    opt = tt.make_train_state(enc)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with torch.no_grad():
-        out = enc(ids)
-    torch.cuda.synchronize()
-    fwd = _flash_counts()
-    if fwd != {**NO_FLASH, "flash_fwd": n_layers}:
-        raise AssertionError(f"encoder forward launched {fwd}")
-    if out.shape != (BERT_BATCH, 512, BERT["hidden"]) or not bool(torch.isfinite(out).all()):
-        raise AssertionError("encoder forward: bad output")
-    losses = []
-    for i in range(BERT_ENCODER_STEPS):
-        before = _flash_counts()
-        losses.append(tt.bert_train_step(enc, opt, ids))
-        after = _flash_counts()
-        step = {n: after[n] - before[n] for n in after}
-        if step != {n: n_layers for n in NO_FLASH}:
-            raise AssertionError(f"encoder step {i}: launches {step}")
-    torch.cuda.synchronize()
-    counts = _flash_counts()
-    losses = [float(v) for v in losses]
-    print(f"bert encoder flash ({n_layers} layers, batch {BERT_BATCH}, seq 512): forward + "
-          f"{BERT_ENCODER_STEPS} steps, flash launches {json.dumps(counts)}, losses "
-          + ", ".join(f"{v:.6f}" for v in losses))
-    if not all(np.isfinite(losses)):
-        raise AssertionError("encoder: a loss is not finite")
-    return counts, enc, opt, ids
+    counts, _ = _drive(
+        f"bert encoder {attention} ({enc.num_layers} layers, batch {BERT_BATCH}, seq 512)",
+        enc, ids, BERT_ENCODER_STEPS, FLASH if attention == "flash" else BLK, enc.num_layers)
+    return counts, enc, ids
 
 
-def phase_bert_card_vs_cpu() -> None:
-    """One full-width 'flash' layer at batch 1, seq 128 from one seed, on the
-    card and on the CPU: the forward, then PARITY_STEPS steps' losses and
-    parameters."""
+def phase_bert_card_vs_cpu(attention="flash", seq=128, method=None) -> None:
+    """One full-width layer at batch 1 from one seed, on the card and on the
+    CPU: the forward, then PARITY_STEPS steps' losses and parameters.
+    `method` forces the engine of a 'sparse' layer."""
     import tpusparse_torch as tt
 
-    x = _bert_input(1, 128, 7)
-    layers = {d: _bert_layer("flash", d, seed=2) for d in ("cuda", "cpu")}
+    x = _bert_input(1, seq, 7)
+    layers = {d: _bert_layer(attention, d, seed=2) for d in ("cuda", "cpu")}
+    if method is not None:
+        for layer in layers.values():
+            layer.attention.method = method
+    label = f"bert layer {attention}{' (' + method + ')' if method else ''}"
     with torch.no_grad():
         got, want = layers["cuda"](x.cuda()).cpu(), layers["cpu"](x)
     fwd_err = float((got - want).abs().max())
     if not torch.allclose(got, want, **TOL_FP32):
-        raise AssertionError(f"bert layer card vs CPU forward: max_abs_err {fwd_err:.3e}")
+        raise AssertionError(f"{label} card vs CPU forward: max_abs_err {fwd_err:.3e}")
     opts = {d: tt.make_train_state(m) for d, m in layers.items()}
     losses = {d: [float(tt.bert_train_step(layers[d], opts[d], x.to(d)))
                   for _ in range(PARITY_STEPS)] for d in layers}
@@ -599,21 +719,21 @@ def phase_bert_card_vs_cpu() -> None:
     for (n_, p), (_, q) in zip(layers["cuda"].named_parameters(), layers["cpu"].named_parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), **TOL_FP32, msg=n_)
         err = max(err, float((p.detach().cpu() - q.detach()).abs().max()))
-    print(f"bert layer flash card vs CPU (batch 1, seq 128): forward max_abs_err "
+    print(f"{label} card vs CPU (batch 1, seq {seq}): forward max_abs_err "
           f"{fwd_err:.3e}; {PARITY_STEPS} steps' losses within tolerance, params "
           f"max_abs_err {err:.3e} (ok)")
 
 
-def _sdpa_backend(q, k, v):
+def _sdpa_backend(q, k, v, attn_mask=None):
     """The first SDPA backend, in the order flash, efficient, cudnn, math,
-    that takes these fp32 inputs."""
+    that takes these fp32 inputs (and this mask)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([backend]):
-                torch.nn.functional.scaled_dot_product_attention(q, k, v)
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
             return backend
         except RuntimeError:
             continue
@@ -708,7 +828,7 @@ def phase_bert_profile(seq: int = 512, steps: int = 3) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
-    for attention in ("flash", "dense"):
+    for attention in ("flash", "dense", "bigbird"):
         layer = _bert_layer(attention, "cuda")
         opt = tt.make_train_state(layer)
         for _ in range(2):
@@ -736,26 +856,184 @@ def phase_bert_profile(seq: int = 512, steps: int = 3) -> None:
             print(f"  {t / 1e3 / steps:.4f} ms/step ({t / busy:.1%}) {name_[:90]}")
 
 
-def phase_bert_timings(enc, enc_opt, ids) -> None:
-    """Forward and step times of the layer ('flash' and 'dense', each seq)
-    and of the encoder, by CUDA events."""
+def phase_pattern_paths():
+    """The pattern variants' main path (4f, 4g), each part counted on its
+    own; returns (block kernel launches summed over the runs, the 'bigbird'
+    encoder, its input_ids)."""
+    totals = dict(NO_BLK)
+
+    def tally(counts):
+        for n in totals:
+            totals[n] += counts[n]
+
+    x = _bert_input(BERT_BATCH, 512, 60).cuda()
+    tally(_drive(f"bert layer bigbird seq 512 batch {BERT_BATCH}", _bert_layer("bigbird", "cuda"),
+                 x, BERT_LAYER_STEPS, BLK, must_drop=True)[0])
+    counts, enc, ids = phase_bert_encoder("bigbird")
+    tally(counts)
+
+    x = _bert_input(LONG_BATCH, LONG_SEQ, 61).cuda()
+    for variant, window in LONG_GRID:
+        layer = _bert_layer(variant, "cuda", window=window)
+        label = f"bert layer {variant} window {window} seq {LONG_SEQ} batch {LONG_BATCH}"
+        tally(_drive(label, layer, x, LONG_STEPS, () if variant == "local" else BLK)[0])
+        if variant == "sparse":
+            method, plan, _, _ = layer.attention.engine(LONG_SEQ)
+            if method != "blockflash" or plan.tile_masks is None:
+                raise AssertionError(f"{label}: routed to {method}, not masked blockflash")
+            print(f"{label}: routed to blockflash (block {plan.block_q}, {plan.covered_tiles} "
+                  f"covered tiles of {plan.nq * plan.nk}, token-exact masks)")
+        del layer
+
+    x = _bert_input(BERT_BATCH, 512, 62).cuda()
+    for variant in ("sparse", "local"):
+        layer = _bert_layer(variant, "cuda")
+        label = f"bert layer {variant} window {PATTERN_WINDOW} seq 512 batch {BERT_BATCH}"
+        _drive(label, layer, x, ROUTE_STEPS)
+        if variant == "sparse":
+            method = layer.attention.engine(512)[0]
+            if method != "dense":
+                raise AssertionError(f"{label}: routed to {method}, not dense")
+            print(f"{label}: routed to dense")
+    return totals, enc, ids
+
+
+def phase_block_flash_timings() -> dict:
+    """The three block kernels at the 'bigbird' layer's shapes (seq 512,
+    block 64; seq 4096, block 256) and at the 'sparse' layer's masked
+    seq-4096 plan: kernel vs plain (<= 1e-5 of scale), times, bounds from the
+    covered tiles, and SDPA with the token-exact boolean mask in fp32;
+    returns {label: results}."""
+    from torch.nn.attention import sdpa_kernel
+
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    h, d = BERT["num_heads"], BERT["hidden"] // BERT["num_heads"]
+    shapes = {
+        "bigbird_512": (BERT_BATCH, 512, tt.BlockAttnPlan(
+            tt.bigbird_block_mask(512, PATTERN_WINDOW), PATTERN_WINDOW, PATTERN_WINDOW, 512)),
+        "bigbird_4096": (LONG_BATCH, LONG_SEQ, tt.BlockAttnPlan(
+            tt.bigbird_block_mask(LONG_SEQ, 256), 256, 256, LONG_SEQ)),
+        "sparse_4096": (LONG_BATCH, LONG_SEQ, _blk_plan("sparse_layer_4096_b256")),
+    }
+    out = {}
+    for label, (b, seq, plan) in shapes.items():
+        bh = b * h
+        q, k, v, do = _flash_operands((bh, seq, d), 800 + seq)
+        kw = dict(sm_scale=1 / d ** 0.5, precision="high")
+        got, want = _blk_pair(q, k, v, do, plan, kw)
+        errs = {n: rel_err(g, w) for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+        if not all(e[1] <= FLASH_LIMIT_FP32 for e in errs.values()):
+            raise AssertionError(f"block flash {label}: kernel vs plain {errs}")
+        o, lse = got[0], got[1]
+        delta = _delta(do, o)
+        del got, want
+        fns = {
+            "fwd": (lambda: bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw),
+                    lambda: bfa._blk_fwd_plain(q, k, v, plan, **kw)),
+            "dq": (lambda: bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw),
+                   lambda: bfa._blk_dq_plain(q, k, v, do, lse, delta, plan, **kw)),
+            "dkv": (lambda: bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw),
+                    lambda: bfa._blk_dkv_plain(q, k, v, do, lse, delta, plan, **kw)),
+        }
+        r = {"err": errs, "tiles": plan.covered_tiles, "masked": plan.tile_masks is not None}
+        r["ms"] = {n: time_ms_queued(f[0]) for n, f in fns.items()}
+        r["one_call_ms"] = {n: time_ms(f[0]) for n, f in fns.items()}
+        r["plain_ms"] = {n: time_ms_queued(f[1], reps=5) for n, f in fns.items()}
+        # work of the covered tiles: q.k^T and p.v (fwd); + do.v^T and dS.k
+        # (dq); q.k^T, do.v^T, p^T.do, dS^T.q (dk/dv). Bytes: each input read
+        # once, each output written once, the plan's lists and masks included.
+        entries = float(bh * plan.covered_tiles * plan.block_q * plan.block_k)
+        qkv_bytes, stat_bytes = 4.0 * bh * seq * d, 4.0 * bh * seq
+        masks = 0 if plan.tile_masks is None else plan.tile_masks.nbytes + plan.q_slot.nbytes
+        fwd_plan = plan.kv_list.nbytes + plan.kv_cnt.nbytes + masks
+        bwd_plan = plan.q_list.nbytes + plan.q_cnt.nbytes + masks
+        work = {
+            "fwd": (4.0 * entries * d, 4 * qkv_bytes + stat_bytes + fwd_plan),
+            "dq": (6.0 * entries * d, 5 * qkv_bytes + 2 * stat_bytes + fwd_plan),
+            "dkv": (8.0 * entries * d, 6 * qkv_bytes + 2 * stat_bytes + bwd_plan),
+        }
+        r["bound"] = {n: bound(*wk) for n, wk in work.items()}
+        q4, k4, v4, do4 = (t.view(b, h, seq, d) for t in (q, k, v, do))
+        mask = plan.token_mask(q.device)
+        backend = _sdpa_backend(q4, k4, v4, mask)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with sdpa_kernel([backend]), fp32_matmul():
+            r["sdpa_fwd_ms"] = time_ms_queued(lambda: sdpa(q4, k4, v4, attn_mask=mask))
+            lib_err = rel_err(sdpa(q4, k4, v4, attn_mask=mask).reshape(bh, seq, d), o)[1]
+            qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+            og = sdpa(qg, kg, vg, attn_mask=mask)
+            r["sdpa_bwd_ms"] = time_ms_queued(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
+        r["sdpa_backend"] = backend.name
+        out[label] = r
+        shape = (f"{label} (bh {bh}, seq {seq}, d {d}, block {plan.block_q}, "
+                 f"{plan.covered_tiles} of {plan.nq * plan.nk} tiles"
+                 f"{', token-exact masks' if r['masked'] else ''})")
+        for n in fns:
+            bms, by = r["bound"][n]
+            flops = work[n][0]
+            print(f"blk_flash_{n} {shape} fp32 'high': kernel {r['ms'][n]:.4f} ms queued "
+                  f"({r['one_call_ms'][n]:.4f} ms one call), plain {r['plain_ms'][n]:.4f} ms, "
+                  f"bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+                  f"{work[n][1] / 1e6:.1f} MB), kernel at "
+                  f"{flops / (r['ms'][n] * 1e-3) / 1e12:.2f} TFLOP/s")
+        print(f"blk_flash {label}: kernel vs plain over scale " + ", ".join(
+            f"{n} {e[1]:.2e}" for n, e in errs.items()))
+        print(f"sdpa {label} with the token mask, fp32, backend {backend.name}: forward "
+              f"{r['sdpa_fwd_ms']:.4f} ms (vs kernel o {lib_err:.2e} of scale), autograd "
+              f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms")
+        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, og, o, lse, delta, fns
+    return out
+
+
+def phase_bert_timings(encoders) -> None:
+    """Forward and step times by CUDA events: the layer in each variant and
+    shape the main path drives, the seq-512 variants' steps queued in turns,
+    and the encoders ({attention: (encoder, input_ids)})."""
     import tpusparse_torch as tt
 
-    for seq in BERT_SEQS:
-        x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
-        for attention in ("flash", "dense"):
-            layer = _bert_layer(attention, "cuda")
-            opt = tt.make_train_state(layer)
-            with torch.no_grad():
-                fwd_ms = time_ms(lambda: layer(x))
-            step_ms = time_ms(lambda: tt.bert_train_step(layer, opt, x))
-            print(f"bert layer {attention} seq {seq} batch {BERT_BATCH}: forward "
-                  f"{fwd_ms:.4f} ms, train step {step_ms:.4f} ms")
-    with torch.no_grad():
-        fwd_ms = time_ms(lambda: enc(ids), warmup=2, iters=5)
-    step_ms = time_ms(lambda: tt.bert_train_step(enc, enc_opt, ids), warmup=2, iters=5)
-    print(f"bert encoder flash ({enc.num_layers} layers) seq 512 batch {BERT_BATCH}: forward "
-          f"{fwd_ms:.4f} ms, train step {step_ms:.4f} ms")
+    cases = [(v, BERT_BATCH, seq, PATTERN_WINDOW) for seq in BERT_SEQS for v in ("flash", "dense")]
+    cases += [(v, BERT_BATCH, 512, PATTERN_WINDOW) for v in ("bigbird", "sparse", "local")]
+    cases += [(v, LONG_BATCH, LONG_SEQ, w) for v, w in LONG_GRID]
+    for variant, batch, seq, window in cases:
+        x = _bert_input(batch, seq, 40 + seq).cuda()
+        layer = _bert_layer(variant, "cuda", window=window)
+        opt = tt.make_train_state(layer)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: layer(x))
+        step_ms = time_ms(lambda: tt.bert_train_step(layer, opt, x))
+        name = variant if variant in ("flash", "dense") else f"{variant} window {window}"
+        print(f"bert layer {name} seq {seq} batch {batch}: forward {fwd_ms:.4f} ms, train step "
+              f"{step_ms:.4f} ms")
+        del layer, opt, x
+    # one call between two events exposes the host's latency; steps queued
+    # back to back give the card's pace. The seq-512 variants in turns,
+    # in order and then reversed, so drift hits them alike.
+    x = _bert_input(BERT_BATCH, 512, 572).cuda()
+    layers = {}
+    for variant in ("flash", "bigbird", "sparse", "local", "dense"):
+        layer = _bert_layer(variant, "cuda")
+        layers[variant] = (layer, tt.make_train_state(layer))
+    queued = {v: [] for v in layers}
+    for variant in [*layers, *reversed(layers)]:
+        layer, opt = layers[variant]
+        queued[variant].append(time_ms_queued(lambda: tt.bert_train_step(layer, opt, x),
+                                              reps=5, warmup=2, iters=3))
+    for variant, times in queued.items():
+        print(f"bert layer {variant} seq 512 batch {BERT_BATCH}: train step "
+              + " / ".join(f"{t:.4f}" for t in times) + " ms queued (5 steps between events, "
+              "two turns)")
+    del layers, x
+    for attention, (enc, ids) in encoders.items():
+        opt = tt.make_train_state(enc)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: enc(ids), warmup=2, iters=5)
+        step_ms = time_ms(lambda: tt.bert_train_step(enc, opt, ids), warmup=2, iters=5)
+        print(f"bert encoder {attention} ({enc.num_layers} layers) seq 512 batch {BERT_BATCH}: "
+              f"forward {fwd_ms:.4f} ms, train step {step_ms:.4f} ms")
 
 
 def main() -> int:
@@ -780,6 +1058,7 @@ def main() -> int:
     phase_small_sddmm()
     phase_small_gemm()
     phase_small_flash()
+    phase_small_block_flash()
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -851,9 +1130,12 @@ def main() -> int:
     train_counts = phase_train(batches)
     bwd_counts, sddmm_err, dc, plan_t, bv_t = phase_headline_backward(plan, bv, b)
     layer_counts = phase_bert_layers()
-    enc_counts, enc, enc_opt, enc_ids = phase_bert_encoder()
+    enc_counts, enc, enc_ids = phase_bert_encoder("flash")
     flash_launches = {n: layer_counts[n] + enc_counts[n] for n in NO_FLASH}
     phase_bert_card_vs_cpu()
+    blk_launches, bb_enc, bb_ids = phase_pattern_paths()
+    phase_bert_card_vs_cpu("bigbird", 512)
+    phase_bert_card_vs_cpu("sparse", 512, method="blockflash")
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -974,9 +1256,10 @@ def main() -> int:
 
     # -- timings: flash attention and the BERT layer and encoder -----------------
     flash_t = phase_flash_timings()
-    phase_bert_timings(enc, enc_opt, enc_ids)
+    blk_t = phase_block_flash_timings()
+    phase_bert_timings({"flash": (enc, enc_ids), "bigbird": (bb_enc, bb_ids)})
+    del enc, enc_ids, bb_enc, bb_ids
     phase_bert_profile()
-    del enc, enc_opt, enc_ids
 
     kernels = [
         {
@@ -1041,6 +1324,30 @@ def main() -> int:
             "plain_ms": ft["plain_ms"][key],
             "bound_ms": ft["bound"][key][0],
             "bound_by": ft["bound"][key][1],
+            "library_ms": lib_ms,
+        })
+    bt = blk_t["bigbird_512"]
+    blk_rows = (
+        ("blk_flash_fwd", "fwd", "929 (_blk_flash_kernel; pallas_call l.1087)",
+         bt["err"]["o"][0], bt["sdpa_fwd_ms"]),
+        ("blk_flash_dq", "dq", "1136 (_blk_dq_kernel, _blk_dq_mask l.1171; pallas_call l.1286)",
+         bt["err"]["dq"][0], bt["sdpa_bwd_ms"]),
+        ("blk_flash_dkv", "dkv",
+         "1175 (_blk_dkv_kernel, _blk_dkv_mask l.1215; pallas_call l.1339)",
+         max(bt["err"]["dk"][0], bt["err"]["dv"][0]), bt["sdpa_bwd_ms"]),
+    )
+    for kname, key, line, err, lib_ms in blk_rows:
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "tpusparse_torch/csrc/block_flash_attention.cu",
+            "replaces": f"tpusparse/kernels/flash_attention.py:{line}",
+            "launches": blk_launches[kname],
+            "max_abs_err": err,
+            "ms": bt["ms"][key],
+            "plain_ms": bt["plain_ms"][key],
+            "bound_ms": bt["bound"][key][0],
+            "bound_by": bt["bound"][key][1],
             "library_ms": lib_ms,
         })
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,7 @@ import torch
 
 import tpusparse_torch as tt
 from tpusparse_torch import kernels
+from tpusparse_torch.kernels import block_flash_attention as bfa
 from tpusparse_torch.kernels import flash_attention as fa
 from tpusparse_torch.kernels import gemm as gk
 from tpusparse_torch.kernels import sddmm as sk
@@ -194,10 +195,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 # and both dW (SDDMM); 'dense' with the GEMM kernel runs 2 forward products,
 # fc2's dX and dW, and fc1's dW.
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 STEP_LAUNCHES = {
-    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
-    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH},
-    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH},
+    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK},
+    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK},
+    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH, **NO_BLK},
 }
 
 
@@ -336,6 +338,128 @@ def test_flash_layer_train_step_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     counts = kernels.launches_by_kernel()
     assert {n: counts[n] for n in NO_FLASH} == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    want = tt.bert_train_step(layers["cpu"], opts["cpu"], x)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    for (name, p), (_, q) in zip(layers[cuda].named_parameters(), layers["cpu"].named_parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), **TOL, msg=name)
+
+
+# -- block-pattern flash attention ---------------------------------------------
+
+
+def _blk_plan(name):
+    """Plans of each kind the kernels take: mask-free block masks, token
+    patterns with tile masks, blocks 32 to 256 and unequal, s off the block."""
+    if name == "bigbird_512_b64":
+        return bfa.BlockAttnPlan(tt.bigbird_block_mask(512, 64), 64, 64, 512)
+    if name == "bigbird_256_b32":
+        return bfa.BlockAttnPlan(tt.bigbird_block_mask(256, 32, 3, 1, 1), 32, 32, 256)
+    if name == "maskfree_unpadded_160_b64":
+        return bfa.BlockAttnPlan(np.ones((3, 3), bool), 64, 64, 160)
+    s, bq, bk, window, glob = {
+        "band_masked_256_b64": (256, 64, 64, 20, 3),
+        "band_masked_unpadded_160_b64x32": (160, 64, 32, 20, 3),
+        "band_masked_512_b128x256": (512, 128, 256, 40, 2),
+        "band_masked_1024_b256": (1024, 256, 256, 64, 0),
+    }[name]
+    ind, ptr = tt.local_global_pattern(s, window, glob)
+    return bfa.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk)
+
+
+BLK_CASES = {  # name: (bh, d)
+    "bigbird_512_b64": (4, 64),
+    "bigbird_256_b32": (2, 128),
+    "maskfree_unpadded_160_b64": (3, 40),
+    "band_masked_256_b64": (3, 64),
+    "band_masked_unpadded_160_b64x32": (2, 24),
+    "band_masked_512_b128x256": (2, 128),
+    "band_masked_1024_b256": (2, 64),
+}
+
+
+def _blk_args(name, device, dtype):
+    plan = _blk_plan(name)
+    bh, d = BLK_CASES[name]
+    rng = np.random.default_rng(len(name))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, plan.seq, d)).astype(np.float32))
+                   .to(device, dtype) for _ in range(4))
+    return q, k, v, do, plan, dict(sm_scale=1 / d ** 0.5)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", sorted(BLK_CASES))
+def test_block_flash_kernels_match_plain(cuda, name, dtype, precision):
+    q, k, v, do, plan, kw = _blk_args(name, cuda, dtype)
+    kw["precision"] = precision
+    bfa.reset_launch_counts()
+    o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+    delta = (do.float() * o.float()).sum(-1).to(dtype).float()
+    dq = bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw)
+    dk, dv = bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw)
+    torch.cuda.synchronize()
+    assert bfa.launch_counts() == {"blk_flash_fwd": 1, "blk_flash_dq": 1, "blk_flash_dkv": 1}
+    po, plse = bfa._blk_fwd_plain(q, k, v, plan, **kw)
+    pdq = bfa._blk_dq_plain(q, k, v, do, lse, delta, plan, **kw)
+    pdk, pdv = bfa._blk_dkv_plain(q, k, v, do, lse, delta, plan, **kw)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, plse, **TOL)
+    rounded = dtype == torch.bfloat16 or precision == "default"
+    for gname, got, want in (("o", o, po), ("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
+        if rounded:
+            assert _over_scale(got, want) < FLASH_ROUNDED_LIMIT, gname
+        else:
+            torch.testing.assert_close(got, want, **TOL, msg=gname)
+
+
+def test_block_flash_backward_repeats_bit_for_bit(cuda):
+    q, k, v, do, plan, kw = _blk_args("band_masked_512_b128x256", cuda, torch.float32)
+    o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+    delta = (do * o).sum(-1)
+    runs = [(bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw),
+             *bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_block_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v, do, plan, kw = _blk_args("band_masked_256_b64", cuda, torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        bfa.blk_flash_fwd_kernel(q.half(), k.half(), v.half(), plan, **kw)
+    with pytest.raises(ValueError, match="same device"):
+        bfa.blk_flash_fwd_kernel(q, k.cpu(), v, plan, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bfa.blk_flash_fwd_kernel(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, plan,
+                                 **kw)
+    with pytest.raises(ValueError, match="plan is for seq 256"):
+        bfa.blk_flash_fwd_kernel(q[:, :128].contiguous(), k[:, :128].contiguous(),
+                                 v[:, :128].contiguous(), plan, **kw)
+    wide = torch.zeros(1, 256, 160, device=cuda)
+    with pytest.raises(ValueError, match="largest the kernels take is 128"):
+        bfa.blk_flash_fwd_kernel(wide, wide, wide, plan, **kw)
+
+
+@pytest.mark.parametrize("attention,force", [("bigbird", None), ("sparse", "blockflash")])
+def test_pattern_layer_train_step_on_card_matches_cpu(cuda, attention, force):
+    """A BERT layer ('bigbird', or 'sparse' forced onto the block kernels;
+    hidden 96, 4 heads, window 32) SGD step on the card and on the CPU from
+    one seed: 1 launch of each block kernel, none of the flash kernels, and
+    the same loss and parameters."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 256, 96)).astype(np.float32))
+    layers = {d: tt.BertAttentionLayer(96, 4, 192, attention, window=32, device=d,
+                                       generator=torch.Generator().manual_seed(0))
+              for d in ("cpu", cuda)}
+    if force:
+        for layer in layers.values():
+            layer.attention.method = force
+    opts = {d: tt.make_train_state(m) for d, m in layers.items()}
+    kernels.reset_launch_counts()
+    got = tt.bert_train_step(layers[cuda], opts[cuda], x.to(cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launches_by_kernel()
+    assert {n: counts[n] for n in {**NO_FLASH, **NO_BLK}} == {
+        **NO_FLASH, "blk_flash_fwd": 1, "blk_flash_dq": 1, "blk_flash_dkv": 1}
     want = tt.bert_train_step(layers["cpu"], opts["cpu"], x)
     torch.testing.assert_close(got.cpu(), want, **TOL)
     for (name, p), (_, q) in zip(layers[cuda].named_parameters(), layers["cpu"].named_parameters()):

@@ -20,8 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
 
 
 def test_import_and_cpu_forward_load_no_jax():
-    """The MLP forward and a BERT encoder's forward and SGD step on the CPU,
-    in a fresh interpreter, load no forbidden module."""
+    """The MLP forward, a BERT encoder's forward and SGD step, and a
+    'bigbird' encoder's SGD step on the CPU, in a fresh interpreter, load no
+    forbidden module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
@@ -33,6 +34,11 @@ def test_import_and_cpu_forward_load_no_jax():
         "opt = tt.make_train_state(enc)\n"
         "loss = tt.bert_train_step(enc, opt, ids)\n"
         "assert enc(ids).shape == (2, 40, 48) and torch.isfinite(loss)\n"
+        "bb = tt.BertEncoder(2, 48, 4, 96, 100, 64, attention='bigbird', window=32,\n"
+        "                    device='cpu')\n"
+        "ids = torch.randint(0, 100, (2, 64))\n"
+        "loss = tt.bert_train_step(bb, tt.make_train_state(bb), ids)\n"
+        "assert torch.isfinite(loss)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -72,6 +78,12 @@ ENTRY_POINTS = {
     "SelfAttention": lambda: tt.SelfAttention(2, 4, hidden=8),
     "BertAttentionLayer": lambda: tt.BertAttentionLayer(8, 2, 16, "flash"),
     "BertEncoder": lambda: tt.BertEncoder(1, 8, 2, 16, 10, 8),
+    "BertAttentionLayer.bigbird": lambda: tt.BertAttentionLayer(8, 2, 16, "bigbird"),
+    "BertAttentionLayer.sparse": lambda: tt.BertAttentionLayer(8, 2, 16, "sparse"),
+    "BertAttentionLayer.local": lambda: tt.BertAttentionLayer(8, 2, 16, "local"),
+    "LocalAttention": lambda: tt.LocalAttention(2, 4, hidden=8),
+    "SparseSelfAttention": lambda: tt.SparseSelfAttention(2, 4, hidden=8),
+    "BigBirdAttention": lambda: tt.BigBirdAttention(2, 4, hidden=8),
     "LayerNorm": lambda: tt.LayerNorm(8),
     "Embed": lambda: tt.Embed(10, 8),
     "CSR.from_dense": lambda: tt.CSR.from_dense(np.eye(3, dtype=np.float32)),

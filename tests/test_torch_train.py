@@ -142,7 +142,8 @@ def test_cpu_train_step_launches_no_kernel():
                       torch.from_numpy(labels[0]))
         assert kernels.launches_by_kernel() == {
             "block_ell_spmm": 0, "sddmm": 0, "gemm": 0,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -6,8 +6,11 @@ dB of the backward through the transpose plan), the block-pattern SDDMM
 (`csrc/sddmm.cu`, the dA) and the dense GEMM (`csrc/gemm.cu`, the dense
 ops when `use_gemm_kernel` is set). The BERT-base attention layer and
 encoder train and serve with attention='flash' on the fused attention
-kernels (`csrc/flash_attention.cu`: forward, dq, dk/dv) or with
-attention='dense' on the dense ops. Tensors on the CPU take the plain
+kernels (`csrc/flash_attention.cu`: forward, dq, dk/dv), with
+attention='dense' on the dense ops, and with the pattern variants 'bigbird'
+and 'sparse' on the block-pattern attention kernels
+(`csrc/block_flash_attention.cu`: forward, dq, dk/dv) where their pattern
+routes there, or 'local' on the dense einsums. Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
@@ -15,7 +18,7 @@ against; nothing here imports it.
 
 from tpusparse_torch import dense, kernels, ops
 from tpusparse_torch.convert import load_flax_params, to_flax_params
-from tpusparse_torch.dense import bmm, matmul
+from tpusparse_torch.dense import bmm, einsum, matmul
 from tpusparse_torch.models import (
     BertAttentionLayer,
     BertEncoder,
@@ -27,16 +30,30 @@ from tpusparse_torch.models import (
     train_epoch,
     train_step,
 )
+from tpusparse_torch.kernels.block_flash_attention import (
+    BlockAttnPlan,
+    block_flash_attention,
+    block_flash_attention_bwd,
+    block_flash_attention_diff,
+)
 from tpusparse_torch.nn import (
+    BigBirdAttention,
     BlockSparseLinear,
     DenseLinear,
     Embed,
     LayerNorm,
+    LocalAttention,
     Pattern,
     SelfAttention,
     SparseLinear,
+    SparseSelfAttention,
+    bigbird_block_mask,
+    bigbird_pattern,
+    local_global_pattern,
+    route_sparse_attention,
 )
 from tpusparse_torch.ops import (
+    gather_spmm,
     mm,
     resident_spmm,
     sddmm,
@@ -69,19 +86,28 @@ from tpusparse_torch.utils.config import get_config, resolve_device, set_config
 __all__ = [
     "BertAttentionLayer",
     "BertEncoder",
+    "BigBirdAttention",
+    "BlockAttnPlan",
     "BlockSparseLinear",
     "COO",
     "CSR",
     "DenseLinear",
     "Embed",
     "LayerNorm",
+    "LocalAttention",
     "MnistNet",
     "Pattern",
     "Plan",
     "SelfAttention",
     "SparseLinear",
+    "SparseSelfAttention",
     "bert_loss",
     "bert_train_step",
+    "bigbird_block_mask",
+    "bigbird_pattern",
+    "block_flash_attention",
+    "block_flash_attention_bwd",
+    "block_flash_attention_diff",
     "block_transpose_plan",
     "bmm",
     "build_plan",
@@ -90,9 +116,12 @@ __all__ = [
     "coo_to_csr",
     "csr_to_coo",
     "dense",
+    "einsum",
+    "gather_spmm",
     "get_config",
     "kernels",
     "load_flax_params",
+    "local_global_pattern",
     "make_train_state",
     "matmul",
     "mm",
@@ -102,6 +131,7 @@ __all__ = [
     "random_csr",
     "resident_spmm",
     "resolve_device",
+    "route_sparse_attention",
     "sddmm",
     "sddmm_reference",
     "set_config",

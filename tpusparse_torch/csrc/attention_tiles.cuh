@@ -1,0 +1,162 @@
+// Tile helpers shared by the fused attention kernels (flash_attention.cu,
+// block_flash_attention.cu) for NVIDIA Hopper (sm_90a).
+//
+// One thread block of NT = 256 threads works on a 64-row tile of queries (or
+// keys) against a 64-row tile of the other operand. Each thread owns a 4x4
+// piece of the 64x64 score tile, rows ty + 16a and columns tx + 16j with
+// (ty, tx) = (threadIdx.x / 16, threadIdx.x % 16), so a row's reductions are
+// shuffles inside one half-warp, and the 16-byte shared loads of both
+// operands are free of bank conflicts. Operand tiles are staged row-major in
+// shared memory as fp32, rows padded to DMAX + 4; probability tiles to
+// LDP. Everything here is fp32 FFMA, never TF32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace attn {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // key rows per tile
+constexpr int NT = 256;       // threads per block: 16 x 16
+constexpr int LDP = BK + 4;   // padded row of a p / dS tile
+constexpr float NEG = -1e30f;  // the TPU kernels' masked score
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float rnd_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool ROUND>
+__device__ __forceinline__ float tier(float x) {
+  if constexpr (ROUND) {
+    return rnd_bf16(x);
+  } else {
+    return x;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Rows [r0, r0 + 64) of a (s, d) row-major matrix into a (64, DMAX + 4)
+// shared tile, each value times `scale` and then rounded by the tier; rows
+// at or past `s` (the caller's row bound) and columns past d are 0.
+template <int DMAX, bool ROUND, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
+                                          int s, int d, float scale) {
+  constexpr int LD = DMAX + 4;
+  for (int e = threadIdx.x; e < 64 * DMAX; e += NT) {
+    const int r = e / DMAX, c = e % DMAX;
+    float x = 0.f;
+    if (r0 + r < s && c < d) x = tier<ROUND>(to_f32(src[static_cast<size_t>(r0 + r) * d + c]) * scale);
+    dst[r * LD + c] = x;
+  }
+}
+
+// acc[a][j] += sum_k A[ty + 16a][k] * B[tx + 16j][k] over k < kd (a multiple
+// of 4): both operands row-major, contracted along their rows.
+template <int LD>
+__device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* A, const float* B,
+                                       int kd, int ty, int tx) {
+  for (int k = 0; k < kd; k += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + k]);
+      b[i] = *reinterpret_cast<const float4*>(&B[(tx + 16 * i) * LD + k]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// acc[a][4g + c] += sum_j P[ty + 16a][j] * B[j][64g + 4tx + c] over j < 64:
+// P a (64, 64) tile with rows of LDP, B a (64, DMAX) tile with rows of
+// DMAX + 4.
+template <int DMAX>
+__device__ __forceinline__ void mma_nn(float (&acc)[4][DMAX / 16], const float* P,
+                                       const float* B, int ty, int tx) {
+  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  for (int j = 0; j < BK; j += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(&P[(ty + 16 * i) * LDP + j]);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 b = *reinterpret_cast<const float4*>(&B[(j + jj) * LD + 64 * g + 4 * tx]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pv = comp(p[i], jj);
+          acc[i][4 * g + 0] = fmaf(pv, b.x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(pv, b.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(pv, b.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(pv, b.w, acc[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
+
+// The kernel instance with its dynamic shared memory allowed above 48 KB,
+// launched on `stream`; returns cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, NT, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls FN<DMAX, ROUND, T>(args...) for the instance that serves
+// (dtype, d, round_bf16): bf16 inputs always round (their p and dS are
+// rounded to bf16 in every tier, as on the TPU's non-3-pass tiers).
+#define ATTN_DISPATCH(FN, ...)                                                   \
+  do {                                                                           \
+    if (dtype == 0 && !round_bf16) {                                             \
+      return d <= 64 ? FN<64, false, float>(__VA_ARGS__)                         \
+                     : FN<128, false, float>(__VA_ARGS__);                       \
+    }                                                                            \
+    if (dtype == 0) {                                                            \
+      return d <= 64 ? FN<64, true, float>(__VA_ARGS__)                          \
+                     : FN<128, true, float>(__VA_ARGS__);                        \
+    }                                                                            \
+    if (dtype == 1) {                                                            \
+      return d <= 64 ? FN<64, true, __nv_bfloat16>(__VA_ARGS__)                  \
+                     : FN<128, true, __nv_bfloat16>(__VA_ARGS__);                \
+    }                                                                            \
+    return static_cast<int>(cudaErrorInvalidValue);                              \
+  } while (0)
+
+}  // namespace attn

@@ -52,125 +52,16 @@
 // same rows, so the row max and sum of the online softmax are four
 // shuffles inside a half-warp and the rescale touches only registers.
 // Tiles are staged row-major with padded rows; the score loop runs over d
-// rounded up to 4, not DMAX. Double-buffered staging (cp.async or TMA),
+// rounded up to 4, not DMAX. The tile helpers live in attention_tiles.cuh,
+// shared with the block-pattern kernels. Double-buffered staging (cp.async or TMA),
 // tensor cores (3xTF32 or bf16 wgmma) and a persistent schedule are later
 // work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int NT = 256;       // threads per block: 16 x 16
-constexpr int LDP = BK + 4;   // padded row of a p / dS tile
-constexpr float NEG = -1e30f;  // the TPU kernel's masked score
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float rnd_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool ROUND>
-__device__ __forceinline__ float tier(float x) {
-  if constexpr (ROUND) {
-    return rnd_bf16(x);
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rows [r0, r0 + 64) of a (s, d) row-major matrix into a (64, DMAX + 4)
-// shared tile, each value times `scale` and then rounded by the tier; rows
-// past s and columns past d are 0.
-template <int DMAX, bool ROUND, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
-                                          int s, int d, float scale) {
-  constexpr int LD = DMAX + 4;
-  for (int e = threadIdx.x; e < 64 * DMAX; e += NT) {
-    const int r = e / DMAX, c = e % DMAX;
-    float x = 0.f;
-    if (r0 + r < s && c < d) x = tier<ROUND>(to_f32(src[static_cast<size_t>(r0 + r) * d + c]) * scale);
-    dst[r * LD + c] = x;
-  }
-}
-
-// acc[a][j] += sum_k A[ty + 16a][k] * B[tx + 16j][k] over k < kd (a multiple
-// of 4): both operands row-major, contracted along their rows.
-template <int LD>
-__device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* A, const float* B,
-                                       int kd, int ty, int tx) {
-  for (int k = 0; k < kd; k += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + k]);
-      b[i] = *reinterpret_cast<const float4*>(&B[(tx + 16 * i) * LD + k]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[a][4g + c] += sum_j P[ty + 16a][j] * B[j][64g + 4tx + c] over j < 64:
-// P a (64, 64) tile with rows of LDP, B a (64, DMAX) tile with rows of
-// DMAX + 4.
-template <int DMAX>
-__device__ __forceinline__ void mma_nn(float (&acc)[4][DMAX / 16], const float* P,
-                                       const float* B, int ty, int tx) {
-  constexpr int LD = DMAX + 4, G = DMAX / 64;
-  for (int j = 0; j < BK; j += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(&P[(ty + 16 * i) * LDP + j]);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 b = *reinterpret_cast<const float4*>(&B[(j + jj) * LD + 64 * g + 4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pv = comp(p[i], jj);
-          acc[i][4 * g + 0] = fmaf(pv, b.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pv, b.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pv, b.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pv, b.w, acc[i][4 * g + 3]);
-        }
-      }
-    }
-  }
-}
+using namespace attn;
 
 // Number of k-tiles a q-tile starting at row q0 visits: all of them, or
 // under causal masking those up to the last key its last row can see.
@@ -453,17 +344,6 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   }
 }
 
-// The kernel instance for (DMAX, ROUND, T) with its dynamic shared memory
-// allowed above 48 KB, launched on `stream`; returns cudaGetLastError().
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, NT, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool bad_shape(int bh, int s, int d) {
   return bh <= 0 || s <= 0 || d <= 0 || d > 128 || bh > 65535 ||
          static_cast<long long>(bh) * s * d > (1LL << 40);
@@ -503,26 +383,6 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout, con
                 d, scale_q, causal, q_off, kv_off);
 }
 
-// Calls F<DMAX, ROUND, T>::run(args...) for the instance that serves
-// (dtype, d, round_bf16): bf16 inputs always round (their p and dS are
-// rounded to bf16 in every tier, as on the TPU's non-3-pass tiers).
-#define FLASH_DISPATCH(FN, ...)                                                  \
-  do {                                                                           \
-    if (dtype == 0 && !round_bf16) {                                             \
-      return d <= 64 ? FN<64, false, float>(__VA_ARGS__)                         \
-                     : FN<128, false, float>(__VA_ARGS__);                       \
-    }                                                                            \
-    if (dtype == 0) {                                                            \
-      return d <= 64 ? FN<64, true, float>(__VA_ARGS__)                          \
-                     : FN<128, true, float>(__VA_ARGS__);                        \
-    }                                                                            \
-    if (dtype == 1) {                                                            \
-      return d <= 64 ? FN<64, true, __nv_bfloat16>(__VA_ARGS__)                  \
-                     : FN<128, true, __nv_bfloat16>(__VA_ARGS__);                \
-    }                                                                            \
-    return static_cast<int>(cudaErrorInvalidValue);                              \
-  } while (0)
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. dtype codes: 0 = float32,
@@ -538,7 +398,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(fwd_typed, q, k, v, o, lse, bh, s, d, scale_q, causal, q_off, kv_off, st);
+  ATTN_DISPATCH(fwd_typed, q, k, v, o, lse, bh, s, d, scale_q, causal, q_off, kv_off, st);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -549,7 +409,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, bh, s, d, scale_q, sm_scale, causal,
+  ATTN_DISPATCH(dq_typed, q, k, v, dout, lse, delta, dq, bh, s, d, scale_q, sm_scale, causal,
                  q_off, kv_off, st);
 }
 
@@ -561,6 +421,6 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dkv_typed, q, k, v, dout, lse, delta, dk, dv, bh, s, d, scale_q, causal, q_off,
+  ATTN_DISPATCH(dkv_typed, q, k, v, dout, lse, delta, dk, dv, bh, s, d, scale_q, causal, q_off,
                  kv_off, st);
 }

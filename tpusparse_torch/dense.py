@@ -1,6 +1,7 @@
-"""Dense matmul: transpose flags, 1-D, 2-D, batched and mixed-rank operands.
+"""Dense matmul: transpose flags, 1-D, 2-D, batched and mixed-rank operands,
+and the two-operand fp32 einsum.
 
-Counterpart of `tpusparse/dense.py:100-159`. As in the JAX package
+Counterpart of `tpusparse/dense.py:78-159`. As in the JAX package
 (dense.py:129-133), a 2-D product goes to the hand-written GEMM kernel
 (`kernels/gemm.py`, `csrc/gemm.cu`) when `use_kernel` or the config's
 `use_gemm_kernel` asks for it, and otherwise to the framework's own
@@ -41,6 +42,16 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             return torch.matmul(a, b).to(out_dtype)
     with fp32_matmul():
         return torch.matmul(a, b)
+
+
+def einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two-operand einsum at the config's tier with an fp32 result (JAX's
+    `preferred_element_type=float32`): TF32 off, and the 'default' tier
+    rounds both operands to bf16 first."""
+    if resolve_precision(None) == "default":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    with fp32_matmul():
+        return torch.einsum(spec, a.float(), b.float())
 
 
 def matmul(

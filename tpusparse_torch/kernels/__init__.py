@@ -1,4 +1,17 @@
-from tpusparse_torch.kernels import flash_attention, gemm, sddmm, tiled_spmm
+from tpusparse_torch.kernels import (
+    block_flash_attention,
+    flash_attention,
+    gemm,
+    sddmm,
+    tiled_spmm,
+)
+from tpusparse_torch.kernels.block_flash_attention import (
+    BlockAttnPlan,
+    blk_flash_dkv_kernel,
+    blk_flash_dq_kernel,
+    blk_flash_fwd_kernel,
+    block_flash_attention_diff,
+)
 from tpusparse_torch.kernels.flash_attention import (
     flash_attention_diff,
     flash_dkv_kernel,
@@ -9,13 +22,15 @@ from tpusparse_torch.kernels.gemm import gemm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
 from tpusparse_torch.kernels.tiled_spmm import resident_spmm_kernel, tiled_spmm_kernel
 
-_MODULES = (tiled_spmm, sddmm, gemm, flash_attention)
+_MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention)
 
 
 def launch_counts() -> dict:
     """Kernel launches per entry point of every kernel since the last reset:
     'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu), 'sddmm',
-    'gemm', and 'flash_fwd', 'flash_dq', 'flash_dkv' (csrc/flash_attention.cu)."""
+    'gemm', 'flash_fwd', 'flash_dq', 'flash_dkv' (csrc/flash_attention.cu), and
+    'blk_flash_fwd', 'blk_flash_dq', 'blk_flash_dkv'
+    (csrc/block_flash_attention.cu)."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -24,8 +39,8 @@ def launch_counts() -> dict:
 
 def launches_by_kernel() -> dict:
     """`launch_counts()` summed per CUDA kernel: 'block_ell_spmm' (both
-    executor entry points), 'sddmm', 'gemm', 'flash_fwd', 'flash_dq' and
-    'flash_dkv'."""
+    executor entry points), 'sddmm', 'gemm', 'flash_fwd', 'flash_dq',
+    'flash_dkv', 'blk_flash_fwd', 'blk_flash_dq' and 'blk_flash_dkv'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"), **c}
 
@@ -36,6 +51,12 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "BlockAttnPlan",
+    "blk_flash_dkv_kernel",
+    "blk_flash_dq_kernel",
+    "blk_flash_fwd_kernel",
+    "block_flash_attention",
+    "block_flash_attention_diff",
     "flash_attention",
     "flash_attention_diff",
     "flash_dkv_kernel",

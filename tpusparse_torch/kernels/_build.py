@@ -3,8 +3,9 @@
 Each source under `tpusparse_torch/csrc/` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface and loaded with
 ctypes. The build runs at first use, into `build/tpusparse_torch/` at the
-repo root (listed in `.gitignore`), and is redone when the source's hash
-changes. Several sources are compiled by parallel `nvcc` processes.
+repo root (listed in `.gitignore`), and is redone when the hash of the
+source or of a shared header (`csrc/*.cuh`) changes. Several sources are
+compiled by parallel `nvcc` processes.
 Nothing here runs at import time: the CPU tests import every module and
 have no `nvcc`.
 """
@@ -18,13 +19,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpusparse_torch"
 # every CUDA source of the port, by name (csrc/<name>.cu)
-SOURCES = ("block_ell_spmm", "sddmm", "gemm", "flash_attention")
+SOURCES = ("block_ell_spmm", "sddmm", "gemm", "flash_attention", "block_flash_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -52,7 +53,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -95,3 +97,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _LOADED[name] = lib
         return lib
+
+
+def bind(name: str, argtypes: Dict[str, list]) -> Dict[str, Callable]:
+    """The C entry points of csrc/<name>.cu, by name, with their ctypes
+    argument types; each returns an int (0 = launched)."""
+    lib = load(name)
+    fns = {}
+    for fn_name, types in argtypes.items():
+        fn = getattr(lib, fn_name)
+        fn.restype, fn.argtypes = ctypes.c_int, types
+        fns[fn_name] = fn
+    return fns

@@ -226,22 +226,14 @@ def _kernel_fns() -> dict:
     """The C entry points of csrc/flash_attention.cu, built on first use."""
     from tpusparse_torch.kernels import _build
 
-    lib = _build.load(KERNEL)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # pointers..., dtype, bh, s, d, scale_q, [sm_scale,] causal, q_off,
     # kv_off, round_bf16, device, stream
-    argtypes = {
+    return _build.bind(KERNEL, {
         "flash_fwd": [p] * 5 + [i, i, i, i, f, i, i, i, i, i, p],
         "flash_dq": [p] * 7 + [i, i, i, i, f, f, i, i, i, i, i, p],
         "flash_dkv": [p] * 8 + [i, i, i, i, f, i, i, i, i, i, p],
-    }
-    fns = {}
-    for name, types in argtypes.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = types
-        fns[name] = fn
-    return fns
+    })
 
 
 # ----------------------------------------------------------------------------

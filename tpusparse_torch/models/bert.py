@@ -9,10 +9,12 @@ for their seeded init.
 
 attention='dense' is the reference workload (the score product on the
 dense ops), 'flash' runs the fused attention kernels. The pattern variants
-'local', 'sparse' and 'bigbird' are not ported yet (ROADMAP queue 1,
-item 12): they raise `NotImplementedError` where the JAX layer would run
-them, after the same mask check. Their knobs (`window`, `num_global`) come
-with them.
+carry their masking in their pattern and refuse a user mask, as in JAX:
+'local' is `LocalAttention` with the band `window`; 'sparse' is
+`SparseSelfAttention` over `local_global_pattern(seq, window, num_global)`,
+routed to its engine by `route_sparse_attention`; 'bigbird' is
+`BigBirdAttention` with `block=window` (tpusparse/models/bert.py:62-70), on
+the block-pattern kernels.
 
 The training step is the JAX benchmark's (benchmarks/bert_attention_
 benchmark.py:42-51): loss = mean(out²), SGD with lr 0.01 and momentum 0.9
@@ -27,15 +29,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpusparse_torch.nn.attention import SelfAttention
+from tpusparse_torch.nn.attention import (
+    BigBirdAttention,
+    LocalAttention,
+    SelfAttention,
+    SparseSelfAttention,
+)
 from tpusparse_torch.nn.layers import DenseLinear, Embed, LayerNorm
 
-PORTED = ("dense", "flash")
 PATTERN_VARIANTS = ("local", "sparse", "bigbird")
 
 
 def _check_variant(attention: str) -> None:
-    if attention not in PORTED + PATTERN_VARIANTS:
+    if attention not in ("dense", "flash") + PATTERN_VARIANTS:
         raise ValueError(
             f"unknown attention {attention!r}; options: "
             "'dense', 'flash', 'local', 'sparse', 'bigbird'"
@@ -46,33 +52,42 @@ class BertAttentionLayer(nn.Module):
     """Attention block: MHSA + residual/LN + FFN (tanh GELU) + residual/LN."""
 
     def __init__(self, hidden: int = 768, num_heads: int = 12,
-                 intermediate: int = 3072, attention: str = "dense", *, device=None,
+                 intermediate: int = 3072, attention: str = "dense", window: int = 64,
+                 num_global: int = 0, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_variant(attention)
         self.attention_kind = attention
+        head_dim = hidden // num_heads
         kw = dict(device=device, generator=generator)
-        if attention in PORTED:
-            self.attention = SelfAttention(
-                num_heads, hidden // num_heads, fused=attention == "flash",
-                hidden=hidden, **kw)
+        if attention == "local":
+            self.attention = LocalAttention(num_heads, head_dim, window=window, hidden=hidden,
+                                            **kw)
+        elif attention == "sparse":
+            self.attention = SparseSelfAttention(num_heads, head_dim, window=window,
+                                                 num_global=num_global, hidden=hidden, **kw)
+        elif attention == "bigbird":
+            self.attention = BigBirdAttention(num_heads, head_dim, block=window, hidden=hidden,
+                                              **kw)
+        else:
+            self.attention = SelfAttention(num_heads, head_dim, fused=attention == "flash",
+                                           hidden=hidden, **kw)
         self.ln1 = LayerNorm(hidden, device=device)
         self.ffn_in = DenseLinear(hidden, intermediate, **kw)
         self.ffn_out = DenseLinear(intermediate, hidden, **kw)
         self.ln2 = LayerNorm(hidden, device=device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if mask is not None and self.attention_kind in PATTERN_VARIANTS:
-            raise ValueError(
-                f"attention={self.attention_kind!r} does not accept a mask "
-                "(its sparsity pattern IS the mask); use 'dense'"
-            )
         if self.attention_kind in PATTERN_VARIANTS:
-            raise NotImplementedError(
-                f"attention={self.attention_kind!r} is not ported; the pattern "
-                "variants come with ROADMAP queue 1, item 12"
-            )
-        x = self.ln1(x + self.attention(x, mask))
+            if mask is not None:
+                raise ValueError(
+                    f"attention={self.attention_kind!r} does not accept a mask "
+                    "(its sparsity pattern IS the mask); use 'dense'"
+                )
+            attn = self.attention(x)
+        else:
+            attn = self.attention(x, mask)
+        x = self.ln1(x + attn)
         h = F.gelu(self.ffn_in(x), approximate="tanh")  # flax nn.gelu is the tanh form
         return self.ln2(x + self.ffn_out(h))
 
@@ -83,7 +98,8 @@ class BertEncoder(nn.Module):
 
     def __init__(self, num_layers: int = 12, hidden: int = 768, num_heads: int = 12,
                  intermediate: int = 3072, vocab_size: int = 30522,
-                 max_position: int = 512, attention: str = "dense", *, device=None,
+                 max_position: int = 512, attention: str = "dense", window: int = 64,
+                 num_global: int = 0, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_variant(attention)
@@ -94,7 +110,7 @@ class BertEncoder(nn.Module):
         self.emb_ln = LayerNorm(hidden, device=device)
         for i in range(num_layers):
             self.add_module(f"layer{i}", BertAttentionLayer(
-                hidden, num_heads, intermediate, attention, **kw))
+                hidden, num_heads, intermediate, attention, window, num_global, **kw))
 
     def forward(self, input_ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

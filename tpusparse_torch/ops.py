@@ -4,7 +4,8 @@ Counterpart of `tpusparse/ops.py` l.59-100 (dense `mm` family, same-rank
 operands of any rank ≥ 2), l.108-163 (`_block_exec`, `_tiled_spmm` with its
 backward), l.228-269 (`resident_spmm`), l.332-455 (`tiled_spmm`,
 `spmm_blocks` with its backward), l.605 (`_check_spmm_b`), l.831-867
-(`sddmm`) and l.1173-1311 (`spmm`), the SpMM ops for 2-D operands.
+(`sddmm`), l.504-534 and l.616 (`gather_spmm`) and l.1173-1311 (`spmm`),
+the SpMM ops for 2-D operands.
 
 Every op is a `torch.autograd.Function` whose backward runs on the port's
 kernels, with the JAX package's gradient algebra:
@@ -15,6 +16,9 @@ kernels, with the JAX package's gradient algebra:
                     dB = Aᵀ·dC on the block executor through the transpose
                     plan (`build_plan_pair` or `block_transpose_plan`)
   sddmm             dX and dY through `spmm_reference`
+  gather_spmm       d_data = per-nonzero g[row]·b[col], dB a scatter-add
+                    (XLA take/scatter-add in JAX, index_select/index_add_
+                    here: no Pallas kernel on either side)
 
 A backward skips the products whose input needs no gradient
 (`ctx.needs_input_grad`): a layer whose input is the data launches no dB.
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpusparse_torch import dense
@@ -46,7 +51,7 @@ from tpusparse_torch.types import (
 _UNPORTED_METHODS = {
     "auto": "the cost-model router _route_spmm (ROADMAP queue 1, item 5)",
     "footprint": "the footprint executor (ROADMAP queue 1, item 5; queue 2, row 8)",
-    "gather": "gather_spmm (ROADMAP queue 1, item 5)",
+    "gather": "spmm's 'gather' route to ops.gather_spmm (ROADMAP queue 1, item 5)",
     "dense": "the densify path (ROADMAP queue 1, item 5)",
     "naive": "naive_spmm (ROADMAP queue 1, item 5; queue 2, row 10)",
     "dia": "the DIA path (ROADMAP queue 1, item 11)",
@@ -241,6 +246,45 @@ def spmm_blocks(plan: Plan, blocks: torch.Tensor, b: torch.Tensor) -> torch.Tens
     `b`."""
     _only_2d("spmm_blocks", b)
     return _BlocksSpmm.apply(plan, blocks, b)
+
+
+class _GatherSpmm(torch.autograd.Function):
+    """C = A @ B by row gather and scatter-add over A's nonzeros; backward
+    as `_gather_spmm_bwd`, tpusparse/ops.py:522-531."""
+
+    @staticmethod
+    def forward(ctx, m, data, indices, rows, b):
+        ctx.save_for_backward(data, indices, rows, b)
+        out_dtype = torch.promote_types(data.dtype, b.dtype)
+        contrib = b.index_select(0, indices) * data[:, None]
+        out = torch.zeros((m, b.shape[1]), dtype=out_dtype, device=b.device)
+        return out.index_add_(0, rows, contrib.to(out_dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        data, indices, rows, b = ctx.saved_tensors
+        g_rows = g.index_select(0, rows)
+        d_data = db = None
+        if ctx.needs_input_grad[1]:  # dA[t] = g[row_t] · b[col_t]
+            d_data = (g_rows.float() * b.index_select(0, indices).float()).sum(1).to(data.dtype)
+        if ctx.needs_input_grad[4]:
+            db = torch.zeros_like(b).index_add_(0, indices, (data[:, None] * g_rows).to(b.dtype))
+        return None, d_data, None, None, db
+
+
+def gather_spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
+    """Gather/scatter-add SpMM, differentiable in `a.data` and `b`: moves
+    exactly nnz·n elements. A 3-D `b` (batch, k, n) is folded into one 2-D
+    product along its columns."""
+    _check_spmm_b(a, b)
+    if b.ndim == 3:
+        batch, k, n = b.shape
+        out = gather_spmm(a, b.transpose(0, 1).reshape(k, batch * n))
+        return out.reshape(-1, batch, n).transpose(0, 1)
+    dev = b.device
+    indices = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
+    rows = torch.from_numpy(a.row_ids().astype(np.int64)).to(dev)
+    return _GatherSpmm.apply(a.shape[0], a.data, indices, rows, b)
 
 
 def spmm(
