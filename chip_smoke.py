@@ -5,8 +5,8 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the five CUDA sources from the repo (one nvcc per source, all
-     started together; sm_90a), with ptxas's report;
+  2. build of the eight CUDA sources from the repo (one nvcc per source,
+     all started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
      (128, 128), empty row-blocks, fp32 'high' and 'default', bf16; both
@@ -25,7 +25,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      patterns at blocks 64, 64x32, 128x256 and 256, s = 160 and 1000 off
      the block, the 'sparse' layer's plan at seq 4096), d from 24 to 128,
      each in fp32 'high', fp32 'default' and bf16, with dq, dk and dv run
-     twice and required bitwise equal;
+     twice and required bitwise equal; the int8 kernels: spmm_int8 at
+     blocksizes (8, 16), (32, 8) and (128, 128) (ragged m, k, n, an empty
+     row-block, pad slots; both entry points bitwise equal to each other
+     and to the plain version), gemm_s8 at (100, 70, 33), (64, 37, 50) and
+     4096^3 (int32 equal), flash_q8 at the flash cases' six shapes with fp32
+     and bf16 q;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -58,6 +63,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
         1 of each block kernel per step) and 'local' with window 128 (no
         kernel), a forward and 3 steps each; and the seq-512 routes at
         batch 8: 'sparse' (routed to 'dense', no kernel) and 'local';
+     h. the int8 serving tier (benchmarks/quant_benchmark.py --full): the
+        headline A as a QuantizedMatrix times B (1 resident spmm_int8
+        launch), a 4096 x 16384 pattern with fewer blocks than
+        block-columns (1 ring launch), quantized_matmul and
+        QuantizedDense.matmul at 4096^3 (1 gemm_s8 each), and quantize_kv +
+        flash_attention_q8 at (8, 16, 512, 64) causal and (2, 12, 4096, 64)
+        (1 flash_q8 each);
+     i. GPT serving at benchmarks/serving_benchmark.py's configuration (24
+        layers, hidden 1024, 16 heads, intermediate 4096, vocab 32000,
+        max_position 512, seeded weights, a 16-token prompt): generate in
+        fp32, bf16 and int8 (quantize_gpt) at batch 1 and 8 for 16 and 96
+        steps, with no kernel launched; the fused=True forward at batch 8,
+        seq 512 with exactly 24 flash_fwd;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -68,7 +86,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the card against the same weights on the CPU: the forward and 3
      steps' losses and parameters (rtol 1e-4, atol 5e-5); the same for a
      full-width 'bigbird' layer and a 'sparse' layer forced onto
-     'blockflash', each at batch 1, seq 512;
+     'blockflash', each at batch 1, seq 512; the int8 headline against
+     float64 on 32 columns and flash_q8 against the fp32 flash forward
+     (< 5e-2); the fused GPT forward against the unfused (< 2e-3); int8
+     against fp32 GPT quality over 24 teacher-forced steps at batch 1 (max
+     logit rel err, top-1 agreement, finite); a full-width QuantizedGPT on
+     the card against the CPU (int8 weights and scales bitwise equal,
+     prefill + 3 decode steps' logits < GPT_CARD_CPU_LIMIT of scale);
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -85,8 +109,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
      4f and 4g, the seq-512 variants' steps queued back to back in turns,
      and the 'flash' and 'bigbird' encoders' times; a torch.profiler trace of the layer's steps at seq 512 ('flash',
      'dense', 'bigbird': device busy and idle share, the kernels that take
-     the most time);
-  7. the `kernels` JSON line, then the device JSON line, last.
+     the most time); the int8 kernels at the main path's shapes against
+     their plain versions, bounds and yardsticks (a bf16 torch.matmul of the
+     dequantized dense A, torch._int_mm, bf16 SDPA), spmm_int8 also with
+     quantize_columns and beside the fp32 block_ell_spmm; GPT ms per token
+     and tokens/s per tier and batch ((96-step - 16-step generate) / 80)
+     against the HBM bound, and the device's busy share of a decode step
+     (torch.profiler kernel time over the per-token time);
+  7. each phase's wall time, the `kernels` JSON line, then the device JSON
+     line, last.
 
 Exits non-zero, printing no result, when no CUDA device is present or the
 package is not beside the script.
@@ -112,6 +143,8 @@ TOL_BF16_OUT = dict(rtol=1e-2, atol=1e-3)
 HEADLINE_TOL = 1e-5  # max |kernel - plain| / max(|plain|, 1)
 # NVIDIA H100 SXM datasheet peaks (dense, at the 700 W limit).
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 TRAIN_STEPS = 20
 PARITY_STEPS = 3
@@ -119,8 +152,9 @@ PARITY_STEPS = 3
 # fc2's dB; both layers' dW; fc1's input is the data, so no dB for it)
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
+NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 # every kernel's count, all 0
-NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK}
+NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8}
 STEP_LAUNCHES = {
     "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
     "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
@@ -189,9 +223,10 @@ def time_ms_queued(fn, reps: int = 20, warmup: int = 3, iters: int = 5) -> float
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    """(bound ms, 'operations' or 'bytes') on the fp32 FFMA and HBM peaks."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
+    """(bound ms, 'operations' or 'bytes') on a compute peak (default the
+    fp32 FFMA one) and the HBM peak."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1036,6 +1071,491 @@ def phase_bert_timings(encoders) -> None:
               f"forward {fwd_ms:.4f} ms, train step {step_ms:.4f} ms")
 
 
+# -- the int8 serving tier ------------------------------------------------------
+
+# int8-against-float quality bounds: the headline against float64
+# (benchmarks/quant_benchmark.py:59) and flash_q8 against the fp32 flash
+# forward (tests/test_attention.py:753)
+INT8_REL_LIMIT = 5e-2
+# the 'sparse' cut of the headline that takes the ring entry point: fewer
+# occupied blocks than block-columns
+RING_SHAPE, RING_FILL = (4096, 16384), 0.005
+Q8_SHAPES = (((8, 16, 512, 64), True), ((2, 12, 4096, 64), False))
+# GPT serving at benchmarks/serving_benchmark.py's configuration (l.27-35)
+GPT = dict(num_layers=24, hidden=1024, num_heads=16, intermediate=4096, vocab_size=32000,
+           max_position=512)
+GPT_PROMPT, GPT_BATCHES, GPT_STEPS = 16, (1, 8), (16, 96)
+GPT_QUALITY_STEPS, GPT_PARITY_STEPS, GPT_FUSED_SEQ = 24, 3, 512
+# QuantizedGPT logits, card against CPU, max-abs error over scale: both sum
+# the same exact bf16 products in fp32, in other orders, and an activation an
+# ulp apart may round to the neighbouring bf16 value (2^-8 of it) before the
+# next product; expected near 1e-3
+GPT_CARD_CPU_LIMIT = 1e-2
+
+
+def phase_small_int8() -> None:
+    """Each int8 kernel against its plain version on the card at small
+    shapes: spmm_int8 (both entry points bitwise equal to each other and to
+    the plain version), gemm_s8 (int32 equal) and flash_q8 (within
+    FLASH_LIMIT_ROUNDED of scale)."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import quant
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.kernels import gemm as gk
+    from tpusparse_torch.kernels import tiled_spmm as tk
+
+    # name, (m, k, n), blocksize, density, empty rows; ragged m, k, n
+    cases = [
+        ("int8_ragged_8x16", (100, 70, 33), (8, 16), 0.15, None),
+        ("int8_ragged_32x8", (100, 70, 130), (32, 8), 0.15, None),
+        ("int8_empty_rowblock_128x128", (300, 260, 200), (128, 128), 0.05, (128, 256)),
+    ]
+    for seed, (name, (m, k, n), bs, dens, empty) in enumerate(cases):
+        a_np, rng = _dense_case(900 + seed, m, k, dens, empty)
+        a = tt.CSR.from_dense(a_np, device="cuda")
+        plan = tt.build_plan(a, bs)
+        qvals, scales = quant.quantize_block_values(plan.pack_values(a.data))
+        b_q, t = quant.quantize_columns(torch.from_numpy(
+            rng.standard_normal((k, n)).astype(np.float32)).cuda())
+        got_r = tk.resident_spmm_int8_kernel(plan, qvals, scales, b_q, t)
+        got_t = tk.tiled_spmm_int8_kernel(plan, qvals, scales, b_q, t)
+        want = tk._block_exec_int8_plain(plan, qvals, scales, b_q, t)
+        torch.cuda.synchronize()
+        pads = int(plan.num_slots - plan.nblocks)
+        ok = (torch.equal(got_r, got_t) and torch.equal(got_r, want)
+              and got_r.shape == (m, n) and bool(torch.isfinite(got_r).all()))
+        print(f"case {name} ({m}, {k}, {n}), {pads} pad slots: entry points bitwise equal "
+              f"to each other and to the plain version: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: spmm_int8 disagrees with its plain version "
+                                 f"(max_abs_err {float((got_r - want).abs().max()):.3e})")
+    rng = np.random.default_rng(950)
+    for m, k, n in ((100, 70, 33), (64, 37, 50), (4096, 4096, 4096)):
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).cuda()
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).cuda()
+        got = gk.gemm_int8_kernel(a, b)
+        ok = got.dtype == torch.int32 and torch.equal(got, gk._gemm_int8_plain(a, b))
+        print(f"case gemm_s8 ({m}, {k}, {n}): int32 equal to the plain version: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"gemm_s8 ({m}, {k}, {n}) disagrees with its plain version")
+    # name, (bh, s, d), causal, q_offset (rows 256:512 of a causal attention
+    # against keys 0:256)
+    q8_cases = [
+        ("2x3x256x64", (6, 256, 64), False, 0),
+        ("causal_1x2x384x64", (2, 384, 64), True, 0),
+        ("ragged_1x1x200x64", (1, 200, 64), False, 0),
+        ("narrow_2x4x128x24", (8, 128, 24), False, 0),
+        ("wide_1x2x128x128", (2, 128, 128), True, 0),
+        ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256),
+    ]
+    for seed, (name, shape, causal, q_off) in enumerate(q8_cases):
+        q, k, v, _ = _flash_operands(shape, 960 + seed)
+        kq, ks, vq, vs = fa.quantize_kv(k, v)
+        kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fa.flash_q8_kernel(q.to(dtype), kq, vq, ks, vs, **kw)
+            want = fa._flash_q8_plain(q.to(dtype), kq, vq, ks, vs, **kw)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)[1]
+            ok = (err <= FLASH_LIMIT_ROUNDED and got.dtype == dtype
+                  and bool(torch.isfinite(got.float()).all()))
+            print(f"case flash_q8_{name}_{str(dtype).split('.')[1]}: o over scale {err:.2e} "
+                  f"(limit {FLASH_LIMIT_ROUNDED:.0e}), {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_q8 {name}: kernel disagrees with its plain version")
+
+
+def _expect(label, counts, expect) -> None:
+    if counts != {**NO_LAUNCH, **expect}:
+        raise AssertionError(f"{label}: launched {counts}, expected {expect} and nothing else")
+
+
+def phase_int8_serving(a, b, c_fp32) -> dict:
+    """The int8 serving tier's main path, each part counted on its own: the
+    headline QuantizedMatrix (1 resident spmm_int8 launch), a pattern with
+    fewer blocks than block-columns (1 ring launch), quantized_matmul and
+    QuantizedDense.matmul at 4096 (1 gemm_s8 each), and quantize_kv +
+    flash_attention_q8 at both serving shapes (1 flash_q8 each); then the
+    checks of their results. Returns what the timings and the kernels line
+    need."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.kernels import tiled_spmm as tk
+    from tpusparse_torch.utils.matrices import block_sparse_csr
+
+    r = {"launches": dict(NO_INT8)}
+
+    def counted(label, fn, expect, entry=None):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launches_by_kernel()
+        _expect(label, counts, expect)
+        if entry is not None and tk.launch_counts()[entry] != 1:
+            raise AssertionError(f"{label}: not through {entry}: {tk.launch_counts()}")
+        for n in NO_INT8:
+            r["launches"][n] += counts[n]
+        print(f"{label}: launches {json.dumps({n: counts[n] for n in expect})}")
+        return out
+
+    t0 = time.perf_counter()
+    qa = tt.QuantizedMatrix(a, (128, 128))
+    torch.cuda.synchronize()
+    print(f"int8 headline set-up (plan + quantize): {time.perf_counter() - t0:.2f} s, "
+          f"nblocks {qa.plan.nblocks}, num_col_blocks {qa.plan.num_col_blocks}")
+    y = counted("int8 headline QuantizedMatrix @ B (16384^2, 10% of 128^2 blocks, n 512)",
+                lambda: qa @ b, {"spmm_int8": 1}, "resident_spmm_int8")
+    ring_a = block_sparse_csr(3, RING_SHAPE, (128, 128), RING_FILL, device="cuda")
+    qr = tt.QuantizedMatrix(ring_a, (128, 128))
+    if not qr.plan.nblocks < qr.plan.num_col_blocks:
+        raise AssertionError("the ring case's pattern re-uses the B panel")
+    yr = counted(f"int8 ring QuantizedMatrix @ B ({RING_SHAPE}, {qr.plan.nblocks} blocks < "
+                 f"{qr.plan.num_col_blocks} block-columns)", lambda: qr @ b,
+                 {"spmm_int8": 1}, "tiled_spmm_int8")
+    g = 4096
+    rng = np.random.default_rng(13)
+    wa, wb = (torch.from_numpy(rng.standard_normal((g, g), dtype=np.float32)).cuda()
+              for _ in range(2))
+    qd = tt.QuantizedDense(wa)
+    ym = counted(f"quantized_matmul {g}^3", lambda: tt.quantized_matmul(wa, wb), {"gemm_s8": 1})
+    yd = counted(f"QuantizedDense.matmul {g}^3", lambda: qd @ wb, {"gemm_s8": 1})
+
+    # -- checks -----------------------------------------------------------------
+    m = a.shape[0]
+    cols = 32
+    with torch.no_grad():
+        a64 = qa.plan.blocks_to_dense(qa.plan.pack_values(a.data)).double()
+        ref = a64 @ b[:, :cols].double()
+        del a64
+    rel64 = rel_err(y[:, :cols].double(), ref)[1]
+    rel32 = rel_err(y, c_fp32)[1]
+    print(f"int8 headline: rel err against float64 on {cols} columns {rel64:.3e} (limit "
+          f"{INT8_REL_LIMIT:.0e}), against the fp32 spmm_blocks {rel32:.3e}")
+    ring_ref = tt.spmm_blocks(qr.plan, qr.plan.pack_values(ring_a.data), b)
+    rel_ring = rel_err(yr, ring_ref)[1]
+    rel_mm = rel_err(ym, wa.double() @ wb.double())[1]
+    rel_d = rel_err(yd, ym)[1]
+    print(f"int8 ring: rel err against the fp32 spmm_blocks {rel_ring:.3e}; quantized_matmul "
+          f"against float64 {rel_mm:.3e}; QuantizedDense against quantized_matmul {rel_d:.1e}")
+    if not (rel64 < INT8_REL_LIMIT and rel_ring < INT8_REL_LIMIT and rel_mm < INT8_REL_LIMIT
+            and rel_d == 0.0 and all(bool(torch.isfinite(x).all()) for x in (y, yr, ym))
+            and y.shape == (m, b.shape[1])):
+        raise AssertionError("the int8 serving tier is outside its error class")
+    del ym, yd, ring_ref
+
+    r["q8"] = {}
+    for shape, causal in Q8_SHAPES:
+        bsz, h, s, d = shape
+        q, k, v, _ = _flash_operands((bsz * h, s, d), 970 + s)
+        q, k, v = (x.view(shape) for x in (q, k, v))
+        kq, ks, vq, vs = counted(f"quantize_kv {shape}", lambda: fa.quantize_kv(k, v), {})
+        o8 = counted(f"flash_attention_q8 {shape} causal={causal}",
+                     lambda: fa.flash_attention_q8(q, kq, ks, vq, vs, causal=causal),
+                     {"flash_q8": 1})
+        of = fa.flash_attention(q, k, v, causal=causal)
+        rel = rel_err(o8, of)[1]
+        print(f"flash_q8 {shape}: rel err against the fp32 flash_fwd {rel:.3e} (limit "
+              f"{INT8_REL_LIMIT:.0e})")
+        if not (rel < INT8_REL_LIMIT and bool(torch.isfinite(o8).all())):
+            raise AssertionError(f"flash_q8 {shape} is outside its error class")
+        r["q8"][shape] = (q, k, v, kq, ks, vq, vs, causal)
+    r.update(qa=qa, y=y, wa=wa, wb=wb, qd=qd)
+    return r
+
+
+def phase_int8_timings(r, plan, bv, b) -> dict:
+    """Times of the three int8 kernels at the main path's shapes, each
+    against its plain version, its bound and one PyTorch call as yardstick;
+    returns the kernels line's rows."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch import quant
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.kernels import gemm as gk
+    from tpusparse_torch.kernels import tiled_spmm as tk
+
+    rows = []
+    # -- spmm_int8 at the headline -------------------------------------------
+    qa = r["qa"]
+    p = qa.plan
+    m, k = p.shape
+    n = b.shape[1]
+    bm, bk = p.blocksize
+    b_q, t = quant.quantize_columns(b)
+    args = (p, qa.qvals, qa.scales, b_q, t)
+    got, want = tk.resident_spmm_int8_kernel(*args), tk._block_exec_int8_plain(*args)
+    err = float((got - want).abs().max())
+    del got, want
+    ms = time_ms_queued(lambda: tk.resident_spmm_int8_kernel(*args))
+    one_ms = time_ms(lambda: tk.resident_spmm_int8_kernel(*args))
+    e2e_ms = time_ms_queued(lambda: qa @ b)
+    plain_ms = time_ms(lambda: tk._block_exec_int8_plain(*args))
+    fp32_ms = time_ms_queued(lambda: tk.resident_spmm_kernel(plan, bv, b))
+    dq = qa.dequantize()
+    a16 = p.blocks_to_dense(p.pack_values(dq.data)).to(torch.bfloat16)
+    b16 = b.to(torch.bfloat16)
+    lib_ms = time_ms_queued(lambda: torch.matmul(a16, b16))
+    del dq, a16, b16
+    ops = 2.0 * p.nblocks * bm * bk * n
+    nbytes = p.nblocks * bm * bk + 4.0 * p.nblocks + k * n + 4.0 * n + 4.0 * m * n
+    bms, by = bound(ops, nbytes, INT8_OPS)
+    print(f"spmm_int8 headline (16384^2, {p.nblocks} blocks, n {n}): kernel {ms:.4f} ms queued "
+          f"({one_ms:.4f} ms one call), quantize_columns + kernel {e2e_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, fp32 block_ell_spmm {fp32_ms:.4f} ms (int8/fp32 "
+          f"{ms / fp32_ms:.3f}), torch.matmul of the dequantized dense A in bf16 {lib_ms:.4f} ms; "
+          f"bound {bms:.4f} ms by {by} ({ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.1f} MB), "
+          f"kernel at {ops / (ms * 1e-3) / 1e12:.2f} TOPS; kernel vs plain max_abs_err {err:.1e}")
+    rows.append({
+        "name": "spmm_int8", "route": "cuda",
+        "source": "tpusparse_torch/csrc/block_ell_spmm_int8.cu",
+        "replaces": "tpusparse/kernels/tiled_spmm.py:643 (_resident_int8_kernel); "
+                    "tpusparse/kernels/tiled_spmm.py:845 (_tiled_int8_kernel)",
+        "launches": r["launches"]["spmm_int8"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+    })
+    # -- gemm_s8 at 4096^3 ----------------------------------------------------
+    qa8, _ = quant.quantize_rows(r["wa"])
+    qb8, _ = quant.quantize_columns(r["wb"])
+    g = qa8.shape[0]
+    err = float((gk.gemm_int8_kernel(qa8, qb8) - gk._gemm_int8_plain(qa8, qb8)).abs().max())
+    ms = time_ms_queued(lambda: gk.gemm_int8_kernel(qa8, qb8))
+    plain_ms = time_ms(lambda: gk._gemm_int8_plain(qa8, qb8))
+    lib_ms = time_ms_queued(lambda: torch._int_mm(qa8, qb8))
+    lib_err = float((torch._int_mm(qa8, qb8) - gk.gemm_int8_kernel(qa8, qb8)).abs().max())
+    ops = 2.0 * g ** 3
+    bms, by = bound(ops, 2.0 * g * g + 4.0 * g * g, INT8_OPS)
+    print(f"gemm_s8 {g}^3: kernel {ms:.4f} ms queued, plain (float64) {plain_ms:.4f} ms, "
+          f"torch._int_mm {lib_ms:.4f} ms (vs kernel max_abs_err {lib_err:.0f}), bound "
+          f"{bms:.4f} ms by {by}, kernel at {ops / (ms * 1e-3) / 1e12:.2f} TOPS; kernel vs "
+          f"plain max_abs_err {err:.0f}")
+    rows.append({
+        "name": "gemm_s8", "route": "cuda", "source": "tpusparse_torch/csrc/gemm_s8.cu",
+        "replaces": "tpusparse/kernels/gemm.py:298 (_gemm_s8_kernel)",
+        "launches": r["launches"]["gemm_s8"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+    })
+    del qa8, qb8
+    # -- flash_q8 at both serving shapes ---------------------------------------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q8_row = None
+    for shape, (q, k, v, kq, ks, vq, vs, causal) in r["q8"].items():
+        bsz, h, s, d = shape
+        bh = bsz * h
+        q3, kq3, vq3 = (x.reshape(bh, s, d) for x in (q, kq, vq))
+        ks1, vs1 = ks.reshape(-1).contiguous(), vs.reshape(-1).contiguous()
+        kw = dict(sm_scale=1 / d ** 0.5, causal=causal)
+        err = rel_err(fa.flash_q8_kernel(q3, kq3, vq3, ks1, vs1, **kw),
+                      fa._flash_q8_plain(q3, kq3, vq3, ks1, vs1, **kw))
+        ms = time_ms_queued(lambda: fa.flash_q8_kernel(q3, kq3, vq3, ks1, vs1, **kw))
+        plain_ms = time_ms_queued(lambda: fa._flash_q8_plain(q3, kq3, vq3, ks1, vs1, **kw),
+                                  reps=5)
+        k3, v3 = (x.reshape(bh, s, d) for x in (k, v))
+        fwd_ms = time_ms_queued(lambda: fa.flash_fwd_kernel(q3, k3, v3, precision="default",
+                                                            **kw))
+        qb, kb, vb = (x.to(torch.bfloat16) for x in
+                      (q, kq.float() * ks[..., None, None], vq.float() * vs[..., None, None]))
+        backend = _sdpa_backend(qb, kb, vb)
+        with sdpa_kernel([backend]):
+            lib_ms = time_ms_queued(lambda: sdpa(qb, kb, vb, is_causal=causal))
+        scores = bh * (s * (s + 1) / 2 if causal else s * s)
+        ops = 4.0 * scores * d
+        nbytes = bh * s * d * (4 + 1 + 1 + 4) + 8.0 * bh
+        bms, by = bound(ops, nbytes, BF16_FLOPS)
+        print(f"flash_q8 {shape} causal={causal}: kernel {ms:.4f} ms queued, plain "
+              f"{plain_ms:.4f} ms, flash_fwd 'default' on the fp32 k, v {fwd_ms:.4f} ms, sdpa "
+              f"bf16 on the dequantized k, v ({backend.name}) {lib_ms:.4f} ms; bound "
+              f"{bms:.4f} ms by {by} ({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
+              f"vs plain over scale {err[1]:.2e}")
+        if q8_row is None:  # the first shape, the causal serving batch, is the row's
+            q8_row = {
+                "name": "flash_q8", "route": "cuda",
+                "source": "tpusparse_torch/csrc/flash_attention_q8.cu",
+                "replaces": "tpusparse/kernels/flash_attention.py:1434 (_flash_q8_kernel)",
+                "launches": r["launches"]["flash_q8"], "max_abs_err": err[0], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            }
+        del qb, kb, vb
+    rows.append(q8_row)
+    return rows
+
+
+# -- GPT serving ------------------------------------------------------------------
+
+
+def _gpt_bytes(model, batch, tier_bytes):
+    """HBM bytes one decode token must move: every linear weight once, at
+    the tier's width, and the whole max_position K/V cache of every layer
+    (decode attends over the static buffer)."""
+    w = sum(blk_p.numel() for name, blk_p in model.named_parameters() if name.endswith("kernel"))
+    kv = 2.0 * model.num_layers * batch * GPT["hidden"] * model.max_position
+    return w * tier_bytes + kv * tier_bytes
+
+
+def _gen_ms(gen, prompt):
+    """ms per generated token: the 96-step run minus the 16-step run, over
+    the 80 steps between (benchmarks/serving_benchmark.py:125-140), each
+    the best of two after a warm-up; the host clock around runs that end in
+    a synchronize."""
+    gen(prompt, 2)
+    t = {}
+    for steps in GPT_STEPS:
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gen(prompt, steps)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        if out.shape != (prompt.shape[0], steps):
+            raise AssertionError(f"generate gave {tuple(out.shape)}")
+        t[steps] = best
+    return (t[GPT_STEPS[1]] - t[GPT_STEPS[0]]) / (GPT_STEPS[1] - GPT_STEPS[0]) * 1e3
+
+
+def _busy_ms(step, n=8):
+    """Device busy time per decode step: torch.profiler's kernel time over
+    `n` steps (the profiler slows the host, so the share is taken against
+    the unprofiled step time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in ks) / 1e3 / n, len(ks) / n
+
+
+def phase_gpt_serving() -> None:
+    """GPT serving at benchmarks/serving_benchmark.py's configuration: the
+    fp32 GPTDecoder, its bf16 cast and quantize_gpt of it generate at batch 1
+    and 8 with no kernel launched; the fused forward at batch 8, seq 512
+    launches 24 flash_fwd; int8 against fp32 quality over 24 teacher-forced
+    steps; QuantizedGPT card against CPU; per-token times against the HBM
+    bound, and the device's busy share of a decode step."""
+    import copy
+
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+
+    t0 = time.perf_counter()
+    model = tt.GPTDecoder(**GPT, device="cuda", generator=torch.Generator().manual_seed(21)).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    qm = tt.quantize_gpt(model)
+    m16 = copy.deepcopy(model).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"gpt set-up: {time.perf_counter() - t0:.1f} s, {n_params / 1e6:.1f} M parameters "
+          f"({GPT['num_layers']} layers, hidden {GPT['hidden']}, {GPT['num_heads']} heads, "
+          f"vocab {GPT['vocab_size']}, max_position {GPT['max_position']})")
+    rng = np.random.default_rng(22)
+    tiers = {
+        "fp32": (lambda p, s: tt.generate(model, p, s), model, 4),
+        "bf16": (lambda p, s: tt.generate(m16, p, s), m16, 2),
+        "int8": (qm.generate, model, 1),
+    }
+    steppers = {"fp32": model, "bf16": m16, "int8": qm}
+    for batch in GPT_BATCHES:
+        prompt = torch.from_numpy(rng.integers(0, GPT["vocab_size"], (batch, GPT_PROMPT))).cuda()
+        for tier, (gen, shape_model, width) in tiers.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            ms = _gen_ms(gen, prompt)
+            _expect(f"gpt generate {tier} batch {batch}", kernels.launches_by_kernel(), {})
+            mdl = steppers[tier]
+            with torch.no_grad():
+                _, cache = mdl.prefill(prompt)
+                busy, nk = _busy_ms(lambda: mdl.decode_step(prompt[:, 0], cache, GPT_PROMPT))
+            bms = _gpt_bytes(shape_model, batch, width) / HBM_BYTES_PER_S * 1e3
+            print(f"gpt generate {tier} batch {batch}: {ms:.4f} ms per token, "
+                  f"{batch / ms * 1e3:.1f} tokens/s; HBM bound {bms:.4f} ms per token; device "
+                  f"busy {busy:.4f} ms per decode step ({nk:.0f} kernels), busy share "
+                  f"{busy / ms:.3f}; no kernel of the port launched")
+            del cache
+
+    # -- the fused forward: 24 flash_fwd --------------------------------------
+    ids = torch.from_numpy(rng.integers(0, GPT["vocab_size"], (8, GPT_FUSED_SEQ))).cuda()
+    with torch.no_grad():
+        ref = model(ids)
+        for blk in model.blocks:
+            blk.fused = True
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out = model(ids)
+            torch.cuda.synchronize()
+            counts = kernels.launches_by_kernel()
+        finally:
+            for blk in model.blocks:
+                blk.fused = False
+    _expect("gpt fused forward", counts, {"flash_fwd": GPT["num_layers"]})
+    err = rel_err(out, ref)[1]
+    print(f"gpt fused=True forward (batch 8, seq {GPT_FUSED_SEQ}): launches "
+          f"{json.dumps({'flash_fwd': counts['flash_fwd']})}; logits against the unfused "
+          f"forward over scale {err:.2e} (limit 2e-3, tests/test_gpt.py:79)")
+    if not (err < 2e-3 and bool(torch.isfinite(out).all())):
+        raise AssertionError("gpt fused forward disagrees with the unfused one")
+    del ref, out
+
+    # -- quality: int8 against fp32 over teacher-forced steps at batch 1 ---------
+    prompt = torch.from_numpy(rng.integers(0, GPT["vocab_size"], (1, GPT_PROMPT))).cuda()
+    with torch.no_grad():
+        lf, cf = model.prefill(prompt)
+        lq, cq = qm.prefill(prompt)
+        tok = lf[:, -1].argmax(-1)
+        errs, agree = [], 0
+        for i in range(GPT_QUALITY_STEPS):
+            lf, cf = model.decode_step(tok, cf, GPT_PROMPT + i)
+            lq, cq = qm.decode_step(tok, cq, GPT_PROMPT + i)
+            if not (bool(torch.isfinite(lf).all()) and bool(torch.isfinite(lq).all())):
+                raise AssertionError(f"gpt quality step {i}: non-finite logits")
+            errs.append(rel_err(lq, lf)[1])
+            agree += int(lq.argmax(-1).item() == lf.argmax(-1).item())
+            tok = lf.argmax(-1)
+    print(f"gpt quality int8 against fp32, batch 1, {GPT_QUALITY_STEPS} teacher-forced steps: "
+          f"max logit rel err {max(errs):.3e}, top-1 agreement {agree / GPT_QUALITY_STEPS:.3f}")
+    del cf, cq, m16
+
+    # -- QuantizedGPT on the card against the CPU ---------------------------------
+    t0 = time.perf_counter()
+    cpu_model = tt.GPTDecoder(**GPT, device="cpu", generator=torch.Generator().manual_seed(21))
+    qc = tt.quantize_gpt(cpu_model)
+    del cpu_model
+    lins = [(getattr(bc, n), getattr(bg, n)) for bc, bg in zip(qc.blocks, qm.blocks)
+            for n in ("qkv", "o", "fc1", "fc2")] + [(qc.lm_head, qm.lm_head)]
+    same = all(torch.equal(c.qw, g.qw.cpu()) and torch.equal(c.sw, g.sw.cpu()) for c, g in lins)
+    prompt = torch.from_numpy(rng.integers(0, GPT["vocab_size"], (1, GPT_PROMPT)))
+    errs = []
+    with torch.no_grad():
+        lc, cc = qc.prefill(prompt)
+        lg, cg = qm.prefill(prompt.cuda())
+        errs.append(rel_err(lg.cpu(), lc)[1])
+        tok = lc[:, -1].argmax(-1)
+        for i in range(GPT_PARITY_STEPS):
+            lc, cc = qc.decode_step(tok, cc, GPT_PROMPT + i)
+            lg, cg = qm.decode_step(tok.cuda(), cg, GPT_PROMPT + i)
+            errs.append(rel_err(lg.cpu(), lc)[1])
+            tok = lc.argmax(-1)
+    print(f"gpt QuantizedGPT card vs CPU (batch 1, prefill + {GPT_PARITY_STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s): int8 weights and scales bitwise equal: {same}; "
+          f"logits over scale " + ", ".join(f"{e:.2e}" for e in errs)
+          + f" (limit {GPT_CARD_CPU_LIMIT:.0e})")
+    if not (same and max(errs) < GPT_CARD_CPU_LIMIT):
+        raise AssertionError("QuantizedGPT on the card disagrees with the CPU")
+
+
+def run_phase(name, fn, *args):
+    """fn(*args), with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1052,13 +1572,15 @@ def main() -> int:
     from tpusparse_torch.utils.config import fp32_matmul
     from tpusparse_torch.utils.matrices import block_sparse_csr
 
+    t_start = time.perf_counter()
     name = phase_device()
-    phase_build()
-    phase_small_cases()
-    phase_small_sddmm()
-    phase_small_gemm()
-    phase_small_flash()
-    phase_small_block_flash()
+    run_phase("build", phase_build)
+    run_phase("small block_ell_spmm", phase_small_cases)
+    run_phase("small sddmm", phase_small_sddmm)
+    run_phase("small gemm", phase_small_gemm)
+    run_phase("small flash", phase_small_flash)
+    run_phase("small block flash", phase_small_block_flash)
+    run_phase("small int8", phase_small_int8)
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -1127,15 +1649,18 @@ def main() -> int:
             raise AssertionError(f"mlp {v}: card and CPU log-probs disagree")
 
     # -- the main path, counted: training and the headline backward -----------
-    train_counts = phase_train(batches)
-    bwd_counts, sddmm_err, dc, plan_t, bv_t = phase_headline_backward(plan, bv, b)
-    layer_counts = phase_bert_layers()
-    enc_counts, enc, enc_ids = phase_bert_encoder("flash")
+    train_counts = run_phase("mlp training", phase_train, batches)
+    bwd_counts, sddmm_err, dc, plan_t, bv_t = run_phase(
+        "headline backward", phase_headline_backward, plan, bv, b)
+    layer_counts = run_phase("bert layers", phase_bert_layers)
+    enc_counts, enc, enc_ids = run_phase("bert encoder", phase_bert_encoder, "flash")
     flash_launches = {n: layer_counts[n] + enc_counts[n] for n in NO_FLASH}
-    phase_bert_card_vs_cpu()
-    blk_launches, bb_enc, bb_ids = phase_pattern_paths()
-    phase_bert_card_vs_cpu("bigbird", 512)
-    phase_bert_card_vs_cpu("sparse", 512, method="blockflash")
+    run_phase("bert card vs cpu", phase_bert_card_vs_cpu)
+    blk_launches, bb_enc, bb_ids = run_phase("pattern paths", phase_pattern_paths)
+    run_phase("bigbird card vs cpu", phase_bert_card_vs_cpu, "bigbird", 512)
+    run_phase("sparse card vs cpu", phase_bert_card_vs_cpu, "sparse", 512, "blockflash")
+    int8_r = run_phase("int8 serving", phase_int8_serving, a, b, c)
+    run_phase("gpt serving", phase_gpt_serving)
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -1255,11 +1780,13 @@ def main() -> int:
         print(f"train step {label}: {ms:.4f} ms per step (batch 32)")
 
     # -- timings: flash attention and the BERT layer and encoder -----------------
-    flash_t = phase_flash_timings()
-    blk_t = phase_block_flash_timings()
-    phase_bert_timings({"flash": (enc, enc_ids), "bigbird": (bb_enc, bb_ids)})
+    flash_t = run_phase("flash timings", phase_flash_timings)
+    blk_t = run_phase("block flash timings", phase_block_flash_timings)
+    run_phase("bert timings", phase_bert_timings,
+              {"flash": (enc, enc_ids), "bigbird": (bb_enc, bb_ids)})
     del enc, enc_ids, bb_enc, bb_ids
-    phase_bert_profile()
+    run_phase("bert profile", phase_bert_profile)
+    int8_rows = run_phase("int8 timings", phase_int8_timings, int8_r, plan, bv, b)
 
     kernels = [
         {
@@ -1350,6 +1877,8 @@ def main() -> int:
             "bound_by": bt["bound"][key][1],
             "library_ms": lib_ms,
         })
+    kernels.extend(int8_rows)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -13,12 +13,13 @@ import pytest
 import torch
 
 import tpusparse_torch as tt
-from tpusparse_torch import kernels
+from tpusparse_torch import kernels, quant
 from tpusparse_torch.kernels import block_flash_attention as bfa
 from tpusparse_torch.kernels import flash_attention as fa
 from tpusparse_torch.kernels import gemm as gk
 from tpusparse_torch.kernels import sddmm as sk
 from tpusparse_torch.kernels import tiled_spmm as tk
+from tpusparse_torch.models import serving
 from tpusparse_torch.utils.data import synthetic_mnist
 
 TOL = dict(rtol=1e-4, atol=5e-5)  # fp32 tier: kernel and plain sum in other orders
@@ -60,7 +61,8 @@ def test_kernel_matches_plain_and_counts(cuda, name, precision):
     got_t = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
     got_r = tk.resident_spmm_kernel(plan, bv, b, precision=precision)
     torch.cuda.synchronize()
-    assert tk.launch_counts() == {"tiled_spmm": 1, "resident_spmm": 1}
+    assert tk.launch_counts() == {"tiled_spmm": 1, "resident_spmm": 1, "tiled_spmm_int8": 0,
+                                  "resident_spmm_int8": 0}
     assert torch.equal(got_t, got_r)
     want = tk._block_exec_plain(plan, bv, b, precision=precision)
     torch.testing.assert_close(got_t, want, **TOL)
@@ -161,7 +163,7 @@ def test_gemm_kernel_matches_plain(cuda, transa, transb, dtype, precision):
     gk.reset_launch_counts()
     got = gk.gemm_kernel(a, b, transa=transa, transb=transb, precision=precision)
     torch.cuda.synchronize()
-    assert gk.launch_counts() == {"gemm": 1}
+    assert gk.launch_counts() == {"gemm": 1, "gemm_s8": 0}
     want = gk._gemm_plain(a, b, transa=transa, transb=transb, precision=precision)
     assert got.shape == (m, n) and got.dtype == dtype
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL
@@ -196,10 +198,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 # fc2's dX and dW, and fc1's dW.
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
+NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 STEP_LAUNCHES = {
-    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK},
-    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK},
-    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH, **NO_BLK},
+    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8},
+    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK,
+                    **NO_INT8},
+    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH, **NO_BLK, **NO_INT8},
 }
 
 
@@ -270,7 +274,7 @@ def test_flash_kernels_match_plain(cuda, name, dtype, precision):
     dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw)
     dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_q8": 0}
     po, plse = fa._flash_fwd_plain(q, k, v, **kw)
     pdq = fa._flash_dq_plain(q, k, v, do, lse, delta, **kw)
     pdk, pdv = fa._flash_dkv_plain(q, k, v, do, lse, delta, **kw)
@@ -464,3 +468,164 @@ def test_pattern_layer_train_step_on_card_matches_cpu(cuda, attention, force):
     torch.testing.assert_close(got.cpu(), want, **TOL)
     for (name, p), (_, q) in zip(layers[cuda].named_parameters(), layers["cpu"].named_parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), **TOL, msg=name)
+
+
+# -- the int8 serving tier -------------------------------------------------------
+
+# (m, k, n), blocksize, empty row range
+INT8_CASES = {
+    "ragged_8x16_n33": ((100, 70, 33), (8, 16), None),
+    "ragged_32x8_n130": ((75, 53, 130), (32, 8), None),
+    "empty_rowblock_128x128_n200": ((300, 260, 200), (128, 128), (128, 256)),
+}
+
+
+def _int8_operands(name, device):
+    (m, k, n), bs, empty = INT8_CASES[name]
+    rng = np.random.default_rng(len(name))
+    mask = rng.random((m, k)) < 0.15
+    if empty is not None:
+        mask[empty[0]:empty[1]] = False
+    a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32), device=device)
+    plan = tt.build_plan(a, bs)
+    qvals, scales = quant.quantize_block_values(plan.pack_values(a.data))
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(device)
+    b_q, t = quant.quantize_columns(b)
+    return plan, qvals, scales, b_q, t
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+def test_spmm_int8_kernel_equals_plain(cuda, name):
+    """Both int8 entry points launch the one kernel and equal the plain
+    version bit for bit (the epilogue rounds each multiply and add on its
+    own, as the plain version does)."""
+    plan, qvals, scales, b_q, t = _int8_operands(name, cuda)
+    tk.reset_launch_counts()
+    got_r = tk.resident_spmm_int8_kernel(plan, qvals, scales, b_q, t)
+    got_t = tk.tiled_spmm_int8_kernel(plan, qvals, scales, b_q, t)
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 1,
+                                  "resident_spmm_int8": 1}
+    want = tk._block_exec_int8_plain(plan, qvals, scales, b_q, t)
+    assert got_r.dtype == torch.float32 and got_r.shape == want.shape
+    assert torch.equal(got_r, got_t)
+    assert torch.equal(got_r, want)
+
+
+@pytest.mark.parametrize("shape", [(100, 70, 33), (64, 37, 50), (130, 259, 257), (1, 1024, 8)])
+def test_gemm_s8_kernel_equals_plain(cuda, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
+    gk.reset_launch_counts()
+    got = gk.gemm_int8_kernel(a, b)
+    torch.cuda.synchronize()
+    assert gk.launch_counts() == {"gemm": 0, "gemm_s8": 1}
+    assert got.dtype == torch.int32 and torch.equal(got, gk._gemm_int8_plain(a, b))
+
+
+# (bh, s, d), causal, q_offset
+Q8_CASES = {
+    "2x3x256x64": ((6, 256, 64), False, 0),
+    "causal_1x2x384x64": ((2, 384, 64), True, 0),
+    "ragged_1x1x200x64": ((1, 200, 64), False, 0),
+    "narrow_2x4x128x24": ((8, 128, 24), False, 0),
+    "wide_1x2x128x128": ((2, 128, 128), True, 0),
+    "offsets_1x1x256x64_q256": ((1, 256, 64), True, 256),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(Q8_CASES))
+def test_flash_q8_kernel_matches_plain(cuda, name, dtype):
+    """p is rounded to bf16 against its tile's running max in the kernel and
+    against the row max in the plain version: within FLASH_ROUNDED_LIMIT of
+    scale."""
+    shape, causal, q_off = Q8_CASES[name]
+    rng = np.random.default_rng(len(name))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    kq, ks, vq, vs = fa.quantize_kv(k, v)
+    kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off)
+    fa.reset_launch_counts()
+    got = fa.flash_q8_kernel(q.to(dtype), kq, vq, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_q8"] == 1
+    want = fa._flash_q8_plain(q.to(dtype), kq, vq, ks, vs, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert _over_scale(got, want) < FLASH_ROUNDED_LIMIT
+
+
+def test_flash_q8_rows_that_see_no_key_are_zero(cuda):
+    q, k, v = (torch.randn(2, 128, 64, device=cuda) for _ in range(3))
+    kq, ks, vq, vs = fa.quantize_kv(k, v)
+    o = fa.flash_q8_kernel(q, kq, vq, ks, vs, sm_scale=0.125, causal=True, kv_offset=100)
+    assert torch.count_nonzero(o[:, :100]) == 0 and torch.count_nonzero(o[:, 100:]) > 0
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    plan, qvals, scales, b_q, t = _int8_operands("ragged_8x16_n33", cuda)
+    with pytest.raises(TypeError, match="int8"):
+        tk.resident_spmm_int8_kernel(plan, qvals.float(), scales, b_q, t)
+    with pytest.raises(TypeError, match="t must be float32"):
+        tk.tiled_spmm_int8_kernel(plan, qvals, scales, b_q, t[:5].contiguous())
+    with pytest.raises(ValueError, match="same device"):
+        tk.tiled_spmm_int8_kernel(plan, qvals, scales, b_q, t.cpu())
+    a = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        gk.gemm_int8_kernel(a.float(), a.t().contiguous())
+    with pytest.raises(ValueError, match="bad shapes"):
+        gk.gemm_int8_kernel(a, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gemm_int8_kernel(a, a.t())
+    q = torch.zeros((1, 64, 32), device=cuda)
+    kq = torch.zeros((1, 64, 32), dtype=torch.int8, device=cuda)
+    s1 = torch.ones(1, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        fa.flash_q8_kernel(q, q, kq, s1, s1, sm_scale=1.0)
+    with pytest.raises(ValueError, match="leading shape"):
+        fa.flash_q8_kernel(q, kq, kq, torch.ones(2, device=cuda), s1, sm_scale=1.0)
+
+
+def test_serving_products_on_card_match_cpu(cuda):
+    """The decode products (bf16 operands, fp32 sums and result) on the card
+    against the same products on the CPU: both sum the same exact products,
+    in other orders."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (256, 96)).astype(np.int8))
+    got = serving._dot_bf16(x.to(cuda), w.to(cuda))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), serving._dot_bf16(x, w), rtol=1e-5, atol=1e-3)
+    a = torch.from_numpy(rng.standard_normal((2, 4, 1, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-127, 128, (2, 4, 64, 40)).astype(np.int8))
+    torch.testing.assert_close(serving._dot_bf16(a.to(cuda), b.to(cuda)).cpu(),
+                               serving._dot_bf16(a, b), rtol=1e-5, atol=1e-3)
+
+
+def test_quantized_gpt_on_card_matches_cpu(cuda):
+    """A small QuantizedGPT from one seed on the card and on the CPU: the
+    same int8 weights and scales, and logits of a prefill and 3 decode steps
+    within 1e-2 of scale (bf16-rounded activations may round apart where two
+    fp32 sums differ by an ulp)."""
+    gen = torch.Generator().manual_seed(0)
+    cpu = tt.GPTDecoder(2, 64, 4, 128, 50, 32, device="cpu", generator=gen)
+    card = tt.GPTDecoder(2, 64, 4, 128, 50, 32, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    qc, qg = tt.quantize_gpt(cpu), tt.quantize_gpt(card)
+    for bc, bg in zip(qc.blocks, qg.blocks):
+        for lc, lg in ((bc.qkv, bg.qkv), (bc.fc1, bg.fc1), (bc.fc2, bg.fc2), (bc.o, bg.o)):
+            assert torch.equal(lc.qw, lg.qw.cpu()) and torch.equal(lc.sw, lg.sw.cpu())
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 50, (2, 8)))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        lc, cc = qc.prefill(ids[:, :4])
+        lg, cg = qg.prefill(ids[:, :4].to(cuda))
+        assert _over_scale(lg.cpu(), lc) < 1e-2
+        for pos in range(4, 7):
+            lc, cc = qc.decode_step(ids[:, pos], cc, pos)
+            lg, cg = qg.decode_step(ids[:, pos].to(cuda), cg, pos)
+            assert _over_scale(lg.cpu(), lc) < 1e-2, pos
+    assert not any(kernels.launches_by_kernel().values())

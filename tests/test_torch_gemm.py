@@ -116,7 +116,7 @@ def test_gemm_wrapper_rejects_what_the_kernel_does_not_take():
         gk.gemm_kernel(at, bt, out_dtype=torch.float16)
     gk.reset_launch_counts()
     gk.gemm_kernel(at, bt)
-    assert gk.launch_counts() == {"gemm": 0}  # the CPU path launches nothing
+    assert gk.launch_counts() == {"gemm": 0, "gemm_s8": 0}  # the CPU path launches nothing
 
 
 def test_kernel_route_records_no_gradient():

@@ -20,9 +20,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
 
 
 def test_import_and_cpu_forward_load_no_jax():
-    """The MLP forward, a BERT encoder's forward and SGD step, and a
-    'bigbird' encoder's SGD step on the CPU, in a fresh interpreter, load no
-    forbidden module."""
+    """The MLP forward, a BERT encoder's forward and SGD step, a 'bigbird'
+    encoder's SGD step, and the serving tier (QuantizedMatrix, the dense int8
+    ops, int8-KV attention, GPT and QuantizedGPT generation) on the CPU, in a
+    fresh interpreter, load no forbidden module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
@@ -39,6 +40,15 @@ def test_import_and_cpu_forward_load_no_jax():
         "ids = torch.randint(0, 100, (2, 64))\n"
         "loss = tt.bert_train_step(bb, tt.make_train_state(bb), ids)\n"
         "assert torch.isfinite(loss)\n"
+        "a = tt.CSR.from_dense(torch.eye(16), device='cpu')\n"
+        "assert (tt.QuantizedMatrix(a, blocksize=(8, 8)) @ torch.ones(16, 3)).shape == (16, 3)\n"
+        "assert tt.quantized_matmul(torch.ones(4, 8), torch.ones(8, 2)).shape == (4, 2)\n"
+        "kq, ks, vq, vs = tt.quantize_kv(torch.ones(1, 2, 8, 4), torch.ones(1, 2, 8, 4))\n"
+        "assert tt.flash_attention_q8(torch.ones(1, 2, 8, 4), kq, ks, vq, vs).shape == (1, 2, 8, 4)\n"
+        "gpt = tt.GPTDecoder(2, 16, 2, 32, 20, 16, device='cpu')\n"
+        "ids = torch.randint(0, 20, (2, 4))\n"
+        "assert tt.generate(gpt, ids, 3).shape == (2, 3)\n"
+        "assert tt.quantize_gpt(gpt).generate(ids, 3).shape == (2, 3)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -91,6 +101,9 @@ ENTRY_POINTS = {
     "COO.from_dense": lambda: tt.COO.from_dense(np.eye(3, dtype=np.float32)),
     "random_csr": lambda: tt.random_csr(0, (4, 4), 0.5),
     "block_sparse_csr": lambda: block_sparse_csr(0, (16, 16), (8, 8), 0.5),
+    "BSR.from_dense": lambda: tt.BSR.from_dense(np.eye(3, dtype=np.float32), (2, 2)),
+    "GPTBlock": lambda: tt.GPTBlock(8, 2, 16),
+    "GPTDecoder": lambda: tt.GPTDecoder(1, 8, 2, 16, 10, 8),
 }
 
 

@@ -154,7 +154,8 @@ def test_cpu_path_does_not_count_launches():
     _, b, _, t, bs = _case("ragged_8x8")
     tk.reset_launch_counts()
     tops.spmm(t, torch.from_numpy(b), blocksize=bs)
-    assert tk.launch_counts() == {"tiled_spmm": 0, "resident_spmm": 0}
+    assert tk.launch_counts() == {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0,
+                                  "resident_spmm_int8": 0}
 
 
 # -- errors -------------------------------------------------------------------

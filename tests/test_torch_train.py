@@ -141,8 +141,8 @@ def test_cpu_train_step_launches_no_kernel():
         tt.train_step(net, tt.make_train_state(net), torch.from_numpy(images[0]),
                       torch.from_numpy(labels[0]))
         assert kernels.launches_by_kernel() == {
-            "block_ell_spmm": 0, "sddmm": 0, "gemm": 0,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "block_ell_spmm": 0, "spmm_int8": 0, "sddmm": 0, "gemm": 0, "gemm_s8": 0,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_q8": 0,
             "blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 
 

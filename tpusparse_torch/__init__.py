@@ -10,26 +10,39 @@ kernels (`csrc/flash_attention.cu`: forward, dq, dk/dv), with
 attention='dense' on the dense ops, and with the pattern variants 'bigbird'
 and 'sparse' on the block-pattern attention kernels
 (`csrc/block_flash_attention.cu`: forward, dq, dk/dv) where their pattern
-routes there, or 'local' on the dense einsums. Tensors on the CPU take the plain
+routes there, or 'local' on the dense einsums. The int8 serving tier runs on
+three more: `QuantizedMatrix` on the int8 block-ELL executor
+(`csrc/block_ell_spmm_int8.cu`), `quantized_matmul` and `QuantizedDense` on
+the s8·s8→s32 GEMM (`csrc/gemm_s8.cu`), and `flash_attention_q8` over an
+int8 K/V cache (`csrc/flash_attention_q8.cu`). The GPT decoder
+(`GPTDecoder`, `generate`) and its int8 serving twin (`QuantizedGPT`,
+`quantize_gpt`) decode on dense products, as in JAX; `GPTDecoder(fused=True)`
+runs its forward on the flash kernels. Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
 """
 
-from tpusparse_torch import dense, kernels, ops
+from tpusparse_torch import dense, kernels, ops, quant
 from tpusparse_torch.convert import load_flax_params, to_flax_params
 from tpusparse_torch.dense import bmm, einsum, matmul
 from tpusparse_torch.models import (
     BertAttentionLayer,
     BertEncoder,
+    GPTBlock,
+    GPTDecoder,
     MnistNet,
+    QuantizedGPT,
     bert_loss,
     bert_train_step,
+    generate,
     make_train_state,
     nll_loss,
+    quantize_gpt,
     train_epoch,
     train_step,
 )
+from tpusparse_torch.kernels.flash_attention import flash_attention_q8, quantize_kv
 from tpusparse_torch.kernels.block_flash_attention import (
     BlockAttnPlan,
     block_flash_attention,
@@ -72,10 +85,14 @@ from tpusparse_torch.plan import (
     clear_plan_cache,
     plan_cache_info,
 )
+from tpusparse_torch.quant import QuantizedDense, QuantizedMatrix, quantized_matmul
 from tpusparse_torch.types import (
+    BSR,
     COO,
     CSR,
+    bsr_to_csr,
     coo_to_csr,
+    csr_to_bsr,
     csr_to_coo,
     random_csr,
     sddmm_reference,
@@ -89,15 +106,21 @@ __all__ = [
     "BigBirdAttention",
     "BlockAttnPlan",
     "BlockSparseLinear",
+    "BSR",
     "COO",
     "CSR",
     "DenseLinear",
     "Embed",
+    "GPTBlock",
+    "GPTDecoder",
     "LayerNorm",
     "LocalAttention",
     "MnistNet",
     "Pattern",
     "Plan",
+    "QuantizedDense",
+    "QuantizedGPT",
+    "QuantizedMatrix",
     "SelfAttention",
     "SparseLinear",
     "SparseSelfAttention",
@@ -110,14 +133,18 @@ __all__ = [
     "block_flash_attention_diff",
     "block_transpose_plan",
     "bmm",
+    "bsr_to_csr",
     "build_plan",
     "build_plan_pair",
     "clear_plan_cache",
     "coo_to_csr",
+    "csr_to_bsr",
     "csr_to_coo",
     "dense",
     "einsum",
+    "flash_attention_q8",
     "gather_spmm",
+    "generate",
     "get_config",
     "kernels",
     "load_flax_params",
@@ -128,6 +155,10 @@ __all__ = [
     "nll_loss",
     "ops",
     "plan_cache_info",
+    "quant",
+    "quantize_gpt",
+    "quantize_kv",
+    "quantized_matmul",
     "random_csr",
     "resident_spmm",
     "resolve_device",

@@ -8,10 +8,12 @@ under its attribute name. So the MLP's tree is `{'fc1': {'kernel_values' |
 'kernel_blocks' | 'kernel', 'bias'}, ...}` and the BERT encoder's is
 `{'tok_emb': {'embedding'}, 'emb_ln': {'scale', 'bias'}, 'layer0':
 {'attention': {'query': {'kernel', 'bias'}, ...}, 'ln1', 'ffn_in', ...},
-...}`. The port's parameter names are the flax ones, except for a plain
-`nn.Linear` (the 'xla' variant's flax `Dense`), whose `weight` is the
-transpose of flax's (in, out) `kernel`. Any missing or extra key, or a
-shape mismatch, raises, naming the path. `to_flax_params(module)` is the
+...}`, and the GPT decoder's is `{'tok_emb', 'pos_emb', 'block0': {'ln1',
+'q_proj', 'k_proj', 'v_proj', 'o_proj', 'ln2', 'fc1', 'fc2'}, ...,
+'final_ln', 'lm_head'}`. The port's parameter names are the flax ones,
+except for a plain `nn.Linear` (the 'xla' variant's flax `Dense`), whose
+`weight` is the transpose of flax's (in, out) `kernel`. Any missing or
+extra key, or a shape mismatch, raises, naming the path. `to_flax_params(module)` is the
 inverse: the module's parameters as that numpy tree, so that the two
 packages' parameters can be compared.
 """

@@ -1,5 +1,6 @@
 // Tile helpers shared by the fused attention kernels (flash_attention.cu,
-// block_flash_attention.cu) for NVIDIA Hopper (sm_90a).
+// flash_attention_q8.cu, block_flash_attention.cu) for NVIDIA Hopper
+// (sm_90a).
 //
 // One thread block of NT = 256 threads works on a 64-row tile of queries (or
 // keys) against a 64-row tile of the other operand. Each thread owns a 4x4
@@ -27,6 +28,7 @@ constexpr float NEG = -1e30f;  // the TPU kernels' masked score
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ float rnd_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -58,6 +60,26 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// Causal masking on global positions, as the dense flash kernels take it:
+// the number of k-tiles a q-tile starting at row q0 visits (all of them, or
+// under causal masking those up to the last key its last row can see), and
+// whether key kp is visible from query qp (both inside s and, if causal,
+// kv_off + kp <= q_off + qp).
+__device__ __forceinline__ int visited_k_tiles(int s, int q0, int causal, int q_off,
+                                               int kv_off) {
+  const int nk = (s + BK - 1) / BK;
+  if (!causal) return nk;
+  const long long kmax = static_cast<long long>(q_off) + q0 + BQ - 1 - kv_off;
+  if (kmax < 0) return 0;
+  return static_cast<int>(min(static_cast<long long>(nk), kmax / BK + 1));
+}
+
+__device__ __forceinline__ bool causal_visible(int qp, int kp, int s, int causal, int q_off,
+                                               int kv_off) {
+  return qp < s && kp < s &&
+         (!causal || static_cast<long long>(kv_off) + kp <= static_cast<long long>(q_off) + qp);
 }
 
 // Rows [r0, r0 + 64) of a (s, d) row-major matrix into a (64, DMAX + 4)

@@ -63,23 +63,6 @@ namespace {
 
 using namespace attn;
 
-// Number of k-tiles a q-tile starting at row q0 visits: all of them, or
-// under causal masking those up to the last key its last row can see.
-__device__ __forceinline__ int visited_k_tiles(int s, int q0, int causal, int q_off,
-                                               int kv_off) {
-  const int nk = (s + BK - 1) / BK;
-  if (!causal) return nk;
-  const long long kmax = static_cast<long long>(q_off) + q0 + BQ - 1 - kv_off;
-  if (kmax < 0) return 0;
-  return static_cast<int>(min(static_cast<long long>(nk), kmax / BK + 1));
-}
-
-__device__ __forceinline__ bool visible(int qp, int kp, int s, int causal, int q_off,
-                                        int kv_off) {
-  return qp < s && kp < s &&
-         (!causal || static_cast<long long>(kv_off) + kp <= static_cast<long long>(q_off) + qp);
-}
-
 template <int DMAX>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
@@ -132,7 +115,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       float mx = NEG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        vis[j] = visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
+        vis[j] = causal_visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
         if (!vis[j]) sc[i][j] = NEG;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -226,7 +209,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
       const int qp = q0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool vis = visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
+        const bool vis = causal_visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
         const float p = vis ? expf(sc[i][j] - lse_r[i]) : 0.f;
         dSs[(ty + 16 * i) * LDP + tx + 16 * j] = tier<ROUND>(p * (dp[i][j] - delta_r[i]));
       }
@@ -314,7 +297,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qj = tx + 16 * j;
-        const bool vis = visible(q0 + qj, kp, s, causal, q_off, kv_off);
+        const bool vis = causal_visible(q0 + qj, kp, s, causal, q_off, kv_off);
         const float p = vis ? expf(st[i][j] - lse_s[qj]) : 0.f;
         Ps[(ty + 16 * i) * LDP + qj] = tier<ROUND>(p);
         dSs[(ty + 16 * i) * LDP + qj] = tier<ROUND>(p * (dpt[i][j] - delta_s[qj]));

@@ -14,21 +14,31 @@ from tpusparse_torch.kernels.block_flash_attention import (
 )
 from tpusparse_torch.kernels.flash_attention import (
     flash_attention_diff,
+    flash_attention_q8,
     flash_dkv_kernel,
     flash_dq_kernel,
     flash_fwd_kernel,
+    flash_q8_kernel,
+    quantize_kv,
 )
-from tpusparse_torch.kernels.gemm import gemm_kernel
+from tpusparse_torch.kernels.gemm import gemm_int8_kernel, gemm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
-from tpusparse_torch.kernels.tiled_spmm import resident_spmm_kernel, tiled_spmm_kernel
+from tpusparse_torch.kernels.tiled_spmm import (
+    resident_spmm_int8_kernel,
+    resident_spmm_kernel,
+    tiled_spmm_int8_kernel,
+    tiled_spmm_kernel,
+)
 
 _MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention)
 
 
 def launch_counts() -> dict:
     """Kernel launches per entry point of every kernel since the last reset:
-    'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu), 'sddmm',
-    'gemm', 'flash_fwd', 'flash_dq', 'flash_dkv' (csrc/flash_attention.cu), and
+    'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu),
+    'tiled_spmm_int8' and 'resident_spmm_int8' (both
+    csrc/block_ell_spmm_int8.cu), 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd',
+    'flash_dq', 'flash_dkv' (csrc/flash_attention.cu), 'flash_q8', and
     'blk_flash_fwd', 'blk_flash_dq', 'blk_flash_dkv'
     (csrc/block_flash_attention.cu)."""
     out = {}
@@ -39,10 +49,12 @@ def launch_counts() -> dict:
 
 def launches_by_kernel() -> dict:
     """`launch_counts()` summed per CUDA kernel: 'block_ell_spmm' (both
-    executor entry points), 'sddmm', 'gemm', 'flash_fwd', 'flash_dq',
-    'flash_dkv', 'blk_flash_fwd', 'blk_flash_dq' and 'blk_flash_dkv'."""
+    executor entry points), 'spmm_int8' (both int8 entry points), 'sddmm',
+    'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv', 'flash_q8',
+    'blk_flash_fwd', 'blk_flash_dq' and 'blk_flash_dkv'."""
     c = launch_counts()
-    return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"), **c}
+    return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
+            "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}
 
 
 def reset_launch_counts() -> None:
@@ -59,17 +71,23 @@ __all__ = [
     "block_flash_attention_diff",
     "flash_attention",
     "flash_attention_diff",
+    "flash_attention_q8",
     "flash_dkv_kernel",
     "flash_dq_kernel",
     "flash_fwd_kernel",
+    "flash_q8_kernel",
     "gemm",
+    "gemm_int8_kernel",
     "gemm_kernel",
     "launch_counts",
     "launches_by_kernel",
+    "quantize_kv",
     "reset_launch_counts",
+    "resident_spmm_int8_kernel",
     "resident_spmm_kernel",
     "sddmm",
     "sddmm_kernel",
     "tiled_spmm",
+    "tiled_spmm_int8_kernel",
     "tiled_spmm_kernel",
 ]

@@ -38,11 +38,22 @@ The TPU tile knobs `block_q`/`block_k` are accepted and ignored: the CUDA
 kernels use 64-row tiles of their own. `autotune_flash` tunes those TPU
 tiles and is not carried (ROADMAP queue 1, item 13).
 
+The serving tier's attention over an int8 K/V cache (l.1415-1591):
+`quantize_kv` and `flash_attention_q8` keep their signatures, and the TPU
+kernel `_flash_q8_kernel` (l.1434) becomes `csrc/flash_attention_q8.cu`
+behind `flash_q8_kernel`. Forward only. Its products are at the 'default'
+tier, as `Precision.DEFAULT` runs on the TPU: q and p rounded to bf16, int8
+K and V exact, fp32 sums. The K scale folds into the score scale after the
+product, the V scale into the epilogue. A row that sees no key gets o = 0
+here too; the TPU kernel gives 0 where it skips every tile of the row and
+the mean of vs·v over a visited tile whose keys are all masked for it
+(ROADMAP section 3).
+
 A wrapper given CPU tensors runs the plain PyTorch version of its kernel
-(`_flash_fwd_plain`, `_flash_dq_plain`, `_flash_dkv_plain`: a dense masked
-softmax in fp32 with TF32 off, rounded as the tier says). Given CUDA
-tensors it launches the kernel or raises. It counts its launches
-(`launch_counts`).
+(`_flash_fwd_plain`, `_flash_dq_plain`, `_flash_dkv_plain`,
+`_flash_q8_plain`: a dense masked softmax in fp32 with TF32 off, rounded as
+the tier says). Given CUDA tensors it launches the kernel or raises. It
+counts its launches (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -55,10 +66,11 @@ import torch
 from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
 
 KERNEL = "flash_attention"
+KERNEL_Q8 = "flash_attention_q8"
 MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+_LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_q8": 0}
 
 
 def launch_counts() -> dict:
@@ -415,3 +427,148 @@ def flash_attention_diff(q, k, v, causal=False, sm_scale=None, precision=None):
     resolved once, here, so the backward's score recompute matches the
     forward's."""
     return _FlashAttention.apply(q, k, v, causal, sm_scale, resolve_precision(precision))
+
+
+# ----------------------------------------------------------------------------
+# int8 K/V cache (the serving tier), forward only
+# ----------------------------------------------------------------------------
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """Per-(batch·head) symmetric int8 quantization of a KV cache.
+
+    k, v: (..., seq, head_dim). Returns (kq, ks, vq, vs): kq, vq int8 of the
+    same shape, ks, vs fp32 of the leading shape, with
+    k ≈ ks[..., None, None] · kq. An all-zero head gets scale 1. The scale
+    and the division are taken in the input's type, as in JAX, so the
+    values equal JAX's exactly."""
+
+    def one(x):
+        amax = x.abs().amax(dim=(-2, -1))
+        # a tensor divisor: the card divides by a Python scalar as a multiply
+        # by its reciprocal, which rounds differently from JAX's division
+        s = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+        q = torch.clamp(torch.round(x / s[..., None, None]), -127, 127).to(torch.int8)
+        return q, s.float()
+
+    kq, ks = one(k)
+    vq, vs = one(v)
+    return kq, ks, vq, vs
+
+
+def flash_q8_kernel(
+    q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+    *, sm_scale: float, causal: bool = False, q_offset: int = 0, kv_offset: int = 0,
+) -> torch.Tensor:
+    """o of softmax(q·(ks·kq)ᵀ·sm_scale)·(vs·vq) for contiguous (bh, s, d) q
+    (fp32 or bf16) and int8 kq, vq, with fp32 (bh,) scales; o in q's type."""
+    if q.ndim != 3:
+        raise ValueError(f"kernel operands are (bh, s, d), got {tuple(q.shape)}")
+    _check_q8(q, kq, vq, ks, vs)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
+    for name, t in (("ks", ks), ("vs", vs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("q", q), ("kq", kq), ("vq", vq), ("ks", ks), ("vs", vs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device} and q on {q.device}: same device needed")
+    kw = dict(sm_scale=sm_scale, causal=causal, q_offset=int(q_offset),
+              kv_offset=int(kv_offset))
+    if q.device.type == "cpu":
+        return _flash_q8_plain(q, kq, vq, ks, vs, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    bh, s, d = q.shape
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    rc = _q8_kernel_fn()(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(), o.data_ptr(),
+        _DTYPE_CODE[q.dtype], bh, s, d, float(sm_scale), int(causal), kw["q_offset"],
+        kw["kv_offset"], q.device.index or 0, _stream(q),
+    )
+    _raise_on(rc, "flash_q8")
+    _LAUNCHES["flash_q8"] += 1
+    return o
+
+
+def _check_q8(q, kq, vq, ks, vs) -> None:
+    """The guards of JAX `flash_attention_q8`: equal shapes, int8 K and V,
+    scales of the leading shape; and the kernel's head-dim limit."""
+    if q.shape != kq.shape or kq.shape != vq.shape:
+        raise ValueError(
+            f"q/kq/vq shapes differ: {tuple(q.shape)} {tuple(kq.shape)} {tuple(vq.shape)}")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8:
+        raise TypeError(f"kq/vq must be int8, got {kq.dtype}/{vq.dtype}")
+    lead = tuple(q.shape[:-2])
+    if tuple(ks.shape) != lead or tuple(vs.shape) != lead:
+        raise ValueError(f"scales must have the leading shape {lead}, got "
+                         f"{tuple(ks.shape)}/{tuple(vs.shape)}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} is not supported: the largest the kernel "
+                         f"takes is {MAX_HEAD_DIM}")
+
+
+@functools.cache
+def _q8_kernel_fn():
+    """The C entry point of csrc/flash_attention_q8.cu, built on first use."""
+    from tpusparse_torch.kernels import _build
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # q, kq, vq, ks, vs, o, q_dtype, bh, s, d, sm_scale, causal, q_off, kv_off,
+    # device, stream
+    return _build.bind(KERNEL_Q8, {"flash_q8": [p] * 6 + [i] * 4 + [f] + [i] * 4 + [p]})[
+        "flash_q8"]
+
+
+def _flash_q8_plain(q, kq, vq, ks, vs, *, sm_scale: float, causal: bool = False,
+                    q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
+    """Plain version of the int8-KV forward, on the inputs' device: a dense
+    masked softmax over the whole row, q and p rounded to bf16, the scores
+    scaled by fp32(sm_scale)·ks after the product, o = (p·vq) / l · vs."""
+    qf = _tier(q.float(), True)
+    vis = _visible(q.shape[-2], causal, q_offset, kv_offset, q.device)
+    scale = torch.tensor(sm_scale, dtype=torch.float32) * ks
+    with fp32_matmul():
+        sc = torch.where(vis, (qf @ kq.float().transpose(-1, -2)) * scale[:, None, None],
+                         NEG_INF)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(vis, torch.exp(sc - m), 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = (_tier(p, True) @ vq.float()) / torch.where(l == 0, 1.0, l) * vs[:, None, None]
+    return o.to(q.dtype)
+
+
+def flash_attention_q8(
+    q: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    block_q: int | None = None,
+    block_k: int | None = None,
+    q_offset=0,
+    kv_offset=0,
+) -> torch.Tensor:
+    """softmax(q·(ks·kq)ᵀ·sm_scale)·(vs·vq), fused, int8 K/V, forward only.
+
+    Shapes as `flash_attention`: (..., s, d); kq, vq int8 from `quantize_kv`,
+    ks, vs the per-(batch·head) scales of the leading shape. Serving-tier
+    numerics (~1e-2 relative against the float kernel, int8's information
+    limit). `block_q`/`block_k` are the TPU kernel's tile knobs, accepted and
+    ignored."""
+    del block_q, block_k
+    _check_q8(q, kq, vq, ks, vs)
+    *lead, s, d = q.shape
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    o = flash_q8_kernel(
+        _flat(q), _flat(kq), _flat(vq), ks.reshape(-1).float().contiguous(),
+        vs.reshape(-1).float().contiguous(), sm_scale=sm_scale, causal=causal,
+        q_offset=q_offset, kv_offset=kv_offset)
+    return o.reshape(*lead, s, d)

@@ -12,11 +12,17 @@ Precision tiers are those of the block SpMM executor (`tiled_spmm.py`):
 bf16 and accumulates in fp32. C is written in the result type of A and B
 unless `out_dtype` says otherwise.
 
-A wrapper given CPU tensors runs `_gemm_plain`, the plain PyTorch version:
-`torch.matmul` in fp32 with TF32 off. The same call is the yardstick
-(`library_ms`) that `chip_smoke.py` times beside the kernel, so here the
-plain version and the library call coincide. Given CUDA tensors the
-wrapper launches the kernel or raises. It counts its launches
+The int8 GEMM of the serving tier (`gemm.py:298-378`, `_gemm_s8_kernel`
+behind `gemm_int8_pallas`) becomes `csrc/gemm_s8.cu` behind
+`gemm_int8_kernel`: int8 (m, k) @ int8 (k, n) → exact int32, the caller
+owning dequantization. Its TPU block-size knobs are not carried.
+
+A wrapper given CPU tensors runs `_gemm_plain` (or `_gemm_int8_plain`), the
+plain PyTorch version: `torch.matmul` in fp32 with TF32 off (in float64 for
+int8, exact, cast to int32). For the float GEMM the same call is the
+yardstick (`library_ms`) that `chip_smoke.py` times beside the kernel, so
+there the plain version and the library call coincide. Given CUDA tensors
+the wrapper launches the kernel or raises. It counts its launches
 (`launch_counts`).
 """
 
@@ -30,8 +36,9 @@ import torch
 from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
 
 KERNEL = "gemm"
+KERNEL_INT8 = "gemm_s8"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCHES = {"gemm": 0}
+_LAUNCHES = {"gemm": 0, "gemm_s8": 0}
 
 
 def launch_counts() -> dict:
@@ -40,7 +47,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["gemm"] = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def gemm_kernel(
@@ -139,3 +147,49 @@ def _gemm_plain(
         bf = bf.transpose(0, 1)
     with fp32_matmul():
         return torch.matmul(af, bf).to(out_dtype)
+
+
+def gemm_int8_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for int8 a (m, k) and b (k, n), both contiguous, with exact
+    int32 sums; returns (m, n) int32. The sums wrap past int32, that is for
+    k beyond ~133,000 (127²·k > 2³¹), as on the TPU."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"gemm_int8_kernel needs int8 operands, got {a.dtype}/{b.dtype}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad shapes: {tuple(a.shape)} @ {tuple(b.shape)}")
+    for name, t in (("a", a), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device} and b on {b.device}: same device needed")
+    if a.device.type == "cpu":
+        return _gemm_int8_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    (m, k), n = a.shape, b.shape[1]
+    if min(m, n) == 0 or k == 0:
+        return torch.zeros((m, n), dtype=torch.int32, device=a.device)
+    c = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    rc = _int8_kernel_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                           a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{KERNEL_INT8} launch failed: CUDA error {rc}")
+    _LAUNCHES["gemm_s8"] += 1
+    return c
+
+
+@functools.cache
+def _int8_kernel_fn():
+    """The C entry point of csrc/gemm_s8.cu, built on first use."""
+    from tpusparse_torch.kernels import _build
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # a, b, c, m, n, k, device, stream
+    return _build.bind(KERNEL_INT8, {"gemm_s8": [p] * 3 + [i] * 4 + [p]})["gemm_s8"]
+
+
+def _gemm_int8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version, on the inputs' device: the product in float64
+    (exact while |sum| < 2⁵³; the card's `torch.matmul` takes neither int8
+    nor int32), cast to int32."""
+    return torch.matmul(a.double(), b.double()).to(torch.int32)

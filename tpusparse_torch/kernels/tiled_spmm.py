@@ -12,9 +12,20 @@ operands to bf16 (round to nearest even) and accumulates in fp32. The
 3-pass bf16 split of the TPU is a workaround for its matrix unit and is
 not ported.
 
-A wrapper given CPU tensors runs `_block_exec_plain`, the plain PyTorch
-version of the same function. Given CUDA tensors it launches the kernel or
-raises. Each entry point counts its launches (`launch_counts`).
+The int8 executors of the serving tier (`tiled_spmm.py:643-1019`,
+`_resident_int8_kernel` behind `resident_spmm_int8_pallas` and
+`_tiled_int8_kernel` behind `tiled_spmm_int8_pallas`) become one CUDA
+kernel too, `csrc/block_ell_spmm_int8.cu`, behind
+`resident_spmm_int8_kernel` and `tiled_spmm_int8_kernel`: bitwise equal, as
+the JAX pair is. Their contract: C = (Σ_l s_a[l] · float(Qa[l] @ Qb[col_l]))
+∘ t, int8 operands, an exact int32 product per slot, the fp32 sum in slot
+order. The TPU's VMEM fit check (`resident_int8_vmem_bytes`) has no
+counterpart, as for the float executor.
+
+A wrapper given CPU tensors runs `_block_exec_plain` (or
+`_block_exec_int8_plain`), the plain PyTorch version of the same function.
+Given CUDA tensors it launches the kernel or raises. Each entry point counts
+its launches (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -28,8 +39,10 @@ from tpusparse_torch.plan import Plan
 from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
 
 KERNEL = "block_ell_spmm"
+KERNEL_INT8 = "block_ell_spmm_int8"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCHES = {"tiled_spmm": 0, "resident_spmm": 0}
+_LAUNCHES = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0,
+             "resident_spmm_int8": 0}
 
 
 def launch_counts() -> dict:
@@ -173,3 +186,123 @@ def _block_exec_plain(
     with fp32_matmul():
         out = torch.einsum("ilmk,ilkn->imn", vals4, tiles)
     return out.reshape(nbr * bm, n)[:m].to(out_dtype)
+
+
+# ----------------------------------------------------------------------------
+# int8 executor (the serving tier)
+# ----------------------------------------------------------------------------
+
+
+def resident_spmm_int8_kernel(
+    plan: Plan, qvals: torch.Tensor, scales: torch.Tensor, b_q: torch.Tensor,
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """C ≈ A @ B from quantized operands (`quant.py` packs them).
+
+    qvals: (plan.num_slots, bm, bk) int8; scales: (plan.num_slots,) fp32,
+    one per ELL slot (0 on pad slots); b_q: (k, n) int8; t: (n,) fp32
+    per-column scales of B. Returns (m, n) fp32. The TPU kernel's `block_n`
+    and `unroll` knobs are not carried: the CUDA kernel tiles n itself.
+    """
+    return _run_int8("resident_spmm_int8", plan, qvals, scales, b_q, t)
+
+
+def tiled_spmm_int8_kernel(
+    plan: Plan, qvals: torch.Tensor, scales: torch.Tensor, b_q: torch.Tensor,
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """Same contract and same kernel as `resident_spmm_int8_kernel` (the
+    TPU's DMA-ring form, for any k), so the two are bitwise equal."""
+    return _run_int8("tiled_spmm_int8", plan, qvals, scales, b_q, t)
+
+
+def _check_int8(plan: Plan, qvals, scales, b_q, t) -> None:
+    m, k = plan.shape
+    bm, bk = plan.blocksize
+    if b_q.dtype != torch.int8 or qvals.dtype != torch.int8:
+        raise TypeError(
+            f"int8 executor needs int8 operands, got {qvals.dtype}/{b_q.dtype}"
+        )
+    if b_q.ndim != 2 or b_q.shape[0] != k:
+        raise ValueError(f"b shape {tuple(b_q.shape)} incompatible with plan k={k}")
+    if tuple(qvals.shape) != (plan.num_slots, bm, bk):
+        raise ValueError(
+            f"qvals shape {tuple(qvals.shape)} != plan's {(plan.num_slots, bm, bk)}"
+        )
+    for name, s, size in (("scales", scales, plan.num_slots), ("t", t, b_q.shape[1])):
+        if s.dtype != torch.float32 or tuple(s.shape) != (size,):
+            raise TypeError(f"{name} must be float32 of shape ({size},), got "
+                            f"{s.dtype} {tuple(s.shape)}")
+    for name, x in (("qvals", qvals), ("scales", scales), ("b_q", b_q), ("t", t)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != b_q.device:
+            raise ValueError(f"{name} on {x.device} and b_q on {b_q.device}: same device needed")
+
+
+def _run_int8(entry, plan, qvals, scales, b_q, t):
+    _check_int8(plan, qvals, scales, b_q, t)
+    if b_q.device.type == "cpu":
+        return _block_exec_int8_plain(plan, qvals, scales, b_q, t)
+    if b_q.device.type != "cuda":
+        raise ValueError(f"unsupported device {b_q.device}")
+    m, k = plan.shape
+    bm, bk = plan.blocksize
+    n = b_q.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=b_q.device)
+    if m == 0 or n == 0:
+        return c
+    cols = plan.index_tensor("block_cols", b_q.device)
+    nslots = plan.index_tensor("nslots", b_q.device)
+    rc = _int8_kernel_fn()(
+        qvals.data_ptr(), scales.data_ptr(), b_q.data_ptr(), t.data_ptr(), c.data_ptr(),
+        cols.data_ptr(), nslots.data_ptr(), m, k, n, bm, bk, plan.num_row_blocks,
+        plan.ell_width, b_q.device.index or 0, torch.cuda.current_stream(b_q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{KERNEL_INT8} launch failed: CUDA error {rc}")
+    _LAUNCHES[entry] += 1
+    return c
+
+
+@functools.cache
+def _int8_kernel_fn():
+    """The C entry point of csrc/block_ell_spmm_int8.cu, built on first use."""
+    from tpusparse_torch.kernels import _build
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # qvals, scales, b_q, t, c, block_cols, nslots, m, k, n, bm, bk, nbr, L,
+    # device, stream
+    return _build.bind(KERNEL_INT8, {"block_ell_spmm_int8": [p] * 7 + [i] * 8 + [p]})[
+        "block_ell_spmm_int8"]
+
+
+def _block_exec_int8_plain(
+    plan: Plan, qvals: torch.Tensor, scales: torch.Tensor, b_q: torch.Tensor,
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of the int8 executor, on the inputs' device.
+
+    Per ELL slot, the int8 product in float64 (exact below 2⁵³; neither
+    int8 nor int32 products run on the card's `torch.matmul`), cast to int32
+    and then to fp32; then acc = acc + s·prod in fp32, slot by slot, each
+    multiply and add rounded on its own as the kernel rounds them, pad slots
+    skipped; C = acc ∘ t.
+    """
+    m, k = plan.shape
+    bm, bk = plan.blocksize
+    nbr, nbc, L = plan.num_row_blocks, plan.num_col_blocks, plan.ell_width
+    n = b_q.shape[1]
+    dev = b_q.device
+    bp = torch.zeros((nbc * bk, n), dtype=torch.float64, device=dev)
+    bp[:k] = b_q.double()
+    tiles = bp.reshape(nbc, bk, n)
+    cols = plan.index_tensor("block_cols", dev).reshape(nbr, L).long()
+    valid = plan.slot_valid_mask(dev).bool()
+    q4 = qvals.reshape(nbr, L, bm, bk)
+    s2 = scales.reshape(nbr, L)
+    acc = torch.zeros((nbr, bm, n), dtype=torch.float32, device=dev)
+    for l in range(L):
+        prod = torch.bmm(q4[:, l].double(), tiles[cols[:, l]]).to(torch.int32).float()
+        acc = torch.where(valid[:, l, None, None], acc + s2[:, l, None, None] * prod, acc)
+    return acc.reshape(nbr * bm, n)[:m] * t

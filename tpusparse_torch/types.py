@@ -1,8 +1,9 @@
-"""Sparse containers (COO / CSR) for the PyTorch port.
+"""Sparse containers (COO / CSR / BSR) for the PyTorch port.
 
-Counterpart of `tpusparse/types.py` (`COO` l.44-106, `CSR` l.109-305,
-`coo_to_csr`/`csr_to_coo` l.419-455, `random_csr` l.542, `spmm_reference`
-l.586-645, `sddmm_reference` l.646-660). Plain dataclasses: the values are a torch tensor on the
+Counterpart of `tpusparse/types.py` (`COO` l.44-106, `CSR` l.109-305, `BSR`
+l.307-389, `coo_to_csr`/`csr_to_coo` l.419-455, `csr_to_bsr`/`bsr_to_csr`
+l.456-513, `random_csr` l.542, `spmm_reference` l.586-645,
+`sddmm_reference` l.646-660). Plain dataclasses: the values are a torch tensor on the
 caller's device, the index arrays stay host numpy int32, as the JAX plans
 keep them, because the inspector (`plan.py`) runs on the host.
 """
@@ -122,6 +123,57 @@ class CSR:
         return csr_to_coo(self).to_dense()
 
 
+@dataclass(frozen=True)
+class BSR:
+    """Block-compressed-sparse-row matrix: data (nblocks, bm, bk) tensor of
+    dense blocks, indices (nblocks,) host int32 block-column ids, indptr
+    (nrow_blocks+1,) host int32; shape is the logical (pre-padding) shape.
+    Rows and columns are conceptually zero-padded up to block multiples;
+    `to_dense` strips the padding."""
+
+    data: torch.Tensor
+    indices: np.ndarray
+    indptr: np.ndarray
+    shape: Shape2
+    blocksize: Shape2
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def nnz(self) -> int:
+        """Stored entries (counts the zero fill inside blocks)."""
+        bm, bk = self.blocksize
+        return self.nblocks * bm * bk
+
+    def row_block_ids(self) -> np.ndarray:
+        """Per-block row-block id (host int32)."""
+        nbr = self.indptr.shape[0] - 1
+        return np.repeat(np.arange(nbr, dtype=np.int32), np.diff(self.indptr))
+
+    def to_dense(self) -> torch.Tensor:
+        bm, bk = self.blocksize
+        nbr = self.indptr.shape[0] - 1
+        nbc = -(-self.shape[1] // bk)
+        dev = self.data.device
+        padded = torch.zeros((nbr, nbc, bm, bk), dtype=self.dtype, device=dev)
+        idx = (torch.from_numpy(self.row_block_ids().astype(np.int64)).to(dev),
+               torch.from_numpy(self.indices.astype(np.int64)).to(dev))
+        padded.index_put_(idx, self.data, accumulate=True)
+        full = padded.permute(0, 2, 1, 3).reshape(nbr * bm, nbc * bk)
+        return full[: self.shape[0], : self.shape[1]]
+
+    @classmethod
+    def from_dense(cls, mat, blocksize: Shape2, device=None) -> "BSR":
+        """Host-side conversion keeping only the blocks with any nonzero."""
+        return csr_to_bsr(CSR.from_dense(mat, device=device), blocksize)
+
+
 def coo_to_csr(a: COO) -> CSR:
     """COO -> CSR by a stable host sort on the row ids (the reference's
     counting sort, generalised to unsorted input)."""
@@ -139,6 +191,56 @@ def coo_to_csr(a: COO) -> CSR:
 
 def csr_to_coo(a: CSR) -> COO:
     return COO(data=a.data, row=a.row_ids(), col=a.indices, shape=a.shape)
+
+
+def csr_to_bsr(a: CSR, blocksize: Shape2) -> BSR:
+    """Host-side CSR -> BSR by a direct pass over the pattern (no dense
+    round trip); the blocks come out in (row-block, block-column) order,
+    values on the CSR's device."""
+    bm, bk = blocksize
+    m, k = a.shape
+    data = _host(a.data)
+    nbr, nbc = -(-m // bm), -(-k // bk)
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(a.indptr))
+    indices = np.asarray(a.indices, dtype=np.int64)
+    key = (rows // bm) * nbc + (indices // bk)
+    ukeys, block_of = np.unique(key, return_inverse=True)
+    bdata = np.zeros((ukeys.size, bm, bk), dtype=data.dtype)
+    np.add.at(bdata, (block_of, rows % bm, indices % bk), data)
+    indptr = np.zeros(nbr + 1, dtype=np.int32)
+    np.cumsum(np.bincount(ukeys // nbc, minlength=nbr), out=indptr[1:])
+    return BSR(
+        data=torch.from_numpy(bdata).to(a.data.device),
+        indices=(ukeys % nbc).astype(np.int32),
+        indptr=indptr,
+        shape=a.shape,
+        blocksize=(bm, bk),
+    )
+
+
+def bsr_to_csr(a: BSR) -> CSR:
+    """Host-side BSR -> CSR by a direct pass over the blocks; explicit zeros
+    inside blocks and the block padding are dropped."""
+    bm, bk = a.blocksize
+    m, k = a.shape
+    bdata = _host(a.data)
+    bcols = np.asarray(a.indices, dtype=np.int64)
+    brows = a.row_block_ids().astype(np.int64)
+    nz_blk, nz_r, nz_c = np.nonzero(bdata)
+    rows = brows[nz_blk] * bm + nz_r
+    cols = bcols[nz_blk] * bk + nz_c
+    vals = bdata[nz_blk, nz_r, nz_c]
+    keep = (rows < m) & (cols < k)
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    order = np.lexsort((cols, rows))
+    indptr = np.zeros(m + 1, dtype=np.int32)
+    np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
+    return CSR(
+        data=torch.from_numpy(np.ascontiguousarray(vals[order])).to(a.data.device),
+        indices=cols[order].astype(np.int32),
+        indptr=indptr,
+        shape=a.shape,
+    )
 
 
 def random_csr(
