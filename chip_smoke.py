@@ -5,7 +5,7 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the eight CUDA sources from the repo (one nvcc per source,
+  2. build of the nine CUDA sources from the repo (one nvcc per source,
      all started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
@@ -30,7 +30,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      row-block, pad slots; both entry points bitwise equal to each other
      and to the plain version), gemm_s8 at (100, 70, 33), (64, 37, 50) and
      4096^3 (int32 equal), flash_q8 at the flash cases' six shapes with fp32
-     and bf16 q;
+     and bf16 q; naive_spmm with every reducer and the arg of max and min
+     (ragged m, n 1, 7, 64 and 300, empty rows, one long row, tied products,
+     a bf16 b; values and args bitwise equal to the plain version); the
+     seven attention entry points at head dims 192, 256 and 200 (causal with
+     and without offsets, a 'bigbird' plan for the block kernels; fp32
+     'high', 'default' and bf16);
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -76,6 +81,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
         fp32, bf16 and int8 (quantize_gpt) at batch 1 and 8 for 16 and 96
         steps, with no kernel launched; the fused=True forward at batch 8,
         seq 512 with exactly 24 flash_fwd;
+     j. GCN at Cora's published sizes (a generated graph of 2708 nodes and
+        mean degree 3.9, 1433 binary features, 7 classes, 140 training
+        nodes; hidden 64, spmm_method 'naive'): a forward and 20 Adam steps
+        (lr 1e-2), 2 naive_spmm launches each and nothing else;
+     k. GCN at ogbn-arxiv's published sizes (169,343 nodes, mean degree
+        13.7, 128 features, 40 classes; OGB's baseline, 3 layers of width
+        256) on 'naive': a forward and 5 Adam steps, 3 launches each; the
+        block count a 128^2 'tiled' plan would need, printed, not run;
+     l. GAT at the Cora shape (8 heads of 8, add_self_loops, 'naive'): a
+        forward and 20 Adam steps (lr 5e-3), 16 launches each;
+     m. APPNP at the Cora shape (hidden 64, alpha 0.1, K 10) on the
+        default 'tiled' route: 10 block_ell_spmm launches a forward, 20 a
+        step (the dB of each propagation step; no SDDMM, since A-hat's
+        values need no gradient);
+     n. spmm's routes on Cora's A-hat: 'naive', 'gather', 'dense', 'tiled'
+        against 'reference', a BSR operand and a 3-D b;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -92,7 +113,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      against fp32 GPT quality over 24 teacher-forced steps at batch 1 (max
      logit rel err, top-1 agreement, finite); a full-width QuantizedGPT on
      the card against the CPU (int8 weights and scales bitwise equal,
-     prefill + 3 decode steps' logits < GPT_CARD_CPU_LIMIT of scale);
+     prefill + 3 decode steps' logits < GPT_CARD_CPU_LIMIT of scale); the
+     Cora-shaped GCN, GAT and APPNP: loss drops over 20 steps, the forward
+     and 3 steps on the card against the same weights on the CPU (rtol
+     1e-4, atol 5e-5; parameters by the Adam rule of
+     tests/test_torch_graph.py); the arxiv GCN's outputs and losses finite
+     and its loss dropping;
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -115,7 +141,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      quantize_columns and beside the fp32 block_ell_spmm; GPT ms per token
      and tokens/s per tier and batch ((96-step - 16-step generate) / 80)
      against the HBM bound, and the device's busy share of a decode step
-     (torch.profiler kernel time over the per-token time);
+     (torch.profiler kernel time over the per-token time); naive_spmm at
+     the arxiv-shaped A-hat (sum at n 256 and 40, max with its arg) against
+     its plain version, gather_spmm and torch.sparse.mm on a CSR tensor; ms
+     per Adam step and the device's busy share for 4j-4m; the seven
+     attention entry points at (2, 8, 512, 256) against their plain
+     versions, bounds and SDPA;
   7. each phase's wall time, the `kernels` JSON line, then the device JSON
      line, last.
 
@@ -154,7 +185,8 @@ NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 # every kernel's count, all 0
-NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8}
+NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8,
+             "naive_spmm": 0}
 STEP_LAUNCHES = {
     "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
     "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
@@ -1548,6 +1580,530 @@ def phase_gpt_serving() -> None:
         raise AssertionError("QuantizedGPT on the card disagrees with the CPU")
 
 
+# -- the naive SpMM and the graph models ------------------------------------------
+
+# every reducer, and the arg output of max and min: (reduce, return_arg)
+NAIVE_MODES = (("sum", False), ("mean", False), ("max", False), ("min", False), ("mul", False),
+               ("div", False), ("max", True), ("min", True))
+# Cora's published sizes (Kipf & Welling 2017, Table 1): 2708 nodes, mean
+# degree 3.9, 1433 binary bag-of-words features (1.27 % set), 7 classes, 140
+# training nodes; the graph is generated, not downloaded
+CORA = dict(nodes=2708, avg_degree=3.9, features=1433, density=0.0127, classes=7, train=140)
+# ogbn-arxiv's published sizes (Hu et al. 2020, OGB): 169,343 nodes, mean
+# degree 13.7, 128 features, 40 classes, 54 % of the nodes in the training
+# split; OGB's GCN baseline has 3 layers of width 256
+ARXIV = dict(nodes=169343, avg_degree=13.7, features=128, density=1.0, classes=40, train=0.537)
+ARXIV_HIDDEN = (256, 256)
+# OGB's baseline trains at 1e-2 with batch norm; without it 1e-2 overshoots
+# on the third step (a CPU probe of this model at 20,000 nodes), 5e-3 does not
+ARXIV_LR = 5e-3
+GRAPH_STEPS = 20
+ARXIV_STEPS = 5
+NAIVE_TIMING_N = (256, 40)
+# attention kernels at a head dim above 128: (b, h, s, d)
+WIDE_SHAPE = (2, 8, 512, 256)
+
+
+def kernels_reset() -> None:
+    from tpusparse_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+
+def _same(got, want) -> bool:
+    """Bitwise equal, NaN where the other has NaN."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(((got == want) | (got.isnan() & want.isnan())).all())
+            if got.is_floating_point() else torch.equal(got, want))
+
+
+def _naive_case(seed, m, k, n, b_dtype=torch.float32, ties=False):
+    """A CSR on the card whose every 7th row is empty and one row far longer
+    than the rest (a power-law tail), and a dense B; with `ties` both from a
+    few small integers, so equal products (the arg tie-break) are common."""
+    import tpusparse_torch as tt
+
+    rng = np.random.default_rng(seed)
+    mask = rng.random((m, k)) < 0.06
+    mask[m // 2, : 3 * k // 4] = True
+    mask[::7] = False
+    vals = (rng.choice([-2.0, -1.0, 1.0, 2.0], (m, k)) if ties
+            else rng.uniform(0.5, 1.5, (m, k)) * rng.choice([-1.0, 1.0], (m, k)))
+    a = tt.CSR.from_dense((mask * vals).astype(np.float32), device="cuda")
+    b = rng.integers(-2, 3, (k, n)) if ties else rng.uniform(0.5, 1.5, (k, n))
+    return a, torch.from_numpy(b.astype(np.float32)).to("cuda", b_dtype)
+
+
+def phase_small_naive() -> None:
+    """The naive SpMM kernel against its plain version on the card, every
+    reducer and arg output: ragged m, n from 1 to 300, empty rows, one long
+    row, tied products for the arg, a bf16 b. Values and args bitwise
+    equal: both round each product and each update on their own."""
+    from tpusparse_torch.kernels import naive_spmm as nk
+
+    cases = [("ragged_101x77_n1", 101, 77, 1, torch.float32),
+             ("ragged_101x77_n7", 101, 77, 7, torch.float32),
+             ("ragged_101x77_n64", 101, 77, 64, torch.float32),
+             ("ragged_301x250_n300", 301, 250, 300, torch.float32),
+             ("bf16b_101x77_n40", 101, 77, 40, torch.bfloat16)]
+    for seed, (name, m, k, n, bdt) in enumerate(cases):
+        for reduce, return_arg in NAIVE_MODES:
+            a, b = _naive_case(1100 + seed, m, k, n, bdt, ties=return_arg)
+            ell = nk.ell_pack(a)
+            nnz = a.nnz if return_arg else 0
+            kw = dict(reduce=reduce, return_arg=return_arg, nnz=nnz)
+            got = nk.naive_spmm_kernel(ell, a.shape, b, **kw)
+            want = nk._naive_spmm_plain(ell, a.shape, b, **kw)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if return_arg else [(got, want)]
+            ok = all(_same(g, w) for g, w in pairs)
+            label = f"{reduce}{' + arg' if return_arg else ''}"
+            print(f"case naive_{name} (L {ell[0].shape[1]}, nnz {a.nnz}) {label}: bitwise equal "
+                  f"to the plain version: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"naive {name} {label}: kernel disagrees with its plain "
+                                     "version")
+
+
+def phase_small_wide_attention() -> None:
+    """The seven attention entry points at head dims above 128 (192, 256 and
+    a ragged 200: the WIDE instances) against their plain versions: flash
+    causal with and without offsets, the block kernels on a 'bigbird' plan,
+    flash_q8; fp32 'high', fp32 'default' and bf16; the existing limits."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import flash_attention as fa
+
+    # name, (bh, s, d), causal, q_offset
+    cases = [("wide_2x256x192", (2, 256, 192), False, 0),
+             ("wide_causal_2x256x256", (2, 256, 256), True, 0),
+             ("wide_ragged_offsets_1x200x200_q64", (1, 200, 200), True, 64)]
+    tiers = ((torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"))
+    plan = tt.BlockAttnPlan(tt.bigbird_block_mask(256, 64), 64, 64, 256)
+    for seed, (name, shape, causal, q_off) in enumerate(cases):
+        for dtype, prec in tiers:
+            q, k, v, do = _flash_operands(shape, 1200 + seed, dtype)
+            d = shape[-1]
+            tag = f"{str(dtype).split('.')[1]}_{prec}"
+            rounded = dtype == torch.bfloat16 or prec == "default"
+            kw = dict(sm_scale=1 / d ** 0.5, causal=causal, q_offset=q_off, kv_offset=0,
+                      precision=prec)
+            got, want = _flash_pair(q, k, v, do, kw)
+            _check_attention_case(f"flash_{name}_{tag}", got, want, rounded)
+            if shape[1] == plan.seq:
+                bkw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+                got, want = _blk_pair(q, k, v, do, plan, bkw)
+                _check_attention_case(f"blk_bigbird_256_b64_d{d}_{tag}", got, want, rounded)
+        q, k, v, _ = _flash_operands(shape, 1250 + seed)
+        kq, ks, vq, vs = fa.quantize_kv(k, v)
+        kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fa.flash_q8_kernel(q.to(dtype), kq, vq, ks, vs, **kw)
+            want = fa._flash_q8_plain(q.to(dtype), kq, vq, ks, vs, **kw)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)[1]
+            ok = (err <= FLASH_LIMIT_ROUNDED and got.dtype == dtype and got.shape == want.shape
+                  and bool(torch.isfinite(got.float()).all()))
+            print(f"case flash_q8_{name}_{str(dtype).split('.')[1]}: o over scale {err:.2e} "
+                  f"(limit {FLASH_LIMIT_ROUNDED:.0e}), {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_q8 {name}: kernel disagrees with its plain version")
+
+
+def _graph_task(cfg, seed):
+    """A graph of the configuration's size and mean degree, its features,
+    labels and training mask, all from `seed`, on the host. The labels are
+    ones a GCN can learn: the class of a random projection of the features
+    propagated once over Â (random labels at the arxiv shape leave the loss
+    flat over 5 steps on the card)."""
+    import scipy.sparse as ssp
+
+    import tpusparse_torch as tt
+
+    n = cfg["nodes"]
+    adj = tt.random_graph(seed, n, avg_degree=cfg["avg_degree"], device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    if cfg["density"] < 1.0:  # binary bag-of-words
+        x = (rng.random((n, cfg["features"]), dtype=np.float32) < cfg["density"])
+        x = x.astype(np.float32)
+    else:
+        x = rng.standard_normal((n, cfg["features"]), dtype=np.float32)
+    a = tt.normalized_adjacency(adj)
+    a = ssp.csr_matrix((a.data.numpy(), a.indices, a.indptr), shape=a.shape)
+    labels = np.argmax(a @ (x @ rng.standard_normal((cfg["features"], cfg["classes"]),
+                                                    dtype=np.float32)), axis=1)
+    train = cfg["train"] if cfg["train"] >= 1 else int(cfg["train"] * n)
+    mask = np.zeros(n, np.float32)
+    mask[rng.choice(n, train, replace=False)] = 1.0
+    return adj, (torch.from_numpy(x), torch.from_numpy(labels), torch.from_numpy(mask))
+
+
+def _on(adj, device):
+    import tpusparse_torch as tt
+
+    return tt.CSR(adj.data.to(device), adj.indices, adj.indptr, adj.shape)
+
+
+def _graph_models(family, device):
+    """(model, optimizer, operator maker) of the Cora-shaped configurations,
+    weights from one seed, so the card and the CPU start alike."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.models import gat, gcn
+
+    gen = torch.Generator().manual_seed({"gcn": 31, "gat": 32, "appnp": 33}[family])
+    f, c = CORA["features"], CORA["classes"]
+    if family == "gcn":
+        model = tt.GCN(f, hidden=(64,), num_classes=c, spmm_method="naive", device=device,
+                       generator=gen)
+        return model, gcn.make_train_state(model, 1e-2), tt.normalized_adjacency
+    if family == "gat":
+        model = tt.GAT(f, hidden=(8,), num_heads=8, num_classes=c, spmm_method="naive",
+                       device=device, generator=gen)
+        return model, gat.make_train_state(model, 5e-3), tt.add_self_loops
+    model = tt.APPNP(f, hidden=(64,), num_classes=c, alpha=0.1, k=10, device=device,
+                     generator=gen)
+    return model, gcn.make_train_state(model, 1e-2), tt.normalized_adjacency
+
+
+# launches of one forward and of one Adam step: GCN one naive_spmm per layer
+# (Â's values need no gradient: no backward launch); GAT one per head per
+# layer (its backward is the gather and scatter-add); APPNP one
+# block_ell_spmm per propagation step forward and one dB each backward
+GRAPH_LAUNCHES = {"gcn": ({"naive_spmm": 2}, {"naive_spmm": 2}),
+                  "gat": ({"naive_spmm": 16}, {"naive_spmm": 16}),
+                  "appnp": ({"block_ell_spmm": 10}, {"block_ell_spmm": 20})}
+
+
+def phase_graph_cora(family, task) -> dict:
+    """A Cora-shaped model on the card: a forward, GRAPH_STEPS Adam steps,
+    each one's launches checked and the loss required to drop; then the
+    forward and PARITY_STEPS steps on the CPU from the same weights, held
+    at the fp32 tier (parameters by the Adam rule of tests/test_torch_graph.py:
+    elements whose first-step gradient is under 1e-3 of the largest may part
+    by 2·lr a step). Returns the launches and what the timings need."""
+    from tpusparse_torch.models import gcn
+
+    adj, (x, labels, mask) = task
+    fwd_expect, step_expect = GRAPH_LAUNCHES[family]
+    model, opt, op = _graph_models(family, "cuda")
+    a = op(_on(adj, "cuda"))
+    xc, lc, mc = x.cuda(), labels.cuda(), mask.cuda()
+    total = {"naive_spmm": 0, "block_ell_spmm": 0}
+    torch.cuda.synchronize()
+    kernels_reset()
+    with torch.no_grad():
+        out = model(a, xc)
+    torch.cuda.synchronize()
+    _expect(f"{family} cora forward", _launches(), fwd_expect)
+    for kname in total:
+        total[kname] += _launches()[kname]
+    losses, snapshot = [], None
+    for i in range(GRAPH_STEPS):
+        kernels_reset()
+        losses.append(gcn.train_step(model, opt, a, xc, lc, mc))
+        torch.cuda.synchronize()
+        _expect(f"{family} cora step {i}", _launches(), step_expect)
+        for kname in total:
+            total[kname] += _launches()[kname]
+        if i + 1 == PARITY_STEPS:
+            snapshot = [p.detach().cpu().clone() for p in model.parameters()]
+    losses = [float(v) for v in losses]
+    print(f"{family} cora ({CORA['nodes']} nodes, nnz {a.nnz}): forward launches "
+          f"{json.dumps(fwd_expect)}, {GRAPH_STEPS} Adam steps with {json.dumps(step_expect)} "
+          f"each, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{family} cora: loss did not drop: {losses}")
+    # the same weights on the CPU
+    cpu, cpu_opt, _ = _graph_models(family, "cpu")
+    a_cpu = op(adj)
+    with torch.no_grad():
+        want = cpu(a_cpu, x)
+    fwd_err = float((out.cpu() - want).abs().max())
+    torch.testing.assert_close(out.cpu(), want, **TOL_FP32)
+    cpu_losses, grads = [], None
+    for i in range(PARITY_STEPS):
+        cpu_losses.append(float(gcn.train_step(cpu, cpu_opt, a_cpu, x, labels, mask)))
+        if i == 0:
+            grads = [p.grad.clone() for p in cpu.parameters()]
+    np.testing.assert_allclose(losses[:PARITY_STEPS], cpu_losses, **TOL_FP32)
+    lr = cpu_opt.param_groups[0]["lr"]
+    err = 0.0
+    for (name, p), g, s in zip(cpu.named_parameters(), grads, snapshot):
+        sensitive = g.abs() < 1e-3 * max(float(gg.abs().max()) for gg in grads)
+        diff = (s - p.detach()).abs()
+        if bool((diff[~sensitive] > 1e-5 + 1e-3 * lr).any()) or bool(
+                (diff[sensitive] > 2 * PARITY_STEPS * lr).any()):
+            raise AssertionError(f"{family} cora card vs CPU: parameter {name} apart by "
+                                 f"{float(diff.max()):.3e}")
+        err = max(err, float(diff[~sensitive].max()) if bool((~sensitive).any()) else 0.0)
+    print(f"{family} cora card vs CPU: forward max_abs_err {fwd_err:.3e}, {PARITY_STEPS} steps' "
+          f"losses within tolerance, parameters max_abs_err {err:.3e} (ok)")
+    return {"launches": total, "model": model, "opt": opt, "a": a,
+            "batch": (xc, lc, mc)}
+
+
+def phase_graph_arxiv(task) -> dict:
+    """The ogbn-arxiv-shaped GCN (OGB's baseline: 3 layers of width 256) on
+    the naive route: a forward and ARXIV_STEPS Adam steps, 3 naive_spmm
+    launches each, the loss finite and dropping. The 'tiled' route is not
+    run: the block count of a 128^2 plan of this graph says why."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.models import gcn
+
+    adj, (x, labels, mask) = task
+    t0 = time.perf_counter()
+    a = tt.normalized_adjacency(_on(adj, "cuda"))
+    n = adj.shape[0]
+    rows = a.row_ids().astype(np.int64)
+    nbc = -(-n // 128)
+    nblocks = np.unique((rows // 128) * nbc + np.asarray(a.indices, np.int64) // 128).size
+    print(f"gcn arxiv set-up: {time.perf_counter() - t0:.1f} s; {n} nodes, nnz of A-hat "
+          f"{a.nnz}, ELL width {tt.ops.resolve_ell_width(a)}; a 128^2 block plan would pack "
+          f"{nblocks} blocks ({nblocks * 128 * 128 * 4 / 1e9:.1f} GB of fp32 values for "
+          f"{a.nnz} nonzeros, {a.nnz / (nblocks * 128 * 128):.2e} of each block): not run")
+    model = tt.GCN(ARXIV["features"], hidden=ARXIV_HIDDEN, num_classes=ARXIV["classes"],
+                   spmm_method="naive", device="cuda", generator=torch.Generator().manual_seed(34))
+    opt = gcn.make_train_state(model, ARXIV_LR)
+    xc, lc, mc = x.cuda(), labels.cuda(), mask.cuda()
+    layers = len(ARXIV_HIDDEN) + 1
+    kernels_reset()
+    with torch.no_grad():
+        out = model(a, xc)
+    torch.cuda.synchronize()
+    _expect("gcn arxiv forward", _launches(), {"naive_spmm": layers})
+    total = layers
+    losses = []
+    for i in range(ARXIV_STEPS):
+        kernels_reset()
+        losses.append(gcn.train_step(model, opt, a, xc, lc, mc))
+        torch.cuda.synchronize()
+        _expect(f"gcn arxiv step {i}", _launches(), {"naive_spmm": layers})
+        total += layers
+    losses = [float(v) for v in losses]
+    print(f"gcn arxiv (hidden {ARXIV_HIDDEN}, {ARXIV['classes']} classes): forward "
+          f"{layers} naive_spmm, {ARXIV_STEPS} Adam steps with {layers} each, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and bool(torch.isfinite(out).all()) and out.shape == (n, ARXIV["classes"])):
+        raise AssertionError(f"gcn arxiv: outputs not finite or loss did not drop: {losses}")
+    return {"launches": {"naive_spmm": total}, "model": model, "opt": opt, "a": a,
+            "batch": (xc, lc, mc)}
+
+
+def phase_spmm_routes(a) -> dict:
+    """spmm's routes at one shape (Cora's A-hat, n 64): 'naive', 'gather',
+    'dense', 'tiled' against 'reference' within the fp32 tier; the same
+    matrix as a BSR through 'tiled' and 'naive', and a 3-D b through the
+    routes that fold it."""
+    import tpusparse_torch as tt
+
+    rng = np.random.default_rng(35)
+    b = torch.from_numpy(rng.standard_normal((a.shape[1], 64), dtype=np.float32)).cuda()
+    b3 = torch.from_numpy(rng.standard_normal((3, a.shape[1], 16), dtype=np.float32)).cuda()
+    bsr = tt.csr_to_bsr(a, (128, 128))
+    kernels_reset()
+    ref, ref3 = tt.spmm(a, b, method="reference"), tt.spmm(a, b3, method="reference")
+    runs = [(f"{m}", tt.spmm(a, b, method=m), ref) for m in ("naive", "gather", "dense", "tiled")]
+    runs += [(f"bsr {m}", tt.spmm(bsr, b, method=m), ref) for m in ("tiled", "naive")]
+    runs += [(f"3-D {m}", tt.spmm(a, b3, method=m), ref3) for m in ("naive", "gather", "dense")]
+    torch.cuda.synchronize()
+    counts = _launches()
+    _expect("spmm routes", counts, {"naive_spmm": 3, "block_ell_spmm": 2})
+    for label, got, want in runs:
+        ok = got.shape == want.shape and torch.allclose(got, want, **TOL_FP32)
+        print(f"spmm route {label}: against 'reference' max_abs_err "
+              f"{float((got - want).abs().max()):.3e}, {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"spmm route {label} disagrees with 'reference'")
+    return {"naive_spmm": counts["naive_spmm"], "block_ell_spmm": counts["block_ell_spmm"]}
+
+
+def phase_naive_timings(a) -> dict:
+    """The naive kernel at the arxiv-shaped A-hat: sum at n 256 and 40, max
+    with its arg at n 256; each against its plain version, gather_spmm and
+    torch.sparse.mm on a CSR tensor (cuSPARSE, TF32 off), with its bound
+    from this run's nonzeros. Returns the kernels line's row."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import naive_spmm as nk
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    m, k = a.shape
+    ell = tt.ops.ell_pack_traced(a)
+    crow = torch.from_numpy(np.asarray(a.indptr, np.int64)).cuda()
+    col = torch.from_numpy(np.asarray(a.indices, np.int64)).cuda()
+    a_sp = torch.sparse_csr_tensor(crow, col, a.data, size=a.shape)
+    rng = np.random.default_rng(36)
+    row = None
+    for n in NAIVE_TIMING_N:
+        b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).cuda()
+        got = nk.naive_spmm_kernel(ell, a.shape, b)
+        plain = nk._naive_spmm_plain(ell, a.shape, b)
+        err = float((got - plain).abs().max())
+        with fp32_matmul():
+            lib = torch.sparse.mm(a_sp, b)
+            lib_err = rel_err(lib, got)[1]
+            lib_ms = time_ms_queued(lambda: torch.sparse.mm(a_sp, b))
+        del plain, lib
+        ms = time_ms_queued(lambda: nk.naive_spmm_kernel(ell, a.shape, b))
+        plain_ms = time_ms(lambda: nk._naive_spmm_plain(ell, a.shape, b), warmup=1, iters=3)
+        gather_ms = time_ms_queued(lambda: tt.gather_spmm(a, b), reps=5)
+        # each ELL entry visited once (index, value), the row counts, B once, C once
+        nbytes = 8.0 * a.nnz + 4.0 * m + 4.0 * k * n + 4.0 * m * n
+        flops = 2.0 * a.nnz * n
+        bms, by = bound(flops, nbytes)
+        print(f"naive_spmm sum arxiv ({m}^2, nnz {a.nnz}, L {ell[0].shape[1]}) x ({k}, {n}) fp32: "
+              f"kernel {ms:.4f} ms queued, plain {plain_ms:.4f} ms, gather_spmm {gather_ms:.4f} "
+              f"ms, torch.sparse.mm (CSR) {lib_ms:.4f} ms (vs kernel {lib_err:.2e} of scale); "
+              f"bound {bms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"kernel at {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s of compulsory traffic; kernel vs "
+              f"plain max_abs_err {err:.1e}")
+        if not (err == 0.0 and lib_err < 1e-4):
+            raise AssertionError(f"naive_spmm at arxiv n {n}: kernel vs plain {err:.3e}, vs "
+                                 f"torch.sparse.mm {lib_err:.3e}")
+        if n == NAIVE_TIMING_N[0]:
+            row = {"name": "naive_spmm", "route": "cuda",
+                   "source": "tpusparse_torch/csrc/naive_spmm.cu",
+                   "replaces": "tpusparse/kernels/naive_spmm.py:68 (_naive_kernel)",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": lib_ms}
+            kw = dict(reduce="max", return_arg=True, nnz=a.nnz)
+            got = nk.naive_spmm_kernel(ell, a.shape, b, **kw)
+            plain = nk._naive_spmm_plain(ell, a.shape, b, **kw)
+            same = _same(got[0], plain[0]) and _same(got[1], plain[1])
+            del got, plain
+            ms = time_ms_queued(lambda: nk.naive_spmm_kernel(ell, a.shape, b, **kw))
+            plain_ms = time_ms(lambda: nk._naive_spmm_plain(ell, a.shape, b, **kw),
+                               warmup=1, iters=3)
+            bms, by = bound(flops, nbytes + 4.0 * m + 4.0 * m * n)
+            print(f"naive_spmm max + arg arxiv n {n}: kernel {ms:.4f} ms queued, plain "
+                  f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by}; bitwise equal to the plain "
+                  f"version: {same}")
+            if not same:
+                raise AssertionError("naive_spmm max + arg at arxiv disagrees with its plain "
+                                     "version")
+        del b
+    return row
+
+
+def phase_graph_step_timings(runs) -> None:
+    """ms per Adam step (CUDA events around one step, median) of each graph
+    configuration, and the device's busy share of a step from torch.profiler."""
+    from tpusparse_torch.models import gcn
+
+    for label, r in runs.items():
+        model, opt, a = r["model"], r["opt"], r["a"]
+        xc, lc, mc = r["batch"]
+        step = lambda: gcn.train_step(model, opt, a, xc, lc, mc)  # noqa: E731
+        ms = time_ms(step, warmup=2, iters=5 if "arxiv" in label else 20)
+        busy, nk = _busy_ms(step, n=3)
+        print(f"{label} Adam step: {ms:.4f} ms per step; device busy {busy:.4f} ms "
+              f"({nk:.0f} kernels) per step, busy share {busy / ms:.3f}")
+
+
+def phase_wide_timings() -> None:
+    """The seven attention entry points at (b, h, s, d) = WIDE_SHAPE, fp32
+    'high' (flash_q8 at its own tier): kernel against plain and bound, SDPA
+    as the yardstick (the block kernels' with the token-exact mask)."""
+    from torch.nn.attention import sdpa_kernel
+
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    b, h, s, d = WIDE_SHAPE
+    bh = b * h
+    q, k, v, do = _flash_operands((bh, s, d), 1300)
+    kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision="high")
+    got, want = _flash_pair(q, k, v, do, kw)
+    errs = {n: rel_err(g, w)[1] for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+    if not all(e <= FLASH_LIMIT_FP32 for e in errs.values()):
+        raise AssertionError(f"flash at d {d}: kernel vs plain {errs}")
+    o, lse = got[0], got[1]
+    delta = _delta(do, o)
+    del got, want
+    plan = tt.BlockAttnPlan(tt.bigbird_block_mask(s, PATTERN_WINDOW), PATTERN_WINDOW,
+                            PATTERN_WINDOW, s)
+    bkw = dict(sm_scale=1 / d ** 0.5, precision="high")
+    bgot, bwant = _blk_pair(q, k, v, do, plan, bkw)
+    berrs = {n: rel_err(g, w)[1] for n, g, w in zip(("o", "lse", "dq", "dk", "dv"), bgot, bwant)}
+    if not all(e <= FLASH_LIMIT_FP32 for e in berrs.values()):
+        raise AssertionError(f"block flash at d {d}: kernel vs plain {berrs}")
+    bo, blse = bgot[0], bgot[1]
+    bdelta = _delta(do, bo)
+    del bgot, bwant
+    kq, ks, vq, vs = fa.quantize_kv(k, v)
+    qkw = dict(sm_scale=1 / d ** 0.5, causal=False)
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd_kernel(q, k, v, **kw),
+                      lambda: fa._flash_fwd_plain(q, k, v, **kw)),
+        "flash_dq": (lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
+                     lambda: fa._flash_dq_plain(q, k, v, do, lse, delta, **kw)),
+        "flash_dkv": (lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw),
+                      lambda: fa._flash_dkv_plain(q, k, v, do, lse, delta, **kw)),
+        "blk_flash_fwd": (lambda: bfa.blk_flash_fwd_kernel(q, k, v, plan, **bkw),
+                          lambda: bfa._blk_fwd_plain(q, k, v, plan, **bkw)),
+        "blk_flash_dq": (lambda: bfa.blk_flash_dq_kernel(q, k, v, do, blse, bdelta, plan, **bkw),
+                         lambda: bfa._blk_dq_plain(q, k, v, do, blse, bdelta, plan, **bkw)),
+        "blk_flash_dkv": (
+            lambda: bfa.blk_flash_dkv_kernel(q, k, v, do, blse, bdelta, plan, **bkw),
+            lambda: bfa._blk_dkv_plain(q, k, v, do, blse, bdelta, plan, **bkw)),
+        "flash_q8": (lambda: fa.flash_q8_kernel(q, kq, vq, ks, vs, **qkw),
+                     lambda: fa._flash_q8_plain(q, kq, vq, ks, vs, **qkw)),
+    }
+    q8_err = rel_err(fns["flash_q8"][0](), fns["flash_q8"][1]())[1]
+    if q8_err > FLASH_LIMIT_ROUNDED:
+        raise AssertionError(f"flash_q8 at d {d}: kernel vs plain {q8_err:.3e}")
+    qkv, stat = 4.0 * bh * s * d, 4.0 * bh * s
+    entries = float(bh * s * s)
+    bentries = float(bh * plan.covered_tiles * plan.block_q * plan.block_k)
+    work = {  # (flops, bytes, peak): each input read once, each output written once
+        "flash_fwd": (4 * entries * d, 4 * qkv + stat, FP32_FLOPS),
+        "flash_dq": (6 * entries * d, 5 * qkv + 2 * stat, FP32_FLOPS),
+        "flash_dkv": (8 * entries * d, 6 * qkv + 2 * stat, FP32_FLOPS),
+        "blk_flash_fwd": (4 * bentries * d, 4 * qkv + stat, FP32_FLOPS),
+        "blk_flash_dq": (6 * bentries * d, 5 * qkv + 2 * stat, FP32_FLOPS),
+        "blk_flash_dkv": (8 * bentries * d, 6 * qkv + 2 * stat, FP32_FLOPS),
+        "flash_q8": (4 * entries * d, bh * s * d * (4 + 1 + 1 + 4) + 8.0 * bh, BF16_FLOPS),
+    }
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    mask = plan.token_mask(q.device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = {}
+    for key, attn_mask in (("full", None), ("masked", mask)):
+        backend = _sdpa_backend(q4, k4, v4, attn_mask)
+        with sdpa_kernel([backend]), fp32_matmul():
+            fwd_ms = time_ms_queued(lambda: sdpa(q4, k4, v4, attn_mask=attn_mask))
+            qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+            og = sdpa(qg, kg, vg, attn_mask=attn_mask)
+            bwd_ms = time_ms_queued(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
+        lib[key] = (fwd_ms, bwd_ms, backend.name)
+        del qg, kg, vg, og
+    qb, kb, vb = (x.to(torch.bfloat16).view(b, h, s, d) for x in
+                  (q, kq.float() * ks[:, None, None], vq.float() * vs[:, None, None]))
+    backend = _sdpa_backend(qb, kb, vb)
+    with sdpa_kernel([backend]):
+        lib["q8"] = (time_ms_queued(lambda: sdpa(qb, kb, vb)), None, backend.name)
+    for name, (kern, plain) in fns.items():
+        ms = time_ms_queued(kern)
+        plain_ms = time_ms_queued(plain, reps=5)
+        flops, nbytes, peak = work[name]
+        bms, by = bound(flops, nbytes, peak)
+        key = "q8" if name == "flash_q8" else ("masked" if name.startswith("blk") else "full")
+        fwd_ms, bwd_ms, backend = lib[key]
+        lib_ms = fwd_ms if name.endswith(("fwd", "q8")) else bwd_ms
+        print(f"{name} {WIDE_SHAPE} d {d} ({'bigbird block 64, ' if key == 'masked' else ''}"
+              f"{'int8 K/V' if key == 'q8' else 'fp32 high'}): kernel {ms:.4f} ms queued, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP), kernel "
+              f"at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; sdpa ({backend}) "
+              f"{'forward' if name.endswith(('fwd', 'q8')) else 'autograd backward'} "
+              f"{lib_ms:.4f} ms")
+    print(f"d {d} kernel vs plain over scale: flash " + ", ".join(
+        f"{n} {e:.2e}" for n, e in errs.items()) + "; block " + ", ".join(
+        f"{n} {e:.2e}" for n, e in berrs.items()) + f"; flash_q8 o {q8_err:.2e}")
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -1581,6 +2137,8 @@ def main() -> int:
     run_phase("small flash", phase_small_flash)
     run_phase("small block flash", phase_small_block_flash)
     run_phase("small int8", phase_small_int8)
+    run_phase("small naive", phase_small_naive)
+    run_phase("small wide attention", phase_small_wide_attention)
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -1661,6 +2219,13 @@ def main() -> int:
     run_phase("sparse card vs cpu", phase_bert_card_vs_cpu, "sparse", 512, "blockflash")
     int8_r = run_phase("int8 serving", phase_int8_serving, a, b, c)
     run_phase("gpt serving", phase_gpt_serving)
+    cora = _graph_task(CORA, 30)
+    graph = {f"{fam} cora": run_phase(f"{fam} cora", phase_graph_cora, fam, cora)
+             for fam in ("gcn", "gat", "appnp")}
+    graph["gcn arxiv"] = run_phase("gcn arxiv", phase_graph_arxiv, _graph_task(ARXIV, 40))
+    route_counts = run_phase("spmm routes", phase_spmm_routes, graph["gcn cora"]["a"])
+    graph_launches = {kn: route_counts[kn] + sum(r["launches"].get(kn, 0) for r in graph.values())
+                      for kn in ("naive_spmm", "block_ell_spmm")}
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -1787,6 +2352,10 @@ def main() -> int:
     del enc, enc_ids, bb_enc, bb_ids
     run_phase("bert profile", phase_bert_profile)
     int8_rows = run_phase("int8 timings", phase_int8_timings, int8_r, plan, bv, b)
+    naive_row = run_phase("naive timings", phase_naive_timings, graph["gcn arxiv"]["a"])
+    run_phase("graph step timings", phase_graph_step_timings, graph)
+    del graph
+    run_phase("wide attention timings", phase_wide_timings)
 
     kernels = [
         {
@@ -1796,7 +2365,7 @@ def main() -> int:
             "replaces": "tpusparse/kernels/tiled_spmm.py:43 (_executor_kernel); "
                         "tpusparse/kernels/tiled_spmm.py:210 (_resident_kernel)",
             "launches": fwd_launches + train_counts["block_ell_spmm"]
-            + bwd_counts["block_ell_spmm"],
+            + bwd_counts["block_ell_spmm"] + graph_launches["block_ell_spmm"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -1878,6 +2447,7 @@ def main() -> int:
             "library_ms": lib_ms,
         })
     kernels.extend(int8_rows)
+    kernels.append({**naive_row, "launches": graph_launches["naive_spmm"]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -199,11 +199,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
+NO_OTHER = {**NO_FLASH, **NO_BLK, **NO_INT8, "naive_spmm": 0}
 STEP_LAUNCHES = {
-    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8},
-    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_FLASH, **NO_BLK,
-                    **NO_INT8},
-    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_FLASH, **NO_BLK, **NO_INT8},
+    "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
+    "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
+    "dense": {"block_ell_spmm": 0, "sddmm": 0, "gemm": 5, **NO_OTHER},
 }
 
 
@@ -238,6 +238,10 @@ FLASH_CASES = {
     "ragged_causal_1x200x64": ((1, 200, 64), True, 0, 0),
     "narrow_8x128x24": ((8, 128, 24), False, 0, 0),
     "wide_causal_2x128x128": ((2, 128, 128), True, 0, 0),
+    # head dims above 128: the WIDE instances, 128-wide output chunks
+    "wider_causal_2x128x192": ((2, 128, 192), True, 0, 0),
+    "wider_2x130x256": ((2, 130, 256), False, 0, 0),
+    "wider_ragged_offsets_1x200x200": ((1, 200, 200), True, 64, 0),
     "ragged_wide_2x130x100": ((2, 130, 100), False, 0, 0),
     "offsets_1x256x64": ((1, 256, 64), True, 256, 0),
     "no_key_rows_1x128x64": ((1, 128, 64), True, 0, 100),
@@ -320,9 +324,6 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_fwd_kernel(q, k[:, :64], v, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_kernel(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
-    wide = torch.zeros(1, 16, 160, device=cuda)
-    with pytest.raises(ValueError, match="largest the kernels take is 128"):
-        fa.flash_fwd_kernel(wide, wide, wide, **kw)
     o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
     with pytest.raises(TypeError, match="lse"):
         fa.flash_dq_kernel(q, k, v, do, lse[:, :64].contiguous(), lse, **kw)
@@ -354,6 +355,7 @@ def test_flash_layer_train_step_on_card_matches_cpu(cuda):
 def _blk_plan(name):
     """Plans of each kind the kernels take: mask-free block masks, token
     patterns with tile masks, blocks 32 to 256 and unequal, s off the block."""
+    name = name.removeprefix("wider_")  # the same plans at head dims above 128
     if name == "bigbird_512_b64":
         return bfa.BlockAttnPlan(tt.bigbird_block_mask(512, 64), 64, 64, 512)
     if name == "bigbird_256_b32":
@@ -378,6 +380,9 @@ BLK_CASES = {  # name: (bh, d)
     "band_masked_unpadded_160_b64x32": (2, 24),
     "band_masked_512_b128x256": (2, 128),
     "band_masked_1024_b256": (2, 64),
+    "wider_bigbird_256_b32": (2, 192),
+    "wider_band_masked_unpadded_160_b64x32": (2, 200),
+    "wider_band_masked_512_b128x256": (1, 256),
 }
 
 
@@ -439,9 +444,6 @@ def test_block_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="plan is for seq 256"):
         bfa.blk_flash_fwd_kernel(q[:, :128].contiguous(), k[:, :128].contiguous(),
                                  v[:, :128].contiguous(), plan, **kw)
-    wide = torch.zeros(1, 256, 160, device=cuda)
-    with pytest.raises(ValueError, match="largest the kernels take is 128"):
-        bfa.blk_flash_fwd_kernel(wide, wide, wide, plan, **kw)
 
 
 @pytest.mark.parametrize("attention,force", [("bigbird", None), ("sparse", "blockflash")])
@@ -533,6 +535,8 @@ Q8_CASES = {
     "narrow_2x4x128x24": ((8, 128, 24), False, 0),
     "wide_1x2x128x128": ((2, 128, 128), True, 0),
     "offsets_1x1x256x64_q256": ((1, 256, 64), True, 256),
+    "wider_1x2x128x192": ((2, 128, 192), True, 0),
+    "wider_ragged_1x1x200x256": ((1, 200, 256), False, 0),
 }
 
 
@@ -629,3 +633,95 @@ def test_quantized_gpt_on_card_matches_cpu(cuda):
             lg, cg = qg.decode_step(ids[:, pos].to(cuda), cg, pos)
             assert _over_scale(lg.cpu(), lc) < 1e-2, pos
     assert not any(kernels.launches_by_kernel().values())
+
+
+# -- naive SpMM (every reducer) and the graph models ---------------------------------
+
+NAIVE_MODES = [(r, False) for r in ("sum", "mean", "max", "min", "mul", "div")] + [
+    ("max", True), ("min", True)]
+
+
+def _naive_operands(seed, m, k, n, device, b_dtype=torch.float32, ties=False):
+    """A CSR with empty rows (every 7th) and one row far longer than the
+    rest, and a dense B; with `ties` both from a few small integers."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((m, k)) < 0.1
+    mask[::7] = False
+    mask[m // 2, : k * 3 // 4] = True  # the long row
+    vals = (rng.choice([-2.0, -1.0, 1.0, 2.0], (m, k)) if ties
+            else rng.uniform(0.5, 1.5, (m, k)) * rng.choice([-1.0, 1.0], (m, k)))
+    a = tt.CSR.from_dense((mask * vals).astype(np.float32), device=device)
+    b = (rng.integers(-2, 3, (k, n)) if ties else rng.uniform(0.5, 1.5, (k, n)))
+    return a, torch.from_numpy(b.astype(np.float32)).to(device, b_dtype)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 300])
+@pytest.mark.parametrize("reduce,return_arg", NAIVE_MODES)
+def test_naive_spmm_kernel_equals_plain(cuda, reduce, return_arg, n):
+    """Every reducer and arg output, bitwise equal to the plain version: both
+    round each product and each update on their own, in slot order."""
+    from tpusparse_torch.kernels import naive_spmm as nk
+
+    a, b = _naive_operands(n, 77, 60, n, cuda, ties=return_arg)
+    ell = nk.ell_pack(a)
+    nnz = a.nnz if return_arg else 0
+    kernels.reset_launch_counts()
+    got = nk.naive_spmm_kernel(ell, a.shape, b, reduce=reduce, return_arg=return_arg, nnz=nnz)
+    torch.cuda.synchronize()
+    assert kernels.launches_by_kernel()["naive_spmm"] == 1
+    want = nk._naive_spmm_plain(ell, a.shape, b, reduce=reduce, return_arg=return_arg, nnz=nnz)
+    for g, w in zip(got if return_arg else (got,), want if return_arg else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+def test_naive_spmm_kernel_bf16_b(cuda):
+    from tpusparse_torch.kernels import naive_spmm as nk
+
+    a, b = _naive_operands(3, 50, 40, 33, cuda, b_dtype=torch.bfloat16)
+    ell = nk.ell_pack(a)
+    for reduce in ("sum", "max"):
+        got = nk.naive_spmm_kernel(ell, a.shape, b, reduce=reduce)
+        assert torch.equal(got, nk._naive_spmm_plain(ell, a.shape, b, reduce=reduce))
+
+
+def test_naive_spmm_gradient_on_card_matches_cpu(cuda):
+    a, b = _naive_operands(4, 40, 30, 9, "cpu")
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((40, 9)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        data = a.data.to(dev).clone().requires_grad_(True)
+        bb = b.to(dev).clone().requires_grad_(True)
+        out = tt.naive_spmm(tt.CSR(data, a.indices, a.indptr, a.shape), bb)
+        out.backward(g.to(dev))
+        grads[str(dev)] = (out.detach().cpu(), data.grad.cpu(), bb.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_gcn_train_step_on_card_matches_cpu(cuda):
+    """A small GCN on the naive route: 2 naive_spmm launches a step (one per
+    layer; Â's values need no gradient), loss and parameters card against
+    CPU after 3 Adam steps."""
+    adj = tt.random_graph(0, 120, avg_degree=4.0, device="cpu")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((120, 24)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 5, 120))
+    mask = torch.from_numpy((rng.random(120) < 0.3).astype(np.float32))
+    from tpusparse_torch.models import gcn
+
+    runs = {}
+    for dev in ("cpu", cuda):
+        a_hat = tt.normalized_adjacency(tt.CSR(adj.data.to(dev), adj.indices, adj.indptr,
+                                               adj.shape))
+        model = tt.GCN(24, hidden=(16,), num_classes=5, spmm_method="naive", device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        opt = gcn.make_train_state(model)
+        kernels.reset_launch_counts()
+        losses = [float(gcn.train_step(model, opt, a_hat, x.to(dev), labels.to(dev),
+                                       mask.to(dev))) for _ in range(3)]
+        if dev == cuda:
+            assert kernels.launches_by_kernel()["naive_spmm"] == 6
+        runs[str(dev)] = (losses, [p.detach().cpu() for p in model.parameters()])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], **TOL)
+    for got, want in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -223,8 +223,11 @@ def test_shape_errors():
         tfa.flash_attention(z(2, 128, 64), z(2, 128, 64), z(2, 128, 32))
     with pytest.raises(ValueError, match="seq, head_dim"):
         tfa.flash_attention(z(8), z(8), z(8))
-    with pytest.raises(ValueError, match="largest the kernels take is 128"):
-        tfa.flash_attention(z(1, 16, 129), z(1, 16, 129), z(1, 16, 129))
+    # a head dim above 128 is no longer refused: the kernels chunk it
+    q, k, v = (torch.from_numpy(x) for x in _inputs((1, 16, 129), seed=5)[:3])
+    want = torch.softmax(q @ k.transpose(1, 2) * 0.5, -1) @ v
+    torch.testing.assert_close(tfa.flash_attention(q, k, v, sm_scale=0.5), want,
+                               rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="shapes differ"):
         tfa.flash_attention_bwd(z(1, 8, 16), z(1, 8, 16), z(1, 9, 16), z(1, 8, 16),
                                 z(1, 8), z(1, 8, 16))
@@ -249,3 +252,72 @@ def test_kernel_wrappers_check_their_operands_and_launch_nothing_on_cpu():
     tfa.flash_dq_kernel(q, k, v, do, lse, delta, **kw)
     tfa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw)
     assert tfa.launch_counts() == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_q8": 0}
+
+
+# -- head dims above 128 ---------------------------------------------------------
+# q, k, v (1, 2, 64, 192) fp32 at 'highest': the JAX wrappers pad d to a
+# multiple of 128 (tpusparse/kernels/flash_attention.py:232, 634, 1036, 1232,
+# 1541); the port's kernels take any d, in 128-wide chunks on the card.
+WIDE_SHAPE = (1, 2, 64, 192)
+
+
+@pytest.mark.parametrize("path", ["flash", "diff", "block", "q8", "self_attention"])
+def test_head_dims_above_128_match_jax(path):
+    q, k, v, do = _inputs(WIDE_SHAPE, seed=41)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    kw = dict(precision="highest")
+    if path == "flash":
+        jo, jlse = jfa.flash_attention(jq, jk, jv, causal=True, return_lse=True, **kw)
+        to, tlse = tfa.flash_attention(_t(q), _t(k), _t(v), causal=True, return_lse=True, **kw)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+        jgrads = jfa.flash_attention_bwd(jq, jk, jv, jo, jlse, jnp.asarray(do), causal=True, **kw)
+        tgrads = tfa.flash_attention_bwd(_t(q), _t(k), _t(v), _t(jo), _t(jlse), _t(do),
+                                         causal=True, **kw)
+        for gname, got, want in zip(("dq", "dk", "dv"), tgrads, jgrads):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=gname)
+    elif path == "diff":
+        want = jax.grad(lambda *a: jnp.sum(jfa.flash_attention_diff(*a, False, None, "highest")
+                                           ** 2), argnums=(0, 1, 2))(jq, jk, jv)
+        ts = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        tfa.flash_attention_diff(*ts, False, None, "highest").square().sum().backward()
+        for gname, t, w in zip(("dq", "dk", "dv"), ts, want):
+            assert _over_scale(t.grad.numpy(), w) < GRAD_TOL, gname
+    elif path == "block":
+        from tpusparse.nn import bigbird_block_mask as j_bigbird_block_mask
+
+        from tpusparse_torch.kernels import block_flash_attention as tbf
+
+        mask = j_bigbird_block_mask(64, 16, 3, 1, 1, seed=3)
+        jplan, tplan = jfa.BlockAttnPlan(mask, 16, 16, 64), tbf.BlockAttnPlan(mask, 16, 16, 64)
+        jo = jfa.block_flash_attention(jq, jk, jv, jplan, **kw)
+        to = tbf.block_flash_attention(_t(q), _t(k), _t(v), tplan, **kw)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+        want = jax.grad(lambda *a: jnp.sum(jfa.block_flash_attention_diff(*a, jplan, None,
+                                                                          "highest") ** 2),
+                        argnums=(0, 1, 2))(jq, jk, jv)
+        ts = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        tbf.block_flash_attention_diff(*ts, tplan, None, "highest").square().sum().backward()
+        for gname, t, w in zip(("dq", "dk", "dv"), ts, want):
+            assert _over_scale(t.grad.numpy(), w) < GRAD_TOL, gname
+    elif path == "q8":
+        # q given as bf16-representable values: the two differ only by p's
+        # rounding to bf16 (tests/test_torch_serving_attention.py's bound)
+        qb = torch.from_numpy(q).to(torch.bfloat16).float()
+        tkv = tfa.quantize_kv(_t(k), _t(v))
+        jkv = jfa.quantize_kv(jk, jv)
+        got = tfa.flash_attention_q8(qb, *tkv, causal=True)
+        want = jfa.flash_attention_q8(jnp.asarray(qb.numpy()), *jkv, causal=True)
+        assert got.shape == WIDE_SHAPE and _over_scale(got, want) < 2e-3
+    else:
+        import tpusparse_torch as tt
+        from tpusparse.nn import SelfAttention as JSelfAttention
+
+        x = np.random.default_rng(42).standard_normal((1, 64, 384)).astype(np.float32)
+        jmod = JSelfAttention(num_heads=2, head_dim=192, fused=True)
+        params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+        tmod = tt.SelfAttention(2, 192, fused=True, hidden=384, device="cpu")
+        tt.load_flax_params(tmod, jax.tree_util.tree_map(np.asarray, params))
+        got = tmod(torch.from_numpy(x))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(jmod.apply(params, x)),
+                                   **TOL)

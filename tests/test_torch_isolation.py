@@ -22,8 +22,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
 def test_import_and_cpu_forward_load_no_jax():
     """The MLP forward, a BERT encoder's forward and SGD step, a 'bigbird'
     encoder's SGD step, and the serving tier (QuantizedMatrix, the dense int8
-    ops, int8-KV attention, GPT and QuantizedGPT generation) on the CPU, in a
-    fresh interpreter, load no forbidden module."""
+    ops, int8-KV attention, GPT and QuantizedGPT generation), a GCN Adam step
+    and a GAT forward on the naive route, on the CPU, in a fresh
+    interpreter, load no forbidden module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
@@ -49,6 +50,15 @@ def test_import_and_cpu_forward_load_no_jax():
         "ids = torch.randint(0, 20, (2, 4))\n"
         "assert tt.generate(gpt, ids, 3).shape == (2, 3)\n"
         "assert tt.quantize_gpt(gpt).generate(ids, 3).shape == (2, 3)\n"
+        "from tpusparse_torch.models import gcn as gm\n"
+        "adj = tt.random_graph(0, 40, avg_degree=4.0, device='cpu')\n"
+        "x, y, m = torch.randn(40, 8), torch.randint(0, 3, (40,)), torch.ones(40)\n"
+        "g = tt.GCN(8, hidden=(16,), num_classes=3, spmm_method='naive', device='cpu')\n"
+        "loss = gm.train_step(g, gm.make_train_state(g), tt.normalized_adjacency(adj), x, y, m)\n"
+        "assert torch.isfinite(loss)\n"
+        "gat = tt.GAT(8, hidden=(4,), num_heads=2, num_classes=3, spmm_method='naive',\n"
+        "             device='cpu')\n"
+        "with torch.no_grad(): assert gat(tt.add_self_loops(adj), x).shape == (40, 3)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -13,14 +13,16 @@ import torch
 import tpusparse.ops as jops
 import tpusparse.plan as jplan
 from tpusparse.kernels.tiled_spmm import resident_spmm_pallas, tiled_spmm_pallas
+import tpusparse.types as jtypes
 from tpusparse.types import CSR as JCSR
 
 import tpusparse_torch.ops as tops
 import tpusparse_torch.plan as tplan
+import tpusparse_torch.types as ttypes
 from tpusparse_torch.kernels import tiled_spmm as tk
 from tpusparse_torch.types import COO as TCOO
 from tpusparse_torch.types import CSR as TCSR
-from tpusparse_torch.types import csr_to_coo
+from tpusparse_torch.types import csr_to_bsr, csr_to_coo
 
 TOL = dict(rtol=1e-4, atol=5e-5)  # fp32 tier of the JAX suite
 # bf16 output: the fp32 sums of two implementations may round to adjacent
@@ -174,7 +176,7 @@ def test_unknown_method_raises():
         tops.spmm(t, torch.from_numpy(b), method="bogus")
 
 
-@pytest.mark.parametrize("method", ["auto", "footprint", "gather", "dense", "naive", "dia"])
+@pytest.mark.parametrize("method", ["auto", "footprint", "dia"])
 def test_unported_method_raises(method):
     _, b, _, t, _ = _case("ragged_8x8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -182,9 +184,53 @@ def test_unported_method_raises(method):
 
 
 def test_unported_reducer_raises():
-    _, b, _, t, _ = _case("ragged_8x8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.spmm(t, torch.from_numpy(b), method="reference", reduce="max")
+    """The reducers are ported: spmm's 'reference' route gives JAX's values
+    for every one, and a sum-only route refuses them as JAX's does."""
+    _, b, j, t, _ = _case("ragged_8x8")
+    for reduce in ("mean", "max", "min", "mul", "div"):
+        got = tops.spmm(t, torch.from_numpy(b), method="reference", reduce=reduce)
+        want = jops.spmm(j, jnp.asarray(b), method="reference", reduce=reduce)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="reduce='sum' only"):
+        tops.spmm(t, torch.from_numpy(b), method="tiled", reduce="max")
+
+
+def test_spmm_takes_bsr():
+    """A BSR operand (a 64x64 fp32 matrix with ~20 % of its entries nonzero,
+    blocks of 16x16) through spmm: converted to CSR, its blocksize taken as
+    the plan's, as JAX does (tpusparse/ops.py:1213-1216); with a 2-D b on
+    'tiled', and with a 1-D b on 'tiled' and 'reference'."""
+    rng = np.random.default_rng(21)
+    d = ((rng.random((64, 64)) < 0.2) * rng.standard_normal((64, 64))).astype(np.float32)
+    tb = csr_to_bsr(TCSR.from_dense(d, device="cpu"), (16, 16))
+    jb = jtypes.csr_to_bsr(JCSR.from_dense(jnp.asarray(d)), (16, 16))
+    b2 = rng.standard_normal((64, 8)).astype(np.float32)
+    b1 = rng.standard_normal(64).astype(np.float32)
+    for b, method in ((b2, "tiled"), (b1, "tiled"), (b1, "reference")):
+        got = tops.spmm(tb, torch.from_numpy(b), method=method)
+        want = jops.spmm(jb, jnp.asarray(b), method=method)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plan = tplan.build_plan(TCSR.from_dense(d, device="cpu"), (16, 16))
+    assert tplan.build_plan(ttypes.bsr_to_csr(tb), (16, 16)) is plan  # the BSR's blocksize
+
+
+@pytest.mark.parametrize("method", ["tiled", "resident", "gather", "dense", "naive", "reference"])
+@pytest.mark.parametrize("data_dtype", [torch.float32, torch.float16])
+def test_spmm_takes_fp16(method, data_dtype):
+    """An fp16 b through spmm: the kernels take fp32 and bf16 only, so the
+    ops widen fp16 to fp32 and return JAX's result type (fp32 for fp32
+    values; fp16 for fp16 values, except 'naive', which is fp32)."""
+    _, b, j, t, bs = _case("ragged_8x8")
+    tdata, jdata = t.data.to(data_dtype), j.data.astype(str(data_dtype).split(".")[1])
+    ta = TCSR(tdata, t.indices, t.indptr, t.shape)
+    ja = JCSR(jdata, j.indices, j.indptr, j.shape)
+    b16 = b.astype(np.float16)
+    got = tops.spmm(ta, torch.from_numpy(b16), method=method, blocksize=bs)
+    want = jops.spmm(ja, jnp.asarray(b16), method=method, blocksize=bs)
+    assert str(got.dtype).split(".")[1] == str(want.dtype)
+    tol = TOL if want.dtype == jnp.float32 else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
 
 
 @pytest.mark.parametrize("call", ["spmm", "tiled_spmm", "resident_spmm", "spmm_blocks"])

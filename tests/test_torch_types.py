@@ -66,9 +66,21 @@ def test_spmm_reference_matches_jax(n):
 
 
 def test_spmm_reference_reducers_not_ported():
-    a = ttypes.CSR.from_dense(_dense(3), device="cpu")
-    with pytest.raises(NotImplementedError, match="naive_spmm"):
-        ttypes.spmm_reference(a, torch.zeros(23, 4), reduce="max")
+    """The reducers are ported: every one, and the arg of max and min, give
+    JAX's values (the arg matrix exactly), and a bad mode raises."""
+    d = _dense(3)
+    b = np.random.default_rng(6).standard_normal((d.shape[1], 4)).astype(np.float32)
+    t, j = ttypes.CSR.from_dense(d, device="cpu"), jtypes.CSR.from_dense(d)
+    for reduce in ("mean", "max", "min", "mul", "div"):
+        got = ttypes.spmm_reference(t, torch.from_numpy(b), reduce=reduce)
+        want = jtypes.spmm_reference(j, jnp.asarray(b), reduce=reduce)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for reduce in ("max", "min"):
+        got = ttypes.spmm_reference(t, torch.from_numpy(b), reduce=reduce, return_arg=True)
+        want = jtypes.spmm_reference(j, jnp.asarray(b), reduce=reduce, return_arg=True)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    with pytest.raises(ValueError, match="min/max"):
+        ttypes.spmm_reference(t, torch.from_numpy(b), return_arg=True)
 
 
 def test_random_csr_is_seeded_and_exact():

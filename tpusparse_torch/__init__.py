@@ -17,30 +17,45 @@ the s8·s8→s32 GEMM (`csrc/gemm_s8.cu`), and `flash_attention_q8` over an
 int8 K/V cache (`csrc/flash_attention_q8.cu`). The GPT decoder
 (`GPTDecoder`, `generate`) and its int8 serving twin (`QuantizedGPT`,
 `quantize_gpt`) decode on dense products, as in JAX; `GPTDecoder(fused=True)`
-runs its forward on the flash kernels. Tensors on the CPU take the plain
+runs its forward on the flash kernels. The graph models (`GCN`, `GAT`,
+`APPNP`) train with Adam on `ops.spmm`: with spmm_method='naive' on the
+naive SpMM kernel (`csrc/naive_spmm.cu`, every reducer of `spmm` and
+`naive_spmm`), APPNP on the block SpMM executor. Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
 """
 
-from tpusparse_torch import dense, kernels, ops, quant
+from tpusparse_torch import dense, elementwise, kernels, linalg, ops, quant
 from tpusparse_torch.convert import load_flax_params, to_flax_params
 from tpusparse_torch.dense import bmm, einsum, matmul
+from tpusparse_torch.elementwise import row_softmax, sp_add
+from tpusparse_torch.linalg import speye
 from tpusparse_torch.models import (
+    APPNP,
+    GAT,
+    GCN,
     BertAttentionLayer,
     BertEncoder,
+    GATLayer,
+    GCNLayer,
     GPTBlock,
     GPTDecoder,
     MnistNet,
     QuantizedGPT,
+    add_self_loops,
+    appnp_propagate,
     bert_loss,
     bert_train_step,
     generate,
     make_train_state,
     nll_loss,
+    normalized_adjacency,
     quantize_gpt,
+    random_graph,
     train_epoch,
     train_step,
+    two_cluster_graph,
 )
 from tpusparse_torch.kernels.flash_attention import flash_attention_q8, quantize_kv
 from tpusparse_torch.kernels.block_flash_attention import (
@@ -68,6 +83,7 @@ from tpusparse_torch.nn import (
 from tpusparse_torch.ops import (
     gather_spmm,
     mm,
+    naive_spmm,
     resident_spmm,
     sddmm,
     spmm,
@@ -101,6 +117,7 @@ from tpusparse_torch.types import (
 from tpusparse_torch.utils.config import get_config, resolve_device, set_config
 
 __all__ = [
+    "APPNP",
     "BertAttentionLayer",
     "BertEncoder",
     "BigBirdAttention",
@@ -111,6 +128,10 @@ __all__ = [
     "CSR",
     "DenseLinear",
     "Embed",
+    "GAT",
+    "GATLayer",
+    "GCN",
+    "GCNLayer",
     "GPTBlock",
     "GPTDecoder",
     "LayerNorm",
@@ -124,6 +145,8 @@ __all__ = [
     "SelfAttention",
     "SparseLinear",
     "SparseSelfAttention",
+    "add_self_loops",
+    "appnp_propagate",
     "bert_loss",
     "bert_train_step",
     "bigbird_block_mask",
@@ -142,17 +165,21 @@ __all__ = [
     "csr_to_coo",
     "dense",
     "einsum",
+    "elementwise",
     "flash_attention_q8",
     "gather_spmm",
     "generate",
     "get_config",
     "kernels",
+    "linalg",
     "load_flax_params",
     "local_global_pattern",
     "make_train_state",
     "matmul",
     "mm",
+    "naive_spmm",
     "nll_loss",
+    "normalized_adjacency",
     "ops",
     "plan_cache_info",
     "quant",
@@ -160,14 +187,18 @@ __all__ = [
     "quantize_kv",
     "quantized_matmul",
     "random_csr",
+    "random_graph",
     "resident_spmm",
     "resolve_device",
     "route_sparse_attention",
+    "row_softmax",
     "sddmm",
     "sddmm_reference",
     "set_config",
     "spmm",
     "spmm_blocks",
+    "sp_add",
+    "speye",
     "spmm_reference",
     "tiled_spmm",
     "to_flax_params",
@@ -176,4 +207,5 @@ __all__ = [
     "transa_mm",
     "transab_mm",
     "transb_mm",
+    "two_cluster_graph",
 ]

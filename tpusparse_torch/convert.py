@@ -10,7 +10,11 @@ under its attribute name. So the MLP's tree is `{'fc1': {'kernel_values' |
 {'attention': {'query': {'kernel', 'bias'}, ...}, 'ln1', 'ffn_in', ...},
 ...}`, and the GPT decoder's is `{'tok_emb', 'pos_emb', 'block0': {'ln1',
 'q_proj', 'k_proj', 'v_proj', 'o_proj', 'ln2', 'fc1', 'fc2'}, ...,
-'final_ln', 'lm_head'}`. The port's parameter names are the flax ones,
+'final_ln', 'lm_head'}`, and the graph models' are `{'conv1': {'DenseLinear_0':
+{'kernel', 'bias'}}, ..., 'head': ...}` (GCN), `{'gat1': {'DenseLinear_0':
+{'kernel'}, 'att_src', 'att_dst', 'bias'}, ..., 'head': ...}` (GAT) and
+`{'mlp1': {'kernel', 'bias'}, ..., 'head': ...}` (APPNP), the child modules
+carrying flax's auto-names. The port's parameter names are the flax ones,
 except for a plain `nn.Linear` (the 'xla' variant's flax `Dense`), whose
 `weight` is the transpose of flax's (in, out) `kernel`. Any missing or
 extra key, or a shape mismatch, raises, naming the path. `to_flax_params(module)` is the

@@ -10,6 +10,20 @@
 // operands are free of bank conflicts. Operand tiles are staged row-major in
 // shared memory as fp32, rows padded to DMAX + 4; probability tiles to
 // LDP. Everything here is fp32 FFMA, never TF32.
+//
+// Head dims above 128. The instances that hold a whole row of d in a tile
+// stop at DMAX = 128: a DMAX = 256 instance of this layout needs 283,648
+// bytes of shared memory for dq and 301,568 for dk/dv, above the 232,448 a
+// block may have, and its output accumulators alone would take 64 (dk/dv:
+// 128) registers a thread. So a wider d runs the WIDE instances: DMAX = 128
+// with an outer split of the output columns into 128-wide chunks, one chunk
+// per blockIdx.z. Each block recomputes the scores (and in the backward
+// dP) over the whole d, staging q, k (and do, v) 128 columns at a time
+// (mma_nt_chunked), and keeps only its chunk's accumulators. That costs
+// ceil(d / 128) times the score work, and keeps shared memory and registers
+// at the 128 instance's for any d; the online-softmax statistics are
+// computed the same way by every chunk, so they agree bit for bit. The d <= 64
+// and d <= 128 instances are unchanged.
 
 #pragma once
 
@@ -82,19 +96,28 @@ __device__ __forceinline__ bool causal_visible(int qp, int kp, int s, int causal
          (!causal || static_cast<long long>(kv_off) + kp <= static_cast<long long>(q_off) + qp);
 }
 
-// Rows [r0, r0 + 64) of a (s, d) row-major matrix into a (64, DMAX + 4)
-// shared tile, each value times `scale` and then rounded by the tier; rows
-// at or past `s` (the caller's row bound) and columns past d are 0.
+// Rows [r0, r0 + 64) and columns [c0, c0 + DMAX) of a (s, d) row-major
+// matrix into a (64, DMAX + 4) shared tile, each value times `scale` and then
+// rounded by the tier; rows at or past `s` (the caller's row bound) and
+// columns at or past d are 0.
 template <int DMAX, bool ROUND, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
-                                          int s, int d, float scale) {
+__device__ __forceinline__ void load_chunk(float* dst, const T* __restrict__ src, int r0,
+                                           int s, int d, int c0, float scale) {
   constexpr int LD = DMAX + 4;
   for (int e = threadIdx.x; e < 64 * DMAX; e += NT) {
     const int r = e / DMAX, c = e % DMAX;
     float x = 0.f;
-    if (r0 + r < s && c < d) x = tier<ROUND>(to_f32(src[static_cast<size_t>(r0 + r) * d + c]) * scale);
+    if (r0 + r < s && c0 + c < d)
+      x = tier<ROUND>(to_f32(src[static_cast<size_t>(r0 + r) * d + c0 + c]) * scale);
     dst[r * LD + c] = x;
   }
+}
+
+// The first DMAX columns: the whole row when d <= DMAX.
+template <int DMAX, bool ROUND, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
+                                          int s, int d, float scale) {
+  load_chunk<DMAX, ROUND>(dst, src, r0, s, d, 0, scale);
 }
 
 // acc[a][j] += sum_k A[ty + 16a][k] * B[tx + 16j][k] over k < kd (a multiple
@@ -150,6 +173,27 @@ __device__ __forceinline__ void mma_nn(float (&acc)[4][DMAX / 16], const float* 
   }
 }
 
+// acc[a][j] += sum over all d of A[a0 + ty + 16a][:] * B[b0 + tx + 16j][:]
+// for two (., d) row-major matrices whose rows are bounded by a_end and b_end
+// and scaled by a_scale and b_scale on load (rounded by RA and RB): the
+// score product of a head dim wider than one tile, staged DC columns at a
+// time through As and Bs, each a (64, DC + 4) tile. It starts with a
+// barrier, so the caller's earlier readers of As and Bs are done, and ends
+// after the last chunk's product without one.
+template <int DC, bool RA, bool RB, typename TA, typename TB>
+__device__ __forceinline__ void mma_nt_chunked(float (&acc)[4][4], float* As, float* Bs,
+                                               const TA* __restrict__ A, int a0, int a_end,
+                                               float a_scale, const TB* __restrict__ B, int b0,
+                                               int b_end, float b_scale, int d, int ty, int tx) {
+  for (int c0 = 0; c0 < d; c0 += DC) {
+    __syncthreads();
+    load_chunk<DC, RA>(As, A, a0, a_end, d, c0, a_scale);
+    load_chunk<DC, RB>(Bs, B, b0, b_end, d, c0, b_scale);
+    __syncthreads();
+    mma_nt<DC + 4>(acc, As, Bs, min(DC, (d - c0 + 3) & ~3), ty, tx);
+  }
+}
+
 // The kernel instance with its dynamic shared memory allowed above 48 KB,
 // launched on `stream`; returns cudaGetLastError().
 template <typename Kernel, typename... Args>
@@ -161,23 +205,30 @@ int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream, Args... a
   return static_cast<int>(cudaGetLastError());
 }
 
-// Calls FN<DMAX, ROUND, T>(args...) for the instance that serves
+// Output chunks of DMAX columns a launch spreads over gridDim.z: one for
+// the instances that hold the whole head dim, ceil(d / DMAX) for WIDE.
+template <int DMAX, bool WIDE>
+constexpr unsigned out_chunks(int d) {
+  return WIDE ? static_cast<unsigned>((d + DMAX - 1) / DMAX) : 1u;
+}
+
+// Calls FN<DMAX, ROUND, T, WIDE>(args...) for the instance that serves
 // (dtype, d, round_bf16): bf16 inputs always round (their p and dS are
-// rounded to bf16 in every tier, as on the TPU's non-3-pass tiers).
+// rounded to bf16 in every tier, as on the TPU's non-3-pass tiers). A head
+// dim up to 64 takes the 64 instance, up to 128 the 128 instance, and any
+// wider one the WIDE 128 instance, which loops over d in 128-wide chunks.
+#define ATTN_DISPATCH_ONE(FN, ROUND, T, ...)                                   \
+  do {                                                                         \
+    if (d <= 64) return FN<64, ROUND, T, false>(__VA_ARGS__);                  \
+    if (d <= 128) return FN<128, ROUND, T, false>(__VA_ARGS__);                \
+    return FN<128, ROUND, T, true>(__VA_ARGS__);                               \
+  } while (0)
+
 #define ATTN_DISPATCH(FN, ...)                                                   \
   do {                                                                           \
-    if (dtype == 0 && !round_bf16) {                                             \
-      return d <= 64 ? FN<64, false, float>(__VA_ARGS__)                         \
-                     : FN<128, false, float>(__VA_ARGS__);                       \
-    }                                                                            \
-    if (dtype == 0) {                                                            \
-      return d <= 64 ? FN<64, true, float>(__VA_ARGS__)                          \
-                     : FN<128, true, float>(__VA_ARGS__);                        \
-    }                                                                            \
-    if (dtype == 1) {                                                            \
-      return d <= 64 ? FN<64, true, __nv_bfloat16>(__VA_ARGS__)                  \
-                     : FN<128, true, __nv_bfloat16>(__VA_ARGS__);                \
-    }                                                                            \
+    if (dtype == 0 && !round_bf16) ATTN_DISPATCH_ONE(FN, false, float, __VA_ARGS__); \
+    if (dtype == 0) ATTN_DISPATCH_ONE(FN, true, float, __VA_ARGS__);             \
+    if (dtype == 1) ATTN_DISPATCH_ONE(FN, true, __nv_bfloat16, __VA_ARGS__);     \
     return static_cast<int>(cudaErrorInvalidValue);                              \
   } while (0)
 

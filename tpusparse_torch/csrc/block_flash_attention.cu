@@ -23,7 +23,10 @@
 // by one thread in a fixed order, so runs repeat bit for bit.
 //
 // Contract. q, k, v, do: (bh, s, d) row-major, one type (fp32 or bf16);
-// lse, delta: (bh, s) fp32; d <= DMAX (64 or 128). Plan arrays, int32 on
+// lse, delta: (bh, s) fp32; any d (d <= 64 and d <= 128 hold a whole row in
+// a tile, a wider d runs the WIDE instances of attention_tiles.cuh: 128-wide
+// output chunks on blockIdx.z, the scores recomputed per chunk over d staged
+// in 128-wide pieces). Plan arrays, int32 on
 // the device: kv_list (nq, L) and kv_cnt (nq) for the forward and dq,
 // q_list (nk, Lt), q_cnt (nk) and q_slot (nk * Lt) for dk/dv; tile_masks
 // (nq * L, bq, bk) int8, or null for a plan whose covered blocks are full.
@@ -80,7 +83,7 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) blk_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ kv_list,
@@ -102,8 +105,9 @@ __global__ void __launch_bounds__(NT) blk_fwd_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
   const int kd = (d + 3) & ~3;
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
+  if constexpr (!WIDE) load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
   float m[4], l[4], acc[4][4 * G];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -121,16 +125,22 @@ __global__ void __launch_bounds__(NT) blk_fwd_kernel(
     for (int k0 = kb0; k0 < kb0 + bk; k0 += BK) {
       const int k_end = sub_end(kb0, bk, k0, s);
       if (k0 >= k_end) break;  // the rest of this block lies past s
-      __syncthreads();  // the previous sub-tile's readers of Ks, Vs, Ps are done
-      load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
-      load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
-      __syncthreads();
       float sc[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[a][j] = 0.f;
-      mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+      if constexpr (WIDE) {
+        mma_nt_chunked<DMAX, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, q_end, 1.f, k + base, k0,
+                                           k_end, 1.f, d, ty, tx);
+        load_chunk<DMAX, ROUND>(Vs, v + base, k0, k_end, d, c_out, 1.f);
+      } else {
+        __syncthreads();  // the previous sub-tile's readers of Ks, Vs, Ps are done
+        load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
+        load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
+        __syncthreads();
+        mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int qp = q0 + ty + 16 * a;
@@ -171,10 +181,10 @@ __global__ void __launch_bounds__(NT) blk_fwd_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) store(&ob[static_cast<size_t>(qp) * d + col], acc[a][4 * g + c] / den);
       }
-    if (tx == 0) lse[static_cast<size_t>(bh) * s + qp] = m[a] + logf(den);
+    if (tx == 0 && c_out == 0) lse[static_cast<size_t>(bh) * s + qp] = m[a] + logf(den);
   }
 }
 
@@ -183,7 +193,7 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) blk_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -207,9 +217,12 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
   const int kd = (d + 3) & ~3;
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
-  load_tile<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, 1.f);
+  if constexpr (!WIDE) {
+    load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
+    load_tile<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, 1.f);
+  }
   float lse_r[4], delta_r[4], acc[4][4 * G];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -228,17 +241,26 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
     for (int k0 = kb0; k0 < kb0 + bk; k0 += BK) {
       const int k_end = sub_end(kb0, bk, k0, s);
       if (k0 >= k_end) break;
-      __syncthreads();
-      load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
-      load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
-      __syncthreads();
       float sc[4][4], dp[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[a][j] = dp[a][j] = 0.f;
-      mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
-      mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
+      if constexpr (WIDE) {
+        mma_nt_chunked<DMAX, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, q_end, 1.f, k + base, k0,
+                                           k_end, 1.f, d, ty, tx);
+        mma_nt_chunked<DMAX, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, q_end, 1.f, v + base,
+                                           k0, k_end, 1.f, d, ty, tx);
+        __syncthreads();  // the score product's readers of Ks are done
+        load_chunk<DMAX, ROUND>(Ks, k + base, k0, k_end, d, c_out, 1.f);
+      } else {
+        __syncthreads();
+        load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
+        load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
+        __syncthreads();
+        mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+        mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int qp = q0 + ty + 16 * a;
@@ -264,7 +286,7 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) store(&out[static_cast<size_t>(qp) * d + col], acc[a][4 * g + c]);
       }
   }
@@ -276,7 +298,7 @@ constexpr size_t dkv_smem() {
          (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + 2 * BK * LDP + 2 * BQ);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) blk_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -304,9 +326,12 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
   const int kd = (d + 3) & ~3;
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
-  load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
+  if constexpr (!WIDE) {
+    load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
+    load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
+  }
   float acc_k[4][4 * G], acc_v[4][4 * G];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -322,22 +347,34 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
     for (int q0 = qb0; q0 < qb0 + bq; q0 += BQ) {
       const int q_end = sub_end(qb0, bq, q0, s);
       if (q0 >= q_end) break;
-      __syncthreads();
-      load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
-      load_tile<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, 1.f);
+      float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16c
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[a][c] = dpt[a][c] = 0.f;
+      if constexpr (WIDE) {
+        mma_nt_chunked<DMAX, ROUND, ROUND>(st, Ks, Qs, k + base, k0, k_end, 1.f, q + base, q0,
+                                           q_end, 1.f, d, ty, tx);
+        mma_nt_chunked<DMAX, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, k_end, 1.f, dout + base,
+                                           q0, q_end, 1.f, d, ty, tx);
+        __syncthreads();  // the score products' readers of Qs, dOs are done
+        load_chunk<DMAX, ROUND>(Qs, q + base, q0, q_end, d, c_out, 1.f);
+        load_chunk<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, c_out, 1.f);
+      } else {
+        __syncthreads();
+        load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
+        load_tile<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, 1.f);
+      }
       if (threadIdx.x < BQ) {
         const int qp = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qp < q_end ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
         delta_s[threadIdx.x] = qp < q_end ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
       }
       __syncthreads();
-      float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16c
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) st[a][c] = dpt[a][c] = 0.f;
-      mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
-      mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
+      if constexpr (!WIDE) {
+        mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
+        mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int kp = k0 + ty + 16 * a;
@@ -366,7 +403,7 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) {
           store(&dkb[static_cast<size_t>(kp) * d + col], acc_k[a][4 * g + c]);
           store(&dvb[static_cast<size_t>(kp) * d + col], acc_v[a][4 * g + c]);
@@ -377,7 +414,7 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
 
 // The plan's blocks must cover s, and the grid's x and y must fit.
 bool bad_shape(int bh, int s, int d, int bq, int bk, int nq, int nk, int L) {
-  return bh <= 0 || s <= 0 || d <= 0 || d > 128 || bh > 65535 || bq <= 0 || bk <= 0 ||
+  return bh <= 0 || s <= 0 || d <= 0 || bh > 65535 || bq <= 0 || bk <= 0 ||
          nq <= 0 || nk <= 0 || L <= 0 || static_cast<long long>(nq) * bq < s ||
          static_cast<long long>(nk) * bk < s ||
          static_cast<long long>(nq) * ((bq + BQ - 1) / BQ) > 0x7fffffffLL ||
@@ -385,37 +422,37 @@ bool bad_shape(int bh, int s, int d, int bq, int bk, int nq, int nk, int L) {
          static_cast<long long>(bh) * s * d > (1LL << 40);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse,
               const int* kv_list, const int* kv_cnt, const int8_t* tmask, int bh, int s, int d,
               int bq, int bk, int nq, int L, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh);
-  return launch(blk_fwd_kernel<DMAX, ROUND, T>, fwd_smem<DMAX>(), grid, stream,
+  const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh, out_chunks<DMAX, WIDE>(d));
+  return launch(blk_fwd_kernel<DMAX, ROUND, T, WIDE>, fwd_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<T*>(o), static_cast<float*>(lse), kv_list, kv_cnt, tmask, s, d, bq,
                 bk, L, sm_scale);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, const int* kv_list, const int* kv_cnt,
              const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq, int L,
              float sm_scale, cudaStream_t stream) {
-  const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh);
-  return launch(blk_dq_kernel<DMAX, ROUND, T>, dq_smem<DMAX>(), grid, stream,
+  const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh, out_chunks<DMAX, WIDE>(d));
+  return launch(blk_dq_kernel<DMAX, ROUND, T, WIDE>, dq_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dq), kv_list, kv_cnt, tmask,
                 s, d, bq, bk, L, sm_scale);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dkv_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, const int* q_list, const int* q_cnt,
               const int* q_slot, const int8_t* tmask, int bh, int s, int d, int bq, int bk,
               int nk, int Lt, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(nk * ((bk + BK - 1) / BK), bh);
-  return launch(blk_dkv_kernel<DMAX, ROUND, T>, dkv_smem<DMAX>(), grid, stream,
+  const dim3 grid(nk * ((bk + BK - 1) / BK), bh, out_chunks<DMAX, WIDE>(d));
+  return launch(blk_dkv_kernel<DMAX, ROUND, T, WIDE>, dkv_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),

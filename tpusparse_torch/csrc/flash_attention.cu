@@ -17,9 +17,12 @@
 // tile order, so runs repeat bit for bit.
 //
 // Contract. q, k, v, do: (bh, s, d) row-major, one type (fp32 or bf16);
-// lse and delta: (bh, s) fp32. d <= DMAX (64 or 128, picked by the entry
-// point); the TPU wrapper padded d to 128 and s to its tile, here both
-// ragged edges are masked in the loads and stores.
+// lse and delta: (bh, s) fp32. Any d: d <= 64 and d <= 128 run the instances
+// that hold a whole row in a tile (DMAX 64, 128), a wider d the WIDE
+// instances (attention_tiles.cuh: 128-wide output chunks on blockIdx.z, the
+// scores recomputed per chunk over d staged in 128-wide pieces); the TPU
+// wrapper padded d to a multiple of 128 and s to its tile, here both ragged
+// edges are masked in the loads and stores.
 //   - q is pre-scaled on load: q * scale_q, where scale_q is sm_scale in
 //     q's type, rounded to q's type (tpusparse l.239, l.662).
 //   - ROUND ('default' tier, or bf16 inputs): q (pre-scaled), k, v and do
@@ -68,7 +71,7 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int s, int d, float scale_q, int causal,
@@ -84,8 +87,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
   const int kd = (d + 3) & ~3;
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
+  if constexpr (!WIDE) load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
   float m[4], l[4], acc[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -98,16 +102,22 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
-    load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
-    load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
-    __syncthreads();
     float sc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+    if constexpr (WIDE) {
+      mma_nt_chunked<DMAX, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, s, scale_q, k + base, k0, s,
+                                         1.f, d, ty, tx);
+      load_chunk<DMAX, ROUND>(Vs, v + base, k0, s, d, c_out, 1.f);
+    } else {
+      __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
+      load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
+      load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+      __syncthreads();
+      mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -147,10 +157,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) store(&ob[static_cast<size_t>(qp) * d + col], acc[i][4 * g + c] / den);
       }
-    if (tx == 0) lse[static_cast<size_t>(bh) * s + qp] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG;
+    if (tx == 0 && c_out == 0)
+      lse[static_cast<size_t>(bh) * s + qp] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG;
   }
 }
 
@@ -159,7 +170,7 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -177,9 +188,12 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
   const int kd = (d + 3) & ~3;
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
-  load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
+  if constexpr (!WIDE) {
+    load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
+    load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
+  }
   float lse_r[4], delta_r[4], acc[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -193,17 +207,26 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
   const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
-    load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
-    __syncthreads();
     float sc[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-    mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
-    mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
+    if constexpr (WIDE) {
+      mma_nt_chunked<DMAX, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, s, scale_q, k + base, k0, s,
+                                         1.f, d, ty, tx);
+      mma_nt_chunked<DMAX, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, s, 1.f, v + base, k0, s,
+                                         1.f, d, ty, tx);
+      __syncthreads();  // the score product's readers of Ks are done
+      load_chunk<DMAX, ROUND>(Ks, k + base, k0, s, d, c_out, 1.f);
+    } else {
+      __syncthreads();
+      load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
+      load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+      __syncthreads();
+      mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+      mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -227,7 +250,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) store(&out[static_cast<size_t>(qp) * d + col], acc[i][4 * g + c] * sm_scale);
       }
   }
@@ -239,7 +262,7 @@ constexpr size_t dkv_smem() {
          (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + 2 * BK * LDP + 2 * BQ);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -260,9 +283,12 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
   const int kd = (d + 3) & ~3;
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
-  load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+  if constexpr (!WIDE) {
+    load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
+    load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
+  }
   float acc_k[4][4 * G], acc_v[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -275,22 +301,34 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
     // q-tiles whose last row sees no key of this k-tile (uniform per block)
     if (causal && static_cast<long long>(q_off) + q0 + BQ - 1 < static_cast<long long>(kv_off) + k0)
       continue;
-    __syncthreads();
-    load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
-    load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
+    float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16j
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+    if constexpr (WIDE) {
+      mma_nt_chunked<DMAX, ROUND, ROUND>(st, Ks, Qs, k + base, k0, s, 1.f, q + base, q0, s,
+                                         scale_q, d, ty, tx);
+      mma_nt_chunked<DMAX, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, s, 1.f, dout + base, q0, s,
+                                         1.f, d, ty, tx);
+      __syncthreads();  // the score products' readers of Qs, dOs are done
+      load_chunk<DMAX, ROUND>(Qs, q + base, q0, s, d, c_out, scale_q);
+      load_chunk<DMAX, ROUND>(dOs, dout + base, q0, s, d, c_out, 1.f);
+    } else {
+      __syncthreads();
+      load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
+      load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
+    }
     if (threadIdx.x < BQ) {
       const int qp = q0 + threadIdx.x;
       lse_s[threadIdx.x] = qp < s ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
       delta_s[threadIdx.x] = qp < s ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
     }
     __syncthreads();
-    float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16j
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-    mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
-    mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
+    if constexpr (!WIDE) {
+      mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
+      mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int kp = k0 + ty + 16 * i;
@@ -318,7 +356,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) {
           store(&dkb[static_cast<size_t>(kp) * d + col], acc_k[i][4 * g + c]);
           store(&dvb[static_cast<size_t>(kp) * d + col], acc_v[i][4 * g + c]);
@@ -328,38 +366,38 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
 }
 
 bool bad_shape(int bh, int s, int d) {
-  return bh <= 0 || s <= 0 || d <= 0 || d > 128 || bh > 65535 ||
+  return bh <= 0 || s <= 0 || d <= 0 || bh > 65535 ||
          static_cast<long long>(bh) * s * d > (1LL << 40);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
               int d, float scale_q, int causal, int q_off, int kv_off, cudaStream_t stream) {
-  const dim3 grid((s + BQ - 1) / BQ, bh);
-  return launch(flash_fwd_kernel<DMAX, ROUND, T>, fwd_smem<DMAX>(), grid, stream,
+  const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<DMAX, WIDE>(d));
+  return launch(flash_fwd_kernel<DMAX, ROUND, T, WIDE>, fwd_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<T*>(o), static_cast<float*>(lse), s, d, scale_q, causal, q_off,
                 kv_off);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, int bh, int s, int d, float scale_q, float sm_scale,
              int causal, int q_off, int kv_off, cudaStream_t stream) {
-  const dim3 grid((s + BQ - 1) / BQ, bh);
-  return launch(flash_dq_kernel<DMAX, ROUND, T>, dq_smem<DMAX>(), grid, stream,
+  const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<DMAX, WIDE>(d));
+  return launch(flash_dq_kernel<DMAX, ROUND, T, WIDE>, dq_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dq), s, d, scale_q, sm_scale,
                 causal, q_off, kv_off);
 }
 
-template <int DMAX, bool ROUND, typename T>
+template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dkv_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, int bh, int s, int d, float scale_q,
               int causal, int q_off, int kv_off, cudaStream_t stream) {
-  const dim3 grid((s + BK - 1) / BK, bh);
-  return launch(flash_dkv_kernel<DMAX, ROUND, T>, dkv_smem<DMAX>(), grid, stream,
+  const dim3 grid((s + BK - 1) / BK, bh, out_chunks<DMAX, WIDE>(d));
+  return launch(flash_dkv_kernel<DMAX, ROUND, T, WIDE>, dkv_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s,

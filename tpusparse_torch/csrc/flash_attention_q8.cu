@@ -12,9 +12,11 @@
 //
 // Contract. q: (bh, s, d) fp32 or bf16; kq, vq: (bh, s, d) int8; ks, vs:
 // (bh,) fp32, the per-(batch, head) scales of `quantize_kv`; o: (bh, s, d)
-// in q's type. d <= DMAX (64 or 128, picked by the entry point); the ragged
-// s and d edges are masked in the loads and stores (the TPU wrapper padded
-// them).
+// in q's type. Any d: d <= 64 and d <= 128 hold a whole row in a tile
+// (DMAX 64, 128), a wider d runs the WIDE instance of attention_tiles.cuh
+// (128-wide output chunks on blockIdx.z, the scores recomputed per chunk
+// over d staged in 128-wide pieces); the ragged s and d edges are masked in
+// the loads and stores (the TPU wrapper padded them).
 //   - The products are at the 'default' tier, as Precision.DEFAULT runs on
 //     the TPU: q is rounded to bf16 on load and p to bf16 before p.v; int8 K
 //     and V are exact in bf16, so every product is exact in fp32 and every
@@ -50,7 +52,7 @@ constexpr size_t q8_smem() {
   return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
 }
 
-template <int DMAX, typename T>
+template <int DMAX, typename T, bool WIDE>
 __global__ void __launch_bounds__(NT) flash_q8_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ kq, const int8_t* __restrict__ vq,
     const float* __restrict__ ks, const float* __restrict__ vs, T* __restrict__ o, int s,
@@ -68,8 +70,9 @@ __global__ void __launch_bounds__(NT) flash_q8_kernel(
   const int kd = (d + 3) & ~3;
   const float scale_s = sm_scale * ks[bh];  // fp32, as the TPU kernel's sm_scale * ks[b]
   const float scale_v = vs[bh];
+  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
 
-  load_tile<DMAX, true>(Qs, q + base, q0, s, d, 1.f);
+  if constexpr (!WIDE) load_tile<DMAX, true>(Qs, q + base, q0, s, d, 1.f);
   float m[4], l[4], acc[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -82,16 +85,22 @@ __global__ void __launch_bounds__(NT) flash_q8_kernel(
   const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
-    load_tile<DMAX, false>(Ks, kq + base, k0, s, d, 1.f);
-    load_tile<DMAX, false>(Vs, vq + base, k0, s, d, 1.f);
-    __syncthreads();
     float sc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+    if constexpr (WIDE) {
+      mma_nt_chunked<DMAX, true, false>(sc, Qs, Ks, q + base, q0, s, 1.f, kq + base, k0, s, 1.f,
+                                        d, ty, tx);
+      load_chunk<DMAX, false>(Vs, vq + base, k0, s, d, c_out, 1.f);
+    } else {
+      __syncthreads();  // the previous tile's readers of Ks, Vs, Ps are done
+      load_tile<DMAX, false>(Ks, kq + base, k0, s, d, 1.f);
+      load_tile<DMAX, false>(Vs, vq + base, k0, s, d, 1.f);
+      __syncthreads();
+      mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -131,7 +140,7 @@ __global__ void __launch_bounds__(NT) flash_q8_kernel(
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int col = 64 * g + 4 * tx + c;
+        const int col = c_out + 64 * g + 4 * tx + c;
         if (col < d) {
           store(&ob[static_cast<size_t>(qp) * d + col], (acc[i][4 * g + c] / den) * scale_v);
         }
@@ -139,12 +148,12 @@ __global__ void __launch_bounds__(NT) flash_q8_kernel(
   }
 }
 
-template <int DMAX, typename T>
+template <int DMAX, typename T, bool WIDE>
 int q8_typed(const void* q, const void* kq, const void* vq, const void* ks, const void* vs,
              void* o, int bh, int s, int d, float sm_scale, int causal, int q_off, int kv_off,
              cudaStream_t stream) {
-  const dim3 grid((s + BQ - 1) / BQ, bh);
-  return launch(flash_q8_kernel<DMAX, T>, q8_smem<DMAX>(), grid, stream,
+  const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<DMAX, WIDE>(d));
+  return launch(flash_q8_kernel<DMAX, T, WIDE>, q8_smem<DMAX>(), grid, stream,
                 static_cast<const T*>(q), static_cast<const int8_t*>(kq),
                 static_cast<const int8_t*>(vq), static_cast<const float*>(ks),
                 static_cast<const float*>(vs), static_cast<T*>(o), s, d, sm_scale, causal, q_off,
@@ -161,24 +170,25 @@ extern "C" int flash_q8(const void* q, const void* kq, const void* vq, const voi
                         const void* vs, void* o, int q_dtype, int bh, int s, int d,
                         float sm_scale, int causal, int q_off, int kv_off, int device,
                         void* stream) {
-  if (bh <= 0 || s <= 0 || d <= 0 || d > 128 || bh > 65535 ||
+  if (bh <= 0 || s <= 0 || d <= 0 || bh > 65535 ||
       static_cast<long long>(bh) * s * d > (1LL << 40)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
+#define Q8_CALL(DMAX, T, WIDE) \
+  q8_typed<DMAX, T, WIDE>(q, kq, vq, ks, vs, o, bh, s, d, sm_scale, causal, q_off, kv_off, st)
   if (q_dtype == 0) {
-    return d <= 64 ? q8_typed<64, float>(q, kq, vq, ks, vs, o, bh, s, d, sm_scale, causal,
-                                         q_off, kv_off, st)
-                   : q8_typed<128, float>(q, kq, vq, ks, vs, o, bh, s, d, sm_scale, causal,
-                                          q_off, kv_off, st);
+    if (d <= 64) return Q8_CALL(64, float, false);
+    if (d <= 128) return Q8_CALL(128, float, false);
+    return Q8_CALL(128, float, true);
   }
   if (q_dtype == 1) {
-    return d <= 64 ? q8_typed<64, __nv_bfloat16>(q, kq, vq, ks, vs, o, bh, s, d, sm_scale,
-                                                 causal, q_off, kv_off, st)
-                   : q8_typed<128, __nv_bfloat16>(q, kq, vq, ks, vs, o, bh, s, d, sm_scale,
-                                                  causal, q_off, kv_off, st);
+    if (d <= 64) return Q8_CALL(64, __nv_bfloat16, false);
+    if (d <= 128) return Q8_CALL(128, __nv_bfloat16, false);
+    return Q8_CALL(128, __nv_bfloat16, true);
   }
+#undef Q8_CALL
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,6 +2,7 @@ from tpusparse_torch.kernels import (
     block_flash_attention,
     flash_attention,
     gemm,
+    naive_spmm,
     sddmm,
     tiled_spmm,
 )
@@ -22,6 +23,7 @@ from tpusparse_torch.kernels.flash_attention import (
     quantize_kv,
 )
 from tpusparse_torch.kernels.gemm import gemm_int8_kernel, gemm_kernel
+from tpusparse_torch.kernels.naive_spmm import ell_pack, naive_spmm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
 from tpusparse_torch.kernels.tiled_spmm import (
     resident_spmm_int8_kernel,
@@ -30,7 +32,7 @@ from tpusparse_torch.kernels.tiled_spmm import (
     tiled_spmm_kernel,
 )
 
-_MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention)
+_MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention, naive_spmm)
 
 
 def launch_counts() -> dict:
@@ -38,9 +40,9 @@ def launch_counts() -> dict:
     'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu),
     'tiled_spmm_int8' and 'resident_spmm_int8' (both
     csrc/block_ell_spmm_int8.cu), 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd',
-    'flash_dq', 'flash_dkv' (csrc/flash_attention.cu), 'flash_q8', and
+    'flash_dq', 'flash_dkv' (csrc/flash_attention.cu), 'flash_q8',
     'blk_flash_fwd', 'blk_flash_dq', 'blk_flash_dkv'
-    (csrc/block_flash_attention.cu)."""
+    (csrc/block_flash_attention.cu) and 'naive_spmm'."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -51,7 +53,7 @@ def launches_by_kernel() -> dict:
     """`launch_counts()` summed per CUDA kernel: 'block_ell_spmm' (both
     executor entry points), 'spmm_int8' (both int8 entry points), 'sddmm',
     'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv', 'flash_q8',
-    'blk_flash_fwd', 'blk_flash_dq' and 'blk_flash_dkv'."""
+    'blk_flash_fwd', 'blk_flash_dq', 'blk_flash_dkv' and 'naive_spmm'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
             "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}
@@ -69,6 +71,7 @@ __all__ = [
     "blk_flash_fwd_kernel",
     "block_flash_attention",
     "block_flash_attention_diff",
+    "ell_pack",
     "flash_attention",
     "flash_attention_diff",
     "flash_attention_q8",
@@ -81,6 +84,8 @@ __all__ = [
     "gemm_kernel",
     "launch_counts",
     "launches_by_kernel",
+    "naive_spmm",
+    "naive_spmm_kernel",
     "quantize_kv",
     "reset_launch_counts",
     "resident_spmm_int8_kernel",

@@ -27,7 +27,8 @@ Contracts carried over:
     with fp32 sums: what the TPU's DEFAULT dot does to the fp32 operands
     that the JAX wrapper leaves uncast. bf16 inputs round p and dS to bf16
     in every tier (l.979, l.1163, l.1201, l.1206);
-  - d is taken as it is (the TPU wrapper padded it to 128); d <= 128.
+  - d is taken as it is, any size (the TPU wrapper padded it to a multiple
+    of 128); the kernels handle d above 128 in 128-wide chunks.
 
 A wrapper given CPU tensors runs the plain PyTorch version of its kernel
 (`_blk_fwd_plain`, `_blk_dq_plain`, `_blk_dkv_plain`: a dense masked

@@ -25,8 +25,8 @@ Contracts carried over (l.207-308, l.618-734):
     p (forward) and dS (dq, dk) to bf16 before their products, with fp32
     sums; bf16 inputs do so in every tier (the TPU's non-3-pass tiers cast
     p and dS to the operands' type).
-  - d is taken as it is (the TPU wrapper padded it to 128); the kernels
-    take d <= MAX_HEAD_DIM.
+  - d is taken as it is, any size (the TPU wrapper padded it to a multiple
+    of 128); the kernels handle d above 128 in 128-wide chunks.
 
 One deliberate difference: a row that sees no key (reachable only through
 the offsets, e.g. causal with kv_offset > q_offset) gets o = 0,
@@ -67,7 +67,6 @@ from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
 
 KERNEL = "flash_attention"
 KERNEL_Q8 = "flash_attention_q8"
-MAX_HEAD_DIM = 128
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_q8": 0}
@@ -105,11 +104,6 @@ def _check_qkv(q, k, v) -> None:
     if q.shape != k.shape or k.shape != v.shape:
         raise ValueError(
             f"q/k/v shapes differ: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
-        )
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(
-            f"head_dim {q.shape[-1]} is not supported: the largest the kernels "
-            f"take is {MAX_HEAD_DIM}"
         )
 
 
@@ -497,7 +491,7 @@ def flash_q8_kernel(
 
 def _check_q8(q, kq, vq, ks, vs) -> None:
     """The guards of JAX `flash_attention_q8`: equal shapes, int8 K and V,
-    scales of the leading shape; and the kernel's head-dim limit."""
+    scales of the leading shape."""
     if q.shape != kq.shape or kq.shape != vq.shape:
         raise ValueError(
             f"q/kq/vq shapes differ: {tuple(q.shape)} {tuple(kq.shape)} {tuple(vq.shape)}")
@@ -507,9 +501,6 @@ def _check_q8(q, kq, vq, ks, vs) -> None:
     if tuple(ks.shape) != lead or tuple(vs.shape) != lead:
         raise ValueError(f"scales must have the leading shape {lead}, got "
                          f"{tuple(ks.shape)}/{tuple(vs.shape)}")
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {q.shape[-1]} is not supported: the largest the kernel "
-                         f"takes is {MAX_HEAD_DIM}")
 
 
 @functools.cache

@@ -3,9 +3,10 @@
 Counterpart of `tpusparse/ops.py` l.59-100 (dense `mm` family, same-rank
 operands of any rank ≥ 2), l.108-163 (`_block_exec`, `_tiled_spmm` with its
 backward), l.228-269 (`resident_spmm`), l.332-455 (`tiled_spmm`,
-`spmm_blocks` with its backward), l.605 (`_check_spmm_b`), l.831-867
-(`sddmm`), l.504-534 and l.616 (`gather_spmm`) and l.1173-1311 (`spmm`),
-the SpMM ops for 2-D operands.
+`spmm_blocks` with its backward), l.464-490 and l.740-823 (`naive_spmm`
+with its sum VJP, `resolve_ell_width`, `ell_pack_traced`), l.565-597
+(`_fold_batch`), l.605 (`_check_spmm_b`), l.831-867 (`sddmm`), l.504-534
+and l.616 (`gather_spmm`) and l.1173-1311 (`spmm`).
 
 Every op is a `torch.autograd.Function` whose backward runs on the port's
 kernels, with the JAX package's gradient algebra:
@@ -16,9 +17,11 @@ kernels, with the JAX package's gradient algebra:
                     dB = Aᵀ·dC on the block executor through the transpose
                     plan (`build_plan_pair` or `block_transpose_plan`)
   sddmm             dX and dY through `spmm_reference`
-  gather_spmm       d_data = per-nonzero g[row]·b[col], dB a scatter-add
-                    (XLA take/scatter-add in JAX, index_select/index_add_
-                    here: no Pallas kernel on either side)
+  gather_spmm and   d_data = per-nonzero g[row]·b[col], dB a scatter-add
+  naive_spmm (sum)  (XLA take/scatter-add in JAX, index_select/index_add_
+                    here: no Pallas kernel on either side); the naive
+                    forward runs the naive SpMM kernel (kernels/naive_spmm.py),
+                    its other reducers are forward only, as in JAX
 
 A backward skips the products whose input needs no gradient
 (`ctx.needs_input_grad`): a layer whose input is the data launches no dB.
@@ -32,15 +35,18 @@ import numpy as np
 import torch
 
 from tpusparse_torch import dense
+from tpusparse_torch.kernels.naive_spmm import ell_layout, naive_spmm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
 from tpusparse_torch.kernels.tiled_spmm import (
     resident_spmm_kernel,
     tiled_spmm_kernel,
 )
-from tpusparse_torch.plan import Plan, block_transpose_plan, build_plan_pair
+from tpusparse_torch.plan import Plan, _fingerprint, block_transpose_plan, build_plan_pair
 from tpusparse_torch.types import (
+    BSR,
     COO,
     CSR,
+    bsr_to_csr,
     coo_to_csr,
     sddmm_reference,
     spmm_reference,
@@ -49,12 +55,9 @@ from tpusparse_torch.types import (
 # spmm methods of the JAX package that the port does not have yet, with the
 # ROADMAP item that brings each.
 _UNPORTED_METHODS = {
-    "auto": "the cost-model router _route_spmm (ROADMAP queue 1, item 5)",
-    "footprint": "the footprint executor (ROADMAP queue 1, item 5; queue 2, row 8)",
-    "gather": "spmm's 'gather' route to ops.gather_spmm (ROADMAP queue 1, item 5)",
-    "dense": "the densify path (ROADMAP queue 1, item 5)",
-    "naive": "naive_spmm (ROADMAP queue 1, item 5; queue 2, row 10)",
-    "dia": "the DIA path (ROADMAP queue 1, item 11)",
+    "auto": "the cost-model router _route_spmm (ROADMAP queue 1, item 7)",
+    "footprint": "the footprint executor (ROADMAP queue 1, item 4; queue 2, row 8)",
+    "dia": "the DIA path (ROADMAP queue 1, item 6; queue 2, row 20)",
 }
 
 
@@ -168,7 +171,7 @@ class _BlocksSpmm(torch.autograd.Function):
     """C = A @ B from packed ELL blocks. Backward as `_spmm_blocks_bwd`,
     tpusparse/ops.py:426-452, with a concrete pattern; its traced branch
     (`_db_blocks_traced`) serves `shard_map` and comes with `parallel/`
-    (ROADMAP queue 1, item 14)."""
+    (ROADMAP queue 1, item 10)."""
 
     @staticmethod
     def forward(ctx, plan, blocks, b):
@@ -206,9 +209,22 @@ def _check_spmm_b(a, b) -> None:
 def _only_2d(name: str, b: torch.Tensor) -> None:
     if b.ndim != 2:
         raise NotImplementedError(
-            f"{name}: {b.ndim}-D b is not ported; the batched 3-D fold comes "
-            "with ROADMAP queue 1, item 5 (and queue 2, row 3)"
+            f"{name}: {b.ndim}-D b is not ported; the batched block executor "
+            "comes with ROADMAP queue 1, item 3 (queue 2, row 3)"
         )
+
+
+def _packed(executor, a: CSR, b: torch.Tensor, plans) -> torch.Tensor:
+    """`_PackedSpmm` on the block executor. fp16 operands are widened to
+    fp32 for the kernel and the result is cast to their promoted type, as
+    the JAX ops return it (the kernels take fp32 and bf16 only)."""
+    plan, plan_t, t_perm = plans
+    data = a.data
+    if torch.float16 not in (data.dtype, b.dtype):
+        return _PackedSpmm.apply(executor, plan, plan_t, t_perm, data, b)
+    out_dtype = torch.promote_types(data.dtype, b.dtype)
+    return _PackedSpmm.apply(executor, plan, plan_t, t_perm, data.float(), b.float()).to(
+        out_dtype)
 
 
 def tiled_spmm(
@@ -225,8 +241,7 @@ def tiled_spmm(
     """
     _check_spmm_b(a, b)
     _only_2d("tiled_spmm", b)
-    plan, plan_t, t_perm = plans or build_plan_pair(a, blocksize)
-    return _PackedSpmm.apply(_block_exec, plan, plan_t, t_perm, a.data, b)
+    return _packed(_block_exec, a, b, plans or build_plan_pair(a, blocksize))
 
 
 def resident_spmm(
@@ -236,8 +251,7 @@ def resident_spmm(
     gradient algebra as `tiled_spmm`."""
     _check_spmm_b(a, b)
     _only_2d("resident_spmm", b)
-    plan, plan_t, t_perm = build_plan_pair(a, blocksize)
-    return _PackedSpmm.apply(resident_spmm_kernel, plan, plan_t, t_perm, a.data, b)
+    return _packed(resident_spmm_kernel, a, b, build_plan_pair(a, blocksize))
 
 
 def spmm_blocks(plan: Plan, blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -246,6 +260,19 @@ def spmm_blocks(plan: Plan, blocks: torch.Tensor, b: torch.Tensor) -> torch.Tens
     `b`."""
     _only_2d("spmm_blocks", b)
     return _BlocksSpmm.apply(plan, blocks, b)
+
+
+def _gather_grads(needs_data, needs_b, data, indices, rows, b, g):
+    """(d_data, dB) of C = A @ B from per-nonzero gathers: dA[t] =
+    g[row_t] · b[col_t] and dB = Aᵀ·g by scatter-add (tpusparse/ops.py:
+    475-487, 522-531)."""
+    g_rows = g.index_select(0, rows)
+    d_data = db = None
+    if needs_data:
+        d_data = (g_rows.float() * b.index_select(0, indices).float()).sum(1).to(data.dtype)
+    if needs_b:
+        db = torch.zeros_like(b).index_add_(0, indices, (data[:, None] * g_rows).to(b.dtype))
+    return d_data, db
 
 
 class _GatherSpmm(torch.autograd.Function):
@@ -263,28 +290,162 @@ class _GatherSpmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         data, indices, rows, b = ctx.saved_tensors
-        g_rows = g.index_select(0, rows)
-        d_data = db = None
-        if ctx.needs_input_grad[1]:  # dA[t] = g[row_t] · b[col_t]
-            d_data = (g_rows.float() * b.index_select(0, indices).float()).sum(1).to(data.dtype)
-        if ctx.needs_input_grad[4]:
-            db = torch.zeros_like(b).index_add_(0, indices, (data[:, None] * g_rows).to(b.dtype))
+        d_data, db = _gather_grads(ctx.needs_input_grad[1], ctx.needs_input_grad[4],
+                                   data, indices, rows, b, g)
         return None, d_data, None, None, db
+
+
+# Cap on the (nnz, cols) fp32 intermediate that the gather and segment paths
+# materialise (tpusparse/ops.py:563): past it the fold runs in batch chunks.
+_FOLD_INTERMEDIATE_BYTES = 1 << 30
+
+
+def _fold_batch(op2d, b: torch.Tensor, max_cols: Optional[int] = None):
+    """Run a 2-D SpMM `op2d((k, cols)) -> (m, cols)` on a (batch, k, n) b by
+    folding the batch into the column axis, (batch, k, n) -> (k, batch·n),
+    in chunks of at most `max_cols` columns (at least one batch element);
+    tuple outputs (value, arg) are unfolded each (tpusparse/ops.py:565-597)."""
+    batch, k, n = b.shape
+    per = batch if max_cols is None else max(min(int(max_cols) // max(n, 1), batch), 1)
+    outs = []
+    for s0 in range(0, batch, per):
+        bb = b[s0:s0 + per]
+        g = bb.shape[0]
+        out = op2d(bb.transpose(0, 1).reshape(k, g * n))
+        parts = out if isinstance(out, tuple) else (out,)
+        outs.append(tuple(x.reshape(x.shape[0], g, n).transpose(0, 1) for x in parts))
+    res = tuple(torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs))
+    return res if isinstance(out, tuple) else res[0]
+
+
+def _gather_fold_cols(nnz: int) -> int:
+    """Max folded columns for the (nnz, cols) fp32 gather intermediate."""
+    return max(_FOLD_INTERMEDIATE_BYTES // (4 * max(int(nnz), 1)), 1)
 
 
 def gather_spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
     """Gather/scatter-add SpMM, differentiable in `a.data` and `b`: moves
-    exactly nnz·n elements. A 3-D `b` (batch, k, n) is folded into one 2-D
-    product along its columns."""
+    exactly nnz·n elements. A 3-D `b` (batch, k, n) is folded into 2-D
+    products along its columns, chunked so that the (nnz, cols)
+    intermediate stays bounded."""
     _check_spmm_b(a, b)
     if b.ndim == 3:
-        batch, k, n = b.shape
-        out = gather_spmm(a, b.transpose(0, 1).reshape(k, batch * n))
-        return out.reshape(-1, batch, n).transpose(0, 1)
+        return _fold_batch(lambda bb: gather_spmm(a, bb), b, _gather_fold_cols(a.nnz))
     dev = b.device
     indices = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
     rows = torch.from_numpy(a.row_ids().astype(np.int64)).to(dev)
     return _GatherSpmm.apply(a.shape[0], a.data, indices, rows, b)
+
+
+# ----------------------------------------------------------------------------
+# Naive SpMM (the reducer kernel)
+# ----------------------------------------------------------------------------
+
+# pattern fingerprint -> ELL width, and (fingerprint, width, device) -> the
+# pattern half of the ELL pack on that device
+_ELL_CACHE: dict = {}
+_ELL_PATTERN_CACHE: dict = {}
+
+
+def _ell_key(a: CSR) -> str:
+    return _fingerprint(a.shape, (1, 1), np.asarray(a.indptr), np.asarray(a.indices))
+
+
+def _ell_width(key: str, a: CSR) -> int:
+    width = _ELL_CACHE.get(key)
+    if width is None:
+        width = int(np.diff(np.asarray(a.indptr)).max(initial=1))
+        _ELL_CACHE[key] = width
+    return width
+
+
+def resolve_ell_width(a: CSR) -> int:
+    """ELL width (max row nnz, at least 1) of a CSR pattern, cached by
+    pattern fingerprint. The port's patterns are always host arrays, so the
+    JAX package's traced worst case (min(nnz, k)) has no counterpart."""
+    return _ell_width(_ell_key(a), a)
+
+
+def _ell_pattern(key: str, a: CSR, width: int, device):
+    """(col_idx (m, L) int32, flat slot of each nnz int64, nnz_per_row int32,
+    col ids int64, row ids int64) on `device`, built once per pattern."""
+    ck = (key, width, str(torch.device(device)))
+    hit = _ELL_PATTERN_CACHE.get(ck)
+    if hit is not None:
+        return hit
+    col_idx, flat, per_row, rows = ell_layout(a, width)
+    hit = tuple(torch.from_numpy(x).to(device) for x in (
+        col_idx, flat, per_row, np.asarray(a.indices).astype(np.int64), rows))
+    _ELL_PATTERN_CACHE[ck] = hit
+    return hit
+
+
+def ell_pack_traced(a: CSR, width: Optional[int] = None):
+    """ELL packing (col_idx, vals, nnz_per_row) on the device of `a.data`,
+    width = max row nnz unless given. The pattern half is built on the host
+    once per pattern and cached; the values are scattered on the device
+    every call, differentiably in `a.data`."""
+    key = _ell_key(a)
+    width = width or _ell_width(key, a)
+    col_idx, flat, per_row, _, _ = _ell_pattern(key, a, width, a.data.device)
+    m = a.shape[0]
+    vals = torch.zeros((m * width,), dtype=a.data.dtype, device=a.data.device).index_put(
+        (flat,), a.data)
+    return col_idx, vals.reshape(m, width), per_row
+
+
+class _NaiveSpmm(torch.autograd.Function):
+    """C = A @ B on the naive kernel (reduce='sum'); backward as
+    `_naive_spmm_bwd`, tpusparse/ops.py:475-487: no kernel on either side."""
+
+    @staticmethod
+    def forward(ctx, shape, pattern, data, b):
+        col_idx, flat, per_row, indices, rows = pattern
+        m, width = col_idx.shape
+        vals = torch.zeros((m * width,), dtype=data.dtype, device=data.device).index_put(
+            (flat,), data)
+        ctx.save_for_backward(data, indices, rows, b)
+        return naive_spmm_kernel((col_idx, vals.reshape(m, width), per_row), shape, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, indices, rows, b = ctx.saved_tensors
+        d_data, db = _gather_grads(ctx.needs_input_grad[2], ctx.needs_input_grad[3],
+                                   data, indices, rows, b, g.contiguous())
+        return None, None, d_data, db
+
+
+def naive_spmm(a: CSR, b: torch.Tensor, reduce: str = "sum", return_arg: bool = False):
+    """Naive ELL SpMM on the naive kernel, with the reducer modes.
+
+    reduce='sum' is differentiable in `a.data` and `b`; the other reducers
+    (mean/max/min/mul/div) are forward only, as in JAX. return_arg=True
+    (min/max only) also returns the int32 arg matrix: per output element the
+    global nnz index attaining the extremum, `a.nnz` on empty rows. The
+    result is fp32 (b is taken as fp32, or bf16 as it is). A 3-D `b` is
+    folded into one launch along its columns; every reducer acts per output
+    element, so the fold is exact.
+    """
+    _check_spmm_b(a, b)
+    if return_arg and reduce not in ("min", "max"):
+        raise ValueError("return_arg is only meaningful for reduce='min'/'max'")
+    if b.ndim == 3:
+        return _fold_batch(lambda bb: naive_spmm(a, bb, reduce, return_arg=return_arg), b)
+    if b.dtype not in (torch.float32, torch.bfloat16):
+        b = b.float()
+    key = _ell_key(a)
+    width = _ell_width(key, a)
+    if reduce == "sum":
+        pattern = _ell_pattern(key, a, width, b.device)
+        return _NaiveSpmm.apply(a.shape, pattern, a.data.to(b.device), b.contiguous())
+    return naive_spmm_kernel(
+        ell_pack_traced(a, width=width), a.shape, b.contiguous(), reduce=reduce,
+        return_arg=return_arg, nnz=a.nnz if return_arg else 0)
+
+
+# ----------------------------------------------------------------------------
+# spmm: method dispatch
+# ----------------------------------------------------------------------------
 
 
 def spmm(
@@ -293,39 +454,78 @@ def spmm(
     method: str = "tiled",
     reduce: str = "sum",
     blocksize: Optional[Tuple[int, int]] = None,
-) -> torch.Tensor:
-    """Sparse x dense matmul with method dispatch.
+    return_arg: bool = False,
+):
+    """Sparse × dense matmul with method dispatch (tpusparse/ops.py:1173-1311).
 
-    Ported methods: 'tiled' (block-ELL executor), 'resident' (forced
-    resident entry point), 'reference' (gather/segment-sum oracle). A 1-D
-    `b` is lifted to one column. The other methods of the JAX package,
-    reduce != 'sum' and 3-D `b` raise NotImplementedError naming the ROADMAP
-    item that brings them; the JAX default method 'auto' is one of them, so
-    the port's default is 'tiled'.
+    methods: 'tiled' (the block-ELL executor), 'resident' (its resident
+    entry point, forced), 'gather' (gather/scatter-add), 'dense' (densify,
+    then `dense.matmul`: `torch.matmul`, or the GEMM kernel when the config
+    asks for it), 'naive' (the naive kernel, with the reducer modes) and
+    'reference' (the gather/segment oracle). A BSR operand is converted to
+    CSR and its blocksize becomes the plan's; a COO is converted to CSR. A
+    1-D `b` is lifted to one column; leading dims past the third are
+    folded; a 3-D `b` goes through 'naive', 'gather', 'reference' and
+    'dense', while 'tiled' and 'resident' raise on it until the batched
+    executor is ported (ROADMAP queue 1, item 3). reduce != 'sum' runs on
+    'naive' or 'reference' only. return_arg=True (reduce 'min'/'max') also
+    returns the int32 arg matrix. The JAX default method 'auto' (the
+    cost-model router) is not ported yet (ROADMAP queue 1, item 7), so the
+    port's default is 'tiled'; 'auto', 'footprint' and 'dia' raise
+    NotImplementedError naming the item that brings them.
     """
-    if isinstance(a, COO):
-        a = coo_to_csr(a)
-    if reduce != "sum":
-        raise NotImplementedError(
-            f"reduce={reduce!r} is not ported; the reducer modes come with "
-            "naive_spmm (ROADMAP queue 1, item 5; queue 2, row 10)"
-        )
+    if return_arg and reduce not in ("min", "max"):
+        raise ValueError("return_arg is only meaningful for reduce='min'/'max'")
     if method in _UNPORTED_METHODS:
         raise NotImplementedError(
             f"spmm method {method!r} is not ported; it comes with "
             f"{_UNPORTED_METHODS[method]}"
         )
-    if method not in ("tiled", "resident", "reference"):
-        raise ValueError(f"unknown spmm method {method!r}")
+    if isinstance(a, BSR):
+        blocksize = blocksize or a.blocksize  # the natural tile of a BSR
+        a = bsr_to_csr(a)
+    elif isinstance(a, COO):
+        a = coo_to_csr(a)
     if b.ndim == 1:  # SpMV: lift to one-column SpMM
-        return spmm(a, b[:, None], method, reduce, blocksize)[..., 0]
+        out = spmm(a, b[:, None], method, reduce, blocksize, return_arg)
+        return tuple(o[..., 0] for o in out) if return_arg else out[..., 0]
     _check_spmm_b(a, b)
-    _only_2d("spmm", b)
+    if b.ndim > 3:  # fold the leading batch dims
+        lead = b.shape[:-2]
+        out = spmm(a, b.reshape((-1,) + tuple(b.shape[-2:])), method, reduce, blocksize,
+                   return_arg)
+        if return_arg:
+            return tuple(o.reshape(lead + o.shape[-2:]) for o in out)
+        return out.reshape(lead + out.shape[-2:])
+    if reduce != "sum" and method == "reference":
+        if b.ndim == 3:
+            return _fold_batch(lambda bb: spmm_reference(a, bb, reduce, return_arg), b,
+                               _gather_fold_cols(a.nnz))
+        return spmm_reference(a, b, reduce=reduce, return_arg=return_arg)
+    if reduce != "sum" and method != "naive":
+        # the other methods are sum-only kernels: returning the sum for an
+        # explicitly requested reducer would be wrong values
+        raise ValueError(
+            f"method {method!r} supports reduce='sum' only (got {reduce!r}); "
+            "use method='naive' or 'reference'"
+        )
     if method == "tiled":
         return tiled_spmm(a, b, blocksize=blocksize)
     if method == "resident":
         return resident_spmm(a, b, blocksize=blocksize)
-    return spmm_reference(a, b)
+    if method == "gather":
+        return gather_spmm(a, b)
+    if method == "dense":
+        dt = torch.promote_types(a.dtype, b.dtype)
+        ad = a.to_dense().to(device=b.device, dtype=dt)
+        return mm(ad, b.to(dt)) if b.ndim == 2 else dense.matmul(ad, b.to(dt))
+    if method == "naive":
+        return naive_spmm(a, b, reduce=reduce, return_arg=return_arg)
+    if method == "reference":
+        if b.ndim == 3:
+            return _fold_batch(lambda bb: spmm_reference(a, bb), b, _gather_fold_cols(a.nnz))
+        return spmm_reference(a, b)
+    raise ValueError(f"unknown spmm method {method!r}")
 
 
 # ----------------------------------------------------------------------------

@@ -266,28 +266,55 @@ def random_csr(
     )
 
 
-def spmm_reference(a: CSR, b: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
-    """Gather/segment-sum SpMM, C[i,:] = sum_{j in row i} A[i,j] * B[j,:].
+def spmm_reference(
+    a: CSR, b: torch.Tensor, reduce: str = "sum", return_arg: bool = False
+):
+    """Gather/segment SpMM, C[i,:] = reduce_{j in row i} A[i,j] * B[j,:].
 
-    The plain oracle of the port, on the device of its inputs. Only
-    reduce='sum' is ported; the reducer modes come with the naive-SpMM
-    item of ROADMAP queue 1 (item 5).
+    The plain oracle of the port, on the device of its inputs, with every
+    reducer of the JAX oracle (types.py:586-642): sum and mean by
+    `index_add_`, max and min by `scatter_reduce` with empty rows 0, mul by
+    `scatter_reduce('prod')`, and div as 1 / prod (not the naive kernel's
+    running division, which rounds otherwise). With return_arg=True
+    (min/max only) it also returns the int32 arg matrix: per output element
+    the first nnz index whose product equals the extremum, `a.nnz` on empty
+    rows.
     """
-    if reduce != "sum":
-        raise NotImplementedError(
-            f"spmm_reference reduce={reduce!r}: only 'sum' is ported; the "
-            "reducer modes come with naive_spmm (ROADMAP queue 1, item 5)"
-        )
     if b.ndim != 2:
         raise ValueError(f"spmm_reference expects 2-D b, got {tuple(b.shape)}")
+    if return_arg and reduce not in ("min", "max"):
+        raise ValueError("return_arg is only meaningful for min/max")
+    if reduce not in ("sum", "mean", "max", "min", "mul", "div"):
+        raise ValueError(f"unknown reduce mode {reduce!r}")
     dev = b.device
     rows = torch.from_numpy(a.row_ids().astype(np.int64)).to(dev)
     cols = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
     gathered = b[cols] * a.data.to(dev)[:, None]
-    out = torch.zeros(
-        (a.shape[0], b.shape[1]), dtype=gathered.dtype, device=dev
-    )
-    return out.index_add_(0, rows, gathered)
+    m, n = a.shape[0], b.shape[1]
+    out = torch.zeros((m, n), dtype=gathered.dtype, device=dev)
+    if reduce in ("sum", "mean"):
+        out = out.index_add_(0, rows, gathered)
+        if reduce == "sum":
+            return out
+        cnt = torch.zeros((m,), dtype=a.data.dtype, device=dev).index_add_(
+            0, rows, torch.ones_like(a.data).to(dev))
+        return out / cnt.clamp_min(1.0)[:, None]
+    idx = rows[:, None].expand(-1, n)
+    if reduce in ("mul", "div"):
+        prod = torch.ones((m, n), dtype=gathered.dtype, device=dev).scatter_reduce_(
+            0, idx, gathered, "prod")
+        return prod if reduce == "mul" else 1.0 / prod
+    # max / min: the rows' own reduce; empty rows keep the zeros they start from
+    ext = out.scatter_reduce_(0, idx, gathered, "amax" if reduce == "max" else "amin",
+                              include_self=False)
+    if not return_arg:
+        return ext
+    nnz = a.nnz
+    e_idx = torch.arange(nnz, dtype=torch.int32, device=dev)[:, None].expand(-1, n)
+    cand = torch.where(gathered == ext[rows], e_idx, nnz)
+    arg = torch.full((m, n), nnz, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, idx, cand, "amin")
+    return ext, arg
 
 
 def sddmm_reference(a_pattern: CSR, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
