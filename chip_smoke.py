@@ -5,7 +5,7 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the nine CUDA sources from the repo (one nvcc per source,
+  2. build of the thirteen CUDA sources from the repo (one nvcc per source,
      all started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
@@ -35,7 +35,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      a bf16 b; values and args bitwise equal to the plain version); the
      seven attention entry points at head dims 192, 256 and 200 (causal with
      and without offsets, a 'bigbird' plan for the block kernels; fp32
-     'high', 'default' and bf16);
+     'high', 'default' and bf16); the batched, compact, grouped and
+     footprint kernels at blocksizes (8, 32), (32, 16), (64, 64) and
+     (128, 128), ragged m/k/n, empty row-blocks, batch 1 and 5, fp32 'high'
+     and 'default' and bf16: the batched kernel bitwise equal to the 2-D
+     kernel on every B[g] and on the folded B, the other three bitwise
+     equal to block_ell_spmm on the base plan;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -97,6 +102,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
         values need no gradient);
      n. spmm's routes on Cora's A-hat: 'naive', 'gather', 'dense', 'tiled'
         against 'reference', a BSR operand and a 3-D b;
+     o. bench.py's batched shapes (A 2048^2 with 10% of its 128^2 blocks x
+        B (32, 2048, 512); 'bert4d', A 512^2 at 10% x B (4096, 512, 64);
+        fp32 'high'): one tiled_spmm training step each with grads in
+        a.data and B (1 resident_spmm_batched forward, 1 sddmm on the folded
+        batch, 1 resident_spmm_batched dB);
+     p. the compact, grouped and footprint executors at the headline plan
+        and at a low-fill plan (4096^2 at 1%, blocks 8x32, n 256), one
+        launch each, and one spmm(method='footprint') step at the headline
+        (1 footprint_spmm, 1 sddmm, 1 block_ell_spmm);
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -118,7 +132,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      and 3 steps on the card against the same weights on the CPU (rtol
      1e-4, atol 5e-5; parameters by the Adam rule of
      tests/test_torch_graph.py); the arxiv GCN's outputs and losses finite
-     and its loss dropping;
+     and its loss dropping; the batched steps' forward, dA and dB and the
+     footprint step's against their plain versions (<= 1e-5 of scale), the
+     batched kernel bitwise equal to the fold at both shapes, each plan
+     executor against its plain version and bitwise equal to
+     block_ell_spmm at both plans;
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -146,7 +164,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      its plain version, gather_spmm and torch.sparse.mm on a CSR tensor; ms
      per Adam step and the device's busy share for 4j-4m; the seven
      attention entry points at (2, 8, 512, 256) against their plain
-     versions, bounds and SDPA;
+     versions, bounds and SDPA; the batched kernel at both batched shapes
+     against the fold, its plain version, torch.matmul of the dense A
+     broadcast over the batch and its bound, each step's time and a
+     torch.profiler breakdown of it; the plan executors beside
+     block_ell_spmm, their plain versions, torch.matmul of the dense A,
+     torch.sparse.mm (low-fill plan) and their bound, the footprint plan's
+     B-tile fetches against the slots, and the footprint step's time with
+     the host's plan lookups;
   7. each phase's wall time, the `kernels` JSON line, then the device JSON
      line, last.
 
@@ -186,7 +211,8 @@ NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 # every kernel's count, all 0
 NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8,
-             "naive_spmm": 0}
+             "naive_spmm": 0, "resident_spmm_batched": 0, "compact_spmm": 0,
+             "grouped_spmm": 0, "footprint_spmm": 0}
 STEP_LAUNCHES = {
     "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
     "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
@@ -892,7 +918,6 @@ def phase_bert_profile(seq: int = 512, steps: int = 3) -> None:
     and idle share of the span from the first to the last kernel, and the
     kernels that take the most time."""
     import tpusparse_torch as tt
-    from torch.profiler import ProfilerActivity, profile
 
     x = _bert_input(BERT_BATCH, seq, 40 + seq).cuda()
     for attention in ("flash", "dense", "bigbird"):
@@ -900,27 +925,42 @@ def phase_bert_profile(seq: int = 512, steps: int = 3) -> None:
         opt = tt.make_train_state(layer)
         for _ in range(2):
             tt.bert_train_step(layer, opt, x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                tt.bert_train_step(layer, opt, x)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not kernels:
-            print(f"profile bert layer {attention} seq {seq}: no device time recorded")
-            continue
-        busy = sum(e.time_range.end - e.time_range.start for e in kernels)
-        span = (max(e.time_range.end for e in kernels)
-                - min(e.time_range.start for e in kernels))
-        print(f"profile bert layer {attention} seq {seq} batch {BERT_BATCH}, {steps} steps: "
-              f"{len(kernels)} kernels, device busy {busy / 1e3 / steps:.4f} ms per step "
-              f"of a {span / 1e3 / steps:.4f} ms span, idle share {1 - busy / span:.3f}")
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
-        for name_, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"  {t / 1e3 / steps:.4f} ms/step ({t / busy:.1%}) {name_[:90]}")
+        _profile(f"bert layer {attention} seq {seq} batch {BERT_BATCH}",
+                 lambda: tt.bert_train_step(layer, opt, x), steps)
+
+
+def _profile(label, step, steps, top=8) -> None:
+    """torch.profiler over `steps` calls of `step`, after one call that the
+    profiler runs but does not record (its schedule's warm-up; without it
+    the first recorded call can lose its kernels): the device's busy and
+    idle share of the span from the first to the last kernel, and the
+    kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps)) as prof:
+        for i in range(steps + 1):
+            step()
+            if i == 0 or i == steps:  # the recorded calls queue back to back
+                torch.cuda.synchronize()
+            if i < steps:  # a step() after the last would close the cycle and drop its events
+                prof.step()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]  # the schedule's step spans
+    if not kernels:
+        print(f"profile {label}: no device time recorded")
+        return
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels)
+    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    print(f"profile {label}, {steps} steps: {len(kernels)} kernels, device busy "
+          f"{busy / 1e3 / steps:.4f} ms per step of a {span / 1e3 / steps:.4f} ms span, idle "
+          f"share {1 - busy / span:.3f}")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    for name_, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {t / 1e3 / steps:.4f} ms/step ({t / busy:.1%}) {name_[:90]}")
 
 
 def phase_pattern_paths():
@@ -2104,6 +2144,327 @@ def phase_wide_timings() -> None:
         f"{n} {e:.2e}" for n, e in berrs.items()) + f"; flash_q8 o {q8_err:.2e}")
 
 
+# -- batched (3-D) block SpMM and the executors of the derived plans ---------------
+
+# the full-width batched shapes of bench.py: label, A's kind, shape, density
+# (block occupancy for 'blocks'), B's shape
+BATCHED_SHAPES = (
+    ("block-sparse batched", "blocks", (2048, 2048), 0.10, (32, 2048, 512)),  # bench.py:480-520
+    ("bert4d", "random", (512, 512), 0.10, (4096, 512, 64)),  # bench.py:437-478
+)
+# the low-fill plan: 4096^2 at 1 %, blocks 8 x 32, n 256 (the shape class of
+# benchmarks/RESULTS.md:75-78; the density is chosen here)
+LOW_FILL = dict(shape=(4096, 4096), density=0.01, blocksize=(8, 32), n=256)
+PLAN_EXECUTORS = ("compact_spmm", "grouped_spmm", "footprint_spmm")
+
+
+def _derived_plans(plan, group_size=64, rows_per_super=16):
+    """{entry: (derived plan, kernel wrapper)}; the defaults are JAX's."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import tiled_spmm as tk
+
+    return {"compact_spmm": (tt.compact_plan(plan), tk.compact_spmm_kernel),
+            "grouped_spmm": (tt.group_plan(plan, group_size), tk.grouped_spmm_kernel),
+            "footprint_spmm": (tt.footprint_plan(plan, rows_per_super),
+                               tk.footprint_spmm_kernel)}
+
+
+def phase_small_plan_executors() -> None:
+    """The batched, compact, grouped and footprint kernels against their
+    plain versions at small shapes: ragged m, k and n, blocksizes (8, 32),
+    (32, 16), (64, 64) and (128, 128), an empty row-block, batch 1 and 5,
+    fp32 'high' and 'default' and bf16. Each is also held bitwise: the
+    batched kernel to the 2-D kernel on every B[g] and on the folded B, the
+    three others to block_ell_spmm on the base plan."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import tiled_spmm as tk
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (m, k, n), blocksize, empty rows, batch
+    shapes = [((100, 70, 130), (8, 32), (16, 40), 5), ((75, 53, 33), (32, 16), None, 1),
+              ((190, 150, 70), (64, 64), (64, 128), 5), ((300, 260, 200), (128, 128),
+                                                         (128, 256), 1)]
+    tiers = [(f32, "high"), (f32, "default"), (bf16, "high")]
+    seed = 50
+    for (m, k, n), bs, empty, batch in shapes:
+        for dt, prec in tiers:
+            seed += 1
+            a_np, rng = _dense_case(seed, m, k, 0.12, empty)
+            a = tt.CSR.from_dense(a_np, device="cuda")
+            plan = tt.build_plan(a, bs)
+            bv = plan.pack_values(a.data.to(dt))
+            b3 = torch.from_numpy(rng.standard_normal((batch, k, n)).astype(np.float32)).to(
+                "cuda", dt)
+            label = f"{m}x{k}x{n}_{bs[0]}x{bs[1]}_b{batch}_{str(dt)[6:]}_{prec}"
+            got = tk.resident_spmm_batched_kernel(plan, bv, b3, precision=prec)
+            per_g = torch.stack([tk.resident_spmm_kernel(plan, bv, b3[g].contiguous(),
+                                                         precision=prec) for g in range(batch)])
+            folded = tt.ops._fold_batch(
+                lambda x: tk.tiled_spmm_kernel(plan, bv, x, precision=prec), b3)
+            want = tk._block_exec_batched_plain(plan, bv, b3, precision=prec)
+            torch.cuda.synchronize()
+            if not (_same(got, per_g) and _same(got, folded.contiguous())):
+                raise AssertionError(f"batched {label}: not bitwise equal to the 2-D kernel")
+            _check_case(f"batched {label}", got, want, ", bitwise equal to the 2-D kernel "
+                        "per batch element and on the fold")
+            b = b3[0].contiguous()
+            base = tk.tiled_spmm_kernel(plan, bv, b, precision=prec)
+            # groups and supers of 4 row-blocks: several per plan
+            for entry, (dp, fn) in _derived_plans(plan, 4, 4).items():
+                dv = dp.pack_values(a.data.to(dt))
+                got = fn(dp, dv, b, precision=prec)
+                want = tk._PLAIN[entry](dp, dv, b, precision=prec)
+                torch.cuda.synchronize()
+                if not _same(got, base):
+                    raise AssertionError(f"{entry} {label}: not bitwise equal to block_ell_spmm")
+                _check_case(f"{entry} {label}", got, want,
+                            ", bitwise equal to block_ell_spmm on the base plan")
+
+
+def _batched_operands(kind, shape, density, bshape, seed):
+    import tpusparse_torch as tt
+    from tpusparse_torch.utils.matrices import block_sparse_csr
+
+    if kind == "blocks":
+        a = block_sparse_csr(seed, shape, (128, 128), density, device="cuda")
+    else:
+        a = tt.random_csr(seed, shape, density, device="cuda")
+    rng = np.random.default_rng(seed + 1)
+    b3 = torch.from_numpy(rng.random(bshape, dtype=np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((bshape[0], shape[0], bshape[2]),
+                                             dtype=np.float32)).cuda()
+    return a, b3, g
+
+
+def phase_batched_spmm() -> dict:
+    """bench.py's two batched shapes at full width, fp32 'high': one
+    training step of tiled_spmm(a, b3) with grads in a.data and b3, counted
+    (1 resident_spmm_batched forward, 1 sddmm on the folded batch, 1
+    resident_spmm_batched dB where the transpose plan passes the reuse
+    test), its forward and gradients against the plain versions; the
+    batched kernel bitwise against the fold; then the times of the batched
+    kernel, of the fold (the 2-D kernel on (k, batch·n), transposes
+    included), of the plain version and of torch.matmul of the densified A
+    broadcast over the batch (TF32 off), the bound and the step. Returns
+    the kernels line's row (block-sparse batched shape) and the launches of
+    every kernel in the counted steps."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import tiled_spmm as tk
+    from tpusparse_torch.kernels.sddmm import _sddmm_plain
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    row, launches = None, dict(NO_LAUNCH)
+    for seed, (label, kind, shape, density, bshape) in zip((21, 11), BATCHED_SHAPES):
+        a, b3, g = _batched_operands(kind, shape, density, bshape, seed)
+        batch, k, n = bshape
+        plan, plan_t, t_perm = tt.build_plan_pair(a)
+        data = a.data.clone().requires_grad_(True)
+        bb = b3.clone().requires_grad_(True)
+        a_var = tt.CSR(data, a.indices, a.indptr, a.shape)
+        torch.cuda.synchronize()
+        kernels_reset()
+        out = tt.tiled_spmm(a_var, bb)
+        out.backward(g)
+        torch.cuda.synchronize()
+        counts = _launches()
+        db_entry = ("resident_spmm_batched" if plan_t.nblocks >= plan_t.num_col_blocks
+                    else "block_ell_spmm")
+        expect = {"resident_spmm_batched": 1, "sddmm": 1}
+        expect[db_entry] = expect.get(db_entry, 0) + 1
+        _expect(f"batched {label} step", counts, expect)
+        launches = {kn: v + counts[kn] for kn, v in launches.items()}
+        bv = plan.pack_values(a.data)
+        err, rel = over_scale(out.detach(), tk._block_exec_batched_plain(plan, bv, b3))
+        fold_g, fold_b = tt.ops._fold_cols(g), tt.ops._fold_cols(b3)
+        da_err, da_rel = over_scale(data.grad, plan.unpack_values(_sddmm_plain(plan, fold_g,
+                                                                             fold_b)))
+        del fold_g, fold_b
+        bv_t = plan_t.pack_values(a.data[plan_t.perm_tensor("t_perm", t_perm, "cuda")])
+        db_err, db_rel = over_scale(bb.grad, tk._block_exec_batched_plain(plan_t, bv_t, g))
+        print(f"batched {label} ({shape[0]}x{shape[1]}, {plan.nblocks} of "
+              f"{plan.num_row_blocks * plan.num_col_blocks} blocks, B {bshape}): step "
+              f"launches {json.dumps({n_: c for n_, c in counts.items() if c})}; vs plain "
+              f"over scale: C {rel:.3e}, dA {da_rel:.3e}, dB {db_rel:.3e}")
+        if not (max(rel, da_rel, db_rel) <= HEADLINE_TOL and bool(torch.isfinite(out).all())
+                and bool(torch.isfinite(data.grad).all()) and bool(torch.isfinite(bb.grad).all())):
+            raise AssertionError(f"batched {label}: step disagrees with the plain versions")
+        del out
+        got = tk.resident_spmm_batched_kernel(plan, bv, b3)
+
+        def fold():
+            return tt.ops._fold_batch(lambda x: tk.resident_spmm_kernel(plan, bv, x), b3)
+
+        if not _same(got, fold().contiguous()):
+            raise AssertionError(f"batched {label}: kernel and fold are not bitwise equal")
+        ms = time_ms(lambda: tk.resident_spmm_batched_kernel(plan, bv, b3))
+        fold_ms = time_ms(fold)
+        plain_ms = time_ms(lambda: tk._block_exec_batched_plain(plan, bv, b3), warmup=1, iters=3)
+        a_dense = plan.blocks_to_dense(bv)
+        with fp32_matmul():
+            lib_err = rel_err(torch.matmul(a_dense, b3), got)[1]
+            lib_ms = time_ms(lambda: torch.matmul(a_dense, b3))
+        del a_dense, got
+
+        def step():
+            data.grad = bb.grad = None
+            tt.tiled_spmm(a_var, bb).backward(g)
+
+        step_ms = time_ms(step, warmup=1, iters=5)
+        _profile(f"batched {label} step", step, 2, top=6)
+        bm, bk = plan.blocksize
+        flops = 2.0 * plan.nblocks * bm * bk * n * batch
+        nbytes = 4.0 * (plan.nblocks * bm * bk + batch * k * n + batch * shape[0] * n)
+        bms, by = bound(flops, nbytes)
+        print(f"batched {label}: resident_spmm_batched {ms:.4f} ms, fold (2-D kernel on "
+              f"(k, batch*n), transposes included) {fold_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul dense broadcast {lib_ms:.4f} ms (vs kernel {lib_err:.2e} of scale; "
+              f"{2.0 * shape[0] * k * n * batch / 1e9:.1f} GFLOP dense), bound {bms:.4f} ms by "
+              f"{by} ({flops / 1e9:.2f} GFLOP of blocks, {2.0 * a.nnz * n * batch / 1e9:.2f} "
+              f"GFLOP of nonzeros, {nbytes / 1e6:.1f} MB), kernel at "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; training step {step_ms:.4f} ms")
+        if kind == "blocks":
+            row = {"name": "resident_spmm_batched", "route": "cuda",
+                   "source": "tpusparse_torch/csrc/block_ell_spmm_batched.cu",
+                   "replaces": "tpusparse/kernels/tiled_spmm.py:420 (_resident_batched_kernel; "
+                               "pallas_call l.600)",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": lib_ms}
+        del a, b3, g, data, bb, a_var, bv, bv_t
+    return {"row": row, "launches": launches}
+
+
+def phase_plan_executors(a, plan, bv, b) -> dict:
+    """The compact, grouped and footprint executors at the headline and at
+    the low-fill plan, each driven once with the counts set to 0 just
+    before (1 launch each), then held against its plain version and
+    bitwise against block_ell_spmm on the same plan, and timed beside
+    block_ell_spmm, its plain version, torch.matmul of the densified A (TF32
+    off) and, at the low-fill plan, torch.sparse.mm on a CSR tensor; the
+    footprint plan's B-tile fetches (ntiles) against the base plan's slots;
+    then one spmm(method='footprint') step at the headline, counted (1
+    footprint_spmm, 1 sddmm, 1 block_ell_spmm) and checked. Returns the
+    kernels line's rows (headline) and the launches."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import tiled_spmm as tk
+    from tpusparse_torch.kernels.sddmm import _sddmm_plain
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    lf = LOW_FILL
+    low = tt.random_csr(41, lf["shape"], lf["density"], device="cuda")
+    low_plan = tt.build_plan(low, lf["blocksize"])
+    low_b = torch.from_numpy(np.random.default_rng(42).random(
+        (lf["shape"][1], lf["n"]), dtype=np.float32)).cuda()
+    cases = (("headline", a, plan, bv, b),
+             ("low-fill", low, low_plan, low_plan.pack_values(low.data), low_b))
+    rows, launches = {}, dict(NO_LAUNCH)
+    for label, aa, pp, pv, bb in cases:
+        t0 = time.perf_counter()
+        derived = _derived_plans(pp)
+        packed = {e: dp.pack_values(aa.data) for e, (dp, _) in derived.items()}
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels_reset()
+        outs = {e: fn(dp, packed[e], bb) for e, (dp, fn) in derived.items()}
+        torch.cuda.synchronize()
+        counts = _launches()
+        _expect(f"plan executors {label}", counts, dict.fromkeys(PLAN_EXECUTORS, 1))
+        launches = {kn: v + counts[kn] for kn, v in launches.items()}
+        m, k = pp.shape
+        n = bb.shape[1]
+        bm, bk = pp.blocksize
+        base = tk.tiled_spmm_kernel(pp, pv, bb)
+        base_ms = time_ms(lambda: tk.tiled_spmm_kernel(pp, pv, bb))
+        a_dense = pp.blocks_to_dense(pv)
+        with fp32_matmul():
+            dense_ms = time_ms(lambda: torch.matmul(a_dense, bb))
+        del a_dense
+        sparse_ms = None
+        if label == "low-fill":
+            crow = torch.from_numpy(np.asarray(aa.indptr, np.int64)).cuda()
+            col = torch.from_numpy(np.asarray(aa.indices, np.int64)).cuda()
+            a_sp = torch.sparse_csr_tensor(crow, col, aa.data, size=aa.shape)
+            with fp32_matmul():
+                sparse_ms = time_ms_queued(lambda: torch.sparse.mm(a_sp, bb))
+            del a_sp
+        flops = 2.0 * pp.nblocks * bm * bk * n
+        nbytes = 4.0 * (pp.nblocks * bm * bk + k * n + m * n)
+        bms, by = bound(flops, nbytes)
+        fp = derived["footprint_spmm"][0]
+        print(f"plan executors {label} ({m}x{k}, blocks {bm}x{bk}, nnz {aa.nnz}, "
+              f"{pp.nblocks} blocks, ell_width {pp.ell_width}; n {n}): derived plans and "
+              f"packing {host_s:.2f} s on the host; block_ell_spmm {base_ms:.4f} ms, "
+              f"torch.matmul dense {dense_ms:.4f} ms"
+              + (f", torch.sparse.mm (CSR) {sparse_ms:.4f} ms" if sparse_ms is not None else "")
+              + f"; bound {bms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); footprint plan: {fp.ntiles} B-tile fetches for "
+              f"{pp.nblocks} slots ({pp.nblocks / max(fp.ntiles, 1):.2f}x fewer), n-tile "
+              f"{tk.footprint_tile(fp, n)[0]}")
+        for e, (dp, fn) in derived.items():
+            same = _same(outs[e], base)
+            err, rel = over_scale(outs[e], tk._PLAIN[e](dp, packed[e], bb))
+            ms = time_ms(lambda: fn(dp, packed[e], bb))
+            plain_ms = time_ms(lambda: tk._PLAIN[e](dp, packed[e], bb), warmup=1, iters=3)
+            print(f"  {e} {label}: {ms:.4f} ms ({ms / base_ms:.2f}x block_ell_spmm), plain "
+                  f"{plain_ms:.4f} ms; vs plain over scale {rel:.3e}; bitwise equal to "
+                  f"block_ell_spmm: {same}")
+            if not (same and rel <= HEADLINE_TOL and bool(torch.isfinite(outs[e]).all())):
+                raise AssertionError(f"{e} {label}: disagrees with its plain version or with "
+                                     "block_ell_spmm")
+            if label == "headline":
+                rows[e] = {"name": e, "route": "cuda",
+                           "source": f"tpusparse_torch/csrc/block_ell_spmm_"
+                                     f"{e.split('_')[0]}.cu",
+                           "replaces": "tpusparse/kernels/tiled_spmm.py:" + {
+                               "compact_spmm": "1029 (_compact_kernel; pallas_call l.1150)",
+                               "grouped_spmm": "1186 (_grouped_kernel; pallas_call l.1297)",
+                               "footprint_spmm": "1344 (_footprint_kernel; pallas_call l.1487)",
+                           }[e],
+                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                           "bound_by": by, "library_ms": dense_ms}
+        del outs, packed, derived, base
+    del low, low_plan, low_b, cases
+
+    # one spmm(method='footprint') step at the headline, counted
+    m, k = plan.shape
+    dc = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        (m, b.shape[1]), dtype=np.float32)).cuda()
+    data = a.data.clone().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    a_var = tt.CSR(data, a.indices, a.indptr, a.shape)
+    torch.cuda.synchronize()
+    kernels_reset()
+    out = tt.spmm(a_var, bb, method="footprint")
+    out.backward(dc)
+    torch.cuda.synchronize()
+    counts = _launches()
+    _expect("footprint step", counts, {"footprint_spmm": 1, "sddmm": 1, "block_ell_spmm": 1})
+    launches = {kn: v + counts[kn] for kn, v in launches.items()}
+    _, plan_t, t_perm = tt.build_plan_pair(a)
+    err = over_scale(out.detach(), tk._block_exec_plain(plan, bv, b))[1]
+    da = over_scale(data.grad, plan.unpack_values(_sddmm_plain(plan, dc, b)))[1]
+    bv_t = plan_t.pack_values(a.data[plan_t.perm_tensor("t_perm", t_perm, "cuda")])
+    dbe = over_scale(bb.grad, tk._block_exec_plain(plan_t, bv_t, dc))[1]
+    del bv_t, out
+
+    def step():
+        data.grad = bb.grad = None
+        tt.spmm(a_var, bb, method="footprint").backward(dc)
+
+    step_ms = time_ms(step, warmup=1, iters=5)
+    _profile("footprint step at the headline", step, 2, top=4)
+    t0 = time.perf_counter()
+    for _ in range(3):  # the host's plan lookups of one step, all cache hits
+        tt.footprint_plan(tt.build_plan_pair(a)[0])
+    lookup_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"footprint step at the headline: launches "
+          f"{json.dumps({n_: c for n_, c in counts.items() if c})}, {step_ms:.4f} ms, of which "
+          f"the host's plan lookups (fingerprints of the {a.nnz}-nnz pattern) {lookup_ms:.1f} "
+          f"ms; vs plain over scale: C {err:.3e}, dA {da:.3e}, dB {dbe:.3e}")
+    if not max(err, da, dbe) <= HEADLINE_TOL:
+        raise AssertionError("footprint step disagrees with the plain versions")
+    return {"rows": rows, "launches": launches}
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -2139,6 +2500,7 @@ def main() -> int:
     run_phase("small int8", phase_small_int8)
     run_phase("small naive", phase_small_naive)
     run_phase("small wide attention", phase_small_wide_attention)
+    run_phase("small batched and plan-variant spmm", phase_small_plan_executors)
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -2226,6 +2588,8 @@ def main() -> int:
     route_counts = run_phase("spmm routes", phase_spmm_routes, graph["gcn cora"]["a"])
     graph_launches = {kn: route_counts[kn] + sum(r["launches"].get(kn, 0) for r in graph.values())
                       for kn in ("naive_spmm", "block_ell_spmm")}
+    batched = run_phase("batched spmm", phase_batched_spmm)
+    executors = run_phase("plan executors", phase_plan_executors, a, plan, bv, b)
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -2365,7 +2729,8 @@ def main() -> int:
             "replaces": "tpusparse/kernels/tiled_spmm.py:43 (_executor_kernel); "
                         "tpusparse/kernels/tiled_spmm.py:210 (_resident_kernel)",
             "launches": fwd_launches + train_counts["block_ell_spmm"]
-            + bwd_counts["block_ell_spmm"] + graph_launches["block_ell_spmm"],
+            + bwd_counts["block_ell_spmm"] + graph_launches["block_ell_spmm"]
+            + batched["launches"]["block_ell_spmm"] + executors["launches"]["block_ell_spmm"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -2378,7 +2743,8 @@ def main() -> int:
             "route": "cuda",
             "source": "tpusparse_torch/csrc/sddmm.cu",
             "replaces": "tpusparse/kernels/sddmm.py:35 (_sddmm_kernel)",
-            "launches": train_counts["sddmm"] + bwd_counts["sddmm"],
+            "launches": train_counts["sddmm"] + bwd_counts["sddmm"]
+            + batched["launches"]["sddmm"] + executors["launches"]["sddmm"],
             "max_abs_err": sddmm_err,
             "ms": s_ms,
             "plain_ms": s_plain_ms,
@@ -2448,6 +2814,10 @@ def main() -> int:
         })
     kernels.extend(int8_rows)
     kernels.append({**naive_row, "launches": graph_launches["naive_spmm"]})
+    kernels.append({**batched["row"],
+                    "launches": batched["launches"]["resident_spmm_batched"]})
+    kernels.extend({**executors["rows"][e], "launches": executors["launches"][e]}
+                   for e in PLAN_EXECUTORS)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

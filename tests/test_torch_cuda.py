@@ -26,6 +26,11 @@ TOL = dict(rtol=1e-4, atol=5e-5)  # fp32 tier: kernel and plain sum in other ord
 # C in bf16: nearly equal fp32 sums may round to adjacent bf16 values
 TOL_BF16 = dict(rtol=1e-2, atol=1e-2)
 
+# every entry point of kernels/tiled_spmm.py, none launched
+NO_TK = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0, "resident_spmm_int8": 0,
+         "resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
+         "footprint_spmm": 0}
+
 # (m, k, n), blocksize, empty row range
 CASES = {
     "ragged_8x32_n130": ((100, 70, 130), (8, 32), None),
@@ -61,8 +66,7 @@ def test_kernel_matches_plain_and_counts(cuda, name, precision):
     got_t = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
     got_r = tk.resident_spmm_kernel(plan, bv, b, precision=precision)
     torch.cuda.synchronize()
-    assert tk.launch_counts() == {"tiled_spmm": 1, "resident_spmm": 1, "tiled_spmm_int8": 0,
-                                  "resident_spmm_int8": 0}
+    assert tk.launch_counts() == {**NO_TK, "tiled_spmm": 1, "resident_spmm": 1}
     assert torch.equal(got_t, got_r)
     want = tk._block_exec_plain(plan, bv, b, precision=precision)
     torch.testing.assert_close(got_t, want, **TOL)
@@ -199,7 +203,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
-NO_OTHER = {**NO_FLASH, **NO_BLK, **NO_INT8, "naive_spmm": 0}
+NO_PLAN_EXEC = {"resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
+                "footprint_spmm": 0}
+NO_OTHER = {**NO_FLASH, **NO_BLK, **NO_INT8, **NO_PLAN_EXEC, "naive_spmm": 0}
 STEP_LAUNCHES = {
     "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
     "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
@@ -506,8 +512,7 @@ def test_spmm_int8_kernel_equals_plain(cuda, name):
     got_r = tk.resident_spmm_int8_kernel(plan, qvals, scales, b_q, t)
     got_t = tk.tiled_spmm_int8_kernel(plan, qvals, scales, b_q, t)
     torch.cuda.synchronize()
-    assert tk.launch_counts() == {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 1,
-                                  "resident_spmm_int8": 1}
+    assert tk.launch_counts() == {**NO_TK, "tiled_spmm_int8": 1, "resident_spmm_int8": 1}
     want = tk._block_exec_int8_plain(plan, qvals, scales, b_q, t)
     assert got_r.dtype == torch.float32 and got_r.shape == want.shape
     assert torch.equal(got_r, got_t)
@@ -725,3 +730,163 @@ def test_gcn_train_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], **TOL)
     for got, want in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# -- the batched executor and the executors of the derived plans ---------------------
+
+# name: (m, k, n), blocksize, batch, empty row range
+PLAN_EXEC_CASES = {
+    "ragged_8x32_n130_b3": ((100, 70, 130), (8, 32), 3, (16, 40)),
+    "ragged_32x16_n33_b5": ((75, 53, 33), (32, 16), 5, None),
+    "rowblock_128x128_n200_b1": ((300, 260, 200), (128, 128), 1, (128, 256)),
+}
+PLAN_EXEC_TIERS = [(torch.float32, "high"), (torch.float32, "default"),
+                   (torch.bfloat16, "high")]
+
+
+def _plan_exec_inputs(name, device, dtype):
+    (m, k, n), bs, batch, empty = PLAN_EXEC_CASES[name]
+    rng = np.random.default_rng(6)
+    mask = rng.random((m, k)) < 0.1
+    if empty is not None:
+        mask[empty[0]:empty[1]] = False
+    a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32),
+                          device=device)
+    plan = tt.build_plan(a, bs)
+    b3 = torch.from_numpy(rng.standard_normal((batch, k, n)).astype(np.float32))
+    return a, plan, b3.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
+@pytest.mark.parametrize("name", sorted(PLAN_EXEC_CASES))
+def test_batched_kernel_matches_plain_and_2d_kernel_bitwise(cuda, name, dtype, precision):
+    """C[g] bitwise equal to the 2-D kernel on B[g] and to the 2-D kernel on
+    the folded (k, batch·n) operand; within the tier of the plain version."""
+    a, plan, b3 = _plan_exec_inputs(name, cuda, dtype)
+    bv = plan.pack_values(a.data.to(dtype))
+    tk.reset_launch_counts()
+    got = tk.resident_spmm_batched_kernel(plan, bv, b3, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {**NO_TK, "resident_spmm_batched": 1}
+    for g in range(b3.shape[0]):
+        assert torch.equal(got[g], tk.resident_spmm_kernel(plan, bv, b3[g].contiguous(),
+                                                           precision=precision))
+    folded = tt.ops._fold_batch(
+        lambda bb: tk.tiled_spmm_kernel(plan, bv, bb, precision=precision), b3)
+    assert torch.equal(got, folded)
+    want = tk._block_exec_batched_plain(plan, bv, b3, precision=precision)
+    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _derived_plans(plan):
+    return (("compact_spmm", tt.compact_plan(plan), tk.compact_spmm_kernel, tk._compact_plain),
+            ("grouped_spmm", tt.group_plan(plan, 4), tk.grouped_spmm_kernel, tk._grouped_plain),
+            ("footprint_spmm", tt.footprint_plan(plan, 4), tk.footprint_spmm_kernel,
+             tk._footprint_plain))
+
+
+@pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
+@pytest.mark.parametrize("name", sorted(PLAN_EXEC_CASES))
+def test_plan_executors_match_plain_and_block_ell_bitwise(cuda, name, dtype, precision):
+    """compact, grouped and footprint: each bitwise equal to block_ell_spmm
+    on the base plan (one slot order, one FFMA tile) and within the tier of
+    its plain version; empty row-blocks written as zeros."""
+    a, plan, b3 = _plan_exec_inputs(name, cuda, dtype)
+    b = b3[0].contiguous()
+    base = tk.tiled_spmm_kernel(plan, plan.pack_values(a.data.to(dtype)), b,
+                                precision=precision)
+    for entry, dp, fn, plain in _derived_plans(plan):
+        bv = dp.pack_values(a.data.to(dtype))
+        tk.reset_launch_counts()
+        got = fn(dp, bv, b, precision=precision)
+        torch.cuda.synchronize()
+        assert tk.launch_counts() == {**NO_TK, entry: 1}
+        assert torch.equal(got, base), entry
+        want = plain(dp, bv, b, precision=precision)
+        tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
+        torch.testing.assert_close(got.float(), want.float(), **tol, msg=entry)
+
+
+def test_footprint_kernel_takes_every_n_tile(cuda):
+    """n of 5, 20, 40 and 300 give n-tiles of 8, 32, 64 and 64 columns
+    (and 16 at S 16 with 128 x 128 blocks): each bitwise equal to
+    block_ell_spmm."""
+    a, plan, _ = _plan_exec_inputs("ragged_8x32_n130_b3", cuda, torch.float32)
+    rng = np.random.default_rng(8)
+    for n in (5, 20, 40, 300):
+        b = torch.from_numpy(rng.standard_normal((a.shape[1], n)).astype(np.float32)).to(cuda)
+        fp = tt.footprint_plan(plan, 4)
+        got = tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b)
+        assert torch.equal(got, tk.tiled_spmm_kernel(plan, plan.pack_values(a.data), b)), n
+    a, plan, b3 = _plan_exec_inputs("rowblock_128x128_n200_b1", cuda, torch.float32)
+    fp = tt.footprint_plan(plan, 16)
+    assert tk.footprint_tile(fp, 200)[0] == 16
+    b = b3[0].contiguous()
+    assert torch.equal(tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b),
+                       tk.tiled_spmm_kernel(plan, plan.pack_values(a.data), b))
+
+
+def test_batched_train_step_launches_and_matches_cpu(cuda):
+    """One step of tiled_spmm(a, b3) with grads in a.data and b3: 1 batched
+    forward, 1 sddmm (dA over the folded batch), 1 batched dB; its output
+    and gradients on the card against the CPU."""
+    a, _, b3 = _plan_exec_inputs("ragged_32x16_n33_b5", "cpu", torch.float32)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b3.shape[0], a.shape[0], b3.shape[2])).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        data = a.data.to(dev).clone().requires_grad_(True)
+        bb = b3.to(dev).clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        out = tt.tiled_spmm(tt.CSR(data, a.indices, a.indptr, a.shape), bb, blocksize=(32, 16))
+        out.backward(g.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.launches_by_kernel() == {
+                **{n: 0 for n in kernels.launches_by_kernel()},
+                "resident_spmm_batched": 2, "sddmm": 1}
+        runs[str(dev)] = (out.detach().cpu(), data.grad.cpu(), bb.grad.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_footprint_train_step_launches_and_matches_cpu(cuda):
+    """One step of spmm(method='footprint'): 1 footprint_spmm forward, 1
+    sddmm (dA) and 1 block_ell_spmm (dB on the transpose plan); card
+    against CPU."""
+    a, _, b3 = _plan_exec_inputs("ragged_8x32_n130_b3", "cpu", torch.float32)
+    b = b3[0]
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (a.shape[0], b.shape[1])).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        data = a.data.to(dev).clone().requires_grad_(True)
+        bb = b.to(dev).clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        out = tt.spmm(tt.CSR(data, a.indices, a.indptr, a.shape), bb, method="footprint",
+                      blocksize=(8, 32))
+        out.backward(g.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert kernels.launches_by_kernel() == {
+                **{n: 0 for n in kernels.launches_by_kernel()},
+                "footprint_spmm": 1, "sddmm": 1, "block_ell_spmm": 1}
+        runs[str(dev)] = (out.detach().cpu(), data.grad.cpu(), bb.grad.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_batched_kernel_chunks_batches_past_the_grid_limit(cuda):
+    """A batch of 65,536 + 7 runs as two launches of the grid's z limit
+    inside one entry-point call, each batch element bitwise equal to the
+    2-D kernel."""
+    a, plan, _ = _plan_exec_inputs("ragged_32x16_n33_b5", cuda, torch.float32)
+    bv = plan.pack_values(a.data)
+    b3 = torch.randn(65536 + 7, a.shape[1], 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    tk.reset_launch_counts()
+    got = tk.resident_spmm_batched_kernel(plan, bv, b3)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["resident_spmm_batched"] == 1
+    for g in (0, 65534, 65535, 65536, 65542):
+        assert torch.equal(got[g], tk.resident_spmm_kernel(plan, bv, b3[g].contiguous())), g

@@ -22,9 +22,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
 def test_import_and_cpu_forward_load_no_jax():
     """The MLP forward, a BERT encoder's forward and SGD step, a 'bigbird'
     encoder's SGD step, and the serving tier (QuantizedMatrix, the dense int8
-    ops, int8-KV attention, GPT and QuantizedGPT generation), a GCN Adam step
-    and a GAT forward on the naive route, on the CPU, in a fresh
-    interpreter, load no forbidden module."""
+    ops, int8-KV attention, GPT and QuantizedGPT generation), a batched and
+    a footprint SpMM and a dense @ CSR, a GCN Adam step and a GAT forward on
+    the naive route, on the CPU, in a fresh interpreter, load no forbidden
+    module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
@@ -43,6 +44,9 @@ def test_import_and_cpu_forward_load_no_jax():
         "assert torch.isfinite(loss)\n"
         "a = tt.CSR.from_dense(torch.eye(16), device='cpu')\n"
         "assert (tt.QuantizedMatrix(a, blocksize=(8, 8)) @ torch.ones(16, 3)).shape == (16, 3)\n"
+        "assert tt.spmm(a, torch.ones(2, 16, 3), blocksize=(8, 8)).shape == (2, 16, 3)\n"
+        "assert tt.spmm(a, torch.ones(16, 3), method='footprint').shape == (16, 3)\n"
+        "assert (torch.ones(2, 16) @ a).shape == (2, 16)\n"
         "assert tt.quantized_matmul(torch.ones(4, 8), torch.ones(8, 2)).shape == (4, 2)\n"
         "kq, ks, vq, vs = tt.quantize_kv(torch.ones(1, 2, 8, 4), torch.ones(1, 2, 8, 4))\n"
         "assert tt.flash_attention_q8(torch.ones(1, 2, 8, 4), kq, ks, vq, vs).shape == (1, 2, 8, 4)\n"
@@ -110,6 +114,8 @@ ENTRY_POINTS = {
     "CSR.from_scipy": lambda: tt.CSR.from_scipy(ssp.eye(3, format="csr")),
     "COO.from_dense": lambda: tt.COO.from_dense(np.eye(3, dtype=np.float32)),
     "random_csr": lambda: tt.random_csr(0, (4, 4), 0.5),
+    "random_coo": lambda: tt.random_coo(0, (4, 4), 0.5),
+    "random_powerlaw_csr": lambda: tt.random_powerlaw_csr(0, (4, 4), 2.0),
     "block_sparse_csr": lambda: block_sparse_csr(0, (16, 16), (8, 8), 0.5),
     "BSR.from_dense": lambda: tt.BSR.from_dense(np.eye(3, dtype=np.float32), (2, 2)),
     "GPTBlock": lambda: tt.GPTBlock(8, 2, 16),

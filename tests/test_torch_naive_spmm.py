@@ -307,8 +307,12 @@ def test_spmm_rules_raise():
         tops.spmm(t, b, method="naive", return_arg=True)
     with pytest.raises(ValueError, match="unknown reduce"):
         tops.spmm(t, b, method="naive", reduce="prod")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tops.spmm(t, b[None], method="tiled")
+    # a 3-D b on the block routes is ported: the batched executor's values,
+    # and the sum-only rule holds there too
+    np.testing.assert_allclose(tops.spmm(t, b[None], method="tiled")[0].numpy(),
+                               tops.spmm(t, b, method="reference").numpy(), **TOL)
+    with pytest.raises(ValueError, match="reduce='sum' only"):
+        tops.spmm(t, b[None], method="footprint", reduce="max")
 
 
 @pytest.mark.parametrize("fmt", ["coo", "bsr"])

@@ -157,7 +157,8 @@ def test_cpu_path_does_not_count_launches():
     tk.reset_launch_counts()
     tops.spmm(t, torch.from_numpy(b), blocksize=bs)
     assert tk.launch_counts() == {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0,
-                                  "resident_spmm_int8": 0}
+                                  "resident_spmm_int8": 0, "resident_spmm_batched": 0,
+                                  "compact_spmm": 0, "grouped_spmm": 0, "footprint_spmm": 0}
 
 
 # -- errors -------------------------------------------------------------------
@@ -178,7 +179,14 @@ def test_unknown_method_raises():
 
 @pytest.mark.parametrize("method", ["auto", "footprint", "dia"])
 def test_unported_method_raises(method):
-    _, b, _, t, _ = _case("ragged_8x8")
+    """'auto' and 'dia' still raise naming their ROADMAP item; 'footprint' is
+    ported and gives JAX's values."""
+    _, b, j, t, bs = _case("ragged_8x8")
+    if method == "footprint":
+        got = tops.spmm(t, torch.from_numpy(b), method=method, blocksize=bs)
+        want = jops.spmm(j, jnp.asarray(b), method=method, blocksize=bs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.spmm(t, torch.from_numpy(b), method=method)
 
@@ -235,14 +243,22 @@ def test_spmm_takes_fp16(method, data_dtype):
 
 @pytest.mark.parametrize("call", ["spmm", "tiled_spmm", "resident_spmm", "spmm_blocks"])
 def test_3d_b_raises(call):
-    _, _, _, t, bs = _case("ragged_8x8")
-    b3 = torch.zeros(2, t.shape[1], 4)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        if call == "spmm_blocks":
-            plan = tplan.build_plan(t, bs)
-            tops.spmm_blocks(plan, plan.pack_values(t.data), b3)
-        else:
-            getattr(tops, call)(t, b3)
+    """A 3-D b: 'spmm', 'tiled_spmm' and 'resident_spmm' take it (the
+    batched executor) and give JAX's values; `spmm_blocks` rejects it with
+    a ValueError, as JAX's does."""
+    _, _, j, t, bs = _case("ragged_8x8")
+    b3 = np.random.default_rng(2).standard_normal((2, t.shape[1], 4)).astype(np.float32)
+    if call == "spmm_blocks":
+        plan, pj = tplan.build_plan(t, bs), jplan.build_plan(j, bs)
+        with pytest.raises(ValueError, match="incompatible"):
+            tops.spmm_blocks(plan, plan.pack_values(t.data), torch.from_numpy(b3))
+        with pytest.raises(ValueError, match="incompatible"):
+            jops.spmm_blocks(pj, pj.pack_values(j.data), jnp.asarray(b3))
+        return
+    got = getattr(tops, call)(t, torch.from_numpy(b3), blocksize=bs)
+    want = getattr(jops, call)(j, jnp.asarray(b3), blocksize=bs)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("call", ["tiled_spmm", "spmm_blocks"])

@@ -143,7 +143,9 @@ def test_cpu_train_step_launches_no_kernel():
         assert kernels.launches_by_kernel() == {
             "block_ell_spmm": 0, "spmm_int8": 0, "sddmm": 0, "gemm": 0, "gemm_s8": 0,
             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_q8": 0,
-            "blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0, "naive_spmm": 0}
+            "blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0, "naive_spmm": 0,
+            "resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
+            "footprint_spmm": 0}
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -20,7 +20,13 @@ int8 K/V cache (`csrc/flash_attention_q8.cu`). The GPT decoder
 runs its forward on the flash kernels. The graph models (`GCN`, `GAT`,
 `APPNP`) train with Adam on `ops.spmm`: with spmm_method='naive' on the
 naive SpMM kernel (`csrc/naive_spmm.cu`, every reducer of `spmm` and
-`naive_spmm`), APPNP on the block SpMM executor. Tensors on the CPU take the plain
+`naive_spmm`), APPNP on the block SpMM executor. A 3-D B under one
+sparse pattern (`spmm`, `tiled_spmm`, `resident_spmm`; 4-D through
+`spmm`) runs on the batched block executor (`csrc/block_ell_spmm_batched.cu`),
+`spmm(method='footprint')` and `footprint_spmm` on the footprint executor
+(`csrc/block_ell_spmm_footprint.cu`), and the compact and grouped plans on
+theirs (`kernels.compact_spmm_kernel`, `kernels.grouped_spmm_kernel`).
+Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
@@ -81,6 +87,8 @@ from tpusparse_torch.nn import (
     route_sparse_attention,
 )
 from tpusparse_torch.ops import (
+    dsmm,
+    footprint_spmm,
     gather_spmm,
     mm,
     naive_spmm,
@@ -92,14 +100,24 @@ from tpusparse_torch.ops import (
     transa_mm,
     transab_mm,
     transb_mm,
+    transpose_csr,
 )
 from tpusparse_torch.plan import (
+    CompactPlan,
+    FootprintPlan,
+    GroupedPlan,
     Plan,
     block_transpose_plan,
     build_plan,
     build_plan_pair,
     clear_plan_cache,
+    compact_plan,
+    footprint_plan,
+    group_plan,
+    load_plan,
     plan_cache_info,
+    save_plan,
+    set_roofline_constants,
 )
 from tpusparse_torch.quant import QuantizedDense, QuantizedMatrix, quantized_matmul
 from tpusparse_torch.types import (
@@ -110,7 +128,9 @@ from tpusparse_torch.types import (
     coo_to_csr,
     csr_to_bsr,
     csr_to_coo,
+    random_coo,
     random_csr,
+    random_powerlaw_csr,
     sddmm_reference,
     spmm_reference,
 )
@@ -126,14 +146,17 @@ __all__ = [
     "BSR",
     "COO",
     "CSR",
+    "CompactPlan",
     "DenseLinear",
     "Embed",
+    "FootprintPlan",
     "GAT",
     "GATLayer",
     "GCN",
     "GCNLayer",
     "GPTBlock",
     "GPTDecoder",
+    "GroupedPlan",
     "LayerNorm",
     "LocalAttention",
     "MnistNet",
@@ -160,19 +183,25 @@ __all__ = [
     "build_plan",
     "build_plan_pair",
     "clear_plan_cache",
+    "compact_plan",
     "coo_to_csr",
     "csr_to_bsr",
     "csr_to_coo",
     "dense",
+    "dsmm",
     "einsum",
     "elementwise",
     "flash_attention_q8",
+    "footprint_plan",
+    "footprint_spmm",
     "gather_spmm",
     "generate",
     "get_config",
+    "group_plan",
     "kernels",
     "linalg",
     "load_flax_params",
+    "load_plan",
     "local_global_pattern",
     "make_train_state",
     "matmul",
@@ -186,15 +215,19 @@ __all__ = [
     "quantize_gpt",
     "quantize_kv",
     "quantized_matmul",
+    "random_coo",
     "random_csr",
     "random_graph",
+    "random_powerlaw_csr",
     "resident_spmm",
     "resolve_device",
     "route_sparse_attention",
     "row_softmax",
+    "save_plan",
     "sddmm",
     "sddmm_reference",
     "set_config",
+    "set_roofline_constants",
     "spmm",
     "spmm_blocks",
     "sp_add",
@@ -207,5 +240,6 @@ __all__ = [
     "transa_mm",
     "transab_mm",
     "transb_mm",
+    "transpose_csr",
     "two_cluster_graph",
 ]

@@ -36,37 +36,15 @@
 //   loop over the slots in ascending l and over k in ascending 16-wide
 //   chunks; stage the A chunk (transposed) and the B chunk in shared
 //   memory; accumulators in registers; no atomics. Each output element is
-//   summed by one thread in one fixed order.
+//   summed by one thread in one fixed order. The tile is the one of
+//   block_tiles.cuh, which the batched, compact and grouped executors share,
+//   so they agree with this kernel bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "block_tiles.cuh"
 
-#include <cstdint>
+using namespace tiles;
 
 namespace {
-
-constexpr int BM_T = 64;  // output rows per thread block (slice of a row-block)
-constexpr int BN_T = 64;  // output columns per thread block
-constexpr int BK_T = 16;  // k-chunk staged in shared memory
-constexpr int TM = 4;     // rows per thread
-constexpr int TN = 4;     // columns per thread
-constexpr int NT = (BM_T / TM) * (BN_T / TN);  // 256 threads
-constexpr int A_LD = BM_T + 4;  // padded row of the transposed A chunk
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <bool ROUND_BF16>
-__device__ __forceinline__ float tier(float x) {
-  if constexpr (ROUND_BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <typename TA, typename TB, typename TC, bool ROUND_BF16>
 __global__ void __launch_bounds__(NT) block_ell_spmm_kernel(
@@ -76,107 +54,23 @@ __global__ void __launch_bounds__(NT) block_ell_spmm_kernel(
     const int* __restrict__ block_cols,   // (nbr * L)
     const int* __restrict__ nslots,       // (nbr)
     int m, int k, int n, int bm, int bk, int L, int m_sub) {
-  __shared__ __align__(16) float As[BK_T][A_LD];  // A chunk, k-major
-  __shared__ __align__(16) float Bs[BK_T][BN_T];
+  __shared__ Staging st;
 
   const int i = blockIdx.x / m_sub;             // row-block
   const int r0 = (blockIdx.x % m_sub) * BM_T;   // first row inside the row-block
   const int rows = min(BM_T, bm - r0);          // rows of this slice
   const int n0 = blockIdx.y * BN_T;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN_T / TN);
-  const int ty = tid / (BN_T / TN);
 
   float acc[TM][TN];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[a][q] = 0.f;
-
+  zero(acc);
   const int nvalid = nslots[i];
   for (int l = 0; l < nvalid; ++l) {
     const size_t slot = static_cast<size_t>(i) * L + l;
-    const TA* a_blk = vals + (slot * bm + r0) * static_cast<size_t>(bk);
-    const int kb = block_cols[slot] * bk;  // first B row of this slot
-    for (int k0 = 0; k0 < bk; k0 += BK_T) {
-      for (int e = tid; e < BM_T * BK_T; e += NT) {
-        const int r = e / BK_T, q = e % BK_T;
-        float v = 0.f;
-        if (r < rows && k0 + q < bk) {
-          v = tier<ROUND_BF16>(to_f32(a_blk[static_cast<size_t>(r) * bk + k0 + q]));
-        }
-        As[q][r] = v;
-      }
-      for (int e = tid; e < BK_T * BN_T; e += NT) {
-        const int q = e / BN_T, col = e % BN_T;
-        const int kr = kb + k0 + q, cn = n0 + col;
-        float v = 0.f;
-        if (k0 + q < bk && kr < k && cn < n) {
-          v = tier<ROUND_BF16>(to_f32(b[static_cast<size_t>(kr) * n + cn]));
-        }
-        Bs[q][col] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < BK_T; ++q) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[q][ty * TM]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[q][tx * TN]);
-        const float ar[TM] = {av.x, av.y, av.z, av.w};
-        const float br[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int a = 0; a < TM; ++a)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[a][j] = fmaf(ar[a], br[j], acc[a][j]);
-      }
-      __syncthreads();
-    }
+    accumulate_slot<TA, TB, ROUND_BF16>(
+        acc, st, vals + (slot * bm + r0) * static_cast<size_t>(bk), rows, bk, b,
+        block_cols[slot] * bk, k, n, n0);
   }
-
-#pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int r = ty * TM + a;
-    const int grow = i * bm + r0 + r;
-    if (r >= rows || grow >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int cn = n0 + tx * TN + j;
-      if (cn < n) store(&c[static_cast<size_t>(grow) * n + cn], acc[a][j]);
-    }
-  }
-}
-
-template <typename TA, typename TB, typename TC>
-void launch_typed(const void* vals, const void* b, void* c, const int* cols,
-                  const int* nslots, int m, int k, int n, int bm, int bk,
-                  int nbr, int L, int round_bf16, cudaStream_t stream) {
-  const int m_sub = (bm + BM_T - 1) / BM_T;
-  const dim3 grid(static_cast<unsigned>(nbr) * m_sub, (n + BN_T - 1) / BN_T);
-  const auto* va = static_cast<const TA*>(vals);
-  const auto* vb = static_cast<const TB*>(b);
-  auto* vc = static_cast<TC*>(c);
-  if (round_bf16) {
-    block_ell_spmm_kernel<TA, TB, TC, true><<<grid, NT, 0, stream>>>(
-        va, vb, vc, cols, nslots, m, k, n, bm, bk, L, m_sub);
-  } else {
-    block_ell_spmm_kernel<TA, TB, TC, false><<<grid, NT, 0, stream>>>(
-        va, vb, vc, cols, nslots, m, k, n, bm, bk, L, m_sub);
-  }
-}
-
-template <typename TA, typename TB>
-int launch_out(const void* vals, const void* b, void* c, int c_dtype,
-               const int* cols, const int* nslots, int m, int k, int n, int bm,
-               int bk, int nbr, int L, int round_bf16, cudaStream_t stream) {
-  if (c_dtype == 0) {
-    launch_typed<TA, TB, float>(vals, b, c, cols, nslots, m, k, n, bm, bk, nbr, L,
-                                round_bf16, stream);
-  } else if (c_dtype == 1) {
-    launch_typed<TA, TB, __nv_bfloat16>(vals, b, c, cols, nslots, m, k, n, bm, bk,
-                                        nbr, L, round_bf16, stream);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
+  store_tile(acc, c, i * bm + r0, rows, m, n, n0);
 }
 
 }  // namespace
@@ -195,25 +89,19 @@ extern "C" int block_ell_spmm(const void* vals, int vals_dtype, const void* b,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int m_sub = (bm + BM_T - 1) / BM_T;
+  const dim3 grid(static_cast<unsigned>(nbr) * m_sub, (n + BN_T - 1) / BN_T);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* cols = static_cast<const int*>(block_cols);
-  const auto* ns = static_cast<const int*>(nslots);
-  int rc;
-  if (vals_dtype == 0 && b_dtype == 0) {
-    rc = launch_out<float, float>(vals, b, c, c_dtype, cols, ns, m, k, n, bm, bk, nbr,
-                                  L, round_bf16, s);
-  } else if (vals_dtype == 0 && b_dtype == 1) {
-    rc = launch_out<float, __nv_bfloat16>(vals, b, c, c_dtype, cols, ns, m, k, n, bm,
-                                          bk, nbr, L, round_bf16, s);
-  } else if (vals_dtype == 1 && b_dtype == 0) {
-    rc = launch_out<__nv_bfloat16, float>(vals, b, c, c_dtype, cols, ns, m, k, n, bm,
-                                          bk, nbr, L, round_bf16, s);
-  } else if (vals_dtype == 1 && b_dtype == 1) {
-    rc = launch_out<__nv_bfloat16, __nv_bfloat16>(vals, b, c, c_dtype, cols, ns, m, k,
-                                                  n, bm, bk, nbr, L, round_bf16, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int rc = dispatch(vals_dtype, b_dtype, c_dtype, round_bf16,
+                          [&](auto ta, auto tb, auto tc, auto rnd) {
+    using TA = typename decltype(ta)::type;
+    using TB = typename decltype(tb)::type;
+    using TC = typename decltype(tc)::type;
+    block_ell_spmm_kernel<TA, TB, TC, decltype(rnd)::value><<<grid, NT, 0, s>>>(
+        static_cast<const TA*>(vals), static_cast<const TB*>(b), static_cast<TC*>(c),
+        static_cast<const int*>(block_cols), static_cast<const int*>(nslots), m, k, n,
+        bm, bk, L, m_sub);
+  });
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

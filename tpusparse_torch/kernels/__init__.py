@@ -26,6 +26,10 @@ from tpusparse_torch.kernels.gemm import gemm_int8_kernel, gemm_kernel
 from tpusparse_torch.kernels.naive_spmm import ell_pack, naive_spmm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
 from tpusparse_torch.kernels.tiled_spmm import (
+    compact_spmm_kernel,
+    footprint_spmm_kernel,
+    grouped_spmm_kernel,
+    resident_spmm_batched_kernel,
     resident_spmm_int8_kernel,
     resident_spmm_kernel,
     tiled_spmm_int8_kernel,
@@ -39,10 +43,12 @@ def launch_counts() -> dict:
     """Kernel launches per entry point of every kernel since the last reset:
     'tiled_spmm' and 'resident_spmm' (both csrc/block_ell_spmm.cu),
     'tiled_spmm_int8' and 'resident_spmm_int8' (both
-    csrc/block_ell_spmm_int8.cu), 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd',
-    'flash_dq', 'flash_dkv' (csrc/flash_attention.cu), 'flash_q8',
-    'blk_flash_fwd', 'blk_flash_dq', 'blk_flash_dkv'
-    (csrc/block_flash_attention.cu) and 'naive_spmm'."""
+    csrc/block_ell_spmm_int8.cu), 'resident_spmm_batched'
+    (csrc/block_ell_spmm_batched.cu), 'compact_spmm', 'grouped_spmm' and
+    'footprint_spmm' (csrc/block_ell_spmm_{compact,grouped,footprint}.cu),
+    'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv'
+    (csrc/flash_attention.cu), 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
+    'blk_flash_dkv' (csrc/block_flash_attention.cu) and 'naive_spmm'."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -51,9 +57,11 @@ def launch_counts() -> dict:
 
 def launches_by_kernel() -> dict:
     """`launch_counts()` summed per CUDA kernel: 'block_ell_spmm' (both
-    executor entry points), 'spmm_int8' (both int8 entry points), 'sddmm',
-    'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv', 'flash_q8',
-    'blk_flash_fwd', 'blk_flash_dq', 'blk_flash_dkv' and 'naive_spmm'."""
+    executor entry points), 'spmm_int8' (both int8 entry points),
+    'resident_spmm_batched', 'compact_spmm', 'grouped_spmm',
+    'footprint_spmm', 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq',
+    'flash_dkv', 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
+    'blk_flash_dkv' and 'naive_spmm'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
             "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}
@@ -71,6 +79,7 @@ __all__ = [
     "blk_flash_fwd_kernel",
     "block_flash_attention",
     "block_flash_attention_diff",
+    "compact_spmm_kernel",
     "ell_pack",
     "flash_attention",
     "flash_attention_diff",
@@ -79,15 +88,18 @@ __all__ = [
     "flash_dq_kernel",
     "flash_fwd_kernel",
     "flash_q8_kernel",
+    "footprint_spmm_kernel",
     "gemm",
     "gemm_int8_kernel",
     "gemm_kernel",
+    "grouped_spmm_kernel",
     "launch_counts",
     "launches_by_kernel",
     "naive_spmm",
     "naive_spmm_kernel",
     "quantize_kv",
     "reset_launch_counts",
+    "resident_spmm_batched_kernel",
     "resident_spmm_int8_kernel",
     "resident_spmm_kernel",
     "sddmm",

@@ -22,10 +22,24 @@ the JAX pair is. Their contract: C = (Σ_l s_a[l] · float(Qa[l] @ Qb[col_l]))
 order. The TPU's VMEM fit check (`resident_int8_vmem_bytes`) has no
 counterpart, as for the float executor.
 
-A wrapper given CPU tensors runs `_block_exec_plain` (or
-`_block_exec_int8_plain`), the plain PyTorch version of the same function.
-Given CUDA tensors it launches the kernel or raises. Each entry point counts
-its launches (`launch_counts`).
+The batched executor (`_resident_batched_kernel`, l.420, behind
+`resident_spmm_batched_pallas`) becomes `csrc/block_ell_spmm_batched.cu`
+behind `resident_spmm_batched_kernel`: C[g] = A @ B[g] for a 3-D B, the
+batch on the grid. The executors of the derived plans become one CUDA
+kernel each: `compact_spmm_kernel` (`_compact_kernel`, l.1029;
+`csrc/block_ell_spmm_compact.cu`), `grouped_spmm_kernel`
+(`_grouped_kernel`, l.1186; `csrc/block_ell_spmm_grouped.cu`) and
+`footprint_spmm_kernel` (`_footprint_kernel`, l.1344;
+`csrc/block_ell_spmm_footprint.cu`). All five float executors add a
+row-block's slots in ascending column order through one FFMA tile
+(`csrc/block_tiles.cuh`), so on the same A and B they are bitwise equal to
+each other.
+
+A wrapper given CPU tensors runs the plain PyTorch version of the same
+function (`_block_exec_plain`, `_block_exec_batched_plain`,
+`_compact_plain`, `_grouped_plain`, `_footprint_plain`,
+`_block_exec_int8_plain`). Given CUDA tensors it launches the kernel or
+raises. Each entry point counts its launches (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -33,16 +47,18 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from tpusparse_torch.plan import Plan
-from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
+from tpusparse_torch.plan import CompactPlan, FootprintPlan, GroupedPlan, Plan
+from tpusparse_torch.utils.config import cdiv, fp32_matmul, resolve_precision
 
 KERNEL = "block_ell_spmm"
 KERNEL_INT8 = "block_ell_spmm_int8"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0,
-             "resident_spmm_int8": 0}
+             "resident_spmm_int8": 0, "resident_spmm_batched": 0, "compact_spmm": 0,
+             "grouped_spmm": 0, "footprint_spmm": 0}
 
 
 def launch_counts() -> dict:
@@ -78,15 +94,17 @@ def resident_spmm_kernel(
     return _run("resident_spmm", plan, block_vals, b, out_dtype, precision)
 
 
-def _check(plan: Plan, block_vals: torch.Tensor, b: torch.Tensor, out_dtype):
+def _check(plan, block_vals: torch.Tensor, b: torch.Tensor, out_dtype, num_slots=None,
+           b_ndim: int = 2):
     m, k = plan.shape
     bm, bk = plan.blocksize
-    if b.ndim != 2 or b.shape[0] != k:
+    num_slots = plan.num_slots if num_slots is None else num_slots
+    if b.ndim != b_ndim or b.shape[-2] != k:
         raise ValueError(f"b shape {tuple(b.shape)} incompatible with plan k={k}")
-    if tuple(block_vals.shape) != (plan.num_slots, bm, bk):
+    if tuple(block_vals.shape) != (num_slots, bm, bk):
         raise ValueError(
             f"block_vals shape {tuple(block_vals.shape)} != plan's "
-            f"{(plan.num_slots, bm, bk)}"
+            f"{(num_slots, bm, bk)}"
         )
     for name, t in (("block_vals", block_vals), ("b", b)):
         if t.dtype not in _DTYPE_CODE:
@@ -173,10 +191,8 @@ def _block_exec_plain(
     n = b.shape[1]
     dev = b.device
     out_dtype = out_dtype or torch.result_type(block_vals, b)
-    vf, bf = block_vals.float(), b.float()
-    if resolve_precision(precision) == "default":
-        vf = vf.to(torch.bfloat16).float()
-        bf = bf.to(torch.bfloat16).float()
+    tier = resolve_precision(precision)
+    vf, bf = _tiered(block_vals, tier), _tiered(b, tier)
     bp = torch.zeros((nbc * bk, n), dtype=torch.float32, device=dev)
     bp[:k] = bf
     cols = plan.index_tensor("block_cols", dev).reshape(nbr, L).long()
@@ -186,6 +202,270 @@ def _block_exec_plain(
     with fp32_matmul():
         out = torch.einsum("ilmk,ilkn->imn", vals4, tiles)
     return out.reshape(nbr * bm, n)[:m].to(out_dtype)
+
+
+def _tiered(x: torch.Tensor, tier: str) -> torch.Tensor:
+    """x in fp32, rounded through bf16 first in the 'default' tier."""
+    x = x.float()
+    return x.to(torch.bfloat16).float() if tier == "default" else x
+
+
+# ----------------------------------------------------------------------------
+# Batched executor: a 3-D B under one plan
+# ----------------------------------------------------------------------------
+
+
+def resident_spmm_batched_kernel(
+    plan: Plan, block_vals: torch.Tensor, b3: torch.Tensor, *, out_dtype=None,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """C[g] = A @ B[g] for b3 (batch, k, n); returns (batch, m, n).
+
+    The counterpart of `resident_spmm_batched_pallas`
+    (tpusparse/kernels/tiled_spmm.py:508-526): the batch on the grid, B and
+    C read and written in place. The TPU kernel's VMEM fit check and its
+    `block_n` and `unroll` knobs have no counterpart. C[g] is bitwise equal
+    to `resident_spmm_kernel(plan, block_vals, b3[g])`.
+    """
+    out_dtype = out_dtype or torch.result_type(block_vals, b3)
+    _check(plan, block_vals, b3, out_dtype, b_ndim=3)
+    tier = resolve_precision(precision)
+    if b3.device.type == "cpu":
+        return _block_exec_batched_plain(plan, block_vals, b3, out_dtype=out_dtype,
+                                         precision=tier)
+    if b3.device.type != "cuda":
+        raise ValueError(f"unsupported device {b3.device}")
+    m, k = plan.shape
+    bm, bk = plan.blocksize
+    batch, _, n = b3.shape
+    c = torch.empty((batch, m, n), dtype=out_dtype, device=b3.device)
+    if batch == 0 or m == 0 or n == 0:
+        return c
+    args = (
+        block_vals.data_ptr(), _DTYPE_CODE[block_vals.dtype], b3.data_ptr(),
+        _DTYPE_CODE[b3.dtype], c.data_ptr(), _DTYPE_CODE[out_dtype],
+        plan.index_tensor("block_cols", b3.device).data_ptr(),
+        plan.index_tensor("nslots", b3.device).data_ptr(),
+        batch, m, k, n, bm, bk, plan.num_row_blocks, plan.ell_width,
+        int(tier == "default"), b3.device.index or 0,
+        torch.cuda.current_stream(b3.device).cuda_stream,
+    )
+    _launch_c("resident_spmm_batched", args)
+    return c
+
+
+def _block_exec_batched_plain(
+    plan: Plan, block_vals: torch.Tensor, b3: torch.Tensor, *, out_dtype=None,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the batched executor: `_block_exec_plain`
+    on the batch folded into columns, (k, batch·n), unfolded after."""
+    batch, k, n = b3.shape
+    out = _block_exec_plain(plan, block_vals, b3.transpose(0, 1).reshape(k, batch * n),
+                            out_dtype=out_dtype, precision=precision)
+    return out.reshape(out.shape[0], batch, n).transpose(0, 1)
+
+
+# ----------------------------------------------------------------------------
+# Executors of the derived plans: compact, grouped, footprint
+# ----------------------------------------------------------------------------
+
+
+def compact_spmm_kernel(
+    cplan: CompactPlan, block_vals: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """C = A @ B for a CompactPlan; block_vals (cplan.nblocks, bm, bk) from
+    `cplan.pack_values`. The counterpart of `compact_spmm_pallas`
+    (tpusparse/kernels/tiled_spmm.py:1091); its `block_n` knob and its
+    TPU-only bk % 128 rule are not carried. Bitwise equal to
+    `tiled_spmm_kernel` on the plan `cplan` derives from."""
+    return _run_derived("compact_spmm", cplan, block_vals, b, out_dtype, precision,
+                        cplan.nblocks)
+
+
+def grouped_spmm_kernel(
+    gplan: GroupedPlan, block_vals: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """C = A @ B for a GroupedPlan; block_vals (gplan.num_slots, bm, bk) from
+    `gplan.pack_values`. The counterpart of `grouped_spmm_pallas`
+    (tpusparse/kernels/tiled_spmm.py:1243), with fp32 sums where the TPU
+    kernel added each slot into its output block in the output's type (the
+    two differ for a bf16 C only). Bitwise equal to `tiled_spmm_kernel` on
+    the plan `gplan` derives from."""
+    return _run_derived("grouped_spmm", gplan, block_vals, b, out_dtype, precision,
+                        gplan.num_slots)
+
+
+def footprint_spmm_kernel(
+    fplan: FootprintPlan, block_vals: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+    precision: str | None = None,
+) -> torch.Tensor:
+    """C = A @ B for a FootprintPlan; block_vals (fplan.num_slots, bm, bk)
+    from `fplan.pack_values`. The counterpart of `footprint_spmm_pallas`
+    (tpusparse/kernels/tiled_spmm.py:1418). Raises ValueError where the
+    super-row's accumulators do not fit the card's shared memory even at the
+    narrowest n-tile (`footprint_tile`), on every device, as JAX raises on
+    its VMEM estimate. Bitwise equal to `tiled_spmm_kernel` on the plan
+    `fplan` derives from."""
+    footprint_tile(fplan, b.shape[-1])
+    return _run_derived("footprint_spmm", fplan, block_vals, b, out_dtype, precision,
+                        fplan.num_slots)
+
+
+# the footprint kernel's n-tiles, widest first, and its shared-memory limit
+FOOTPRINT_NTILES = (64, 32, 16, 8)
+MAX_SMEM_BYTES = 232448
+_TN = 4  # columns (and rows) of a thread's register tile
+_BK_T = 16  # k-chunk of the staged A block
+
+
+def footprint_tile(fplan: FootprintPlan, n: int):
+    """(ntile, thread rows, shared-memory bytes) of the footprint kernel for
+    B of width n: the widest n-tile (at most the next power of two of n)
+    whose accumulators for the super's S·bm rows, B tile and A chunk fit
+    the 227 KB a thread block may have. Raises ValueError when even the
+    narrowest does not fit."""
+    S, (bm, bk) = fplan.rows_per_super, fplan.blocksize
+    cap = max(8, 1 << max(int(n) - 1, 0).bit_length())
+    for ntile in FOOTPRINT_NTILES:
+        if ntile > cap and ntile != FOOTPRINT_NTILES[-1]:
+            continue
+        txn = ntile // _TN
+        tyn = min(256 // txn, cdiv(bm, _TN))
+        tyn = cdiv(tyn, 32 // txn) * (32 // txn)  # whole warps
+        smem = 4 * (S * bm * ntile + cdiv(bk, _BK_T) * _BK_T * ntile + _BK_T * (tyn * _TN + 4))
+        if smem <= MAX_SMEM_BYTES:
+            return ntile, tyn, smem
+    raise ValueError(
+        f"footprint plan needs {smem} bytes of shared memory at the narrowest n-tile "
+        f"({ntile}; limit {MAX_SMEM_BYTES}): lower rows_per_super (S={S}, blocksize "
+        f"{fplan.blocksize})"
+    )
+
+
+def _run_derived(entry, dplan, block_vals, b, out_dtype, precision, num_slots):
+    out_dtype = out_dtype or torch.result_type(block_vals, b)
+    _check(dplan, block_vals, b, out_dtype, num_slots=num_slots)
+    tier = resolve_precision(precision)
+    if b.device.type == "cpu":
+        return _PLAIN[entry](dplan, block_vals, b, out_dtype=out_dtype, precision=tier)
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    m, k = dplan.shape
+    bm, bk = dplan.blocksize
+    n = b.shape[1]
+    c = torch.empty((m, n), dtype=out_dtype, device=b.device)
+    if m == 0 or n == 0:
+        return c
+    dev = b.device
+    idx = lambda name: dplan.index_tensor(name, dev).data_ptr()  # noqa: E731
+    head = (block_vals.data_ptr(), _DTYPE_CODE[block_vals.dtype], b.data_ptr(),
+            _DTYPE_CODE[b.dtype], c.data_ptr(), _DTYPE_CODE[out_dtype])
+    nbr = cdiv(m, bm)
+    if entry == "compact_spmm":
+        args = (idx("cols"), idx("row_base"), m, k, n, bm, bk, nbr)
+    elif entry == "grouped_spmm":
+        args = (idx("block_cols"), idx("local_rb"), idx("nslots"), m, k, n, bm, bk, nbr,
+                dplan.group_size, dplan.ell_width)
+    else:
+        ntile, tyn, _ = footprint_tile(dplan, n)
+        args = (idx("ucols"), idx("nslots"), idx("lrow"), idx("bslot"), idx("newcol"),
+                m, k, n, bm, bk, nbr, dplan.rows_per_super, dplan.ell_width,
+                dplan.u_width, ntile, tyn)
+    tail = (int(tier == "default"), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _launch_c(entry, head + args + tail)
+    return c
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# values, B, C pointers with their dtype codes ... round_bf16, device, stream
+_HEAD, _TAIL = [_P, _I, _P, _I, _P, _I], [_I, _I, _P]
+# entry point -> (csrc/<source>.cu, its C function, the function's argtypes:
+# the plan's index pointers, then its ints)
+_C_ENTRY = {
+    "resident_spmm_batched": ("block_ell_spmm_batched", "block_ell_spmm_batched",
+                              _HEAD + [_P] * 2 + [_I] * 8 + _TAIL),
+    "compact_spmm": ("block_ell_spmm_compact", "compact_spmm", _HEAD + [_P] * 2 + [_I] * 6 + _TAIL),
+    "grouped_spmm": ("block_ell_spmm_grouped", "grouped_spmm", _HEAD + [_P] * 3 + [_I] * 8 + _TAIL),
+    "footprint_spmm": ("block_ell_spmm_footprint", "footprint_spmm",
+                       _HEAD + [_P] * 5 + [_I] * 11 + _TAIL),
+}
+
+
+@functools.cache
+def _c_function(entry: str):
+    """The C function behind `entry`, its source built on first use."""
+    from tpusparse_torch.kernels import _build
+
+    source, name, argtypes = _C_ENTRY[entry]
+    return _build.bind(source, {name: argtypes})[name]
+
+
+def _launch_c(entry: str, args: tuple) -> None:
+    """Call `entry`'s C function, raise if the launch failed, count it."""
+    rc = _c_function(entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{_C_ENTRY[entry][0]} launch failed: CUDA error {rc}")
+    _LAUNCHES[entry] += 1
+
+
+def _slots_plain(shape, blocksize, vals, cols, rbs, b, out_dtype, tier):
+    """Σ over the given slots of vals[s] @ B[cols[s]*bk : +bk] into the
+    rows of row-block rbs[s], on the inputs' device: whole-tile products in
+    fp32 (TF32 off), added per row-block with `index_add_`."""
+    m, k = shape
+    bm, bk = blocksize
+    nbr, nbc = cdiv(m, bm), cdiv(k, bk)
+    n = b.shape[1]
+    dev = b.device
+    bp = torch.zeros((nbc * bk, n), dtype=torch.float32, device=dev)
+    bp[:k] = _tiered(b, tier)
+    tiles = bp.reshape(nbc, bk, n)[torch.as_tensor(cols, dtype=torch.long, device=dev)]
+    with fp32_matmul():
+        prods = torch.bmm(_tiered(vals, tier), tiles)
+    out = torch.zeros((nbr, bm, n), dtype=torch.float32, device=dev)
+    out.index_add_(0, torch.as_tensor(rbs, dtype=torch.long, device=dev), prods)
+    return out.reshape(nbr * bm, n)[:m].to(out_dtype)
+
+
+def _compact_plain(cplan: CompactPlan, block_vals, b, *, out_dtype=None, precision=None):
+    """Plain PyTorch version of the compact executor."""
+    rbs = np.repeat(np.arange(cplan.num_row_blocks), np.diff(np.asarray(cplan.row_base)))
+    return _slots_plain(cplan.shape, cplan.blocksize, block_vals, np.asarray(cplan.cols), rbs,
+                        b, out_dtype or torch.result_type(block_vals, b),
+                        resolve_precision(precision))
+
+
+def _grouped_plain(gplan: GroupedPlan, block_vals, b, *, out_dtype=None, precision=None):
+    """Plain PyTorch version of the grouped executor (valid slots only)."""
+    g_ids, l_ids = np.nonzero(np.arange(gplan.ell_width)[None, :]
+                              < np.asarray(gplan.nslots)[:, None])
+    slots = g_ids * gplan.ell_width + l_ids
+    rbs = g_ids * gplan.group_size + np.asarray(gplan.local_rb)[g_ids, l_ids]
+    vals = block_vals[torch.as_tensor(slots, dtype=torch.long, device=block_vals.device)]
+    return _slots_plain(gplan.shape, gplan.blocksize, vals,
+                        np.asarray(gplan.block_cols)[g_ids, l_ids], rbs, b,
+                        out_dtype or torch.result_type(block_vals, b),
+                        resolve_precision(precision))
+
+
+def _footprint_plain(fplan: FootprintPlan, block_vals, b, *, out_dtype=None, precision=None):
+    """Plain PyTorch version of the footprint executor (valid slots only)."""
+    s_ids, l_ids = np.nonzero(np.arange(fplan.ell_width)[None, :]
+                              < np.asarray(fplan.nslots)[:, None])
+    slots = s_ids * fplan.ell_width + l_ids
+    rbs = s_ids * fplan.rows_per_super + np.asarray(fplan.lrow)[s_ids, l_ids]
+    cols = np.asarray(fplan.ucols)[s_ids, np.asarray(fplan.bslot)[s_ids, l_ids]]
+    vals = block_vals[torch.as_tensor(slots, dtype=torch.long, device=block_vals.device)]
+    return _slots_plain(fplan.shape, fplan.blocksize, vals, cols, rbs, b,
+                        out_dtype or torch.result_type(block_vals, b),
+                        resolve_precision(precision))
+
+
+_PLAIN = {"compact_spmm": _compact_plain, "grouped_spmm": _grouped_plain,
+          "footprint_spmm": _footprint_plain}
 
 
 # ----------------------------------------------------------------------------

@@ -2,11 +2,14 @@
 
 Counterpart of `tpusparse/ops.py` l.59-100 (dense `mm` family, same-rank
 operands of any rank ≥ 2), l.108-163 (`_block_exec`, `_tiled_spmm` with its
-backward), l.228-269 (`resident_spmm`), l.332-455 (`tiled_spmm`,
-`spmm_blocks` with its backward), l.464-490 and l.740-823 (`naive_spmm`
-with its sum VJP, `resolve_ell_width`, `ell_pack_traced`), l.565-597
-(`_fold_batch`), l.605 (`_check_spmm_b`), l.831-867 (`sddmm`), l.504-534
-and l.616 (`gather_spmm`) and l.1173-1311 (`spmm`).
+backward), l.166-227 (`_batched_resident_ok`, `_tiled_spmm_b3` with its
+backward), l.228-269 (`resident_spmm`), l.273-330 (`footprint_spmm` with its
+backward), l.332-455 (`tiled_spmm`, `spmm_blocks` with its backward),
+l.464-490 and l.740-823 (`naive_spmm` with its sum VJP, `resolve_ell_width`,
+`ell_pack_traced`), l.554-597 (`_fold_cols`, `_unfold_cols`, `_fold_batch`),
+l.605 (`_check_spmm_b`), l.831-867 (`sddmm`), l.504-534 and l.616
+(`gather_spmm`), l.880-946 (`transpose_csr`, `dsmm`) and l.1173-1311
+(`spmm`).
 
 Every op is a `torch.autograd.Function` whose backward runs on the port's
 kernels, with the JAX package's gradient algebra:
@@ -14,8 +17,11 @@ kernels, with the JAX package's gradient algebra:
   dense mm family   dA and dB as `dense.matmul` products (the GEMM kernel
                     when the config's `use_gemm_kernel` is set)
   block SpMM        dA = SDDMM(dC, B) on A's block pattern (kernels/sddmm.py)
-                    dB = Aᵀ·dC on the block executor through the transpose
+  (and footprint)   dB = Aᵀ·dC on the block executor through the transpose
                     plan (`build_plan_pair` or `block_transpose_plan`)
+  batched block     dA = SDDMM over the batch folded into columns
+  SpMM (3-D B)      dB[g] = Aᵀ·dC[g] on the batched executor through the
+                    transpose plan
   sddmm             dX and dY through `spmm_reference`
   gather_spmm and   d_data = per-nonzero g[row]·b[col], dB a scatter-add
   naive_spmm (sum)  (XLA take/scatter-add in JAX, index_select/index_add_
@@ -38,10 +44,18 @@ from tpusparse_torch import dense
 from tpusparse_torch.kernels.naive_spmm import ell_layout, naive_spmm_kernel
 from tpusparse_torch.kernels.sddmm import sddmm_kernel
 from tpusparse_torch.kernels.tiled_spmm import (
+    footprint_spmm_kernel,
+    resident_spmm_batched_kernel,
     resident_spmm_kernel,
     tiled_spmm_kernel,
 )
-from tpusparse_torch.plan import Plan, _fingerprint, block_transpose_plan, build_plan_pair
+from tpusparse_torch.plan import (
+    Plan,
+    _fingerprint,
+    block_transpose_plan,
+    build_plan_pair,
+    footprint_plan,
+)
 from tpusparse_torch.types import (
     BSR,
     COO,
@@ -56,7 +70,6 @@ from tpusparse_torch.types import (
 # ROADMAP item that brings each.
 _UNPORTED_METHODS = {
     "auto": "the cost-model router _route_spmm (ROADMAP queue 1, item 7)",
-    "footprint": "the footprint executor (ROADMAP queue 1, item 4; queue 2, row 8)",
     "dia": "the DIA path (ROADMAP queue 1, item 6; queue 2, row 20)",
 }
 
@@ -206,25 +219,80 @@ def _check_spmm_b(a, b) -> None:
         )
 
 
-def _only_2d(name: str, b: torch.Tensor) -> None:
-    if b.ndim != 2:
-        raise NotImplementedError(
-            f"{name}: {b.ndim}-D b is not ported; the batched block executor "
-            "comes with ROADMAP queue 1, item 3 (queue 2, row 3)"
-        )
+def _widened(fn, data: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fn(data, b) with fp16 operands widened to fp32 for the kernels and
+    the result cast to their promoted type, as the JAX ops return it (the
+    kernels take fp32 and bf16 only)."""
+    if torch.float16 not in (data.dtype, b.dtype):
+        return fn(data, b)
+    out_dtype = torch.promote_types(data.dtype, b.dtype)
+    return fn(data.float(), b.float()).to(out_dtype)
 
 
 def _packed(executor, a: CSR, b: torch.Tensor, plans) -> torch.Tensor:
-    """`_PackedSpmm` on the block executor. fp16 operands are widened to
-    fp32 for the kernel and the result is cast to their promoted type, as
-    the JAX ops return it (the kernels take fp32 and bf16 only)."""
+    """`_PackedSpmm` on the block executor."""
     plan, plan_t, t_perm = plans
-    data = a.data
-    if torch.float16 not in (data.dtype, b.dtype):
-        return _PackedSpmm.apply(executor, plan, plan_t, t_perm, data, b)
-    out_dtype = torch.promote_types(data.dtype, b.dtype)
-    return _PackedSpmm.apply(executor, plan, plan_t, t_perm, data.float(), b.float()).to(
-        out_dtype)
+    return _widened(
+        lambda d, bb: _PackedSpmm.apply(executor, plan, plan_t, t_perm, d, bb.contiguous()),
+        a.data, b)
+
+
+def _batched_resident_ok(plan: Plan, b: torch.Tensor) -> bool:
+    """Does a 3-D b take the batched executor (else the fold onto the 2-D
+    one)? JAX's test (tpusparse/ops.py:166-183) has three parts: block
+    reuse, nblocks >= num_col_blocks; round_up(n, 128) >= 256; and a VMEM
+    fit of the whole packed values. The last two are TPU constraints (128
+    lanes, VMEM) and are dropped, as `_block_exec` dropped its VMEM test;
+    the reuse test is kept. Both routes add each output element's products
+    over the same slots in the same order through the same FFMA tile
+    (csrc/block_tiles.cuh), so on the card they are bitwise equal."""
+    return plan.nblocks >= plan.num_col_blocks
+
+
+class _PackedSpmmB3(torch.autograd.Function):
+    """C[g] = A @ B[g] for a 3-D B on the batched executor. Backward as
+    `_tiled_spmm_b3_bwd`, tpusparse/ops.py:199-222."""
+
+    @staticmethod
+    def forward(ctx, plan, plan_t, t_perm, data, b):
+        ctx.plan, ctx.plan_t, ctx.t_perm = plan, plan_t, t_perm
+        ctx.save_for_backward(data, b)
+        return resident_spmm_batched_kernel(plan, plan.pack_values(data), b)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, b = ctx.saved_tensors
+        plan, plan_t = ctx.plan, ctx.plan_t
+        g = g.contiguous()
+        d_data = db = None
+        if ctx.needs_input_grad[3]:  # the fold IS the batch sum the dA needs
+            d_data = plan.unpack_values(
+                sddmm_kernel(plan, _fold_cols(g), _fold_cols(b))).to(data.dtype)
+        if ctx.needs_input_grad[4]:  # dB[g] = Aᵀ·dC[g]
+            perm = plan_t.perm_tensor("t_perm", ctx.t_perm, data.device)
+            bv_t = plan_t.pack_values(data[perm])
+            if _batched_resident_ok(plan_t, g):
+                db = resident_spmm_batched_kernel(plan_t, bv_t, g)
+            else:
+                db = _fold_batch(lambda gg: _block_exec(plan_t, bv_t, gg), g)
+            db = db.to(b.dtype)
+        return None, None, None, d_data, db
+
+
+def _block_spmm(name: str, executor, a: CSR, b: torch.Tensor, plans) -> torch.Tensor:
+    """A 2-D b on `executor`; a 3-D b on the batched executor where the
+    pattern re-uses B (`_batched_resident_ok`), else one 2-D launch of
+    `executor` on the batch folded into columns."""
+    plan, plan_t, t_perm = plans
+    if b.ndim == 2:
+        return _packed(executor, a, b, plans)
+    if b.ndim != 3:
+        raise ValueError(f"{name} supports 2-D/3-D b, got {tuple(b.shape)}")
+    if _batched_resident_ok(plan, b):
+        return _widened(
+            lambda d, bb: _PackedSpmmB3.apply(plan, plan_t, t_perm, d, bb.contiguous()),
+            a.data, b)
+    return _fold_batch(lambda bb: _packed(executor, a, bb, plans), b)
 
 
 def tiled_spmm(
@@ -233,33 +301,78 @@ def tiled_spmm(
     blocksize: Optional[Tuple[int, int]] = None,
     plans=None,
 ) -> torch.Tensor:
-    """Inspector-executor SpMM: C = A @ B (A sparse CSR, B dense 2-D).
+    """Inspector-executor SpMM: C = A @ B (A sparse CSR, B dense 2-D, or
+    3-D (batch, k, n) under the shared pattern).
 
     Plans are built once per pattern on the host and cached by fingerprint;
     pass `plans=build_plan_pair(...)` to reuse them explicitly.
     Differentiable in `a.data` and `b`.
     """
     _check_spmm_b(a, b)
-    _only_2d("tiled_spmm", b)
-    return _packed(_block_exec, a, b, plans or build_plan_pair(a, blocksize))
+    return _block_spmm("tiled_spmm", _block_exec, a, b, plans or build_plan_pair(a, blocksize))
 
 
 def resident_spmm(
     a: CSR, b: torch.Tensor, blocksize: Optional[Tuple[int, int]] = None
 ) -> torch.Tensor:
-    """Block SpMM through the resident entry point (forced); the same
+    """Block SpMM through the resident entry point (forced; a 3-D b takes the
+    batched executor or folds onto the resident entry point); the same
     gradient algebra as `tiled_spmm`."""
     _check_spmm_b(a, b)
-    _only_2d("resident_spmm", b)
-    return _packed(resident_spmm_kernel, a, b, build_plan_pair(a, blocksize))
+    return _block_spmm("resident_spmm", resident_spmm_kernel, a, b,
+                       build_plan_pair(a, blocksize))
 
 
 def spmm_blocks(plan: Plan, blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B where A is given as the plan's packed ELL blocks.
-    Differentiable in `blocks` (the full block gradient, pad slots 0) and
-    `b`."""
-    _only_2d("spmm_blocks", b)
+    """C = A @ B where A is given as the plan's packed ELL blocks and b is
+    2-D (a 3-D b raises ValueError, as in JAX). Differentiable in `blocks`
+    (the full block gradient, pad slots 0) and `b`."""
     return _BlocksSpmm.apply(plan, blocks, b)
+
+
+class _FootprintSpmm(torch.autograd.Function):
+    """C = A @ B on the footprint executor. Backward as
+    `_footprint_spmm_bwd`, tpusparse/ops.py:282-296: the base ELL plan's
+    SDDMM for dA and the block executor on the transpose plan for dB, as in
+    `_PackedSpmm`."""
+
+    @staticmethod
+    def forward(ctx, plan, plan_t, t_perm, fplan, data, b):
+        ctx.plan, ctx.plan_t, ctx.t_perm = plan, plan_t, t_perm
+        ctx.save_for_backward(data, b)
+        return footprint_spmm_kernel(fplan, fplan.pack_values(data), b)
+
+    @staticmethod
+    def backward(ctx, g):  # data and b sit at the same inputs as in _PackedSpmm
+        d_data, db = _PackedSpmm.backward(ctx, g)[4:]
+        return None, None, None, None, d_data, db
+
+
+def footprint_spmm(
+    a: CSR,
+    b: torch.Tensor,
+    blocksize: Optional[Tuple[int, int]] = None,
+    rows_per_super: int = 16,
+) -> torch.Tensor:
+    """B-tile-reuse SpMM on the footprint executor (`plan.FootprintPlan`):
+    one thread block owns `rows_per_super` row-blocks with their slots
+    sorted by column, so each distinct column's B tile is staged once per
+    super-row. A 3-D b folds into columns. Differentiable like
+    `tiled_spmm`."""
+    _check_spmm_b(a, b)
+    plan, plan_t, t_perm = build_plan_pair(a, blocksize)
+    fplan = footprint_plan(plan, rows_per_super=rows_per_super)
+
+    def run(bb):
+        return _widened(
+            lambda d, b2: _FootprintSpmm.apply(plan, plan_t, t_perm, fplan, d, b2.contiguous()),
+            a.data, bb)
+
+    if b.ndim == 2:
+        return run(b)
+    if b.ndim == 3:
+        return _fold_batch(run, b)
+    raise ValueError(f"footprint_spmm supports 2-D/3-D b, got {tuple(b.shape)}")
 
 
 def _gather_grads(needs_data, needs_b, data, indices, rows, b, g):
@@ -300,6 +413,17 @@ class _GatherSpmm(torch.autograd.Function):
 _FOLD_INTERMEDIATE_BYTES = 1 << 30
 
 
+def _fold_cols(b: torch.Tensor) -> torch.Tensor:
+    """(batch, k, n) -> (k, batch·n), contiguous."""
+    batch, k, n = b.shape
+    return b.transpose(0, 1).reshape(k, batch * n)
+
+
+def _unfold_cols(c: torch.Tensor, batch: int, n: int) -> torch.Tensor:
+    """(m, batch·n) -> (batch, m, n), a view."""
+    return c.reshape(c.shape[0], batch, n).transpose(0, 1)
+
+
 def _fold_batch(op2d, b: torch.Tensor, max_cols: Optional[int] = None):
     """Run a 2-D SpMM `op2d((k, cols)) -> (m, cols)` on a (batch, k, n) b by
     folding the batch into the column axis, (batch, k, n) -> (k, batch·n),
@@ -311,9 +435,9 @@ def _fold_batch(op2d, b: torch.Tensor, max_cols: Optional[int] = None):
     for s0 in range(0, batch, per):
         bb = b[s0:s0 + per]
         g = bb.shape[0]
-        out = op2d(bb.transpose(0, 1).reshape(k, g * n))
+        out = op2d(_fold_cols(bb))
         parts = out if isinstance(out, tuple) else (out,)
-        outs.append(tuple(x.reshape(x.shape[0], g, n).transpose(0, 1) for x in parts))
+        outs.append(tuple(_unfold_cols(x, g, n) for x in parts))
     res = tuple(torch.cat(xs) if len(xs) > 1 else xs[0] for xs in zip(*outs))
     return res if isinstance(out, tuple) else res[0]
 
@@ -458,21 +582,20 @@ def spmm(
 ):
     """Sparse × dense matmul with method dispatch (tpusparse/ops.py:1173-1311).
 
-    methods: 'tiled' (the block-ELL executor), 'resident' (its resident
-    entry point, forced), 'gather' (gather/scatter-add), 'dense' (densify,
-    then `dense.matmul`: `torch.matmul`, or the GEMM kernel when the config
-    asks for it), 'naive' (the naive kernel, with the reducer modes) and
-    'reference' (the gather/segment oracle). A BSR operand is converted to
-    CSR and its blocksize becomes the plan's; a COO is converted to CSR. A
-    1-D `b` is lifted to one column; leading dims past the third are
-    folded; a 3-D `b` goes through 'naive', 'gather', 'reference' and
-    'dense', while 'tiled' and 'resident' raise on it until the batched
-    executor is ported (ROADMAP queue 1, item 3). reduce != 'sum' runs on
-    'naive' or 'reference' only. return_arg=True (reduce 'min'/'max') also
-    returns the int32 arg matrix. The JAX default method 'auto' (the
-    cost-model router) is not ported yet (ROADMAP queue 1, item 7), so the
-    port's default is 'tiled'; 'auto', 'footprint' and 'dia' raise
-    NotImplementedError naming the item that brings them.
+    methods: 'tiled' (the block-ELL executor; a 3-D `b` takes the batched
+    executor), 'resident' (its resident entry point, forced), 'footprint'
+    (the B-tile-reuse executor, a 3-D `b` folded), 'gather'
+    (gather/scatter-add), 'dense' (densify, then `dense.matmul`:
+    `torch.matmul`, or the GEMM kernel when the config asks for it),
+    'naive' (the naive kernel, with the reducer modes) and 'reference' (the
+    gather/segment oracle). A BSR operand is converted to CSR and its
+    blocksize becomes the plan's; a COO is converted to CSR. A 1-D `b` is
+    lifted to one column; leading dims past the third are folded into one
+    batch. reduce != 'sum' runs on 'naive' or 'reference' only.
+    return_arg=True (reduce 'min'/'max') also returns the int32 arg matrix.
+    The JAX default method 'auto' (the cost-model router) is not ported yet
+    (ROADMAP queue 1, item 7), so the port's default is 'tiled'; 'auto' and
+    'dia' raise NotImplementedError naming the item that brings them.
     """
     if return_arg and reduce not in ("min", "max"):
         raise ValueError("return_arg is only meaningful for reduce='min'/'max'")
@@ -511,6 +634,8 @@ def spmm(
         )
     if method == "tiled":
         return tiled_spmm(a, b, blocksize=blocksize)
+    if method == "footprint":
+        return footprint_spmm(a, b, blocksize=blocksize)
     if method == "resident":
         return resident_spmm(a, b, blocksize=blocksize)
     if method == "gather":
@@ -526,6 +651,59 @@ def spmm(
             return _fold_batch(lambda bb: spmm_reference(a, bb), b, _gather_fold_cols(a.nnz))
         return spmm_reference(a, b)
     raise ValueError(f"unknown spmm method {method!r}")
+
+
+# ----------------------------------------------------------------------------
+# Dense × sparse: X @ A through the cached transposed pattern
+# ----------------------------------------------------------------------------
+
+# pattern fingerprint -> (value permutation, transposed indices, indptr)
+_T_CACHE: dict = {}
+
+
+def transpose_csr(a: CSR) -> CSR:
+    """Aᵀ as a CSR, with the pattern work done once per pattern on the host:
+    the column-sort permutation is cached by fingerprint, and each call's
+    values ride one gather on their device (tpusparse/ops.py:883-920).
+    Differentiable in `a.data`."""
+    indptr, indices = np.asarray(a.indptr), np.asarray(a.indices)
+    key = _fingerprint(a.shape, (1, 1), indptr, indices)
+    hit = _T_CACHE.get(key)
+    if hit is None:
+        m, n = a.shape
+        rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr))
+        perm = np.argsort(indices, kind="stable")
+        t_indptr = np.zeros(n + 1, dtype=np.int32)
+        t_indptr[1:] = np.cumsum(np.bincount(indices, minlength=n)).astype(np.int32)
+        hit = (perm, rows[perm].astype(np.int32), t_indptr)
+        _T_CACHE[key] = hit
+    perm, t_indices, t_indptr = hit
+    return CSR(data=a.data[torch.from_numpy(perm).to(a.data.device)], indices=t_indices,
+               indptr=t_indptr, shape=(a.shape[1], a.shape[0]))
+
+
+def dsmm(
+    x: torch.Tensor,
+    a,
+    method: str = "tiled",
+    blocksize: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Dense × sparse: X @ A with the sparse CSR A on the right, computed as
+    (Aᵀ @ Xᵀ)ᵀ through `transpose_csr`, so it takes every `spmm` method and
+    its autograd (tpusparse/ops.py:923-946). A 1-D x is the vector-matrix
+    product xᵀA; an N-D x batches over its leading dims. The JAX default
+    method 'auto' is not ported yet (ROADMAP queue 1, item 7), so the
+    default is `spmm`'s, 'tiled'. A DIA operand comes with ROADMAP queue 1,
+    item 6."""
+    if x.ndim >= 1 and x.shape[-1] != a.shape[0]:
+        raise ValueError(
+            f"x shape {tuple(x.shape)} incompatible with right sparse operand "
+            f"{a.shape} (need x.shape[-1] == {a.shape[0]})"
+        )
+    at = transpose_csr(a)
+    if x.ndim == 1:
+        return spmm(at, x, method=method, blocksize=blocksize)
+    return spmm(at, x.transpose(-1, -2), method=method, blocksize=blocksize).transpose(-1, -2)
 
 
 # ----------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Inspector plans for the block-ELL SpMM executor.
 
-Counterpart of `tpusparse/plan.py:48-411, 878-928`. A one-time host pass
+Counterpart of `tpusparse/plan.py:48-928`. A one-time host pass
 over a CSR pattern densifies it into (block_m, block_k) blocks and pads
 each row-block's block list to a fixed ELL width L. Padded slots repeat
 the row-block's last valid block id, and the executor skips them. The
@@ -13,6 +13,12 @@ vector into block form on the values' device, every call.
 The backward of the block SpMM runs on transpose plans: `build_plan_pair`
 derives the Aᵀ plan from a CSR pattern, `block_transpose_plan` from a
 plan's block pattern alone.
+
+Three layouts derive from a Plan for the other executors, each cached by a
+fingerprint that includes `scatter_idx`: `compact_plan` (no ELL padding),
+`group_plan` (the slots of G row-blocks as one stream) and `footprint_plan`
+(S row-blocks per super-row, slots sorted by column). `save_plan` and
+`load_plan` read and write the JAX package's `.npz` layout.
 """
 
 from __future__ import annotations
@@ -35,6 +41,46 @@ _ROOFLINE = {
     "peak_fp32_flops": 67e12,  # FFMA outside the tensor cores
     "hbm_bandwidth": 3.35e12,  # bytes/s
 }
+
+
+def set_roofline_constants(**kwargs):
+    """Override the constants of `Plan.report()` (for another card, or the
+    power limit the card is set to)."""
+    _ROOFLINE.update(kwargs)
+
+
+def _device_copy(cache: dict, name: str, arr: np.ndarray, device) -> torch.Tensor:
+    """`arr` flattened as a tensor on `device`, copied there once and kept
+    in `cache` under (name, device)."""
+    key = (name, str(torch.device(device)))
+    t = cache.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)).to(device)
+        cache[key] = t
+    return t
+
+
+def _pack(plan, data: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """Scatter a CSR value vector into (num_slots, bm, bk) block form
+    through the plan's `scatter_idx`."""
+    bm, bk = plan.blocksize
+    flat = torch.zeros((num_slots * bm * bk,), dtype=data.dtype, device=data.device)
+    flat[plan.index_tensor("scatter_idx", data.device)] = data
+    return flat.reshape(num_slots, bm, bk)
+
+
+def _unpack(plan, block_vals: torch.Tensor) -> torch.Tensor:
+    """Gather the per-nonzero values back out of block form."""
+    return block_vals.reshape(-1)[plan.index_tensor("scatter_idx", block_vals.device)]
+
+
+def _index_tensor(plan, name: str, device) -> torch.Tensor:
+    """An index array of a plan as a tensor on `device` (`scatter_idx` as
+    int64, since torch indexes with int64), copied there once."""
+    arr = getattr(plan, name)
+    if name == "scatter_idx":
+        arr = np.asarray(arr, dtype=np.int64)
+    return _device_copy(plan._on_device, name, arr, device)
 
 
 @dataclass(frozen=True)
@@ -67,42 +113,25 @@ class Plan:
     def num_slots(self) -> int:
         return self.num_row_blocks * self.ell_width
 
-    def _device_copy(self, name: str, arr: np.ndarray, device) -> torch.Tensor:
-        key = (name, str(torch.device(device)))
-        t = self._on_device.get(key)
-        if t is None:
-            t = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)).to(device)
-            self._on_device[key] = t
-        return t
-
     def index_tensor(self, name: str, device) -> torch.Tensor:
         """`block_cols` (flattened), `nslots` or `scatter_idx` as a tensor on
         `device`, copied there once and kept with the plan."""
-        arr = getattr(self, name)
-        if name == "scatter_idx":
-            arr = np.asarray(arr, dtype=np.int64)  # torch indexes with int64
-        return self._device_copy(name, arr, device)
+        return _index_tensor(self, name, device)
 
     def perm_tensor(self, name: str, perm: np.ndarray, device) -> torch.Tensor:
         """A host permutation that belongs with this plan (the `t_perm` or
         `t_slot_perm` that feeds a transpose plan) as an int64 tensor on
         `device`, copied there once and kept with the plan under `name`."""
-        return self._device_copy(name, np.asarray(perm, dtype=np.int64), device)
+        return _device_copy(self._on_device, name, np.asarray(perm, dtype=np.int64), device)
 
     # -- value packing (every call, pattern-free) ---------------------------
     def pack_values(self, data: torch.Tensor) -> torch.Tensor:
         """Scatter the CSR value vector into ELL block form (num_slots, bm, bk)."""
-        bm, bk = self.blocksize
-        flat = torch.zeros(
-            (self.num_slots * bm * bk,), dtype=data.dtype, device=data.device
-        )
-        flat[self.index_tensor("scatter_idx", data.device)] = data
-        return flat.reshape(self.num_slots, bm, bk)
+        return _pack(self, data, self.num_slots)
 
     def unpack_values(self, block_vals: torch.Tensor) -> torch.Tensor:
         """Gather the per-nonzero values back out of block form."""
-        idx = self.index_tensor("scatter_idx", block_vals.device)
-        return block_vals.reshape(-1)[idx]
+        return _unpack(self, block_vals)
 
     def slot_valid_mask(self, device="cpu") -> torch.Tensor:
         """(nbr, L) 1/0 float mask of the valid (non-pad) ELL slots."""
@@ -348,6 +377,355 @@ def block_transpose_plan(plan: Plan):
     return out
 
 
+# -- derived layouts ------------------------------------------------------------
+
+
+def _derived_key(plan: Plan, tag: str) -> str:
+    """Fingerprint of a Plan for the derived-plan caches. `scatter_idx` is
+    part of it: two patterns with the same block structure but other
+    positions inside the blocks must not share a value scatter
+    (tpusparse/plan.py:480-486)."""
+    return hashlib.sha1(
+        np.asarray(plan.block_cols).tobytes()
+        + np.asarray(plan.nslots).tobytes()
+        + np.asarray(plan.scatter_idx).tobytes()
+        + repr((plan.shape, plan.blocksize) + ((tag,) if tag else ())).encode()
+    ).hexdigest()
+
+
+def _remap_scatter(plan: Plan, old_slot: np.ndarray, new_slot: np.ndarray) -> np.ndarray:
+    """The plan's nnz -> flat block index map, with each valid ELL slot
+    `old_slot` moved to `new_slot` of the derived layout (int64)."""
+    bm, bk = plan.blocksize
+    o2n = np.zeros(plan.num_slots, dtype=np.int64)
+    o2n[old_slot] = new_slot
+    bb = bm * bk
+    old = np.asarray(plan.scatter_idx, dtype=np.int64)
+    return o2n[old // bb] * bb + old % bb
+
+
+def _valid_slots(plan: Plan):
+    """(row-block ids, ELL slot ids) of the valid slots, row-block-major."""
+    ns = np.asarray(plan.nslots).astype(np.int64)
+    valid = np.arange(plan.ell_width)[None, :] < ns[:, None]
+    return np.nonzero(valid)
+
+
+@dataclass(frozen=True)
+class CompactPlan:
+    """Padding-free slot layout (tpusparse/plan.py:419-476): the occupied
+    blocks stored contiguously per row-block, row-block i owning the slots
+    `row_base[i] .. row_base[i+1] - 1` in the base plan's ascending column
+    order. Values are (nblocks, bm, bk)."""
+
+    cols: np.ndarray  # (nblocks,) int32: col-block id per slot
+    row_base: np.ndarray  # (nbr + 1,) int32: slot range per row-block
+    scatter_idx: np.ndarray  # (nnz,) int64: csr nnz -> flat compact vals idx
+    shape: Shape2
+    blocksize: Shape2
+    nnz: int
+    nblocks: int
+    _on_device: Dict[Tuple[str, str], torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @property
+    def num_row_blocks(self) -> int:
+        return cdiv(self.shape[0], self.blocksize[0])
+
+    @property
+    def num_col_blocks(self) -> int:
+        return cdiv(self.shape[1], self.blocksize[1])
+
+    def index_tensor(self, name: str, device) -> torch.Tensor:
+        return _index_tensor(self, name, device)
+
+    def pack_values(self, data: torch.Tensor) -> torch.Tensor:
+        return _pack(self, data, self.nblocks)
+
+    def unpack_values(self, block_vals: torch.Tensor) -> torch.Tensor:
+        return _unpack(self, block_vals)
+
+
+def compact_plan(plan: Plan) -> CompactPlan:
+    """Derive the padding-free layout from an ELL Plan (host, cached)."""
+    fp = _derived_key(plan, "compact")
+    hit = _COMPACT_CACHE.get(fp)
+    if hit is not None:
+        return hit
+    bc = np.asarray(plan.block_cols)
+    ns = np.asarray(plan.nslots).astype(np.int64)
+    L = plan.ell_width
+    row_base = np.zeros(plan.num_row_blocks + 1, dtype=np.int64)
+    np.cumsum(ns, out=row_base[1:])
+    rb_ids, l_ids = _valid_slots(plan)
+    cp = CompactPlan(
+        cols=bc[rb_ids, l_ids].astype(np.int32),
+        row_base=row_base.astype(np.int32),
+        scatter_idx=_remap_scatter(plan, rb_ids * np.int64(L) + l_ids,
+                                   row_base[rb_ids] + l_ids),
+        shape=plan.shape,
+        blocksize=plan.blocksize,
+        nnz=plan.nnz,
+        nblocks=int(ns.sum()),
+    )
+    _COMPACT_CACHE[fp] = cp
+    return cp
+
+
+_COMPACT_CACHE: Dict[str, CompactPlan] = {}
+
+
+@dataclass(frozen=True)
+class GroupedPlan:
+    """The slots of `group_size` consecutive row-blocks concatenated into
+    one stream per group (tpusparse/plan.py:531-603), ELL-padded to Lg per
+    group; `local_rb` is each slot's row-block within its group. Slots keep
+    row-block-major order, each row-block's in ascending column order.
+    Values are (num_groups * Lg, bm, bk)."""
+
+    block_cols: np.ndarray  # (ngroups, Lg) int32: col-block per slot
+    local_rb: np.ndarray  # (ngroups, Lg) int32: row-block within group
+    nslots: np.ndarray  # (ngroups,) int32: valid slots per group
+    scatter_idx: np.ndarray  # (nnz,) int64: csr nnz -> flat grouped vals idx
+    shape: Shape2
+    blocksize: Shape2
+    group_size: int
+    ell_width: int  # Lg
+    nnz: int
+    nblocks: int
+    _on_device: Dict[Tuple[str, str], torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @property
+    def num_row_blocks(self) -> int:
+        return cdiv(self.shape[0], self.blocksize[0])
+
+    @property
+    def num_groups(self) -> int:
+        return cdiv(self.num_row_blocks, self.group_size)
+
+    @property
+    def num_col_blocks(self) -> int:
+        return cdiv(self.shape[1], self.blocksize[1])
+
+    @property
+    def num_slots(self) -> int:
+        return self.num_groups * self.ell_width
+
+    def index_tensor(self, name: str, device) -> torch.Tensor:
+        return _index_tensor(self, name, device)
+
+    def pack_values(self, data: torch.Tensor) -> torch.Tensor:
+        return _pack(self, data, self.num_slots)
+
+    def unpack_values(self, block_vals: torch.Tensor) -> torch.Tensor:
+        return _unpack(self, block_vals)
+
+
+def group_plan(plan: Plan, group_size: int = 64) -> GroupedPlan:
+    """Repack a row-block Plan into a GroupedPlan (host-side, cached)."""
+    gkey = (_derived_key(plan, ""), group_size)
+    hit = _GROUPED_CACHE.get(gkey)
+    if hit is not None:
+        return hit
+    bc = np.asarray(plan.block_cols)
+    G = group_size
+    ng = cdiv(plan.num_row_blocks, G)
+    rb_ids, l_ids = _valid_slots(plan)  # row-block-major order
+    g_ids = rb_ids // G
+    counts = np.bincount(g_ids, minlength=ng)
+    Lg = int(max(counts.max(initial=0), 1))
+    offsets = np.zeros(ng + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    pos = np.arange(len(g_ids), dtype=np.int64) - offsets[g_ids]
+    gcols = np.zeros((ng, Lg), dtype=np.int32)
+    glrb = np.zeros((ng, Lg), dtype=np.int32)
+    gcols[g_ids, pos] = bc[rb_ids, l_ids]
+    glrb[g_ids, pos] = (rb_ids % G).astype(np.int32)
+    gp = GroupedPlan(
+        block_cols=gcols,
+        local_rb=glrb,
+        nslots=counts.astype(np.int32),
+        scatter_idx=_remap_scatter(plan, rb_ids * np.int64(plan.ell_width) + l_ids,
+                                   g_ids * np.int64(Lg) + pos),
+        shape=plan.shape,
+        blocksize=plan.blocksize,
+        group_size=G,
+        ell_width=Lg,
+        nnz=plan.nnz,
+        nblocks=plan.nblocks,
+    )
+    _GROUPED_CACHE[gkey] = gp
+    return gp
+
+
+_GROUPED_CACHE: Dict[Tuple[str, int], GroupedPlan] = {}
+
+
+@dataclass(frozen=True)
+class FootprintPlan:
+    """Slots of S consecutive row-blocks (a super-row) sorted by (column,
+    row-block), so that each distinct B tile is fetched once per super-row
+    (tpusparse/plan.py:672-773; the reference inspector's footprint
+    compression). Per super, `ucols` lists the distinct col-blocks, and per
+    slot `lrow` gives its row-block within the super, `bslot` the ordinal of
+    its column among `ucols` and `newcol` 1 where a new column starts.
+    Values are ELL-padded per super to Ls: (num_supers * Ls, bm, bk); pad
+    slots are zero and never run. `ntiles` counts the distinct (super,
+    column) B-tile fetches."""
+
+    ucols: np.ndarray  # (ns, Lu) int32: distinct col-block ids per super
+    ucnt: np.ndarray  # (ns,) int32: number of distinct col-blocks
+    nslots: np.ndarray  # (ns,) int32: valid slots per super
+    lrow: np.ndarray  # (ns, Ls) int32: row-block within super (0..S-1)
+    bslot: np.ndarray  # (ns, Ls) int32: distinct-col ordinal of the slot
+    newcol: np.ndarray  # (ns, Ls) int32: 1 iff slot starts a new col
+    scatter_idx: np.ndarray  # (nnz,) int64: csr nnz -> flat packed vals idx
+    shape: Shape2
+    blocksize: Shape2
+    rows_per_super: int  # S
+    u_width: int  # Lu
+    ell_width: int  # Ls
+    nnz: int
+    nblocks: int
+    ntiles: int
+    _on_device: Dict[Tuple[str, str], torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @property
+    def num_row_blocks(self) -> int:
+        return cdiv(self.shape[0], self.blocksize[0])
+
+    @property
+    def num_col_blocks(self) -> int:
+        return cdiv(self.shape[1], self.blocksize[1])
+
+    @property
+    def num_supers(self) -> int:
+        return cdiv(self.num_row_blocks, self.rows_per_super)
+
+    @property
+    def num_slots(self) -> int:
+        return self.num_supers * self.ell_width
+
+    def index_tensor(self, name: str, device) -> torch.Tensor:
+        return _index_tensor(self, name, device)
+
+    def pack_values(self, data: torch.Tensor) -> torch.Tensor:
+        return _pack(self, data, self.num_slots)
+
+    def unpack_values(self, block_vals: torch.Tensor) -> torch.Tensor:
+        return _unpack(self, block_vals)
+
+
+def footprint_plan(plan: Plan, rows_per_super: int = 16) -> FootprintPlan:
+    """Derive the column-sorted super-row-block layout from an ELL Plan
+    (host-side, cached)."""
+    key = (_derived_key(plan, "footprint"), rows_per_super)
+    hit = _FOOTPRINT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    bc = np.asarray(plan.block_cols)
+    S = rows_per_super
+    ns = cdiv(plan.num_row_blocks, S)
+    rb_ids, l_ids = _valid_slots(plan)
+    cols = bc[rb_ids, l_ids].astype(np.int64)
+    s_ids = rb_ids // S
+
+    order = np.lexsort((rb_ids, cols, s_ids))  # (super, col, row)
+    srt_s, srt_c = s_ids[order], cols[order]
+    nblocks = len(order)
+    counts = np.bincount(srt_s, minlength=ns)
+    sbase = np.zeros(ns + 1, dtype=np.int64)
+    np.cumsum(counts, out=sbase[1:])
+    Ls = int(max(counts.max(initial=0), 1))
+    pos = np.arange(nblocks, dtype=np.int64) - sbase[srt_s]
+
+    newcol_flat = np.ones(nblocks, dtype=np.int32)
+    if nblocks > 1:
+        same = (srt_s[1:] == srt_s[:-1]) & (srt_c[1:] == srt_c[:-1])
+        newcol_flat[1:][same] = 0
+    csum = np.cumsum(newcol_flat)
+    start_csum = csum[sbase[srt_s]] if nblocks else np.zeros(0, np.int64)
+    bslot_flat = (csum - start_csum).astype(np.int32)
+
+    ucnt = np.bincount(srt_s, weights=newcol_flat, minlength=ns).astype(np.int32)
+    Lu = int(max(ucnt.max(initial=0), 1))
+    ucols = np.zeros((ns, Lu), dtype=np.int32)
+    is_new = newcol_flat == 1
+    ucols[srt_s[is_new], bslot_flat[is_new]] = srt_c[is_new].astype(np.int32)
+
+    lrow = np.zeros((ns, Ls), dtype=np.int32)
+    bslot = np.zeros((ns, Ls), dtype=np.int32)
+    newcol = np.zeros((ns, Ls), dtype=np.int32)
+    lrow[srt_s, pos] = (rb_ids[order] % S).astype(np.int32)
+    bslot[srt_s, pos] = bslot_flat
+    newcol[srt_s, pos] = newcol_flat
+
+    fpl = FootprintPlan(
+        ucols=ucols,
+        ucnt=ucnt,
+        nslots=counts.astype(np.int32),
+        lrow=lrow,
+        bslot=bslot,
+        newcol=newcol,
+        scatter_idx=_remap_scatter(
+            plan, (rb_ids * np.int64(plan.ell_width) + l_ids)[order],
+            srt_s * np.int64(Ls) + pos),
+        shape=plan.shape,
+        blocksize=plan.blocksize,
+        rows_per_super=S,
+        u_width=Lu,
+        ell_width=Ls,
+        nnz=plan.nnz,
+        nblocks=nblocks,
+        ntiles=int(newcol_flat.sum()),
+    )
+    _FOOTPRINT_CACHE[key] = fpl
+    return fpl
+
+
+_FOOTPRINT_CACHE: Dict[Tuple[str, int], FootprintPlan] = {}
+
+
+# -- plan files -----------------------------------------------------------------
+
+
+def save_plan(plan: Plan, path: str) -> None:
+    """Persist an inspected plan in the JAX package's `.npz` layout
+    (tpusparse/plan.py:889-903), so that a plan saved by one package loads
+    in the other: inspect once, load in every serving job."""
+    np.savez_compressed(
+        path,
+        block_cols=np.asarray(plan.block_cols),
+        nslots=np.asarray(plan.nslots),
+        scatter_idx=np.asarray(plan.scatter_idx),
+        shape=np.asarray(plan.shape, dtype=np.int64),
+        blocksize=np.asarray(plan.blocksize, dtype=np.int64),
+        ell_width=np.asarray(plan.ell_width, dtype=np.int64),
+        nnz=np.asarray(plan.nnz, dtype=np.int64),
+        nblocks=np.asarray(plan.nblocks, dtype=np.int64),
+    )
+
+
+def load_plan(path: str) -> Plan:
+    """A Plan from a `.npz` written by `save_plan` (of either package)."""
+    with np.load(path) as z:
+        return Plan(
+            block_cols=np.ascontiguousarray(z["block_cols"]),
+            nslots=np.ascontiguousarray(z["nslots"]),
+            scatter_idx=np.ascontiguousarray(z["scatter_idx"]),
+            shape=tuple(int(v) for v in z["shape"]),
+            blocksize=tuple(int(v) for v in z["blocksize"]),
+            ell_width=int(z["ell_width"]),
+            nnz=int(z["nnz"]),
+            nblocks=int(z["nblocks"]),
+        )
+
+
 # -- plan cache ---------------------------------------------------------------
 
 _PLAN_CACHE: Dict[str, Plan] = {}
@@ -367,6 +745,10 @@ def plan_cache_info() -> Dict[str, int]:
 
 
 def clear_plan_cache():
+    """Clear the base caches (plans, plan pairs, block transposes) and the
+    hit counters. As in the JAX package (tpusparse/plan.py:924-928), the
+    compact, grouped and footprint caches are kept: they are keyed by the
+    full content of the plan they derive from, so an entry is never stale."""
     _PLAN_CACHE.clear()
     _PAIR_CACHE.clear()
     _BLOCK_T_CACHE.clear()

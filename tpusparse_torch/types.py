@@ -2,8 +2,9 @@
 
 Counterpart of `tpusparse/types.py` (`COO` l.44-106, `CSR` l.109-305, `BSR`
 l.307-389, `coo_to_csr`/`csr_to_coo` l.419-455, `csr_to_bsr`/`bsr_to_csr`
-l.456-513, `random_csr` l.542, `spmm_reference` l.586-645,
-`sddmm_reference` l.646-660). Plain dataclasses: the values are a torch tensor on the
+l.456-513, `random_coo`/`random_csr`/`random_powerlaw_csr` l.516-585,
+`spmm_reference` l.586-645, `sddmm_reference` l.646-660). CSR's `+`, `-`,
+`*`, negation and CSR @ CSR come with ROADMAP queue 1, item 5. Plain dataclasses: the values are a torch tensor on the
 caller's device, the index arrays stay host numpy int32, as the JAX plans
 keep them, because the inspector (`plan.py`) runs on the host.
 """
@@ -52,6 +53,10 @@ class COO:
     def dtype(self):
         return self.data.dtype
 
+    @property
+    def density(self) -> float:
+        return self.nnz / float(self.shape[0] * self.shape[1])
+
     @classmethod
     def from_dense(cls, mat, device=None) -> "COO":
         """Host-side conversion in row-major order, values on `device`."""
@@ -73,6 +78,14 @@ class COO:
         )
         return out.index_put_(idx, self.data, accumulate=True)
 
+    def transpose(self) -> "COO":
+        return COO(data=self.data, row=self.col, col=self.row,
+                   shape=(self.shape[1], self.shape[0]))
+
+    @property
+    def T(self) -> "COO":
+        return self.transpose()
+
 
 @dataclass(frozen=True)
 class CSR:
@@ -91,6 +104,10 @@ class CSR:
     @property
     def dtype(self):
         return self.data.dtype
+
+    @property
+    def density(self) -> float:
+        return self.nnz / float(self.shape[0] * self.shape[1])
 
     @classmethod
     def from_dense(cls, mat, device=None) -> "CSR":
@@ -121,6 +138,35 @@ class CSR:
 
     def to_dense(self) -> torch.Tensor:
         return csr_to_coo(self).to_dense()
+
+    # -- operator sugar over the op surface (lazy imports: ops imports types);
+    # numpy defers mixed expressions to the reflected methods
+    __array_priority__ = 1000
+
+    def __matmul__(self, other):
+        from tpusparse_torch import ops
+
+        if isinstance(other, CSR):
+            raise NotImplementedError(
+                "CSR @ CSR (spgemm) is not ported; it comes with ROADMAP queue 1, item 5")
+        return ops.spmm(self, torch.as_tensor(other))
+
+    def __rmatmul__(self, x):
+        from tpusparse_torch import ops
+
+        return ops.dsmm(torch.as_tensor(x), self)
+
+    def transpose(self) -> "CSR":
+        """Aᵀ by a stable host sort on the column ids (`ops.transpose_csr`,
+        which caches the permutation per pattern); values gathered on their
+        device."""
+        from tpusparse_torch import ops
+
+        return ops.transpose_csr(self)
+
+    @property
+    def T(self) -> "CSR":
+        return self.transpose()
 
 
 @dataclass(frozen=True)
@@ -243,27 +289,56 @@ def bsr_to_csr(a: BSR) -> CSR:
     )
 
 
-def random_csr(
+def random_coo(
     seed: int, shape: Shape2, density: float, dtype=torch.float32, device=None
-) -> CSR:
-    """Uniformly random pattern with exact nnz and U(0, 1) values, both from
-    numpy's generator at `seed` (the JAX fixture draws its values from
-    jax.random, so the two packages give different values for one seed)."""
+) -> COO:
+    """Uniformly random pattern with exact nnz (choice without replacement),
+    row-major, and U(0, 1) values, both from numpy's generator at `seed`
+    (the JAX fixture draws its pattern seed and its values from jax.random,
+    so the two packages give different matrices for one seed)."""
     m, n = _static_shape(shape)
     nnz = max(1, int(round(density * m * n)))
     rng = np.random.default_rng(seed)
     flat = rng.choice(m * n, size=nnz, replace=False)
     flat.sort()
-    rows = flat // n
-    indptr = np.zeros(m + 1, dtype=np.int32)
-    np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
     data = torch.from_numpy(rng.random(nnz, dtype=np.float32))
-    return CSR(
+    return COO(
         data=data.to(device=resolve_device(device), dtype=dtype),
-        indices=(flat % n).astype(np.int32),
-        indptr=indptr,
+        row=(flat // n).astype(np.int32),
+        col=(flat % n).astype(np.int32),
         shape=(m, n),
     )
+
+
+def random_csr(
+    seed: int, shape: Shape2, density: float, dtype=torch.float32, device=None
+) -> CSR:
+    """`random_coo` as a CSR."""
+    return coo_to_csr(random_coo(seed, shape, density, dtype=dtype, device=device))
+
+
+def random_powerlaw_csr(
+    seed: int, shape: Shape2, avg_nnz_per_row: float, alpha: float = 1.5,
+    dtype=torch.float32, device=None,
+) -> CSR:
+    """Skewed pattern with Zipf-distributed row degrees: row i's degree is
+    proportional to (i+1)^-alpha, shuffled, scaled to the requested mean,
+    at least 1 and capped at n; columns uniform without replacement per row;
+    U(0, 1) values. All from numpy's generator at `seed`, as in the JAX
+    package for an int seed, so the two give the same matrix."""
+    m, n = _static_shape(shape)
+    rng = np.random.default_rng(int(seed))
+    raw = np.arange(1, m + 1, dtype=np.float64) ** (-alpha)
+    rng.shuffle(raw)
+    deg = np.maximum(1, np.round(raw * (avg_nnz_per_row * m / raw.sum()))).astype(np.int64)
+    deg = np.minimum(deg, n)
+    indptr = np.zeros(m + 1, dtype=np.int32)
+    np.cumsum(deg, out=indptr[1:])
+    indices = np.concatenate(
+        [np.sort(rng.choice(n, size=int(d), replace=False)) for d in deg]).astype(np.int32)
+    data = torch.from_numpy(rng.random(int(indptr[-1])).astype(np.float32))
+    return CSR(data=data.to(device=resolve_device(device), dtype=dtype), indices=indices,
+               indptr=indptr, shape=(m, n))
 
 
 def spmm_reference(
