@@ -5,7 +5,7 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the thirteen CUDA sources from the repo (one nvcc per source,
+  2. build of the fourteen CUDA sources from the repo (one nvcc per source,
      all started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
@@ -40,7 +40,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (128, 128), ragged m/k/n, empty row-blocks, batch 1 and 5, fp32 'high'
      and 'default' and bf16: the batched kernel bitwise equal to the 2-D
      kernel on every B[g] and on the folded B, the other three bitwise
-     equal to block_ell_spmm on the base plan;
+     equal to block_ell_spmm on the base plan; windowed_gather and
+     windowed_segsum on six index maps (local with far outliers, a single
+     far read, fully scattered, empty segments with n and the segment count
+     off the 1024 padding, a table shorter than its window, the segment
+     plan's W = 4096), each in fp32, bf16 and fp16, bitwise equal to their
+     plain versions, and a chunked accumulation forced with a small target
+     bitwise equal to the whole one;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -111,6 +117,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
         and at a low-fill plan (4096^2 at 1%, blocks 8x32, n 256), one
         launch each, and one spmm(method='footprint') step at the headline
         (1 footprint_spmm, 1 sddmm, 1 block_ell_spmm);
+     q. SpGEMM, A·A in fp32 at the shapes of the JAX package's own
+        measurement (BENCH_DETAILS.json "r5_spgemm": 4096^2 at 0.1 %,
+        16384^2 at 0.05 %, 4096^2 at 1 %), with grads in both operands'
+        values: a forward and backward through `a @ a`, then `spgemm` and
+        `spgemm(method='auto')`, each counted: one windowed_gather per
+        adopted gather plan and one windowed_segsum per segment plan or
+        chunk a forward, the gathers of dC, a and b where adopted a
+        backward (3 gathers and 1 segment sum, 4 at 4096^2 at 1 %); the
+        route of 'auto' ('schedule'), the adopted plans and which inspector
+        built them;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -136,7 +152,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      footprint step's against their plain versions (<= 1e-5 of scale), the
      batched kernel bitwise equal to the fold at both shapes, each plan
      executor against its plain version and bitwise equal to
-     block_ell_spmm at both plans;
+     block_ell_spmm at both plans; SpGEMM's C against a float64 scipy
+     product and its pattern against scipy's, dA and dB against the dense
+     algebra in float64, the 'dense' route against the same oracle (each
+     <= 1e-5 of scale), and at 16384^2 the card against the CPU (values and
+     grads, rtol 1e-4, atol 5e-5);
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -171,7 +191,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      block_ell_spmm, their plain versions, torch.matmul of the dense A,
      torch.sparse.mm (low-fill plan) and their bound, the footprint plan's
      B-tile fetches against the slots, and the footprint step's time with
-     the host's plan lookups;
+     the host's plan lookups; SpGEMM's forward and forward+backward with
+     the plan held and looked up, the 'dense' route, torch.sparse.mm of two
+     CSR tensors (cuSPARSE, a yardstick), a torch.profiler breakdown of the
+     forward+backward, both windowed kernels on the 16384^2 case's maps
+     against their plain versions, torch.index_select / index_add_ and
+     their bound, and spgemm_plan's host seconds on the native and the numpy
+     symbolic pass at 4096^2 at 1 %;
   7. each phase's wall time, the `kernels` JSON line, then the device JSON
      line, last.
 
@@ -186,6 +212,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -210,9 +237,10 @@ NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 # every kernel's count, all 0
+NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
 NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8,
              "naive_spmm": 0, "resident_spmm_batched": 0, "compact_spmm": 0,
-             "grouped_spmm": 0, "footprint_spmm": 0}
+             "grouped_spmm": 0, "footprint_spmm": 0, **NO_WINDOWED}
 STEP_LAUNCHES = {
     "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
     "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
@@ -2465,6 +2493,408 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# -- the windowed kernels and SpGEMM --------------------------------------------
+
+# A·A, fp32: the shapes of the JAX package's own SpGEMM measurement
+# (BENCH_DETAILS.json "r5_spgemm"; the shapes only): name, n, density, seed
+SPGEMM_CASES = (("4096_0.1pct", 4096, 0.001, 61), ("16384_0.05pct", 16384, 0.0005, 62),
+                ("4096_1pct", 4096, 0.01, 63))
+SPGEMM_KERNEL_CASE = "16384_0.05pct"  # the kernels line's index maps
+SPGEMM_CPU_CASE = "16384_0.05pct"     # run on the CPU too, the same plan
+SPGEMM_NATIVE_CASE = "4096_1pct"      # spgemm_plan timed native and numpy
+SPGEMM_TOL = 1e-5  # max |C - float64| / max |float64|, and the same for dA and dB
+# small windowed cases: name, (n or n_in, table length or segments, map)
+WINDOWED_SMALL = {
+    "local_far_outliers": (5000, 900, "local"),
+    "single_far_read": (4096, 4096, "one_far"),
+    "scattered": (2000, 50000, "scattered"),
+    "empty_segments_ragged": (1030, 601, "half_empty"),
+    "short_table": (1000, 40, "scattered"),
+    "window_4096": (8192, 256, "wide"),  # spans of 4096 entries: the segment plan's cap
+}
+
+
+def _windowed_small_map(name, seed):
+    n, t, kind = WINDOWED_SMALL[name]
+    rng = np.random.default_rng(seed)
+    if kind == "scattered":
+        idx = rng.integers(0, t, n)
+    elif kind == "half_empty":
+        idx = np.sort(rng.integers(0, t // 2, n))
+    elif kind == "wide":  # 128-segment span s draws from positions [4096 s, 4096 (s + 1))
+        pos = np.arange(n)
+        idx = (pos // 4096) * 128 + pos % 128
+    else:
+        idx = np.minimum((np.arange(n) * t) // n + rng.integers(0, 40, n), t - 1)
+        if kind == "one_far":
+            idx[7] = t - 1
+        else:
+            idx[rng.integers(0, n, 25)] = rng.integers(0, t, 25)
+    return idx, t, rng
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+def phase_small_windowed() -> None:
+    """windowed_gather and windowed_segsum against their plain versions on
+    the card: a local map with far outliers, a single far read, a fully
+    scattered map (nearly every read an exception), empty segments with n
+    and num_segments off the 1024 padding, a table shorter than its window,
+    the segment plan's W = 4096, each in fp32, bf16 and fp16. The gather
+    must be bitwise equal; the segment sum too, since the plain version sums
+    in the kernel's order. Then a chunked accumulation forced with a small
+    target (as tests/test_spgemm.py:297-325 does) against the whole one."""
+    import dataclasses
+
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import windowed as wk
+    from tpusparse_torch.spgemm import _chunk_segment_plans, _spgemm_data
+
+    seed = 70
+    for name in WINDOWED_SMALL:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            seed += 1
+            idx, t, rng = _windowed_small_map(name, seed)
+            label = f"{name}_{str(dt)[6:]}"
+            gp = wk.windowed_gather_plan(idx, t)
+            table = torch.from_numpy(rng.normal(size=t).astype(np.float32)).to("cuda", dt)
+            table[:3] = -0.0
+            gargs = (gp.tensor("rel", "cuda"), gp.tensor("starts", "cuda"))
+            got = wk.windowed_gather_kernel(table, *gargs, n=gp.n, window=gp.window)
+            want = wk._gather_plain(table, *gargs, n=gp.n, window=gp.window)
+            full = wk.windowed_gather(table, gp)
+            sp = wk.windowed_segment_plan(idx, t)
+            y = torch.from_numpy(rng.normal(size=idx.size).astype(np.float32)).to("cuda", dt)
+            sargs = (sp.tensor("seg_masked", "cuda"), sp.tensor("starts", "cuda"))
+            sgot = wk.windowed_segsum_kernel(y, *sargs, num_segments=t, window=sp.window)
+            swant = wk._segsum_plain(y, *sargs, num_segments=t, window=sp.window)
+            ref = torch.zeros(t, dtype=torch.float64).index_add_(
+                0, torch.from_numpy(idx), y.double().cpu())
+            s_full = wk.windowed_segment_sum(y, sp).double().cpu()
+            torch.cuda.synchronize()
+            g_ok = torch.equal(_bits(got), _bits(want)) and torch.equal(
+                full, table[torch.from_numpy(idx).cuda()])
+            s_ok = torch.equal(_bits(sgot), _bits(swant))
+            # fp32: the whole operation against float64; in bf16 and fp16 the
+            # exception path adds in the table's dtype, as JAX's does, so its
+            # error is printed and not held
+            s_err = float((s_full - ref).abs().max() / ref.abs().max().clamp_min(1.0))
+            ok = g_ok and s_ok and (dt != torch.float32 or s_err <= 1e-6)
+            if name == "window_4096" and sp.window != 4096:
+                raise AssertionError(f"windowed {label}: segment window {sp.window}, not 4096")
+            print(f"case windowed {label}: gather W {gp.window}, {gp.exc_pos.size} exceptions, "
+                  f"bitwise equal to plain {g_ok}; segsum W {sp.window}, {sp.exc_pos.size} "
+                  f"exceptions, bitwise equal to plain {s_ok}, whole op vs float64 over scale "
+                  f"{s_err:.3e}{' (limit 1e-06)' if dt == torch.float32 else ''}, "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"windowed {label}: a kernel disagrees with its plain version")
+    # the chunked accumulation, forced with a small target
+    a = tt.random_csr(31, (256, 256), 0.05, device="cuda")
+    b = tt.random_csr(32, (256, 256), 0.05, device="cuda")
+    plan = tt.spgemm_plan(a, b)
+    chunks = _chunk_segment_plans(plan.c_pos, plan.c_nnz, lambda p, n: True,
+                                  target=max(plan.nmul // 3, 1))
+    forced = dataclasses.replace(plan, ws_c=None, ws_c_chunks=tuple(chunks))
+    got = _spgemm_data(forced, a.data, b.data)
+    whole = _spgemm_data(plan, a.data, b.data)
+    cpu = _spgemm_data(forced, a.data.cpu(), b.data.cpu())
+    torch.cuda.synchronize()
+    err = over_scale(got.cpu(), cpu)[1]
+    same = _same(got, whole)
+    print(f"case windowed chunked accumulation (256^2 at 5 %, {len(chunks)} chunks of "
+          f"{plan.nmul} products): bitwise equal to the whole plan {same}, card vs CPU over "
+          f"scale {err:.3e}, {'ok' if same and err <= 1e-6 else 'FAIL'}")
+    if not (same and err <= 1e-6):
+        raise AssertionError("chunked windowed accumulation disagrees")
+
+
+def _spgemm_expected(plan) -> tuple:
+    """(gathers, segment sums) a forward and a backward launch: one gather
+    per adopted gather plan, one segment sum per segment plan or chunk; the
+    backward gathers dC, a and b where adopted."""
+    fwd_g = (plan.wg_a is not None) + (plan.wg_b is not None)
+    segs = 1 if plan.ws_c is not None else len(plan.ws_c_chunks or ())
+    return fwd_g, segs, fwd_g + (plan.wg_c is not None)
+
+
+def _spgemm_oracle(a, plan):
+    """(C's values, scipy's boolean pattern) in float64 on the host."""
+    sa = a.to_scipy().astype(np.float64)
+    ref = (sa @ sa).tocsr()
+    ref.sort_indices()
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(plan.c_indptr))
+    vals = np.asarray(ref[rows, plan.c_indices]).ravel()
+    pat = (sa.astype(bool) @ sa.astype(bool)).tocsr()
+    pat.sort_indices()
+    return vals, pat
+
+
+def _grad_oracle(a, plan, g):
+    """(dA, dB) of vdot(g, C) for C = A·A in float64 on the card:
+    (dC·Aᵀ) on A's pattern and (Aᵀ·dC) on A's pattern."""
+    m = a.shape[0]
+    rows = torch.from_numpy(a.row_ids().astype(np.int64)).cuda()
+    cols = torch.from_numpy(a.indices.astype(np.int64)).cuda()
+    c_rows = torch.from_numpy(np.repeat(np.arange(m), np.diff(plan.c_indptr))).cuda()
+    c_cols = torch.from_numpy(plan.c_indices.astype(np.int64)).cuda()
+    ad = torch.zeros((m, m), dtype=torch.float64, device="cuda")
+    ad[rows, cols] = a.data.double()
+    gd = torch.zeros((m, m), dtype=torch.float64, device="cuda")
+    gd[c_rows, c_cols] = g.double()
+    da = (gd @ ad.T)[rows, cols]
+    db = (ad.T @ gd)[rows, cols]
+    del ad, gd
+    return da, db
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase_spgemm() -> dict:
+    """A·A at the three shapes of SPGEMM_CASES, fp32, with grads in both
+    operands' values: the plan (native or numpy inspector), the adopted
+    windowed plans and the route of 'auto'; a forward and backward through
+    `a @ a`, counted, with exactly the launches the plan implies; `spgemm`
+    and `spgemm(method='auto')`, counted, bitwise equal to it; C against a
+    float64 scipy product, its pattern against scipy's, dA and dB against the
+    dense algebra in float64, the 'dense' route against the same oracle; at
+    SPGEMM_CPU_CASE the same plan on the CPU. Timings: forward and
+    forward+backward with the plan held and without, the 'dense' route,
+    torch.sparse.mm of two CSR tensors (a yardstick), a profile of the
+    forward+backward, both kernels on SPGEMM_KERNEL_CASE's maps, and
+    spgemm_plan's host seconds native and numpy at SPGEMM_NATIVE_CASE.
+    Returns the kernels line's rows and the launches."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import windowed as wk
+    from tpusparse_torch.runtime import native
+    from tpusparse_torch.spgemm import _PLAN_CACHE, _route_spgemm
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    inspector = ("native (tpusparse_torch/csrc/inspector.cpp)" if native.available()
+                 else f"numpy (no native library: {native.unavailable_reason})")
+    print(f"spgemm: the symbolic pass on the {inspector} inspector; window plans in numpy")
+    launches = {"windowed_gather": 0, "windowed_segsum": 0}
+    rows = {}
+    for name, n, density, seed in SPGEMM_CASES:
+        a = tt.random_csr(seed, (n, n), density, device="cuda")
+        t0 = time.perf_counter()
+        plan = tt.spgemm_plan(a, a)
+        plan_s = time.perf_counter() - t0
+        route = _route_spgemm(a, a)
+        adopted = {f: getattr(plan, f).window for f in ("ws_c", "wg_a", "wg_b", "wg_c")
+                   if getattr(plan, f) is not None}
+        nchunks = len(plan.ws_c_chunks or ())
+        rep = plan.report()
+        print(f"spgemm {name}: A {n}^2 nnz {a.nnz}; {rep['nmul']} products, C nnz "
+              f"{rep['c_nnz']}; plan {plan_s:.2f} s on the host; 'auto' routes to {route}; "
+              f"windowed plans adopted (W) {json.dumps(adopted)}, segment chunks {nchunks}"
+              + (f" (W {[c[4].window for c in plan.ws_c_chunks]})" if nchunks else ""))
+        if route != "schedule":
+            raise AssertionError(f"spgemm {name}: 'auto' routed to {route}, not 'schedule'")
+        fwd_g, segs, bwd_g = _spgemm_expected(plan)
+        # JAX's rule at these shapes: the gathers of a (forward and backward)
+        # and of dC, and one segment plan, or 4 chunks at 4096^2 at 1 %
+        jax_rule = (3, 4 if name == "4096_1pct" else 1)
+        if (fwd_g + bwd_g, segs) != jax_rule or (name == "4096_1pct") != (nchunks > 1):
+            raise AssertionError(f"spgemm {name}: {fwd_g + bwd_g} gathers and {segs} segment "
+                                 f"sums a step ({nchunks} chunks), not JAX's {jax_rule}")
+        g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+            plan.c_nnz).astype(np.float32)).cuda()
+        x = tt.CSR(a.data.clone().requires_grad_(True), a.indices, a.indptr, a.shape)
+        y = tt.CSR(a.data.clone().requires_grad_(True), a.indices, a.indptr, a.shape)
+        # the main path, counted: forward and backward through the operator
+        torch.cuda.synchronize()
+        kernels_reset()
+        c = x @ y
+        c.data.backward(g)
+        torch.cuda.synchronize()
+        counts = _launches()
+        expect = {"windowed_gather": fwd_g + bwd_g, "windowed_segsum": segs}
+        _expect(f"spgemm {name} a @ a forward+backward", counts, expect)
+        launches = {k: v + counts[k] for k, v in launches.items()}
+        # the other two entry points, forward only, counted
+        kernels_reset()
+        with torch.no_grad():
+            c_fn = tt.spgemm(x, y)
+            c_auto = tt.spgemm(x, y, method="auto")
+        torch.cuda.synchronize()
+        counts = _launches()
+        _expect(f"spgemm {name} spgemm + auto", counts,
+                {"windowed_gather": 2 * fwd_g, "windowed_segsum": 2 * segs})
+        launches = {k: v + counts[k] for k, v in launches.items()}
+        print(f"spgemm {name}: launches a forward {fwd_g} windowed_gather + {segs} "
+              f"windowed_segsum, a backward {bwd_g} windowed_gather")
+        if not (_same(c_fn.data, c.data.detach()) and _same(c_auto.data, c.data.detach())):
+            raise AssertionError(f"spgemm {name}: spgemm, auto and a @ a disagree")
+        # checks against float64
+        vals, pat = _spgemm_oracle(a, plan)
+        pat_ok = (np.array_equal(plan.c_indptr, pat.indptr)
+                  and np.array_equal(plan.c_indices, pat.indices))
+        c_err = _rel(c.data.detach().cpu(), torch.from_numpy(vals))
+        da_ref, db_ref = _grad_oracle(a, plan, g)
+        da_err, db_err = _rel(x.data.grad, da_ref), _rel(y.data.grad, db_ref)
+        del da_ref, db_ref
+        with fp32_matmul():
+            cd = tt.spgemm(a, a, method="dense")
+        d_err = _rel(cd.data.cpu(), torch.from_numpy(vals))
+        d_pat = np.array_equal(cd.indices, plan.c_indices) and np.array_equal(
+            cd.indptr, plan.c_indptr)
+        finite = bool(torch.isfinite(c.data).all())
+        ok = pat_ok and d_pat and finite and max(c_err, da_err, db_err, d_err) <= SPGEMM_TOL
+        print(f"spgemm {name}: C vs float64 rel err {c_err:.3e}, pattern equal to scipy's "
+              f"{pat_ok}; dA {da_err:.3e}, dB {db_err:.3e} vs the dense algebra; 'dense' "
+              f"route {d_err:.3e}, same pattern {d_pat} (limit {SPGEMM_TOL:.0e}), "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"spgemm {name}: disagrees with the float64 oracle")
+        del cd
+        if name == SPGEMM_CPU_CASE:
+            xc = tt.CSR(a.data.cpu().clone().requires_grad_(True), a.indices, a.indptr, a.shape)
+            yc = tt.CSR(a.data.cpu().clone().requires_grad_(True), a.indices, a.indptr, a.shape)
+            cc = xc @ yc
+            cc.data.backward(g.cpu())
+            pairs = ((c.data.detach(), cc.data.detach()), (x.data.grad, xc.data.grad),
+                     (y.data.grad, yc.data.grad))
+            errs = [float((p.cpu() - q).abs().max()) for p, q in pairs]
+            ok = all(torch.allclose(p.cpu(), q, **TOL_FP32) for p, q in pairs)
+            print(f"spgemm {name}: card vs CPU max abs err C {errs[0]:.3e}, dA {errs[1]:.3e}, "
+                  f"dB {errs[2]:.3e} (rtol {TOL_FP32['rtol']}, atol {TOL_FP32['atol']}), "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"spgemm {name}: card and CPU disagree")
+        # timings
+        def fwd_held():
+            return tt.spgemm(a, a, plan=plan)
+
+        def fwd_lookup():
+            return tt.spgemm(a, a)
+
+        def step(held=True):
+            x.data.grad = y.data.grad = None
+            cc = tt.spgemm(x, y, plan=plan) if held else x @ y
+            cc.data.backward(g)
+
+        with torch.no_grad():
+            f_ms, fl_ms = time_ms(fwd_held), time_ms(fwd_lookup)
+        s_ms, sl_ms = time_ms(step), time_ms(lambda: step(False))
+        with fp32_matmul(), torch.no_grad():
+            dense_ms = time_ms(lambda: tt.spgemm(a, a, method="dense"), warmup=1, iters=3)
+        crow = torch.from_numpy(a.indptr.astype(np.int64)).cuda()
+        col = torch.from_numpy(a.indices.astype(np.int64)).cuda()
+        a_sp = torch.sparse_csr_tensor(crow, col, a.data, size=a.shape)
+        sp_ms = time_ms(lambda: torch.sparse.mm(a_sp, a_sp), warmup=1, iters=5)
+        print(f"spgemm {name}: forward {f_ms:.4f} ms with the plan held, {fl_ms:.4f} ms with "
+              f"the plan looked up; forward+backward {s_ms:.4f} / {sl_ms:.4f} ms; 'dense' "
+              f"route {dense_ms:.3f} ms; torch.sparse.mm (CSR x CSR) {sp_ms:.4f} ms")
+        _profile(f"spgemm {name} forward+backward (plan held)", step, 3, top=6)
+        del a_sp
+        if name == SPGEMM_KERNEL_CASE:
+            rows = _windowed_kernel_rows(a, plan)
+        if name == SPGEMM_NATIVE_CASE:
+            _spgemm_plan_host_times(a)
+        del a, x, y, c, c_fn, c_auto, g
+        _PLAN_CACHE.clear()
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches}
+
+
+def _windowed_kernel_rows(a, plan) -> dict:
+    """Both kernels on the path's own maps (the gather of a over a_pos, the
+    accumulation over c_pos): kernel, plain version, the PyTorch call that
+    computes the same function (index_select, index_add_), all queued, and
+    the bound by bytes from this map."""
+    from tpusparse_torch.kernels import windowed as wk
+
+    gp, sp = plan.wg_a, plan.ws_c
+    table = a.data
+    gargs = (gp.tensor("rel", "cuda"), gp.tensor("starts", "cuda"))
+    a_pos = plan.tensor("a_pos", "cuda")
+    prods = table[a_pos] * table[plan.tensor("b_pos", "cuda")]
+    sargs = (sp.tensor("seg_masked", "cuda"), sp.tensor("starts", "cuda"))
+    c_pos = plan.tensor("c_pos", "cuda")
+    gk = partial(wk.windowed_gather_kernel, table, *gargs, n=gp.n, window=gp.window)
+    gpl = partial(wk._gather_plain, table, *gargs, n=gp.n, window=gp.window)
+    sk = partial(wk.windowed_segsum_kernel, prods, *sargs, num_segments=sp.num_segments,
+                 window=sp.window)
+    spl = partial(wk._segsum_plain, prods, *sargs, num_segments=sp.num_segments,
+                  window=sp.window)
+    g_err = float((gk().float() - gpl().float()).abs().max())
+    s_err = float((sk().float() - spl().float()).abs().max())
+    g_ms, g_plain = time_ms_queued(gk), time_ms_queued(gpl, reps=5)
+    g_lib = time_ms_queued(lambda: torch.index_select(table, 0, a_pos))
+    s_ms, s_plain = time_ms_queued(sk), time_ms_queued(spl, reps=2, iters=3)
+    zeros = torch.zeros(sp.num_segments, device="cuda")
+    s_lib = time_ms_queued(lambda: zeros.clone().index_add_(0, c_pos, prods))
+    # bytes each kernel must move: its index maps and output once, the table
+    # entries the map reads (gather) or y (segment sum) once
+    g_bytes = 4.0 * (2 * gp.n + gp.starts.size + np.unique(gp.idx).size)
+    s_bytes = 4.0 * (2 * sp.n_in + sp.starts.size + sp.num_segments)
+    g_bound, g_by = bound(0.0, g_bytes)
+    s_bound, s_by = bound(float(sp.n_in), s_bytes)
+    print(f"windowed_gather on {SPGEMM_KERNEL_CASE}'s a_pos map (n {gp.n}, W {gp.window}, "
+          f"{gp.exc_pos.size} exceptions): kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
+          f"torch.index_select {g_lib:.4f} ms, bound {g_bound:.4f} ms by {g_by} "
+          f"({g_bytes / 1e6:.2f} MB); kernel vs plain max abs err {g_err:.3e}")
+    print(f"windowed_segsum on {SPGEMM_KERNEL_CASE}'s c_pos map (n_in {sp.n_in}, "
+          f"{sp.num_segments} segments, W {sp.window}, {sp.exc_pos.size} exceptions): kernel "
+          f"{s_ms:.4f} ms, plain {s_plain:.4f} ms, index_add_ {s_lib:.4f} ms, bound "
+          f"{s_bound:.4f} ms by {s_by} ({s_bytes / 1e6:.2f} MB); kernel vs plain max abs err "
+          f"{s_err:.3e}")
+    if g_err != 0.0 or s_err != 0.0:
+        raise AssertionError("windowed kernels disagree with their plain versions on the path")
+    return {
+        "windowed_gather": {"name": "windowed_gather", "route": "cuda",
+                            "source": "tpusparse_torch/csrc/windowed.cu",
+                            "replaces": "tpusparse/kernels/windowed.py:148 (_gather_kernel; "
+                                        "pallas_call l.175)",
+                            "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain,
+                            "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib},
+        "windowed_segsum": {"name": "windowed_segsum", "route": "cuda",
+                            "source": "tpusparse_torch/csrc/windowed.cu",
+                            "replaces": "tpusparse/kernels/windowed.py:314 (_segsum_kernel; "
+                                        "pallas_call l.348)",
+                            "max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain,
+                            "bound_ms": s_bound, "bound_by": s_by, "library_ms": s_lib},
+    }
+
+
+def _spgemm_plan_host_times(a) -> None:
+    """spgemm_plan's host seconds on the native and on the numpy symbolic
+    pass (window plans included), and that both give the same schedule."""
+    import os
+
+    import tpusparse_torch as tt
+    from tpusparse_torch.runtime import native
+    from tpusparse_torch.spgemm import _PLAN_CACHE
+
+    plans, secs = {}, {}
+    for label in ("native", "numpy"):
+        if label == "native" and not native.available():
+            print("spgemm_plan: no native inspector on this host")
+            continue
+        _PLAN_CACHE.clear()
+        if label == "numpy":
+            os.environ["TPUSPARSE_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            plans[label] = tt.spgemm_plan(a, a)
+            secs[label] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("TPUSPARSE_NO_NATIVE", None)
+    same = len(plans) < 2 or all(np.array_equal(getattr(plans["native"], f),
+                                                getattr(plans["numpy"], f))
+                                 for f in ("a_pos", "b_pos", "c_pos", "c_indices", "c_indptr"))
+    print(f"spgemm_plan {SPGEMM_NATIVE_CASE} on the host: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f"; the same schedule: {same}")
+    if not same:
+        raise AssertionError("native and numpy spgemm schedules differ")
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -2501,6 +2931,7 @@ def main() -> int:
     run_phase("small naive", phase_small_naive)
     run_phase("small wide attention", phase_small_wide_attention)
     run_phase("small batched and plan-variant spmm", phase_small_plan_executors)
+    run_phase("small windowed", phase_small_windowed)
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -2590,6 +3021,7 @@ def main() -> int:
                       for kn in ("naive_spmm", "block_ell_spmm")}
     batched = run_phase("batched spmm", phase_batched_spmm)
     executors = run_phase("plan executors", phase_plan_executors, a, plan, bv, b)
+    spgemm = run_phase("spgemm", phase_spgemm)
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -2818,6 +3250,8 @@ def main() -> int:
                     "launches": batched["launches"]["resident_spmm_batched"]})
     kernels.extend({**executors["rows"][e], "launches": executors["launches"][e]}
                    for e in PLAN_EXECUTORS)
+    kernels.extend({**spgemm["rows"][e], "launches": spgemm["launches"][e]}
+                   for e in ("windowed_gather", "windowed_segsum"))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -347,8 +347,11 @@ def test_csr_matmul_operators_match_jax(rng):
     np.testing.assert_allclose((torch.from_numpy(x) @ t).numpy(),
                                np.asarray(jnp.asarray(x) @ j), **TOL)
     np.testing.assert_allclose((x @ t).numpy(), np.asarray(x @ j), **TOL)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t @ t
+    j, t = _pair_csr(3, (24, 24), 0.2)  # square, for A @ A
+    c, jc = t @ t, j @ j  # spgemm in both packages
+    np.testing.assert_array_equal(c.indptr, np.asarray(jc.indptr))
+    np.testing.assert_array_equal(c.indices, np.asarray(jc.indices))
+    np.testing.assert_allclose(c.data.numpy(), np.asarray(jc.data), **TOL)
 
 
 def test_random_powerlaw_csr_equals_jax():

@@ -205,7 +205,8 @@ NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
 NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 NO_PLAN_EXEC = {"resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
                 "footprint_spmm": 0}
-NO_OTHER = {**NO_FLASH, **NO_BLK, **NO_INT8, **NO_PLAN_EXEC, "naive_spmm": 0}
+NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
+NO_OTHER = {**NO_FLASH, **NO_BLK, **NO_INT8, **NO_PLAN_EXEC, **NO_WINDOWED, "naive_spmm": 0}
 STEP_LAUNCHES = {
     "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
     "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
@@ -890,3 +891,117 @@ def test_batched_kernel_chunks_batches_past_the_grid_limit(cuda):
     assert tk.launch_counts()["resident_spmm_batched"] == 1
     for g in (0, 65534, 65535, 65536, 65542):
         assert torch.equal(got[g], tk.resident_spmm_kernel(plan, bv, b3[g].contiguous())), g
+
+
+# -- the windowed gather and segment sum, and SpGEMM -----------------------------
+
+# name: (n or n_in, table length or segment count, kind of map)
+WINDOWED_CASES = {
+    "local_far_outliers": (5000, 900, "local"),
+    "single_far_read": (4096, 4096, "one_far"),
+    "scattered": (2000, 50000, "scattered"),
+    "empty_segments_ragged": (1030, 601, "half_empty"),
+    "short_table": (1000, 40, "scattered"),
+    "wide_window": (7000, 1100, "local"),  # the segment plan takes W = 4096
+}
+
+
+def _windowed_map(name):
+    n, t, kind = WINDOWED_CASES[name]
+    rng = np.random.default_rng(5)
+    if kind == "scattered":
+        idx = rng.integers(0, t, n)
+    elif kind == "half_empty":
+        idx = np.sort(rng.integers(0, t // 2, n))
+    else:
+        idx = np.minimum((np.arange(n) * t) // n + rng.integers(0, 40, n), t - 1)
+        if kind == "one_far":
+            idx[7] = t - 1
+        else:
+            idx[rng.integers(0, n, 25)] = rng.integers(0, t, 25)
+    return idx, t, rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(WINDOWED_CASES))
+def test_windowed_gather_kernel_equals_plain_bitwise(cuda, name, dtype):
+    from tpusparse_torch.kernels import windowed as wk
+
+    idx, t, rng = _windowed_map(name)
+    plan = wk.windowed_gather_plan(idx, t)
+    table = torch.from_numpy(rng.normal(size=t).astype(np.float32)).to(dtype)
+    table[:3] = -0.0
+    args = (plan.tensor("rel", cuda), plan.tensor("starts", cuda))
+    wk.reset_launch_counts()
+    got = wk.windowed_gather_kernel(table.to(cuda), *args, n=plan.n, window=plan.window)
+    torch.cuda.synchronize()
+    assert wk.launch_counts() == {"windowed_gather": 1, "windowed_segsum": 0}
+    want = wk._gather_plain(table.to(cuda), *args, n=plan.n, window=plan.window)
+    assert torch.equal(got.view(torch.int16 if dtype != torch.float32 else torch.int32),
+                       want.view(torch.int16 if dtype != torch.float32 else torch.int32))
+    full = wk.windowed_gather(table.to(cuda), plan)
+    assert torch.equal(full.cpu(), wk.windowed_gather(table, plan))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(WINDOWED_CASES))
+def test_windowed_segsum_kernel_equals_plain_bitwise(cuda, name, dtype):
+    """The plain version sums in the kernel's order, so the two are equal
+    bit for bit. In fp32 the whole operation, exceptions added by index_add_
+    on the card, stays within the fp32 tier of the CPU's; in bf16 and fp16
+    the exception path adds in the table's dtype, in another order on the
+    card than on the CPU, so only the kernel's part is held there."""
+    from tpusparse_torch.kernels import windowed as wk
+
+    seg, s, rng = _windowed_map(name)
+    plan = wk.windowed_segment_plan(seg, s)
+    y = torch.from_numpy(rng.normal(size=seg.size).astype(np.float32)).to(dtype)
+    args = (plan.tensor("seg_masked", cuda), plan.tensor("starts", cuda))
+    wk.reset_launch_counts()
+    got = wk.windowed_segsum_kernel(y.to(cuda), *args, num_segments=s, window=plan.window)
+    torch.cuda.synchronize()
+    assert wk.launch_counts() == {"windowed_gather": 0, "windowed_segsum": 1}
+    want = wk._segsum_plain(y.to(cuda), *args, num_segments=s, window=plan.window)
+    assert torch.equal(got.float(), want.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(wk.windowed_segment_sum(y.to(cuda), plan).cpu(),
+                                   wk.windowed_segment_sum(y, plan), **TOL)
+
+
+def test_windowed_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from tpusparse_torch.kernels import windowed as wk
+
+    rel = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    starts = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        wk.windowed_gather_kernel(torch.zeros(10, device=cuda, dtype=torch.float64), rel,
+                                  starts, n=10, window=128)
+    with pytest.raises(ValueError, match="same device"):
+        wk.windowed_gather_kernel(torch.zeros(10, device=cuda), rel.cpu(), starts, n=10,
+                                  window=128)
+
+
+def test_spgemm_forward_backward_on_card_matches_cpu(cuda):
+    """A @ A at 1024² (0.5 %) with grads in both operands' values: the card
+    launches exactly the windowed kernels its plan adopted, and C, dA and
+    dB agree with the CPU run of the same plan at the fp32 tier."""
+    from tpusparse_torch.kernels import windowed as wk
+
+    a = tt.random_csr(3, (1024, 1024), 0.005, device="cpu")
+    plan = tt.spgemm_plan(a, a)
+    assert plan.ws_c is not None and plan.wg_a is not None and plan.wg_c is not None
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(plan.c_nnz).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        x = tt.CSR(a.data.to(dev).clone().requires_grad_(True), a.indices, a.indptr, a.shape)
+        y = tt.CSR(a.data.to(dev).clone().requires_grad_(True), a.indices, a.indptr, a.shape)
+        wk.reset_launch_counts()
+        c = x @ y
+        c.data.backward(g.to(dev))
+        if dev == cuda:
+            torch.cuda.synchronize()
+            gathers = 2 * (plan.wg_a is not None) + 2 * (plan.wg_b is not None) + 1
+            assert wk.launch_counts() == {"windowed_gather": gathers, "windowed_segsum": 1}
+        runs[str(dev)] = (c.data.detach().cpu(), x.data.grad.cpu(), y.data.grad.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, **TOL)

@@ -24,8 +24,9 @@ def test_import_and_cpu_forward_load_no_jax():
     encoder's SGD step, and the serving tier (QuantizedMatrix, the dense int8
     ops, int8-KV attention, GPT and QuantizedGPT generation), a batched and
     a footprint SpMM and a dense @ CSR, a GCN Adam step and a GAT forward on
-    the naive route, on the CPU, in a fresh interpreter, load no forbidden
-    module."""
+    the naive route, and the sparse algebra (a spgemm with its backward,
+    sp_hadamard, from_scipy and to_torch), on the CPU, in a fresh
+    interpreter, load no forbidden module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
@@ -63,6 +64,15 @@ def test_import_and_cpu_forward_load_no_jax():
         "gat = tt.GAT(8, hidden=(4,), num_heads=2, num_classes=3, spmm_method='naive',\n"
         "             device='cpu')\n"
         "with torch.no_grad(): assert gat(tt.add_self_loops(adj), x).shape == (40, 3)\n"
+        "import scipy.sparse as ssp\n"
+        "s = tt.interop.from_scipy(ssp.random(30, 30, density=0.1, format='csr',\n"
+        "                                     random_state=0, dtype='float32'), device='cpu')\n"
+        "s = tt.CSR(s.data.requires_grad_(True), s.indices, s.indptr, s.shape)\n"
+        "c = tt.spgemm(s, s)\n"
+        "c.data.sum().backward()\n"
+        "assert c.shape == (30, 30) and s.data.grad.shape == (s.nnz,)\n"
+        "assert tt.sp_hadamard(s, s).nnz == s.nnz\n"
+        "assert tt.interop.to_torch(c).layout == torch.sparse_csr\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -120,6 +130,8 @@ ENTRY_POINTS = {
     "BSR.from_dense": lambda: tt.BSR.from_dense(np.eye(3, dtype=np.float32), (2, 2)),
     "GPTBlock": lambda: tt.GPTBlock(8, 2, 16),
     "GPTDecoder": lambda: tt.GPTDecoder(1, 8, 2, 16, 10, 8),
+    "interop.from_scipy": lambda: tt.interop.from_scipy(ssp.eye(3, format="csr")),
+    "interop.from_torch": lambda: tt.interop.from_torch(torch.eye(3)),
 }
 
 

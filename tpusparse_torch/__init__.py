@@ -26,16 +26,43 @@ sparse pattern (`spmm`, `tiled_spmm`, `resident_spmm`; 4-D through
 `spmm(method='footprint')` and `footprint_spmm` on the footprint executor
 (`csrc/block_ell_spmm_footprint.cu`), and the compact and grouped plans on
 theirs (`kernels.compact_spmm_kernel`, `kernels.grouped_spmm_kernel`).
-Tensors on the CPU take the plain
+The product of two sparse matrices (`spgemm`, `CSR @ CSR`), forward and
+backward, runs its host-planned schedule on the windowed gather and
+segment-sum kernels (`csrc/windowed.cu`) wherever JAX's rule adopts a
+window plan; its symbolic pass and the block inspector take the native
+C++ inspector (`runtime/native.py`, built from `csrc/inspector.cpp`) where
+a host compiler exists. The rest of the sparse algebra (`elementwise`:
+`sp_hadamard`, `sp_scale`, the stacks, reductions, `permute_csr`,
+`sp_kron`, the triangles, `prune_csr`; CSR's `+ - * -x`) and the torch and
+scipy converters (`interop`) are host pattern passes and plain tensor
+code. Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
 """
 
-from tpusparse_torch import dense, elementwise, kernels, linalg, ops, quant
+from tpusparse_torch import dense, elementwise, interop, kernels, linalg, ops, quant
 from tpusparse_torch.convert import load_flax_params, to_flax_params
 from tpusparse_torch.dense import bmm, einsum, matmul
-from tpusparse_torch.elementwise import row_softmax, sp_add
+from tpusparse_torch.elementwise import (
+    block_diag,
+    col_reduce,
+    hstack,
+    permute_csr,
+    prune_csr,
+    row_reduce,
+    row_softmax,
+    sp_add,
+    sp_hadamard,
+    sp_kron,
+    sp_map,
+    sp_norm,
+    sp_scale,
+    sp_sub,
+    sp_tril,
+    sp_triu,
+    vstack,
+)
 from tpusparse_torch.linalg import speye
 from tpusparse_torch.models import (
     APPNP,
@@ -120,6 +147,7 @@ from tpusparse_torch.plan import (
     set_roofline_constants,
 )
 from tpusparse_torch.quant import QuantizedDense, QuantizedMatrix, quantized_matmul
+from tpusparse_torch.spgemm import SpGEMMPlan, spgemm, spgemm_plan
 from tpusparse_torch.types import (
     BSR,
     COO,
@@ -168,12 +196,14 @@ __all__ = [
     "SelfAttention",
     "SparseLinear",
     "SparseSelfAttention",
+    "SpGEMMPlan",
     "add_self_loops",
     "appnp_propagate",
     "bert_loss",
     "bert_train_step",
     "bigbird_block_mask",
     "bigbird_pattern",
+    "block_diag",
     "block_flash_attention",
     "block_flash_attention_bwd",
     "block_flash_attention_diff",
@@ -183,6 +213,7 @@ __all__ = [
     "build_plan",
     "build_plan_pair",
     "clear_plan_cache",
+    "col_reduce",
     "compact_plan",
     "coo_to_csr",
     "csr_to_bsr",
@@ -198,6 +229,8 @@ __all__ = [
     "generate",
     "get_config",
     "group_plan",
+    "hstack",
+    "interop",
     "kernels",
     "linalg",
     "load_flax_params",
@@ -210,7 +243,9 @@ __all__ = [
     "nll_loss",
     "normalized_adjacency",
     "ops",
+    "permute_csr",
     "plan_cache_info",
+    "prune_csr",
     "quant",
     "quantize_gpt",
     "quantize_kv",
@@ -222,12 +257,23 @@ __all__ = [
     "resident_spmm",
     "resolve_device",
     "route_sparse_attention",
+    "row_reduce",
     "row_softmax",
     "save_plan",
     "sddmm",
     "sddmm_reference",
     "set_config",
     "set_roofline_constants",
+    "sp_hadamard",
+    "sp_kron",
+    "sp_map",
+    "sp_norm",
+    "sp_scale",
+    "sp_sub",
+    "sp_tril",
+    "sp_triu",
+    "spgemm",
+    "spgemm_plan",
     "spmm",
     "spmm_blocks",
     "sp_add",
@@ -242,4 +288,5 @@ __all__ = [
     "transb_mm",
     "transpose_csr",
     "two_cluster_graph",
+    "vstack",
 ]

@@ -5,6 +5,7 @@ from tpusparse_torch.kernels import (
     naive_spmm,
     sddmm,
     tiled_spmm,
+    windowed,
 )
 from tpusparse_torch.kernels.block_flash_attention import (
     BlockAttnPlan,
@@ -35,8 +36,19 @@ from tpusparse_torch.kernels.tiled_spmm import (
     tiled_spmm_int8_kernel,
     tiled_spmm_kernel,
 )
+from tpusparse_torch.kernels.windowed import (
+    WindowedGatherPlan,
+    WindowedSegmentPlan,
+    windowed_gather,
+    windowed_gather_kernel,
+    windowed_gather_plan,
+    windowed_segment_plan,
+    windowed_segment_sum,
+    windowed_segsum_kernel,
+)
 
-_MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention, naive_spmm)
+_MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention, naive_spmm,
+            windowed)
 
 
 def launch_counts() -> dict:
@@ -48,7 +60,8 @@ def launch_counts() -> dict:
     'footprint_spmm' (csrc/block_ell_spmm_{compact,grouped,footprint}.cu),
     'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv'
     (csrc/flash_attention.cu), 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
-    'blk_flash_dkv' (csrc/block_flash_attention.cu) and 'naive_spmm'."""
+    'blk_flash_dkv' (csrc/block_flash_attention.cu), 'naive_spmm', and
+    'windowed_gather' and 'windowed_segsum' (both csrc/windowed.cu)."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -61,7 +74,7 @@ def launches_by_kernel() -> dict:
     'resident_spmm_batched', 'compact_spmm', 'grouped_spmm',
     'footprint_spmm', 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq',
     'flash_dkv', 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
-    'blk_flash_dkv' and 'naive_spmm'."""
+    'blk_flash_dkv', 'naive_spmm', 'windowed_gather' and 'windowed_segsum'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
             "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}
@@ -74,6 +87,8 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "BlockAttnPlan",
+    "WindowedGatherPlan",
+    "WindowedSegmentPlan",
     "blk_flash_dkv_kernel",
     "blk_flash_dq_kernel",
     "blk_flash_fwd_kernel",
@@ -107,4 +122,11 @@ __all__ = [
     "tiled_spmm",
     "tiled_spmm_int8_kernel",
     "tiled_spmm_kernel",
+    "windowed",
+    "windowed_gather",
+    "windowed_gather_kernel",
+    "windowed_gather_plan",
+    "windowed_segment_plan",
+    "windowed_segment_sum",
+    "windowed_segsum_kernel",
 ]

@@ -3,9 +3,11 @@
 Counterpart of `tpusparse/plan.py:48-928`. A one-time host pass
 over a CSR pattern densifies it into (block_m, block_k) blocks and pads
 each row-block's block list to a fixed ELL width L. Padded slots repeat
-the row-block's last valid block id, and the executor skips them. The
-plan arrays are equal to the JAX ones at the same blocksize; plans are
-cached by a content fingerprint of the pattern.
+the row-block's last valid block id, and the executor skips them. The pass
+runs in the native C++ inspector (`runtime/native.py`) where a host
+compiler built it, else in numpy; both give the same arrays. The plan
+arrays are equal to the JAX ones at the same blocksize; plans are cached
+by a content fingerprint of the pattern.
 
 Values are not part of the plan: `pack_values` scatters the CSR value
 vector into block form on the values' device, every call.
@@ -49,13 +51,13 @@ def set_roofline_constants(**kwargs):
     _ROOFLINE.update(kwargs)
 
 
-def _device_copy(cache: dict, name: str, arr: np.ndarray, device) -> torch.Tensor:
-    """`arr` flattened as a tensor on `device`, copied there once and kept
-    in `cache` under (name, device)."""
+def _device_copy(cache: dict, name: str, arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """`arr` flattened (and cast to `dtype`, if given) as a tensor on
+    `device`, copied there once and kept in `cache` under (name, device)."""
     key = (name, str(torch.device(device)))
     t = cache.get(key)
     if t is None:
-        t = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype).reshape(-1)).to(device)
         cache[key] = t
     return t
 
@@ -248,6 +250,16 @@ def _inspect_numpy(
     return block_cols, counts.astype(np.int32), scatter_idx, ell_width, len(uniq)
 
 
+def _inspect(indptr, indices, shape, blocksize):
+    """The native inspector where it is built (`runtime/native.py`), else
+    the numpy one; both give the same arrays (tpusparse/plan.py:260-267)."""
+    from tpusparse_torch.runtime import native
+
+    if native.available():
+        return native.inspect(indptr, indices, shape, blocksize)
+    return _inspect_numpy(indptr, indices, shape, blocksize)
+
+
 def build_plan(
     pattern: CSR, blocksize: Optional[Shape2] = None, use_cache: bool = True
 ) -> Plan:
@@ -263,7 +275,7 @@ def build_plan(
         return _PLAN_CACHE[key]
     _CACHE_STATS["misses"] += 1
 
-    block_cols, nslots, scatter_idx, ell_width, nblocks = _inspect_numpy(
+    block_cols, nslots, scatter_idx, ell_width, nblocks = _inspect(
         indptr, indices, pattern.shape, blocksize
     )
     plan = Plan(

@@ -3,9 +3,11 @@
 Counterpart of `tpusparse/types.py` (`COO` l.44-106, `CSR` l.109-305, `BSR`
 l.307-389, `coo_to_csr`/`csr_to_coo` l.419-455, `csr_to_bsr`/`bsr_to_csr`
 l.456-513, `random_coo`/`random_csr`/`random_powerlaw_csr` l.516-585,
-`spmm_reference` l.586-645, `sddmm_reference` l.646-660). CSR's `+`, `-`,
-`*`, negation and CSR @ CSR come with ROADMAP queue 1, item 5. Plain dataclasses: the values are a torch tensor on the
-caller's device, the index arrays stay host numpy int32, as the JAX plans
+`spmm_reference` l.586-645, `sddmm_reference` l.646-660), with CSR's
+operators (l.230-281): `@` (`spmm` for a dense operand, `spgemm` for a
+CSR), `+`, `-` and `*` (`sp_add`, `sp_sub`, `sp_hadamard` for a CSR; a
+scalar scales) and negation. Plain dataclasses: the values are a torch
+tensor on the caller's device, the index arrays stay host numpy int32, as the JAX plans
 keep them, because the inspector (`plan.py`) runs on the host.
 """
 
@@ -145,16 +147,55 @@ class CSR:
 
     def __matmul__(self, other):
         from tpusparse_torch import ops
+        from tpusparse_torch.spgemm import spgemm
 
         if isinstance(other, CSR):
-            raise NotImplementedError(
-                "CSR @ CSR (spgemm) is not ported; it comes with ROADMAP queue 1, item 5")
+            return spgemm(self, other)
         return ops.spmm(self, torch.as_tensor(other))
 
     def __rmatmul__(self, x):
         from tpusparse_torch import ops
 
         return ops.dsmm(torch.as_tensor(x), self)
+
+    def __add__(self, other):
+        from tpusparse_torch.elementwise import sp_add
+
+        if not isinstance(other, CSR):
+            return NotImplemented
+        return sp_add(self, other)
+
+    def __sub__(self, other):
+        from tpusparse_torch.elementwise import sp_sub
+
+        if not isinstance(other, CSR):
+            return NotImplemented
+        return sp_sub(self, other)
+
+    def _scale_or_raise(self, other):
+        from tpusparse_torch.elementwise import sp_scale
+
+        if np.ndim(other) != 0:  # broadcasting would silently densify
+            raise TypeError(
+                "CSR * array is not supported (would densify); use "
+                "sp_hadamard for sparse*sparse or scale by a scalar"
+            )
+        return sp_scale(self, other)
+
+    def __mul__(self, other):
+        from tpusparse_torch.elementwise import sp_hadamard
+
+        if isinstance(other, CSR):
+            return sp_hadamard(self, other)
+        return self._scale_or_raise(other)
+
+    def __rmul__(self, other):
+        return self._scale_or_raise(other)
+
+    def __neg__(self):
+        from tpusparse_torch.elementwise import sp_scale
+
+        return sp_scale(self, -1.0)
 
     def transpose(self) -> "CSR":
         """Aᵀ by a stable host sort on the column ids (`ops.transpose_csr`,
