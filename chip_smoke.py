@@ -5,7 +5,7 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
-  2. build of the fourteen CUDA sources from the repo (one nvcc per source,
+  2. build of the fifteen CUDA sources from the repo (one nvcc per source,
      all started together; sm_90a), with ptxas's report;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
@@ -46,7 +46,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      off the 1024 padding, a table shorter than its window, the segment
      plan's W = 4096), each in fp32, bf16 and fp16, bitwise equal to their
      plain versions, and a chunked accumulation forced with a small target
-     bitwise equal to the whole one;
+     bitwise equal to the whole one; dia_spmv bitwise equal to its plain
+     version on eight planes (1, 7, 129, 160, 200 and 2105 diagonals, square
+     and rectangular, offsets past both edges, fp32 and bf16 planes and x),
+     PackedDIA.mv and dia_spmm on one column (1 launch each, bitwise), and
+     the backward's d_data and dx against float64;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -127,6 +131,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
         backward (3 gathers and 1 segment sum, 4 at 4096^2 at 1 %); the
         route of 'auto' ('schedule'), the adopted plans and which inspector
         built them;
+     r. AMG-preconditioned CG on laplace3d_64 (the 7-point Laplacian on a
+        64^3 grid, 262,144 rows; the JAX package's solver measurement,
+        benchmarks/realmatrix_benchmark.py FULL_SET with --amg):
+        smoothed_aggregation_setup on the card with its host seconds, the
+        hierarchy's four levels and formats against the JAX package's
+        (AMG_LEVELS), then Jacobi-CG (50 iterations) and AMG-CG (40
+        iterations) at tol 1e-7 on the 7-diagonal DIA operator, the AMG-CG
+        solve counted: per V-cycle 14 dia_spmv and the windowed gathers and
+        segment sums of the adopted plans;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -156,7 +169,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      product and its pattern against scipy's, dA and dB against the dense
      algebra in float64, the 'dense' route against the same oracle (each
      <= 1e-5 of scale), and at 16384^2 the card against the CPU (values and
-     grads, rtol 1e-4, atol 5e-5);
+     grads, rtol 1e-4, atol 5e-5); one AMG V-cycle on the card against the
+     same hierarchy on the CPU (<= 1e-5 of scale) and AMG-CG's float64
+     relative residual after 40 iterations (< 1e-4);
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -197,7 +212,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      forward+backward, both windowed kernels on the 16384^2 case's maps
      against their plain versions, torch.index_select / index_add_ and
      their bound, and spgemm_plan's host seconds on the native and the numpy
-     symbolic pass at 4096^2 at 1 %;
+     symbolic pass at 4096^2 at 1 %; ms per Jacobi-CG and AMG-CG iteration
+     on laplace3d_64, a torch.profiler breakdown of AMG-CG iterations, and
+     dia_spmv queued at the level-1 and level-2 planes (2105 x 31,868 and
+     2129 x 2,861) against its plain version, its bound by bytes and
+     torch.sparse.mm of the same DIA part as a CSR tensor;
   7. each phase's wall time, the `kernels` JSON line, then the device JSON
      line, last.
 
@@ -240,7 +259,7 @@ NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
 NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8,
              "naive_spmm": 0, "resident_spmm_batched": 0, "compact_spmm": 0,
-             "grouped_spmm": 0, "footprint_spmm": 0, **NO_WINDOWED}
+             "grouped_spmm": 0, "footprint_spmm": 0, **NO_WINDOWED, "dia_spmv": 0}
 STEP_LAUNCHES = {
     "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
     "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
@@ -2895,6 +2914,310 @@ def _spgemm_plan_host_times(a) -> None:
         raise AssertionError("native and numpy spgemm schedules differ")
 
 
+# the wide-DIA kernel against its plain version: m, k, diagonals, offsets'
+# range, plane dtype, x dtype (square and rectangular, 1 to 2105 diagonals,
+# offsets past both edges, fp32 and bf16 planes)
+DIA_SMALL = {
+    "square_1": (700, 700, 1, (-5, 5), torch.float32, torch.float32),
+    "rect_7_past_both_edges": (513, 400, 7, (-900, 900), torch.float32, torch.float32),
+    "square_129": (1000, 1000, 129, (-990, 990), torch.float32, torch.float32),
+    "rect_tall_200": (900, 640, 200, (-850, 600), torch.float32, torch.float32),
+    "rect_wide_129_bf16": (600, 880, 129, (-500, 850), torch.bfloat16, torch.bfloat16),
+    "square_200_bf16_plane": (1000, 1000, 200, (-990, 990), torch.bfloat16, torch.float32),
+    "square_160_bf16_x": (777, 777, 160, (-700, 700), torch.float32, torch.bfloat16),
+    "level1_2105": (31868, 31868, 2105, (-31000, 31000), torch.float32, torch.float32),
+}
+# the AMG hierarchy of laplace3d_64 as the JAX package builds it on the CPU:
+# (n, nnz, format) per level
+AMG_LEVELS = ((262144, 1810432, "dia:7"), (31868, 957260, "dia:2105+csr:9364"),
+              (2861, 311725, "dia:2129+csr:410"), (126, 12764, "dia:247"))
+AMG_CG_ITERS, JACOBI_CG_ITERS, AMG_TOL = 40, 50, 1e-7
+AMG_RESID_LIMIT = 1e-4  # float64 relative residual after 40 AMG-CG iterations
+VCYCLE_LIMIT = 1e-5     # one V-cycle, card against CPU, over scale
+
+
+def _dia_small_inputs(name, device="cuda"):
+    m, k, nd, (lo, hi), ddt, xdt = DIA_SMALL[name]
+    rng = np.random.default_rng(nd + m)
+    offs = np.sort(rng.choice(np.arange(lo, hi), nd, replace=False)).astype(np.int64)
+    data = torch.from_numpy(rng.standard_normal((nd, m)).astype(np.float32)).to(device, ddt)
+    x = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(device, xdt)
+    return offs, data, x, rng
+
+
+def phase_small_dia() -> None:
+    """dia_spmv against its plain version on the card, bitwise, on the
+    DIA_SMALL cases (the plane in JAX's plane order); PackedDIA.mv and
+    dia_spmm on a one-column b, one launch each, bitwise equal to the plain
+    version; and the backward's dx and d_data against float64."""
+    import tpusparse_torch as tt
+    from tpusparse_torch.kernels import dia as dk
+
+    for name in DIA_SMALL:
+        offs, data, x, _ = _dia_small_inputs(name)
+        plane, p_offs = dk._pack_dia(data, offs)
+        o = dk._offsets_tensor(p_offs, "cuda")
+        got = dk.dia_spmv_kernel(plane, o, x)
+        want = dk._dia_spmv_plain(plane, o, x)
+        torch.cuda.synchronize()
+        same = _same(got, want)
+        print(f"case dia {name}: {plane.shape[0]} diagonals x {plane.shape[1]} rows, x "
+              f"{x.shape[0]}, {str(plane.dtype)[6:]} plane, {str(x.dtype)[6:]} x: bitwise equal "
+              f"to plain {same}")
+        if not same:
+            raise AssertionError(f"dia {name}: the kernel disagrees with its plain version")
+    offs, data, x, rng = _dia_small_inputs("rect_tall_200")
+    m, k = data.shape[1], x.shape[0]
+    plane, p_offs = dk._pack_dia(data, offs)
+    want = dk._dia_spmv_plain(plane, dk._offsets_tensor(p_offs, "cuda"), x)
+    packed = dk.pack_dia_operator(data, offs, (m, k))
+    for label, fn in (("PackedDIA.mv", lambda: packed.mv(x)),
+                      ("dia_spmm one column", lambda: tt.dia_spmm(
+                          tt.DIA(data, offs, (m, k)), x[:, None])[:, 0])):
+        dk.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        n_launch = dk.launch_counts()["dia_spmv"]
+        same = _same(got, want)
+        print(f"case dia {label} (rect_tall_200): {n_launch} launch, bitwise equal to plain "
+              f"{same}")
+        if n_launch != 1 or not same:
+            raise AssertionError(f"dia {label}: {n_launch} launches, bitwise equal {same}")
+    # the backward against float64
+    d = data.clone().requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).cuda()
+    (dk.dia_spmv(d, offs, xx) * g).sum().backward()
+    d64, x64, g64 = (t.detach().double().cpu().numpy() for t in (data, x, g))
+    cols = np.arange(m)[None, :] + offs[:, None]
+    valid = (cols >= 0) & (cols < k)
+    xs = np.where(valid, x64[np.clip(cols, 0, k - 1)], 0.0)
+    dd_ref = g64[None, :] * xs
+    dx_ref = np.zeros(k)
+    np.add.at(dx_ref, cols[valid], (d64 * g64[None, :])[valid])
+    dd_err = over_scale(d.grad.cpu(), torch.from_numpy(dd_ref))[1]
+    dx_err = over_scale(xx.grad.cpu(), torch.from_numpy(dx_ref))[1]
+    print(f"case dia backward (rect_tall_200): d_data vs float64 over scale {dd_err:.3e}, dx "
+          f"{dx_err:.3e} (limit {HEADLINE_TOL})")
+    if not (dd_err <= HEADLINE_TOL and dx_err <= HEADLINE_TOL):
+        raise AssertionError("dia backward disagrees with float64")
+
+
+def _amg_expected(m) -> dict:
+    """The launches of one V-cycle the hierarchy implies: per level with a
+    prolongator, its A matvecs (presmooth + 1 + postsmooth) and its factored
+    P's two D⁻¹A matvecs on the wide-DIA kernel where they are PackedDIA,
+    plus one windowed gather and one segment sum per adopted plan."""
+    from tpusparse_torch.amg import _HybridOp
+    from tpusparse_torch.kernels.dia import PackedDIA
+
+    def wide(op):
+        return isinstance(op.dia if isinstance(op, _HybridOp) else op, PackedDIA)
+
+    out = {"dia_spmv": 0, "windowed_gather": 0, "windowed_segsum": 0}
+    for lvl in m.levels:
+        if lvl.p is None:
+            continue
+        out["dia_spmv"] += (m.presmooth + 1 + m.postsmooth) * wide(lvl.a)
+        if lvl.p_fact is not None:
+            out["dia_spmv"] += wide(lvl.p_fact.dinv_a) + wide(lvl.p_fact.dinv_a_t)
+            out["windowed_gather"] += lvl.p_fact.gplan is not None
+            out["windowed_segsum"] += lvl.p_fact.splan is not None
+    return out
+
+
+def _check_amg_report(m) -> None:
+    import re
+
+    got = [(int(a), int(b), c) for a, b, c in
+           re.findall(r"level \d+: n=\s*(\d+) nnz=\s*(\d+) \[([^\]]+)\]", m.report())]
+    print(m.report())
+    if tuple(got) != AMG_LEVELS:
+        raise AssertionError(f"amg hierarchy {got} is not the JAX package's {AMG_LEVELS}")
+
+
+def phase_amg_laplace3d() -> dict:
+    """AMG-preconditioned CG on laplace3d_64 (262,144 rows; the JAX
+    package's solver measurement, benchmarks/realmatrix_benchmark.py
+    FULL_SET with --amg): setup with its host seconds, the hierarchy against
+    the JAX package's (AMG_LEVELS), one V-cycle card against CPU, Jacobi-CG
+    (maxiter 50) and AMG-CG (maxiter 40) at tol 1e-7 timed, the counted
+    launches of the AMG-CG solve against what the hierarchy implies, the
+    iteration where its stop test fires, AMG-CG's float64 residual, a
+    torch.profiler breakdown of 8 iterations,
+    and dia_spmv at the level-1 and level-2 planes against its plain
+    version, its bound and torch.sparse.mm. Returns the kernel row and the
+    launches of the solve."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+    from tpusparse_torch.kernels import dia as dk
+    from tpusparse_torch.utils.matrices import get_matrix
+
+    a = get_matrix("laplace3d_64", device="cuda")
+    t0 = time.perf_counter()
+    m = tt.smoothed_aggregation_setup(a)
+    torch.cuda.synchronize()
+    print(f"amg laplace3d_64 setup: {time.perf_counter() - t0:.2f} s on the host, pushes "
+          f"included; grid complexity {m.grid_complexity:.3f}")
+    _check_amg_report(m)
+    per_cycle = _amg_expected(m)
+    print(f"amg: launches a V-cycle the hierarchy implies {json.dumps(per_cycle)}")
+    if per_cycle["dia_spmv"] != 14:
+        raise AssertionError(f"amg: {per_cycle['dia_spmv']} dia_spmv a V-cycle, not 14")
+    n = a.shape[0]
+    b = torch.from_numpy(np.random.default_rng(101).random(n, dtype=np.float32)).cuda()
+    # one V-cycle, card against the same hierarchy on the CPU
+    a_cpu = tt.CSR(a.data.cpu(), a.indices, a.indptr, a.shape)
+    t0 = time.perf_counter()
+    m_cpu = tt.smoothed_aggregation_setup(a_cpu)
+    cpu_setup = time.perf_counter() - t0
+    v_card = m(b).cpu()
+    v_cpu = m_cpu(b.cpu())
+    v_err = over_scale(v_card, v_cpu)[1]
+    print(f"amg V-cycle card vs CPU (CPU setup {cpu_setup:.2f} s): over scale {v_err:.3e} "
+          f"(limit {VCYCLE_LIMIT})")
+    if not (v_err <= VCYCLE_LIMIT and bool(torch.isfinite(v_card).all())):
+        raise AssertionError("amg V-cycle on the card disagrees with the CPU")
+    del m_cpu, v_cpu
+    op = tt.csr_to_dia(a)  # 7 diagonals: the outer operator, as the JAX benchmark takes
+    jac = tt.linalg.jacobi_preconditioner(op)
+
+    def counted(m_):
+        calls = [0]
+
+        def apply(v):
+            calls[0] += 1
+            return m_(v)
+        return apply, calls
+
+    def jacobi_cg(M=jac):
+        return tt.linalg.cg(op, b, tol=AMG_TOL, maxiter=JACOBI_CG_ITERS, M=M)[0]
+
+    def amg_cg(M=m):
+        return tt.linalg.cg(op, b, tol=AMG_TOL, maxiter=AMG_CG_ITERS, M=M)[0]
+
+    # the main path, counted: M(r0), then one V-cycle a loop iteration; the
+    # stop test is read on the host every linalg._CHECK_EVERY iterations, and
+    # the iterations past the stop run frozen
+    jacobi_cg()
+    torch.cuda.synchronize()
+    m_counted, calls = counted(m)
+    kernels.reset_launch_counts()
+    x = amg_cg(m_counted)
+    torch.cuda.synchronize()
+    counts = kernels.launches_by_kernel()
+    cycles = calls[0]
+    expect = {k_: v * cycles for k_, v in per_cycle.items()}
+    print(f"amg-cg (maxiter {AMG_CG_ITERS}, tol {AMG_TOL}): launches "
+          f"{json.dumps({k_: counts[k_] for k_ in expect})} in {cycles} V-cycles, one a loop "
+          f"iteration after M(r0): {counts['dia_spmv'] / cycles:g} dia_spmv an iteration")
+    _expect("amg-cg", counts, expect)
+    # where the stop test fires: the same solve reading it every iteration,
+    # which must give the same x bit for bit
+    every = tt.linalg._CHECK_EVERY
+    m_exact, exact_calls = counted(m)
+    tt.linalg._CHECK_EVERY = 1
+    try:
+        x_exact = amg_cg(m_exact)
+    finally:
+        tt.linalg._CHECK_EVERY = every
+    stop_it = exact_calls[0] - 1
+    # not bitwise: the hybrid levels' CSR remainders add by index_add_, whose
+    # atomics sum in another order on every run
+    stop_err = over_scale(x, x_exact)[1]
+    print(f"amg-cg: the stop test fires after iteration {stop_it} (the fp32 recursive residual "
+          f"under {AMG_TOL} of |b|); with the flag read every {every} iterations the loop "
+          f"ran {cycles - 1} (frozen past the stop); x against the exact stop over scale "
+          f"{stop_err:.3e} (limit {VCYCLE_LIMIT})")
+    if not stop_err <= VCYCLE_LIMIT:
+        raise AssertionError("amg-cg: frozen iterations changed x")
+    x64 = x.double().cpu().numpy()
+    sp64 = a.to_scipy().astype(np.float64)
+    b64 = b.double().cpu().numpy()
+    resid = float(np.linalg.norm(sp64 @ x64 - b64) / np.linalg.norm(b64))
+    print(f"amg-cg float64 relative residual |Ax - b|/|b| of the solve: {resid:.3e} "
+          f"(limit {AMG_RESID_LIMIT})")
+    if not (resid < AMG_RESID_LIMIT and np.isfinite(x64).all()):
+        raise AssertionError(f"amg-cg residual {resid}")
+    for label, make, m_, check in (("jacobi-cg", jacobi_cg, jac, every),
+                                   ("amg-cg", amg_cg, m, every),
+                                   ("amg-cg, stop flag read every iteration", amg_cg, m, 1)):
+        times, its = [], 0
+        tt.linalg._CHECK_EVERY = check
+        try:
+            for _ in range(3):
+                m_c, c_ = counted(m_)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                xs = make(m_c)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                its = c_[0] - 1
+        finally:
+            tt.linalg._CHECK_EVERY = every
+        r_ = float(np.linalg.norm(sp64 @ xs.double().cpu().numpy() - b64) / np.linalg.norm(b64))
+        print(f"{label} (laplace3d_64): {min(times) * 1e3:.3f} ms a solve of {its} loop "
+              f"iterations, {min(times) * 1e3 / (its + 1):.4f} ms an iteration (a matvec and a "
+              f"preconditioner each, M(r0) counted as one; best of 3 on the host clock); "
+              f"float64 relative residual {r_:.3e}")
+    _profile("amg-cg laplace3d_64, 8 iterations",
+             lambda: tt.linalg.cg(op, b, tol=AMG_TOL, maxiter=8, M=m), 2, top=10)
+    row = _dia_timings(m)
+    return {"row": row, "launches": counts}
+
+
+def _dia_timings(m) -> dict:
+    """dia_spmv queued at the level-1 and level-2 planes (the A operators'
+    DIA parts, as the V-cycle runs them) against its plain version, its
+    bound by bytes (plane + x + y once at the HBM rate) and torch.sparse.mm of
+    the same DIA part's entries as a CSR tensor (cuSPARSE, a yardstick); the
+    level-1 row goes into the kernels line."""
+    from tpusparse_torch.kernels import dia as dk
+
+    from tpusparse_torch.amg import _HybridOp
+
+    rows = {}
+    for lv in (1, 2):
+        p = m.levels[lv].a
+        p = p.dia if isinstance(p, _HybridOp) else p
+        nd, n = p.data.shape
+        x = torch.from_numpy(np.random.default_rng(lv).random(n, dtype=np.float32)).cuda()
+        o = p._offsets_on(p.data.device)
+        got = dk.dia_spmv_kernel(p.data, o, x)
+        want = dk._dia_spmv_plain(p.data, o, x)
+        err = float((got - want).abs().max())
+        k_ms = time_ms_queued(lambda: dk.dia_spmv_kernel(p.data, o, x))
+        plain_ms = time_ms_queued(lambda: dk._dia_spmv_plain(p.data, o, x), reps=2, iters=3)
+        # the DIA part's entries (the plane's nonzeros) as a CSR tensor
+        d_i, i_i = torch.nonzero(p.data, as_tuple=True)
+        cols = i_i + torch.from_numpy(p.offsets).to(p.data.device)[d_i]
+        order = torch.argsort(i_i * p.shape[1] + cols)
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=p.data.device)
+        crow[1:] = torch.cumsum(torch.bincount(i_i, minlength=n), 0)
+        ts_ = torch.sparse_csr_tensor(crow, cols[order], p.data[d_i, i_i][order],
+                                      size=p.shape)
+        entries = int(d_i.numel())
+        del d_i, i_i, cols, order
+        lib_ms = time_ms_queued(lambda: torch.sparse.mm(ts_, x[:, None]))
+        lib_err = over_scale(torch.sparse.mm(ts_, x[:, None])[:, 0], got)[1]
+        nbytes = p.data.element_size() * nd * n + 4.0 * (2 * n + nd)
+        b_ms, b_by = bound(2.0 * nd * n, nbytes)
+        print(f"dia_spmv level {lv} ({nd} diagonals x {n} rows, {nbytes / 1e6:.1f} MB; "
+              f"{entries} entries, {nd * n / entries:.1f}x padding): kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.sparse.mm of its CSR {lib_ms:.4f} ms (vs kernel {lib_err:.2e} of scale), "
+              f"bound {b_ms:.4f} ms by {b_by}, kernel at {nbytes / (k_ms * 1e-3) / 1e12:.2f} "
+              f"TB/s; kernel vs plain max abs err {err:.3e}")
+        if err != 0.0:
+            raise AssertionError(f"dia_spmv level {lv}: kernel disagrees with its plain version")
+        rows[lv] = {"name": "dia_spmv", "route": "cuda",
+                    "source": "tpusparse_torch/csrc/dia_spmv.cu",
+                    "replaces": "tpusparse/kernels/dia.py:57 (_dia_spmv_kernel; _dia_spmv_jit "
+                                "l.113, pallas_call l.123)",
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms}
+    return rows[1]
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -2932,6 +3255,7 @@ def main() -> int:
     run_phase("small wide attention", phase_small_wide_attention)
     run_phase("small batched and plan-variant spmm", phase_small_plan_executors)
     run_phase("small windowed", phase_small_windowed)
+    run_phase("small dia", phase_small_dia)
 
     # -- set-up of the main path (host inspector, packing on the card) ------
     t0 = time.perf_counter()
@@ -3022,6 +3346,7 @@ def main() -> int:
     batched = run_phase("batched spmm", phase_batched_spmm)
     executors = run_phase("plan executors", phase_plan_executors, a, plan, bv, b)
     spgemm = run_phase("spgemm", phase_spgemm)
+    amg = run_phase("amg laplace3d_64", phase_amg_laplace3d)
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -3250,8 +3575,10 @@ def main() -> int:
                     "launches": batched["launches"]["resident_spmm_batched"]})
     kernels.extend({**executors["rows"][e], "launches": executors["launches"][e]}
                    for e in PLAN_EXECUTORS)
-    kernels.extend({**spgemm["rows"][e], "launches": spgemm["launches"][e]}
+    kernels.extend({**spgemm["rows"][e],
+                    "launches": spgemm["launches"][e] + amg["launches"][e]}
                    for e in ("windowed_gather", "windowed_segsum"))
+    kernels.append({**amg["row"], "launches": amg["launches"]["dia_spmv"]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

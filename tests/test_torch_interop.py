@@ -157,14 +157,17 @@ def test_to_scipy_rejects_unknown():
 
 
 def test_dia_raises_until_its_container_is_ported():
-    """JAX returns a DIA for a dia_matrix; the port has no DIA yet (ROADMAP
-    queue 1, item 6), so it raises rather than return another format."""
+    """The DIA container is ported: a dia_matrix comes back as a DIA in both
+    packages, with JAX's offsets and plane, and to_scipy takes it back."""
+    from tpusparse_torch.types import DIA as TDIA
+
     sp = ssp.diags([1.0, 2.0, 3.0], [-1, 0, 1], shape=(6, 6), format="dia")
-    assert isinstance(ji.from_scipy(sp), JDIA)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ti.from_scipy(sp, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ti.to_scipy(ji.from_scipy(sp))
+    want = ji.from_scipy(sp)
+    got = ti.from_scipy(sp, device="cpu")
+    assert isinstance(want, JDIA) and isinstance(got, TDIA)
+    np.testing.assert_array_equal(got.offsets, want.offsets)
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    np.testing.assert_array_equal(ti.to_scipy(got).toarray(), sp.toarray())
 
 
 def test_converters_put_values_on_the_device_asked(mat):

@@ -13,7 +13,7 @@ import scipy.sparse as ssp
 import torch
 
 import tpusparse_torch as tt
-from tpusparse_torch.utils.matrices import block_sparse_csr
+from tpusparse_torch.utils.matrices import block_sparse_csr, get_matrix
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpusparse")
@@ -25,8 +25,9 @@ def test_import_and_cpu_forward_load_no_jax():
     ops, int8-KV attention, GPT and QuantizedGPT generation), a batched and
     a footprint SpMM and a dense @ CSR, a GCN Adam step and a GAT forward on
     the naive route, and the sparse algebra (a spgemm with its backward,
-    sp_hadamard, from_scipy and to_torch), on the CPU, in a fresh
-    interpreter, load no forbidden module."""
+    sp_hadamard, from_scipy and to_torch), an AMG-CG solve on a 2-D Laplacian
+    and a wide-DIA product, on the CPU, in a fresh interpreter, load no
+    forbidden module."""
     code = (
         "import sys, torch\n"
         "import tpusparse_torch as tt\n"
@@ -73,6 +74,15 @@ def test_import_and_cpu_forward_load_no_jax():
         "assert c.shape == (30, 30) and s.data.grad.shape == (s.nnz,)\n"
         "assert tt.sp_hadamard(s, s).nnz == s.nnz\n"
         "assert tt.interop.to_torch(c).layout == torch.sparse_csr\n"
+        "from tpusparse_torch.utils.matrices import get_matrix\n"
+        "lap = get_matrix('laplace2d_256', device='cpu')\n"
+        "lap = tt.CSR(lap.data, lap.indices, lap.indptr, lap.shape)\n"
+        "M = tt.smoothed_aggregation_setup(lap)\n"
+        "rhs = torch.rand(lap.shape[0])\n"
+        "xs, _ = tt.linalg.cg(tt.csr_to_dia(lap), rhs, tol=1e-6, maxiter=20, M=M)\n"
+        "assert torch.isfinite(xs).all()\n"
+        "w = tt.DIA(torch.rand(130, 300), list(range(-65, 65)), (300, 300))\n"
+        "assert tt.dia_spmm(w, torch.rand(300)).shape == (300,)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -132,6 +142,10 @@ ENTRY_POINTS = {
     "GPTDecoder": lambda: tt.GPTDecoder(1, 8, 2, 16, 10, 8),
     "interop.from_scipy": lambda: tt.interop.from_scipy(ssp.eye(3, format="csr")),
     "interop.from_torch": lambda: tt.interop.from_torch(torch.eye(3)),
+    "DIA.from_dense": lambda: tt.DIA.from_dense(np.eye(3, dtype=np.float32)),
+    "DIA.from_scipy": lambda: tt.DIA.from_scipy(ssp.eye(3, format="dia")),
+    "get_matrix": lambda: get_matrix("laplace2d_256"),
+    "speye": lambda: tt.speye(3),
 }
 
 

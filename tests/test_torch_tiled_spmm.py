@@ -179,16 +179,22 @@ def test_unknown_method_raises():
 
 @pytest.mark.parametrize("method", ["auto", "footprint", "dia"])
 def test_unported_method_raises(method):
-    """'auto' and 'dia' still raise naming their ROADMAP item; 'footprint' is
-    ported and gives JAX's values."""
+    """Every method of the JAX package is ported now: 'auto' (the router) and
+    'footprint' give JAX's values, and 'auto' picks JAX's method; 'dia'
+    refuses this pattern (more than 128 diagonals) as JAX's does."""
     _, b, j, t, bs = _case("ragged_8x8")
-    if method == "footprint":
-        got = tops.spmm(t, torch.from_numpy(b), method=method, blocksize=bs)
-        want = jops.spmm(j, jnp.asarray(b), method=method, blocksize=bs)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if method == "dia":
+        for spmm, bb in ((tops.spmm, torch.from_numpy(b)), (jops.spmm, jnp.asarray(b))):
+            with pytest.raises(ValueError, match="banded"):
+                spmm(t if spmm is tops.spmm else j, bb, method="dia")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.spmm(t, torch.from_numpy(b), method=method)
+    kw = {"blocksize": bs} if method == "footprint" else {}
+    got = tops.spmm(t, torch.from_numpy(b), method=method, **kw)
+    want = jops.spmm(j, jnp.asarray(b), method=method, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if method == "auto":
+        assert tops._route_spmm(t, torch.from_numpy(b), None) == jops._route_spmm(
+            j, jnp.asarray(b), None)
 
 
 def test_unported_reducer_raises():

@@ -35,13 +35,20 @@ a host compiler exists. The rest of the sparse algebra (`elementwise`:
 `sp_hadamard`, `sp_scale`, the stacks, reductions, `permute_csr`,
 `sp_kron`, the triangles, `prune_csr`; CSR's `+ - * -x`) and the torch and
 scipy converters (`interop`) are host pattern passes and plain tensor
-code. Tensors on the CPU take the plain
+code. The banded algebra: the `DIA` container (`csr_to_dia`,
+`dia_to_csr`), `dia_spmm` and `spmm(method='dia')`, the cost-model router
+of `spmm(method='auto')` with JAX's TPU-fitted constants, the `linalg`
+solvers (cg, bicgstab, gmres, the eigensolvers, the incomplete
+factorisations) and smoothed-aggregation AMG (`amg`), whose wide levels
+run on the wide-DIA SpMV kernel (`csrc/dia_spmv.cu`) and whose factored
+prolongators run on the windowed kernels. Tensors on the CPU take the plain
 PyTorch version of each kernel; `device=None` everywhere means the CUDA
 card. The JAX package `tpusparse` is the reference the port is held
 against; nothing here imports it.
 """
 
-from tpusparse_torch import dense, elementwise, interop, kernels, linalg, ops, quant
+from tpusparse_torch import amg, dense, elementwise, interop, kernels, linalg, ops, quant
+from tpusparse_torch.amg import amg_preconditioner, smoothed_aggregation_setup
 from tpusparse_torch.convert import load_flax_params, to_flax_params
 from tpusparse_torch.dense import bmm, einsum, matmul
 from tpusparse_torch.elementwise import (
@@ -114,6 +121,7 @@ from tpusparse_torch.nn import (
     route_sparse_attention,
 )
 from tpusparse_torch.ops import (
+    dia_spmm,
     dsmm,
     footprint_spmm,
     gather_spmm,
@@ -152,10 +160,13 @@ from tpusparse_torch.types import (
     BSR,
     COO,
     CSR,
+    DIA,
     bsr_to_csr,
     coo_to_csr,
     csr_to_bsr,
     csr_to_coo,
+    csr_to_dia,
+    dia_to_csr,
     random_coo,
     random_csr,
     random_powerlaw_csr,
@@ -175,6 +186,7 @@ __all__ = [
     "COO",
     "CSR",
     "CompactPlan",
+    "DIA",
     "DenseLinear",
     "Embed",
     "FootprintPlan",
@@ -198,6 +210,8 @@ __all__ = [
     "SparseSelfAttention",
     "SpGEMMPlan",
     "add_self_loops",
+    "amg",
+    "amg_preconditioner",
     "appnp_propagate",
     "bert_loss",
     "bert_train_step",
@@ -218,7 +232,10 @@ __all__ = [
     "coo_to_csr",
     "csr_to_bsr",
     "csr_to_coo",
+    "csr_to_dia",
     "dense",
+    "dia_spmm",
+    "dia_to_csr",
     "dsmm",
     "einsum",
     "elementwise",
@@ -264,6 +281,7 @@ __all__ = [
     "sddmm_reference",
     "set_config",
     "set_roofline_constants",
+    "smoothed_aggregation_setup",
     "sp_hadamard",
     "sp_kron",
     "sp_map",

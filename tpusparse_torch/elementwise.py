@@ -23,12 +23,17 @@ import numpy as np
 import torch
 
 from tpusparse_torch.plan import _fingerprint
-from tpusparse_torch.types import CSR
+from tpusparse_torch.types import CSR, DIA
 
 _INT = np.int32
 
 
-def _host_pattern(a: CSR):
+def _host_pattern(a: CSR, opname: str):
+    if isinstance(a, DIA):
+        raise TypeError(
+            f"{opname} takes CSR operands; convert with "
+            "tpusparse_torch.dia_to_csr(a) (interop.from_scipy returns DIA "
+            "for scipy dia_matrix inputs)")
     return np.asarray(a.indptr), np.asarray(a.indices)
 
 
@@ -59,19 +64,19 @@ _UNION_CACHE: dict = {}
 _INTERSECT_CACHE: dict = {}
 
 
-def _pair_key(a: CSR, b: CSR):
-    return tuple(_fingerprint(x.shape, (1, 1), *_host_pattern(x)) for x in (a, b))
+def _pair_key(a: CSR, b: CSR, opname: str):
+    return tuple(_fingerprint(x.shape, (1, 1), *_host_pattern(x, opname)) for x in (a, b))
 
 
-def _union_plan(a: CSR, b: CSR):
+def _union_plan(a: CSR, b: CSR, opname: str):
     """(slot of each a entry, slot of each b entry, indices, indptr, nnz) of
     the union pattern, in CSR order."""
-    key = _pair_key(a, b)
+    key = _pair_key(a, b, opname)
     hit = _UNION_CACHE.get(key)
     if hit is not None:
         return hit
     m, n = a.shape
-    fa, fb = _flat(*_host_pattern(a), a.shape), _flat(*_host_pattern(b), b.shape)
+    fa, fb = _flat(*_host_pattern(a, opname), a.shape), _flat(*_host_pattern(b, opname), b.shape)
     uniq = np.union1d(fa, fb)  # sorted == CSR order
     hit = (np.searchsorted(uniq, fa), np.searchsorted(uniq, fb),
            (uniq % n).astype(_INT), _indptr_of(uniq // n, m), int(uniq.size))
@@ -79,15 +84,15 @@ def _union_plan(a: CSR, b: CSR):
     return hit
 
 
-def _intersect_plan(a: CSR, b: CSR):
+def _intersect_plan(a: CSR, b: CSR, opname: str):
     """(position in a, position in b, indices, indptr) of each entry of the
     intersection pattern, in CSR order."""
-    key = _pair_key(a, b)
+    key = _pair_key(a, b, opname)
     hit = _INTERSECT_CACHE.get(key)
     if hit is not None:
         return hit
     m, n = a.shape
-    fa, fb = _flat(*_host_pattern(a), a.shape), _flat(*_host_pattern(b), b.shape)
+    fa, fb = _flat(*_host_pattern(a, opname), a.shape), _flat(*_host_pattern(b, opname), b.shape)
     common = np.intersect1d(fa, fb)  # sorted == CSR order
     hit = (_positions_of(fa, common), _positions_of(fb, common),
            (common % n).astype(_INT), _indptr_of(common // n, m))
@@ -104,7 +109,7 @@ def sp_add(a: CSR, b: CSR, alpha: float = 1.0, beta: float = 1.0) -> CSR:
     """alpha·A + beta·B on the union pattern, differentiable in both value
     vectors; the pattern is structural (an entry that cancels to 0 stays)."""
     _check_same_shape(a, b, "sp_add")
-    slot_a, slot_b, c_indices, c_indptr, c_nnz = _union_plan(a, b)
+    slot_a, slot_b, c_indices, c_indptr, c_nnz = _union_plan(a, b, "sp_add")
     dtype = torch.promote_types(a.dtype, b.dtype)
     dev = a.data.device
     data = (torch.zeros((c_nnz,), dtype=dtype, device=dev)
@@ -121,7 +126,7 @@ def sp_sub(a: CSR, b: CSR) -> CSR:
 def sp_hadamard(a: CSR, b: CSR) -> CSR:
     """Elementwise product A ∘ B on the intersection pattern."""
     _check_same_shape(a, b, "sp_hadamard")
-    pa, pb, c_indices, c_indptr = _intersect_plan(a, b)
+    pa, pb, c_indices, c_indptr = _intersect_plan(a, b, "sp_hadamard")
     dev = a.data.device
     data = a.data[_index(pa, dev)] * b.data.to(dev)[_index(pb, dev)]
     return CSR(data=data, indices=c_indices, indptr=c_indptr, shape=a.shape)
@@ -205,7 +210,7 @@ def vstack(mats) -> CSR:
     n = mats[0].shape[1]
     if any(m.shape[1] != n for m in mats):
         raise ValueError(f"vstack: column counts differ: {[m.shape for m in mats]}")
-    pats = [_host_pattern(m) for m in mats]
+    pats = [_host_pattern(m, "vstack") for m in mats]
     return CSR(
         data=_cat_data(mats),
         indices=np.concatenate([idx for _, idx in pats]).astype(_INT),
@@ -220,7 +225,7 @@ def hstack(mats) -> CSR:
     m_rows = mats[0].shape[0]
     if any(m.shape[0] != m_rows for m in mats):
         raise ValueError(f"hstack: row counts differ: {[m.shape for m in mats]}")
-    pats = [_host_pattern(m) for m in mats]
+    pats = [_host_pattern(m, "hstack") for m in mats]
     # interleave per row: a stable sort of all entries by (row, matrix),
     # which is also the permutation of the concatenated values
     k = len(mats)
@@ -245,7 +250,7 @@ def block_diag(mats) -> CSR:
     a stacked dense operand computes every per-pattern product in one plan
     and one kernel."""
     mats = _nonempty(mats, "block_diag")
-    pats = [_host_pattern(m) for m in mats]
+    pats = [_host_pattern(m, "block_diag") for m in mats]
     col_off = np.cumsum([0] + [m.shape[1] for m in mats[:-1]])
     indices = np.concatenate([idx.astype(np.int64) + off for (_, idx), off in zip(pats, col_off)])
     return CSR(
@@ -334,7 +339,7 @@ def permute_csr(a: CSR, row_perm=None, col_perm=None) -> CSR:
     """P·A·Qᵀ as a pattern pass: `row_perm[i]` is the OLD index of NEW row
     i (scipy's convention: the result equals dense[row_perm][:, col_perm]).
     Rows stay sorted by column."""
-    indptr, indices = _host_pattern(a)
+    indptr, indices = _host_pattern(a, "permute_csr")
     m, n = a.shape
     counts = np.diff(indptr)
     row_perm = (np.arange(m, dtype=np.int64) if row_perm is None
@@ -370,8 +375,8 @@ def sp_kron(a: CSR, b: CSR) -> CSR:
     """Kronecker product A ⊗ B as a CSR (scipy.sparse.kron's pattern and
     order). The pattern cross product runs on the host; the values are one
     gather-multiply, differentiable in both operands."""
-    a_indptr, a_indices = _host_pattern(a)
-    b_indptr, b_indices = _host_pattern(b)
+    a_indptr, a_indices = _host_pattern(a, "sp_kron")
+    b_indptr, b_indices = _host_pattern(b, "sp_kron")
     ma, na = a.shape
     mb, nb = b.shape
     nnza, nnzb = int(a_indptr[-1]), int(b_indptr[-1])
@@ -407,8 +412,8 @@ def _tri_select(a: CSR, keep_mask: np.ndarray, rows: np.ndarray) -> CSR:
     )
 
 
-def _rows_cols(a: CSR):
-    indptr, indices = _host_pattern(a)
+def _rows_cols(a: CSR, opname: str):
+    indptr, indices = _host_pattern(a, opname)
     rows = np.repeat(np.arange(a.shape[0], dtype=np.int64), np.diff(indptr))
     return rows, indices.astype(np.int64)
 
@@ -416,12 +421,12 @@ def _rows_cols(a: CSR):
 def sp_tril(a: CSR, k: int = 0) -> CSR:
     """Lower triangle (entries with j - i <= k), scipy.sparse.tril's
     semantics."""
-    rows, cols = _rows_cols(a)
+    rows, cols = _rows_cols(a, "sp_tril")
     return _tri_select(a, cols - rows <= k, rows)
 
 
 def sp_triu(a: CSR, k: int = 0) -> CSR:
     """Upper triangle (entries with j - i >= k), scipy.sparse.triu's
     semantics."""
-    rows, cols = _rows_cols(a)
+    rows, cols = _rows_cols(a, "sp_triu")
     return _tri_select(a, cols - rows >= k, rows)

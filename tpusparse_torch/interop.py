@@ -9,10 +9,8 @@ values land on `device` (None = the CUDA card), as with every constructor
 of the port. `to_torch` leaves the values on their device.
 
 Not carried: `from_bcoo`, `to_bcoo`, `from_bcsr` and `to_bcsr` convert
-`jax.experimental.sparse` types, and the port imports nothing of JAX. The
-DIA container comes with ROADMAP queue 1, item 6: until then `from_scipy`
-of a `dia_matrix` and `to_scipy` of a DIA raise NotImplementedError rather
-than change the format JAX returns.
+`jax.experimental.sparse` types, and the port imports nothing of JAX. A
+`dia_matrix` comes back as a DIA, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,14 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse_torch.types import BSR, COO, CSR
+from tpusparse_torch.types import BSR, COO, CSR, DIA
 from tpusparse_torch.utils.config import resolve_device
 
 _INT = np.int32
-_DIA_MISSING = (
-    "the DIA container is not ported yet (ROADMAP queue 1, item 6); "
-    "convert the matrix to CSR first"
-)
 
 
 def _index(x) -> np.ndarray:
@@ -101,8 +95,8 @@ def to_torch(a):
 
 def from_scipy(sp, device=None):
     """scipy.sparse matrix -> the port's sparse array, values on `device`:
-    bsr -> BSR (its blocks kept, indices sorted), coo -> COO, csr, csc and
-    the other formats -> CSR. A dia_matrix raises NotImplementedError."""
+    bsr -> BSR (its blocks kept, indices sorted), dia -> DIA, coo -> COO,
+    csr, csc and the other formats -> CSR."""
     import scipy.sparse as ssp
 
     shape = tuple(int(s) for s in sp.shape)
@@ -112,7 +106,7 @@ def from_scipy(sp, device=None):
                    indptr=sp.indptr.astype(_INT), shape=shape,
                    blocksize=(int(sp.blocksize[0]), int(sp.blocksize[1])))
     if isinstance(sp, ssp.dia_matrix):
-        raise NotImplementedError(f"from_scipy of a dia_matrix: {_DIA_MISSING}")
+        return DIA.from_scipy(sp, device=device)
     if isinstance(sp, ssp.coo_matrix):
         return COO(data=_values(sp.data, device), row=sp.row.astype(_INT),
                    col=sp.col.astype(_INT), shape=shape)
@@ -124,7 +118,7 @@ def to_scipy(a):
     copied to the host)."""
     import scipy.sparse as ssp
 
-    if isinstance(a, CSR):
+    if isinstance(a, (CSR, DIA)):
         return a.to_scipy()
     if isinstance(a, COO):
         return ssp.coo_matrix((a.data.detach().cpu().numpy(), (a.row, a.col)), shape=a.shape)
@@ -132,6 +126,4 @@ def to_scipy(a):
         _check_block_multiple(a, "to_scipy")
         return ssp.bsr_matrix((a.data.detach().cpu().numpy(), a.indices, a.indptr),
                               shape=a.shape, blocksize=a.blocksize)
-    if type(a).__name__ == "DIA":
-        raise NotImplementedError(f"to_scipy of a DIA: {_DIA_MISSING}")
-    raise TypeError(f"to_scipy expects CSR/COO/BSR, got {type(a)}")
+    raise TypeError(f"to_scipy expects CSR/COO/BSR/DIA, got {type(a)}")

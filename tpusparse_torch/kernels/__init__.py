@@ -1,5 +1,6 @@
 from tpusparse_torch.kernels import (
     block_flash_attention,
+    dia,
     flash_attention,
     gemm,
     naive_spmm,
@@ -14,6 +15,7 @@ from tpusparse_torch.kernels.block_flash_attention import (
     blk_flash_fwd_kernel,
     block_flash_attention_diff,
 )
+from tpusparse_torch.kernels.dia import PackedDIA, dia_spmv, dia_spmv_kernel, pack_dia_operator
 from tpusparse_torch.kernels.flash_attention import (
     flash_attention_diff,
     flash_attention_q8,
@@ -48,7 +50,7 @@ from tpusparse_torch.kernels.windowed import (
 )
 
 _MODULES = (tiled_spmm, sddmm, gemm, flash_attention, block_flash_attention, naive_spmm,
-            windowed)
+            windowed, dia)
 
 
 def launch_counts() -> dict:
@@ -60,8 +62,9 @@ def launch_counts() -> dict:
     'footprint_spmm' (csrc/block_ell_spmm_{compact,grouped,footprint}.cu),
     'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv'
     (csrc/flash_attention.cu), 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
-    'blk_flash_dkv' (csrc/block_flash_attention.cu), 'naive_spmm', and
-    'windowed_gather' and 'windowed_segsum' (both csrc/windowed.cu)."""
+    'blk_flash_dkv' (csrc/block_flash_attention.cu), 'naive_spmm',
+    'windowed_gather' and 'windowed_segsum' (both csrc/windowed.cu), and
+    'dia_spmv' (csrc/dia_spmv.cu)."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -74,7 +77,8 @@ def launches_by_kernel() -> dict:
     'resident_spmm_batched', 'compact_spmm', 'grouped_spmm',
     'footprint_spmm', 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq',
     'flash_dkv', 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
-    'blk_flash_dkv', 'naive_spmm', 'windowed_gather' and 'windowed_segsum'."""
+    'blk_flash_dkv', 'naive_spmm', 'windowed_gather', 'windowed_segsum' and
+    'dia_spmv'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
             "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}
@@ -87,6 +91,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "BlockAttnPlan",
+    "PackedDIA",
     "WindowedGatherPlan",
     "WindowedSegmentPlan",
     "blk_flash_dkv_kernel",
@@ -95,6 +100,9 @@ __all__ = [
     "block_flash_attention",
     "block_flash_attention_diff",
     "compact_spmm_kernel",
+    "dia",
+    "dia_spmv",
+    "dia_spmv_kernel",
     "ell_pack",
     "flash_attention",
     "flash_attention_diff",
@@ -112,6 +120,7 @@ __all__ = [
     "launches_by_kernel",
     "naive_spmm",
     "naive_spmm_kernel",
+    "pack_dia_operator",
     "quantize_kv",
     "reset_launch_counts",
     "resident_spmm_batched_kernel",

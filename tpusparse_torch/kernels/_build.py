@@ -28,7 +28,7 @@ BUILD_DIR = _PKG.parent / "build" / "tpusparse_torch"
 SOURCES = ("block_ell_spmm", "sddmm", "gemm", "flash_attention", "block_flash_attention",
            "block_ell_spmm_int8", "gemm_s8", "flash_attention_q8", "naive_spmm",
            "block_ell_spmm_batched", "block_ell_spmm_compact", "block_ell_spmm_grouped",
-           "block_ell_spmm_footprint", "windowed")
+           "block_ell_spmm_footprint", "windowed", "dia_spmv")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -8,8 +8,9 @@ backward), l.332-455 (`tiled_spmm`, `spmm_blocks` with its backward),
 l.464-490 and l.740-823 (`naive_spmm` with its sum VJP, `resolve_ell_width`,
 `ell_pack_traced`), l.554-597 (`_fold_cols`, `_unfold_cols`, `_fold_batch`),
 l.605 (`_check_spmm_b`), l.831-867 (`sddmm`), l.504-534 and l.616
-(`gather_spmm`), l.880-946 (`transpose_csr`, `dsmm`) and l.1173-1311
-(`spmm`).
+(`gather_spmm`), l.606-740 (`_dia_pattern`, `dia_spmm`), l.880-946
+(`transpose_csr`, `dsmm`), l.967-1170 (the cost constants and the router
+`_route_spmm` of method='auto') and l.1173-1311 (`spmm`).
 
 Every op is a `torch.autograd.Function` whose backward runs on the port's
 kernels, with the JAX package's gradient algebra:
@@ -28,6 +29,9 @@ kernels, with the JAX package's gradient algebra:
                     here: no Pallas kernel on either side); the naive
                     forward runs the naive SpMM kernel (kernels/naive_spmm.py),
                     its other reducers are forward only, as in JAX
+  dia_spmm          torch autograd through the shifted slices; the wide-DIA
+                    kernel path through `kernels.dia.dia_spmv` (plain torch
+                    backward)
 
 A backward skips the products whose input needs no gradient
 (`ctx.needs_input_grad`): a layer whose input is the data launches no dB.
@@ -60,19 +64,13 @@ from tpusparse_torch.types import (
     BSR,
     COO,
     CSR,
+    DIA,
     bsr_to_csr,
     coo_to_csr,
     sddmm_reference,
     spmm_reference,
 )
-
-# spmm methods of the JAX package that the port does not have yet, with the
-# ROADMAP item that brings each.
-_UNPORTED_METHODS = {
-    "auto": "the cost-model router _route_spmm (ROADMAP queue 1, item 7)",
-    "dia": "the DIA path (ROADMAP queue 1, item 6; queue 2, row 20)",
-}
-
+from tpusparse_torch.utils.config import get_config, round_up
 
 # ----------------------------------------------------------------------------
 # Dense ops: mm / transa_mm / transb_mm / transab_mm
@@ -462,6 +460,80 @@ def gather_spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
+# DIA: the banded product
+# ----------------------------------------------------------------------------
+
+_DIA_PATTERN_CACHE: dict = {}
+_SCAN_U = 32  # diagonals per chunk of the many-diagonal path (JAX's scan step)
+
+
+def _dia_pattern(a: CSR, max_offsets: int):
+    """Fingerprint-cached (offsets, slot, rows) of a CSR pattern's diagonal
+    decomposition, or None if it spreads over more than `max_offsets`
+    diagonals (tpusparse/ops.py:606-631). Host pattern work."""
+    indptr, indices = np.asarray(a.indptr), np.asarray(a.indices)
+    key = (_fingerprint(a.shape, (1, 1), indptr, indices), max_offsets)
+    if key in _DIA_PATTERN_CACHE:
+        return _DIA_PATTERN_CACHE[key]
+    m = a.shape[0]
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr))
+    offs_all = indices.astype(np.int64) - rows
+    offs = np.unique(offs_all)
+    hit = None
+    if offs.size <= max_offsets:
+        hit = (offs, np.searchsorted(offs, offs_all).astype(np.int32), rows.astype(np.int32))
+    _DIA_PATTERN_CACHE[key] = hit
+    return hit
+
+
+def dia_spmm(a: DIA, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B for a DIA operand: per diagonal, a shifted slice of the
+    zero-padded B times the diagonal's values, no index-driven access
+    (tpusparse/ops.py:634-740). Three paths, as in JAX:
+
+      up to 128 diagonals      the unrolled sum, in ascending offset order;
+      more, one column         the wide-DIA kernel (`kernels.dia.dia_spmv`),
+                               which sums in JAX's plane order, in fp32;
+      more, several columns    JAX's chunked scan: chunks of 32 diagonals,
+                               the last padded with zero rows at offset 0.
+
+    The torch paths sum in the promoted dtype of A and B. Slots past the
+    edge read the zero padding. Differentiable in both operands; a 1-D b is
+    one column, a 3-D b maps over its batch."""
+    from tpusparse_torch.kernels.dia import dia_spmv
+
+    if not isinstance(a, DIA):
+        raise TypeError(f"dia_spmm needs a DIA operand, got {type(a)}")
+    m, k = a.shape
+    if b.ndim == 1:
+        return dia_spmm(a, b[:, None])[:, 0]
+    if b.shape[-2] != k:
+        raise ValueError(
+            f"b shape {tuple(b.shape)} incompatible with sparse operand {a.shape} "
+            f"(need b.shape[-2] == {k})")
+    if b.ndim == 3:
+        return torch.stack([dia_spmm(a, bb) for bb in b])
+    offs = a.offsets
+    nd = offs.size
+    data = a.data.to(b.device)
+    if nd > 128 and b.shape[1] == 1:
+        return dia_spmv(data, offs, b[:, 0])[:, None]
+    lo = int(max(0, -offs.min(initial=0)))
+    hi = int(max(0, offs.max(initial=0) + m - k))
+    bp = torch.nn.functional.pad(b, (0, 0, lo, hi))
+    acc = torch.zeros((m, b.shape[1]), dtype=torch.promote_types(a.dtype, b.dtype),
+                      device=b.device)
+    starts = (offs + lo).tolist()
+    if nd > 128:  # the scan's padded tail: zero rows at offset 0
+        pad = (-nd) % _SCAN_U
+        starts += [lo] * pad
+        data = torch.nn.functional.pad(data, (0, 0, 0, pad))
+    for d, s in enumerate(starts):
+        acc = acc + data[d][:, None] * bp[s:s + m]
+    return acc
+
+
+# ----------------------------------------------------------------------------
 # Naive SpMM (the reducer kernel)
 # ----------------------------------------------------------------------------
 
@@ -568,6 +640,145 @@ def naive_spmm(a: CSR, b: torch.Tensor, reduce: str = "sum", return_arg: bool = 
 
 
 # ----------------------------------------------------------------------------
+# The cost-model router of method='auto'
+# ----------------------------------------------------------------------------
+
+# JAX's router constants (tpusparse/ops.py:967-991), fitted on TPU v5e
+# measurements. They are kept so that 'auto' picks the method JAX picks; they
+# are not times of the CUDA kernels (refitting them on the card is
+# `calibrate`'s work, ROADMAP queue 1, item 7). No calibration file is read.
+_COST_DEFAULTS = {
+    "gather_row_bw": 80e9,
+    "gather_per_nnz_floor": 15e-9,
+    "tiled_slot_overhead": 120e-9,
+    "tiled_bw": 600e9,
+    "densify_per_nnz": 9e-9,
+    "dense_fp32_flops": 43e12,
+    "pack_per_nnz": 5e-9,
+    "dia_bw": 480e9,
+}
+_COST = dict(_COST_DEFAULTS)
+# the TPU constants the JAX router also reads: v5e's HBM rate
+# (tpusparse/plan.py:50-54, not the port's H100 `plan._ROOFLINE`) and the
+# VMEM budget of its resident executors (tpusparse/utils/config.py:44,
+# kernels/tiled_spmm.py:262-271, 495-505)
+_TPU_HBM_BANDWIDTH = 819e9
+_TPU_VMEM_LIMIT_BYTES = 64 * 1024 * 1024
+_ROUTE_CACHE: dict = {}
+
+
+def get_cost_constants() -> dict:
+    """The router's cost-model constants in effect (a copy)."""
+    return dict(_COST)
+
+
+def set_cost_constants(**kwargs) -> dict:
+    """Override router cost constants; unknown keys raise. Clears the route
+    cache so that new decisions apply."""
+    for k_, v in kwargs.items():
+        if k_ not in _COST:
+            raise KeyError(f"unknown cost constant {k_!r}; known: {sorted(_COST)}")
+        _COST[k_] = float(v)
+    _ROUTE_CACHE.clear()
+    return dict(_COST)
+
+
+def _tpu_resident_vmem_bytes(bm: int, bk: int, nbc: int, bn: int) -> int:
+    """VMEM of JAX's resident executor at ELL width 0, as its router sizes it
+    (tiled_spmm.py:262-271)."""
+    return nbc * bk * bn * 4 + 2 * bm * bn * 4
+
+
+def _tpu_resident_batched_vmem_bytes(bm: int, bk: int, nbc: int, num_slots: int,
+                                     bn: int) -> int:
+    """VMEM of JAX's batched resident executor (tiled_spmm.py:495-505)."""
+    return 2 * nbc * bk * bn * 4 + num_slots * bm * bk * 4 + 2 * bm * bn * 4
+
+
+def _route_spmm(a: CSR, b: torch.Tensor, blocksize: Optional[Tuple[int, int]]) -> str:
+    """The method of spmm(method='auto'), from JAX's host cost model
+    (tpusparse/ops.py:1041-1170): 'tiled', 'gather', 'dense' or 'dia',
+    whichever projects the least time for this pattern and b."""
+    cfg = get_config()
+    indptr, indices = np.asarray(a.indptr), np.asarray(a.indices)
+    m, k = a.shape
+    bm, bk = blocksize or (cfg.spmm_block_m, cfg.spmm_block_k)
+    n = int(b.shape[-1])
+    if b.ndim == 3:
+        n = int(b.shape[0]) * n  # the batch folds into columns
+    key = (_fingerprint(a.shape, (bm, bk), indptr, indices), n,
+           int(b.shape[-1]) if b.ndim == 3 else 0)
+    hit = _ROUTE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr))
+    nbc = (k + bk - 1) // bk
+    nblocks = int(np.unique((rows // bm) * nbc + indices // bk).size)
+    nnz = int(indices.shape[0])
+    fold_copy_s = 0.0
+    if b.ndim == 3:
+        n_elem = int(b.shape[-1])
+        bn_e = min(cfg.spmm_block_n, round_up(n_elem, 128))
+        batched_ok = (
+            nblocks >= nbc
+            and round_up(n_elem, 128) >= 256
+            and _tpu_resident_batched_vmem_bytes(bm, bk, nbc, nblocks, bn_e)
+            <= _TPU_VMEM_LIMIT_BYTES
+        )
+        if not batched_ok:
+            fold_copy_s = 2.0 * (k * n + m * n) * 4.0 / _TPU_HBM_BANDWIDTH
+    t_gather = (
+        nnz * max(n * 8.0 / _COST["gather_row_bw"], _COST["gather_per_nnz_floor"])
+        + fold_copy_s
+    )
+    bn_eff = min(cfg.spmm_block_n, n)
+    resident_ok = (
+        nblocks >= nbc
+        and _tpu_resident_vmem_bytes(bm, bk, nbc, bn_eff) <= _TPU_VMEM_LIMIT_BYTES
+    )
+    b_bytes = min(nblocks * bk, k) * n if resident_ok else nblocks * bk * n
+    tiled_bytes = (b_bytes + nblocks * bm * bk + m * n * 2) * 4.0
+    t_tiled = (
+        max(tiled_bytes / _COST["tiled_bw"],
+            nblocks * _COST["tiled_slot_overhead"] * max(n // 512, 1))
+        + nnz * _COST["pack_per_nnz"]
+        + fold_copy_s
+    )
+    t_dense = (
+        max(2.0 * m * k * n / _COST["dense_fp32_flops"],
+            (m * k + k * n + m * n) * 4.0 / _TPU_HBM_BANDWIDTH)
+        + nnz * _COST["densify_per_nnz"]
+        + m * k * 4.0 / _TPU_HBM_BANDWIDTH
+    )
+    candidates = [(t_tiled, "tiled"), (t_gather, "gather"), (t_dense, "dense")]
+    pat = _dia_pattern(a, max_offsets=128)
+    if pat is not None:
+        noff = int(pat[0].size)
+        t_dia = noff * m * (n + 2) * 4.0 / _COST["dia_bw"] + nnz * _COST["pack_per_nnz"]
+        candidates.append((t_dia, "dia"))
+    method = min(candidates)[1]
+    _ROUTE_CACHE[key] = method
+    return method
+
+
+def _csr_dia_spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
+    """spmm(method='dia') on a CSR: its values go into the plane by one
+    index-put over (slot, rows), so the gradient reaches them."""
+    pat = _dia_pattern(a, max_offsets=128)
+    if pat is None:
+        raise ValueError(
+            "method='dia' needs a banded pattern (<= 128 distinct diagonals); "
+            "use csr_to_dia/gather")
+    offs, slot, rows = pat
+    dev = b.device
+    idx = (torch.from_numpy(slot.astype(np.int64)).to(dev),
+           torch.from_numpy(rows.astype(np.int64)).to(dev))
+    data = torch.zeros((offs.size, a.shape[0]), dtype=a.dtype, device=dev).index_put(
+        idx, a.data.to(dev))
+    return dia_spmm(DIA(data=data, offsets=offs, shape=a.shape), b)
+
+
+# ----------------------------------------------------------------------------
 # spmm: method dispatch
 # ----------------------------------------------------------------------------
 
@@ -587,23 +798,25 @@ def spmm(
     (the B-tile-reuse executor, a 3-D `b` folded), 'gather'
     (gather/scatter-add), 'dense' (densify, then `dense.matmul`:
     `torch.matmul`, or the GEMM kernel when the config asks for it),
-    'naive' (the naive kernel, with the reducer modes) and 'reference' (the
-    gather/segment oracle). A BSR operand is converted to CSR and its
-    blocksize becomes the plan's; a COO is converted to CSR. A 1-D `b` is
-    lifted to one column; leading dims past the third are folded into one
-    batch. reduce != 'sum' runs on 'naive' or 'reference' only.
-    return_arg=True (reduce 'min'/'max') also returns the int32 arg matrix.
-    The JAX default method 'auto' (the cost-model router) is not ported yet
-    (ROADMAP queue 1, item 7), so the port's default is 'tiled'; 'auto' and
-    'dia' raise NotImplementedError naming the item that brings them.
+    'naive' (the naive kernel, with the reducer modes), 'reference' (the
+    gather/segment oracle), 'dia' (the banded product `dia_spmm` of the
+    CSR's diagonals, at most 128) and 'auto' (JAX's cost-model router
+    `_route_spmm` picks 'tiled', 'gather', 'dense' or 'dia'; 'reference'
+    for the other reducers). A DIA operand runs `dia_spmm` (sum only). A
+    BSR operand is converted to CSR and its blocksize becomes the plan's; a
+    COO is converted to CSR. A 1-D `b` is lifted to one column; leading
+    dims past the third are folded into one batch. reduce != 'sum' runs on
+    'naive', 'reference' or 'auto' only. return_arg=True (reduce 'min'/'max')
+    also returns the int32 arg matrix. The default stays 'tiled' (JAX's is
+    'auto'): making 'auto' the default comes with `calibrate` (ROADMAP
+    queue 1, item 7).
     """
     if return_arg and reduce not in ("min", "max"):
         raise ValueError("return_arg is only meaningful for reduce='min'/'max'")
-    if method in _UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"spmm method {method!r} is not ported; it comes with "
-            f"{_UNPORTED_METHODS[method]}"
-        )
+    if isinstance(a, DIA):
+        if reduce != "sum":
+            raise ValueError(f"DIA operands support reduce='sum' only (got {reduce!r})")
+        return dia_spmm(a, b)
     if isinstance(a, BSR):
         blocksize = blocksize or a.blocksize  # the natural tile of a BSR
         a = bsr_to_csr(a)
@@ -620,7 +833,7 @@ def spmm(
         if return_arg:
             return tuple(o.reshape(lead + o.shape[-2:]) for o in out)
         return out.reshape(lead + out.shape[-2:])
-    if reduce != "sum" and method == "reference":
+    if reduce != "sum" and method in ("auto", "reference"):
         if b.ndim == 3:
             return _fold_batch(lambda bb: spmm_reference(a, bb, reduce, return_arg), b,
                                _gather_fold_cols(a.nnz))
@@ -630,8 +843,10 @@ def spmm(
         # explicitly requested reducer would be wrong values
         raise ValueError(
             f"method {method!r} supports reduce='sum' only (got {reduce!r}); "
-            "use method='naive' or 'reference'"
+            "use method='naive', 'reference' or 'auto'"
         )
+    if method == "auto":
+        method = _route_spmm(a, b, blocksize)
     if method == "tiled":
         return tiled_spmm(a, b, blocksize=blocksize)
     if method == "footprint":
@@ -640,6 +855,8 @@ def spmm(
         return resident_spmm(a, b, blocksize=blocksize)
     if method == "gather":
         return gather_spmm(a, b)
+    if method == "dia":
+        return _csr_dia_spmm(a, b)
     if method == "dense":
         dt = torch.promote_types(a.dtype, b.dtype)
         ad = a.to_dense().to(device=b.device, dtype=dt)
@@ -690,17 +907,15 @@ def dsmm(
 ) -> torch.Tensor:
     """Dense × sparse: X @ A with the sparse CSR A on the right, computed as
     (Aᵀ @ Xᵀ)ᵀ through `transpose_csr`, so it takes every `spmm` method and
-    its autograd (tpusparse/ops.py:923-946). A 1-D x is the vector-matrix
-    product xᵀA; an N-D x batches over its leading dims. The JAX default
-    method 'auto' is not ported yet (ROADMAP queue 1, item 7), so the
-    default is `spmm`'s, 'tiled'. A DIA operand comes with ROADMAP queue 1,
-    item 6."""
+    its autograd (tpusparse/ops.py:923-946); a DIA operand is transposed as
+    a DIA. A 1-D x is the vector-matrix product xᵀA; an N-D x batches over
+    its leading dims. The default is `spmm`'s, 'tiled' (JAX's is 'auto')."""
     if x.ndim >= 1 and x.shape[-1] != a.shape[0]:
         raise ValueError(
             f"x shape {tuple(x.shape)} incompatible with right sparse operand "
             f"{a.shape} (need x.shape[-1] == {a.shape[0]})"
         )
-    at = transpose_csr(a)
+    at = a.transpose() if isinstance(a, DIA) else transpose_csr(a)
     if x.ndim == 1:
         return spmm(at, x, method=method, blocksize=blocksize)
     return spmm(at, x.transpose(-1, -2), method=method, blocksize=blocksize).transpose(-1, -2)

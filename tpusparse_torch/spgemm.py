@@ -261,9 +261,9 @@ def spgemm_plan(a: CSR, b: CSR) -> SpGEMMPlan:
     from tpusparse_torch.runtime import native
 
     _check_shapes(a, b)
-    a_indptr, a_indices = _host_pattern(a)
-    b_indptr, b_indices = _host_pattern(b)
-    key = _pair_key(a, b)
+    a_indptr, a_indices = _host_pattern(a, "spgemm")
+    b_indptr, b_indices = _host_pattern(b, "spgemm")
+    key = _pair_key(a, b, "spgemm")
     hit = _PLAN_CACHE.get(key)
     if hit is not None:
         return hit
@@ -369,13 +369,13 @@ _PATTERN_CACHE: dict = {}
 def _c_pattern(a: CSR, b: CSR):
     """C's CSR pattern only, for the dense route: (indices, indptr, rows),
     by scipy's boolean product, cached by the pair of fingerprints."""
-    key = _pair_key(a, b)
+    key = _pair_key(a, b, "spgemm")
     hit = _PATTERN_CACHE.get(key)
     if hit is not None:
         return hit
     import scipy.sparse as ssp
 
-    (ap, ai), (bp, bi) = _host_pattern(a), _host_pattern(b)
+    (ap, ai), (bp, bi) = _host_pattern(a, "spgemm"), _host_pattern(b, "spgemm")
     sa = ssp.csr_matrix((np.ones(ai.size, np.int8), ai, ap), shape=a.shape)
     sb = ssp.csr_matrix((np.ones(bi.size, np.int8), bi, bp), shape=b.shape)
     pat = (sa.astype(bool) @ sb.astype(bool)).tocsr()

@@ -3,12 +3,16 @@
 Counterpart of `tpusparse/types.py` (`COO` l.44-106, `CSR` l.109-305, `BSR`
 l.307-389, `coo_to_csr`/`csr_to_coo` l.419-455, `csr_to_bsr`/`bsr_to_csr`
 l.456-513, `random_coo`/`random_csr`/`random_powerlaw_csr` l.516-585,
-`spmm_reference` l.586-645, `sddmm_reference` l.646-660), with CSR's
+`spmm_reference` l.586-645, `sddmm_reference` l.646-660, `DIA` l.663-851,
+`csr_to_dia`/`dia_to_csr` l.854-906), with CSR's
 operators (l.230-281): `@` (`spmm` for a dense operand, `spgemm` for a
 CSR), `+`, `-` and `*` (`sp_add`, `sp_sub`, `sp_hadamard` for a CSR; a
 scalar scales) and negation. Plain dataclasses: the values are a torch
 tensor on the caller's device, the index arrays stay host numpy int32, as the JAX plans
-keep them, because the inspector (`plan.py`) runs on the host.
+keep them, because the inspector (`plan.py`) runs on the host. DIA keeps
+its offsets as host int64, sorted and unique; where JAX branches on traced
+values (a device scatter or gather), the port takes the autograd-preserving
+torch op (an index-put into the plane, a gather out of it).
 """
 
 from __future__ import annotations
@@ -441,3 +445,183 @@ def sddmm_reference(a_pattern: CSR, x: torch.Tensor, y: torch.Tensor) -> torch.T
     rows = torch.from_numpy(a_pattern.row_ids().astype(np.int64)).to(dev)
     cols = torch.from_numpy(a_pattern.indices.astype(np.int64)).to(dev)
     return (x[rows] * y[:, cols].transpose(0, 1)).sum(dim=1)
+
+
+@dataclass(frozen=True)
+class DIA:
+    """Diagonal-format sparse matrix (banded storage, row-centric).
+
+    ``data[d, i] = A[i, i + offsets[d]]``: data (noffsets, nrows) tensor;
+    slots whose column i + offsets[d] falls outside [0, ncols) are
+    structural zeros. ``offsets`` is host numpy int64, sorted ascending and
+    unique. scipy's dia_matrix stores column-centric
+    (``data[d, j] = A[j - offsets[d], j]``); from_scipy/to_scipy convert."""
+
+    data: torch.Tensor
+    offsets: np.ndarray
+    shape: Shape2
+
+    def __post_init__(self):
+        offs = np.asarray(self.offsets, np.int64)
+        if offs.ndim != 1 or (np.diff(offs) <= 0).any():
+            raise ValueError("DIA offsets must be 1-D, sorted, unique")
+        object.__setattr__(self, "offsets", offs)
+        object.__setattr__(self, "shape", _static_shape(self.shape))
+
+    @property
+    def noffsets(self) -> int:
+        return int(self.offsets.shape[0])
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def bandwidth(self) -> int:
+        return int(np.abs(self.offsets).max(initial=0))
+
+    def _valid_mask(self) -> np.ndarray:
+        """(noffsets, m) bool: which slots map to in-bounds columns."""
+        m, k = self.shape
+        j = np.arange(m, dtype=np.int64)[None, :] + self.offsets[:, None]
+        return (j >= 0) & (j < k)
+
+    def transpose(self) -> "DIA":
+        """Aᵀ as DIA: offsets negate (re-sorted ascending, so the rows come
+        in reverse) and each diagonal's values shift, Aᵀ[j, j - off] =
+        A[j - off, j] = data[d, j - off]. One gather out of the plane,
+        differentiable in `data`; slots past the edge are zero."""
+        m, k = self.shape
+        nd = self.noffsets
+        off = self.offsets[::-1][:, None]  # new row d' is old row nd-1-d'
+        j = np.arange(k, dtype=np.int64)[None, :]
+        src = j - off
+        valid = (src >= 0) & (src < m)
+        flat = (np.arange(nd - 1, -1, -1, dtype=np.int64)[:, None] * m
+                + np.where(valid, src, 0))
+        dev = self.data.device
+        vals = self.data.reshape(-1)[torch.from_numpy(flat).to(dev)]
+        data = torch.where(torch.from_numpy(valid).to(dev), vals, torch.zeros((), dtype=self.dtype,
+                                                                             device=dev))
+        return DIA(data=data, offsets=np.sort(-self.offsets[::-1]), shape=(k, m))
+
+    @property
+    def T(self) -> "DIA":
+        return self.transpose()
+
+    @classmethod
+    def from_dense(cls, mat, device=None) -> "DIA":
+        mat = _host(mat)
+        m, k = _static_shape(mat.shape)
+        i, j = np.nonzero(mat)
+        offs = np.unique(j.astype(np.int64) - i.astype(np.int64))
+        data = np.zeros((offs.size, m), mat.dtype)
+        data[np.searchsorted(offs, j.astype(np.int64) - i), i] = mat[i, j]
+        return cls(data=torch.from_numpy(data).to(resolve_device(device)), offsets=offs,
+                   shape=(m, k))
+
+    def to_dense(self) -> torch.Tensor:
+        m, k = self.shape
+        d_idx, i_idx = np.nonzero(self._valid_mask())
+        dev = self.data.device
+        rows = torch.from_numpy(i_idx).to(dev)
+        cols = torch.from_numpy(i_idx + self.offsets[d_idx]).to(dev)
+        vals = self.data[torch.from_numpy(d_idx).to(dev), rows]
+        return torch.zeros((m, k), dtype=self.dtype, device=dev).index_put((rows, cols), vals)
+
+    def report(self, n_cols: int = 256, dtype_bytes: int = 4) -> dict:
+        """Stats and projected roofline, the contract of `Plan.report`, on
+        the port's H100 constants (`plan._ROOFLINE`). The DIA product
+        streams: per diagonal it reads the (m,) value row and an (m, n)
+        shifted slab of B, and writes the (m, n) output once."""
+        from tpusparse_torch.plan import _ROOFLINE
+
+        m, k = self.shape
+        stored = self.noffsets * m
+        nnz = int(self._valid_mask().sum())
+        bytes_moved = float(dtype_bytes * (stored + stored * n_cols + m * n_cols))
+        t = bytes_moved / _ROOFLINE["hbm_bandwidth"]
+        useful = 2.0 * nnz * n_cols
+        return {
+            "format": "dia",
+            "noffsets": float(self.noffsets),
+            "bandwidth": float(self.bandwidth),
+            "nnz": float(nnz),
+            "density": nnz / float(m * k),
+            "pad_overhead": stored / max(nnz, 1) - 1.0,
+            "useful_flops": useful,
+            "bytes_moved": bytes_moved,
+            "arithmetic_intensity": useful / bytes_moved,
+            "projected_time_s": t,
+            "projected_gflops_effective": useful / t / 1e9,
+            "projected_nnz_per_s": nnz * n_cols / t,
+            "bound": "memory",
+        }
+
+    @classmethod
+    def from_scipy(cls, sp, device=None) -> "DIA":
+        sp = sp.todia()
+        offs = np.asarray(sp.offsets, np.int64)
+        order = np.argsort(offs)
+        m, k = _static_shape(sp.shape)
+        data = np.zeros((offs.size, m), sp.data.dtype)
+        # scipy trims its data width to col.max() + 1 when trailing columns
+        # are empty: clamp j to what is stored
+        width = sp.data.shape[1]
+        for out_d, d in enumerate(order):
+            off = int(offs[d])
+            j = np.arange(max(0, off), min(k, m + off, width), dtype=np.int64)
+            data[out_d, j - off] = sp.data[d, j]
+        return cls(data=torch.from_numpy(data).to(resolve_device(device)),
+                   offsets=offs[order], shape=(m, k))
+
+    def to_scipy(self):
+        import scipy.sparse as ssp
+
+        m, k = self.shape
+        ours = _host(self.data)
+        data = np.zeros((self.noffsets, k), ours.dtype)
+        for d, off in enumerate(self.offsets):
+            off = int(off)
+            j = np.arange(max(0, off), min(k, m + off), dtype=np.int64)
+            data[d, j] = ours[d, j - off]
+        return ssp.dia_matrix((data, self.offsets), shape=self.shape)
+
+
+def csr_to_dia(a: CSR, max_offsets: int = 128) -> DIA:
+    """CSR -> DIA by a host pattern pass; the values go into the plane by
+    one index-put on their device, differentiable in `a.data`. Raises when
+    the pattern spreads over more than `max_offsets` distinct diagonals."""
+    m, k = a.shape
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(a.indptr))
+    offs_all = np.asarray(a.indices).astype(np.int64) - rows
+    offs = np.unique(offs_all)
+    if offs.size > max_offsets:
+        raise ValueError(
+            f"pattern has {offs.size} distinct diagonals (> {max_offsets}); "
+            "not a banded matrix — use CSR executors"
+        )
+    dev = a.data.device
+    idx = (torch.from_numpy(np.searchsorted(offs, offs_all)).to(dev),
+           torch.from_numpy(rows).to(dev))
+    data = torch.zeros((offs.size, m), dtype=a.dtype, device=dev).index_put(idx, a.data)
+    return DIA(data=data, offsets=offs, shape=a.shape)
+
+
+def dia_to_csr(a: DIA) -> CSR:
+    """DIA -> CSR keeping every valid slot as a structural entry; the values
+    are one gather out of the plane, differentiable in `a.data`."""
+    m, k = a.shape
+    d_idx, i_idx = np.nonzero(a._valid_mask())
+    cols = i_idx + a.offsets[d_idx]
+    order = np.lexsort((cols, i_idx))
+    d_idx, i_idx, cols = d_idx[order], i_idx[order], cols[order]
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(i_idx, minlength=m), out=indptr[1:])
+    dev = a.data.device
+    return CSR(
+        data=a.data[torch.from_numpy(d_idx).to(dev), torch.from_numpy(i_idx).to(dev)],
+        indices=cols.astype(np.int32),
+        indptr=indptr.astype(np.int32),
+        shape=a.shape,
+    )
