@@ -29,21 +29,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
      blocksizes (8, 16), (32, 8) and (128, 128) (ragged m, k, n, an empty
      row-block, pad slots; both entry points bitwise equal to each other
      and to the plain version), gemm_s8 at (100, 70, 33), (64, 37, 50) and
-     4096^3 (int32 equal), flash_q8 at the flash cases' six shapes with fp32
-     and bf16 q; naive_spmm with every reducer and the arg of max and min
-     (ragged m, n 1, 7, 64 and 300, empty rows, one long row, tied products,
-     a bf16 b; values and args bitwise equal to the plain version); the
+     4096^3 (int32 equal), flash_q8 at the flash cases' six shapes, a
+     causal seq 1000 and q and kv offsets together, with fp32 and bf16 q;
+     naive_spmm with every reducer and the arg of max and min (ragged m,
+     n 1, 7, 64 and 300, empty rows, one long row, tied products, a bf16
+     b; values and args bitwise equal to the plain version); the
      seven attention entry points at head dims 192, 256 and 200 (causal with
      and without offsets, a 'bigbird' plan for the block kernels; fp32
      'high', 'default' and bf16); the batched, compact, grouped and
      footprint kernels at blocksizes (8, 32), (32, 16), (64, 64) and
      (128, 128), ragged m/k/n, empty row-blocks, batch 1 and 5, fp32 'high'
      and 'default' and bf16: the batched kernel bitwise equal to the 2-D
-     kernel on every B[g] and on the folded B, the other three bitwise
-     equal to block_ell_spmm on the base plan; windowed_gather and
-     windowed_segsum on six index maps (local with far outliers, a single
-     far read, fully scattered, empty segments with n and the segment count
-     off the 1024 padding, a table shorter than its window, the segment
+     kernel on every B[g] and on the folded B, the other three (the
+     footprint kernel in both its variants) bitwise equal to block_ell_spmm
+     on the base plan; windowed_gather and windowed_segsum on six index
+     maps (local with far outliers, a single far read, fully scattered,
+     empty segments with n and the segment count off the 1024 padding, a
+     table shorter than its window, the segment
      plan's W = 4096), each in fp32, bf16 and fp16, bitwise equal to their
      plain versions, and a chunked accumulation forced with a small target
      bitwise equal to the whole one; dia_spmv bitwise equal to its plain
@@ -191,9 +193,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the most time); the int8 kernels at the main path's shapes against
      their plain versions, bounds and yardsticks (a bf16 torch.matmul of the
      dequantized dense A, torch._int_mm, bf16 SDPA), spmm_int8 also with
-     quantize_columns and beside the fp32 block_ell_spmm; GPT ms per token
-     and tokens/s per tier and batch ((96-step - 16-step generate) / 80)
-     against the HBM bound, and the device's busy share of a decode step
+     quantize_columns and beside the fp32 block_ell_spmm, flash_q8 (bf16
+     tensor cores) beside its first port's time and its bound's fraction;
+     GPT ms per token and tokens/s per tier and batch ((96-step - 16-step
+     generate) / 80) against the HBM bound, and the device's busy share of a decode step
      (torch.profiler kernel time over the per-token time); naive_spmm at
      the arxiv-shaped A-hat (sum at n 256 and 40, max with its arg) against
      its plain version, gather_spmm and torch.sparse.mm on a CSR tensor; ms
@@ -204,10 +207,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      broadcast over the batch and its bound, each step's time and a
      torch.profiler breakdown of it; the plan executors beside
      block_ell_spmm, their plain versions, torch.matmul of the dense A,
-     torch.sparse.mm (low-fill plan) and their bound, the footprint plan's
-     B-tile fetches against the slots, and the footprint step's time with
-     the host's plan lookups; SpGEMM's forward and forward+backward with
-     the plan held and looked up, the 'dense' route, torch.sparse.mm of two
+     torch.sparse.mm (low-fill plan) and their bound, the footprint kernel
+     beside its first port's time and its bound's fraction, the footprint
+     plan's B-tile fetches against the slots and the kernel's thread blocks
+     a super, and the footprint step's
+     time with the host's plan lookups; SpGEMM's forward and
+     forward+backward with the plan held and looked up, the 'dense' route, torch.sparse.mm of two
      CSR tensors (cuSPARSE, a yardstick), a torch.profiler breakdown of the
      forward+backward, both windowed kernels on the 16384^2 case's maps
      against their plain versions, torch.index_select / index_add_ and
@@ -273,6 +278,13 @@ STEP_LAUNCHES = {
 # (2^-8..2^-7) apart: 1e-2.
 FLASH_LIMIT_FP32 = 1e-5
 FLASH_LIMIT_ROUNDED = 1e-2
+# Times of the kernels' first ports (FFMA flash_q8; shared-memory footprint
+# accumulators), ms, measured by this script before their redesign on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md: its kernel table, rows 8 and
+# 19, and PR 9's last run for the seq-4096 shape); printed beside the new.
+OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.793,
+          "flash_q8 d 256": 0.414, "footprint_spmm headline": 21.870,
+          "footprint_spmm low-fill": 7.981}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
 BERT_SEQS = (128, 512)
@@ -1258,20 +1270,23 @@ def phase_small_int8() -> None:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"gemm_s8 ({m}, {k}, {n}) disagrees with its plain version")
-    # name, (bh, s, d), causal, q_offset (rows 256:512 of a causal attention
-    # against keys 0:256)
+    # name, (bh, s, d), causal, q_offset, kv_offset (rows 256:512 of a causal
+    # attention against keys 0:256; the tile edges of the tensor-core kernel)
     q8_cases = [
-        ("2x3x256x64", (6, 256, 64), False, 0),
-        ("causal_1x2x384x64", (2, 384, 64), True, 0),
-        ("ragged_1x1x200x64", (1, 200, 64), False, 0),
-        ("narrow_2x4x128x24", (8, 128, 24), False, 0),
-        ("wide_1x2x128x128", (2, 128, 128), True, 0),
-        ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256),
+        ("2x3x256x64", (6, 256, 64), False, 0, 0),
+        ("causal_1x2x384x64", (2, 384, 64), True, 0, 0),
+        ("ragged_1x1x200x64", (1, 200, 64), False, 0, 0),
+        ("narrow_2x4x128x24", (8, 128, 24), False, 0, 0),
+        ("wide_1x2x128x128", (2, 128, 128), True, 0, 0),
+        ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256, 0),
+        ("ragged_causal_1x2x1000x64", (2, 1000, 64), True, 0, 0),
+        ("offsets_1x2x256x40_q192_kv64", (2, 256, 40), True, 192, 64),
     ]
-    for seed, (name, shape, causal, q_off) in enumerate(q8_cases):
+    for seed, (name, shape, causal, q_off, kv_off) in enumerate(q8_cases):
         q, k, v, _ = _flash_operands(shape, 960 + seed)
         kq, ks, vq, vs = fa.quantize_kv(k, v)
-        kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off)
+        kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
+                  kv_offset=kv_off)
         for dtype in (torch.float32, torch.bfloat16):
             got = fa.flash_q8_kernel(q.to(dtype), kq, vq, ks, vs, **kw)
             want = fa._flash_q8_plain(q.to(dtype), kq, vq, ks, vs, **kw)
@@ -1483,11 +1498,13 @@ def phase_int8_timings(r, plan, bv, b) -> dict:
         ops = 4.0 * scores * d
         nbytes = bh * s * d * (4 + 1 + 1 + 4) + 8.0 * bh
         bms, by = bound(ops, nbytes, BF16_FLOPS)
-        print(f"flash_q8 {shape} causal={causal}: kernel {ms:.4f} ms queued, plain "
-              f"{plain_ms:.4f} ms, flash_fwd 'default' on the fp32 k, v {fwd_ms:.4f} ms, sdpa "
-              f"bf16 on the dequantized k, v ({backend.name}) {lib_ms:.4f} ms; bound "
-              f"{bms:.4f} ms by {by} ({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); kernel "
-              f"vs plain over scale {err[1]:.2e}")
+        old = OLD_MS[f"flash_q8 {shape}"]
+        print(f"flash_q8 {shape} causal={causal}: kernel {ms:.4f} ms queued (first port "
+              f"{old:.3f}: {old / ms:.2f}x), plain {plain_ms:.4f} ms, flash_fwd 'default' on "
+              f"the fp32 k, v {fwd_ms:.4f} ms, sdpa bf16 on the dequantized k, v "
+              f"({backend.name}) {lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f}); bound "
+              f"{bms:.4f} ms by {by} ({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+              f"{bms / ms:.3f} of it; kernel vs plain over scale {err[1]:.2e}")
         if q8_row is None:  # the first shape, the causal serving batch, is the row's
             q8_row = {
                 "name": "flash_q8", "route": "cuda",
@@ -2180,10 +2197,13 @@ def phase_wide_timings() -> None:
         key = "q8" if name == "flash_q8" else ("masked" if name.startswith("blk") else "full")
         fwd_ms, bwd_ms, backend = lib[key]
         lib_ms = fwd_ms if name.endswith(("fwd", "q8")) else bwd_ms
+        was = (f" (first port {OLD_MS['flash_q8 d 256']:.3f})" if name == "flash_q8" and d == 256
+               else "")
         print(f"{name} {WIDE_SHAPE} d {d} ({'bigbird block 64, ' if key == 'masked' else ''}"
-              f"{'int8 K/V' if key == 'q8' else 'fp32 high'}): kernel {ms:.4f} ms queued, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP), kernel "
-              f"at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; sdpa ({backend}) "
+              f"{'int8 K/V' if key == 'q8' else 'fp32 high'}): kernel {ms:.4f} ms queued{was}, "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP), "
+              f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bms / ms:.3f} of the bound; "
+              f"sdpa ({backend}) "
               f"{'forward' if name.endswith(('fwd', 'q8')) else 'autograd backward'} "
               f"{lib_ms:.4f} ms")
     print(f"d {d} kernel vs plain over scale: flash " + ", ".join(
@@ -2266,7 +2286,6 @@ def phase_small_plan_executors() -> None:
                     raise AssertionError(f"{entry} {label}: not bitwise equal to block_ell_spmm")
                 _check_case(f"{entry} {label}", got, want,
                             ", bitwise equal to block_ell_spmm on the base plan")
-
 
 def _batched_operands(kind, shape, density, bshape, seed):
     import tpusparse_torch as tt
@@ -2444,8 +2463,8 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
               + (f", torch.sparse.mm (CSR) {sparse_ms:.4f} ms" if sparse_ms is not None else "")
               + f"; bound {bms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); footprint plan: {fp.ntiles} B-tile fetches for "
-              f"{pp.nblocks} slots ({pp.nblocks / max(fp.ntiles, 1):.2f}x fewer), n-tile "
-              f"{tk.footprint_tile(fp, n)[0]}")
+              f"{pp.nblocks} slots ({pp.nblocks / max(fp.ntiles, 1):.2f}x fewer); footprint "
+              f"kernel: {tk.footprint_tile(fp)} thread blocks a super")
         for e, (dp, fn) in derived.items():
             same = _same(outs[e], base)
             err, rel = over_scale(outs[e], tk._PLAIN[e](dp, packed[e], bb))
@@ -2457,6 +2476,12 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
             if not (same and rel <= HEADLINE_TOL and bool(torch.isfinite(outs[e]).all())):
                 raise AssertionError(f"{e} {label}: disagrees with its plain version or with "
                                      "block_ell_spmm")
+            if e == "footprint_spmm":  # against its first port
+                old = OLD_MS[f"{e} {label}"]
+                print(f"  {e} {label}: {ms:.4f} ms (first port {old:.3f}: {old / ms:.2f}x; "
+                      f"torch.matmul dense {dense_ms:.4f}"
+                      + (f", torch.sparse.mm {sparse_ms:.4f}" if sparse_ms is not None else "")
+                      + f"), at {bms / ms:.3f} of its bound {bms:.4f} ms")
             if label == "headline":
                 rows[e] = {"name": e, "route": "cuda",
                            "source": f"tpusparse_torch/csrc/block_ell_spmm_"

@@ -534,16 +534,25 @@ def test_gemm_s8_kernel_equals_plain(cuda, shape):
     assert got.dtype == torch.int32 and torch.equal(got, gk._gemm_int8_plain(a, b))
 
 
-# (bh, s, d), causal, q_offset
+# (bh, s, d), causal, q_offset, kv_offset
 Q8_CASES = {
-    "2x3x256x64": ((6, 256, 64), False, 0),
-    "causal_1x2x384x64": ((2, 384, 64), True, 0),
-    "ragged_1x1x200x64": ((1, 200, 64), False, 0),
-    "narrow_2x4x128x24": ((8, 128, 24), False, 0),
-    "wide_1x2x128x128": ((2, 128, 128), True, 0),
-    "offsets_1x1x256x64_q256": ((1, 256, 64), True, 256),
-    "wider_1x2x128x192": ((2, 128, 192), True, 0),
-    "wider_ragged_1x1x200x256": ((1, 200, 256), False, 0),
+    "2x3x256x64": ((6, 256, 64), False, 0, 0),
+    "causal_1x2x384x64": ((2, 384, 64), True, 0, 0),
+    "ragged_1x1x200x64": ((1, 200, 64), False, 0, 0),
+    "narrow_2x4x128x24": ((8, 128, 24), False, 0, 0),
+    "wide_1x2x128x128": ((2, 128, 128), True, 0, 0),
+    "offsets_1x1x256x64_q256": ((1, 256, 64), True, 256, 0),
+    "wider_1x2x128x192": ((2, 128, 192), True, 0, 0),
+    "wider_ragged_1x1x200x256": ((1, 200, 256), False, 0, 0),
+    # s off the 64-row q-tile, d at every instance, offsets together
+    "ragged_causal_1x2x200x40": ((2, 200, 40), True, 0, 0),
+    "ragged_causal_1x2x1000x64": ((2, 1000, 64), True, 0, 0),
+    "d16_1x2x256x16": ((2, 256, 16), True, 0, 0),
+    "d96_1x2x256x96": ((2, 256, 96), False, 0, 0),
+    "d256_causal_1x2x256x256": ((2, 256, 256), True, 0, 0),
+    "d320_chunked_1x2x200x320": ((2, 200, 320), True, 0, 0),
+    "offsets_q192_kv64_1x2x256x64": ((2, 256, 64), True, 192, 64),
+    "offsets_q100_kv30_1x1x200x40": ((1, 200, 40), True, 100, 30),
 }
 
 
@@ -553,12 +562,12 @@ def test_flash_q8_kernel_matches_plain(cuda, name, dtype):
     """p is rounded to bf16 against its tile's running max in the kernel and
     against the row max in the plain version: within FLASH_ROUNDED_LIMIT of
     scale."""
-    shape, causal, q_off = Q8_CASES[name]
+    shape, causal, q_off, kv_off = Q8_CASES[name]
     rng = np.random.default_rng(len(name))
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
                for _ in range(3))
     kq, ks, vq, vs = fa.quantize_kv(k, v)
-    kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off)
+    kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off, kv_offset=kv_off)
     fa.reset_launch_counts()
     got = fa.flash_q8_kernel(q.to(dtype), kq, vq, ks, vs, **kw)
     torch.cuda.synchronize()
@@ -811,9 +820,9 @@ def test_plan_executors_match_plain_and_block_ell_bitwise(cuda, name, dtype, pre
 
 
 def test_footprint_kernel_takes_every_n_tile(cuda):
-    """n of 5, 20, 40 and 300 give n-tiles of 8, 32, 64 and 64 columns
-    (and 16 at S 16 with 128 x 128 blocks): each bitwise equal to
-    block_ell_spmm."""
+    """n of 5, 20, 40 and 300 (one to five 64-column n-tiles, ragged) and
+    S 16 with 128 x 128 blocks (a super of 16 windows): each bitwise equal
+    to block_ell_spmm."""
     a, plan, _ = _plan_exec_inputs("ragged_8x32_n130_b3", cuda, torch.float32)
     rng = np.random.default_rng(8)
     for n in (5, 20, 40, 300):
@@ -823,10 +832,50 @@ def test_footprint_kernel_takes_every_n_tile(cuda):
         assert torch.equal(got, tk.tiled_spmm_kernel(plan, plan.pack_values(a.data), b)), n
     a, plan, b3 = _plan_exec_inputs("rowblock_128x128_n200_b1", cuda, torch.float32)
     fp = tt.footprint_plan(plan, 16)
-    assert tk.footprint_tile(fp, 200)[0] == 16
+    assert tk.footprint_tile(fp) == 16
     b = b3[0].contiguous()
     assert torch.equal(tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b),
                        tk.tiled_spmm_kernel(plan, plan.pack_values(a.data), b))
+
+
+# (m, k, n), blocksize, rows_per_super, rows left empty: a super of 16
+# 128-row row-blocks over 16 windows (the second super half full); S 5
+# of 48-row blocks (240 rows: the second window of a super is partial and
+# cuts a row-block); a super of S 4 whose rows are all empty
+FOOTPRINT_CASES = {
+    "s16_128x128_16_windows": ((3072, 640, 130), (128, 128), 16, None),
+    "s5_48x32_off_the_window": ((1000, 300, 70), (48, 32), 5, None),
+    "s4_32x16_empty_super": ((500, 200, 33), (32, 16), 4, (128, 256)),
+}
+
+
+@pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
+@pytest.mark.parametrize("name", sorted(FOOTPRINT_CASES))
+def test_footprint_windows_bitwise(cuda, name, dtype, precision):
+    """The footprint kernel's windows at their edges: bitwise equal to
+    block_ell_spmm on the base plan, within the tier of its plain version,
+    one launch."""
+    (m, k, n), bs, S, empty = FOOTPRINT_CASES[name]
+    rng = np.random.default_rng(m + S)
+    mask = rng.random((m, k)) < 0.08
+    if empty is not None:
+        mask[empty[0]:empty[1]] = False
+    a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32), device=cuda)
+    plan = tt.build_plan(a, bs)
+    fp = tt.footprint_plan(plan, S)
+    if empty is not None:
+        assert int(fp.nslots[1]) == 0
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
+    base = tk.tiled_spmm_kernel(plan, plan.pack_values(a.data.to(dtype)), b, precision=precision)
+    bv = fp.pack_values(a.data.to(dtype))
+    tk.reset_launch_counts()
+    got = tk.footprint_spmm_kernel(fp, bv, b, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {**NO_TK, "footprint_spmm": 1}
+    assert torch.equal(got, base)
+    want = tk._footprint_plain(fp, bv, b, precision=precision)
+    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def test_batched_train_step_launches_and_matches_cpu(cuda):

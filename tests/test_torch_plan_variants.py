@@ -289,23 +289,29 @@ def test_compact_executor_parity():
 
 
 def test_footprint_tile_fits_the_shared_memory():
-    """The footprint kernel's n-tile: 16 columns at the headline's S 16 and
-    128 x 128 blocks (128 KB of accumulators), 64 on a low-fill plan, and a
-    ValueError naming rows_per_super where even 8 columns do not fit, on the
-    CPU too (as JAX raises on its VMEM estimate)."""
+    """The footprint kernel's geometry: a block of 256 threads owns a
+    128-row window of a super and a 64-column n-tile, its accumulators in
+    registers and only two A and B chunks in shared memory. At the
+    headline's S 16 and 128 x 128 blocks a super is 16 blocks of one
+    row-block each; on a low-fill plan (S 16, blocks 8 x 32) one block of 16
+    row-blocks. So every rows_per_super fits (S 17 and 64, which the old
+    shared-memory accumulators could not hold, run on the CPU as the plain
+    version and match the dense product)."""
+    assert (tk.FOOTPRINT_ROWS, tk.FOOTPRINT_NTILE, tk.FOOTPRINT_THREADS) == (128, 64, 256)
     t = ttypes.random_csr(0, (4096, 512), 0.001, device="cpu")
     head = tplan.footprint_plan(tplan.build_plan(t, (128, 128)), 16)
-    ntile, tyn, smem = tk.footprint_tile(head, 512)
-    assert ntile == 16 and smem <= tk.MAX_SMEM_BYTES and ntile // 4 * tyn == 128
+    assert tk.footprint_tile(head) == 16
     low = tplan.footprint_plan(tplan.build_plan(t, (8, 32)), 16)
-    assert tk.footprint_tile(low, 256)[0] == 64
-    assert tk.footprint_tile(low, 5)[0] == 8  # no wider than n needs
-    big = tplan.footprint_plan(tplan.build_plan(t, (128, 128)), 64)
-    b = torch.zeros(512, 8)
-    with pytest.raises(ValueError, match="rows_per_super"):
-        tk.footprint_spmm_kernel(big, big.pack_values(t.data), b)
-    with pytest.raises(ValueError, match="rows_per_super"):
-        tops.footprint_spmm(t, b, blocksize=(128, 128), rows_per_super=64)
+    assert tk.footprint_tile(low) == 1
+    assert tk.footprint_tile(tplan.footprint_plan(tplan.build_plan(t, (48, 32)), 5)) == 2
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal((512, 8)).astype(np.float32))
+    for S in (17, 64):
+        big = tplan.footprint_plan(tplan.build_plan(t, (128, 128)), S)
+        assert tk.footprint_tile(big) == S
+        got = tk.footprint_spmm_kernel(big, big.pack_values(t.data), b)
+        np.testing.assert_allclose(got.numpy(), t.to_dense().numpy() @ b.numpy(), **TOL)
+    got = tops.footprint_spmm(t, b, blocksize=(128, 128), rows_per_super=64)
+    np.testing.assert_allclose(got.numpy(), t.to_dense().numpy() @ b.numpy(), **TOL)
 
 
 def test_executors_reject_what_they_do_not_take():

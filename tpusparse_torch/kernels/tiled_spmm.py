@@ -304,45 +304,24 @@ def footprint_spmm_kernel(
 ) -> torch.Tensor:
     """C = A @ B for a FootprintPlan; block_vals (fplan.num_slots, bm, bk)
     from `fplan.pack_values`. The counterpart of `footprint_spmm_pallas`
-    (tpusparse/kernels/tiled_spmm.py:1418). Raises ValueError where the
-    super-row's accumulators do not fit the card's shared memory even at the
-    narrowest n-tile (`footprint_tile`), on every device, as JAX raises on
-    its VMEM estimate. Bitwise equal to `tiled_spmm_kernel` on the plan
-    `fplan` derives from."""
-    footprint_tile(fplan, b.shape[-1])
+    (tpusparse/kernels/tiled_spmm.py:1418). Takes every plan: a thread block
+    owns a 128-row window of a super-row (`footprint_tile`). Bitwise equal
+    to `tiled_spmm_kernel` on the plan `fplan` derives from."""
     return _run_derived("footprint_spmm", fplan, block_vals, b, out_dtype, precision,
                         fplan.num_slots)
 
 
-# the footprint kernel's n-tiles, widest first, and its shared-memory limit
-FOOTPRINT_NTILES = (64, 32, 16, 8)
-MAX_SMEM_BYTES = 232448
-_TN = 4  # columns (and rows) of a thread's register tile
-_BK_T = 16  # k-chunk of the staged A block
+# the footprint kernel's geometry: a thread block of FOOTPRINT_THREADS owns a
+# window of FOOTPRINT_ROWS of a super's rows and FOOTPRINT_NTILE columns of C,
+# its accumulators in registers
+FOOTPRINT_ROWS, FOOTPRINT_NTILE, FOOTPRINT_THREADS = 128, 64, 256
 
 
-def footprint_tile(fplan: FootprintPlan, n: int):
-    """(ntile, thread rows, shared-memory bytes) of the footprint kernel for
-    B of width n: the widest n-tile (at most the next power of two of n)
-    whose accumulators for the super's S·bm rows, B tile and A chunk fit
-    the 227 KB a thread block may have. Raises ValueError when even the
-    narrowest does not fit."""
-    S, (bm, bk) = fplan.rows_per_super, fplan.blocksize
-    cap = max(8, 1 << max(int(n) - 1, 0).bit_length())
-    for ntile in FOOTPRINT_NTILES:
-        if ntile > cap and ntile != FOOTPRINT_NTILES[-1]:
-            continue
-        txn = ntile // _TN
-        tyn = min(256 // txn, cdiv(bm, _TN))
-        tyn = cdiv(tyn, 32 // txn) * (32 // txn)  # whole warps
-        smem = 4 * (S * bm * ntile + cdiv(bk, _BK_T) * _BK_T * ntile + _BK_T * (tyn * _TN + 4))
-        if smem <= MAX_SMEM_BYTES:
-            return ntile, tyn, smem
-    raise ValueError(
-        f"footprint plan needs {smem} bytes of shared memory at the narrowest n-tile "
-        f"({ntile}; limit {MAX_SMEM_BYTES}): lower rows_per_super (S={S}, blocksize "
-        f"{fplan.blocksize})"
-    )
+def footprint_tile(fplan: FootprintPlan) -> int:
+    """Thread blocks (FOOTPRINT_ROWS-row windows) of a super-row in the
+    footprint kernel. Any rows_per_super and any width of B fit: the grid
+    covers n in FOOTPRINT_NTILE-column tiles."""
+    return cdiv(fplan.rows_per_super * fplan.blocksize[0], FOOTPRINT_ROWS)
 
 
 def _run_derived(entry, dplan, block_vals, b, out_dtype, precision, num_slots):
@@ -370,10 +349,9 @@ def _run_derived(entry, dplan, block_vals, b, out_dtype, precision, num_slots):
         args = (idx("block_cols"), idx("local_rb"), idx("nslots"), m, k, n, bm, bk, nbr,
                 dplan.group_size, dplan.ell_width)
     else:
-        ntile, tyn, _ = footprint_tile(dplan, n)
-        args = (idx("ucols"), idx("nslots"), idx("lrow"), idx("bslot"), idx("newcol"),
+        args = (idx("ucols"), idx("nslots"), idx("lrow"), idx("bslot"),
                 m, k, n, bm, bk, nbr, dplan.rows_per_super, dplan.ell_width,
-                dplan.u_width, ntile, tyn)
+                dplan.u_width, footprint_tile(dplan))
     tail = (int(tier == "default"), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     _launch_c(entry, head + args + tail)
     return c
@@ -390,7 +368,7 @@ _C_ENTRY = {
     "compact_spmm": ("block_ell_spmm_compact", "compact_spmm", _HEAD + [_P] * 2 + [_I] * 6 + _TAIL),
     "grouped_spmm": ("block_ell_spmm_grouped", "grouped_spmm", _HEAD + [_P] * 3 + [_I] * 8 + _TAIL),
     "footprint_spmm": ("block_ell_spmm_footprint", "footprint_spmm",
-                       _HEAD + [_P] * 5 + [_I] * 11 + _TAIL),
+                       _HEAD + [_P] * 4 + [_I] * 10 + _TAIL),
 }
 
 

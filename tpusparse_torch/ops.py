@@ -353,9 +353,9 @@ def footprint_spmm(
     rows_per_super: int = 16,
 ) -> torch.Tensor:
     """B-tile-reuse SpMM on the footprint executor (`plan.FootprintPlan`):
-    one thread block owns `rows_per_super` row-blocks with their slots
-    sorted by column, so each distinct column's B tile is staged once per
-    super-row. A 3-D b folds into columns. Differentiable like
+    the slots of `rows_per_super` row-blocks sorted by column, walked by
+    thread blocks that each own a 128-row window of the super-row
+    (`footprint_tile`). A 3-D b folds into columns. Differentiable like
     `tiled_spmm`."""
     _check_spmm_b(a, b)
     plan, plan_t, t_perm = build_plan_pair(a, blocksize)
