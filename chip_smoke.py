@@ -13,7 +13,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      entry points, which must agree bitwise), sddmm (the same blocksizes,
      ragged m/k/n, an empty row-block whose pad slots must be exactly 0,
      fp32 'high'/'highest'/'default', bf16) and gemm (all four transpose
-     flags, ragged (100, 70, 33), fp32 'high' and 'default', bf16) and the
+     flags, ragged (100, 70, 33) in fp32 and bf16, 'high' and 'default',
+     and the MLP's n = 10 layer (32, 10, 256) in fp32; each run twice and
+     bitwise equal) and the
      three flash attention kernels (flash_fwd, flash_dq, flash_dkv) at
      (b, h, s, d) = (2, 3, 256, 64), causal (1, 2, 384, 64), ragged
      (1, 1, 200, 64), (2, 4, 128, 24), (1, 2, 128, 128) and a causal chunk
@@ -37,12 +39,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      seven attention entry points at head dims 192, 256 and 200 (causal with
      and without offsets, a 'bigbird' plan for the block kernels; fp32
      'high', 'default' and bf16); the batched, compact, grouped and
-     footprint kernels at blocksizes (8, 32), (32, 16), (64, 64) and
-     (128, 128), ragged m/k/n, empty row-blocks, batch 1 and 5, fp32 'high'
-     and 'default' and bf16: the batched kernel bitwise equal to the 2-D
-     kernel on every B[g] and on the folded B, the other three (the
-     footprint kernel in both its variants) bitwise equal to block_ell_spmm
-     on the base plan; windowed_gather and windowed_segsum on six index
+     footprint kernels at blocksizes (8, 32), (32, 16), (64, 64), (128, 128)
+     and (200, 16) (taller than a grouped window), ragged m/k/n, row-blocks
+     with no slot, batch 1 and 5, fp32 'high' and 'default' and bf16: the
+     batched kernel bitwise equal to the 2-D kernel on every B[g] and on the
+     folded B, the other three bitwise equal to block_ell_spmm on the base
+     plan; windowed_gather and windowed_segsum on six index
      maps (local with far outliers, a single far read, fully scattered,
      empty segments with n and the segment count off the 1024 padding, a
      table shorter than its window, the segment
@@ -178,7 +180,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
      MLP's, one training step per variant, and each kernel's bound from
-     this run's inputs; the flash kernels at (b, h, s, d) = (8, 12, 512, 64)
+     this run's inputs; gemm at 4096^3 in 'high' (3xTF32) beside its FFMA
+     predecessor's time and in 'default' against torch.matmul of the
+     bf16-rounded operands, each bound at the tensor-core rate its tier
+     uses, and with bf16 operands, held against its plain version first;
+     the flash kernels at (b, h, s, d) = (8, 12, 512, 64)
      and (8, 12, 128, 64) against their plain versions, their bounds and
      torch's scaled_dot_product_attention (forward, and its autograd
      backward) in fp32, with the SDPA backend named; the block kernels at
@@ -207,10 +213,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      broadcast over the batch and its bound, each step's time and a
      torch.profiler breakdown of it; the plan executors beside
      block_ell_spmm, their plain versions, torch.matmul of the dense A,
-     torch.sparse.mm (low-fill plan) and their bound, the footprint kernel
-     beside its first port's time and its bound's fraction, the footprint
-     plan's B-tile fetches against the slots and the kernel's thread blocks
-     a super, and the footprint step's
+     torch.sparse.mm (low-fill plan) and their bound, the footprint and
+     grouped kernels beside their first ports' times (the footprint also
+     beside its time before its tile was shared) and their bound's
+     fraction, the footprint plan's
+     B-tile fetches against the slots and the kernel's thread blocks a
+     super, the grouped kernel's grid at both plans, and the
+     footprint step's
      time with the host's plan lookups; SpGEMM's forward and
      forward+backward with the plan held and looked up, the 'dense' route, torch.sparse.mm of two
      CSR tensors (cuSPARSE, a yardstick), a torch.profiler breakdown of the
@@ -248,8 +257,17 @@ TOL_FP32 = dict(rtol=1e-4, atol=5e-5)
 # bf16 values, one bf16 ulp being 2^-8..2^-7 of the value.
 TOL_BF16_OUT = dict(rtol=1e-2, atol=1e-3)
 HEADLINE_TOL = 1e-5  # max |kernel - plain| / max(|plain|, 1)
+# gemm 'default' at 4096^3 against its plain version (the same bf16-rounded
+# operands, fp32 sums): exact products summed in another order, the tensor
+# cores' against cuBLAS's, over 4096 terms
+GEMM_DEFAULT_TOL = 1e-4
+# gemm of bf16 operands at 4096^3, C written in bf16, against its plain
+# version: the same sums rounded to bf16 sit at most one bf16 ulp (2^-8..2^-7
+# of a value) apart, over scale
+GEMM_BF16_OUT_TOL = 1e-2
 # NVIDIA H100 SXM datasheet peaks (dense, at the 700 W limit).
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
@@ -278,13 +296,18 @@ STEP_LAUNCHES = {
 # (2^-8..2^-7) apart: 1e-2.
 FLASH_LIMIT_FP32 = 1e-5
 FLASH_LIMIT_ROUNDED = 1e-2
-# Times of the kernels' first ports (FFMA flash_q8; shared-memory footprint
-# accumulators), ms, measured by this script before their redesign on an
-# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md: its kernel table, rows 8 and
-# 19, and PR 9's last run for the seq-4096 shape); printed beside the new.
+# Times of the kernels before their redesign (FFMA flash_q8; shared-memory
+# footprint accumulators; the grouped executor's thread block per group; the
+# FFMA gemm), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md: its kernel table, rows 7, 8, 11 and 19, and an earlier
+# run for the seq-4096 shape); printed beside the new. SHARED_TILE_MS: the
+# footprint executor's times on its register windows before the tile moved
+# into window_tiles.cuh, which the shared tile must stay within 9 % of.
 OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.793,
           "flash_q8 d 256": 0.414, "footprint_spmm headline": 21.870,
-          "footprint_spmm low-fill": 7.981}
+          "footprint_spmm low-fill": 7.981, "grouped_spmm headline": 15.112,
+          "grouped_spmm low-fill": 25.642, "gemm 4096^3 high": 6.969}
+SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
 BERT_SEQS = (128, 512)
@@ -470,25 +493,35 @@ def phase_small_sddmm() -> None:
 
 
 def phase_small_gemm() -> None:
+    """gemm against its plain version at (100, 70, 33) (132-byte rows: the
+    element-load path) in fp32 'high' and 'default' and bf16 'high' and
+    'default', and at the MLP's last layer, (32, 10, 256) with n = 10, in
+    fp32 'high' and 'default'; all four transpose pairs each; every case
+    run twice and required bitwise equal."""
     from tpusparse_torch.kernels.gemm import _gemm_plain, gemm_kernel
 
-    m, n, k = 100, 70, 33
     rng = np.random.default_rng(200)
-    for dt, prec in ((torch.float32, "high"), (torch.float32, "default"),
-                     (torch.bfloat16, "high")):
+    cases = [((100, 70, 33), dt, prec) for dt, prec in (
+        (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+        (torch.bfloat16, "default"))]
+    cases += [((32, 10, 256), torch.float32, prec) for prec in ("high", "default")]
+    for (m, n, k), dt, prec in cases:
         for transa, transb in ((False, False), (True, False), (False, True), (True, True)):
             a = rng.standard_normal((k, m) if transa else (m, k)).astype(np.float32)
             b = rng.standard_normal((n, k) if transb else (k, n)).astype(np.float32)
             a = torch.from_numpy(a).to("cuda", dt)
             b = torch.from_numpy(b).to("cuda", dt)
             got = gemm_kernel(a, b, transa=transa, transb=transb, precision=prec)
+            again = gemm_kernel(a, b, transa=transa, transb=transb, precision=prec)
             ref = _gemm_plain(a, b, transa=transa, transb=transb, precision=prec)
             torch.cuda.synchronize()
             if got.dtype != dt or got.shape != (m, n):
                 raise AssertionError(f"gemm: got {got.dtype} {tuple(got.shape)}")
             name = (f"gemm_{m}x{n}x{k}_ta{int(transa)}_tb{int(transb)}_"
                     f"{str(dt).split('.')[1]}_{prec}")
-            _check_case(name, got, ref)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two identical calls differ")
+            _check_case(name, got, ref, ", two calls bitwise equal")
 
 
 def _mnist_batches():
@@ -2239,10 +2272,11 @@ def _derived_plans(plan, group_size=64, rows_per_super=16):
 def phase_small_plan_executors() -> None:
     """The batched, compact, grouped and footprint kernels against their
     plain versions at small shapes: ragged m, k and n, blocksizes (8, 32),
-    (32, 16), (64, 64) and (128, 128), an empty row-block, batch 1 and 5,
-    fp32 'high' and 'default' and bf16. Each is also held bitwise: the
-    batched kernel to the 2-D kernel on every B[g] and on the folded B, the
-    three others to block_ell_spmm on the base plan."""
+    (32, 16), (64, 64), (128, 128) and (200, 16) (taller than a grouped
+    window), row-blocks with no slot, batch 1 and 5, fp32 'high' and
+    'default' and bf16. Each is also held bitwise: the batched kernel to the
+    2-D kernel on every B[g] and on the folded B, the three others to
+    block_ell_spmm on the base plan."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import tiled_spmm as tk
 
@@ -2250,7 +2284,8 @@ def phase_small_plan_executors() -> None:
     # (m, k, n), blocksize, empty rows, batch
     shapes = [((100, 70, 130), (8, 32), (16, 40), 5), ((75, 53, 33), (32, 16), None, 1),
               ((190, 150, 70), (64, 64), (64, 128), 5), ((300, 260, 200), (128, 128),
-                                                         (128, 256), 1)]
+                                                         (128, 256), 1),
+              ((610, 150, 70), (200, 16), (200, 400), 1)]
     tiers = [(f32, "high"), (f32, "default"), (bf16, "high")]
     seed = 50
     for (m, k, n), bs, empty, batch in shapes:
@@ -2399,6 +2434,14 @@ def phase_batched_spmm() -> dict:
     return {"row": row, "launches": launches}
 
 
+def _grouped_geometry(gp, n) -> str:
+    from tpusparse_torch.kernels import tiled_spmm as tk
+
+    g = tk.grouped_tile(gp, n)
+    return (f"{g['grid'][0]} x {g['grid'][1]} = {g['grid'][0] * g['grid'][1]} thread blocks, "
+            f"each a window of {g['rows']} x {g['cols']}")
+
+
 def phase_plan_executors(a, plan, bv, b) -> dict:
     """The compact, grouped and footprint executors at the headline and at
     the low-fill plan, each driven once with the counts set to 0 just
@@ -2407,6 +2450,8 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
     block_ell_spmm, its plain version, torch.matmul of the densified A (TF32
     off) and, at the low-fill plan, torch.sparse.mm on a CSR tensor; the
     footprint plan's B-tile fetches (ntiles) against the base plan's slots;
+    the grouped kernel's grid; the grouped and footprint kernels beside
+    their earlier times (OLD_MS, SHARED_TILE_MS);
     then one spmm(method='footprint') step at the headline, counted (1
     footprint_spmm, 1 sddmm, 1 block_ell_spmm) and checked. Returns the
     kernels line's rows (headline) and the launches."""
@@ -2464,7 +2509,8 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
               + f"; bound {bms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); footprint plan: {fp.ntiles} B-tile fetches for "
               f"{pp.nblocks} slots ({pp.nblocks / max(fp.ntiles, 1):.2f}x fewer); footprint "
-              f"kernel: {tk.footprint_tile(fp)} thread blocks a super")
+              f"kernel: {tk.footprint_tile(fp)} thread blocks a super; grouped kernel: "
+              f"{_grouped_geometry(derived['grouped_spmm'][0], n)}")
         for e, (dp, fn) in derived.items():
             same = _same(outs[e], base)
             err, rel = over_scale(outs[e], tk._PLAIN[e](dp, packed[e], bb))
@@ -2476,10 +2522,13 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
             if not (same and rel <= HEADLINE_TOL and bool(torch.isfinite(outs[e]).all())):
                 raise AssertionError(f"{e} {label}: disagrees with its plain version or with "
                                      "block_ell_spmm")
-            if e == "footprint_spmm":  # against its first port
+            if e in ("footprint_spmm", "grouped_spmm"):  # against the earlier designs
                 old = OLD_MS[f"{e} {label}"]
-                print(f"  {e} {label}: {ms:.4f} ms (first port {old:.3f}: {old / ms:.2f}x; "
-                      f"torch.matmul dense {dense_ms:.4f}"
+                before = SHARED_TILE_MS.get(f"{e} {label}")
+                print(f"  {e} {label}: {ms:.4f} ms (first port {old:.3f}: {old / ms:.2f}x"
+                      + (f"; before the shared tile {before:.3f}: {ms / before:.3f}x of it"
+                         if before else "")
+                      + f"; torch.matmul dense {dense_ms:.4f}"
                       + (f", torch.sparse.mm {sparse_ms:.4f}" if sparse_ms is not None else "")
                       + f"), at {bms / ms:.3f} of its bound {bms:.4f} ms")
             if label == "headline":
@@ -3419,21 +3468,49 @@ def main() -> int:
     gb = torch.from_numpy(rng.standard_normal((g, g), dtype=np.float32)).cuda()
     gc = gemm_kernel(ga, gb, precision="high")
     g_err, g_rel = over_scale(gc, _gemm_plain(ga, gb, precision="high"))
-    print(f"gemm {g}^3: max_abs_err {g_err:.3e}, over scale {g_rel:.3e}")
-    if not (g_rel <= HEADLINE_TOL and bool(torch.isfinite(gc).all())):
+    gd_want = _gemm_plain(ga, gb, precision="default")
+    gd_err, gd_rel = over_scale(gemm_kernel(ga, gb, precision="default"), gd_want)
+    # what a 'default' kernel that left its operands unrounded would read
+    unrounded_rel = over_scale(gc, gd_want)[1]
+    print(f"gemm {g}^3: 'high' max_abs_err {g_err:.3e}, over scale {g_rel:.3e} (limit "
+          f"{HEADLINE_TOL}); 'default' max_abs_err {gd_err:.3e}, over scale {gd_rel:.3e} "
+          f"(limit {GEMM_DEFAULT_TOL}; the unrounded 'high' product against the 'default' "
+          f"plain version {unrounded_rel:.3e})")
+    if not (g_rel <= HEADLINE_TOL and gd_rel <= GEMM_DEFAULT_TOL
+            and bool(torch.isfinite(gc).all())):
         raise AssertionError("gemm disagrees with its plain version at 4096^3")
-    del gc
+    del gc, gd_want
     gm_ms = time_ms(lambda: gemm_kernel(ga, gb, precision="high"))
     gm_plain_ms = time_ms(lambda: _gemm_plain(ga, gb, precision="high"))
     with fp32_matmul():
         gm_library_ms = time_ms(lambda: torch.matmul(ga, gb))
     gm_flops = 2.0 * g ** 3
-    gm_bound_ms, gm_bound_by = bound(gm_flops, 4.0 * 3 * g * g)
-    print(f"gemm {g}^3 fp32 'high': kernel {gm_ms:.4f} ms, plain {gm_plain_ms:.4f} ms, "
-          f"torch.matmul (TF32 off; the plain version's own call) {gm_library_ms:.4f} ms, "
-          f"bound {gm_bound_ms:.4f} ms, kernel at "
-          f"{gm_flops / (gm_ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    del ga, gb
+    # each tier on the tensor-core rate it uses: 3xTF32 three tf32 passes
+    gm_bound_ms, gm_bound_by = bound(3 * gm_flops, 4.0 * 3 * g * g, peak=TF32_FLOPS)
+    print(f"gemm {g}^3 fp32 'high' (3xTF32 wgmma): kernel {gm_ms:.4f} ms (FFMA kernel before "
+          f"this slice {OLD_MS['gemm 4096^3 high']:.3f}: {OLD_MS['gemm 4096^3 high'] / gm_ms:.2f}x)"
+          f", plain {gm_plain_ms:.4f} ms, torch.matmul (TF32 off; the plain version's own "
+          f"call) {gm_library_ms:.4f} ms, bound {gm_bound_ms:.4f} ms (3 x {gm_flops / 1e9:.1f} "
+          f"GFLOP at 495 TFLOP/s tf32), kernel at {gm_flops / (gm_ms * 1e-3) / 1e12:.2f} "
+          f"TFLOP/s, {gm_bound_ms / gm_ms:.3f} of its bound")
+    gd_ms = time_ms(lambda: gemm_kernel(ga, gb, precision="default"))
+    ab, bb16 = ga.bfloat16(), gb.bfloat16()
+    gd_library_ms = time_ms(lambda: torch.matmul(ab, bb16))
+    gbf = gemm_kernel(ab, bb16)
+    gbf_err, gbf_rel = over_scale(gbf, _gemm_plain(ab, bb16))
+    print(f"gemm {g}^3 bf16 operands, C in bf16: max_abs_err {gbf_err:.3e}, over scale "
+          f"{gbf_rel:.3e} (limit {GEMM_BF16_OUT_TOL})")
+    if not (gbf.dtype == torch.bfloat16 and gbf_rel <= GEMM_BF16_OUT_TOL
+            and bool(torch.isfinite(gbf).all())):
+        raise AssertionError("gemm of bf16 operands disagrees with its plain version at 4096^3")
+    del gbf
+    gbf_ms = time_ms(lambda: gemm_kernel(ab, bb16))
+    gd_bound_ms, gd_bound_by = bound(gm_flops, 4.0 * 3 * g * g, peak=BF16_FLOPS)
+    print(f"gemm {g}^3 fp32 'default' (bf16 wgmma): kernel {gd_ms:.4f} ms, torch.matmul of the "
+          f"bf16-rounded operands {gd_library_ms:.4f} ms, bound {gd_bound_ms:.4f} ms by "
+          f"{gd_bound_by} ({gm_flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16), "
+          f"{gd_bound_ms / gd_ms:.3f} of it; bf16 operands: kernel {gbf_ms:.4f} ms")
+    del ga, gb, ab, bb16
 
     # -- timings: the MLP -------------------------------------------------------
     with torch.inference_mode():

@@ -174,6 +174,46 @@ def test_gemm_kernel_matches_plain(cuda, transa, transb, dtype, precision):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# (m, n, k): the ragged case (132-byte rows), the MLP's last layer (n = 10,
+# 40-byte rows) and its first layer's shape
+GEMM_SHAPES = [(100, 70, 33), (32, 10, 256), (32, 784, 256)]
+GEMM_TIERS = [(torch.float32, "high"), (torch.float32, "highest"), (torch.float32, "default"),
+              (torch.bfloat16, "high"), (torch.bfloat16, "default")]
+
+
+@pytest.mark.parametrize("dtype,precision", GEMM_TIERS)
+@pytest.mark.parametrize("transa,transb", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+def test_gemm_tiers_and_shapes_match_plain(cuda, shape, transa, transb, dtype, precision):
+    """The tensor-core gemm in every tier (3xTF32 for fp32 'high'/'highest',
+    bf16 wgmma otherwise) at ragged and MLP shapes, both staging paths
+    (16-byte and element loads), every transpose pair: one launch, within
+    the tier of the plain version."""
+    m, n, k = shape
+    rng = np.random.default_rng(m + n + k)
+    a = rng.standard_normal((k, m) if transa else (m, k)).astype(np.float32)
+    b = rng.standard_normal((n, k) if transb else (k, n)).astype(np.float32)
+    a, b = torch.from_numpy(a).to(cuda, dtype), torch.from_numpy(b).to(cuda, dtype)
+    gk.reset_launch_counts()
+    got = gk.gemm_kernel(a, b, transa=transa, transb=transb, precision=precision)
+    torch.cuda.synchronize()
+    assert gk.launch_counts() == {"gemm": 1, "gemm_s8": 0}
+    want = gk._gemm_plain(a, b, transa=transa, transb=transb, precision=precision)
+    assert got.shape == (m, n) and got.dtype == dtype
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_gemm_repeats_bit_for_bit(cuda, precision):
+    """No atomics, no split-K: two identical calls give identical bits."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((300, 1000)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((1000, 260)).astype(np.float32)).to(cuda)
+    first = gk.gemm_kernel(a, b, precision=precision)
+    assert torch.equal(first, gk.gemm_kernel(a, b, precision=precision))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     plan, dc, b = _sddmm_inputs("ragged_8x16_n33", cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -847,6 +887,47 @@ FOOTPRINT_CASES = {
     "s5_48x32_off_the_window": ((1000, 300, 70), (48, 32), 5, None),
     "s4_32x16_empty_super": ((500, 200, 33), (32, 16), 4, (128, 256)),
 }
+
+
+# (m, k, n), blocksize, group_size, rows left empty: one grouped window per
+# row-block at bm 8 (a whole group of 4 empty), 64 and 128 (a whole group
+# of 2 empty), two windows per row-block at bm 200 (one row-block empty);
+# m and n ragged
+GROUPED_CASES = {
+    "bm8_empty_group": ((203, 150, 77), (8, 32), 4, (32, 64)),
+    "bm64_ragged": ((300, 200, 130), (64, 16), 2, (64, 128)),
+    "bm128_empty_group": ((520, 260, 70), (128, 128), 2, (256, 512)),
+    "bm200_two_windows": ((610, 150, 33), (200, 16), 2, (200, 400)),
+}
+
+
+@pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
+@pytest.mark.parametrize("name", sorted(GROUPED_CASES))
+def test_grouped_windows_bitwise(cuda, name, dtype, precision):
+    """The grouped kernel's windows (one row-block each, or slices of a
+    taller one): bitwise equal to block_ell_spmm on the base plan, row-blocks
+    with no slot written as zeros, within the tier of its plain version,
+    one launch."""
+    (m, k, n), bs, G, empty = GROUPED_CASES[name]
+    rng = np.random.default_rng(m + G)
+    mask = rng.random((m, k)) < 0.08
+    mask[empty[0]:empty[1]] = False
+    a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32), device=cuda)
+    plan = tt.build_plan(a, bs)
+    gp = tt.group_plan(plan, G)
+    assert tk.grouped_tile(gp, n)["slices"] == (2 if bs[0] > 128 else 1)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
+    base = tk.tiled_spmm_kernel(plan, plan.pack_values(a.data.to(dtype)), b, precision=precision)
+    bv = gp.pack_values(a.data.to(dtype))
+    tk.reset_launch_counts()
+    got = tk.grouped_spmm_kernel(gp, bv, b, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {**NO_TK, "grouped_spmm": 1}
+    assert torch.equal(got, base)
+    assert int(torch.count_nonzero(got[empty[0]:min(empty[1], m)])) == 0
+    want = tk._grouped_plain(gp, bv, b, precision=precision)
+    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)

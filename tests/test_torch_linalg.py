@@ -8,6 +8,7 @@ tests are; the eigensolvers start from random vectors drawn by each
 package's own generator, so they are held against scipy, as JAX's tests
 hold JAX's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,6 +131,46 @@ def test_gmres_matches_jax_and_scipy(solve_method):
     np.testing.assert_allclose(x.numpy(), _solve64(sp, b), rtol=1e-2, atol=1e-3)
     with pytest.raises(ValueError, match="solve_method"):
         tl.gmres(t, torch.from_numpy(b), solve_method="bogus")
+
+
+def _fault4_case():
+    """ROADMAP fault 4's input: a 50x50 fp32 CSR with diagonal 6, -1 on the
+    first off-diagonals and ~2 % random entries (symmetric), and b (50, 3)
+    standard normal."""
+    n = 50
+    r = ssp.random(n, n, density=0.02, random_state=11, format="csr", dtype=np.float64)
+    s = ssp.diags([-1.0, 6.0, -1.0], [-1, 0, 1], shape=(n, n)) - 0.5 * (r + r.T)
+    s = s.tocsr().astype(np.float32)
+    s.sort_indices()
+    b = np.random.default_rng(12).standard_normal((n, 3)).astype(np.float32)
+    return s, b
+
+
+@pytest.mark.parametrize("solve_method", ["batched", "incremental"])
+def test_gmres_takes_a_2d_b_as_jax_does(solve_method):
+    sp, b = _fault4_case()
+    t, j = _pair(sp)
+    x, info = tl.gmres(t, torch.from_numpy(b), solve_method=solve_method)
+    xj, infoj = jl.gmres(j, jnp.asarray(b), solve_method=solve_method)
+    assert x.shape == b.shape == xj.shape
+    assert int(info) == int(infoj) == 0
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), **TOL)
+    np.testing.assert_allclose(x.numpy(), _solve64(sp, b), rtol=1e-3, atol=1e-4)
+
+
+def test_gmres_2d_b_gradient_matches_jax():
+    sp, b = _fault4_case()
+    t, j = _pair(sp)
+    g = np.random.default_rng(13).standard_normal(b.shape).astype(np.float32)
+    bt = torch.from_numpy(b).requires_grad_()
+    x, _ = tl.gmres(t, bt, tol=1e-7)
+    (x * torch.from_numpy(g)).sum().backward()
+    want = jax.grad(lambda bb: jnp.sum(jl.gmres(j, bb, tol=1e-7)[0] * jnp.asarray(g)))(
+        jnp.asarray(b))
+    assert bt.grad.shape == b.shape
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), _solve64(sp.T.tocsr(), g), rtol=1e-3,
+                               atol=1e-4)
 
 
 def test_nonsymmetric_gradients_solve_with_the_transpose():

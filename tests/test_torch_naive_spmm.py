@@ -31,6 +31,7 @@ from tpusparse_torch.kernels import naive_spmm as nk
 from tpusparse_torch.types import COO as TCOO
 from tpusparse_torch.types import CSR as TCSR
 from tpusparse_torch.types import csr_to_bsr, csr_to_coo, spmm_reference
+from tpusparse_torch.types import random_csr as tt_random_csr
 
 TOL = dict(rtol=1e-4, atol=5e-5)  # fp32 tier of the JAX suite
 REDUCTIONS = ("sum", "mean", "max", "min", "mul", "div")
@@ -313,6 +314,44 @@ def test_spmm_rules_raise():
                                tops.spmm(t, b, method="reference").numpy(), **TOL)
     with pytest.raises(ValueError, match="reduce='sum' only"):
         tops.spmm(t, b[None], method="footprint", reduce="max")
+
+
+def _default_case():
+    """ROADMAP fault 5's input: the port's random_csr(0, (40, 30), 0.08),
+    handed to JAX as the same arrays, times a (30, 5) fp32 b."""
+    t = tt_random_csr(0, (40, 30), 0.08, device="cpu")
+    j = JCSR(data=jnp.asarray(t.data.numpy()), indices=jnp.asarray(t.indices),
+             indptr=jnp.asarray(t.indptr), shape=t.shape)
+    b = np.random.default_rng(16).standard_normal((30, 5)).astype(np.float32)
+    return t, j, b
+
+
+@pytest.mark.parametrize("reduce,return_arg",
+                         [("max", False), ("min", False), ("mean", False), ("max", True)])
+def test_spmm_reducers_with_no_method_match_jax_default(reduce, return_arg):
+    t, j, b = _default_case()
+    got = tops.spmm(t, torch.from_numpy(b), reduce=reduce, return_arg=return_arg)
+    want = jops.spmm(j, jnp.asarray(b), reduce=reduce, return_arg=return_arg)
+    outs = got if return_arg else (got,)
+    wants = want if return_arg else (want,)
+    for o, w in zip(outs, wants):
+        assert o.shape == w.shape
+        np.testing.assert_array_equal(o.numpy(), np.asarray(w))
+
+
+def test_spmm_sum_with_no_method_stays_tiled(monkeypatch):
+    t, j, b = _default_case()
+    seen = []
+    for name in ("tiled_spmm", "spmm_reference", "naive_spmm"):
+        fn = getattr(tops, name)
+        monkeypatch.setattr(tops, name,
+                            lambda *a, _f=fn, _n=name, **k: seen.append(_n) or _f(*a, **k))
+    got = tops.spmm(t, torch.from_numpy(b))
+    assert seen == ["tiled_spmm"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(jops.spmm(j, jnp.asarray(b))), **TOL)
+    seen.clear()
+    tops.spmm(t, torch.from_numpy(b), reduce="max")
+    assert seen == ["spmm_reference"]  # the 'auto' route of a reducer
 
 
 @pytest.mark.parametrize("fmt", ["coo", "bsr"])

@@ -314,6 +314,49 @@ def test_footprint_tile_fits_the_shared_memory():
     np.testing.assert_allclose(got.numpy(), t.to_dense().numpy() @ b.numpy(), **TOL)
 
 
+# (m, k), blocksize, group_size, n, the grid grouped_tile must give: the
+# headline's 128 row-blocks of 128 rows at n 512 (1,024 blocks, >= 4 x 132),
+# the low-fill plan's 512 row-blocks of 8 rows at n 256 (8 x 256 windows),
+# 4-row blocks in 8-row windows, 20-row and 64-row blocks in 128-row
+# windows, and 200-row blocks in two slices each
+GROUPED_GEOMETRY = {
+    "headline_128": ((16384, 64), (128, 128), 64, 512, (128, 8)),
+    "low_fill_8": ((4096, 64), (8, 32), 64, 256, (512, 1)),
+    "bm4_n70": ((150, 90), (4, 16), 5, 70, (38, 1)),
+    "bm20_n300": ((410, 90), (20, 16), 3, 300, (21, 5)),
+    "bm64_n70": ((300, 90), (64, 16), 2, 70, (5, 2)),
+    "bm200_n33": ((610, 90), (200, 16), 2, 33, (8, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED_GEOMETRY))
+def test_grouped_tile_covers_every_output_once(name):
+    """The grouped kernel's geometry: block (x, y) owns rows [r0, r0 +
+    min(rows, bm - r0)) of row-block rb = x // slices (r0 = (x % slices) *
+    rows) and columns [y * cols, (y + 1) * cols) of C. Over the grid every
+    output of the padded (row-blocks x bm, n) C is owned exactly once, and
+    the plain path at the same plan matches the dense product."""
+    (m, k), bs, G, n, grid = GROUPED_GEOMETRY[name]
+    t = ttypes.random_csr(5, (m, k), 0.02, device="cpu")
+    gp = tplan.group_plan(tplan.build_plan(t, bs), G)
+    geo = tk.grouped_tile(gp, n)
+    assert geo["grid"] == grid
+    bm = bs[0]
+    assert geo["rows"] >= min(bm, 128) and geo["slices"] * geo["rows"] >= bm
+    owned = np.zeros((gp.num_row_blocks * bm, n), dtype=np.int64)
+    for x in range(grid[0]):
+        rb, r0 = divmod(x, geo["slices"])
+        r0 *= geo["rows"]
+        rows = min(geo["rows"], bm - r0)
+        for y in range(grid[1]):
+            owned[rb * bm + r0: rb * bm + r0 + rows,
+                  y * geo["cols"]: (y + 1) * geo["cols"]] += 1
+    assert (owned == 1).all()
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal((k, n)).astype(np.float32))
+    got = tk.grouped_spmm_kernel(gp, gp.pack_values(t.data), b)
+    np.testing.assert_allclose(got.numpy(), t.to_dense().numpy() @ b.numpy(), **TOL)
+
+
 def test_executors_reject_what_they_do_not_take():
     _, b, _, t, bs = _exec_case("ragged_8x16_n40")
     base = tplan.build_plan(t, bs)

@@ -48,6 +48,8 @@
 //     chunk, and the loads in flight during the arithmetic. The staging
 //     goes through registers (and not cp.async) because it rounds to bf16
 //     in the 'default' tier, widens bf16 inputs and transposes A on the way.
+//     The register tile and the double-buffered walk are window_tiles.cuh's,
+//     shared with the grouped executor; this file keeps the footprint walk.
 //   - B tiles: each block loads the B rows it needs and L2 absorbs the
 //     repeats (B is 32 MB at the headline, within the 50 MB L2). The
 //     footprint plan's own reuse across a thread-block cluster was measured
@@ -58,16 +60,14 @@
 //     the H100 it took 7.43 ms at the headline against 1.16 here, and 1.34
 //     against 0.87 at the low-fill plan (PERF.md), so it was not kept.
 
-#include "block_tiles.cuh"
+#include "window_tiles.cuh"
 
 using namespace tiles;
 
 namespace {
 
-constexpr int WR = 128;       // rows of a block's window
-constexpr int WN = 64;        // columns of its n-tile
-constexpr int NTH = 256;      // threads: 32 row groups of 4 x 8 column groups of 8
-constexpr int AL = WR + 4;    // padded row of the transposed A chunk
+using T = WTile<128, 64, 4, 256>;  // a 128-row window, a 64-column n-tile, 4 x 8 a thread
+constexpr int WR = T::WR, WN = T::WN, NTH = T::NTH;
 
 // A super's slots as the window of one block sees them.
 struct Walk {
@@ -89,137 +89,41 @@ struct Walk {
 // One column's slots in the window (a group: the slots from l0 on with
 // l0's column, sorted by row-block, so disjoint rows), as one thread needs
 // them: arow[p], the row of the super's packed values (slot l's block row
-// r at l * bm + r) behind its A-load row tid / 16 + 16 p, or -1 where no
-// slot of the group covers it; act[i],
-// whether a slot covers its FFMA row 4 ty + i; full, whether the group
-// covers every row of the window; col, the column's ordinal; end, the slot
-// after the group.
+// r at l * bm + r) behind its A value p (window row T::a_row(p)), or -1
+// where no slot of the group covers it; act[i], whether a slot covers its
+// FFMA row 4 ty + i; full, whether the group covers every row of the
+// window; col, the column's ordinal; end, the slot after the group.
 struct Group {
-  int arow[8];
-  bool act[4];
+  int arow[T::PA];
+  bool act[T::TR];
   bool full;
   int col, end;
 };
 
 __device__ __forceinline__ void group_at(Group& gr, const Walk& w, int l0) {
-  const int ty = threadIdx.x / 8;
+  const int ty = T::tid() / T::CX;
   gr.col = w.bslot[l0];
 #pragma unroll
-  for (int p = 0; p < 8; ++p) gr.arow[p] = -1;
+  for (int p = 0; p < T::PA; ++p) gr.arow[p] = -1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) gr.act[i] = false;
+  for (int i = 0; i < T::TR; ++i) gr.act[i] = false;
   int covered = 0, l = l0;
   for (; l < w.nvalid && w.bslot[l] == gr.col; ++l) {
     const int lo = w.lo(l);
     if (lo >= WR || lo + w.bm <= 0) continue;
     covered += min(lo + w.bm, WR) - max(lo, 0);
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int r = threadIdx.x / 16 + 16 * p;
+    for (int p = 0; p < T::PA; ++p) {
+      const int r = T::a_row(p);
       if (r >= lo && r < lo + w.bm) gr.arow[p] = l * w.bm + r - lo;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) gr.act[i] |= 4 * ty + i >= lo && 4 * ty + i < lo + w.bm;
+    for (int i = 0; i < T::TR; ++i) {
+      gr.act[i] |= T::TR * ty + i >= lo && T::TR * ty + i < lo + w.bm;
+    }
   }
   gr.full = covered == WR;
   gr.end = l;
-}
-
-// The thread's 8 values of a 128 x 16 A chunk: window rows tid / 16 + 16 p,
-// k = k0 + tid % 16; rows no slot of the group covers and k past bk are 0.
-// vals points at the super's first slot.
-template <typename TA, bool RND>
-__device__ __forceinline__ void load_a(float (&ra)[8], const TA* __restrict__ vals,
-                                       const Group& gr, int bk, int k0) {
-  const int q = threadIdx.x % 16;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    float v = 0.f;
-    if (gr.arow[p] >= 0 && k0 + q < bk) {
-      v = tier<RND>(to_f32(vals[static_cast<size_t>(gr.arow[p]) * bk + k0 + q]));
-    }
-    ra[p] = v;
-  }
-}
-
-__device__ __forceinline__ void store_a(float* as, const float (&ra)[8]) {
-  const int q = threadIdx.x % 16;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) as[q * AL + threadIdx.x / 16 + 16 * p] = ra[p];
-}
-
-// The thread's 4 values of a 16 x 64 B chunk: k rows tid / 64 + 4 p, column
-// tid % 64; masked as in block_tiles.cuh (k past bk or past the matrix, n
-// past n).
-template <typename TB, bool RND>
-__device__ __forceinline__ void load_b(float (&rb)[4], const TB* __restrict__ b, int kb, int k0,
-                                       int bk, int k, int n, int n0) {
-  const int col = threadIdx.x % WN;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int q = threadIdx.x / WN + 4 * p;
-    const int kr = kb + k0 + q, cn = n0 + col;
-    float v = 0.f;
-    if (k0 + q < bk && kr < k && cn < n) v = tier<RND>(to_f32(b[static_cast<size_t>(kr) * n + cn]));
-    rb[p] = v;
-  }
-}
-
-__device__ __forceinline__ void store_b(float* bs, const float (&rb)[4]) {
-#pragma unroll
-  for (int p = 0; p < 4; ++p) bs[(threadIdx.x / WN + 4 * p) * WN + threadIdx.x % WN] = rb[p];
-}
-
-// acc += A chunk (k-major, rows of AL) . B chunk (16 rows of WN) in ascending
-// k, for the thread's rows that a slot of the group covers (all of them when
-// the group covers the window).
-template <bool FULL>
-__device__ __forceinline__ void fma_chunk(float (&acc)[4][8], const float* as, const float* bs,
-                                          const bool (&act)[4]) {
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-#pragma unroll
-  for (int q = 0; q < BK_T; ++q) {
-    const float4 av = *reinterpret_cast<const float4*>(&as[q * AL + 4 * ty]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&bs[q * WN + 4 * tx]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&bs[q * WN + 32 + 4 * tx]);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (!FULL && !act[i]) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void fma_step(float (&acc)[4][8], const float* as, const float* bs,
-                                         const Group& gr) {
-  if (gr.full) {
-    fma_chunk<true>(acc, as, bs, gr.act);
-  } else {
-    fma_chunk<false>(acc, as, bs, gr.act);
-  }
-}
-
-// C rows of the window that belong to the super (local row < rows_super)
-// and to the matrix (< m), columns < n.
-template <typename TC>
-__device__ __forceinline__ void store_window(const float (&acc)[4][8], TC* __restrict__ c,
-                                             size_t row0, int R0, int rows_super, int m, int n,
-                                             int n0) {
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int lr = R0 + 4 * ty + i;
-    const size_t grow = row0 + lr;
-    if (lr >= rows_super || grow >= static_cast<size_t>(m)) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int cn = n0 + (j < 4 ? 4 * tx + j : 32 + 4 * tx + j - 4);
-      if (cn < n) store(&c[grow * n + cn], acc[i][j]);
-    }
-  }
 }
 
 struct Args {
@@ -230,70 +134,72 @@ struct Args {
   int m, k, n, bm, bk, nbr, S, Ls, Lu, wps;  // wps: windows (blocks) a super
 };
 
-__device__ __forceinline__ Walk walk_of(const Args& g, int sup, int R0) {
-  const size_t s0 = static_cast<size_t>(sup) * g.Ls;
-  return Walk{g.lrow + s0, g.bslot + s0, s0, g.nslots[sup], g.bm, g.bk, R0};
-}
+// The block's steps: (group, 16-deep chunk), groups in the super's
+// (column, row-block) order, chunks in ascending k.
+template <typename TA, typename TB, bool RND>
+struct FootprintWalker {
+  struct Step {
+    Group gr;
+    int k0;
+  };
+  Walk w;
+  const int* ucols;  // this super's distinct columns
+  const TA* vals;    // this super's first slot
+  const TB* b;
+  int k, n, n0;
 
-__device__ __forceinline__ void zero(float (&acc)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-}
+  __device__ bool first(Step& s) const {
+    const int l = w.next(-1);
+    if (l >= w.nvalid) return false;
+    group_at(s.gr, w, l);
+    s.k0 = 0;
+    return true;
+  }
+  __device__ bool next(const Step& cur, Step& nxt) const {
+    if (cur.k0 + BK_T < w.bk) {
+      nxt = cur;
+      nxt.k0 = cur.k0 + BK_T;
+      return true;
+    }
+    const int nl = w.next(cur.gr.end - 1);
+    if (nl >= w.nvalid) return false;
+    group_at(nxt.gr, w, nl);
+    nxt.k0 = 0;
+    return true;
+  }
+  __device__ void load(const Step& s, float (&ra)[T::PA], float (&rb)[T::PB]) const {
+    T::load_a<TA, RND>(ra, vals, s.gr.arow, w.bk, s.k0);
+    T::load_b<TB, RND>(rb, b, ucols[s.gr.col] * w.bk, s.k0, w.bk, k, n, n0);
+  }
+  __device__ void fma(float (&acc)[T::TR][8], const float* as, const float* bs,
+                      const Step& s) const {
+    if (s.gr.full) {
+      T::fma_chunk<true>(acc, as, bs, s.gr.act);
+    } else {
+      T::fma_chunk<false>(acc, as, bs, s.gr.act);
+    }
+  }
+};
 
 template <typename TA, typename TB, typename TC, bool RND>
 __global__ void __launch_bounds__(NTH) footprint_kernel(const TA* __restrict__ vals,
                                                         const TB* __restrict__ b,
                                                         TC* __restrict__ c, Args g) {
-  __shared__ __align__(16) float as[2][BK_T * AL];
-  __shared__ __align__(16) float bs[2][BK_T * WN];
+  __shared__ __align__(16) float as[2][T::A_FLOATS];
+  __shared__ __align__(16) float bs[2][T::B_FLOATS];
   const int sup = blockIdx.x / g.wps;
   const int R0 = (blockIdx.x % g.wps) * WR;
   const int n0 = blockIdx.y * WN;
-  const Walk w = walk_of(g, sup, R0);
-  const int* ucols = g.ucols + static_cast<size_t>(sup) * g.Lu;
-  vals += w.s0 * g.bm * g.bk;
+  const size_t s0 = static_cast<size_t>(sup) * g.Ls;
+  const Walk w{g.lrow + s0, g.bslot + s0, s0, g.nslots[sup], g.bm, g.bk, R0};
+  const FootprintWalker<TA, TB, RND> walker{
+      w, g.ucols + static_cast<size_t>(sup) * g.Lu, vals + s0 * g.bm * g.bk, b, g.k, g.n, n0};
 
-  float acc[4][8];
-  zero(acc);
-  const int l = w.next(-1);
-  if (l < w.nvalid) {
-    // steps: (group, 16-deep chunk); cur is computed while nxt is loaded
-    Group cur, nxt;
-    group_at(cur, w, l);
-    float ra[8], rb[4];
-    load_a<TA, RND>(ra, vals, cur, g.bk, 0);
-    load_b<TB, RND>(rb, b, ucols[cur.col] * g.bk, 0, g.bk, g.k, g.n, n0);
-    store_a(as[0], ra);
-    store_b(bs[0], rb);
-    __syncthreads();
-    for (int buf = 0, k0 = 0;; buf ^= 1) {
-      int nk0 = k0 + BK_T;
-      bool more = true;
-      if (nk0 < g.bk) {
-        nxt = cur;
-      } else {
-        const int nl = w.next(cur.end - 1);
-        more = nl < w.nvalid;
-        if (more) group_at(nxt, w, nl);
-        nk0 = 0;
-      }
-      if (more) {  // the next step's operands, in flight during this one's FFMAs
-        load_a<TA, RND>(ra, vals, nxt, g.bk, nk0);
-        load_b<TB, RND>(rb, b, ucols[nxt.col] * g.bk, nk0, g.bk, g.k, g.n, n0);
-      }
-      fma_step(acc, as[buf], bs[buf], cur);
-      if (!more) break;
-      store_a(as[buf ^ 1], ra);  // its last readers passed the previous barrier
-      store_b(bs[buf ^ 1], rb);
-      __syncthreads();
-      cur = nxt;
-      k0 = nk0;
-    }
-  }
+  float acc[T::TR][8];
+  T::zero(acc);
+  run_steps<T>(acc, &as[0][0], &bs[0][0], walker);
   const int rows_super = min(g.S, g.nbr - sup * g.S) * g.bm;
-  store_window(acc, c, static_cast<size_t>(sup) * g.S * g.bm, R0, rows_super, g.m, g.n, n0);
+  T::store_window(acc, c, static_cast<size_t>(sup) * g.S * g.bm, R0, rows_super, g.m, g.n, n0);
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // The FFMA tile shared by the float block-SpMM executors for NVIDIA Hopper
 // (sm_90a): block_ell_spmm.cu (the ELL plan), block_ell_spmm_batched.cu (a
-// 3-D B under one plan), block_ell_spmm_compact.cu (the padding-free plan),
-// block_ell_spmm_grouped.cu (G row-blocks per thread block) and, for its
-// staging helpers and tiers, block_ell_spmm_footprint.cu (B tiles reused
-// across a super-row-block).
+// 3-D B under one plan), block_ell_spmm_compact.cu (the padding-free plan)
+// and, for its conversions, tiers and dtype dispatch, window_tiles.cuh (the
+// register tile of block_ell_spmm_grouped.cu and block_ell_spmm_footprint.cu,
+// which keep the same chain).
 //
 // One thread block of NT = 256 threads owns a 64-row slice of a row-block
 // and a 64-column n-tile of C. Each thread keeps a 4x4 register tile of the

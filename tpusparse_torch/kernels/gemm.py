@@ -1,16 +1,19 @@
 """Dense GEMM kernel: C = op(A) @ op(B) for 2-D operands.
 
 Counterpart of `tpusparse/kernels/gemm.py:31-159` (`_gemm_kernel` behind
-`gemm_pallas`). The TPU kernel becomes the CUDA kernel `csrc/gemm.cu`,
-which takes the transpose flags itself (row-major strides), so a
-transposed operand is never copied. Its tile sizes are its own; the TPU
-tile heuristics, the `gemm_block_*` config fields and `autotune_gemm`
-(gemm.py:43-93, 175-295) tune the TPU's tiles and are not carried.
+`gemm_pallas`). The TPU kernel becomes the CUDA kernel `csrc/gemm.cu`, on
+the H100's tensor cores (`wgmma`), which takes the transpose flags itself
+(row-major strides), so a transposed operand is never copied. Its tile
+sizes are its own; the TPU tile heuristics, the `gemm_block_*` config
+fields and `autotune_gemm` (gemm.py:43-93, 175-295) tune the TPU's tiles
+and are not carried.
 
-Precision tiers are those of the block SpMM executor (`tiled_spmm.py`):
-'high'/'highest' fp32 FFMA, never TF32; 'default' rounds both operands to
-bf16 and accumulates in fp32. C is written in the result type of A and B
-unless `out_dtype` says otherwise.
+Precision tiers, fp32-class and never plain TF32: 'high'/'highest' with an
+fp32 operand run 3xTF32 (each value split into a tf32 high part and a tf32
+remainder, three tf32 passes summed in fp32); bf16 operands run one bf16
+pass in any tier (their products are exact in fp32); 'default' rounds
+fp32 operands to bf16 and runs one bf16 pass. Sums are fp32. C is written
+in the result type of A and B unless `out_dtype` says otherwise.
 
 The int8 GEMM of the serving tier (`gemm.py:298-378`, `_gemm_s8_kernel`
 behind `gemm_int8_pallas`) becomes `csrc/gemm_s8.cu` behind

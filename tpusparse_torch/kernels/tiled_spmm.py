@@ -293,7 +293,8 @@ def grouped_spmm_kernel(
     (tpusparse/kernels/tiled_spmm.py:1243), with fp32 sums where the TPU
     kernel added each slot into its output block in the output's type (the
     two differ for a bf16 C only). Bitwise equal to `tiled_spmm_kernel` on
-    the plan `gplan` derives from."""
+    the plan `gplan` derives from. A thread block owns a window of one
+    row-block (`grouped_tile`)."""
     return _run_derived("grouped_spmm", gplan, block_vals, b, out_dtype, precision,
                         gplan.num_slots)
 
@@ -322,6 +323,25 @@ def footprint_tile(fplan: FootprintPlan) -> int:
     footprint kernel. Any rows_per_super and any width of B fit: the grid
     covers n in FOOTPRINT_NTILE-column tiles."""
     return cdiv(fplan.rows_per_super * fplan.blocksize[0], FOOTPRINT_ROWS)
+
+
+# the grouped kernel's windows, by row-block height: (largest bm, window rows,
+# n-tile columns); the CPU's copy of window_rows in
+# csrc/block_ell_spmm_grouped.cu. A block of 256 threads owns one window of
+# one row-block (a slice of a row-block taller than 128)
+GROUPED_TILES = ((8, 8, 256), (None, 128, 64))
+
+
+def grouped_tile(gplan: GroupedPlan, n: int) -> dict:
+    """The grouped kernel's geometry for B of width n: the window's rows and
+    n-tile columns, windows a row-block (`slices`) and the grid (thread
+    blocks over the row-blocks and their slices, over the n-tiles). Any
+    blocksize and any width of B fit."""
+    bm = gplan.blocksize[0]
+    rows, cols = next((r, c) for top, r, c in GROUPED_TILES if top is None or bm <= top)
+    slices = cdiv(bm, rows)
+    return {"rows": rows, "cols": cols, "slices": slices,
+            "grid": (gplan.num_row_blocks * slices, cdiv(n, cols))}
 
 
 def _run_derived(entry, dplan, block_vals, b, out_dtype, precision, num_slots):

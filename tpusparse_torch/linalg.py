@@ -448,12 +448,19 @@ def _gmres_solve(A, M, b, x0, *, atol, ptol, restart, maxiter, gmres_func):
     return x
 
 
+def _flat(f: Callable, shape) -> Callable:
+    """f on vectors flattened from `shape`: v (size,) ↦ f(v as shape), flat."""
+    return lambda v: f(v.reshape(shape)).reshape(-1)
+
+
 def gmres(a: Operator, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
           tol: float = 1e-5, atol: float = 0.0, restart: int = 20,
           maxiter: Optional[int] = None, M: Optional[Callable] = None,
           solve_method: str = "batched", method: str = "auto"):
-    """GMRES(restart) for general A (a 1-D b). Returns (x, info) with info
-    a 0-d int tensor, -1 where x is NaN, else 0, as jax.scipy's gmres."""
+    """GMRES(restart) for general A. b of any shape is one vector, as in
+    jax.scipy's gmres (its tree vdot): the Arnoldi loop runs on b and x0
+    flattened, and the operator and M see b's shape. Returns (x, info),
+    x of b's shape, info a 0-d int tensor, -1 where x is NaN, else 0."""
     if solve_method == "incremental":
         gmres_func = _gmres_incremental
     elif solve_method == "batched":
@@ -461,10 +468,12 @@ def gmres(a: Operator, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
     else:
         raise ValueError(f"invalid solve_method {solve_method}, must be either "
                          "'incremental' or 'batched'")
-    A = as_matvec(a, method, transposable=True)
-    At = _transposed_matvec(a, method)
-    M = _identity if M is None else M
+    shape = b.shape
+    A = _flat(as_matvec(a, method, transposable=True), shape)
+    At = _flat(_transposed_matvec(a, method), shape)
+    M = _identity if M is None else _flat(M, shape)
     x0 = torch.zeros_like(b) if x0 is None else x0
+    b, x0 = b.reshape(-1), x0.reshape(-1)
     size = b.numel()
     maxiter = 10 * size if maxiter is None else int(maxiter)
     restart = min(restart, size)
@@ -478,7 +487,7 @@ def gmres(a: Operator, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
               gmres_func=gmres_func)
     x = _linear_solve(b, partial(_gmres_solve, A, M, **kw), partial(_gmres_solve, At, M, **kw))
     failed = torch.isnan(torch.sqrt(_vdot(x, x)))
-    return x, torch.where(failed, -1, 0)
+    return x.reshape(shape), torch.where(failed, -1, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -786,7 +786,7 @@ def _csr_dia_spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
 def spmm(
     a,
     b: torch.Tensor,
-    method: str = "tiled",
+    method: Optional[str] = None,
     reduce: str = "sum",
     blocksize: Optional[Tuple[int, int]] = None,
     return_arg: bool = False,
@@ -807,10 +807,13 @@ def spmm(
     COO is converted to CSR. A 1-D `b` is lifted to one column; leading
     dims past the third are folded into one batch. reduce != 'sum' runs on
     'naive', 'reference' or 'auto' only. return_arg=True (reduce 'min'/'max')
-    also returns the int32 arg matrix. The default stays 'tiled' (JAX's is
-    'auto'): making 'auto' the default comes with `calibrate` (ROADMAP
-    queue 1, item 7).
+    also returns the int32 arg matrix. With no method given, a reducer
+    other than 'sum' routes as 'auto' does (JAX's default), and a sum takes
+    'tiled' (JAX's default is 'auto' there too: making it the port's comes
+    with `calibrate`, ROADMAP queue 1, item 3).
     """
+    if method is None:
+        method = "tiled" if reduce == "sum" else "auto"
     if return_arg and reduce not in ("min", "max"):
         raise ValueError("return_arg is only meaningful for reduce='min'/'max'")
     if isinstance(a, DIA):

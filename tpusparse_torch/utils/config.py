@@ -37,8 +37,9 @@ class Config:
     spmm_block_m: int = 128
     spmm_block_k: int = 128
     spmm_block_n: int = 512
-    # Precision tier of the SpMM kernel and the dense ops:
-    #   'high' / 'highest' -- fp32 FFMA (never TF32);
+    # Precision tier of the SpMM kernel and the dense ops, fp32-class and
+    # never plain TF32:
+    #   'high' / 'highest' -- fp32 FFMA (the GEMM kernel: 3xTF32);
     #   'default'          -- operands rounded to bf16 (RTN), fp32 accumulate.
     precision: str = "high"
     # Whether the dense ops route 2-D products through the hand-written GEMM
