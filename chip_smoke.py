@@ -51,10 +51,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      plan's W = 4096), each in fp32, bf16 and fp16, bitwise equal to their
      plain versions, and a chunked accumulation forced with a small target
      bitwise equal to the whole one; dia_spmv bitwise equal to its plain
-     version on eight planes (1, 7, 129, 160, 200 and 2105 diagonals, square
-     and rectangular, offsets past both edges, fp32 and bf16 planes and x),
-     PackedDIA.mv and dia_spmm on one column (1 launch each, bitwise), and
-     the backward's d_data and dx against float64;
+     version on fourteen planes (1, 7, 129, 160, 200, 400 and 2105
+     diagonals, square and rectangular, offsets past both edges, fp32 and
+     bf16 planes and x; whole zero 32-row tiles, tiles of -0.0, a NaN in
+     an occupied tile, a NaN or +Inf in x that only skipped terms meet),
+     each walking every diagonal and walking the plane's tile list, and
+     x's nonfinite check on each x, PackedDIA.mv (1 check and 1 walk) and
+     dia_spmm on one column (1 walk), bitwise, and the backward's d_data
+     and dx against float64;
   4. the main path, each part with the launch counts set to 0 just before
      it and read just after:
      a. the 16384^2 block-sparse SpMM (10% of its 128x128 blocks, B
@@ -140,9 +144,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
         benchmarks/realmatrix_benchmark.py FULL_SET with --amg):
         smoothed_aggregation_setup on the card with its host seconds, the
         hierarchy's four levels and formats against the JAX package's
-        (AMG_LEVELS), then Jacobi-CG (50 iterations) and AMG-CG (40
+        (AMG_LEVELS), the tile lists of its PackedDIA planes built on the
+        device with their time, then Jacobi-CG (50 iterations) and AMG-CG (40
         iterations) at tol 1e-7 on the 7-diagonal DIA operator, the AMG-CG
-        solve counted: per V-cycle 14 dia_spmv and the windowed gathers and
+        solve counted: per V-cycle 14 dia_spmv, 14 dia_nonfinite (x's check
+        before each walk of a tile list) and the windowed gathers and
         segment sums of the adopted plans;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
@@ -225,12 +231,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
      CSR tensors (cuSPARSE, a yardstick), a torch.profiler breakdown of the
      forward+backward, both windowed kernels on the 16384^2 case's maps
      against their plain versions, torch.index_select / index_add_ and
-     their bound, and spgemm_plan's host seconds on the native and the numpy
-     symbolic pass at 4096^2 at 1 %; ms per Jacobi-CG and AMG-CG iteration
-     on laplace3d_64, a torch.profiler breakdown of AMG-CG iterations, and
-     dia_spmv queued at the level-1 and level-2 planes (2105 x 31,868 and
-     2129 x 2,861) against its plain version, its bound by bytes and
-     torch.sparse.mm of the same DIA part as a CSR tensor;
+     their bound (the segment sum and index_add_ queued behind a sleep, so
+     the host's launch overhead is hidden), and spgemm_plan's host seconds
+     on the native and the numpy symbolic pass at 4096^2 at 1 %; ms per
+     Jacobi-CG and AMG-CG iteration on laplace3d_64, a torch.profiler
+     breakdown of AMG-CG iterations, dia_spmv at the level-1 and level-2
+     planes (2105 x 31,868 and 2129 x 2,861) on PackedDIA's tile list and
+     walking every diagonal, against its plain version, its bound by the
+     function's bytes (nonzeros, their positions, x and y), two design
+     figures (the whole plane's bytes; the occupied tiles') and
+     torch.sparse.mm of the same DIA part as a CSR tensor, x's nonfinite
+     check alone, and windowed_segsum on the hierarchy's restriction maps
+     beside index_add_;
   7. each phase's wall time, the `kernels` JSON line, then the device JSON
      line, last.
 
@@ -271,6 +283,7 @@ TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
+TILE_ROWS = 32  # the rows of a dia_spmv tile
 TRAIN_STEPS = 20
 PARITY_STEPS = 3
 # kernel launches of one training step, by variant (fc1, fc2 forward;
@@ -282,7 +295,8 @@ NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
 NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
 NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8,
              "naive_spmm": 0, "resident_spmm_batched": 0, "compact_spmm": 0,
-             "grouped_spmm": 0, "footprint_spmm": 0, **NO_WINDOWED, "dia_spmv": 0}
+             "grouped_spmm": 0, "footprint_spmm": 0, **NO_WINDOWED, "dia_spmv": 0,
+             "dia_nonfinite": 0}
 STEP_LAUNCHES = {
     "sparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
     "blocksparse": {**NO_LAUNCH, "block_ell_spmm": 3, "sddmm": 2},
@@ -354,6 +368,36 @@ def time_ms_queued(fn, reps: int = 20, warmup: int = 3, iters: int = 5) -> float
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def time_ms_ahead(fn, reps: int = 20, warmup: int = 3, iters: int = 5) -> float:
+    """Median device time per call of `fn` over `reps` back-to-back calls
+    between two CUDA events, queued behind a sleep kernel that lasts twice
+    the host's time to enqueue them: the card runs the calls with no wait on
+    the host between them (launch gaps on the card included). For calls
+    whose host overhead exceeds their kernels' time, where `time_ms_queued`
+    would time the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(2 * host_s, 1e-3) * 2e9)  # at most ~2 GHz: at least twice the host time
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -2919,9 +2963,13 @@ def _windowed_kernel_rows(a, plan) -> dict:
     s_err = float((sk().float() - spl().float()).abs().max())
     g_ms, g_plain = time_ms_queued(gk), time_ms_queued(gpl, reps=5)
     g_lib = time_ms_queued(lambda: torch.index_select(table, 0, a_pos))
-    s_ms, s_plain = time_ms_queued(sk), time_ms_queued(spl, reps=2, iters=3)
     zeros = torch.zeros(sp.num_segments, device="cuda")
-    s_lib = time_ms_queued(lambda: zeros.clone().index_add_(0, c_pos, prods))
+
+    def s_lib_fn():
+        return zeros.clone().index_add_(0, c_pos, prods)
+    s_queued, s_lib_queued = time_ms_queued(sk), time_ms_queued(s_lib_fn)
+    s_ms, s_lib = time_ms_ahead(sk), time_ms_ahead(s_lib_fn)
+    s_plain = time_ms_queued(spl, reps=2, iters=3)
     # bytes each kernel must move: its index maps and output once, the table
     # entries the map reads (gather) or y (segment sum) once
     g_bytes = 4.0 * (2 * gp.n + gp.starts.size + np.unique(gp.idx).size)
@@ -2934,7 +2982,8 @@ def _windowed_kernel_rows(a, plan) -> dict:
           f"({g_bytes / 1e6:.2f} MB); kernel vs plain max abs err {g_err:.3e}")
     print(f"windowed_segsum on {SPGEMM_KERNEL_CASE}'s c_pos map (n_in {sp.n_in}, "
           f"{sp.num_segments} segments, W {sp.window}, {sp.exc_pos.size} exceptions): kernel "
-          f"{s_ms:.4f} ms, plain {s_plain:.4f} ms, index_add_ {s_lib:.4f} ms, bound "
+          f"{s_ms:.4f} ms, index_add_ {s_lib:.4f} ms (queued behind a sleep; queued alone "
+          f"{s_queued:.4f} and {s_lib_queued:.4f}), plain {s_plain:.4f} ms, bound "
           f"{s_bound:.4f} ms by {s_by} ({s_bytes / 1e6:.2f} MB); kernel vs plain max abs err "
           f"{s_err:.3e}")
     if g_err != 0.0 or s_err != 0.0:
@@ -2990,7 +3039,10 @@ def _spgemm_plan_host_times(a) -> None:
 
 # the wide-DIA kernel against its plain version: m, k, diagonals, offsets'
 # range, plane dtype, x dtype (square and rectangular, 1 to 2105 diagonals,
-# offsets past both edges, fp32 and bf16 planes)
+# offsets past both edges, fp32 and bf16 planes), and a pattern: whole zero
+# 32-row tiles in a band ("band", ~10 % of the tiles occupied), tiles of
+# -0.0 and +0.0 ("neg_zero"), a NaN in an occupied tile ("nan_plane"), a
+# NaN or +Inf in x that only skipped terms meet ("nan_x", "inf_x")
 DIA_SMALL = {
     "square_1": (700, 700, 1, (-5, 5), torch.float32, torch.float32),
     "rect_7_past_both_edges": (513, 400, 7, (-900, 900), torch.float32, torch.float32),
@@ -3000,6 +3052,13 @@ DIA_SMALL = {
     "square_200_bf16_plane": (1000, 1000, 200, (-990, 990), torch.bfloat16, torch.float32),
     "square_160_bf16_x": (777, 777, 160, (-700, 700), torch.float32, torch.bfloat16),
     "level1_2105": (31868, 31868, 2105, (-31000, 31000), torch.float32, torch.float32),
+    "band_10pct_tiles": (4000, 4000, 400, (-3990, 3990), torch.float32, torch.float32, "band"),
+    "band_bf16_both": (777, 800, 160, (-700, 700), torch.bfloat16, torch.bfloat16, "band"),
+    "neg_zero_tiles": (1000, 1000, 200, (-990, 990), torch.float32, torch.float32, "neg_zero"),
+    "nan_in_occupied_tile": (1000, 1000, 200, (-990, 990), torch.float32, torch.float32,
+                             "nan_plane"),
+    "nan_x_skipped": (1000, 1000, 200, (-990, 990), torch.float32, torch.float32, "nan_x"),
+    "inf_x_skipped": (1003, 1000, 200, (-990, 990), torch.float32, torch.float32, "inf_x"),
 }
 # the AMG hierarchy of laplace3d_64 as the JAX package builds it on the CPU:
 # (n, nnz, format) per level
@@ -3011,52 +3070,99 @@ VCYCLE_LIMIT = 1e-5     # one V-cycle, card against CPU, over scale
 
 
 def _dia_small_inputs(name, device="cuda"):
-    m, k, nd, (lo, hi), ddt, xdt = DIA_SMALL[name]
+    m, k, nd, (lo, hi), ddt, xdt, *pattern = DIA_SMALL[name]
     rng = np.random.default_rng(nd + m)
     offs = np.sort(rng.choice(np.arange(lo, hi), nd, replace=False)).astype(np.int64)
-    data = torch.from_numpy(rng.standard_normal((nd, m)).astype(np.float32)).to(device, ddt)
+    data = rng.standard_normal((nd, m)).astype(np.float32)
+    tile_of = np.arange(m) // 32
+    ntiles = int(tile_of[-1]) + 1
+    if pattern == ["band"]:  # row d holds entries in a band of ~10 % of the tiles
+        for d in range(nd):
+            data[d, np.abs(tile_of - (d * ntiles) // nd) > max(1, ntiles // 20)] = 0.0
+    elif pattern == ["neg_zero"]:
+        data[::3, tile_of % 4 == 1] = -0.0
+        data[1::3, tile_of % 4 == 2] = 0.0
+    elif pattern == ["nan_plane"]:
+        data[5, 70] = np.nan
+        data[6:, tile_of % 2 == 0] = 0.0
+    data = torch.from_numpy(data).to(device, ddt)
     x = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(device, xdt)
     return offs, data, x, rng
 
 
+def _poison_skipped(plane, p_offs, x, value):
+    """Zero every 32-row tile whose terms reach x[k // 2], then set that x
+    to `value`: only skipped terms meet it. Returns the rows it reaches."""
+    m, k = plane.shape[1], x.shape[0]
+    j = k // 2
+    rows = []
+    for d, off in enumerate(p_offs):
+        i = j - int(off)
+        if 0 <= i < m:
+            plane[d, (i // 32) * 32:(i // 32) * 32 + 32] = 0.0
+            rows.append(i)
+    x[j] = value
+    return rows
+
+
 def phase_small_dia() -> None:
     """dia_spmv against its plain version on the card, bitwise, on the
-    DIA_SMALL cases (the plane in JAX's plane order); PackedDIA.mv and
-    dia_spmm on a one-column b, one launch each, bitwise equal to the plain
-    version; and the backward's dx and d_data against float64."""
+    DIA_SMALL cases (the plane in JAX's plane order), walking every
+    diagonal and walking the plane's tile list (NaN rows included: a NaN or
+    Inf in x that only skipped terms meet must make its rows NaN);
+    PackedDIA.mv and dia_spmm on a one-column b, one launch each, bitwise
+    equal to the plain version; and the backward's dx and d_data against
+    float64."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import dia as dk
 
     for name in DIA_SMALL:
         offs, data, x, _ = _dia_small_inputs(name)
         plane, p_offs = dk._pack_dia(data, offs)
+        pattern = DIA_SMALL[name][6:]
+        rows = []
+        if pattern in (("nan_x",), ("inf_x",)):
+            plane = plane.clone()
+            rows = _poison_skipped(plane, p_offs, x, float(pattern[0][:3]))
         o = dk._offsets_tensor(p_offs, "cuda")
+        tiles = dk.dia_tile_list(plane, o)
         got = dk.dia_spmv_kernel(plane, o, x)
+        got_list = dk.dia_spmv_kernel(plane, o, x, tiles)
         want = dk._dia_spmv_plain(plane, o, x)
+        flags = dk.dia_nonfinite_kernel(x)
         torch.cuda.synchronize()
-        same = _same(got, want)
+        same = (torch.equal(_bits(got), _bits(want))
+                and torch.equal(_bits(got_list), _bits(want))
+                and torch.equal(flags, dk._nonfinite_plain(x))
+                and bool(flags.any()) == bool(rows))
+        nan_rows = bool(torch.isnan(got_list[rows]).all())
         print(f"case dia {name}: {plane.shape[0]} diagonals x {plane.shape[1]} rows, x "
-              f"{x.shape[0]}, {str(plane.dtype)[6:]} plane, {str(x.dtype)[6:]} x: bitwise equal "
-              f"to plain {same}")
-        if not same:
+              f"{x.shape[0]}, {str(plane.dtype)[6:]} plane, {str(x.dtype)[6:]} x, "
+              f"{tiles.nocc} of {plane.shape[0] * (tiles.ptr.shape[0] - 1)} 32-row tiles "
+              f"occupied: every diagonal, the tile list and x's nonfinite check equal to "
+              f"plain {same}"
+              + (f", the {len(rows)} rows a skipped term meets NaN {nan_rows}" if rows else ""))
+        if not (same and nan_rows):
             raise AssertionError(f"dia {name}: the kernel disagrees with its plain version")
     offs, data, x, rng = _dia_small_inputs("rect_tall_200")
     m, k = data.shape[1], x.shape[0]
     plane, p_offs = dk._pack_dia(data, offs)
     want = dk._dia_spmv_plain(plane, dk._offsets_tensor(p_offs, "cuda"), x)
     packed = dk.pack_dia_operator(data, offs, (m, k))
-    for label, fn in (("PackedDIA.mv", lambda: packed.mv(x)),
-                      ("dia_spmm one column", lambda: tt.dia_spmm(
-                          tt.DIA(data, offs, (m, k)), x[:, None])[:, 0])):
+    # PackedDIA walks its tile list (the check, then the walk); dia_spmm on
+    # one column walks every diagonal
+    for label, fn, checks in (("PackedDIA.mv", lambda: packed.mv(x), 1),
+                              ("dia_spmm one column", lambda: tt.dia_spmm(
+                                  tt.DIA(data, offs, (m, k)), x[:, None])[:, 0], 0)):
         dk.reset_launch_counts()
         got = fn()
         torch.cuda.synchronize()
-        n_launch = dk.launch_counts()["dia_spmv"]
+        n_launch = dk.launch_counts()
         same = _same(got, want)
-        print(f"case dia {label} (rect_tall_200): {n_launch} launch, bitwise equal to plain "
-              f"{same}")
-        if n_launch != 1 or not same:
-            raise AssertionError(f"dia {label}: {n_launch} launches, bitwise equal {same}")
+        print(f"case dia {label} (rect_tall_200): launches {json.dumps(n_launch)}, bitwise "
+              f"equal to plain {same}")
+        if n_launch != {"dia_spmv": 1, "dia_nonfinite": checks} or not same:
+            raise AssertionError(f"dia {label}: launches {n_launch}, bitwise equal {same}")
     # the backward against float64
     d = data.clone().requires_grad_(True)
     xx = x.clone().requires_grad_(True)
@@ -3081,7 +3187,8 @@ def _amg_expected(m) -> dict:
     """The launches of one V-cycle the hierarchy implies: per level with a
     prolongator, its A matvecs (presmooth + 1 + postsmooth) and its factored
     P's two D⁻¹A matvecs on the wide-DIA kernel where they are PackedDIA,
-    plus one windowed gather and one segment sum per adopted plan."""
+    plus one windowed gather and one segment sum per adopted plan; each
+    dia_spmv walks a tile list, so x's nonfinite check runs beside it."""
     from tpusparse_torch.amg import _HybridOp
     from tpusparse_torch.kernels.dia import PackedDIA
 
@@ -3097,6 +3204,8 @@ def _amg_expected(m) -> dict:
             out["dia_spmv"] += wide(lvl.p_fact.dinv_a) + wide(lvl.p_fact.dinv_a_t)
             out["windowed_gather"] += lvl.p_fact.gplan is not None
             out["windowed_segsum"] += lvl.p_fact.splan is not None
+    # every PackedDIA plane of the hierarchy has a tile list: each mv checks x
+    out["dia_nonfinite"] = out["dia_spmv"]
     return out
 
 
@@ -3120,10 +3229,11 @@ def phase_amg_laplace3d() -> dict:
     iteration where its stop test fires, AMG-CG's float64 residual, a
     torch.profiler breakdown of 8 iterations,
     and dia_spmv at the level-1 and level-2 planes against its plain
-    version, its bound and torch.sparse.mm. Returns the kernel row and the
-    launches of the solve."""
+    version, its bound and torch.sparse.mm. Returns the kernel rows
+    ('dia_spmv', 'dia_nonfinite') and the launches of the solve."""
     import tpusparse_torch as tt
     from tpusparse_torch import kernels
+    from tpusparse_torch.amg import _HybridOp
     from tpusparse_torch.kernels import dia as dk
     from tpusparse_torch.utils.matrices import get_matrix
 
@@ -3134,10 +3244,23 @@ def phase_amg_laplace3d() -> dict:
     print(f"amg laplace3d_64 setup: {time.perf_counter() - t0:.2f} s on the host, pushes "
           f"included; grid complexity {m.grid_complexity:.3f}")
     _check_amg_report(m)
+    wide = [op for lvl in m.levels for op in (lvl.a, *((lvl.p_fact.dinv_a, lvl.p_fact.dinv_a_t)
+                                                     if lvl.p_fact is not None else ()))]
+    wide = [op.dia if isinstance(op, _HybridOp) else op for op in wide]
+    wide = [op for op in wide if isinstance(op, dk.PackedDIA)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nocc = sum(op.tiles().nocc for op in wide)
+    torch.cuda.synchronize()
+    print(f"amg tile lists: {len(wide)} PackedDIA planes, {nocc} occupied 32-row tiles of "
+          f"{sum(op.data.shape[0] * -(-op.data.shape[1] // TILE_ROWS) for op in wide)}, built "
+          f"in {(time.perf_counter() - t0) * 1e3:.2f} ms on the device (torch ops; PackedDIA "
+          f"keeps each for its later mvs)")
     per_cycle = _amg_expected(m)
     print(f"amg: launches a V-cycle the hierarchy implies {json.dumps(per_cycle)}")
-    if per_cycle["dia_spmv"] != 14:
-        raise AssertionError(f"amg: {per_cycle['dia_spmv']} dia_spmv a V-cycle, not 14")
+    if not per_cycle["dia_spmv"] == per_cycle["dia_nonfinite"] == 14:
+        raise AssertionError(f"amg: {per_cycle['dia_spmv']} dia_spmv and "
+                             f"{per_cycle['dia_nonfinite']} dia_nonfinite a V-cycle, not 14")
     n = a.shape[0]
     b = torch.from_numpy(np.random.default_rng(101).random(n, dtype=np.float32)).cuda()
     # one V-cycle, card against the same hierarchy on the CPU
@@ -3184,7 +3307,8 @@ def phase_amg_laplace3d() -> dict:
     expect = {k_: v * cycles for k_, v in per_cycle.items()}
     print(f"amg-cg (maxiter {AMG_CG_ITERS}, tol {AMG_TOL}): launches "
           f"{json.dumps({k_: counts[k_] for k_ in expect})} in {cycles} V-cycles, one a loop "
-          f"iteration after M(r0): {counts['dia_spmv'] / cycles:g} dia_spmv an iteration")
+          f"iteration after M(r0): {counts['dia_spmv'] / cycles:g} dia_spmv and "
+          f"{counts['dia_nonfinite'] / cycles:g} dia_nonfinite an iteration")
     _expect("amg-cg", counts, expect)
     # where the stop test fires: the same solve reading it every iteration,
     # which must give the same x bit for bit
@@ -3236,60 +3360,163 @@ def phase_amg_laplace3d() -> dict:
               f"float64 relative residual {r_:.3e}")
     _profile("amg-cg laplace3d_64, 8 iterations",
              lambda: tt.linalg.cg(op, b, tol=AMG_TOL, maxiter=8, M=m), 2, top=10)
-    row = _dia_timings(m)
-    return {"row": row, "launches": counts}
+    rows = _dia_timings(m)
+    _segsum_amg_rows(m)
+    return {"rows": rows, "launches": counts}
+
+
+def _csr_yardstick(p):
+    """The DIA part's entries (the plane's nonzeros) as a torch CSR tensor:
+    torch.sparse.mm of it is row 20's yardstick (cuSPARSE)."""
+    n = p.data.shape[1]
+    d_i, i_i = torch.nonzero(p.data, as_tuple=True)
+    cols = i_i + torch.from_numpy(np.array(p.offsets)).to(p.data.device)[d_i]
+    order = torch.argsort(i_i * p.shape[1] + cols)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=p.data.device)
+    crow[1:] = torch.cumsum(torch.bincount(i_i, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow, cols[order], p.data[d_i, i_i][order], size=p.shape)
 
 
 def _dia_timings(m) -> dict:
-    """dia_spmv queued at the level-1 and level-2 planes (the A operators'
-    DIA parts, as the V-cycle runs them) against its plain version, its
-    bound by bytes (plane + x + y once at the HBM rate) and torch.sparse.mm of
-    the same DIA part's entries as a CSR tensor (cuSPARSE, a yardstick); the
-    level-1 row goes into the kernels line."""
+    """dia_spmv at the level-1 and level-2 planes (the A operators' DIA
+    parts, as the V-cycle runs them) on PackedDIA's tile list, which is what
+    AMG-CG runs, and walking every diagonal, each bitwise against the plain
+    version; the list's size and build time; the bound of the function (its
+    nonzeros' values, an int32 position each, x and y once at the HBM rate)
+    beside two design figures (the whole plane's bytes, and the occupied
+    tiles' with their list); torch.sparse.mm of the same DIA part's entries
+    as a CSR tensor. Kernel and yardstick are queued behind a sleep
+    (`time_ms_ahead`; the older `time_ms_queued` beside them). At level 1
+    also x's nonfinite check alone, against its plain version. Returns the
+    level-1 rows of the kernels line: 'dia_spmv' and 'dia_nonfinite'."""
+    from tpusparse_torch.amg import _HybridOp
     from tpusparse_torch.kernels import dia as dk
 
-    from tpusparse_torch.amg import _HybridOp
-
+    replaces = ("tpusparse/kernels/dia.py:57 (_dia_spmv_kernel; _dia_spmv_jit l.113, "
+                "pallas_call l.123)")
     rows = {}
     for lv in (1, 2):
         p = m.levels[lv].a
         p = p.dia if isinstance(p, _HybridOp) else p
         nd, n = p.data.shape
+        esize = p.data.element_size()
         x = torch.from_numpy(np.random.default_rng(lv).random(n, dtype=np.float32)).cuda()
         o = p._offsets_on(p.data.device)
-        got = dk.dia_spmv_kernel(p.data, o, x)
         want = dk._dia_spmv_plain(p.data, o, x)
-        err = float((got - want).abs().max())
-        k_ms = time_ms_queued(lambda: dk.dia_spmv_kernel(p.data, o, x))
+        full = dk.dia_spmv_kernel(p.data, o, x)
+        same = torch.equal(_bits(full), _bits(want))
+        full_ms = time_ms_ahead(lambda: dk.dia_spmv_kernel(p.data, o, x))
+        full_bytes = esize * nd * n + 4.0 * (2 * n + nd)
+        full_fig = full_bytes / HBM_BYTES_PER_S * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = dk.dia_tile_list(p.data, o)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        tiles = p.tiles()  # built at the solve's first mv
+        same = same and all(torch.equal(a_, b_) for a_, b_ in (
+            (tiles.ptr, fresh.ptr), (tiles.rows, fresh.rows), (tiles.offs, fresh.offs),
+            (tiles.vals, fresh.vals)))
+        got = dk.dia_spmv_kernel(p.data, o, x, tiles)
+        same = same and torch.equal(_bits(got), _bits(want))
+        same = same and torch.equal(_bits(p.mv(x)), _bits(want))
+        k_ms = time_ms_ahead(lambda: dk.dia_spmv_kernel(p.data, o, x, tiles))
+        mv_ms = time_ms_queued(lambda: p.mv(x))
+        ptr = tiles.ptr.cpu().numpy()
+        last = int(ptr[-1] - ptr[-2])
+        occ_entries = TILE_ROWS * (tiles.nocc - last) + (n - TILE_ROWS * (ptr.size - 2)) * last
+        held = sum(t_.numel() * t_.element_size()
+                   for t_ in (tiles.ptr, tiles.rows, tiles.offs, tiles.vals))
+        # design figure: the occupied tiles' values, their offsets and
+        # tile_ptr, x and y once; the kernel reads these, zeros included
+        occ_bytes = esize * occ_entries + 4.0 * (ptr.size + tiles.nocc) + 4.0 * (2 * n)
+        occ_fig = occ_bytes / HBM_BYTES_PER_S * 1e3
         plain_ms = time_ms_queued(lambda: dk._dia_spmv_plain(p.data, o, x), reps=2, iters=3)
-        # the DIA part's entries (the plane's nonzeros) as a CSR tensor
-        d_i, i_i = torch.nonzero(p.data, as_tuple=True)
-        cols = i_i + torch.from_numpy(p.offsets).to(p.data.device)[d_i]
-        order = torch.argsort(i_i * p.shape[1] + cols)
-        crow = torch.zeros(n + 1, dtype=torch.int64, device=p.data.device)
-        crow[1:] = torch.cumsum(torch.bincount(i_i, minlength=n), 0)
-        ts_ = torch.sparse_csr_tensor(crow, cols[order], p.data[d_i, i_i][order],
-                                      size=p.shape)
-        entries = int(d_i.numel())
-        del d_i, i_i, cols, order
-        lib_ms = time_ms_queued(lambda: torch.sparse.mm(ts_, x[:, None]))
-        lib_err = over_scale(torch.sparse.mm(ts_, x[:, None])[:, 0], got)[1]
-        nbytes = p.data.element_size() * nd * n + 4.0 * (2 * n + nd)
-        b_ms, b_by = bound(2.0 * nd * n, nbytes)
-        print(f"dia_spmv level {lv} ({nd} diagonals x {n} rows, {nbytes / 1e6:.1f} MB; "
-              f"{entries} entries, {nd * n / entries:.1f}x padding): kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.sparse.mm of its CSR {lib_ms:.4f} ms (vs kernel {lib_err:.2e} of scale), "
-              f"bound {b_ms:.4f} ms by {b_by}, kernel at {nbytes / (k_ms * 1e-3) / 1e12:.2f} "
-              f"TB/s; kernel vs plain max abs err {err:.3e}")
-        if err != 0.0:
+        ts_ = _csr_yardstick(p)
+        nnz = int(ts_.values().numel())
+        # the function's bound: each nonzero's value and one int32 position
+        # (as the CSR yardstick reads them), x and y once; 2 flops a nonzero
+        f_bytes = (esize + 4.0) * nnz + x.element_size() * n + 4.0 * n
+        f_bound, f_by = bound(2.0 * nnz, f_bytes)
+        lib_ms = time_ms_ahead(lambda: torch.sparse.mm(ts_, x[:, None]))
+        lib_queued = time_ms_queued(lambda: torch.sparse.mm(ts_, x[:, None]))
+        lib_err = over_scale(torch.sparse.mm(ts_, x[:, None])[:, 0], want)[1]
+        print(f"dia_spmv level {lv} ({nd} diagonals x {n} rows, {nnz} nonzeros, "
+              f"{nd * n / nnz:.1f}x padding): tile list {tiles.nocc} of {nd * (ptr.size - 1)} "
+              f"32-row tiles ({tiles.nocc / (nd * (ptr.size - 1)):.4f}; "
+              f"{nnz / occ_entries:.4f} of their entries nonzero), {held / 1e6:.2f} MB held, "
+              f"built in {build_ms:.2f} ms; on the list {k_ms:.4f} ms, every diagonal "
+              f"{full_ms:.4f} ms; PackedDIA.mv queued {mv_ms:.4f} ms; bound {f_bound:.4f} ms by "
+              f"{f_by} ({f_bytes / 1e6:.2f} MB: nonzeros, their positions, x, y), the list "
+              f"{k_ms / f_bound:.2f}x it; design figures at the HBM rate: the occupied tiles "
+              f"{occ_fig:.4f} ms ({occ_bytes / 1e6:.1f} MB with their list, x, y; read at "
+              f"{occ_bytes / (k_ms * 1e-3) / 1e12:.2f} TB/s), the whole plane {full_fig:.4f} ms "
+              f"({full_bytes / 1e6:.1f} MB); plain {plain_ms:.4f} ms; torch.sparse.mm of its "
+              f"CSR {lib_ms:.4f} ms (queued alone {lib_queued:.4f}; vs plain {lib_err:.2e} of "
+              f"scale); bitwise equal to plain {same}")
+        if not same:
             raise AssertionError(f"dia_spmv level {lv}: kernel disagrees with its plain version")
+        del ts_
         rows[lv] = {"name": "dia_spmv", "route": "cuda",
-                    "source": "tpusparse_torch/csrc/dia_spmv.cu",
-                    "replaces": "tpusparse/kernels/dia.py:57 (_dia_spmv_kernel; _dia_spmv_jit "
-                                "l.113, pallas_call l.123)",
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib_ms}
-    return rows[1]
+                    "source": "tpusparse_torch/csrc/dia_spmv.cu", "replaces": replaces,
+                    "max_abs_err": 0.0, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": f_bound,
+                    "bound_by": f_by, "library_ms": lib_ms}
+        if lv != 1:
+            continue
+        # x's nonfinite check, which PackedDIA.mv launches before each walk
+        bad = x.clone()
+        bad[n // 2] = float("nan")
+        flags, flags_bad = dk.dia_nonfinite_kernel(x), dk.dia_nonfinite_kernel(bad)
+        c_same = (torch.equal(flags, dk._nonfinite_plain(x))
+                  and torch.equal(flags_bad, dk._nonfinite_plain(bad)) and bool(flags_bad.any()))
+        c_ms = time_ms_ahead(lambda: dk.dia_nonfinite_kernel(x))
+        c_plain = time_ms_queued(lambda: dk._nonfinite_plain(x))
+        c_bound, c_by = bound(float(n), x.element_size() * n + 4.0 * flags.numel())
+        print(f"dia_nonfinite (x of {n}, {flags.numel()} slices): {c_ms:.4f} ms alone, plain "
+              f"{c_plain:.4f} ms, bound {c_bound:.5f} ms by {c_by}; equal to plain with and "
+              f"without a NaN {c_same}")
+        if not c_same:
+            raise AssertionError("dia_nonfinite disagrees with its plain version")
+        rows["check"] = {"name": "dia_nonfinite", "route": "cuda",
+                         "source": "tpusparse_torch/csrc/dia_spmv.cu", "replaces": replaces,
+                         "max_abs_err": 0.0, "ms": c_ms, "plain_ms": c_plain,
+                         "bound_ms": c_bound, "bound_by": c_by, "library_ms": None}
+    return {"dia_spmv": rows[1], "dia_nonfinite": rows["check"]}
+
+
+def _segsum_amg_rows(m) -> None:
+    """windowed_segsum on the restriction maps of the AMG hierarchy (each
+    level's factored P with an adopted segment plan: unsorted aggregation
+    ids at cap 16384), bitwise against its plain version, beside
+    index_add_ over the same map, both queued behind a sleep."""
+    from tpusparse_torch.kernels import windowed as wk
+
+    for lv, lvl in enumerate(m.levels):
+        pf = getattr(lvl, "p_fact", None)
+        if pf is None or pf.splan is None:
+            continue
+        sp = pf.splan
+        y = torch.from_numpy(np.random.default_rng(lv).standard_normal(sp.n_in).astype(
+            np.float32)).cuda()
+        args = (sp.tensor("seg_masked", "cuda"), sp.tensor("starts", "cuda"))
+
+        def sk():
+            return wk.windowed_segsum_kernel(y, *args, num_segments=sp.num_segments,
+                                             window=sp.window)
+        want = wk._segsum_plain(y, *args, num_segments=sp.num_segments, window=sp.window)
+        same = torch.equal(_bits(sk()), _bits(want))
+        zeros = torch.zeros(sp.num_segments, device="cuda")
+        k_ms = time_ms_ahead(sk)
+        lib_ms = time_ms_ahead(lambda: zeros.clone().index_add_(0, pf.agg, y))
+        nbytes = 4.0 * (2 * sp.n_in + sp.starts.size + sp.num_segments)
+        b_ms, b_by = bound(float(sp.n_in), nbytes)
+        print(f"windowed_segsum on amg level {lv}'s agg map (n_in {sp.n_in}, {sp.num_segments} "
+              f"segments, W {sp.window}, {-(-sp.num_segments // 128)} spans, "
+              f"{sp.exc_pos.size} exceptions): kernel {k_ms:.4f} ms, index_add_ {lib_ms:.4f} "
+              f"ms (both queued behind a sleep), bound {b_ms:.4f} ms by {b_by}; bitwise equal "
+              f"to plain {same}")
+        if not same:
+            raise AssertionError(f"windowed_segsum on amg level {lv}: kernel disagrees")
 
 
 def run_phase(name, fn, *args):
@@ -3680,7 +3907,8 @@ def main() -> int:
     kernels.extend({**spgemm["rows"][e],
                     "launches": spgemm["launches"][e] + amg["launches"][e]}
                    for e in ("windowed_gather", "windowed_segsum"))
-    kernels.append({**amg["row"], "launches": amg["launches"]["dia_spmv"]})
+    kernels.extend({**amg["rows"][e], "launches": amg["launches"][e]}
+                   for e in ("dia_spmv", "dia_nonfinite"))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -247,7 +247,7 @@ NO_PLAN_EXEC = {"resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0
                 "footprint_spmm": 0}
 NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
 NO_OTHER = {**NO_FLASH, **NO_BLK, **NO_INT8, **NO_PLAN_EXEC, **NO_WINDOWED, "naive_spmm": 0,
-            "dia_spmv": 0}
+            "dia_spmv": 0, "dia_nonfinite": 0}
 STEP_LAUNCHES = {
     "sparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
     "blocksparse": {"block_ell_spmm": 3, "sddmm": 2, "gemm": 0, **NO_OTHER},
@@ -1138,7 +1138,7 @@ def test_spgemm_forward_backward_on_card_matches_cpu(cuda):
         torch.testing.assert_close(got, want, **TOL)
 
 
-# m, k, diagonals, offsets' range, data dtype, x dtype
+# m, k, diagonals, offsets' range, data dtype, x dtype[, zero pattern]
 DIA_CASES = {
     "square_200": (700, 700, 200, (-650, 650), torch.float32, torch.float32),
     "rect_tall_129": (900, 640, 129, (-850, 600), torch.float32, torch.float32),
@@ -1148,14 +1148,32 @@ DIA_CASES = {
     "bf16_both": (777, 777, 160, (-700, 700), torch.bfloat16, torch.bfloat16),
     "fp32_plane_bf16_x": (640, 640, 140, (-600, 600), torch.float32, torch.bfloat16),
     "one_diagonal": (300, 300, 1, (-5, 5), torch.float32, torch.float32),
+    # planes with whole zero 32-row tiles (the tile list's case)
+    "band_10pct_tiles": (1024, 1024, 200, (-1000, 1000), torch.float32, torch.float32, "band"),
+    "band_m_not_32_multiple": (1003, 990, 120, (-900, 900), torch.float32, torch.float32, "band"),
+    "neg_zero_tile": (700, 700, 150, (-650, 650), torch.float32, torch.float32, "neg_zero"),
+    "nan_in_occupied_tile": (700, 700, 150, (-650, 650), torch.float32, torch.float32, "nan"),
+    "band_bf16_both": (777, 800, 160, (-700, 700), torch.bfloat16, torch.bfloat16, "band"),
 }
 
 
 def _dia_inputs(name, device):
-    m, k, nd, (lo, hi), ddt, xdt = DIA_CASES[name]
+    m, k, nd, (lo, hi), ddt, xdt, *pattern = DIA_CASES[name]
     rng = np.random.default_rng(nd + m)
     offs = np.sort(rng.choice(np.arange(lo, hi), nd, replace=False)).astype(np.int64)
-    data = torch.from_numpy(rng.standard_normal((nd, m)).astype(np.float32)).to(device, ddt)
+    data = rng.standard_normal((nd, m)).astype(np.float32)
+    tile_of = np.arange(m) // 32
+    ntiles = int(tile_of[-1]) + 1
+    if pattern == ["band"]:  # row d holds entries in a band of ~10 % of the tiles
+        for d in range(nd):
+            data[d, np.abs(tile_of - (d * ntiles) // nd) > max(1, ntiles // 20)] = 0.0
+    elif pattern == ["neg_zero"]:  # whole tiles of -0.0 and of +0.0
+        data[::3, tile_of % 4 == 1] = -0.0
+        data[1::3, tile_of % 4 == 2] = 0.0
+    elif pattern == ["nan"]:
+        data[5, 70] = np.nan
+        data[6:, tile_of % 2 == 0] = 0.0
+    data = torch.from_numpy(data).to(device, ddt)
     x = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(device, xdt)
     return offs, data, x
 
@@ -1170,12 +1188,194 @@ def test_dia_spmv_kernel_equals_plain_bitwise(cuda, name):
     dk.reset_launch_counts()
     got = dk.dia_spmv_kernel(plane, o, x)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"dia_spmv": 1}
+    assert dk.launch_counts() == {"dia_spmv": 1, "dia_nonfinite": 0}
     want = dk._dia_spmv_plain(plane, o, x)
     assert got.dtype == torch.float32 and torch.equal(got.view(torch.int32),
                                                       want.view(torch.int32))
     torch.testing.assert_close(got.cpu(), dk._dia_spmv_plain(plane.cpu(), o.cpu(), x.cpu()),
-                               **TOL)
+                               **TOL, equal_nan=True)
+
+
+def _poison_skipped(plane, p_offs, x, value):
+    """Zero every 32-row tile whose terms reach x[j] for one j, then set x[j]
+    to `value`: only skipped terms meet it. Returns the rows it reaches."""
+    m, k = plane.shape[1], x.shape[0]
+    j = k // 2
+    rows = []
+    for d, off in enumerate(p_offs):
+        i = j - int(off)
+        if 0 <= i < m:
+            plane[d, (i // 32) * 32:(i // 32) * 32 + 32] = 0.0
+            rows.append(i)
+    x[j] = value
+    return rows
+
+
+@pytest.mark.parametrize("x_case", ["finite", "nan_skipped", "inf_skipped"])
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_dia_spmv_tile_list_equals_plain_bitwise(cuda, name, x_case):
+    """The kernel walking the plane's tile list equals the plain version bit
+    for bit, NaN rows included: zero tiles, -0.0 tiles, a NaN in an occupied
+    tile, and a NaN or +Inf in x that only skipped terms meet."""
+    from tpusparse_torch.kernels import dia as dk
+
+    offs, data, x = _dia_inputs(name, cuda)
+    plane, p_offs = dk._pack_dia(data, offs)
+    plane = plane.clone()
+    rows = []
+    if x_case != "finite":
+        rows = _poison_skipped(plane, p_offs, x, float("nan" if x_case == "nan_skipped"
+                                                       else "inf"))
+    o = dk._offsets_tensor(p_offs, cuda)
+    tiles = dk.dia_tile_list(plane, o)
+    dk.reset_launch_counts()
+    got = dk.dia_spmv_kernel(plane, o, x, tiles)
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"dia_spmv": 1, "dia_nonfinite": 1}
+    want = dk._dia_spmv_plain(plane, o, x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isnan(got[rows]).all())
+    if DIA_CASES[name][6:] == ("band",):
+        assert tiles.nocc < 0.2 * plane.shape[0] * tiles.ptr.shape[0]
+
+
+def test_packed_dia_rebuilds_its_tile_list_on_the_card(cuda):
+    """PackedDIA builds its list at the first mv and keeps it; a plane changed
+    in place between two mvs gets a new list, and each mv (one launch)
+    equals the plain version of the plane it sees."""
+    from tpusparse_torch.kernels import dia as dk
+
+    offs, data, x = _dia_inputs("band_10pct_tiles", cuda)
+    m = data.shape[1]
+    p = dk.pack_dia_operator(data, offs, (m, x.shape[0]))
+    o = p._offsets_on(cuda)
+    for step in range(3):
+        dk.reset_launch_counts()
+        got = p.mv(x)
+        torch.cuda.synchronize()
+        assert dk.launch_counts() == {"dia_spmv": 1, "dia_nonfinite": 1}
+        want = dk._dia_spmv_plain(p.data, o, x)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), step
+        tiles = p.tiles()
+        assert step == 0 or tiles is not first
+        if step == 0:
+            p.data[:, 512:544] = 1.5  # fill a column of tiles that was mostly empty
+        elif step == 1:
+            assert tiles.nocc > first.nocc
+            p.data[:, :64] = 0.0
+        first = tiles
+
+
+def test_packed_dia_trainable_plane_sees_a_write_through_data(cuda):
+    """A PackedDIA whose plane requires grad walks every diagonal (no list,
+    no check launch), so a manual SGD step through `.data`, which leaves the
+    plane's version counter as it was, shows in the next mv; each mv equals
+    the plain version bitwise."""
+    from tpusparse_torch.kernels import dia as dk
+
+    offs, data, x = _dia_inputs("band_10pct_tiles", cuda)
+    m = data.shape[1]
+    p = dk.pack_dia_operator(data.clone().requires_grad_(True), offs, (m, x.shape[0]))
+    o = p._offsets_on(cuda)
+    for step in range(2):
+        dk.reset_launch_counts()
+        got = p.mv(x)
+        torch.cuda.synchronize()
+        assert dk.launch_counts() == {"dia_spmv": 1, "dia_nonfinite": 0}
+        want = dk._dia_spmv_plain(p.data.detach(), o, x)
+        assert torch.equal(got.detach().view(torch.int32), want.view(torch.int32)), step
+        version = p.data._version
+        p.data.data[:, 512:544] -= 0.25  # fills a column of tiles that was mostly empty
+        assert p.data._version == version
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 1000, 1025, 31868])
+def test_dia_nonfinite_kernel_equals_plain(cuda, k, dtype):
+    """The nonfinite check launched alone sets the flags its plain version
+    does (one per slice of x), with a NaN and an Inf placed or not; one
+    launch a call."""
+    from tpusparse_torch.kernels import dia as dk
+
+    x = torch.from_numpy(np.random.default_rng(k).standard_normal(k).astype(np.float32))
+    x = x.to(cuda, dtype)
+    for poison in (False, True):
+        if poison:
+            x[k - 1] = float("inf")
+            x[(k // 3) % k] = float("nan")
+        dk.reset_launch_counts()
+        got = dk.dia_nonfinite_kernel(x)
+        torch.cuda.synchronize()
+        assert dk.launch_counts() == {"dia_spmv": 0, "dia_nonfinite": 1}
+        want = dk._nonfinite_plain(x)
+        assert torch.equal(got, want) and bool(want.any()) == poison
+
+
+# name: (index map maker, cap); run in fp32, bf16 and fp16
+def _seg_amg(rng):  # AMG-shaped: unsorted aggregation ids, windows of thousands
+    g = np.indices((48, 48, 24)).reshape(3, -1).T // np.array((3, 3, 2))
+    na = (16, 16, 12)
+    ids = (g[:, 0] * na[1] + g[:, 1]) * na[2] + g[:, 2]
+    return np.argsort(np.arange(3072) + rng.integers(0, 600, 3072))[ids], 3072
+
+
+SEGSUM_CASES = {
+    "amg_unsorted_cap16384": (_seg_amg, 16384),
+    "one_segment_owns_a_window": (lambda rng: (np.zeros(16384, np.int64), 5), 16384),
+    "sorted_spgemm_shaped": (lambda rng: (np.sort(rng.integers(0, 20000, 20500)), 20000), 4096),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(SEGSUM_CASES) + ["all_ids_minus_one"])
+def test_windowed_segsum_groups_windows_bitwise(cuda, name, dtype):
+    """The segment sum bit for bit against its plain version on an unsorted
+    AMG-shaped map at cap 16384, one segment owning a whole 16,384-entry
+    window, a sorted SpGEMM-shaped map and a map of -1 only; one launch."""
+    from tpusparse_torch.kernels import windowed as wk
+
+    rng = np.random.default_rng(9)
+    if name == "all_ids_minus_one":
+        n_in, s, window = 5000, 700, 4096
+        seg = torch.full((n_in,), -1, dtype=torch.int32, device=cuda)
+        starts = torch.zeros(8, dtype=torch.int32, device=cuda)
+    else:
+        build, cap = SEGSUM_CASES[name]
+        ids, s = build(rng)
+        plan = wk.windowed_segment_plan(ids, s, cap=cap)
+        n_in, window = ids.size, plan.window
+        seg, starts = plan.tensor("seg_masked", cuda), plan.tensor("starts", cuda)
+        if name != "sorted_spgemm_shaped":
+            assert window > 4096
+    y = torch.from_numpy(rng.normal(size=n_in).astype(np.float32)).to(cuda, dtype)
+    wk.reset_launch_counts()
+    got = wk.windowed_segsum_kernel(y, seg, starts, num_segments=s, window=window)
+    torch.cuda.synchronize()
+    assert wk.launch_counts() == {"windowed_gather": 0, "windowed_segsum": 1}
+    want = wk._segsum_plain(y, seg, starts, num_segments=s, window=window)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+    if name == "all_ids_minus_one":
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("window", [256, 2048])
+def test_windowed_segsum_takes_negative_starts(cuda, window):
+    """Spans whose window starts before position 0 (the kernel takes any
+    int32 start, as its plain version does): the positions below 0 are
+    skipped, and the sums equal the plain version bit for bit."""
+    from tpusparse_torch.kernels import windowed as wk
+
+    rng = np.random.default_rng(window)
+    n_in, s = 3000, 300
+    seg = torch.from_numpy(rng.integers(-1, s, n_in).astype(np.int32)).to(cuda)
+    starts = torch.from_numpy(np.array([-window // 2, 1000 - window, 2500 - window // 2],
+                                       np.int32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=n_in).astype(np.float32)).to(cuda)
+    got = wk.windowed_segsum_kernel(y, seg, starts, num_segments=s, window=window)
+    want = wk._segsum_plain(y, seg, starts, num_segments=s, window=window)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(want[:128].any())
 
 
 def test_dia_spmv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -1208,7 +1408,7 @@ def test_dia_routes_on_card_match_cpu(cuda):
         y.square().sum().backward()
         if dev == cuda:
             torch.cuda.synchronize()
-            assert dk.launch_counts() == {"dia_spmv": 1}
+            assert dk.launch_counts() == {"dia_spmv": 1, "dia_nonfinite": 0}
         runs[str(dev)] = (y.detach().cpu(), d.grad.cpu(), xx.grad.cpu())
     for got, want in zip(runs["cuda"], runs["cpu"]):
         torch.testing.assert_close(got, want, **TOL)
@@ -1242,6 +1442,6 @@ def test_amg_vcycle_on_card_matches_cpu(cuda):
         if dev == cuda:
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
-            assert counts["dia_spmv"] == 7, counts
+            assert counts["dia_spmv"] == counts["dia_nonfinite"] == 7, counts
     err = float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max())
     assert err <= 1e-5, err

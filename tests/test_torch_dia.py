@@ -343,9 +343,9 @@ def test_spmm_auto_matches_jax_on_a_banded_operator():
 
 
 def test_binding_matches_the_c_entry_point(monkeypatch):
-    """The ctypes argument list of `dia_spmv` has one type per parameter of
-    the C entry point in csrc/dia_spmv.cu (ctypes refuses a call whose count
-    differs, and only on the card)."""
+    """The ctypes argument lists of `dia_spmv` and `dia_x_nonfinite` have one
+    type per parameter of the C entry points in csrc/dia_spmv.cu (ctypes
+    refuses a call whose count differs, and only on the card)."""
     import re
     from pathlib import Path
 
@@ -356,4 +356,176 @@ def test_binding_matches_the_c_entry_point(monkeypatch):
     td._kernel_fns.__wrapped__()
     src = (Path(td.__file__).resolve().parents[1] / "csrc" / "dia_spmv.cu").read_text()
     params = re.search(r'extern "C" int dia_spmv\(([^)]*)\)', src).group(1).split(",")
-    assert len(captured["dia_spmv"]) == len(params) == 11
+    assert len(captured["dia_spmv"]) == len(params) == 16
+    params = re.search(r'extern "C" int dia_x_nonfinite\(([^)]*)\)', src).group(1).split(",")
+    assert len(captured["dia_x_nonfinite"]) == len(params) == 6
+
+
+# ---------------------------------------------------------------------------
+# the kernel's tile list and the exactness of walking only occupied tiles
+# ---------------------------------------------------------------------------
+
+
+def _tiled_plane(seed, nd, m, dtype=torch.float32):
+    """A plane whose row d holds entries only in a band of three 32-row
+    tiles (whole zero tiles elsewhere), with a tile of -0.0 in row 1's band
+    and a NaN in row 3's; m need not be a multiple of 32."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((nd, m)).astype(np.float32)
+    ntiles = -(-m // 32)
+    band = [(d * ntiles) // nd for d in range(nd)]
+    tile_of = np.arange(m) // 32
+    for d in range(nd):
+        data[d, np.abs(tile_of - band[d]) > 1] = 0.0
+    data[1, tile_of == band[1]] = -0.0
+    data[3, band[3] * 32 + 5] = np.nan
+    return torch.from_numpy(data).to(dtype), band
+
+
+def test_tile_list_matches_a_numpy_count():
+    """For each 32-row tile, the plane rows whose entries there are not all
+    ±0, in plane order (NaN counted), with their offsets beside them."""
+    nd, m = 23, 203
+    data, band = _tiled_plane(1, nd, m)
+    offs = np.random.default_rng(2).choice(np.arange(-150, 150), nd, replace=False)
+    tiles = td.dia_tile_list(data, torch.from_numpy(offs.astype(np.int32)))
+    a = data.numpy()
+    want_ptr, want_rows = [0], []
+    for t in range(-(-m // 32)):
+        want_rows += [d for d in range(nd) if np.any(a[d, 32 * t:32 * t + 32] != 0)]
+        want_ptr.append(len(want_rows))
+    for got in (tiles.ptr, tiles.rows, tiles.offs):
+        assert got.dtype == torch.int32
+    np.testing.assert_array_equal(tiles.ptr.numpy(), want_ptr)
+    np.testing.assert_array_equal(tiles.rows.numpy(), want_rows)
+    np.testing.assert_array_equal(tiles.offs.numpy(), offs[want_rows])
+    padded = np.zeros((nd, len(want_ptr) * 32), np.float32)
+    padded[:, :m] = a
+    tile_of_entry = np.repeat(np.arange(len(want_ptr) - 1), np.diff(want_ptr))
+    want_vals = np.stack([padded[d, 32 * t:32 * t + 32] for d, t in zip(want_rows,
+                                                                         tile_of_entry)])
+    assert tiles.vals.dtype == data.dtype
+    np.testing.assert_array_equal(tiles.vals.numpy().view(np.uint32), want_vals.view(np.uint32))
+    assert tiles.nocc == len(want_rows) < nd * (len(want_ptr) - 1) // 2  # mostly padding
+
+    def rows_of(t):
+        return want_rows[want_ptr[t]:want_ptr[t + 1]]
+    assert 1 not in rows_of(band[1]) and 1 in rows_of(band[1] + 1)  # -0.0 is zero
+    a[3] = np.where(np.isnan(a[3]), np.nan, 0.0)
+    only_nan = td.dia_tile_list(torch.from_numpy(a), torch.from_numpy(offs.astype(np.int32)))
+    t3 = only_nan.ptr.numpy()
+    assert 3 in only_nan.rows.numpy()[t3[band[3]]:t3[band[3] + 1]]  # NaN is not zero
+
+
+def test_packed_dia_rebuilds_its_tile_list_when_the_plane_changes():
+    """The list is kept while the plane is the same tensor at the same
+    version; an in-place change or a new plane gets a new list."""
+    m, nd = 100, 9
+    offs, data, _ = _wide(4, m, m, nd, -60, 60)
+    p = td.pack_dia_operator(torch.from_numpy(data), offs, (m, m))
+    first = p.tiles()
+    assert p.tiles() is first
+    p.data[0, :64] = 0.0  # in place: the version counter moves
+    second = p.tiles()
+    assert second is not first and second.nocc == first.nocc - 2
+    np.testing.assert_array_equal(second.ptr.numpy(), td.dia_tile_list(
+        p.data, p._offsets_on("cpu")).ptr.numpy())
+    p.data = p.data.clone()
+    assert p.tiles() is not second
+    with torch.inference_mode():
+        q = td.pack_dia_operator(torch.from_numpy(data), offs, (m, m))
+    assert q.tiles() is None  # no version counter: the kernel walks every diagonal
+
+
+def test_packed_dia_keeps_no_tile_list_for_a_trainable_plane():
+    """A plane that requires grad gets no list (an optimiser's write through
+    `.data` leaves its version counter as it was), so `mv` walks every
+    diagonal and sees such a write; a write through `.data` to a plane that
+    does not require grad is picked up after `drop_tiles()`."""
+    m, nd = 100, 9
+    offs, data, rng = _wide(4, m, m, nd, -60, 60)
+    x = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    w = td.pack_dia_operator(torch.from_numpy(data).requires_grad_(True), offs, (m, m))
+    assert w.tiles() is None
+    w.data.data[:, :40] -= 0.5  # a manual SGD step
+    assert w.data._version == 0
+    want = td._dia_spmv_plain(w.data.detach(), w._offsets_on("cpu"), x)
+    assert torch.equal(w.mv(x).detach().view(torch.int32), want.view(torch.int32))
+    p = td.pack_dia_operator(torch.from_numpy(data), offs, (m, m))
+    first = p.tiles()
+    p.data.data[0, :64] = 0.0
+    assert p.data._version == 0 and p.tiles() is first
+    p.drop_tiles()
+    fresh = td.dia_tile_list(p.data, p._offsets_on("cpu"))
+    assert p.tiles() is not first and p.tiles().nocc == fresh.nocc == first.nocc - 2
+    np.testing.assert_array_equal(p.tiles().rows.numpy(), fresh.rows.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 1000, 1025, 31868])
+def test_nonfinite_check_flags_each_slice_of_x(k, dtype):
+    """The nonfinite check's plain version (the wrapper's on the CPU) sets
+    one flag per slice of x: min(32, ceil(k / 1024)) slices of ceil(k /
+    slices) entries, 1 where the slice holds a NaN or an Inf."""
+    n = min(32, -(-k // 1024))
+    per = -(-k // n)
+    x = torch.from_numpy(np.random.default_rng(k).standard_normal(k).astype(np.float32))
+    x = x.to(dtype)
+    assert td.dia_nonfinite_kernel(x).tolist() == [0] * n
+    x[k - 1] = float("inf")
+    x[(k // 3) % k] = float("nan")
+    flags = td.dia_nonfinite_kernel(x)
+    assert flags.dtype == torch.int32
+    want = [int(b in ((k - 1) // per, ((k // 3) % k) // per)) for b in range(n)]
+    assert flags.tolist() == want
+
+
+def _skip_walk(data, offsets, x):
+    """A torch emulation of the kernel's walk over a tile list: each row adds
+    only its tile's occupied plane rows, in plane order, from +0 in fp32;
+    a row is NaN where a skipped term meets a nonfinite x in range."""
+    nd, m = data.shape
+    k = x.shape[0]
+    tiles = td.dia_tile_list(data, offsets)
+    occ = torch.zeros((nd, -(-m // 32)), dtype=torch.bool)
+    for t in range(occ.shape[1]):
+        occ[tiles.rows[tiles.ptr[t]:tiles.ptr[t + 1]].long(), t] = True
+    row_occ = occ.repeat_interleave(32, dim=1)[:, :m]
+    i = torch.arange(m)
+    acc = torch.zeros(m)
+    nan = torch.zeros(m, dtype=torch.bool)
+    for d in range(nd):
+        j = i + int(offsets[d])
+        inside = (j >= 0) & (j < k)
+        xv = torch.where(inside, x[j.clamp(0, k - 1)], torch.zeros((), dtype=x.dtype))
+        acc = torch.where(row_occ[d], acc + (data[d] * xv).float(), acc)
+        nan |= ~row_occ[d] & inside & ~torch.isfinite(xv)
+    return torch.where(nan, acc + 0.0 * float("inf"), acc), nan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_case", ["finite", "nan_skipped", "inf_skipped"])
+def test_skipping_empty_tiles_is_bitwise_exact(dtype, x_case):
+    """Walking only the occupied tiles equals the plain version bit for bit
+    (planes with zero tiles, a -0.0 tile and a NaN; x with a NaN or +Inf
+    that only skipped terms meet, which makes their rows NaN). NaN rows
+    match by position: their payload is the host's, the card's canonical."""
+    nd, m, k = 29, 190, 230
+    data, _ = _tiled_plane(5, nd, m, dtype)
+    offs = np.random.default_rng(6).choice(np.arange(-180, 200), nd, replace=False)
+    offsets = torch.from_numpy(offs.astype(np.int32))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(k).astype(np.float32)).to(dtype)
+    if x_case != "finite":
+        j = 117  # zero every tile whose terms reach x[j]: only skipped terms meet it
+        for d in range(nd):
+            i = j - int(offs[d])
+            if 0 <= i < m:
+                data[d, (i // 32) * 32:(i // 32) * 32 + 32] = 0.0
+        x[j] = float("nan") if x_case == "nan_skipped" else float("inf")
+    want = td._dia_spmv_plain(data, offsets, x)
+    got, poisoned = _skip_walk(data, offsets, x)
+    assert bool(poisoned.any()) == (x_case != "finite")
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got)) and bool(nan[poisoned].all())
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+    assert int((~nan).sum()) > m // 2

@@ -276,3 +276,35 @@ def test_pick_window_equals_jax(rng):
                                (np.array([1, 2, 3]), 1, 128)):
         assert tw._pick_window(widths, nspan, cap) == jw._pick_window(widths, nspan, cap)
     assert tw.xla_index_cost_s(12345) == jw.xla_index_cost_s(12345)
+
+
+def _aggregation_map(seed, shape=(24, 24, 12), block=(3, 3, 2)):
+    """An AMG-shaped aggregation map: each point of a 3-D grid goes to the
+    aggregate of its 3x3x2 box, aggregates numbered in a locally shuffled
+    order, so ids are unsorted and a 128-aggregate span draws from
+    thousands of positions."""
+    rng = np.random.default_rng(seed)
+    g = np.indices(shape).reshape(3, -1).T // np.array(block)
+    na = np.array(shape) // np.array(block)
+    ids = (g[:, 0] * na[1] + g[:, 1]) * na[2] + g[:, 2]
+    n_agg = int(np.prod(na))
+    return np.argsort(np.arange(n_agg) + rng.integers(0, 300, n_agg))[ids], n_agg
+
+
+def test_unsorted_aggregation_map_at_cap_16384_matches_jax():
+    """The restriction map of AMG's factored prolongator (amg.py plans it at
+    cap=16384): unsorted ids, windows of thousands of entries and a few
+    exceptions, against the JAX package at the fp32 tier and float64."""
+    seg, s = _aggregation_map(0)
+    assert not np.all(np.diff(seg) >= 0)
+    y = np.random.default_rng(1).normal(size=seg.size).astype(np.float32)
+    jp = jw.windowed_segment_plan(seg, s, cap=16384)
+    tp = tw.windowed_segment_plan(seg, s, cap=16384)
+    _same_plan(tp, jp, SEGMENT_FIELDS)
+    assert tp.window > 4096 and tp.exc_pos.size > 0
+    want = np.asarray(jw.windowed_segment_sum(jnp.asarray(y), jp))
+    got = tw.windowed_segment_sum(torch.from_numpy(y), tp).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    ref = np.zeros(s)
+    np.add.at(ref, seg, y.astype(np.float64))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

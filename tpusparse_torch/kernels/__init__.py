@@ -64,7 +64,7 @@ def launch_counts() -> dict:
     (csrc/flash_attention.cu), 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
     'blk_flash_dkv' (csrc/block_flash_attention.cu), 'naive_spmm',
     'windowed_gather' and 'windowed_segsum' (both csrc/windowed.cu), and
-    'dia_spmv' (csrc/dia_spmv.cu)."""
+    'dia_spmv' and 'dia_nonfinite' (both csrc/dia_spmv.cu)."""
     out = {}
     for mod in _MODULES:
         out.update(mod.launch_counts())
@@ -77,8 +77,8 @@ def launches_by_kernel() -> dict:
     'resident_spmm_batched', 'compact_spmm', 'grouped_spmm',
     'footprint_spmm', 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq',
     'flash_dkv', 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
-    'blk_flash_dkv', 'naive_spmm', 'windowed_gather', 'windowed_segsum' and
-    'dia_spmv'."""
+    'blk_flash_dkv', 'naive_spmm', 'windowed_gather', 'windowed_segsum',
+    'dia_spmv' and 'dia_nonfinite'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
             "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}
