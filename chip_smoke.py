@@ -6,7 +6,8 @@ Run from the repo root:  python3 chip_smoke.py
 Phases, in order; any failed check raises and the script exits non-zero:
   1. the card's name and power limit;
   2. build of the fifteen CUDA sources from the repo (one nvcc per source,
-     all started together; sm_90a), with ptxas's report;
+     all started together; sm_90a), with ptxas's registers, stack and
+     spills for each kernel instance;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
      (128, 128), empty row-blocks, fp32 'high' and 'default', bf16; both
@@ -18,9 +19,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      bitwise equal) and the
      three flash attention kernels (flash_fwd, flash_dq, flash_dkv) at
      (b, h, s, d) = (2, 3, 256, 64), causal (1, 2, 384, 64), ragged
-     (1, 1, 200, 64), (2, 4, 128, 24), (1, 2, 128, 128) and a causal chunk
-     with q_offset 256, each in 'high' and 'default' with fp32 and with
-     bf16 inputs: o, lse, dq, dk, dv, each as max-abs error over scale; and
+     (1, 1, 200, 64), (2, 4, 128, 24), (1, 2, 128, 128), a causal chunk
+     with q_offset 256, d 20, and a causal (1, 2, 1030, 64) with
+     kv_offset 300 (rows that see no key must give 0 and -1e30), in fp32
+     'high', 'highest' and 'default' and bf16 'high' and 'default': o, lse,
+     dq, dk, dv, each as max-abs error over scale; and
      the three block-pattern kernels (blk_flash_fwd, blk_flash_dq,
      blk_flash_dkv) on mask-free plans ('bigbird' block masks at blocks 32
      and 64, a block mask at s = 160) and token-exact masked plans (band
@@ -28,9 +31,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the block, the 'sparse' layer's plan at seq 4096), d from 24 to 128,
      each in fp32 'high', fp32 'default' and bf16, with dq, dk and dv run
      twice and required bitwise equal; the int8 kernels: spmm_int8 at
-     blocksizes (8, 16), (32, 8) and (128, 128) (ragged m, k, n, an empty
-     row-block, pad slots; both entry points bitwise equal to each other
-     and to the plain version), gemm_s8 at (100, 70, 33), (64, 37, 50) and
+     blocksizes (8, 16), (32, 8), (128, 128), (64, 128), (128, 64) and
+     (64, 32) (ragged m, k, n, n 1 and 257, empty row-blocks, pad slots)
+     and a 1024^2 pattern of 128^2 blocks at 10 % (both entry points
+     bitwise equal to each other and to the plain version), gemm_s8 at
+     (100, 70, 33), (64, 37, 50) and
      4096^3 (int32 equal), flash_q8 at the flash cases' six shapes, a
      causal seq 1000 and q and kv offsets together, with fp32 and bf16 q;
      naive_spmm with every reducer and the arg of max and min (ragged m,
@@ -93,8 +98,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
         batch 8: 'sparse' (routed to 'dense', no kernel) and 'local';
      h. the int8 serving tier (benchmarks/quant_benchmark.py --full): the
         headline A as a QuantizedMatrix times B (1 resident spmm_int8
-        launch), a 4096 x 16384 pattern with fewer blocks than
-        block-columns (1 ring launch), quantized_matmul and
+        launch and 1 int8_kmajor, which makes b_q K-major), a 4096 x 16384
+        pattern with fewer blocks than block-columns (1 ring launch, 1
+        int8_kmajor), quantized_matmul and
         QuantizedDense.matmul at 4096^3 (1 gemm_s8 each), and quantize_kv +
         flash_attention_q8 at (8, 16, 512, 64) causal and (2, 12, 4096, 64)
         (1 flash_q8 each);
@@ -103,7 +109,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
         max_position 512, seeded weights, a 16-token prompt): generate in
         fp32, bf16 and int8 (quantize_gpt) at batch 1 and 8 for 16 and 96
         steps, with no kernel launched; the fused=True forward at batch 8,
-        seq 512 with exactly 24 flash_fwd;
+        seq 512 with exactly 24 flash_fwd, timed beside the unfused one;
      j. GCN at Cora's published sizes (a generated graph of 2708 nodes and
         mean degree 3.9, 1433 binary features, 7 classes, 140 training
         nodes; hidden 64, spmm_method 'naive'): a forward and 20 Adam steps
@@ -193,25 +199,36 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the flash kernels at (b, h, s, d) = (8, 12, 512, 64)
      and (8, 12, 128, 64) against their plain versions, their bounds and
      torch's scaled_dot_product_attention (forward, and its autograd
-     backward) in fp32, with the SDPA backend named; the block kernels at
+     backward) in fp32, with the SDPA backend named, flash_fwd beside its
+     FFMA predecessor's time and also in 'default' and on bf16 operands
+     against bf16 SDPA, and at (2, 12, 4096, 64) and GPT's fused call
+     (8 x 16, 512, 64) causal; every fp32 'high' product's bound on 3xTF32
+     (3 x FLOP at 495 TFLOP/s tf32), the FFMA figure printed beside it as
+     a design figure; the block kernels at
      the 'bigbird' shapes (bh 96, seq 512, block 64; bh 24, seq 4096, block
      256) and at the 'sparse' layer's masked seq-4096 plan, against their
      plain versions, their bounds from the covered tiles and
-     scaled_dot_product_attention with the token-exact boolean mask; the
+     scaled_dot_product_attention with the token-exact boolean mask (the
+     'bigbird' forward and SDPA also behind a sleep, `time_ms_ahead`); the
      BERT layer's forward and step times in every variant and shape of 4d,
      4f and 4g, the seq-512 variants' steps queued back to back in turns,
      and the 'flash' and 'bigbird' encoders' times; a torch.profiler trace of the layer's steps at seq 512 ('flash',
      'dense', 'bigbird': device busy and idle share, the kernels that take
      the most time); the int8 kernels at the main path's shapes against
      their plain versions, bounds and yardsticks (a bf16 torch.matmul of the
-     dequantized dense A, torch._int_mm, bf16 SDPA), spmm_int8 also with
-     quantize_columns and beside the fp32 block_ell_spmm, flash_q8 (bf16
+     dequantized dense A, torch._int_mm, bf16 SDPA), spmm_int8 (the entry
+     point: int8_kmajor and the executor) beside its unpipelined
+     predecessor's time, the executor alone as a design figure, with
+     quantize_columns and beside the fp32
+     block_ell_spmm, int8_kmajor against b_q.t().contiguous(), the ring
+     entry point on the ring pattern, flash_q8 (bf16
      tensor cores) beside its first port's time and its bound's fraction;
      GPT ms per token and tokens/s per tier and batch ((96-step - 16-step
      generate) / 80) against the HBM bound, and the device's busy share of a decode step
      (torch.profiler kernel time over the per-token time); naive_spmm at
      the arxiv-shaped A-hat (sum at n 256 and 40, max with its arg) against
-     its plain version, gather_spmm and torch.sparse.mm on a CSR tensor; ms
+     its plain version, gather_spmm and torch.sparse.mm on a CSR tensor
+     (the sum also both behind a sleep); ms
      per Adam step and the device's busy share for 4j-4m; the seven
      attention entry points at (2, 8, 512, 256) against their plain
      versions, bounds and SDPA; the batched kernel at both batched shapes
@@ -231,8 +248,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      CSR tensors (cuSPARSE, a yardstick), a torch.profiler breakdown of the
      forward+backward, both windowed kernels on the 16384^2 case's maps
      against their plain versions, torch.index_select / index_add_ and
-     their bound (the segment sum and index_add_ queued behind a sleep, so
-     the host's launch overhead is hidden), and spgemm_plan's host seconds
+     their bound (both kernels and both PyTorch calls queued behind a
+     sleep, so the host's launch overhead is hidden), and spgemm_plan's host seconds
      on the native and the numpy symbolic pass at 4096^2 at 1 %; ms per
      Jacobi-CG and AMG-CG iteration on laplace3d_64, a torch.profiler
      breakdown of AMG-CG iterations, dia_spmv at the level-1 and level-2
@@ -290,7 +307,7 @@ PARITY_STEPS = 3
 # fc2's dB; both layers' dW; fc1's input is the data, so no dB for it)
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
-NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
+NO_INT8 = {"spmm_int8": 0, "int8_kmajor": 0, "gemm_s8": 0, "flash_q8": 0}
 # every kernel's count, all 0
 NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
 NO_LAUNCH = {"block_ell_spmm": 0, "sddmm": 0, "gemm": 0, **NO_FLASH, **NO_BLK, **NO_INT8,
@@ -312,15 +329,17 @@ FLASH_LIMIT_FP32 = 1e-5
 FLASH_LIMIT_ROUNDED = 1e-2
 # Times of the kernels before their redesign (FFMA flash_q8; shared-memory
 # footprint accumulators; the grouped executor's thread block per group; the
-# FFMA gemm), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
-# 700.00 W (PERF.md: its kernel table, rows 7, 8, 11 and 19, and an earlier
-# run for the seq-4096 shape); printed beside the new. SHARED_TILE_MS: the
+# FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8), ms, measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md: its kernel
+# table, rows 4-5, 7, 8, 11, 13 and 19, and an earlier run for the seq-4096
+# shape); printed beside the new. SHARED_TILE_MS: the
 # footprint executor's times on its register windows before the tile moved
 # into window_tiles.cuh, which the shared tile must stay within 9 % of.
 OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.793,
           "flash_q8 d 256": 0.414, "footprint_spmm headline": 21.870,
           "footprint_spmm low-fill": 7.981, "grouped_spmm headline": 15.112,
-          "grouped_spmm low-fill": 25.642, "gemm 4096^3 high": 6.969}
+          "grouped_spmm low-fill": 25.642, "gemm 4096^3 high": 6.969,
+          "flash_fwd (8, 12, 512, 64) high": 0.331, "spmm_int8 headline": 0.411}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -414,6 +433,14 @@ def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def bound_fp32(flops: float, nbytes: float):
+    """An fp32 'high' product's bound on this card's fp32-class route,
+    3xTF32 (three tf32 passes at TF32_FLOPS), and the HBM peak: (bound ms,
+    'operations' or 'bytes', the FFMA figure in ms, a design figure)."""
+    ms, by = bound(3 * flops, nbytes, TF32_FLOPS)
+    return ms, by, bound(flops, nbytes)[0]
+
+
 def over_scale(got: torch.Tensor, want: torch.Tensor):
     """(max-abs error, max-abs error / max(|want|, 1))."""
     max_abs = float((got.float() - want.float()).abs().max())
@@ -431,16 +458,36 @@ def phase_device() -> str:
     return name
 
 
+def _demangle(names):
+    """{mangled: the kernel's name and template arguments} by c++filt where
+    the machine has it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+    return {n: d.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+            for n, d in zip(names, out)}
+
+
 def phase_build() -> None:
+    """Builds every source; prints ptxas's registers, stack and spills for
+    each kernel instance."""
     from tpusparse_torch.kernels import _build
 
     t0 = time.perf_counter()
     reports = _build.build(_build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
-        for line in sorted(set(line.strip() for line in text.splitlines()
-                               if "Used" in line or "spill" in line)):
-            print(f"  ptxas {name}: {line}")
+        rows, fn = [], None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and ("Used" in line or "spill" in line):
+                rows.append((fn, line.split(":", 1)[-1].strip()))
+        names = _demangle(sorted({f for f, _ in rows}))
+        for f, line in rows:
+            print(f"  ptxas {name} {names[f]}: {line}")
 
 
 def _dense_case(seed, m, k, density, empty_block=None):
@@ -701,27 +748,37 @@ def _flash_operands(shape, seed, dtype=torch.float32):
 
 
 def phase_small_flash() -> None:
-    """Each flash kernel against its plain version at small shapes, in both
-    tiers, with fp32 and with bf16 inputs."""
-    # name, (bh, s, d), causal, q_offset; the last is rows 256:512 of a
-    # 512-long causal attention against keys 0:256 (tests/test_attention.py:290)
+    """Each flash kernel against its plain version at small shapes, in every
+    tier, with fp32 and with bf16 inputs."""
+    # name, (bh, s, d), causal, q_offset, kv_offset; "offsets" is rows
+    # 256:512 of a 512-long causal attention against keys 0:256
+    # (tests/test_attention.py:290); "kv_ahead" has rows that see no key
+    # and spans nine 128-row q-tiles. (s = 1 is a card-only test: its dq and
+    # dk are 0 up to rounding, which no over-scale limit can hold.)
     cases = [
-        ("2x3x256x64", (6, 256, 64), False, 0),
-        ("causal_1x2x384x64", (2, 384, 64), True, 0),
-        ("ragged_1x1x200x64", (1, 200, 64), False, 0),
-        ("narrow_2x4x128x24", (8, 128, 24), False, 0),
-        ("wide_1x2x128x128", (2, 128, 128), True, 0),
-        ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256),
+        ("2x3x256x64", (6, 256, 64), False, 0, 0),
+        ("causal_1x2x384x64", (2, 384, 64), True, 0, 0),
+        ("ragged_1x1x200x64", (1, 200, 64), False, 0, 0),
+        ("narrow_2x4x128x24", (8, 128, 24), False, 0, 0),
+        ("wide_1x2x128x128", (2, 128, 128), True, 0, 0),
+        ("offsets_1x1x256x64_q256", (1, 256, 64), True, 256, 0),
+        ("ragged_d_1x3x150x20", (3, 150, 20), False, 0, 0),
+        ("kv_ahead_1x2x1030x64_kv300", (2, 1030, 64), True, 0, 300),
     ]
-    for seed, (name, shape, causal, q_off) in enumerate(cases):
-        for dtype in (torch.float32, torch.bfloat16):
-            for prec in ("high", "default"):
-                q, k, v, do = _flash_operands(shape, 300 + seed, dtype)
-                kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
-                          kv_offset=0, precision=prec)
-                got, want = _flash_pair(q, k, v, do, kw)
-                _check_attention_case(f"flash_{name}_{str(dtype).split('.')[1]}_{prec}",
-                                      got, want, dtype == torch.bfloat16 or prec == "default")
+    tiers = ((torch.float32, "high"), (torch.float32, "highest"), (torch.float32, "default"),
+             (torch.bfloat16, "high"), (torch.bfloat16, "default"))
+    for seed, (name, shape, causal, q_off, kv_off) in enumerate(cases):
+        for dtype, prec in tiers:
+            q, k, v, do = _flash_operands(shape, 300 + seed, dtype)
+            kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
+                      kv_offset=kv_off, precision=prec)
+            got, want = _flash_pair(q, k, v, do, kw)
+            _check_attention_case(f"flash_{name}_{str(dtype).split('.')[1]}_{prec}",
+                                  got, want, dtype == torch.bfloat16 or prec == "default")
+            blind = min(max(kv_off - q_off, 0), shape[1])  # rows that see no key
+            if blind and not (torch.count_nonzero(got[0][:, :blind]) == 0
+                              and bool((got[1][:, :blind] == -1e30).all())):
+                raise AssertionError(f"flash {name}: rows that see no key are not 0, -1e30")
 
 
 def _check_attention_case(label, got, want, rounded, extra="") -> None:
@@ -969,9 +1026,62 @@ def _sdpa_backend(q, k, v, attn_mask=None):
     raise AssertionError("no SDPA backend takes fp32 inputs")
 
 
+def _flash_fwd_times(label, q, k, v, shape, causal=False) -> None:
+    """flash_fwd at one shape in its three tiers: fp32 'high' (3xTF32)
+    against fp32 SDPA, fp32 'default' and bf16 operands against bf16 SDPA
+    on bf16 copies of q, k, v; each checked against its plain version
+    first, each bound on its tier's tensor-core rate."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    b, h, seq, d = shape
+    bh = b * h
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    flops = 4.0 * bh * d * (seq * (seq + 1) / 2 if causal else seq * seq)
+    stats = 4.0 * bh * seq
+    sdpa_ms = {}
+    for tname, ops in (("fp32", (q, k, v)), ("bf16", (qb, kb, vb))):
+        o4 = [x.view(b, h, seq, d) for x in ops]
+        backend = _sdpa_backend(*o4)
+        with sdpa_kernel([backend]), fp32_matmul():
+            sdpa_ms[tname] = (time_ms_queued(lambda: sdpa(*o4, is_causal=causal)), backend.name)
+    for tier, ops, prec in (("fp32 'high'", (q, k, v), "high"),
+                            ("fp32 'default'", (q, k, v), "default"),
+                            ("bf16 operands", (qb, kb, vb), "high")):
+        kw = dict(sm_scale=1 / d ** 0.5, causal=causal, precision=prec)
+        got, want = fa.flash_fwd_kernel(*ops, **kw), fa._flash_fwd_plain(*ops, **kw)
+        err = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+        limit = FLASH_LIMIT_FP32 if prec == "high" and ops[0].dtype == torch.float32 \
+            else FLASH_LIMIT_ROUNDED
+        if not (err <= limit and bool(torch.isfinite(got[0].float()).all())):
+            raise AssertionError(f"flash_fwd {label} {tier}: kernel vs plain {err:.2e}")
+        del got, want
+        ms = time_ms_queued(lambda: fa.flash_fwd_kernel(*ops, **kw))
+        nbytes = 4 * ops[0].element_size() * bh * seq * d + stats
+        if prec == "high" and ops[0].dtype == torch.float32:
+            bms, by, ffma = bound_fp32(flops, nbytes)
+            lib_type, design = "fp32", f"; FFMA design figure {ffma:.4f} ms"
+        else:
+            (bms, by), lib_type, design = bound(flops, nbytes, BF16_FLOPS), "bf16", ""
+        lib, lname = sdpa_ms[lib_type]
+        old = OLD_MS.get(f"flash_fwd {shape} high") if tier == "fp32 'high'" else None
+        was = f" (the FFMA kernel before its redesign {old:.3f}: {old / ms:.2f}x)" if old else ""
+        print(f"flash_fwd {label} {shape} causal={causal} {tier}: kernel {ms:.4f} ms queued"
+              f"{was}, sdpa {lib_type} ({lname}) "
+              f"{lib:.4f} ms (kernel/sdpa {ms / lib:.2f}); bound {bms:.4f} ms by {by} "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB{design}), kernel at "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bms / ms:.3f} of its bound; "
+              f"vs plain {err:.2e} of scale")
+
+
 def phase_flash_timings() -> dict:
     """The three kernels, their plain versions and bounds, and SDPA in fp32,
-    at the BERT-base attention shapes; returns {seq: results}."""
+    at the BERT-base attention shapes; the forward also in 'default' and on
+    bf16 operands, at (2, 12, 4096, 64) and at GPT's fused shape (8 x 16,
+    512, 64) causal; returns {seq: results}."""
     from torch.nn.attention import sdpa_kernel
 
     from tpusparse_torch.kernels import flash_attention as fa
@@ -1017,7 +1127,7 @@ def phase_flash_timings() -> dict:
             "dq": (6.0 * bh * seq * seq * d, 5 * qkv_bytes + 2 * stat_bytes),
             "dkv": (8.0 * bh * seq * seq * d, 6 * qkv_bytes + 2 * stat_bytes),
         }
-        r["bound"] = {kname: bound(*wk) for kname, wk in work.items()}
+        r["bound"] = {kname: bound_fp32(*wk) for kname, wk in work.items()}
         q4, k4, v4, do4 = (t.view(b, h, seq, d) for t in (q, k, v, do))
         backend = _sdpa_backend(q4, k4, v4)
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1031,20 +1141,29 @@ def phase_flash_timings() -> dict:
         r["sdpa_backend"] = backend.name
         out[seq] = r
         for kname in ("fwd", "dq", "dkv"):
-            bms, by = r["bound"][kname]
+            bms, by, ffma = r["bound"][kname]
             flops = work[kname][0]
             print(f"flash_{kname} ({b}, {h}, {seq}, {d}) fp32 'high': kernel "
                   f"{r['ms'][kname]:.4f} ms queued ({r['one_call_ms'][kname]:.4f} ms one "
                   f"call), plain {r['plain_ms'][kname]:.4f} ms, bound "
-                  f"{bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
-                  f"{work[kname][1] / 1e6:.1f} MB), kernel at "
-                  f"{flops / (r['ms'][kname] * 1e-3) / 1e12:.2f} TFLOP/s")
+                  f"{bms:.4f} ms by {by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP at 495 TFLOP/s; "
+                  f"{work[kname][1] / 1e6:.1f} MB; FFMA design figure {ffma:.4f} ms), "
+                  f"kernel at {flops / (r['ms'][kname] * 1e-3) / 1e12:.2f} TFLOP/s")
         print(f"flash ({b}, {h}, {seq}, {d}): kernel vs plain over scale " + ", ".join(
             f"{n} {e[1]:.2e}" for n, e in errs.items()))
         print(f"sdpa ({b}, {h}, {seq}, {d}) fp32, backend {backend.name}: forward "
               f"{r['sdpa_fwd_ms']:.4f} ms (vs kernel o {lib_err:.2e} of scale), autograd "
               f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms")
-        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, og
+        del qg, kg, vg, og, q4, k4, v4, do4, do
+        _flash_fwd_times("bert", q, k, v, (b, h, seq, d))
+        del q, k, v
+    # the long-seq shape and GPT's fused forward (one layer's call)
+    for label, shape, causal in (("long", (2, h, LONG_SEQ, d), False),
+                                 ("gpt", (8, GPT["num_heads"], GPT_FUSED_SEQ,
+                                          GPT["hidden"] // GPT["num_heads"]), True)):
+        q, k, v, _ = _flash_operands((shape[0] * shape[1], *shape[2:]), 510 + shape[2])
+        _flash_fwd_times(label, q, k, v, shape, causal)
+        del q, k, v
     return out
 
 
@@ -1198,13 +1317,16 @@ def phase_block_flash_timings() -> dict:
             "dq": (6.0 * entries * d, 5 * qkv_bytes + 2 * stat_bytes + fwd_plan),
             "dkv": (8.0 * entries * d, 6 * qkv_bytes + 2 * stat_bytes + bwd_plan),
         }
-        r["bound"] = {n: bound(*wk) for n, wk in work.items()}
+        r["bound"] = {n: bound_fp32(*wk) for n, wk in work.items()}
         q4, k4, v4, do4 = (t.view(b, h, seq, d) for t in (q, k, v, do))
         mask = plan.token_mask(q.device)
         backend = _sdpa_backend(q4, k4, v4, mask)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         with sdpa_kernel([backend]), fp32_matmul():
             r["sdpa_fwd_ms"] = time_ms_queued(lambda: sdpa(q4, k4, v4, attn_mask=mask))
+            # the forward and its yardstick behind a sleep: no host time in either
+            r["ahead_ms"] = (time_ms_ahead(fns["fwd"][0]),
+                             time_ms_ahead(lambda: sdpa(q4, k4, v4, attn_mask=mask)))
             lib_err = rel_err(sdpa(q4, k4, v4, attn_mask=mask).reshape(bh, seq, d), o)[1]
             qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
             og = sdpa(qg, kg, vg, attn_mask=mask)
@@ -1216,13 +1338,16 @@ def phase_block_flash_timings() -> dict:
                  f"{plan.covered_tiles} of {plan.nq * plan.nk} tiles"
                  f"{', token-exact masks' if r['masked'] else ''})")
         for n in fns:
-            bms, by = r["bound"][n]
+            bms, by, ffma = r["bound"][n]
             flops = work[n][0]
             print(f"blk_flash_{n} {shape} fp32 'high': kernel {r['ms'][n]:.4f} ms queued "
                   f"({r['one_call_ms'][n]:.4f} ms one call), plain {r['plain_ms'][n]:.4f} ms, "
-                  f"bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
-                  f"{work[n][1] / 1e6:.1f} MB), kernel at "
-                  f"{flops / (r['ms'][n] * 1e-3) / 1e12:.2f} TFLOP/s")
+                  f"bound {bms:.4f} ms by {by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP at 495 "
+                  f"TFLOP/s; {work[n][1] / 1e6:.1f} MB; FFMA design figure {ffma:.4f} ms), "
+                  f"kernel at {flops / (r['ms'][n] * 1e-3) / 1e12:.2f} TFLOP/s")
+        print(f"blk_flash_fwd {label} behind a sleep: kernel {r['ahead_ms'][0]:.4f} ms, sdpa "
+              f"with the token mask {r['ahead_ms'][1]:.4f} ms (kernel/sdpa "
+              f"{r['ahead_ms'][0] / r['ahead_ms'][1]:.2f})")
         print(f"blk_flash {label}: kernel vs plain over scale " + ", ".join(
             f"{n} {e[1]:.2e}" for n, e in errs.items()))
         print(f"sdpa {label} with the token mask, fp32, backend {backend.name}: forward "
@@ -1312,15 +1437,28 @@ def phase_small_int8() -> None:
     from tpusparse_torch.kernels import gemm as gk
     from tpusparse_torch.kernels import tiled_spmm as tk
 
-    # name, (m, k, n), blocksize, density, empty rows; ragged m, k, n
+    from tpusparse_torch.utils.matrices import block_sparse_csr
+
+    # name, (m, k, n), blocksize, density, empty rows; ragged m, k, n; the
+    # pipelined instances (bm a multiple of 64, bk of 32) at 64 and 128 rows
+    # and 32- to 128-deep chunks, and a block pattern ("blocks") at the
+    # headline's fill
     cases = [
         ("int8_ragged_8x16", (100, 70, 33), (8, 16), 0.15, None),
         ("int8_ragged_32x8", (100, 70, 130), (32, 8), 0.15, None),
         ("int8_empty_rowblock_128x128", (300, 260, 200), (128, 128), 0.05, (128, 256)),
+        ("int8_ragged_64x128", (200, 300, 70), (64, 128), 0.05, None),
+        ("int8_ragged_128x64_n1", (300, 200, 1), (128, 64), 0.05, (128, 256)),
+        ("int8_64x32_n257", (256, 256, 257), (64, 32), 0.1, None),
+        ("int8_1024sq_blocks_128x128_n512", (1024, 1024, 512), (128, 128), "blocks", None),
     ]
     for seed, (name, (m, k, n), bs, dens, empty) in enumerate(cases):
-        a_np, rng = _dense_case(900 + seed, m, k, dens, empty)
-        a = tt.CSR.from_dense(a_np, device="cuda")
+        if dens == "blocks":
+            a = block_sparse_csr(900 + seed, (m, k), bs, 0.10, device="cuda")
+            rng = np.random.default_rng(900 + seed)
+        else:
+            a_np, rng = _dense_case(900 + seed, m, k, dens, empty)
+            a = tt.CSR.from_dense(a_np, device="cuda")
         plan = tt.build_plan(a, bs)
         qvals, scales = quant.quantize_block_values(plan.pack_values(a.data))
         b_q, t = quant.quantize_columns(torch.from_numpy(
@@ -1418,14 +1556,14 @@ def phase_int8_serving(a, b, c_fp32) -> dict:
     print(f"int8 headline set-up (plan + quantize): {time.perf_counter() - t0:.2f} s, "
           f"nblocks {qa.plan.nblocks}, num_col_blocks {qa.plan.num_col_blocks}")
     y = counted("int8 headline QuantizedMatrix @ B (16384^2, 10% of 128^2 blocks, n 512)",
-                lambda: qa @ b, {"spmm_int8": 1}, "resident_spmm_int8")
+                lambda: qa @ b, {"spmm_int8": 1, "int8_kmajor": 1}, "resident_spmm_int8")
     ring_a = block_sparse_csr(3, RING_SHAPE, (128, 128), RING_FILL, device="cuda")
     qr = tt.QuantizedMatrix(ring_a, (128, 128))
     if not qr.plan.nblocks < qr.plan.num_col_blocks:
         raise AssertionError("the ring case's pattern re-uses the B panel")
     yr = counted(f"int8 ring QuantizedMatrix @ B ({RING_SHAPE}, {qr.plan.nblocks} blocks < "
                  f"{qr.plan.num_col_blocks} block-columns)", lambda: qr @ b,
-                 {"spmm_int8": 1}, "tiled_spmm_int8")
+                 {"spmm_int8": 1, "int8_kmajor": 1}, "tiled_spmm_int8")
     g = 4096
     rng = np.random.default_rng(13)
     wa, wb = (torch.from_numpy(rng.standard_normal((g, g), dtype=np.float32)).cuda()
@@ -1473,7 +1611,7 @@ def phase_int8_serving(a, b, c_fp32) -> dict:
         if not (rel < INT8_REL_LIMIT and bool(torch.isfinite(o8).all())):
             raise AssertionError(f"flash_q8 {shape} is outside its error class")
         r["q8"][shape] = (q, k, v, kq, ks, vq, vs, causal)
-    r.update(qa=qa, y=y, wa=wa, wb=wb, qd=qd)
+    r.update(qa=qa, y=y, wa=wa, wb=wb, qd=qd, qr=qr)
     return r
 
 
@@ -1489,7 +1627,7 @@ def phase_int8_timings(r, plan, bv, b) -> dict:
     from tpusparse_torch.kernels import tiled_spmm as tk
 
     rows = []
-    # -- spmm_int8 at the headline -------------------------------------------
+    # -- spmm_int8 at the headline: B made K-major, then the executor ----------
     qa = r["qa"]
     p = qa.plan
     m, k = p.shape
@@ -1497,11 +1635,16 @@ def phase_int8_timings(r, plan, bv, b) -> dict:
     bm, bk = p.blocksize
     b_q, t = quant.quantize_columns(b)
     args = (p, qa.qvals, qa.scales, b_q, t)
+    ldt = -(-p.num_col_blocks * bk // 16) * 16
+    bt = tk.int8_kmajor_kernel(b_q, ldt)
     got, want = tk.resident_spmm_int8_kernel(*args), tk._block_exec_int8_plain(*args)
     err = float((got - want).abs().max())
+    bt_err = float((bt.int() - tk._int8_kmajor_plain(b_q, ldt).int()).abs().max())
     del got, want
     ms = time_ms_queued(lambda: tk.resident_spmm_int8_kernel(*args))
     one_ms = time_ms(lambda: tk.resident_spmm_int8_kernel(*args))
+    exec_ms = time_ms_queued(
+        lambda: tk._spmm_int8_launch("resident_spmm_int8", p, qa.qvals, qa.scales, bt, t))
     e2e_ms = time_ms_queued(lambda: qa @ b)
     plain_ms = time_ms(lambda: tk._block_exec_int8_plain(*args))
     fp32_ms = time_ms_queued(lambda: tk.resident_spmm_kernel(plan, bv, b))
@@ -1513,12 +1656,17 @@ def phase_int8_timings(r, plan, bv, b) -> dict:
     ops = 2.0 * p.nblocks * bm * bk * n
     nbytes = p.nblocks * bm * bk + 4.0 * p.nblocks + k * n + 4.0 * n + 4.0 * m * n
     bms, by = bound(ops, nbytes, INT8_OPS)
-    print(f"spmm_int8 headline (16384^2, {p.nblocks} blocks, n {n}): kernel {ms:.4f} ms queued "
-          f"({one_ms:.4f} ms one call), quantize_columns + kernel {e2e_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, fp32 block_ell_spmm {fp32_ms:.4f} ms (int8/fp32 "
-          f"{ms / fp32_ms:.3f}), torch.matmul of the dequantized dense A in bf16 {lib_ms:.4f} ms; "
-          f"bound {bms:.4f} ms by {by} ({ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.1f} MB), "
-          f"kernel at {ops / (ms * 1e-3) / 1e12:.2f} TOPS; kernel vs plain max_abs_err {err:.1e}")
+    old = OLD_MS["spmm_int8 headline"]
+    print(f"spmm_int8 headline (16384^2, {p.nblocks} blocks, n {n}): entry point "
+          f"(int8_kmajor + executor) {ms:.4f} ms queued ({one_ms:.4f} ms one call; the "
+          f"unpipelined entry point before its redesign {old:.3f}: {old / ms:.2f}x), design "
+          f"figure: the executor alone on B already K-major {exec_ms:.4f} ms queued; "
+          f"quantize_columns + entry point {e2e_ms:.4f} ms, plain {plain_ms:.4f} ms, fp32 "
+          f"block_ell_spmm {fp32_ms:.4f} ms (int8/fp32 {ms / fp32_ms:.3f}), torch.matmul "
+          f"of the dequantized dense A in bf16 {lib_ms:.4f} ms (entry point/library "
+          f"{ms / lib_ms:.2f}); bound {bms:.4f} ms by {by} ({ops / 1e9:.2f} G int8 ops, "
+          f"{nbytes / 1e6:.1f} MB), entry point at {ops / (ms * 1e-3) / 1e12:.2f} TOPS, "
+          f"{bms / ms:.3f} of its bound; kernel vs plain max_abs_err {err:.1e}")
     rows.append({
         "name": "spmm_int8", "route": "cuda",
         "source": "tpusparse_torch/csrc/block_ell_spmm_int8.cu",
@@ -1527,6 +1675,43 @@ def phase_int8_timings(r, plan, bv, b) -> dict:
         "launches": r["launches"]["spmm_int8"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
     })
+    kt_ms = time_ms_ahead(lambda: tk.int8_kmajor_kernel(b_q, ldt))
+    kt_plain = time_ms_queued(lambda: tk._int8_kmajor_plain(b_q, ldt))
+    kt_lib = time_ms_ahead(lambda: b_q.t().contiguous())
+    kt_bound, kt_by = bound(0.0, k * n + n * ldt)
+    print(f"int8_kmajor headline b_q ({k}, {n}) -> ({n}, {ldt}): kernel {kt_ms:.4f} ms, "
+          f"b_q.t().contiguous() {kt_lib:.4f} ms (both queued behind a sleep), plain "
+          f"{kt_plain:.4f} ms, bound {kt_bound:.4f} ms by {kt_by} "
+          f"({(k * n + n * ldt) / 1e6:.1f} MB); kernel vs plain max_abs_err {bt_err:.0f}")
+    if bt_err != 0.0:
+        raise AssertionError("int8_kmajor disagrees with its plain version")
+    rows.append({
+        "name": "int8_kmajor", "route": "cuda",
+        "source": "tpusparse_torch/csrc/block_ell_spmm_int8.cu",
+        "replaces": "tpusparse/kernels/tiled_spmm.py:643 (_resident_int8_kernel, its B "
+                    "operand made K-major for the s8 tensor cores); "
+                    "tpusparse/kernels/tiled_spmm.py:845 (_tiled_int8_kernel)",
+        "launches": r["launches"]["int8_kmajor"], "max_abs_err": bt_err, "ms": kt_ms,
+        "plain_ms": kt_plain, "bound_ms": kt_bound, "bound_by": kt_by, "library_ms": kt_lib,
+    })
+    del bt
+    # the ring entry point on the ring pattern
+    qr = r["qr"]
+    rp = qr.plan
+    rargs = (rp, qr.qvals, qr.scales, b_q, t)
+    ring_same = torch.equal(tk.tiled_spmm_int8_kernel(*rargs), tk._block_exec_int8_plain(*rargs))
+    ring_ms = time_ms_queued(lambda: tk.tiled_spmm_int8_kernel(*rargs))
+    ring_e2e = time_ms_queued(lambda: qr @ b)
+    ring_ops = 2.0 * rp.nblocks * bm * bk * n
+    ring_bytes = rp.nblocks * bm * bk + 4.0 * rp.nblocks + 2.0 * k * n + 4.0 * n \
+        + 4.0 * rp.shape[0] * n
+    ring_bound, ring_by = bound(ring_ops, ring_bytes, INT8_OPS)
+    print(f"spmm_int8 ring {RING_SHAPE} ({rp.nblocks} blocks) through tiled_spmm_int8: "
+          f"{ring_ms:.4f} ms queued (int8_kmajor included), quantize_columns + entry point "
+          f"{ring_e2e:.4f} ms, bound {ring_bound:.4f} ms by {ring_by}; bitwise equal to the "
+          f"plain version: {ring_same}")
+    if not ring_same:
+        raise AssertionError("spmm_int8 on the ring pattern disagrees with its plain version")
     # -- gemm_s8 at 4096^3 ----------------------------------------------------
     qa8, _ = quant.quantize_rows(r["wa"])
     qb8, _ = quant.quantize_columns(r["wb"])
@@ -1713,6 +1898,18 @@ def phase_gpt_serving() -> None:
     if not (err < 2e-3 and bool(torch.isfinite(out).all())):
         raise AssertionError("gpt fused forward disagrees with the unfused one")
     del ref, out
+    fwd_ms = {}
+    with torch.no_grad():
+        try:
+            for fused in (False, True):
+                for blk in model.blocks:
+                    blk.fused = fused
+                fwd_ms[fused] = time_ms(lambda: model(ids), warmup=2, iters=5)
+        finally:
+            for blk in model.blocks:
+                blk.fused = False
+    print(f"gpt forward (batch 8, seq {GPT_FUSED_SEQ}): unfused {fwd_ms[False]:.4f} ms, fused "
+          f"({GPT['num_layers']} flash_fwd) {fwd_ms[True]:.4f} ms")
 
     # -- quality: int8 against fp32 over teacher-forced steps at batch 1 ---------
     prompt = torch.from_numpy(rng.integers(0, GPT["vocab_size"], (1, GPT_PROMPT))).cuda()
@@ -2141,6 +2338,11 @@ def phase_naive_timings(a) -> dict:
         if not (err == 0.0 and lib_err < 1e-4):
             raise AssertionError(f"naive_spmm at arxiv n {n}: kernel vs plain {err:.3e}, vs "
                                  f"torch.sparse.mm {lib_err:.3e}")
+        with fp32_matmul():  # both behind a sleep: no host time in either
+            ahead = (time_ms_ahead(lambda: nk.naive_spmm_kernel(ell, a.shape, b)),
+                     time_ms_ahead(lambda: torch.sparse.mm(a_sp, b)))
+        print(f"naive_spmm sum arxiv n {n} behind a sleep: kernel {ahead[0]:.4f} ms, "
+              f"torch.sparse.mm {ahead[1]:.4f} ms (kernel/library {ahead[0] / ahead[1]:.2f})")
         if n == NAIVE_TIMING_N[0]:
             row = {"name": "naive_spmm", "route": "cuda",
                    "source": "tpusparse_torch/csrc/naive_spmm.cu",
@@ -2238,13 +2440,15 @@ def phase_wide_timings() -> None:
     qkv, stat = 4.0 * bh * s * d, 4.0 * bh * s
     entries = float(bh * s * s)
     bentries = float(bh * plan.covered_tiles * plan.block_q * plan.block_k)
-    work = {  # (flops, bytes, peak): each input read once, each output written once
-        "flash_fwd": (4 * entries * d, 4 * qkv + stat, FP32_FLOPS),
-        "flash_dq": (6 * entries * d, 5 * qkv + 2 * stat, FP32_FLOPS),
-        "flash_dkv": (8 * entries * d, 6 * qkv + 2 * stat, FP32_FLOPS),
-        "blk_flash_fwd": (4 * bentries * d, 4 * qkv + stat, FP32_FLOPS),
-        "blk_flash_dq": (6 * bentries * d, 5 * qkv + 2 * stat, FP32_FLOPS),
-        "blk_flash_dkv": (8 * bentries * d, 6 * qkv + 2 * stat, FP32_FLOPS),
+    # (flops, bytes, peak): each input read once, each output written once;
+    # the fp32 'high' rows on 3xTF32 (peak None: bound_fp32)
+    work = {
+        "flash_fwd": (4 * entries * d, 4 * qkv + stat, None),
+        "flash_dq": (6 * entries * d, 5 * qkv + 2 * stat, None),
+        "flash_dkv": (8 * entries * d, 6 * qkv + 2 * stat, None),
+        "blk_flash_fwd": (4 * bentries * d, 4 * qkv + stat, None),
+        "blk_flash_dq": (6 * bentries * d, 5 * qkv + 2 * stat, None),
+        "blk_flash_dkv": (8 * bentries * d, 6 * qkv + 2 * stat, None),
         "flash_q8": (4 * entries * d, bh * s * d * (4 + 1 + 1 + 4) + 8.0 * bh, BF16_FLOPS),
     }
     q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
@@ -2270,7 +2474,11 @@ def phase_wide_timings() -> None:
         ms = time_ms_queued(kern)
         plain_ms = time_ms_queued(plain, reps=5)
         flops, nbytes, peak = work[name]
-        bms, by = bound(flops, nbytes, peak)
+        if peak is None:
+            bms, by, ffma = bound_fp32(flops, nbytes)
+            design = f"; 3xTF32, FFMA design figure {ffma:.4f} ms"
+        else:
+            (bms, by), design = bound(flops, nbytes, peak), ""
         key = "q8" if name == "flash_q8" else ("masked" if name.startswith("blk") else "full")
         fwd_ms, bwd_ms, backend = lib[key]
         lib_ms = fwd_ms if name.endswith(("fwd", "q8")) else bwd_ms
@@ -2278,7 +2486,8 @@ def phase_wide_timings() -> None:
                else "")
         print(f"{name} {WIDE_SHAPE} d {d} ({'bigbird block 64, ' if key == 'masked' else ''}"
               f"{'int8 K/V' if key == 'q8' else 'fp32 high'}): kernel {ms:.4f} ms queued{was}, "
-              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP), "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP"
+              f"{design}), "
               f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bms / ms:.3f} of the bound; "
               f"sdpa ({backend}) "
               f"{'forward' if name.endswith(('fwd', 'q8')) else 'autograd backward'} "
@@ -2459,13 +2668,14 @@ def phase_batched_spmm() -> dict:
         bm, bk = plan.blocksize
         flops = 2.0 * plan.nblocks * bm * bk * n * batch
         nbytes = 4.0 * (plan.nblocks * bm * bk + batch * k * n + batch * shape[0] * n)
-        bms, by = bound(flops, nbytes)
+        bms, by, ffma = bound_fp32(flops, nbytes)
         print(f"batched {label}: resident_spmm_batched {ms:.4f} ms, fold (2-D kernel on "
               f"(k, batch*n), transposes included) {fold_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"torch.matmul dense broadcast {lib_ms:.4f} ms (vs kernel {lib_err:.2e} of scale; "
               f"{2.0 * shape[0] * k * n * batch / 1e9:.1f} GFLOP dense), bound {bms:.4f} ms by "
-              f"{by} ({flops / 1e9:.2f} GFLOP of blocks, {2.0 * a.nnz * n * batch / 1e9:.2f} "
-              f"GFLOP of nonzeros, {nbytes / 1e6:.1f} MB), kernel at "
+              f"{by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP of blocks, "
+              f"{2.0 * a.nnz * n * batch / 1e9:.2f} GFLOP of nonzeros, {nbytes / 1e6:.1f} MB; "
+              f"FFMA design figure {ffma:.4f} ms), kernel at "
               f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; training step {step_ms:.4f} ms")
         if kind == "blocks":
             row = {"name": "resident_spmm_batched", "route": "cuda",
@@ -2543,15 +2753,16 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
             del a_sp
         flops = 2.0 * pp.nblocks * bm * bk * n
         nbytes = 4.0 * (pp.nblocks * bm * bk + k * n + m * n)
-        bms, by = bound(flops, nbytes)
+        bms, by, ffma = bound_fp32(flops, nbytes)
         fp = derived["footprint_spmm"][0]
         print(f"plan executors {label} ({m}x{k}, blocks {bm}x{bk}, nnz {aa.nnz}, "
               f"{pp.nblocks} blocks, ell_width {pp.ell_width}; n {n}): derived plans and "
               f"packing {host_s:.2f} s on the host; block_ell_spmm {base_ms:.4f} ms, "
               f"torch.matmul dense {dense_ms:.4f} ms"
               + (f", torch.sparse.mm (CSR) {sparse_ms:.4f} ms" if sparse_ms is not None else "")
-              + f"; bound {bms:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB); footprint plan: {fp.ntiles} B-tile fetches for "
+              + f"; bound {bms:.4f} ms by {by} (3xTF32: 3 x {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB; FFMA design figure {ffma:.4f} ms); footprint plan: "
+              f"{fp.ntiles} B-tile fetches for "
               f"{pp.nblocks} slots ({pp.nblocks / max(fp.ntiles, 1):.2f}x fewer); footprint "
               f"kernel: {tk.footprint_tile(fp)} thread blocks a super; grouped kernel: "
               f"{_grouped_geometry(derived['grouped_spmm'][0], n)}")
@@ -2943,7 +3154,8 @@ def _windowed_kernel_rows(a, plan) -> dict:
     """Both kernels on the path's own maps (the gather of a over a_pos, the
     accumulation over c_pos): kernel, plain version, the PyTorch call that
     computes the same function (index_select, index_add_), all queued, and
-    the bound by bytes from this map."""
+    the bound by bytes from this map; each kernel and its PyTorch call also
+    queued behind a sleep, the times the kernels line keeps."""
     from tpusparse_torch.kernels import windowed as wk
 
     gp, sp = plan.wg_a, plan.ws_c
@@ -2961,8 +3173,11 @@ def _windowed_kernel_rows(a, plan) -> dict:
                   window=sp.window)
     g_err = float((gk().float() - gpl().float()).abs().max())
     s_err = float((sk().float() - spl().float()).abs().max())
-    g_ms, g_plain = time_ms_queued(gk), time_ms_queued(gpl, reps=5)
-    g_lib = time_ms_queued(lambda: torch.index_select(table, 0, a_pos))
+    def g_lib_fn():
+        return torch.index_select(table, 0, a_pos)
+    g_queued, g_lib_queued = time_ms_queued(gk), time_ms_queued(g_lib_fn)
+    g_ms, g_lib = time_ms_ahead(gk), time_ms_ahead(g_lib_fn)
+    g_plain = time_ms_queued(gpl, reps=5)
     zeros = torch.zeros(sp.num_segments, device="cuda")
 
     def s_lib_fn():
@@ -2977,8 +3192,10 @@ def _windowed_kernel_rows(a, plan) -> dict:
     g_bound, g_by = bound(0.0, g_bytes)
     s_bound, s_by = bound(float(sp.n_in), s_bytes)
     print(f"windowed_gather on {SPGEMM_KERNEL_CASE}'s a_pos map (n {gp.n}, W {gp.window}, "
-          f"{gp.exc_pos.size} exceptions): kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
-          f"torch.index_select {g_lib:.4f} ms, bound {g_bound:.4f} ms by {g_by} "
+          f"{gp.exc_pos.size} exceptions): kernel {g_ms:.4f} ms, torch.index_select "
+          f"{g_lib:.4f} ms (kernel/library {g_ms / g_lib:.2f}; queued behind a sleep; queued "
+          f"alone {g_queued:.4f} and {g_lib_queued:.4f}), plain {g_plain:.4f} ms, bound "
+          f"{g_bound:.4f} ms by {g_by} "
           f"({g_bytes / 1e6:.2f} MB); kernel vs plain max abs err {g_err:.3e}")
     print(f"windowed_segsum on {SPGEMM_KERNEL_CASE}'s c_pos map (n_in {sp.n_in}, "
           f"{sp.num_segments} segments, W {sp.window}, {sp.exc_pos.size} exceptions): kernel "
@@ -3660,10 +3877,11 @@ def main() -> int:
     bm, bk = plan.blocksize
     flops = 2.0 * a.nnz * n
     nbytes = 4.0 * (plan.nblocks * bm * bk + k * n + m * n)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by, ffma_ms = bound_fp32(flops, nbytes)
     print(f"headline: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"torch.matmul dense {library_ms:.4f} ms (vs kernel {lib_err:.2e}), "
-          f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+          f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB; FFMA design figure {ffma_ms:.4f} ms), "
           f"kernel at {flops / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     # dB = Aᵀ·dC on the transpose plan: the same kernel, transposed blocks
     dbt_ms = time_ms(lambda: resident_spmm_kernel(plan_t, bv_t, dc))
@@ -3681,10 +3899,11 @@ def main() -> int:
         s_library_ms = time_ms(lambda: torch.matmul(dc, bt))
     s_flops = 2.0 * plan.nblocks * bm * bk * n
     s_bytes = 4.0 * (m * n + k * n + plan.num_slots * bm * bk)
-    s_bound_ms, s_bound_by = bound(s_flops, s_bytes)
+    s_bound_ms, s_bound_by, s_ffma_ms = bound_fp32(s_flops, s_bytes)
     print(f"headline sddmm: kernel {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, "
           f"torch.matmul(dC, B^T) dense superset {s_library_ms:.4f} ms, bound "
-          f"{s_bound_ms:.4f} ms ({s_flops / 1e9:.2f} GFLOP, {s_bytes / 1e6:.1f} MB), "
+          f"{s_bound_ms:.4f} ms by {s_bound_by} (3xTF32: 3 x {s_flops / 1e9:.2f} GFLOP, "
+          f"{s_bytes / 1e6:.1f} MB; FFMA design figure {s_ffma_ms:.4f} ms), "
           f"kernel at {s_flops / (s_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     del dc, bt
 

@@ -21,6 +21,7 @@ from tpusparse_torch.kernels import sddmm as sk
 from tpusparse_torch.kernels import tiled_spmm as tk
 from tpusparse_torch.models import serving
 from tpusparse_torch.utils.data import synthetic_mnist
+from tpusparse_torch.utils.matrices import block_sparse_csr
 
 TOL = dict(rtol=1e-4, atol=5e-5)  # fp32 tier: kernel and plain sum in other orders
 # C in bf16: nearly equal fp32 sums may round to adjacent bf16 values
@@ -29,7 +30,7 @@ TOL_BF16 = dict(rtol=1e-2, atol=1e-2)
 # every entry point of kernels/tiled_spmm.py, none launched
 NO_TK = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0, "resident_spmm_int8": 0,
          "resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
-         "footprint_spmm": 0}
+         "footprint_spmm": 0, "int8_kmajor": 0}
 
 # (m, k, n), blocksize, empty row range
 CASES = {
@@ -242,7 +243,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 # fc2's dX and dW, and fc1's dW.
 NO_FLASH = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 NO_BLK = {"blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0}
-NO_INT8 = {"spmm_int8": 0, "gemm_s8": 0, "flash_q8": 0}
+NO_INT8 = {"spmm_int8": 0, "int8_kmajor": 0, "gemm_s8": 0, "flash_q8": 0}
 NO_PLAN_EXEC = {"resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
                 "footprint_spmm": 0}
 NO_WINDOWED = {"windowed_gather": 0, "windowed_segsum": 0}
@@ -293,6 +294,11 @@ FLASH_CASES = {
     "ragged_wide_2x130x100": ((2, 130, 100), False, 0, 0),
     "offsets_1x256x64": ((1, 256, 64), True, 256, 0),
     "no_key_rows_1x128x64": ((1, 128, 64), True, 0, 100),
+    # d off every multiple of 8; one row; rows that see no key across nine
+    # 128-row q-tiles of the tensor-core forward
+    "ragged_d_3x150x20": ((3, 150, 20), False, 0, 0),
+    "one_row_2x1x64": ((2, 1, 64), False, 0, 0),
+    "kv_ahead_causal_2x1030x64": ((2, 1030, 64), True, 0, 300),
 }
 # o of the 'default' tier and of bf16 inputs: p is rounded to bf16 against
 # the running max of its tile in the kernel and against the row max in the
@@ -314,7 +320,8 @@ def _flash_args(name, device, dtype):
 
 
 @pytest.mark.parametrize("dtype,precision", [
-    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+    (torch.float32, "high"), (torch.float32, "highest"), (torch.float32, "default"),
+    (torch.bfloat16, "high"),
 ])
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(cuda, name, dtype, precision):
@@ -346,6 +353,17 @@ def test_flash_kernels_match_plain(cuda, name, dtype, precision):
         blind = FLASH_CASES[name][3] - FLASH_CASES[name][2]
         assert torch.count_nonzero(o[:, :blind]) == 0 and torch.count_nonzero(dq[:, :blind]) == 0
         assert bool((lse[:, :blind] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+def test_flash_forward_repeats_bit_for_bit(cuda, dtype, precision):
+    q, k, v, _, kw = _flash_args("kv_ahead_causal_2x1030x64", cuda, dtype)
+    first = fa.flash_fwd_kernel(q, k, v, precision=precision, **kw)
+    second = fa.flash_fwd_kernel(q, k, v, precision=precision, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_backward_repeats_bit_for_bit(cuda):
@@ -522,21 +540,33 @@ def test_pattern_layer_train_step_on_card_matches_cpu(cuda, attention, force):
 
 # -- the int8 serving tier -------------------------------------------------------
 
-# (m, k, n), blocksize, empty row range
+# (m, k, n), blocksize, empty row range ("blocks": whole 128 x 128 blocks,
+# each present with probability 0.1, the headline's fill). (64, 128),
+# (128, 64) and "blocks" run the pipelined executor, the others the first
+# design.
 INT8_CASES = {
     "ragged_8x16_n33": ((100, 70, 33), (8, 16), None),
     "ragged_32x8_n130": ((75, 53, 130), (32, 8), None),
     "empty_rowblock_128x128_n200": ((300, 260, 200), (128, 128), (128, 256)),
+    "ragged_64x128_n70": ((200, 300, 70), (64, 128), None),
+    "empty_rowblock_128x64_n200": ((300, 200, 200), (128, 64), (128, 256)),
+    "ragged_8x16_n1": ((100, 70, 1), (8, 16), None),
+    "ragged_128x128_n1": ((300, 260, 1), (128, 128), None),
+    "blocks_1024sq_128x128_n512": ((1024, 1024, 512), (128, 128), "blocks"),
 }
 
 
 def _int8_operands(name, device):
     (m, k, n), bs, empty = INT8_CASES[name]
     rng = np.random.default_rng(len(name))
-    mask = rng.random((m, k)) < 0.15
-    if empty is not None:
-        mask[empty[0]:empty[1]] = False
-    a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32), device=device)
+    if empty == "blocks":
+        a = block_sparse_csr(len(name), (m, k), bs, 0.10, device=device)
+    else:
+        mask = rng.random((m, k)) < 0.15
+        if empty is not None:
+            mask[empty[0]:empty[1]] = False
+        a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32),
+                              device=device)
     plan = tt.build_plan(a, bs)
     qvals, scales = quant.quantize_block_values(plan.pack_values(a.data))
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(device)
@@ -554,11 +584,24 @@ def test_spmm_int8_kernel_equals_plain(cuda, name):
     got_r = tk.resident_spmm_int8_kernel(plan, qvals, scales, b_q, t)
     got_t = tk.tiled_spmm_int8_kernel(plan, qvals, scales, b_q, t)
     torch.cuda.synchronize()
-    assert tk.launch_counts() == {**NO_TK, "tiled_spmm_int8": 1, "resident_spmm_int8": 1}
+    assert tk.launch_counts() == {**NO_TK, "tiled_spmm_int8": 1, "resident_spmm_int8": 1,
+                                  "int8_kmajor": 2}
     want = tk._block_exec_int8_plain(plan, qvals, scales, b_q, t)
     assert got_r.dtype == torch.float32 and got_r.shape == want.shape
     assert torch.equal(got_r, got_t)
     assert torch.equal(got_r, want)
+
+
+@pytest.mark.parametrize("shape,ldt", [((70, 33), 80), ((1, 1), 16), ((16384, 512), 16384),
+                                       ((200, 130), 256)])
+def test_int8_kmajor_kernel_equals_plain(cuda, shape, ldt):
+    rng = np.random.default_rng(shape[0])
+    b_q = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(cuda)
+    tk.reset_launch_counts()
+    got = tk.int8_kmajor_kernel(b_q, ldt)
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {**NO_TK, "int8_kmajor": 1}
+    assert torch.equal(got, tk._int8_kmajor_plain(b_q, ldt))
 
 
 @pytest.mark.parametrize("shape", [(100, 70, 33), (64, 37, 50), (130, 259, 257), (1, 1024, 8)])

@@ -125,6 +125,35 @@ def test_int8_executor_plain_matches_pallas(blocksize):
     assert not got_r[16:40].any()
 
 
+@pytest.mark.parametrize("shape,ldt", [((70, 33), 80), ((1, 5), 16), ((256, 130), 256)])
+def test_int8_kmajor_is_jax_quantized_b_transposed(shape, ldt):
+    """The int8 executor's K-major B (`int8_kmajor_kernel`, its plain version
+    on the CPU): JAX's quantized B transposed, zero past k."""
+    rng = np.random.default_rng(shape[0])
+    b = rng.standard_normal(shape).astype(np.float32)
+    jbq, _ = jq.quantize_columns(jnp.asarray(b))
+    b_q, _ = tq.quantize_columns(torch.from_numpy(b))
+    tk.reset_launch_counts()
+    bt = tk.int8_kmajor_kernel(b_q, ldt)
+    want = np.zeros((shape[1], ldt), np.int8)
+    want[:, :shape[0]] = np.asarray(jbq).T
+    assert bt.dtype == torch.int8 and tuple(bt.shape) == (shape[1], ldt)
+    np.testing.assert_array_equal(bt.numpy(), want)
+    assert tk.launch_counts()["int8_kmajor"] == 0  # the CPU runs the plain version
+
+
+def test_int8_kmajor_refuses_what_the_kernel_does_not_take():
+    b_q = torch.zeros((70, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tk.int8_kmajor_kernel(b_q, 72)
+    with pytest.raises(ValueError, match="at least k"):
+        tk.int8_kmajor_kernel(b_q, 64)
+    with pytest.raises(TypeError, match="int8"):
+        tk.int8_kmajor_kernel(b_q.float(), 80)
+    with pytest.raises(TypeError, match="int8"):
+        tk.int8_kmajor_kernel(b_q.t(), 16)
+
+
 @pytest.mark.parametrize("shape", [(96, 200, 160), (37, 70, 33)])
 def test_int8_gemm_plain_equals_pallas(shape):
     m, k, n = shape

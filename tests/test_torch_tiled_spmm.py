@@ -158,7 +158,8 @@ def test_cpu_path_does_not_count_launches():
     tops.spmm(t, torch.from_numpy(b), blocksize=bs)
     assert tk.launch_counts() == {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0,
                                   "resident_spmm_int8": 0, "resident_spmm_batched": 0,
-                                  "compact_spmm": 0, "grouped_spmm": 0, "footprint_spmm": 0}
+                                  "compact_spmm": 0, "grouped_spmm": 0, "footprint_spmm": 0,
+                                  "int8_kmajor": 0}
 
 
 # -- errors -------------------------------------------------------------------

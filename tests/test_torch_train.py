@@ -146,7 +146,7 @@ def test_cpu_train_step_launches_no_kernel():
             "blk_flash_fwd": 0, "blk_flash_dq": 0, "blk_flash_dkv": 0, "naive_spmm": 0,
             "resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
             "footprint_spmm": 0, "windowed_gather": 0, "windowed_segsum": 0, "dia_spmv": 0,
-            "dia_nonfinite": 0}
+            "dia_nonfinite": 0, "int8_kmajor": 0}
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -1,19 +1,10 @@
-// bf16 tensor-core tile helpers for the fused attention kernels on NVIDIA
-// Hopper (sm_90a), beside the FFMA tiles of attention_tiles.cuh: the warp-
-// level `mma.sync.m16n8k16` product with fp32 accumulators, `ldmatrix`
-// operand loads, `cp.async` staging, and a cheap exact int8 -> bf16
-// conversion. Used by flash_attention_q8.cu; the later tensor-core redesign
-// of the float attention kernels can take the same pieces.
-//
-// Fragment layout of m16n8k16 (row.col), lane = 4 g + t:
-//   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
-//                           a[2] = (g, 2t+8..),   a[3] = (g+8, 2t+8..);
-//   B (16 x 8, k by n):     b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g);
-//   C (16 x 8, fp32):       c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..).
-// Each 32-bit register holds two bf16, the lower column (or k) in the low
-// half. So a C fragment of one product, rounded to bf16 pair by pair, is the
-// A fragment of the next one: the flash-attention P tile never leaves the
-// registers.
+// Attention tiles on the tensor cores for NVIDIA Hopper (sm_90a), beside
+// the FFMA tiles of attention_tiles.cuh: the pieces both tensor-core
+// attention forwards share (flash_attention_q8.cu's flash_q8 and
+// flash_attention.cu's flash_fwd): the 128-row q-tile of eight warps over
+// 64-key k-tiles, the bf16 score and p.v products of a warp, and the online
+// softmax of a warp's 16 rows in the log2 domain. The instruction wrappers
+// they are built from (mma.sync, ldmatrix, cp.async) are in mma_sync.cuh.
 
 #pragma once
 
@@ -22,71 +13,140 @@
 
 #include <cstdint>
 
+#include "attention_tiles.cuh"
+#include "mma_sync.cuh"
+
 namespace mma16 {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+constexpr int BQ = 128;      // query rows a block, 16 a warp
+constexpr int BK = 64;       // keys a tile
+constexpr int NTHR = 256;    // eight warps
+constexpr float LOG2E = 1.4426950408889634f;
+
+// k-tiles a q-tile starting at row q0 visits: all of them, or under causal
+// masking those up to the last key its last row can see.
+__device__ __forceinline__ int visited_k_tiles(int s, int q0, int causal, int q_off,
+                                               int kv_off) {
+  const int nk = (s + BK - 1) / BK;
+  if (!causal) return nk;
+  const long long kmax = static_cast<long long>(q_off) + q0 + BQ - 1 - kv_off;
+  if (kmax < 0) return 0;
+  return static_cast<int>(min(static_cast<long long>(nk), kmax / BK + 1));
 }
 
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8, and register j receives its piece of matrix j.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// sacc[nt] += Q[warp rows] . K[keys 8 nt ..]^T over the first kd (a
+// multiple of 16) columns of the staged bf16 tiles.
+template <int DMAX, int LD>
+__device__ __forceinline__ void score_tile(float (&sacc)[BK / 8][4], const __nv_bfloat16* Qs,
+                                           const __nv_bfloat16* Kb, int kd, int wr0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    if (16 * kk >= kd) break;
+    uint32_t a[4];
+    ldsm_x4(a, Qs + (wr0 + lane % 16) * LD + 16 * kk + 8 * (lane / 16));
+#pragma unroll
+    for (int np = 0; np < BK / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, Kb + (16 * np + lane % 8 + 8 * (lane / 16)) * LD + 16 * kk + 8 * ((lane / 8) % 2));
+      mma_bf16(sacc[2 * np], a, b[0], b[1]);
+      mma_bf16(sacc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
 }
 
-// The same, each matrix transposed on the way.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// oacc[nt] += P . V[:, 8 nt ..] over the first kd (a multiple of 16) columns
+// of the staged bf16 V; P is the warp's probabilities in sacc, rounded to
+// bf16 here.
+template <int DMAX, int LD>
+__device__ __forceinline__ void pv_tile(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
+                                        const __nv_bfloat16* Vb, int kd, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < DMAX / 16; ++dp) {
+      if (16 * dp >= kd) break;
+      uint32_t b[4];
+      ldsm_x4_t(b, Vb + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 16 * dp +
+                       8 * (lane / 16));
+      mma_bf16(oacc[2 * dp], a, b[0], b[1]);
+      mma_bf16(oacc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
 }
 
-// d += a . b on the tensor cores: bf16 operands, products exact in fp32,
-// fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the MUFU unit, one instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Two fp32 rounded to bf16 (to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// Four int8 (one 32-bit word, byte i = element i) as two bf16 pairs,
-// exactly: each byte biased to x + 128 is placed in the mantissa of 2^23,
-// 2^23 + 128 is subtracted in fp32, and the top half of the (integer,
-// |x| <= 128) result is its bf16. Eleven integer and fp32 operations for
-// four values, where the conversion units would take four I2F and two F2F.
-__device__ __forceinline__ uint2 int8x4_to_bf16(uint32_t w) {
-  const uint32_t u = w ^ 0x80808080u;
-  const float magic = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - magic;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - magic;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - magic;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - magic;
-  return make_uint2(__byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632),
-                    __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632));
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// 16 bytes global -> shared without passing through registers; src_bytes
-// 0 fills the destination with zeros (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
+// Keys visible to row qp (0 for a row past s): key j is visible when
+// j < s and, under causal masking, kv_off + j <= q_off + qp.
+__device__ __forceinline__ int key_limit(int qp, int s, int causal, int q_off, int kv_off) {
+  if (qp >= s) return 0;
+  if (!causal) return s;
+  const long long lim = static_cast<long long>(q_off) + qp - kv_off + 1;
+  return static_cast<int>(max(-(1LL << 30), min(static_cast<long long>(s), lim)));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// The online softmax of a warp's 16 rows over one k-tile: sacc holds q.k
+// (rows g and g + 8, keys 8 nt + 2 t + c), and leaves with p = exp(s - m),
+// s = q.k * scale_s, in fp32; m, l and oacc are brought up to date. MASK:
+// keys at or past lim[h] (row g, g + 8) score -1e30 and take p = 0 exactly. exp(x - m) is taken as
+// 2^(x log2e - m log2e), one FFMA and one MUFU op.
+template <bool MASK, int NO>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 8][4], float (&oacc)[NO][4],
+                                             float (&m)[2], float (&l)[2], float scale_s,
+                                             int key0, const int (&lims)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lim = lims[h];
+    float mx = attn::NEG;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float x = sacc[nt][2 * h + c] * scale_s;
+        if (MASK && key0 + 8 * nt + c >= lim) x = attn::NEG;
+        sacc[nt][2 * h + c] = x;
+        mx = fmaxf(mx, x);
+      }
+    const float m_new = fmaxf(m[h], quad_max(mx));
+    const float mb = m_new * LOG2E;
+    const float corr = ex2((m[h] - m_new) * LOG2E);  // 1 while both are -1e30
+    float rs = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float p = ex2(fmaf(sacc[nt][2 * h + c], LOG2E, -mb));
+        if (MASK && key0 + 8 * nt + c >= lim) p = 0.f;
+        rs += p;
+        sacc[nt][2 * h + c] = p;
+      }
+    l[h] = corr * l[h] + quad_sum(rs);
+    m[h] = m_new;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+      oacc[nt][2 * h] *= corr;
+      oacc[nt][2 * h + 1] *= corr;
+    }
+  }
 }
 
 }  // namespace mma16

@@ -25,6 +25,8 @@
 
 #include <cstdint>
 
+#include "mma_sync.cuh"
+
 namespace i8 {
 
 constexpr int TM = 64;   // rows of C per thread block
@@ -109,12 +111,7 @@ __device__ __forceinline__ void mma_chunk(Acc& acc, const uint32_t* As, const ui
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      asm volatile(
-          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+r"(acc[i][j][0]), "+r"(acc[i][j][1]), "+r"(acc[i][j][2]), "+r"(acc[i][j][3])
-          : "r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3]), "r"(b[j][0]),
-            "r"(b[j][1]));
+      mma16::mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
 }
 
 // FN(i, j, e, row, col) for each accumulator element of this thread, with

@@ -60,6 +60,8 @@ def launch_counts() -> dict:
     csrc/block_ell_spmm_int8.cu), 'resident_spmm_batched'
     (csrc/block_ell_spmm_batched.cu), 'compact_spmm', 'grouped_spmm' and
     'footprint_spmm' (csrc/block_ell_spmm_{compact,grouped,footprint}.cu),
+    'int8_kmajor' (csrc/block_ell_spmm_int8.cu: b_q made K-major for the
+    int8 executor),
     'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq', 'flash_dkv'
     (csrc/flash_attention.cu), 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
     'blk_flash_dkv' (csrc/block_flash_attention.cu), 'naive_spmm',
@@ -78,7 +80,7 @@ def launches_by_kernel() -> dict:
     'footprint_spmm', 'sddmm', 'gemm', 'gemm_s8', 'flash_fwd', 'flash_dq',
     'flash_dkv', 'flash_q8', 'blk_flash_fwd', 'blk_flash_dq',
     'blk_flash_dkv', 'naive_spmm', 'windowed_gather', 'windowed_segsum',
-    'dia_spmv' and 'dia_nonfinite'."""
+    'dia_spmv', 'dia_nonfinite' and 'int8_kmajor'."""
     c = launch_counts()
     return {"block_ell_spmm": c.pop("tiled_spmm") + c.pop("resident_spmm"),
             "spmm_int8": c.pop("tiled_spmm_int8") + c.pop("resident_spmm_int8"), **c}

@@ -20,11 +20,13 @@ Contracts carried over (l.207-308, l.618-734):
     query`; masked scores are -1e30 and whole tiles above the diagonal are
     skipped; keys at or past s are masked, as are padded q rows in the
     backward;
-  - tiers: 'high' and 'highest' are fp32 FFMA, never TF32. 'default' on
-    fp32 inputs stores the pre-scaled q, k, v (and do) as bf16 and rounds
-    p (forward) and dS (dq, dk) to bf16 before their products, with fp32
-    sums; bf16 inputs do so in every tier (the TPU's non-3-pass tiers cast
-    p and dS to the operands' type).
+  - tiers: 'high' and 'highest' are fp32-class, never one TF32 pass: the
+    forward at d <= 128 runs 3xTF32 on the tensor cores, the backward and
+    d > 128 fp32 FFMA. 'default' on fp32 inputs stores the pre-scaled q, k,
+    v (and do) as bf16 and rounds p (forward) and dS (dq, dk) to bf16
+    before their products, with fp32 sums (the forward on bf16 tensor
+    cores); bf16 inputs do so in every tier (the TPU's non-3-pass tiers
+    cast p and dS to the operands' type).
   - d is taken as it is, any size (the TPU wrapper padded it to a multiple
     of 128); the kernels handle d above 128 in 128-wide chunks.
 
@@ -35,7 +37,8 @@ v over the tiles it visits, since exp(-1e30 - (-1e30)) = 1, which depends
 on its tile size (ROADMAP section 3).
 
 The TPU tile knobs `block_q`/`block_k` are accepted and ignored: the CUDA
-kernels use 64-row tiles of their own. `autotune_flash` tunes those TPU
+kernels use tiles of their own (128 query rows by 64 keys in the forward at
+d <= 128, 64 by 64 elsewhere). `autotune_flash` tunes those TPU
 tiles and is not carried (ROADMAP queue 1, item 13).
 
 The serving tier's attention over an int8 K/V cache (l.1415-1591):

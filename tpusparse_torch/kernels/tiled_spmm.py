@@ -19,8 +19,11 @@ kernel too, `csrc/block_ell_spmm_int8.cu`, behind
 `resident_spmm_int8_kernel` and `tiled_spmm_int8_kernel`: bitwise equal, as
 the JAX pair is. Their contract: C = (Σ_l s_a[l] · float(Qa[l] @ Qb[col_l]))
 ∘ t, int8 operands, an exact int32 product per slot, the fp32 sum in slot
-order. The TPU's VMEM fit check (`resident_int8_vmem_bytes`) has no
-counterpart, as for the float executor.
+order. The s8 tensor cores read B K-major, so each call first writes b_q
+(k, n) as bt (n, ldt), zero-padded along k, with a kernel of its own
+(`int8_kmajor_kernel`, counted as 'int8_kmajor'); `quantize_columns` keeps
+JAX's (k, n) layout. The TPU's VMEM fit check (`resident_int8_vmem_bytes`)
+has no counterpart, as for the float executor.
 
 The batched executor (`_resident_batched_kernel`, l.420, behind
 `resident_spmm_batched_pallas`) becomes `csrc/block_ell_spmm_batched.cu`
@@ -38,7 +41,7 @@ each other.
 A wrapper given CPU tensors runs the plain PyTorch version of the same
 function (`_block_exec_plain`, `_block_exec_batched_plain`,
 `_compact_plain`, `_grouped_plain`, `_footprint_plain`,
-`_block_exec_int8_plain`). Given CUDA tensors it launches the kernel or
+`_block_exec_int8_plain`, `_int8_kmajor_plain`). Given CUDA tensors it launches the kernel or
 raises. Each entry point counts its launches (`launch_counts`).
 """
 
@@ -58,7 +61,7 @@ KERNEL_INT8 = "block_ell_spmm_int8"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0,
              "resident_spmm_int8": 0, "resident_spmm_batched": 0, "compact_spmm": 0,
-             "grouped_spmm": 0, "footprint_spmm": 0}
+             "grouped_spmm": 0, "footprint_spmm": 0, "int8_kmajor": 0}
 
 
 def launch_counts() -> dict:
@@ -524,18 +527,30 @@ def _run_int8(entry, plan, qvals, scales, b_q, t):
         return _block_exec_int8_plain(plan, qvals, scales, b_q, t)
     if b_q.device.type != "cuda":
         raise ValueError(f"unsupported device {b_q.device}")
-    m, k = plan.shape
+    if plan.shape[0] == 0 or b_q.shape[1] == 0:
+        return torch.empty((plan.shape[0], b_q.shape[1]), dtype=torch.float32,
+                           device=b_q.device)
+    bt = int8_kmajor_kernel(b_q, cdiv(plan.num_col_blocks * plan.blocksize[1], 16) * 16)
+    return _spmm_int8_launch(entry, plan, qvals, scales, bt, t)
+
+
+def _spmm_int8_launch(entry, plan, qvals, scales, bt, t):
+    """C of the int8 executor from B made K-major (`int8_kmajor_kernel`):
+    one launch, counted under `entry`."""
+    m, _ = plan.shape
     bm, bk = plan.blocksize
-    n = b_q.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=b_q.device)
-    if m == 0 or n == 0:
-        return c
-    cols = plan.index_tensor("block_cols", b_q.device)
-    nslots = plan.index_tensor("nslots", b_q.device)
-    rc = _int8_kernel_fn()(
-        qvals.data_ptr(), scales.data_ptr(), b_q.data_ptr(), t.data_ptr(), c.data_ptr(),
-        cols.data_ptr(), nslots.data_ptr(), m, k, n, bm, bk, plan.num_row_blocks,
-        plan.ell_width, b_q.device.index or 0, torch.cuda.current_stream(b_q.device).cuda_stream,
+    n = bt.shape[0]
+    c = torch.empty((m, n), dtype=torch.float32, device=bt.device)
+    cols = plan.index_tensor("block_cols", bt.device)
+    nslots = plan.index_tensor("nslots", bt.device)
+    # the row-blocks by slot count, most first: the order the kernel starts them
+    order = plan.perm_tensor("int8_order", np.argsort(-np.asarray(plan.nslots), kind="stable"),
+                             bt.device)
+    rc = _int8_kernel_fns()["block_ell_spmm_int8"](
+        qvals.data_ptr(), scales.data_ptr(), bt.data_ptr(), t.data_ptr(), c.data_ptr(),
+        cols.data_ptr(), nslots.data_ptr(), order.data_ptr(), m, n, bm, bk,
+        plan.num_row_blocks, plan.ell_width, bt.shape[1], bt.device.index or 0,
+        torch.cuda.current_stream(bt.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{KERNEL_INT8} launch failed: CUDA error {rc}")
@@ -543,16 +558,47 @@ def _run_int8(entry, plan, qvals, scales, b_q, t):
     return c
 
 
+def int8_kmajor_kernel(b_q: torch.Tensor, ldt: int) -> torch.Tensor:
+    """bt (n, ldt) int8 with bt[j, r] = b_q[r, j] for r < k and 0 up to
+    ldt: b_q (k, n) K-major, as the s8 tensor cores read B. ldt is a
+    multiple of 16 and at least k."""
+    if b_q.dtype != torch.int8 or b_q.ndim != 2 or not b_q.is_contiguous():
+        raise TypeError(f"b_q must be a contiguous 2-D int8 tensor, got {b_q.dtype} "
+                        f"{tuple(b_q.shape)}")
+    k, n = b_q.shape
+    if ldt < k or ldt % 16:
+        raise ValueError(f"ldt {ldt} must be a multiple of 16 and at least k = {k}")
+    if b_q.device.type == "cpu":
+        return _int8_kmajor_plain(b_q, ldt)
+    bt = torch.empty((n, ldt), dtype=torch.int8, device=b_q.device)
+    if b_q.numel() == 0:
+        return bt.zero_()
+    rc = _int8_kernel_fns()["int8_kmajor"](
+        b_q.data_ptr(), bt.data_ptr(), k, n, ldt, b_q.device.index or 0,
+        torch.cuda.current_stream(b_q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_kmajor launch failed: CUDA error {rc}")
+    _LAUNCHES["int8_kmajor"] += 1
+    return bt
+
+
+def _int8_kmajor_plain(b_q: torch.Tensor, ldt: int) -> torch.Tensor:
+    """Plain PyTorch version of `int8_kmajor_kernel`, on the input's device."""
+    bt = torch.zeros((b_q.shape[1], ldt), dtype=torch.int8, device=b_q.device)
+    bt[:, :b_q.shape[0]] = b_q.t()
+    return bt
+
+
 @functools.cache
-def _int8_kernel_fn():
-    """The C entry point of csrc/block_ell_spmm_int8.cu, built on first use."""
+def _int8_kernel_fns() -> dict:
+    """The C entry points of csrc/block_ell_spmm_int8.cu, built on first use."""
     from tpusparse_torch.kernels import _build
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    # qvals, scales, b_q, t, c, block_cols, nslots, m, k, n, bm, bk, nbr, L,
-    # device, stream
-    return _build.bind(KERNEL_INT8, {"block_ell_spmm_int8": [p] * 7 + [i] * 8 + [p]})[
-        "block_ell_spmm_int8"]
+    # qvals, scales, bt, t, c, block_cols, nslots, order, m, n, bm, bk, nbr, L,
+    # ldt, device, stream; b_q, bt, k, n, ldt, device, stream
+    return _build.bind(KERNEL_INT8, {"block_ell_spmm_int8": [p] * 8 + [i] * 8 + [p],
+                                     "int8_kmajor": [p] * 2 + [i] * 4 + [p]})
 
 
 def _block_exec_int8_plain(
