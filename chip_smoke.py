@@ -28,9 +28,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      blk_flash_dkv) on mask-free plans ('bigbird' block masks at blocks 32
      and 64, a block mask at s = 160) and token-exact masked plans (band
      patterns at blocks 64, 64x32, 128x256 and 256, s = 160 and 1000 off
-     the block, the 'sparse' layer's plan at seq 4096), d from 24 to 128,
-     each in fp32 'high', fp32 'default' and bf16, with dq, dk and dv run
-     twice and required bitwise equal; the int8 kernels: spmm_int8 at
+     the block, a band whose rows find their first sub-tile wholly masked
+     at d 96, the 'sparse' layer's plan at seq 4096), d from 24 to 128,
+     each in fp32 'high', fp32 'default' and bf16, with the forward (and in
+     fp32 'high' dq, dk and dv) run twice and required bitwise equal; the
+     int8 kernels: spmm_int8 at
      blocksizes (8, 16), (32, 8), (128, 128), (64, 128), (128, 64) and
      (64, 32) (ragged m, k, n, n 1 and 257, empty row-blocks, pad slots)
      and a 1024^2 pattern of 128^2 blocks at 10 % (both entry points
@@ -208,8 +210,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the 'bigbird' shapes (bh 96, seq 512, block 64; bh 24, seq 4096, block
      256) and at the 'sparse' layer's masked seq-4096 plan, against their
      plain versions, their bounds from the covered tiles and
-     scaled_dot_product_attention with the token-exact boolean mask (the
-     'bigbird' forward and SDPA also behind a sleep, `time_ms_ahead`); the
+     scaled_dot_product_attention with the token-exact boolean mask (each
+     forward and SDPA also behind a sleep, `time_ms_ahead`, with the
+     forward's TFLOP/s and share of its 3xTF32 bound, the 'bigbird' one
+     beside its FFMA predecessor's time; the forward in fp32 'default' and
+     on bf16 operands against bf16 SDPA with the mask, behind a sleep); the
      BERT layer's forward and step times in every variant and shape of 4d,
      4f and 4g, the seq-512 variants' steps queued back to back in turns,
      and the 'flash' and 'bigbird' encoders' times; a torch.profiler trace of the layer's steps at seq 512 ('flash',
@@ -228,7 +233,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (torch.profiler kernel time over the per-token time); naive_spmm at
      the arxiv-shaped A-hat (sum at n 256 and 40, max with its arg) against
      its plain version, gather_spmm and torch.sparse.mm on a CSR tensor
-     (the sum also both behind a sleep); ms
+     (the sum also both behind a sleep, beside the whole-row kernel's time
+     before its redesign, with the gathers' bytes and rate, and as a design
+     figure the gathers at L2's rate for a streaming read of a 16 MiB
+     buffer, read once and 32 times a call), the sum at each width of B's column strips (16, 32 and 64
+     fp32 columns, each bitwise equal to the plain version); ms
      per Adam step and the device's busy share for 4j-4m; the seven
      attention entry points at (2, 8, 512, 256) against their plain
      versions, bounds and SDPA; the batched kernel at both batched shapes
@@ -329,17 +338,19 @@ FLASH_LIMIT_FP32 = 1e-5
 FLASH_LIMIT_ROUNDED = 1e-2
 # Times of the kernels before their redesign (FFMA flash_q8; shared-memory
 # footprint accumulators; the grouped executor's thread block per group; the
-# FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8), ms, measured by
-# this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md: its kernel
-# table, rows 4-5, 7, 8, 11, 13 and 19, and an earlier run for the seq-4096
-# shape); printed beside the new. SHARED_TILE_MS: the
+# FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8; the FFMA
+# blk_flash_fwd and the whole-row naive_spmm, both behind a sleep), ms,
+# measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md:
+# its kernel table, rows 4-5, 7, 8, 10, 11, 13, 16 and 19, and an earlier
+# run for the seq-4096 shape); printed beside the new. SHARED_TILE_MS: the
 # footprint executor's times on its register windows before the tile moved
 # into window_tiles.cuh, which the shared tile must stay within 9 % of.
 OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.793,
           "flash_q8 d 256": 0.414, "footprint_spmm headline": 21.870,
           "footprint_spmm low-fill": 7.981, "grouped_spmm headline": 15.112,
           "grouped_spmm low-fill": 25.642, "gemm 4096^3 high": 6.969,
-          "flash_fwd (8, 12, 512, 64) high": 0.331, "spmm_int8 headline": 0.411}
+          "flash_fwd (8, 12, 512, 64) high": 0.331, "spmm_int8 headline": 0.411,
+          "blk_flash_fwd bigbird_512 high": 0.2783, "naive_spmm arxiv n 256": 0.8871}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -818,8 +829,10 @@ def _blk_pair(q, k, v, do, plan, kw):
 def _blk_plan(name):
     """The small cases' plans: 'bigbird' block masks and a block mask at an
     unpadded seq (mask-free), band token patterns (token-exact tile masks)
-    at blocks 64, 64x32, 128x256 and 256 with s on and off the block, and
-    the 'sparse' layer's plan at seq 4096 (what its router builds)."""
+    at blocks 64, 64x32, 128x256 and 256 with s on and off the block (one
+    without global keys, whose rows past the band's start find their first
+    listed sub-tile wholly masked), and the 'sparse' layer's plan at seq
+    4096 (what its router builds)."""
     import tpusparse_torch as tt
 
     if name == "bigbird_512_b64":
@@ -831,6 +844,7 @@ def _blk_plan(name):
         return tt.BlockAttnPlan(mask, 64, 64, 160)
     s, bq, bk, window, glob = {
         "band_masked_256_b64": (256, 64, 64, 20, 3),
+        "band_masked_first_empty_256_b64": (256, 64, 64, 20, 0),
         "band_masked_unpadded_160_b64x32": (160, 64, 32, 20, 3),
         "band_masked_512_b128x256": (512, 128, 256, 40, 2),
         "band_masked_unpadded_1000_b256": (1000, 256, 256, 64, 0),
@@ -846,6 +860,7 @@ BLK_SMALL_CASES = {
     "bigbird_256_b32": (2, 128),
     "maskfree_unpadded_160_b64": (3, 40),
     "band_masked_256_b64": (3, 64),
+    "band_masked_first_empty_256_b64": (2, 96),
     "band_masked_unpadded_160_b64x32": (2, 24),
     "band_masked_512_b128x256": (2, 128),
     "band_masked_unpadded_1000_b256": (2, 64),
@@ -855,8 +870,9 @@ BLK_SMALL_CASES = {
 
 def phase_small_block_flash() -> None:
     """Each block-pattern kernel against its plain version on every kind of
-    plan, in fp32 'high' and 'default' and with bf16 inputs; dq, dk and dv
-    of the fp32 'high' run repeated and required bitwise equal."""
+    plan, in fp32 'high' and 'default' and with bf16 inputs; the forward of
+    every run and dq, dk and dv of the fp32 'high' run repeated and required
+    bitwise equal."""
     from tpusparse_torch.kernels import block_flash_attention as bfa
 
     for seed, (name, (bh, d)) in enumerate(BLK_SMALL_CASES.items()):
@@ -867,7 +883,11 @@ def phase_small_block_flash() -> None:
             q, k, v, do = _flash_operands((bh, plan.seq, d), 700 + seed, dtype)
             kw = dict(sm_scale=1 / d ** 0.5, precision=prec)
             got, want = _blk_pair(q, k, v, do, plan, kw)
-            extra = ""
+            again = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got[:2], again)):
+                raise AssertionError(f"blk_{name}: the forward does not repeat bit for bit")
+            extra = ", o/lse repeat bitwise"
             if dtype == torch.float32 and prec == "high":
                 lse, delta = got[1], _delta(do, got[0])
                 again = (bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw),
@@ -875,7 +895,7 @@ def phase_small_block_flash() -> None:
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
                     raise AssertionError(f"blk_{name}: dq, dk, dv do not repeat bit for bit")
-                extra = ", dq/dk/dv repeat bitwise"
+                extra = ", o/lse/dq/dk/dv repeat bitwise"
             _check_attention_case(
                 f"blk_{name}_{kind}_L{plan.L}_{str(dtype).split('.')[1]}_{prec}", got, want,
                 dtype == torch.bfloat16 or prec == "default", extra)
@@ -1333,6 +1353,25 @@ def phase_block_flash_timings() -> dict:
             r["sdpa_bwd_ms"] = time_ms_queued(
                 lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
         r["sdpa_backend"] = backend.name
+        # the forward's other tiers, each checked against its plain version,
+        # behind a sleep beside bf16 SDPA with the token mask
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        r["tiers"] = {}
+        for tier, ops, prec in (("fp32 'default'", (q, k, v), "default"),
+                                ("bf16 operands", (qb, kb, vb), "high")):
+            kwt = dict(sm_scale=1 / d ** 0.5, precision=prec)
+            g_t = bfa.blk_flash_fwd_kernel(*ops, plan, **kwt)
+            w_t = bfa._blk_fwd_plain(*ops, plan, **kwt)
+            err = max(rel_err(g_t[0], w_t[0])[1], rel_err(g_t[1], w_t[1])[1])
+            if not (err <= FLASH_LIMIT_ROUNDED and bool(torch.isfinite(g_t[0].float()).all())):
+                raise AssertionError(f"blk_flash_fwd {label} {tier}: kernel vs plain {err:.2e}")
+            del g_t, w_t
+            r["tiers"][tier] = (time_ms_ahead(lambda: bfa.blk_flash_fwd_kernel(*ops, plan, **kwt)),
+                                err)
+        b4 = [t.view(b, h, seq, d) for t in (qb, kb, vb)]
+        bf16_backend = _sdpa_backend(*b4, mask)
+        with sdpa_kernel([bf16_backend]):
+            r["sdpa_bf16_ms"] = time_ms_ahead(lambda: sdpa(*b4, attn_mask=mask))
         out[label] = r
         shape = (f"{label} (bh {bh}, seq {seq}, d {d}, block {plan.block_q}, "
                  f"{plan.covered_tiles} of {plan.nq * plan.nk} tiles"
@@ -1344,16 +1383,29 @@ def phase_block_flash_timings() -> dict:
                   f"({r['one_call_ms'][n]:.4f} ms one call), plain {r['plain_ms'][n]:.4f} ms, "
                   f"bound {bms:.4f} ms by {by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP at 495 "
                   f"TFLOP/s; {work[n][1] / 1e6:.1f} MB; FFMA design figure {ffma:.4f} ms), "
-                  f"kernel at {flops / (r['ms'][n] * 1e-3) / 1e12:.2f} TFLOP/s")
-        print(f"blk_flash_fwd {label} behind a sleep: kernel {r['ahead_ms'][0]:.4f} ms, sdpa "
+                  f"kernel at {flops / (r['ms'][n] * 1e-3) / 1e12:.2f} TFLOP/s, "
+                  f"{bms / r['ms'][n]:.3f} of its bound")
+        fwd_ms, old = r["ahead_ms"][0], OLD_MS.get(f"blk_flash_fwd {label} high")
+        was = f" (the FFMA kernel before its redesign {old:.4f}: {old / fwd_ms:.2f}x)" if old else ""
+        print(f"blk_flash_fwd {label} behind a sleep: kernel {fwd_ms:.4f} ms{was}, sdpa "
               f"with the token mask {r['ahead_ms'][1]:.4f} ms (kernel/sdpa "
-              f"{r['ahead_ms'][0] / r['ahead_ms'][1]:.2f})")
+              f"{fwd_ms / r['ahead_ms'][1]:.2f}); kernel at "
+              f"{work['fwd'][0] / (fwd_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{r['bound']['fwd'][0] / fwd_ms:.3f} of its 3xTF32 bound")
+        for tier, (ms, err) in r["tiers"].items():
+            bms, by = bound(work["fwd"][0], work["fwd"][1] - (2 * qkv_bytes if "bf16" in tier
+                                                              else 0), BF16_FLOPS)
+            print(f"blk_flash_fwd {label} {tier} behind a sleep: kernel {ms:.4f} ms, sdpa bf16 "
+                  f"({bf16_backend.name}) with the token mask {r['sdpa_bf16_ms']:.4f} ms "
+                  f"(kernel/sdpa {ms / r['sdpa_bf16_ms']:.2f}); bound {bms:.4f} ms by {by} "
+                  f"(bf16 tensor cores), kernel at {work['fwd'][0] / (ms * 1e-3) / 1e12:.2f} "
+                  f"TFLOP/s; vs plain {err:.2e} of scale")
         print(f"blk_flash {label}: kernel vs plain over scale " + ", ".join(
             f"{n} {e[1]:.2e}" for n, e in errs.items()))
         print(f"sdpa {label} with the token mask, fp32, backend {backend.name}: forward "
               f"{r['sdpa_fwd_ms']:.4f} ms (vs kernel o {lib_err:.2e} of scale), autograd "
               f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms")
-        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, og, o, lse, delta, fns
+        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, og, o, lse, delta, fns, qb, kb, vb, b4
     return out
 
 
@@ -1978,6 +2030,9 @@ ARXIV_LR = 5e-3
 GRAPH_STEPS = 20
 ARXIV_STEPS = 5
 NAIVE_TIMING_N = (256, 40)
+# the widths of B's column strips naive_spmm is timed at (fp32 columns; the
+# kernel's own choice is the widest strip within 32 MB of B)
+NAIVE_STRIP_SWEEP = (16, 32, 64)
 # attention kernels at a head dim above 128: (b, h, s, d)
 WIDE_SHAPE = (2, 8, 512, 256)
 
@@ -2300,7 +2355,10 @@ def phase_naive_timings(a) -> dict:
     """The naive kernel at the arxiv-shaped A-hat: sum at n 256 and 40, max
     with its arg at n 256; each against its plain version, gather_spmm and
     torch.sparse.mm on a CSR tensor (cuSPARSE, TF32 off), with its bound
-    from this run's nonzeros. Returns the kernels line's row."""
+    from this run's nonzeros; the sum at each strip width of B
+    (NAIVE_STRIP_SWEEP, each bitwise equal to the plain version), the
+    gathers' rate and, as a design figure, their bytes at the rate L2 gives
+    a streaming read. Returns the kernels line's row."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import naive_spmm as nk
     from tpusparse_torch.utils.config import fp32_matmul
@@ -2311,6 +2369,18 @@ def phase_naive_timings(a) -> dict:
     col = torch.from_numpy(np.asarray(a.indices, np.int64)).cuda()
     a_sp = torch.sparse_csr_tensor(crow, col, a.data, size=a.shape)
     rng = np.random.default_rng(36)
+    # L2's read rate as a streaming read attains it: a 16 MiB buffer, held
+    # in L2 after the first pass, summed behind a sleep once a call and 32
+    # times in one call (a reduction over a stride-0 view, so one kernel
+    # streams 512 MiB from L2); the faster rate makes the design figure
+    buf = torch.ones(4 << 20, device="cuda")
+    reads = {1: time_ms_ahead(lambda: buf.sum()),
+             32: time_ms_ahead(lambda: buf.expand(32, -1).sum())}
+    rates = {r: r * buf.nbytes / (ms * 1e-3) for r, ms in reads.items()}
+    l2_rate = max(rates.values())
+    print("L2 streaming read of a 16 MiB buffer, behind a sleep: " + "; ".join(
+        f"read {r} time(s) a call {reads[r]:.4f} ms, {rates[r] / 1e12:.2f} TB/s" for r in reads))
+    del buf
     row = None
     for n in NAIVE_TIMING_N:
         b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).cuda()
@@ -2341,8 +2411,28 @@ def phase_naive_timings(a) -> dict:
         with fp32_matmul():  # both behind a sleep: no host time in either
             ahead = (time_ms_ahead(lambda: nk.naive_spmm_kernel(ell, a.shape, b)),
                      time_ms_ahead(lambda: torch.sparse.mm(a_sp, b)))
-        print(f"naive_spmm sum arxiv n {n} behind a sleep: kernel {ahead[0]:.4f} ms, "
-              f"torch.sparse.mm {ahead[1]:.4f} ms (kernel/library {ahead[0] / ahead[1]:.2f})")
+        old = OLD_MS.get(f"naive_spmm arxiv n {n}")
+        was = f" (the whole-row kernel before its redesign {old:.4f}: {old / ahead[0]:.2f}x)" \
+            if old else ""
+        gathers = 4.0 * a.nnz * n  # each stored entry reads its row of B, strip by strip
+        print(f"naive_spmm sum arxiv n {n} behind a sleep: kernel {ahead[0]:.4f} ms{was}, "
+              f"torch.sparse.mm {ahead[1]:.4f} ms (kernel/library {ahead[0] / ahead[1]:.2f}); "
+              f"gathers {gathers / 1e9:.3f} GB at {gathers / (ahead[0] * 1e-3) / 1e12:.2f} TB/s; "
+              f"design figure {gathers / l2_rate * 1e3:.4f} ms (the gathers at L2's streaming "
+              f"read rate), {gathers / l2_rate * 1e3 / ahead[0]:.3f} of the kernel's time")
+        sweep = {}
+        for sw in NAIVE_STRIP_SWEEP:
+            strips = nk._naive_spmm_strips(ell, a.shape, b, "sum", False, 0, sw)
+            if not _same(strips, got):
+                raise AssertionError(f"naive_spmm at arxiv n {n}, strips of {sw} columns: not "
+                                     "bitwise equal to the plain version")
+            sweep[sw] = time_ms_ahead(
+                lambda: nk._naive_spmm_strips(ell, a.shape, b, "sum", False, 0, sw))
+        del strips
+        print(f"naive_spmm sum arxiv n {n} by the width of B's column strips, behind a sleep, "
+              f"each bitwise equal to the plain version: " + ", ".join(
+                  f"{sw} columns ({k * sw * 4 / 1e6:.1f} MB of B) {t:.4f} ms"
+                  for sw, t in sweep.items()) + f"; the kernel's choice {ahead[0]:.4f} ms")
         if n == NAIVE_TIMING_N[0]:
             row = {"name": "naive_spmm", "route": "cuda",
                    "source": "tpusparse_torch/csrc/naive_spmm.cu",

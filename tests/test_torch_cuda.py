@@ -420,29 +420,46 @@ def test_flash_layer_train_step_on_card_matches_cpu(cuda):
 
 def _blk_plan(name):
     """Plans of each kind the kernels take: mask-free block masks, token
-    patterns with tile masks, blocks 32 to 256 and unequal, s off the block."""
+    patterns with tile masks, blocks 32 to 256 and unequal, s off the block;
+    a band without global keys, whose rows past the band's start find their
+    first listed sub-tile wholly masked; rows that see no key (the band with
+    some rows cleared from its tile masks); rows of 16 sub-tiles and more,
+    past the forward's bank of 8."""
     name = name.removeprefix("wider_")  # the same plans at head dims above 128
     if name == "bigbird_512_b64":
         return bfa.BlockAttnPlan(tt.bigbird_block_mask(512, 64), 64, 64, 512)
     if name == "bigbird_256_b32":
         return bfa.BlockAttnPlan(tt.bigbird_block_mask(256, 32, 3, 1, 1), 32, 32, 256)
+    if name == "bigbird_1024_b128":
+        return bfa.BlockAttnPlan(tt.bigbird_block_mask(1024, 128), 128, 128, 1024)
     if name == "maskfree_unpadded_160_b64":
         return bfa.BlockAttnPlan(np.ones((3, 3), bool), 64, 64, 160)
+    if name == "maskfree_1024_b64":
+        return bfa.BlockAttnPlan(np.ones((16, 16), bool), 64, 64, 1024)
     s, bq, bk, window, glob = {
         "band_masked_256_b64": (256, 64, 64, 20, 3),
+        "band_masked_first_empty_256_b64": (256, 64, 64, 20, 0),
+        "blind_rows_256_b64": (256, 64, 64, 20, 3),
         "band_masked_unpadded_160_b64x32": (160, 64, 32, 20, 3),
         "band_masked_512_b128x256": (512, 128, 256, 40, 2),
         "band_masked_1024_b256": (1024, 256, 256, 64, 0),
     }[name]
     ind, ptr = tt.local_global_pattern(s, window, glob)
-    return bfa.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk)
+    plan = bfa.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk)
+    if name == "blind_rows_256_b64":  # rows 70-89 of q-block 1 see no key
+        plan.tile_masks[plan.L:2 * plan.L, 70 - 64:90 - 64] = 0
+    return plan
 
 
 BLK_CASES = {  # name: (bh, d)
     "bigbird_512_b64": (4, 64),
     "bigbird_256_b32": (2, 128),
+    "bigbird_1024_b128": (2, 64),
     "maskfree_unpadded_160_b64": (3, 40),
+    "maskfree_1024_b64": (2, 64),
     "band_masked_256_b64": (3, 64),
+    "band_masked_first_empty_256_b64": (2, 96),
+    "blind_rows_256_b64": (2, 64),
     "band_masked_unpadded_160_b64x32": (2, 24),
     "band_masked_512_b128x256": (2, 128),
     "band_masked_1024_b256": (2, 64),
@@ -486,6 +503,24 @@ def test_block_flash_kernels_match_plain(cuda, name, dtype, precision):
             assert _over_scale(got, want) < FLASH_ROUNDED_LIMIT, gname
         else:
             torch.testing.assert_close(got, want, **TOL, msg=gname)
+    blind = ~plan.token_mask(cuda).any(-1)  # rows that see no key
+    assert torch.count_nonzero(o[:, blind]) == 0 and torch.count_nonzero(dq[:, blind]) == 0
+    assert bool((lse[:, blind] == -1e30).all())
+    if name == "blind_rows_256_b64":
+        assert int(blind.sum()) == 20
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", ["bigbird_512_b64", "band_masked_1024_b256",
+                                  "maskfree_1024_b64", "band_masked_first_empty_256_b64"])
+def test_block_flash_forward_repeats_bit_for_bit(cuda, name, dtype, precision):
+    q, k, v, _, plan, kw = _blk_args(name, cuda, dtype)
+    first = bfa.blk_flash_fwd_kernel(q, k, v, plan, precision=precision, **kw)
+    second = bfa.blk_flash_fwd_kernel(q, k, v, plan, precision=precision, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_block_flash_backward_repeats_bit_for_bit(cuda):
@@ -754,11 +789,14 @@ def _naive_operands(seed, m, k, n, device, b_dtype=torch.float32, ties=False):
     return a, torch.from_numpy(b.astype(np.float32)).to(device, b_dtype)
 
 
-@pytest.mark.parametrize("n", [1, 7, 64, 300])
+@pytest.mark.parametrize("n", [1, 7, 15, 16, 17, 31, 32, 33, 40, 64, 257, 300])
 @pytest.mark.parametrize("reduce,return_arg", NAIVE_MODES)
 def test_naive_spmm_kernel_equals_plain(cuda, reduce, return_arg, n):
     """Every reducer and arg output, bitwise equal to the plain version: both
-    round each product and each update on their own, in slot order."""
+    round each product and each update on their own, in slot order. n runs
+    over the edges of a lane's 4 columns and of the strips (16-byte rows of
+    B take 4 columns a lane, others one); the long row outruns the unroll
+    of 8 slots."""
     from tpusparse_torch.kernels import naive_spmm as nk
 
     a, b = _naive_operands(n, 77, 60, n, cuda, ties=return_arg)
@@ -773,14 +811,51 @@ def test_naive_spmm_kernel_equals_plain(cuda, reduce, return_arg, n):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
 
 
-def test_naive_spmm_kernel_bf16_b(cuda):
+@pytest.mark.parametrize("n", [33, 40, 256])
+@pytest.mark.parametrize("reduce,return_arg", NAIVE_MODES)
+def test_naive_spmm_kernel_bf16_b(cuda, reduce, return_arg, n):
+    """A bf16 B: 8 columns a lane where its rows are whole 16-byte chunks (n
+    40, 256), one otherwise (33); bitwise equal to the plain version."""
     from tpusparse_torch.kernels import naive_spmm as nk
 
-    a, b = _naive_operands(3, 50, 40, 33, cuda, b_dtype=torch.bfloat16)
+    a, b = _naive_operands(3, 50, 40, n, cuda, b_dtype=torch.bfloat16, ties=return_arg)
     ell = nk.ell_pack(a)
-    for reduce in ("sum", "max"):
-        got = nk.naive_spmm_kernel(ell, a.shape, b, reduce=reduce)
-        assert torch.equal(got, nk._naive_spmm_plain(ell, a.shape, b, reduce=reduce))
+    kw = dict(reduce=reduce, return_arg=return_arg, nnz=a.nnz if return_arg else 0)
+    got = nk.naive_spmm_kernel(ell, a.shape, b, **kw)
+    want = nk._naive_spmm_plain(ell, a.shape, b, **kw)
+    for g, w in zip(got if return_arg else (got,), want if return_arg else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strip_cols", [8, 16, 32])
+@pytest.mark.parametrize("n", [16, 17, 40, 64, 257])
+@pytest.mark.parametrize("reduce,return_arg", [("sum", False), ("div", False), ("max", True)])
+def test_naive_spmm_strips_equal_plain(cuda, reduce, return_arg, n, strip_cols, b_dtype):
+    """Strips of B narrower than n, fixed: every strip of a row, the last one
+    partly past n, bitwise equal to the plain version."""
+    from tpusparse_torch.kernels import naive_spmm as nk
+
+    a, b = _naive_operands(n, 77, 60, n, cuda, b_dtype=b_dtype, ties=return_arg)
+    ell = nk.ell_pack(a)
+    nnz = a.nnz if return_arg else 0
+    kernels.reset_launch_counts()
+    got = nk._naive_spmm_strips(ell, a.shape, b, reduce, return_arg, nnz, strip_cols)
+    torch.cuda.synchronize()
+    assert kernels.launches_by_kernel()["naive_spmm"] == 1
+    want = nk._naive_spmm_plain(ell, a.shape, b, reduce=reduce, return_arg=return_arg, nnz=nnz)
+    for g, w in zip(got if return_arg else (got,), want if return_arg else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+def test_naive_spmm_refuses_a_strip_it_cannot_walk(cuda):
+    """A strip that is no power of two of lanes raises; the wrapper does not
+    fall back."""
+    from tpusparse_torch.kernels import naive_spmm as nk
+
+    a, b = _naive_operands(2, 20, 16, 64, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        nk._naive_spmm_strips(nk.ell_pack(a), a.shape, b, "sum", False, 0, 12)
 
 
 def test_naive_spmm_gradient_on_card_matches_cpu(cuda):

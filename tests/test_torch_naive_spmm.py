@@ -365,3 +365,21 @@ def test_spmm_takes_coo_and_bsr(fmt, method):
     ja = JBSR.from_dense(jnp.asarray(d), (8, 8)) if fmt == "bsr" else j
     np.testing.assert_allclose(got.numpy(), np.asarray(jops.spmm(
         ja, jnp.asarray(b), method="reference")), **TOL)
+
+
+def test_binding_matches_the_c_entry_point(monkeypatch):
+    """The ctypes argument list of `naive_spmm` has one type per parameter of
+    the C entry point in csrc/naive_spmm.cu (ctypes refuses a call whose
+    count differs, and only on the card)."""
+    import re
+    from pathlib import Path
+
+    from tpusparse_torch.kernels import _build
+
+    captured = {}
+    monkeypatch.setattr(_build, "bind",
+                        lambda name, argtypes: captured.update(argtypes) or argtypes)
+    nk._kernel_fn.__wrapped__()
+    src = (Path(nk.__file__).resolve().parents[1] / "csrc" / "naive_spmm.cu").read_text()
+    params = re.search(r'extern "C" int naive_spmm\(([^)]*)\)', src).group(1).split(",")
+    assert len(captured["naive_spmm"]) == len(params) == 18

@@ -71,8 +71,9 @@
 //     2t -> t, 2t + 1 -> t + 4, and V's rows in the same order (scalar
 //     shared loads, rows padded to d + 4 floats so the warp hits 32
 //     banks); the sum over keys takes any order. Every FOLD k-tiles a warp
-//     moves its running sum into o (the bank, below), so the tensor cores'
-//     coarse fp32 accumulation never runs over more than FOLD tiles.
+//     moves its running sum into o (the bank, attention_mma.cuh), so the
+//     tensor cores' coarse fp32 accumulation never runs over more than FOLD
+//     tiles.
 //   - 'default' on fp32 operands: bf16 `mma.sync.m16n8k16` with fp32 sums;
 //     q is rounded to bf16 as it is staged, K and V are staged as raw fp32
 //     and rounded to bf16 pairs as their fragments are loaded.
@@ -108,285 +109,22 @@ using mma16::BK;
 using mma16::BQ;
 using mma16::NTHR;
 
-__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// sacc[nt] += Q[warp rows] . K[keys 8 nt ..]^T in 3xTF32 over the first kd
-// columns of fp32 tiles with rows of LD floats (4 x an odd number, so the
-// eight rows an ldmatrix reads lie on distinct banks). Each k-step issues
-// its three passes over all eight n-tiles in turn, so no mma waits on the
-// one before it.
-template <int DMAX, int LD>
-__device__ __forceinline__ void score_3xtf32(float (&sacc)[BK / 8][4], const float* Qs,
-                                             const float* Kb, int kd, int wr0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DMAX / 8; ++kk) {
-    if (8 * kk >= kd) break;
-    uint32_t a[4], ah[4], al[4];
-    mma16::ldsm_x4(a, Qs + (wr0 + lane % 16) * LD + 8 * kk + 4 * (lane / 16));
-    mma16::split_tf32(a, ah, al);
-    uint32_t bh[BK / 16][4], bl[BK / 16][4];  // n-tile 2 np: [0..1], 2 np + 1: [2..3]
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t b[4];
-      mma16::ldsm_x4(b, Kb + (16 * np + lane % 8 + 8 * (lane / 16)) * LD + 8 * kk +
-                            4 * ((lane / 8) % 2));
-      mma16::split_tf32(b, bh[np], bl[np]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-      mma16::mma_tf32(sacc[nt], al, bh[nt / 2][2 * (nt % 2)], bh[nt / 2][2 * (nt % 2) + 1]);
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-      mma16::mma_tf32(sacc[nt], ah, bl[nt / 2][2 * (nt % 2)], bl[nt / 2][2 * (nt % 2) + 1]);
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-      mma16::mma_tf32(sacc[nt], ah, bh[nt / 2][2 * (nt % 2)], bh[nt / 2][2 * (nt % 2) + 1]);
-  }
-}
-
-// oacc[dn] += P . V[:, 8 dn ..] in 3xTF32 over the first kd columns of V
-// (fp32, rows of LD floats, LD % 32 == 4). The k-step j takes keys 8j + 2t
-// as k t and 8j + 2t + 1 as k t + 4, so the score C fragment p[j] is its A
-// fragment as it stands, and V's rows are read in the same order. The
-// output columns go in groups of GN = 8 n-tiles, each pass over a group in
-// turn (groups of 4 or 2 spill at d = 64 under the 128-register cap).
-template <int DMAX, int LD>
-__device__ __forceinline__ void pv_3xtf32(float (&oacc)[DMAX / 8][4],
-                                          const float (&p)[BK / 8][4], const float* Vb, int kd,
-                                          int lane) {
-  constexpr int GN = 8;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    const uint32_t a[4] = {bits(p[j][0]), bits(p[j][2]), bits(p[j][1]), bits(p[j][3])};
-    uint32_t ah[4], al[4];
-    mma16::split_tf32(a, ah, al);
-    const float* v0 = Vb + (8 * j + 2 * t) * LD + g;
-#pragma unroll
-    for (int d0 = 0; d0 < DMAX / 8; d0 += GN) {
-      if (8 * d0 >= kd) break;
-      uint32_t bh[GN][2], bl[GN][2];
-#pragma unroll
-      for (int dn = 0; dn < GN; ++dn) {
-        mma16::split_tf32(bits(v0[8 * (d0 + dn)]), bh[dn][0], bl[dn][0]);
-        mma16::split_tf32(bits(v0[LD + 8 * (d0 + dn)]), bh[dn][1], bl[dn][1]);
-      }
-#pragma unroll
-      for (int dn = 0; dn < GN; ++dn)
-        if (8 * (d0 + dn) < kd) mma16::mma_tf32(oacc[d0 + dn], al, bh[dn][0], bh[dn][1]);
-#pragma unroll
-      for (int dn = 0; dn < GN; ++dn)
-        if (8 * (d0 + dn) < kd) mma16::mma_tf32(oacc[d0 + dn], ah, bl[dn][0], bl[dn][1]);
-#pragma unroll
-      for (int dn = 0; dn < GN; ++dn)
-        if (8 * (d0 + dn) < kd) mma16::mma_tf32(oacc[d0 + dn], ah, bh[dn][0], bh[dn][1]);
-    }
-  }
-}
-
-// sacc[nt] += Q . K^T on bf16 mma: Q staged as bf16 (rows of LDQ), K as
-// raw fp32 (rows of LDK, LDK % 32 == 8 so a warp's 8-byte loads hit 32
-// banks), rounded to bf16 pairs as its fragments are loaded.
-template <int DMAX, int LDQ, int LDK>
-__device__ __forceinline__ void score_bf16_f32(float (&sacc)[BK / 8][4],
-                                               const __nv_bfloat16* Qs, const float* Kb, int kd,
-                                               int wr0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk) {
-    if (16 * kk >= kd) break;
-    uint32_t a[4];
-    mma16::ldsm_x4(a, Qs + (wr0 + lane % 16) * LDQ + 16 * kk + 8 * (lane / 16));
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float* kr = Kb + (8 * nt + g) * LDK + 16 * kk + 2 * t;
-      const float2 x0 = *reinterpret_cast<const float2*>(kr);
-      const float2 x1 = *reinterpret_cast<const float2*>(kr + 8);
-      mma16::mma_bf16(sacc[nt], a, mma16::pack_bf16(x0.x, x0.y), mma16::pack_bf16(x1.x, x1.y));
-    }
-  }
-}
-
-// oacc[dn] += P . V on bf16 mma, P rounded to bf16 in registers, V raw fp32
-// (rows of LD floats, LD % 32 == 4) rounded to bf16 pairs as it is loaded.
-template <int DMAX, int LD>
-__device__ __forceinline__ void pv_bf16_f32(float (&oacc)[DMAX / 8][4],
-                                            const float (&p)[BK / 8][4], const float* Vb, int kd,
-                                            int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint32_t a[4] = {mma16::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           mma16::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           mma16::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           mma16::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const float* v0 = Vb + (16 * kk + 2 * t) * LD + g;
-#pragma unroll
-    for (int dn = 0; dn < DMAX / 8; ++dn) {
-      if (8 * dn >= kd) break;
-      const float* vr = v0 + 8 * dn;
-      mma16::mma_bf16(oacc[dn], a, mma16::pack_bf16(vr[0], vr[LD]),
-                      mma16::pack_bf16(vr[8 * LD], vr[9 * LD]));
-    }
-  }
-}
-
-// The three tiers: how q is staged (type TQ, rows of LDQ), K and V's rows
-// (LDK, LDV elements of the operand type T), and the two products.
-template <bool ROUND, typename T, int DMAX>
-struct Tier;
-
-template <int DMAX>  // fp32 'high'/'highest': 3xTF32
-struct Tier<false, float, DMAX> {
-  using TQ = float;
-  static constexpr int LDQ = DMAX + 4, LDK = DMAX + 4, LDV = DMAX + 4;
-  __device__ static void score(float (&sacc)[BK / 8][4], const TQ* Qs, const float* Kb, int kd,
-                               int wr0, int lane) {
-    score_3xtf32<DMAX, LDQ>(sacc, Qs, Kb, kd, wr0, lane);
-  }
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
-                            const float* Vb, int kd, int lane) {
-    pv_3xtf32<DMAX, LDV>(oacc, p, Vb, kd, lane);
-  }
-};
-
-template <int DMAX>  // fp32 'default': bf16 products
-struct Tier<true, float, DMAX> {
-  using TQ = __nv_bfloat16;
-  static constexpr int LDQ = DMAX + 8, LDK = DMAX + 8, LDV = DMAX + 4;
-  __device__ static void score(float (&sacc)[BK / 8][4], const TQ* Qs, const float* Kb, int kd,
-                               int wr0, int lane) {
-    score_bf16_f32<DMAX, LDQ, LDK>(sacc, Qs, Kb, kd, wr0, lane);
-  }
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
-                            const float* Vb, int kd, int lane) {
-    pv_bf16_f32<DMAX, LDV>(oacc, p, Vb, kd, lane);
-  }
-};
-
-template <int DMAX>  // bf16 operands, any tier
-struct Tier<true, __nv_bfloat16, DMAX> {
-  using TQ = __nv_bfloat16;
-  static constexpr int LDQ = DMAX + 8, LDK = DMAX + 8, LDV = DMAX + 8;
-  __device__ static void score(float (&sacc)[BK / 8][4], const TQ* Qs, const __nv_bfloat16* Kb,
-                               int kd, int wr0, int lane) {
-    mma16::score_tile<DMAX, LDQ>(sacc, Qs, Kb, kd, wr0, lane);
-  }
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
-                            const __nv_bfloat16* Vb, int kd, int lane) {
-    mma16::pv_tile<DMAX, LDV>(oacc, p, Vb, kd, lane);
-  }
-};
-
 // Shared memory of an instance: the q-tile, then two stages of the K and V
 // tiles (stage i: K at KV + i * stage, V after it).
 template <bool ROUND, typename T, int DMAX>
 struct Layout {
-  using TR = Tier<ROUND, T, DMAX>;
+  using TR = mma16::Tier<ROUND, T, DMAX>;
   static constexpr size_t q_bytes = sizeof(typename TR::TQ) * BQ * TR::LDQ;
   static constexpr int stage = BK * (TR::LDK + TR::LDV);  // elements of T
   static constexpr size_t bytes = q_bytes + 2 * sizeof(T) * stage;
 };
-
-// The q-tile (rows q0.., all DMAX columns) into Qs: q * scale rounded to
-// q's type, then to the tier's TQ; rows at or past s and columns at or past
-// d are 0. Up to 32 loads a thread are issued before their stores.
-template <int DMAX, int LD, typename TQ, typename T>
-__device__ __forceinline__ void load_q(TQ* dst, const T* __restrict__ src, int r0, int s, int d,
-                                       float scale) {
-  constexpr int PER = BQ * DMAX / NTHR, BATCH = PER < 32 ? PER : 32;
-#pragma unroll
-  for (int i0 = 0; i0 < PER; i0 += BATCH) {
-    float x[BATCH];
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int e = threadIdx.x + (i0 + j) * NTHR, r = e / DMAX, c = e % DMAX;
-      x[j] = 0.f;
-      if (r0 + r < s && c < d) {
-        x[j] = attn::to_f32(from_f32<T>(attn::to_f32(src[static_cast<size_t>(r0 + r) * d + c]) *
-                                        scale));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int e = threadIdx.x + (i0 + j) * NTHR, r = e / DMAX, c = e % DMAX;
-      dst[r * LD + c] = from_f32<TQ>(x[j]);
-    }
-  }
-}
-
-// Rows [r0, r0 + BK) of a (s, d) row-major matrix, all DMAX columns, into a
-// tile with rows of LD elements; rows at or past s and columns at or past d
-// are 0. async: 16-byte cp.async copies (d a whole number of 16-byte chunks,
-// src 16-byte aligned); else one element a load.
-template <int DMAX, int LD, typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int r0, int s,
-                                           int d, bool async) {
-  if (async) {
-    constexpr int E = 16 / sizeof(T), C = DMAX / E;
-    for (int e = threadIdx.x; e < BK * C; e += NTHR) {
-      const int r = e / C, c = e % C;
-      const bool in = r0 + r < s && c * E < d;
-      mma16::cp_async16(dst + r * LD + c * E,
-                        in ? src + static_cast<size_t>(r0 + r) * d + c * E : src, in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BK * DMAX; e += NTHR) {
-      const int r = e / DMAX, c = e % DMAX;
-      dst[r * LD + c] =
-          r0 + r < s && c < d ? src[static_cast<size_t>(r0 + r) * d + c] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// The 3xTF32 path's bank. The tensor cores add an fp32 C with coarser
-// rounding than IEEE's: summed through them over s = 4096 keys (192 adds an
-// element a k-tile), o drifted 2.4e-5 of scale from the plain version on an
-// H100, and a fresh sum a tile, added in IEEE, takes 32 registers more,
-// which spill.
-// So every FOLD k-tiles a warp adds its running sum, rescaled, into its
-// rows of o itself (fp32 on this path, written by this thread alone) and
-// restarts from 0: rows (row, row + 8), columns 8 nt + 2t + c. mb holds the
-// softmax max the bank was last scaled to. s <= 512 never folds; folding
-// every 4 tiles instead cost 9 % at s = 512 on an H100.
-constexpr int FOLD = 8;
-
-template <int NO>
-__device__ __forceinline__ void bank(float* ob, float (&oacc)[NO][4], const float (&m)[2],
-                                     float (&mb)[2], bool banked, int row, int s, int d,
-                                     int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qp = row + 8 * h;
-    const float f = mma16::ex2((mb[h] - m[h]) * mma16::LOG2E);
-    mb[h] = m[h];
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 8 * nt + 2 * t + c;
-        float* p = &ob[static_cast<size_t>(qp) * d + col];
-        if (qp < s && col < d) *p = banked ? fmaf(*p, f, oacc[nt][2 * h + c]) : oacc[nt][2 * h + c];
-        oacc[nt][2 * h + c] = 0.f;
-      }
-  }
-}
 
 template <int DMAX, bool ROUND, typename T>
 __global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int s, int d, float scale_q, int causal,
     int q_off, int kv_off, int async_kv) {
-  using TR = Tier<ROUND, T, DMAX>;
+  using TR = mma16::Tier<ROUND, T, DMAX>;
   using L = Layout<ROUND, T, DMAX>;
   using TQ = typename TR::TQ;
   constexpr int NO = DMAX / 8;
@@ -408,12 +146,12 @@ __global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
   const int nk = mma16::visited_k_tiles(s, q0, causal, q_off, kv_off);
   auto stage_kv = [&](int j) {
     T* dst = KV + (j % 2) * L::stage;
-    stage_rows<DMAX, TR::LDK>(dst, kb, j * BK, s, d, async_kv);
-    stage_rows<DMAX, TR::LDV>(dst + BK * TR::LDK, vb, j * BK, s, d, async_kv);
+    mma16::stage_rows<NTHR, DMAX, TR::LDK>(dst, kb, j * BK, s, d, async_kv);
+    mma16::stage_rows<NTHR, DMAX, TR::LDV>(dst + BK * TR::LDK, vb, j * BK, s, d, async_kv);
     if (async_kv) mma16::cp_async_commit();
   };
   if (nk > 0) stage_kv(0);  // in flight while q is loaded
-  load_q<DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
+  mma16::load_q<BQ, NTHR, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
   float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
   float mb[2] = {attn::NEG, attn::NEG};  // the bank's max (3xTF32)
   int since = 0;                         // tiles summed since the last fold
@@ -463,8 +201,8 @@ __global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
     // 3xTF32: every FOLD tiles the warp moves its sum into o (the bank, fp32),
     // so the tensor cores' own accumulation never adds more than FOLD tiles
     if constexpr (!ROUND) {
-      if (++since == FOLD && kt + 1 < nk) {
-        bank(ob, oacc, m, mb, banked, q0 + wr0 + g, s, d, t);
+      if (++since == mma16::FOLD && kt + 1 < nk) {
+        mma16::bank(ob, oacc, m, mb, banked, q0 + wr0 + g, s, d, t);
         since = 0;
         banked = true;
       }

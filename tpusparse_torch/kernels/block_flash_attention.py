@@ -22,11 +22,13 @@ Contracts carried over:
   - masking: a key at or past s, a query at or past s (backward), and an
     entry whose tile mask is 0 are masked (-1e30) and their probabilities
     are exactly 0; a row with no visible key gets o = 0, lse = -1e30;
-  - tiers: 'high' and 'highest' are fp32 FFMA, never TF32. 'default' on fp32
-    inputs rounds every product's operands to bf16 (q, k, v, do, and p, dS)
-    with fp32 sums: what the TPU's DEFAULT dot does to the fp32 operands
-    that the JAX wrapper leaves uncast. bf16 inputs round p and dS to bf16
-    in every tier (l.979, l.1163, l.1201, l.1206);
+  - tiers: 'high' and 'highest' are fp32-class, never one TF32 pass
+    (3xTF32 on the tensor cores in the forward at d <= 128, fp32 FFMA in
+    the rest). 'default' on fp32 inputs rounds every product's operands to
+    bf16 (q, k, v, do, and p, dS) with fp32 sums: what the TPU's DEFAULT
+    dot does to the fp32 operands that the JAX wrapper leaves uncast. bf16
+    inputs round p and dS to bf16 in every tier (l.979, l.1163, l.1201,
+    l.1206);
   - d is taken as it is, any size (the TPU wrapper padded it to a multiple
     of 128); the kernels handle d above 128 in 128-wide chunks.
 

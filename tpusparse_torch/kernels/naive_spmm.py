@@ -13,7 +13,9 @@ first nnz index attaining the extremum: the update is strict, so ties keep
 the first entry; the base of row i is its CSR offset and an empty row keeps
 `nnz`. The TPU kernel's SMEM guard (l.170-181) is a budget of the TPU's
 scalar memory and has no counterpart here, as the VMEM fit check of the
-block executor has none; nor has its `block_n` tile knob.
+block executor has none. Its `block_n` tile knob became the kernel's own
+choice of B's column strip, the widest that stays in L2
+(`_naive_spmm_strips` fixes it, to time widths against each other).
 
 A wrapper given CPU tensors runs `_naive_spmm_plain`, the plain PyTorch
 version: a loop over the L slots on whole (m, n) tensors, each step's
@@ -95,6 +97,17 @@ def naive_spmm_kernel(
     bf16. Returns (m, n) fp32, and with `return_arg` (min/max only) also the
     (m, n) int32 arg matrix, `nnz` on empty rows.
     """
+    return _naive_spmm_strips(ell, shape, b, reduce, return_arg, nnz, strip_cols=0)
+
+
+def _naive_spmm_strips(ell: Ell, shape, b: torch.Tensor, reduce: str, return_arg: bool,
+                       nnz: int, strip_cols: int):
+    """`naive_spmm_kernel` with the width of the kernel's column strips of B
+    given: 0 takes the widest strip that stays within its L2 budget
+    (`L2_STRIP_BYTES` in csrc/naive_spmm.cu); a positive count of columns
+    fixes it, for timing strip widths against each other. It must be a
+    power of two of lanes (at most 32) times the columns a lane owns: 4 fp32
+    or 8 bf16 where B's rows are whole 16-byte chunks, else 1."""
     col_idx, vals, nnz_per_row = _check(ell, shape, b, reduce, return_arg)
     if b.device.type == "cpu":
         return _naive_spmm_plain((col_idx, vals, nnz_per_row), shape, b, reduce=reduce,
@@ -110,8 +123,9 @@ def naive_spmm_kernel(
             col_idx.data_ptr(), vals.data_ptr(), nnz_per_row.data_ptr(),
             base.data_ptr() if return_arg else None, b.data_ptr(), out.data_ptr(),
             arg.data_ptr() if return_arg else None, _DTYPE_CODE[b.dtype],
-            REDUCTIONS.index(reduce), int(return_arg), m, n, col_idx.shape[1], int(nnz),
-            b.device.index or 0, torch.cuda.current_stream(b.device).cuda_stream,
+            REDUCTIONS.index(reduce), int(return_arg), m, b.shape[0], n, col_idx.shape[1],
+            int(nnz), int(strip_cols), b.device.index or 0,
+            torch.cuda.current_stream(b.device).cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
@@ -160,8 +174,8 @@ def _kernel_fn():
 
     p, i = ctypes.c_void_p, ctypes.c_int
     # col_idx, vals, nnz_per_row, row_base, b, out, arg, b_dtype, reduce,
-    # return_arg, m, n, L, nnz_fill, device, stream
-    return _build.bind(KERNEL, {"naive_spmm": [p] * 7 + [i] * 8 + [p]})["naive_spmm"]
+    # return_arg, m, k, n, L, nnz_fill, strip_cols, device, stream
+    return _build.bind(KERNEL, {"naive_spmm": [p] * 7 + [i] * 10 + [p]})["naive_spmm"]
 
 
 def _naive_spmm_plain(
