@@ -10,10 +10,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      spills for each kernel instance;
   3. each kernel against its plain PyTorch version on the card at small
      shapes: block_ell_spmm (ragged m/k/n, blocksizes (8, 16), (32, 8),
-     (128, 128), empty row-blocks, fp32 'high' and 'default', bf16; both
-     entry points, which must agree bitwise), sddmm (the same blocksizes,
-     ragged m/k/n, an empty row-block whose pad slots must be exactly 0,
-     fp32 'high'/'highest'/'default', bf16) and gemm (all four transpose
+     (64, 16), (128, 128), (200, 8), n 1 to 512, empty row-blocks, fp32
+     'high' and 'default', bf16; both entry points, which must agree
+     bitwise, and a second call bitwise equal to the first), sddmm (the
+     same blocksizes, ragged m/k/n, n 1 to 512, an empty row-block whose pad
+     slots must be exactly 0, fp32 'high'/'highest'/'default', bf16, a
+     second call bitwise equal; and 4 slots over n = 65,536, split into
+     ranges of n) and gemm (all four transpose
      flags, ragged (100, 70, 33) in fp32 and bf16, 'high' and 'default',
      and the MLP's n = 10 layer (32, 10, 256) in fp32; each run twice and
      bitwise equal) and the
@@ -49,11 +52,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      footprint kernels at blocksizes (8, 32), (32, 16), (64, 64), (128, 128)
      and (200, 16) (taller than a grouped window), ragged m/k/n, row-blocks
      with no slot, batch 1 and 5, fp32 'high' and 'default' and bf16: the
-     batched kernel bitwise equal to the 2-D kernel on every B[g] and on the
-     folded B, the other three bitwise equal to block_ell_spmm on the base
-     plan; windowed_gather and windowed_segsum on six index
-     maps (local with far outliers, a single far read, fully scattered,
-     empty segments with n and the segment count off the 1024 padding, a
+     four share one FFMA chain, so the batched kernel is bitwise equal to
+     itself on every B[g] alone (the FFMA base) and the other three to that
+     base on the base plan; the base and the batched kernel on the folded B
+     within the tier of the tensor-core block_ell_spmm; windowed_gather and
+     windowed_segsum on six index maps (local with far outliers, a single
+     far read, fully scattered, empty segments with n and the segment count
+     off the 1024 padding, a
      table shorter than its window, the segment
      plan's W = 4096), each in fp32, bf16 and fp16, bitwise equal to their
      plain versions, and a chunked accumulation forced with a small target
@@ -179,11 +184,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      and 3 steps on the card against the same weights on the CPU (rtol
      1e-4, atol 5e-5; parameters by the Adam rule of
      tests/test_torch_graph.py); the arxiv GCN's outputs and losses finite
-     and its loss dropping; the batched steps' forward, dA and dB and the
-     footprint step's against their plain versions (<= 1e-5 of scale), the
-     batched kernel bitwise equal to the fold at both shapes, each plan
-     executor against its plain version and bitwise equal to
-     block_ell_spmm at both plans; SpGEMM's C against a float64 scipy
+     and its loss dropping; the batched steps' forward and dB and the
+     footprint step's against their plain versions and the batched steps'
+     dA against float64 (<= 1e-5 of scale), the
+     batched kernel bitwise equal to the FFMA base at its first and last
+     batch elements and within 1e-5 of scale of the tensor-core fold at both
+     shapes, each plan executor against its plain version and bitwise equal
+     to the FFMA base at both plans; SpGEMM's C against a float64 scipy
      product and its pattern against scipy's, dA and dB against the dense
      algebra in float64, the 'dense' route against the same oracle (each
      <= 1e-5 of scale), and at 16384^2 the card against the CPU (values and
@@ -339,10 +346,11 @@ FLASH_LIMIT_ROUNDED = 1e-2
 # Times of the kernels before their redesign (FFMA flash_q8; shared-memory
 # footprint accumulators; the grouped executor's thread block per group; the
 # FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8; the FFMA
-# blk_flash_fwd and the whole-row naive_spmm, both behind a sleep), ms,
-# measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md:
-# its kernel table, rows 4-5, 7, 8, 10, 11, 13, 16 and 19, and an earlier
-# run for the seq-4096 shape); printed beside the new. SHARED_TILE_MS: the
+# blk_flash_fwd and the whole-row naive_spmm, both behind a sleep; the FFMA
+# block_ell_spmm and sddmm), ms, measured by this script on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (PERF.md: its kernel table, rows 1-2, 4-5, 7-11, 13,
+# 16 and 19, §5 for bert4d's dA, and an earlier run for the seq-4096 shape);
+# printed beside the new. SHARED_TILE_MS: the
 # footprint executor's times on its register windows before the tile moved
 # into window_tiles.cuh, which the shared tile must stay within 9 % of.
 OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.793,
@@ -350,7 +358,8 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "footprint_spmm low-fill": 7.981, "grouped_spmm headline": 15.112,
           "grouped_spmm low-fill": 25.642, "gemm 4096^3 high": 6.969,
           "flash_fwd (8, 12, 512, 64) high": 0.331, "spmm_int8 headline": 0.411,
-          "blk_flash_fwd bigbird_512 high": 0.2783, "naive_spmm arxiv n 256": 0.8871}
+          "blk_flash_fwd bigbird_512 high": 0.2783, "naive_spmm arxiv n 256": 0.8871,
+          "block_ell_spmm headline": 1.494, "sddmm headline": 1.280, "sddmm bert4d": 40.26}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -543,6 +552,11 @@ def phase_small_cases() -> None:
         ("mlp_fc1_128x128_fp32_high", (256, 784, 32), (128, 128), 0.1, None, f32, f32, "high"),
         ("mlp_fc1_128x128_bf16_default", (256, 784, 32), (128, 128), 0.1, None,
          bf16, bf16, "default"),
+        ("bm64_bk16_n64_fp32_high", (300, 200, 64), (64, 16), 0.15, None, f32, f32, "high"),
+        ("bm200_bk8_n5_fp32_high", (610, 150, 5), (200, 8), 0.15, (200, 400), f32, f32, "high"),
+        ("bm128_bk32_n1_fp32_default", (260, 300, 1), (128, 32), 0.15, None, f32, f32,
+         "default"),
+        ("bm128_bk128_n512_fp32_high", (400, 520, 512), (128, 128), 0.1, None, f32, f32, "high"),
     ]
     for seed, (name, (m, k, n), bs, dens, empty, vdt, bdt, prec) in enumerate(cases):
         a_np, rng = _dense_case(seed, m, k, dens, empty)
@@ -556,13 +570,16 @@ def phase_small_cases() -> None:
         torch.cuda.synchronize()
         if not torch.equal(out_t, out_r):
             raise AssertionError(f"{name}: tiled and resident entry points differ")
+        if not torch.equal(out_t, tiled_spmm_kernel(plan, bv, b, precision=prec)):
+            raise AssertionError(f"{name}: a second call differs from the first")
         if out_t.dtype != ref.dtype or out_t.shape != (m, n):
             raise AssertionError(f"{name}: got {out_t.dtype} {tuple(out_t.shape)}")
-        _check_case(name, out_t, ref, ", entry points bitwise equal")
+        _check_case(name, out_t, ref, ", entry points and two calls bitwise equal")
 
 
 def phase_small_sddmm() -> None:
     import tpusparse_torch as tt
+    from tpusparse_torch.kernels import sddmm as sk
     from tpusparse_torch.kernels.sddmm import _sddmm_plain, sddmm_kernel
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -577,6 +594,14 @@ def phase_small_sddmm() -> None:
         ("sddmm_empty_rowblock_8x16_fp32_high", (64, 48, 17), (8, 16), 0.3,
          (16, 40), f32, "high"),
         ("sddmm_mlp_fc1_128x128_fp32_high", (256, 784, 32), (128, 128), 0.1, None, f32, "high"),
+        ("sddmm_bm64_bk16_n64_fp32_high", (300, 200, 64), (64, 16), 0.15, None, f32, "high"),
+        ("sddmm_bm200_bk8_n5_fp32_default", (610, 150, 5), (200, 8), 0.15, (200, 400), f32,
+         "default"),
+        ("sddmm_bm128_bk128_n512_fp32_high", (400, 520, 512), (128, 128), 0.1, None, f32,
+         "high"),
+        # 4 valid slots and pad slots over n = 65,536: split into ranges of n
+        ("sddmm_split_n65536_fp32_high", (384, 256, 65536), (128, 128), 0.15, (128, 256), f32,
+         "high"),
     ]
     for seed, (name, (m, k, n), bs, dens, empty, dt, prec) in enumerate(cases):
         a_np, rng = _dense_case(100 + seed, m, k, dens, empty)
@@ -591,7 +616,23 @@ def phase_small_sddmm() -> None:
         pad = ~plan.slot_valid_mask("cuda").bool().reshape(-1)
         if int(torch.count_nonzero(got[pad])) != 0:
             raise AssertionError(f"{name}: pad slots are not exactly 0")
-        _check_case(name, got, ref, f", {int(pad.sum())} pad slots exactly 0")
+        if not torch.equal(got, sddmm_kernel(plan, dc, b, precision=prec)):
+            raise AssertionError(f"{name}: a second call differs from the first")
+        splits = sk.sddmm_splits(sk.sddmm_tiles(plan), n, sk._sm_count(0))
+        extra = (f", {int(pad.sum())} pad slots exactly 0, two calls bitwise equal, {splits} "
+                 "range(s) of n")
+        if splits == 1:
+            _check_case(name, got, ref, extra)
+            continue
+        # a sum over n = 65,536: held against float64, whose distance from the
+        # fp32 plain version is printed beside it
+        want = _sddmm_f64(plan, dc, b)
+        rel, plain_rel = over_scale(got, want)[1], over_scale(ref, want)[1]
+        ok = rel <= HEADLINE_TOL and bool(torch.isfinite(got).all())
+        print(f"case {name}: {rel:.3e} of scale vs float64 (limit {HEADLINE_TOL}; the plain "
+              f"version {plain_rel:.3e}){extra}, {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with float64")
 
 
 def phase_small_gemm() -> None:
@@ -2617,9 +2658,12 @@ def phase_small_plan_executors() -> None:
     plain versions at small shapes: ragged m, k and n, blocksizes (8, 32),
     (32, 16), (64, 64), (128, 128) and (200, 16) (taller than a grouped
     window), row-blocks with no slot, batch 1 and 5, fp32 'high' and
-    'default' and bf16. Each is also held bitwise: the batched kernel to the
-    2-D kernel on every B[g] and on the folded B, the three others to
-    block_ell_spmm on the base plan."""
+    'default' and bf16. The four share one FFMA chain (block_tiles.cuh), so
+    each is also held bitwise to `_ffma_base`, the batched kernel on one
+    B[g] alone: the batched kernel on every B[g], the three others on the
+    base plan. That base and the batched kernel on the folded B are held
+    within the tier of block_ell_spmm, which sums on the tensor cores in
+    another order."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import tiled_spmm as tk
 
@@ -2642,18 +2686,19 @@ def phase_small_plan_executors() -> None:
                 "cuda", dt)
             label = f"{m}x{k}x{n}_{bs[0]}x{bs[1]}_b{batch}_{str(dt)[6:]}_{prec}"
             got = tk.resident_spmm_batched_kernel(plan, bv, b3, precision=prec)
-            per_g = torch.stack([tk.resident_spmm_kernel(plan, bv, b3[g].contiguous(),
-                                                         precision=prec) for g in range(batch)])
+            per_g = torch.stack([_ffma_base(f"batched {label} [{g}]", plan, bv,
+                                            b3[g].contiguous(), prec) for g in range(batch)])
             folded = tt.ops._fold_batch(
                 lambda x: tk.tiled_spmm_kernel(plan, bv, x, precision=prec), b3)
             want = tk._block_exec_batched_plain(plan, bv, b3, precision=prec)
             torch.cuda.synchronize()
-            if not (_same(got, per_g) and _same(got, folded.contiguous())):
-                raise AssertionError(f"batched {label}: not bitwise equal to the 2-D kernel")
-            _check_case(f"batched {label}", got, want, ", bitwise equal to the 2-D kernel "
-                        "per batch element and on the fold")
+            if not _same(got, per_g):
+                raise AssertionError(f"batched {label}: not bitwise equal to the FFMA base")
+            _check_case(f"batched {label} vs the 2-D kernel on the fold", got, folded)
+            _check_case(f"batched {label}", got, want, ", bitwise equal to the FFMA base "
+                        "per batch element")
             b = b3[0].contiguous()
-            base = tk.tiled_spmm_kernel(plan, bv, b, precision=prec)
+            base = per_g[0]
             # groups and supers of 4 row-blocks: several per plan
             for entry, (dp, fn) in _derived_plans(plan, 4, 4).items():
                 dv = dp.pack_values(a.data.to(dt))
@@ -2661,9 +2706,39 @@ def phase_small_plan_executors() -> None:
                 want = tk._PLAIN[entry](dp, dv, b, precision=prec)
                 torch.cuda.synchronize()
                 if not _same(got, base):
-                    raise AssertionError(f"{entry} {label}: not bitwise equal to block_ell_spmm")
+                    raise AssertionError(f"{entry} {label}: not bitwise equal to the FFMA base")
                 _check_case(f"{entry} {label}", got, want,
-                            ", bitwise equal to block_ell_spmm on the base plan")
+                            ", bitwise equal to the FFMA base on the base plan")
+
+
+def _ffma_base(label, plan, bv, b, precision=None):
+    """The bitwise base of the FFMA executors (batched, compact, grouped,
+    footprint): the batched kernel on a batch of one. Held within the tier
+    of the tensor-core block_ell_spmm on the same operands (TOL_FP32, or
+    TOL_BF16_OUT for a bf16 C)."""
+    from tpusparse_torch.kernels import tiled_spmm as tk
+
+    base = tk.resident_spmm_batched_kernel(plan, bv, b[None], precision=precision)[0]
+    tc = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
+    tol = TOL_BF16_OUT if base.dtype == torch.bfloat16 else TOL_FP32
+    if not torch.allclose(base.float(), tc.float(), **tol):
+        raise AssertionError(f"{label}: the FFMA base and block_ell_spmm differ beyond the tier")
+    return base
+
+def _sddmm_f64(plan, dc, b):
+    """The SDDMM of plan's pattern in float64, (num_slots, bm, bk): the oracle
+    of sums over n too long for the fp32 plain version."""
+    dense = dc.double() @ b.double().t()  # (m, k)
+    bm, bk = plan.blocksize
+    nbr, L = plan.num_row_blocks, plan.ell_width
+    dp = dense.new_zeros((nbr * bm, plan.num_col_blocks * bk))
+    dp[:dense.shape[0], :dense.shape[1]] = dense
+    tiles = dp.reshape(nbr, bm, -1, bk).permute(0, 2, 1, 3)  # (nbr, nbc, bm, bk)
+    cols = plan.index_tensor("block_cols", dc.device).reshape(nbr, L).long()
+    out = tiles[torch.arange(nbr, device=dc.device)[:, None], cols]
+    valid = plan.slot_valid_mask(dc.device).bool()[..., None, None]
+    return torch.where(valid, out, 0.0).reshape(plan.num_slots, bm, bk)
+
 
 def _batched_operands(kind, shape, density, bshape, seed):
     import tpusparse_torch as tt
@@ -2685,14 +2760,17 @@ def phase_batched_spmm() -> dict:
     training step of tiled_spmm(a, b3) with grads in a.data and b3, counted
     (1 resident_spmm_batched forward, 1 sddmm on the folded batch, 1
     resident_spmm_batched dB where the transpose plan passes the reuse
-    test), its forward and gradients against the plain versions; the
-    batched kernel bitwise against the fold; then the times of the batched
+    test), its forward and dB against the plain versions and its dA against
+    float64 (the fp32 plain version's own error over n = 262,144 is larger
+    than the kernel's); the batched kernel bitwise against the FFMA base
+    and within the tier of the fold; then the times of the batched
     kernel, of the fold (the 2-D kernel on (k, batch·n), transposes
     included), of the plain version and of torch.matmul of the densified A
     broadcast over the batch (TF32 off), the bound and the step. Returns
     the kernels line's row (block-sparse batched shape) and the launches of
     every kernel in the counted steps."""
     import tpusparse_torch as tt
+    from tpusparse_torch.kernels import sddmm as sk
     from tpusparse_torch.kernels import tiled_spmm as tk
     from tpusparse_torch.kernels.sddmm import _sddmm_plain
     from tpusparse_torch.utils.config import fp32_matmul
@@ -2720,15 +2798,20 @@ def phase_batched_spmm() -> dict:
         bv = plan.pack_values(a.data)
         err, rel = over_scale(out.detach(), tk._block_exec_batched_plain(plan, bv, b3))
         fold_g, fold_b = tt.ops._fold_cols(g), tt.ops._fold_cols(b3)
-        da_err, da_rel = over_scale(data.grad, plan.unpack_values(_sddmm_plain(plan, fold_g,
-                                                                             fold_b)))
-        del fold_g, fold_b
+        # dA sums over batch * n (262,144 at bert4d): held against float64, since
+        # the fp32 plain version's own rounding there exceeds the kernel's
+        da64 = plan.unpack_values(_sddmm_f64(plan, fold_g, fold_b))
+        da_err, da_rel = over_scale(data.grad, da64)
+        da_plain_rel = over_scale(plan.unpack_values(_sddmm_plain(plan, fold_g, fold_b)),
+                                  da64)[1]
+        del fold_g, fold_b, da64
         bv_t = plan_t.pack_values(a.data[plan_t.perm_tensor("t_perm", t_perm, "cuda")])
         db_err, db_rel = over_scale(bb.grad, tk._block_exec_batched_plain(plan_t, bv_t, g))
         print(f"batched {label} ({shape[0]}x{shape[1]}, {plan.nblocks} of "
               f"{plan.num_row_blocks * plan.num_col_blocks} blocks, B {bshape}): step "
-              f"launches {json.dumps({n_: c for n_, c in counts.items() if c})}; vs plain "
-              f"over scale: C {rel:.3e}, dA {da_rel:.3e}, dB {db_rel:.3e}")
+              f"launches {json.dumps({n_: c for n_, c in counts.items() if c})}; over scale: "
+              f"C {rel:.3e} and dB {db_rel:.3e} vs plain, dA {da_rel:.3e} vs float64 (the "
+              f"plain version's dA vs float64 {da_plain_rel:.3e})")
         if not (max(rel, da_rel, db_rel) <= HEADLINE_TOL and bool(torch.isfinite(out).all())
                 and bool(torch.isfinite(data.grad).all()) and bool(torch.isfinite(bb.grad).all())):
             raise AssertionError(f"batched {label}: step disagrees with the plain versions")
@@ -2738,8 +2821,15 @@ def phase_batched_spmm() -> dict:
         def fold():
             return tt.ops._fold_batch(lambda x: tk.resident_spmm_kernel(plan, bv, x), b3)
 
-        if not _same(got, fold().contiguous()):
-            raise AssertionError(f"batched {label}: kernel and fold are not bitwise equal")
+        for gi in (0, batch - 1):  # the FFMA chain: bitwise equal to one batch element alone
+            if not _same(got[gi], _ffma_base(f"batched {label} [{gi}]", plan, bv,
+                                             b3[gi].contiguous())):
+                raise AssertionError(f"batched {label}: not bitwise equal to the FFMA base")
+        fold_err = rel_err(got, fold())[1]
+        print(f"batched {label}: kernel bitwise equal to the FFMA base at elements 0 and "
+              f"{batch - 1}; against the tensor-core fold {fold_err:.3e} of scale")
+        if not fold_err <= HEADLINE_TOL:
+            raise AssertionError(f"batched {label}: kernel and fold differ beyond the tier")
         ms = time_ms(lambda: tk.resident_spmm_batched_kernel(plan, bv, b3))
         fold_ms = time_ms(fold)
         plain_ms = time_ms(lambda: tk._block_exec_batched_plain(plan, bv, b3), warmup=1, iters=3)
@@ -2767,6 +2857,21 @@ def phase_batched_spmm() -> dict:
               f"{2.0 * a.nnz * n * batch / 1e9:.2f} GFLOP of nonzeros, {nbytes / 1e6:.1f} MB; "
               f"FFMA design figure {ffma:.4f} ms), kernel at "
               f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; training step {step_ms:.4f} ms")
+        # the step's dA: sddmm on the batch folded into n
+        fold_g, fold_b = tt.ops._fold_cols(g), tt.ops._fold_cols(b3)
+        nf = fold_g.shape[1]
+        splits = sk.sddmm_splits(sk.sddmm_tiles(plan), nf, sk._sm_count(0))
+        da_ms = time_ms(lambda: sk.sddmm_kernel(plan, fold_g, fold_b))
+        da_flops = 2.0 * plan.nblocks * bm * bk * nf
+        da_bms = bound_fp32(da_flops, 4.0 * (shape[0] * nf + k * nf
+                                             + plan.num_slots * bm * bk))[0]
+        old = OLD_MS.get(f"sddmm {label}")
+        print(f"batched {label} dA (sddmm on (m, batch*n) = ({shape[0]}, {nf}), {splits} "
+              f"range(s) of n): {da_ms:.4f} ms"
+              + (f" (FFMA kernel before its redesign {old:.2f}: {old / da_ms:.2f}x)" if old else "")
+              + f", bound {da_bms:.4f} ms on 3xTF32 (3 x {da_flops / 1e9:.1f} GFLOP), "
+              f"{da_flops / (da_ms * 1e-3) / 1e12:.2f} TFLOP/s, {da_bms / da_ms:.3f} of its bound")
+        del fold_g, fold_b
         if kind == "blocks":
             row = {"name": "resident_spmm_batched", "route": "cuda",
                    "source": "tpusparse_torch/csrc/block_ell_spmm_batched.cu",
@@ -2827,7 +2932,7 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
         m, k = pp.shape
         n = bb.shape[1]
         bm, bk = pp.blocksize
-        base = tk.tiled_spmm_kernel(pp, pv, bb)
+        base = _ffma_base(f"plan executors {label}", pp, pv, bb)
         base_ms = time_ms(lambda: tk.tiled_spmm_kernel(pp, pv, bb))
         a_dense = pp.blocks_to_dense(pv)
         with fp32_matmul():
@@ -2847,7 +2952,9 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
         fp = derived["footprint_spmm"][0]
         print(f"plan executors {label} ({m}x{k}, blocks {bm}x{bk}, nnz {aa.nnz}, "
               f"{pp.nblocks} blocks, ell_width {pp.ell_width}; n {n}): derived plans and "
-              f"packing {host_s:.2f} s on the host; block_ell_spmm {base_ms:.4f} ms, "
+              f"packing {host_s:.2f} s on the host; block_ell_spmm {base_ms:.4f} ms "
+              f"({flops / (base_ms * 1e-3) / 1e12:.2f} TFLOP/s of blocks, {bms / base_ms:.3f} "
+              f"of the bound), "
               f"torch.matmul dense {dense_ms:.4f} ms"
               + (f", torch.sparse.mm (CSR) {sparse_ms:.4f} ms" if sparse_ms is not None else "")
               + f"; bound {bms:.4f} ms by {by} (3xTF32: 3 x {flops / 1e9:.3f} GFLOP, "
@@ -2857,16 +2964,16 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
               f"kernel: {tk.footprint_tile(fp)} thread blocks a super; grouped kernel: "
               f"{_grouped_geometry(derived['grouped_spmm'][0], n)}")
         for e, (dp, fn) in derived.items():
-            same = _same(outs[e], base)
+            same = _same(outs[e], base)  # the FFMA chain's base
             err, rel = over_scale(outs[e], tk._PLAIN[e](dp, packed[e], bb))
             ms = time_ms(lambda: fn(dp, packed[e], bb))
             plain_ms = time_ms(lambda: tk._PLAIN[e](dp, packed[e], bb), warmup=1, iters=3)
             print(f"  {e} {label}: {ms:.4f} ms ({ms / base_ms:.2f}x block_ell_spmm), plain "
-                  f"{plain_ms:.4f} ms; vs plain over scale {rel:.3e}; bitwise equal to "
-                  f"block_ell_spmm: {same}")
+                  f"{plain_ms:.4f} ms; vs plain over scale {rel:.3e}; bitwise equal to the "
+                  f"FFMA base: {same}")
             if not (same and rel <= HEADLINE_TOL and bool(torch.isfinite(outs[e]).all())):
                 raise AssertionError(f"{e} {label}: disagrees with its plain version or with "
-                                     "block_ell_spmm")
+                                     "the FFMA base")
             if e in ("footprint_spmm", "grouped_spmm"):  # against the earlier designs
                 old = OLD_MS[f"{e} {label}"]
                 before = SHARED_TILE_MS.get(f"{e} {label}")
@@ -3968,17 +4075,35 @@ def main() -> int:
     flops = 2.0 * a.nnz * n
     nbytes = 4.0 * (plan.nblocks * bm * bk + k * n + m * n)
     bound_ms, bound_by, ffma_ms = bound_fp32(flops, nbytes)
-    print(f"headline: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    old = OLD_MS["block_ell_spmm headline"]
+    print(f"headline: kernel {kernel_ms:.4f} ms (FFMA kernel before its redesign {old:.3f}: "
+          f"{old / kernel_ms:.2f}x), plain {plain_ms:.4f} ms, "
           f"torch.matmul dense {library_ms:.4f} ms (vs kernel {lib_err:.2e}), "
           f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB; FFMA design figure {ffma_ms:.4f} ms), "
-          f"kernel at {flops / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+          f"kernel at {flops / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+          f"{bound_ms / kernel_ms:.3f} of its bound")
+    for tier, bvx, bx in (("fp32 'default'", bv, b),
+                          ("bf16 operands", bv.bfloat16(), b.bfloat16())):
+        prec = "default" if tier == "fp32 'default'" else "high"
+        t_err = over_scale(resident_spmm_kernel(plan, bvx, bx, precision=prec),
+                           _block_exec_plain(plan, bvx, bx, precision=prec))[1]
+        t_ms = time_ms(lambda: resident_spmm_kernel(plan, bvx, bx, precision=prec))
+        t_bound = bound(flops, nbytes * (0.5 if bvx.dtype == torch.bfloat16 else 1.0),
+                        BF16_FLOPS)[0]
+        print(f"headline {tier} (bf16 wgmma): kernel {t_ms:.4f} ms, vs plain over scale "
+              f"{t_err:.3e}, bound {t_bound:.4f} ms ({flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
+              f"bf16), {t_bound / t_ms:.3f} of it")
+        if not t_err <= (GEMM_BF16_OUT_TOL if bvx.dtype == torch.bfloat16 else GEMM_DEFAULT_TOL):
+            raise AssertionError(f"headline {tier}: kernel disagrees with its plain version")
+        del bvx, bx
     # dB = Aᵀ·dC on the transpose plan: the same kernel, transposed blocks
     dbt_ms = time_ms(lambda: resident_spmm_kernel(plan_t, bv_t, dc))
     dbt_plain_ms = time_ms(lambda: _block_exec_plain(plan_t, bv_t, dc))
     print(f"headline dB (transpose plan {plan_t.shape}, ell_width {plan_t.ell_width}): "
           f"kernel {dbt_ms:.4f} ms, plain {dbt_plain_ms:.4f} ms, same bound "
-          f"{bound_ms:.4f} ms, kernel at {flops / (dbt_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+          f"{bound_ms:.4f} ms, kernel at {flops / (dbt_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+          f"{bound_ms / dbt_ms:.3f} of its bound")
     del bv_t
 
     # -- timings: sddmm at the headline ----------------------------------------
@@ -3990,11 +4115,14 @@ def main() -> int:
     s_flops = 2.0 * plan.nblocks * bm * bk * n
     s_bytes = 4.0 * (m * n + k * n + plan.num_slots * bm * bk)
     s_bound_ms, s_bound_by, s_ffma_ms = bound_fp32(s_flops, s_bytes)
-    print(f"headline sddmm: kernel {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, "
+    old = OLD_MS["sddmm headline"]
+    print(f"headline sddmm: kernel {s_ms:.4f} ms (FFMA kernel before its redesign {old:.3f}: "
+          f"{old / s_ms:.2f}x), plain {s_plain_ms:.4f} ms, "
           f"torch.matmul(dC, B^T) dense superset {s_library_ms:.4f} ms, bound "
           f"{s_bound_ms:.4f} ms by {s_bound_by} (3xTF32: 3 x {s_flops / 1e9:.2f} GFLOP, "
           f"{s_bytes / 1e6:.1f} MB; FFMA design figure {s_ffma_ms:.4f} ms), "
-          f"kernel at {s_flops / (s_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+          f"kernel at {s_flops / (s_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+          f"{s_bound_ms / s_ms:.3f} of its bound")
     del dc, bt
 
     # -- timings and check: gemm at 4096^3 --------------------------------------
@@ -4062,11 +4190,18 @@ def main() -> int:
             lbv = lplan.pack_values(layer.kernel_values)
             lb = h.transpose(0, 1).contiguous()
             ms = time_ms(lambda: resident_spmm_kernel(lplan, lbv, lb), warmup=5, iters=50)
+            ms_ahead = time_ms_ahead(lambda: resident_spmm_kernel(lplan, lbv, lb))
             gy = torch.ones((lplan.shape[0], lb.shape[1]), device="cuda")
             sms = time_ms(lambda: sddmm_kernel(lplan, gy, lb), warmup=5, iters=50)
-            print(f"mlp sparse fc{i}: kernel alone {ms:.4f} ms "
-                  f"({lplan.shape[0]}x{lplan.shape[1]} @ {lb.shape[0]}x{lb.shape[1]}, "
-                  f"{lplan.nblocks} blocks); its sddmm (dW) alone {sms:.4f} ms")
+            sms_ahead = time_ms_ahead(lambda: sddmm_kernel(lplan, gy, lb))
+            lbm, lbk = lplan.blocksize
+            lm, lk, ln = lplan.shape[0], lplan.shape[1], lb.shape[1]
+            lflops = 2.0 * lplan.nblocks * lbm * lbk * ln
+            lbound = bound_fp32(lflops, 4.0 * (lplan.nblocks * lbm * lbk + lk * ln + lm * ln))[0]
+            print(f"mlp sparse fc{i}: kernel alone {ms:.4f} ms, {ms_ahead:.4f} ms behind a "
+                  f"sleep ({lm}x{lk} @ {lk}x{ln}, {lplan.nblocks} blocks; bound {lbound:.4f} ms "
+                  f"on 3xTF32); its sddmm (dW) alone {sms:.4f} ms, {sms_ahead:.4f} ms behind a "
+                  f"sleep (the same bound)")
             if i == 2:  # the step's dB runs for fc2 only (fc1's input is the data)
                 perm = lplan_t.perm_tensor("t_perm", lt_perm, "cuda")
                 lbv_t = lplan_t.pack_values(layer.kernel_values[perm])

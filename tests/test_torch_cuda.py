@@ -32,12 +32,23 @@ NO_TK = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0, "resident_sp
          "resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
          "footprint_spmm": 0, "int8_kmajor": 0}
 
-# (m, k, n), blocksize, empty row range
+# (m, k, n), blocksize, empty row range: bm 8 to 200 (one or two
+# warpgroups, slices of a taller row-block), bk 8 to 128 (a slot of less
+# than one 128-byte chunk, or four), n 1 to 512 (the 32-, 64- and
+# 128-column tiles, ragged), empty row-blocks
 CASES = {
     "ragged_8x32_n130": ((100, 70, 130), (8, 32), None),
     "ragged_32x8_n33": ((75, 53, 33), (32, 8), None),
     "empty_rowblock_128x128": ((300, 260, 40), (128, 128), (128, 256)),
+    "bm64_bk16_n64": ((300, 200, 64), (64, 16), None),
+    "bm128_bk128_n512": ((400, 520, 512), (128, 128), None),
+    "bm200_bk8_n5_empty": ((610, 150, 5), (200, 8), (200, 400)),
+    "bm128_bk32_n1": ((260, 300, 1), (128, 32), None),
+    "bm64_bk128_n33": ((150, 300, 33), (64, 128), (64, 128)),
 }
+# a row-block of 65 slots of 128 x 128 (K = 8,320): the drift check
+LONG_ROW = ((128, 8320, 64), (128, 128), None)
+DRIFT_LIMIT = 1e-5  # max |kernel - plain| / max |plain|, fp32 'high'
 
 
 @pytest.fixture
@@ -48,7 +59,7 @@ def cuda():
 
 
 def _inputs(name, device, vals_dtype=torch.float32, b_dtype=torch.float32):
-    (m, k, n), bs, empty = CASES[name]
+    (m, k, n), bs, empty = LONG_ROW if name == "long_row" else CASES[name]
     rng = np.random.default_rng(0)
     mask = rng.random((m, k)) < 0.15
     if empty is not None:
@@ -62,6 +73,8 @@ def _inputs(name, device, vals_dtype=torch.float32, b_dtype=torch.float32):
 @pytest.mark.parametrize("precision", ["high", "highest", "default"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain_and_counts(cuda, name, precision):
+    """Both entry points bitwise equal, a second call bitwise equal to the
+    first, within the tier of the plain version (3xTF32 or bf16 wgmma)."""
     plan, bv, b = _inputs(name, cuda)
     tk.reset_launch_counts()
     got_t = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
@@ -69,21 +82,38 @@ def test_kernel_matches_plain_and_counts(cuda, name, precision):
     torch.cuda.synchronize()
     assert tk.launch_counts() == {**NO_TK, "tiled_spmm": 1, "resident_spmm": 1}
     assert torch.equal(got_t, got_r)
+    assert torch.equal(got_t, tk.tiled_spmm_kernel(plan, bv, b, precision=precision))
     want = tk._block_exec_plain(plan, bv, b, precision=precision)
     torch.testing.assert_close(got_t, want, **TOL)
+    empty = CASES[name][2]
+    if empty is not None:  # row-blocks with no slot are written as zeros
+        assert int(torch.count_nonzero(got_t[empty[0]:empty[1]])) == 0
 
 
 @pytest.mark.parametrize("vals_dtype,b_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
     (torch.bfloat16, torch.float32),
 ])
-def test_kernel_bf16_operands(cuda, vals_dtype, b_dtype):
-    plan, bv, b = _inputs("ragged_8x32_n130", cuda, vals_dtype, b_dtype)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_bf16_operands(cuda, name, vals_dtype, b_dtype):
+    plan, bv, b = _inputs(name, cuda, vals_dtype, b_dtype)
     got = tk.tiled_spmm_kernel(plan, bv, b)
     want = tk._block_exec_plain(plan, bv, b)
     assert got.dtype == want.dtype == torch.result_type(bv, b)
+    assert torch.equal(got, tk.resident_spmm_kernel(plan, bv, b))
     tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_kernel_long_row_does_not_drift(cuda):
+    """A row-block of 65 slots (K = 8,320) in fp32 'high': each chunk's
+    3xTF32 products go into a fresh register sum before the running fp32
+    sum, so the result stays within 1e-5 of scale of the plain version."""
+    plan, bv, b = _inputs("long_row", cuda)
+    assert int(plan.nslots[0]) >= 64
+    got = tk.tiled_spmm_kernel(plan, bv, b, precision="high")
+    want = tk._block_exec_plain(plan, bv, b, precision="high")
+    assert float((got - want).abs().max() / want.abs().max()) <= DRIFT_LIMIT
 
 
 def test_mixed_devices_raise(cuda):
@@ -108,16 +138,26 @@ def test_mnist_forward_on_card_matches_cpu(cuda, variant):
 
 # -- sddmm ----------------------------------------------------------------------
 
-# (m, k, n), blocksize, empty row range
+# (m, k, n), blocksize, empty row range: as CASES, n the sum's length
 SDDMM_CASES = {
     "ragged_8x16_n33": ((100, 70, 33), (8, 16), None),
     "ragged_32x8_n130": ((75, 53, 130), (32, 8), None),
     "empty_rowblock_128x128_n40": ((300, 260, 40), (128, 128), (128, 256)),
+    "bm64_bk16_n64": ((300, 200, 64), (64, 16), None),
+    "bm128_bk128_n512": ((400, 520, 512), (128, 128), None),
+    "bm200_bk8_n5_empty": ((610, 150, 5), (200, 8), (200, 400)),
+    "bm128_bk32_n1": ((260, 300, 1), (128, 32), None),
+    "bm64_bk128_n130": ((150, 300, 130), (64, 128), (64, 128)),
 }
+# a sum over n = 8,192 in one range (144 valid slots of 128 x 128 fill the
+# card: the drift check) and over n = 65,536 with 4 valid slots and pad
+# slots (split into S > 1 ranges of n)
+SDDMM_LONG = {"long_n": ((1536, 1536, 8192), (128, 128), None),
+              "split_n": ((384, 256, 65536), (128, 128), (128, 256))}
 
 
 def _sddmm_inputs(name, device, dtype=torch.float32):
-    (m, k, n), bs, empty = SDDMM_CASES[name]
+    (m, k, n), bs, empty = SDDMM_LONG[name] if name in SDDMM_LONG else SDDMM_CASES[name]
     rng = np.random.default_rng(1)
     mask = rng.random((m, k)) < 0.15
     if empty is not None:
@@ -144,12 +184,70 @@ def test_sddmm_kernel_matches_plain(cuda, name, precision):
     assert torch.count_nonzero(got[pad]) == 0  # pad slots exactly 0
 
 
-def test_sddmm_kernel_bf16(cuda):
-    plan, dc, b = _sddmm_inputs("ragged_32x8_n130", cuda, torch.bfloat16)
+@pytest.mark.parametrize("name", sorted(SDDMM_CASES))
+def test_sddmm_kernel_bf16(cuda, name):
+    plan, dc, b = _sddmm_inputs(name, cuda, torch.bfloat16)
     got = sk.sddmm_kernel(plan, dc, b)
     want = sk._sddmm_plain(plan, dc, b)
     assert got.dtype == torch.bfloat16
+    assert torch.equal(got, sk.sddmm_kernel(plan, dc, b))
     torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+    pad = ~plan.slot_valid_mask(cuda).bool().reshape(-1)
+    assert torch.count_nonzero(got[pad]) == 0
+
+
+def test_sddmm_long_n_does_not_drift(cuda):
+    """n = 8,192 in fp32 'high' in one range: within 1e-5 of scale."""
+    plan, dc, b = _sddmm_inputs("long_n", cuda)
+    assert sk.sddmm_splits(sk.sddmm_tiles(plan), dc.shape[1], sk._sm_count(0)) == 1
+    got = sk.sddmm_kernel(plan, dc, b, precision="high")
+    want = sk._sddmm_plain(plan, dc, b, precision="high")
+    assert float((got - want).abs().max() / want.abs().max()) <= DRIFT_LIMIT
+
+
+def _sddmm_f64(plan, dc, b, precision):
+    """The SDDMM in float64 on the tier's operands (bf16-rounded in
+    'default'): the oracle of sums too long for the fp32 plain version,
+    whose own rounding over n = 65,536 exceeds the kernel's."""
+    if precision == "default":
+        dc, b = dc.bfloat16(), b.bfloat16()
+    dense = dc.double() @ b.double().t()  # (m, k)
+    bm, bk = plan.blocksize
+    nbr, L = plan.num_row_blocks, plan.ell_width
+    dp = dense.new_zeros((nbr * bm, plan.num_col_blocks * bk))
+    dp[:dense.shape[0], :dense.shape[1]] = dense
+    tiles = dp.reshape(nbr, bm, -1, bk).permute(0, 2, 1, 3)  # (nbr, nbc, bm, bk)
+    cols = plan.index_tensor("block_cols", dc.device).reshape(nbr, L).long()
+    out = tiles[torch.arange(nbr, device=dc.device)[:, None], cols]
+    valid = plan.slot_valid_mask(dc.device).bool()[..., None, None]
+    return torch.where(valid, out, 0.0).reshape(plan.num_slots, bm, bk)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "highest"), (torch.float32, "default"),
+    (torch.bfloat16, "high"),
+])
+def test_sddmm_split_over_n(cuda, dtype, precision):
+    """4 valid slots and n = 65,536: S > 1 ranges of n, one launch, a second
+    call bitwise equal, pad slots exactly 0; fp32 output within 1e-5 of
+    scale of the float64 SDDMM of the tier's operands, bf16 output within
+    the bf16 tier of the plain version."""
+    plan, dc, b = _sddmm_inputs("split_n", cuda, dtype)
+    splits = sk.sddmm_splits(sk.sddmm_tiles(plan), dc.shape[1], sk._sm_count(0))
+    assert plan.nblocks == 4 and splits > 1
+    sk.reset_launch_counts()
+    got = sk.sddmm_kernel(plan, dc, b, precision=precision)
+    torch.cuda.synchronize()
+    assert sk.launch_counts() == {"sddmm": 1}
+    assert torch.equal(got, sk.sddmm_kernel(plan, dc, b, precision=precision))
+    if dtype == torch.bfloat16:
+        want = sk._sddmm_plain(plan, dc, b, precision=precision)
+        torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+    else:
+        want = _sddmm_f64(plan, dc, b, precision)
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= DRIFT_LIMIT
+    pad = ~plan.slot_valid_mask(cuda).bool().reshape(-1)
+    assert int(pad.sum()) > 0 and torch.count_nonzero(got[pad]) == 0
 
 
 # -- gemm -----------------------------------------------------------------------
@@ -913,6 +1011,19 @@ PLAN_EXEC_TIERS = [(torch.float32, "high"), (torch.float32, "default"),
                    (torch.bfloat16, "high")]
 
 
+def _ffma_base(plan, bv, b, precision=None):
+    """The bitwise base of the FFMA executors (batched, compact, grouped,
+    footprint): the batched kernel on a batch of one, whose chain and slot
+    order are the ones all four share (block_tiles.cuh). It is held within
+    the tier of the tensor-core `tiled_spmm_kernel`, which sums in another
+    order."""
+    base = tk.resident_spmm_batched_kernel(plan, bv, b[None], precision=precision)[0]
+    tc = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
+    tol = TOL_BF16 if base.dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(base.float(), tc.float(), **tol)
+    return base
+
+
 def _plan_exec_inputs(name, device, dtype):
     (m, k, n), bs, batch, empty = PLAN_EXEC_CASES[name]
     rng = np.random.default_rng(6)
@@ -929,22 +1040,23 @@ def _plan_exec_inputs(name, device, dtype):
 @pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
 @pytest.mark.parametrize("name", sorted(PLAN_EXEC_CASES))
 def test_batched_kernel_matches_plain_and_2d_kernel_bitwise(cuda, name, dtype, precision):
-    """C[g] bitwise equal to the 2-D kernel on B[g] and to the 2-D kernel on
-    the folded (k, batch·n) operand; within the tier of the plain version."""
+    """C[g] bitwise equal to the batched kernel on B[g] alone (the FFMA
+    executors' base), which is within the tier of the 2-D tensor-core
+    kernel on B[g]; C within the tier of the 2-D kernel on the folded
+    (k, batch·n) operand and of the plain version."""
     a, plan, b3 = _plan_exec_inputs(name, cuda, dtype)
     bv = plan.pack_values(a.data.to(dtype))
     tk.reset_launch_counts()
     got = tk.resident_spmm_batched_kernel(plan, bv, b3, precision=precision)
     torch.cuda.synchronize()
     assert tk.launch_counts() == {**NO_TK, "resident_spmm_batched": 1}
+    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
     for g in range(b3.shape[0]):
-        assert torch.equal(got[g], tk.resident_spmm_kernel(plan, bv, b3[g].contiguous(),
-                                                           precision=precision))
+        assert torch.equal(got[g], _ffma_base(plan, bv, b3[g].contiguous(), precision))
     folded = tt.ops._fold_batch(
         lambda bb: tk.tiled_spmm_kernel(plan, bv, bb, precision=precision), b3)
-    assert torch.equal(got, folded)
+    torch.testing.assert_close(got.float(), folded.float(), **tol)
     want = tk._block_exec_batched_plain(plan, bv, b3, precision=precision)
-    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
@@ -958,13 +1070,13 @@ def _derived_plans(plan):
 @pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
 @pytest.mark.parametrize("name", sorted(PLAN_EXEC_CASES))
 def test_plan_executors_match_plain_and_block_ell_bitwise(cuda, name, dtype, precision):
-    """compact, grouped and footprint: each bitwise equal to block_ell_spmm
-    on the base plan (one slot order, one FFMA tile) and within the tier of
-    its plain version; empty row-blocks written as zeros."""
+    """compact, grouped and footprint: each bitwise equal to the batched
+    kernel on the base plan and a batch of one (one slot order, one FFMA
+    tile; `_ffma_base`, itself within the tier of block_ell_spmm) and within
+    the tier of its plain version; empty row-blocks written as zeros."""
     a, plan, b3 = _plan_exec_inputs(name, cuda, dtype)
     b = b3[0].contiguous()
-    base = tk.tiled_spmm_kernel(plan, plan.pack_values(a.data.to(dtype)), b,
-                                precision=precision)
+    base = _ffma_base(plan, plan.pack_values(a.data.to(dtype)), b, precision)
     for entry, dp, fn, plain in _derived_plans(plan):
         bv = dp.pack_values(a.data.to(dtype))
         tk.reset_launch_counts()
@@ -980,20 +1092,20 @@ def test_plan_executors_match_plain_and_block_ell_bitwise(cuda, name, dtype, pre
 def test_footprint_kernel_takes_every_n_tile(cuda):
     """n of 5, 20, 40 and 300 (one to five 64-column n-tiles, ragged) and
     S 16 with 128 x 128 blocks (a super of 16 windows): each bitwise equal
-    to block_ell_spmm."""
+    to the FFMA executors' base (`_ffma_base`)."""
     a, plan, _ = _plan_exec_inputs("ragged_8x32_n130_b3", cuda, torch.float32)
     rng = np.random.default_rng(8)
     for n in (5, 20, 40, 300):
         b = torch.from_numpy(rng.standard_normal((a.shape[1], n)).astype(np.float32)).to(cuda)
         fp = tt.footprint_plan(plan, 4)
         got = tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b)
-        assert torch.equal(got, tk.tiled_spmm_kernel(plan, plan.pack_values(a.data), b)), n
+        assert torch.equal(got, _ffma_base(plan, plan.pack_values(a.data), b)), n
     a, plan, b3 = _plan_exec_inputs("rowblock_128x128_n200_b1", cuda, torch.float32)
     fp = tt.footprint_plan(plan, 16)
     assert tk.footprint_tile(fp) == 16
     b = b3[0].contiguous()
     assert torch.equal(tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b),
-                       tk.tiled_spmm_kernel(plan, plan.pack_values(a.data), b))
+                       _ffma_base(plan, plan.pack_values(a.data), b))
 
 
 # (m, k, n), blocksize, rows_per_super, rows left empty: a super of 16
@@ -1023,9 +1135,9 @@ GROUPED_CASES = {
 @pytest.mark.parametrize("name", sorted(GROUPED_CASES))
 def test_grouped_windows_bitwise(cuda, name, dtype, precision):
     """The grouped kernel's windows (one row-block each, or slices of a
-    taller one): bitwise equal to block_ell_spmm on the base plan, row-blocks
-    with no slot written as zeros, within the tier of its plain version,
-    one launch."""
+    taller one): bitwise equal to the FFMA executors' base on the base plan
+    (`_ffma_base`), row-blocks with no slot written as zeros, within the
+    tier of its plain version, one launch."""
     (m, k, n), bs, G, empty = GROUPED_CASES[name]
     rng = np.random.default_rng(m + G)
     mask = rng.random((m, k)) < 0.08
@@ -1035,7 +1147,7 @@ def test_grouped_windows_bitwise(cuda, name, dtype, precision):
     gp = tt.group_plan(plan, G)
     assert tk.grouped_tile(gp, n)["slices"] == (2 if bs[0] > 128 else 1)
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
-    base = tk.tiled_spmm_kernel(plan, plan.pack_values(a.data.to(dtype)), b, precision=precision)
+    base = _ffma_base(plan, plan.pack_values(a.data.to(dtype)), b, precision)
     bv = gp.pack_values(a.data.to(dtype))
     tk.reset_launch_counts()
     got = tk.grouped_spmm_kernel(gp, bv, b, precision=precision)
@@ -1051,9 +1163,9 @@ def test_grouped_windows_bitwise(cuda, name, dtype, precision):
 @pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
 @pytest.mark.parametrize("name", sorted(FOOTPRINT_CASES))
 def test_footprint_windows_bitwise(cuda, name, dtype, precision):
-    """The footprint kernel's windows at their edges: bitwise equal to
-    block_ell_spmm on the base plan, within the tier of its plain version,
-    one launch."""
+    """The footprint kernel's windows at their edges: bitwise equal to the
+    FFMA executors' base on the base plan (`_ffma_base`), within the tier
+    of its plain version, one launch."""
     (m, k, n), bs, S, empty = FOOTPRINT_CASES[name]
     rng = np.random.default_rng(m + S)
     mask = rng.random((m, k)) < 0.08
@@ -1065,7 +1177,7 @@ def test_footprint_windows_bitwise(cuda, name, dtype, precision):
     if empty is not None:
         assert int(fp.nslots[1]) == 0
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
-    base = tk.tiled_spmm_kernel(plan, plan.pack_values(a.data.to(dtype)), b, precision=precision)
+    base = _ffma_base(plan, plan.pack_values(a.data.to(dtype)), b, precision)
     bv = fp.pack_values(a.data.to(dtype))
     tk.reset_launch_counts()
     got = tk.footprint_spmm_kernel(fp, bv, b, precision=precision)
@@ -1130,7 +1242,8 @@ def test_footprint_train_step_launches_and_matches_cpu(cuda):
 def test_batched_kernel_chunks_batches_past_the_grid_limit(cuda):
     """A batch of 65,536 + 7 runs as two launches of the grid's z limit
     inside one entry-point call, each batch element bitwise equal to the
-    2-D kernel."""
+    batched kernel on that element alone (`_ffma_base`, itself within the
+    tier of the 2-D kernel)."""
     a, plan, _ = _plan_exec_inputs("ragged_32x16_n33_b5", cuda, torch.float32)
     bv = plan.pack_values(a.data)
     b3 = torch.randn(65536 + 7, a.shape[1], 3, generator=torch.Generator().manual_seed(2)).to(cuda)
@@ -1139,7 +1252,7 @@ def test_batched_kernel_chunks_batches_past_the_grid_limit(cuda):
     torch.cuda.synchronize()
     assert tk.launch_counts()["resident_spmm_batched"] == 1
     for g in (0, 65534, 65535, 65536, 65542):
-        assert torch.equal(got[g], tk.resident_spmm_kernel(plan, bv, b3[g].contiguous())), g
+        assert torch.equal(got[g], _ffma_base(plan, bv, b3[g].contiguous())), g
 
 
 # -- the windowed gather and segment sum, and SpGEMM -----------------------------

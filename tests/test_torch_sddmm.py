@@ -291,3 +291,80 @@ def test_forward_under_inference_mode_keeps_no_graph():
     with torch.inference_mode():
         out = tops.spmm_blocks(plan, blocks, torch.from_numpy(b))
     assert out.grad_fn is None and not out.requires_grad
+
+
+# -- the split over n of csrc/sddmm.cu (the function runs on the host) ----------
+
+H100_SMS = 132
+
+
+def _mlp_sddmm_plans():
+    """The plans whose dW the sparse MLP's step takes by sddmm (n = batch 32)."""
+    import tpusparse_torch as tt
+
+    net = tt.MnistNet("sparse", hidden=256, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    return [tt.build_plan(layer.pattern.to_csr(layer.kernel_values))
+            for layer in (net.fc1, net.fc2)]
+
+
+def test_split_is_one_at_the_headline_and_the_mlp():
+    # the 16384^2 headline: 1,669 blocks of 128 x 128 fill 132 SMs alone
+    assert sk.sddmm_splits(1669, 512, H100_SMS) == 1
+    for plan in _mlp_sddmm_plans():
+        assert sk.sddmm_tiles(plan) < H100_SMS  # too few tiles, but n = 32 is one unit
+        assert sk.sddmm_splits(sk.sddmm_tiles(plan), 32, H100_SMS) == 1
+
+
+def test_split_over_n_at_bert4d():
+    """bert4d's dA (bench.py:437-478): A 512^2 at 10 % in 128 x 128 blocks,
+    16 tiles, the batch of 4096 folded into n = 262,144: S > 1, and S tiles
+    fill whole waves of the card."""
+    a = tt_random_csr(11, (512, 512), 0.10)
+    plan = tplan.build_plan(a, (128, 128))
+    tiles = sk.sddmm_tiles(plan)
+    assert tiles == 16
+    s = sk.sddmm_splits(tiles, 4096 * 64, H100_SMS)
+    assert s == 33 and (tiles * s) % H100_SMS == 0
+
+
+@pytest.mark.parametrize("tiles", [1, 3, 16, 100, 131, 132, 1669])
+def test_split_never_above_the_units_of_n(tiles):
+    for n in (1, 63, 64, 2047, 2048, 4096, 65536, 262144, 10 ** 6):
+        s = sk.sddmm_splits(tiles, n, H100_SMS)
+        units = -(-n // sk.SPLIT_UNIT)
+        assert 1 <= s <= sk.SPLIT_MAX and s <= units
+        assert s == 1 or units // s >= sk.SPLIT_MIN_UNITS  # each range long enough
+        if tiles >= H100_SMS:
+            assert s == 1
+
+
+def test_sddmm_tiles_counts_the_kernels_tiles():
+    for bs, per_block in (((128, 128), 1), ((200, 8), 2), ((64, 256), 2), ((8, 16), 1)):
+        a = tt_random_csr(3, (400, 520), 0.05)
+        plan = tplan.build_plan(a, bs)
+        assert sk.sddmm_tiles(plan) == plan.nblocks * per_block
+
+
+def tt_random_csr(seed, shape, density):
+    from tpusparse_torch.types import random_csr
+
+    return random_csr(seed, shape, density, device="cpu")
+
+
+def test_binding_matches_the_c_entry_point(monkeypatch):
+    """The ctypes argument list of `sddmm` has one type per parameter of the
+    C entry point in csrc/sddmm.cu (ctypes refuses a call whose count
+    differs, and only on the card)."""
+    import re
+    from pathlib import Path
+
+    from tpusparse_torch.kernels import _build
+
+    captured = {}
+    monkeypatch.setattr(_build, "bind",
+                        lambda name, argtypes: captured.update(argtypes) or argtypes)
+    sk._kernel_fn.__wrapped__()
+    src = (Path(sk.__file__).resolve().parents[1] / "csrc" / "sddmm.cu").read_text()
+    params = re.search(r'extern "C" int sddmm\(([^)]*)\)', src).group(1).split(",")
+    assert len(captured["sddmm"]) == len(params) == 19

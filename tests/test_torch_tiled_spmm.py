@@ -307,3 +307,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tk.tiled_spmm_kernel(plan, bv[:-1], bt)
     with pytest.raises(ValueError, match="precision"):
         tk.tiled_spmm_kernel(plan, bv, bt, precision="tf32")
+
+
+def test_binding_matches_the_c_entry_point(monkeypatch):
+    """The ctypes argument list of `block_ell_spmm` has one type per
+    parameter of the C entry point in csrc/block_ell_spmm.cu (ctypes refuses
+    a call whose count differs, and only on the card)."""
+    import re
+    from pathlib import Path
+
+    from tpusparse_torch.kernels import _build
+
+    captured = {}
+    monkeypatch.setattr(_build, "bind",
+                        lambda name, argtypes: captured.update(argtypes) or argtypes)
+    tk._kernel_fn.__wrapped__()
+    src = (Path(tk.__file__).resolve().parents[1] / "csrc" / "block_ell_spmm.cu").read_text()
+    params = re.search(r'extern "C" int block_ell_spmm\(([^)]*)\)', src).group(1).split(",")
+    assert len(captured["block_ell_spmm"]) == len(params) == 19
+
+
+def test_heaviest_first_orders_row_blocks_by_slot_count():
+    """The order in which the block executor starts row-blocks: slot counts
+    descending, ties in row order; one int32 copy a device."""
+    rng = np.random.default_rng(9)
+    d = (rng.random((300, 200)) < 0.08) * rng.standard_normal((300, 200))
+    d[64:96] = 0.0  # an empty row-block
+    plan = tplan.build_plan(TCSR.from_dense(d.astype(np.float32), device="cpu"), (32, 16))
+    order = plan.index_tensor("heaviest_first", "cpu")
+    assert order.dtype == torch.int32 and order is plan.index_tensor("heaviest_first", "cpu")
+    ns = np.asarray(plan.nslots)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(-ns, kind="stable"))
+    assert sorted(order.tolist()) == list(range(plan.num_row_blocks))
+    assert ns[order.numpy()[-1]] == 0

@@ -15,9 +15,12 @@
 // Contract: for each batch element g, row-block i and valid slot
 // l < nslots[i], C[g, i*bm : (i+1)*bm, :] += vals[i*L + l] @
 // B[g, block_cols[i*L + l]*bk : +bk, :]; pad slots skipped; fp32 sums; C in
-// its own type. The tile and the slot order are those of block_ell_spmm.cu
-// (block_tiles.cuh), so C[g] is bitwise equal to that kernel applied to
-// B[g], and to the 2-D kernel on the folded (k, batch*n) operand.
+// its own type. The tile is block_tiles.cuh's FFMA chain and the slot order
+// the plan's, so C[g] is bitwise equal to this kernel applied to B[g] alone
+// and to the compact, grouped and footprint executors on B[g]. The 2-D
+// block_ell_spmm.cu sums on the tensor cores (3xTF32 or bf16 wgmma) in
+// another order: C[g] is within the tier of it on B[g] and on the folded
+// (k, batch*n) operand, not bitwise equal.
 //
 // What bounds it: the FFMA work, 2 * nblocks * bm * bk * n * batch. At the
 // block-sparse batched shape (2048^2, 10 % of the 128^2 blocks, B (32, 2048,

@@ -15,9 +15,11 @@
 // Contract: for each row-block i and slot s in [row_base[i], row_base[i+1]),
 // C[i*bm : (i+1)*bm, :] += vals[s] @ B[cols[s]*bk : +bk, :]; fp32 sums; C in
 // its own type. A row-block with no slot is written as zeros. The tile is
-// block_ell_spmm.cu's (block_tiles.cuh) and a row-block's slots come in the
-// base plan's ascending column order, so C is bitwise equal to
-// block_ell_spmm on the plan the compact plan was derived from.
+// block_tiles.cuh's FFMA chain and a row-block's slots come in the base
+// plan's ascending column order, so C is bitwise equal to the batched
+// executor (block_ell_spmm_batched.cu) on a batch of one on the plan the
+// compact plan was derived from, and to the grouped and footprint
+// executors; it is within the tier of the tensor-core block_ell_spmm.
 //
 // What bounds it: as block_ell_spmm, the FFMA work 2 * nblocks * bm * bk * n
 // (~0.41 ms at the 16384^2 headline) above the bytes of the blocks, B and C.

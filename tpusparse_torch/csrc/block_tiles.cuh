@@ -1,9 +1,12 @@
 // The FFMA tile shared by the float block-SpMM executors for NVIDIA Hopper
-// (sm_90a): block_ell_spmm.cu (the ELL plan), block_ell_spmm_batched.cu (a
+// (sm_90a) that keep one chain of roundings: block_ell_spmm_batched.cu (a
 // 3-D B under one plan), block_ell_spmm_compact.cu (the padding-free plan)
 // and, for its conversions, tiers and dtype dispatch, window_tiles.cuh (the
 // register tile of block_ell_spmm_grouped.cu and block_ell_spmm_footprint.cu,
-// which keep the same chain).
+// which keep the same chain). block_ell_spmm.cu, the 2-D executor of the
+// ELL plan, runs on the tensor cores (wgmma_tiles.cuh) and sums in another
+// order: the four FFMA executors are bitwise equal to each other and within
+// the tier of it.
 //
 // One thread block of NT = 256 threads owns a 64-row slice of a row-block
 // and a 64-column n-tile of C. Each thread keeps a 4x4 register tile of the
@@ -12,8 +15,9 @@
 // transposed and the B chunk row-major in shared memory, both in fp32, then
 // 16 FFMAs per thread per k step, `acc = fmaf(a, b, acc)` in ascending k.
 // Every executor that adds a row-block's slots in ascending column order
-// through this function therefore gives each output element the same chain
-// of roundings, and so the same bits.
+// through this function (or window_tiles.cuh's copy of its chain)
+// therefore gives each output element the same chain of roundings, and so
+// the same bits.
 //
 // Precision tiers: fp32 FFMA ('high'/'highest', never TF32); with ROUND_BF16
 // ('default') both operands are rounded to bf16 (RTN) as they are staged,

@@ -11,7 +11,9 @@
 //
 // The block walks steps, each an A chunk (WR rows x BK_T = 16 deep, staged
 // k-major) times a B chunk (16 x WN, row-major), and adds them with
-// `acc = fmaf(a, b, acc)` in ascending k: the chain of block_tiles.cuh. The
+// `acc = fmaf(a, b, acc)` in ascending k: the chain of block_tiles.cuh,
+// which the batched and compact executors keep too (not block_ell_spmm.cu,
+// which runs on the tensor cores since its redesign). The
 // walk is double-buffered through registers: the next step's operands are
 // loaded into registers before the current step's FFMAs and stored into the
 // other half of the buffer after them, one barrier a step, the loads

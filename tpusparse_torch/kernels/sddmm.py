@@ -8,8 +8,12 @@ slots are 0, as are rows past m and columns past k inside a block.
 Per-nonzero CSR values come from `plan.unpack_values(...)`.
 
 Precision tiers are those of the block SpMM executor (`tiled_spmm.py`):
-'high'/'highest' fp32 FFMA, never TF32; 'default' rounds both operands to
-bf16 and accumulates in fp32.
+'high'/'highest' are fp32-class (3xTF32 on the tensor cores), never plain
+TF32; 'default' rounds both operands to bf16 and sums in fp32.
+
+Where the plan's tiles are too few to fill the card, the kernel splits n
+into `sddmm_splits(...)` ranges and adds their fp32 partials in a second
+pass, in ascending range order (deterministic for a given split).
 
 A wrapper given CPU tensors runs `_sddmm_plain`, the plain PyTorch version
 of the same function. Given CUDA tensors it launches the kernel or raises.
@@ -24,11 +28,19 @@ import functools
 import torch
 
 from tpusparse_torch.plan import Plan
-from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
+from tpusparse_torch.utils.config import cdiv, fp32_matmul, resolve_precision
 
 KERNEL = "sddmm"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"sddmm": 0}
+# The split over n (csrc/sddmm.cu): a range is made of whole units of
+# SPLIT_UNIT n-values (a whole 128-byte chunk in every tier), at least
+# SPLIT_MIN_UNITS of them (2,048 values, so a thread block's prologue,
+# epilogue and partial tile stay small beside its K loop), at most
+# SPLIT_MAX ranges.
+SPLIT_UNIT = 64
+SPLIT_MIN_UNITS = 32
+SPLIT_MAX = 64
 
 
 def launch_counts() -> dict:
@@ -47,8 +59,8 @@ def sddmm_kernel(
 
     dc: (m, n) dense gradient of C; b: (k, n) dense operand, both
     row-major. Returns (plan.num_slots, bm, bk) blocks in dc's dtype. The
-    TPU kernel's `block_n` tile knob is not carried: the CUDA kernel runs
-    the whole n loop per output tile.
+    TPU kernel's `block_n` tile knob is not carried: the CUDA kernel tiles
+    n itself (`sddmm_splits`).
     """
     _check(plan, dc, b)
     tier = resolve_precision(precision)
@@ -59,6 +71,39 @@ def sddmm_kernel(
     out = _launch(plan, dc, b, round_bf16=tier == "default")
     _LAUNCHES["sddmm"] += 1
     return out
+
+
+def sddmm_tiles(plan: Plan) -> int:
+    """Thread blocks of one range of n: the valid slots times the kernel's
+    tiles a block, ceil(bm / 128) x ceil(bk / 128) (a tile is 64 or 128
+    rows and 32, 64 or 128 columns, csrc/wgmma_tiles.cuh)."""
+    bm, bk = plan.blocksize
+    return plan.nblocks * cdiv(bm, 128) * cdiv(bk, 128)
+
+
+def sddmm_splits(tiles: int, n: int, sms: int) -> int:
+    """The ranges S that csrc/sddmm.cu splits n into, for `tiles` thread
+    blocks of one range, a sum over n and a card of `sms` SMs.
+
+    S = 1 where the tiles fill the card (tiles ≥ sms). Otherwise S is the
+    value up to min(SPLIT_MAX, units // SPLIT_MIN_UNITS), units =
+    ceil(n / SPLIT_UNIT), that gives the fewest waves per unit of work,
+    ceil(tiles · S / sms) / S (one thread block an SM: the 3xTF32 tile's two
+    stages take 129 KiB of shared memory); ties go to the smaller S. So S
+    never exceeds the number of units.
+    """
+    if tiles >= sms or tiles <= 0:
+        return 1
+    best = 1
+    for s in range(2, min(SPLIT_MAX, cdiv(n, SPLIT_UNIT) // SPLIT_MIN_UNITS) + 1):
+        if cdiv(tiles * s, sms) * best < cdiv(tiles * best, sms) * s:
+            best = s
+    return best
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(plan: Plan, dc: torch.Tensor, b: torch.Tensor) -> None:
@@ -84,32 +129,30 @@ def _kernel_fn():
     """The C entry point of csrc/sddmm.cu, built on first use."""
     from tpusparse_torch.kernels import _build
 
-    fn = _build.load(KERNEL).sddmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # dc, dc_dtype, b, b_dtype, out, ws, block_cols, nslots, m, k, n, bm, bk,
+    # nbr, L, splits, round_bf16, device, stream
+    return _build.bind(KERNEL, {"sddmm": [p, i, p, i, p, p, p, p] + [i] * 10 + [p]})["sddmm"]
 
 
 def _launch(plan: Plan, dc: torch.Tensor, b: torch.Tensor, round_bf16: bool):
     m, k = plan.shape
     bm, bk = plan.blocksize
     n = dc.shape[1]
+    dev = dc.device
     if min(m, k, n) == 0:  # no block or an empty sum: every block is 0
-        return torch.zeros((plan.num_slots, bm, bk), dtype=dc.dtype, device=dc.device)
-    out = torch.empty((plan.num_slots, bm, bk), dtype=dc.dtype, device=dc.device)
-    cols = plan.index_tensor("block_cols", dc.device)
-    nslots = plan.index_tensor("nslots", dc.device)
-    stream = torch.cuda.current_stream(dc.device).cuda_stream
+        return torch.zeros((plan.num_slots, bm, bk), dtype=dc.dtype, device=dev)
+    out = torch.empty((plan.num_slots, bm, bk), dtype=dc.dtype, device=dev)
+    splits = sddmm_splits(sddmm_tiles(plan), n, _sm_count(dev.index or 0))
+    ws = (torch.empty((splits, plan.num_slots, bm, bk), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     rc = _kernel_fn()(
         dc.data_ptr(), _DTYPE_CODE[dc.dtype], b.data_ptr(), _DTYPE_CODE[b.dtype],
-        out.data_ptr(), cols.data_ptr(), nslots.data_ptr(),
-        m, k, n, bm, bk, plan.num_row_blocks, plan.ell_width,
-        int(round_bf16), dc.device.index or 0, stream,
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        plan.index_tensor("block_cols", dev).data_ptr(),
+        plan.index_tensor("nslots", dev).data_ptr(),
+        m, k, n, bm, bk, plan.num_row_blocks, plan.ell_width, splits,
+        int(round_bf16), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")

@@ -7,10 +7,11 @@ kernels there, `_executor_kernel` (behind `tiled_spmm_pallas`) and
 bitwise-equal output, as the JAX pair does (tiled_spmm.py:286-288).
 
 Precision contract (the port of `tpusparse/kernels/mxu.py:28-103`):
-'high' and 'highest' are fp32 FFMA, never TF32; 'default' rounds both
-operands to bf16 (round to nearest even) and accumulates in fp32. The
-3-pass bf16 split of the TPU is a workaround for its matrix unit and is
-not ported.
+'high' and 'highest' are fp32-class, never plain TF32 (3xTF32 on the tensor
+cores in `block_ell_spmm.cu`, fp32 FFMA in the other float executors);
+'default' rounds both operands to bf16 (round to nearest even) and sums in
+fp32. The TPU's 3-pass bf16 split is a workaround for its matrix unit and
+is not ported; 3xTF32 is the H100's counterpart.
 
 The int8 executors of the serving tier (`tiled_spmm.py:643-1019`,
 `_resident_int8_kernel` behind `resident_spmm_int8_pallas` and
@@ -33,10 +34,13 @@ kernel each: `compact_spmm_kernel` (`_compact_kernel`, l.1029;
 `csrc/block_ell_spmm_compact.cu`), `grouped_spmm_kernel`
 (`_grouped_kernel`, l.1186; `csrc/block_ell_spmm_grouped.cu`) and
 `footprint_spmm_kernel` (`_footprint_kernel`, l.1344;
-`csrc/block_ell_spmm_footprint.cu`). All five float executors add a
-row-block's slots in ascending column order through one FFMA tile
-(`csrc/block_tiles.cuh`), so on the same A and B they are bitwise equal to
-each other.
+`csrc/block_ell_spmm_footprint.cu`). Those four add a row-block's slots in
+ascending column order through one FFMA chain (`csrc/block_tiles.cuh`), so
+on the same A and B they are bitwise equal to each other (the batched
+kernel on a batch of one is their common base). `block_ell_spmm.cu` sums
+the same slots in the same order on the tensor cores (`csrc/wgmma_tiles.cuh`),
+another chain of roundings: the four are within the tier of it. It starts
+the row-blocks with the most slots first (`Plan.heaviest_first`).
 
 A wrapper given CPU tensors runs the plain PyTorch version of the same
 function (`_block_exec_plain`, `_block_exec_batched_plain`,
@@ -142,15 +146,11 @@ def _kernel_fn():
     """The C entry point of csrc/block_ell_spmm.cu, built on first use."""
     from tpusparse_torch.kernels import _build
 
-    fn = _build.load(KERNEL).block_ell_spmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # vals, vals_dtype, b, b_dtype, c, c_dtype, block_cols, nslots, order, m, k,
+    # n, bm, bk, nbr, L, round_bf16, device, stream
+    return _build.bind(KERNEL, {"block_ell_spmm": [p, i, p, i, p, i, p, p, p] + [i] * 9 + [p]})[
+        "block_ell_spmm"]
 
 
 def _launch(plan, block_vals, b, out_dtype, round_bf16: bool) -> torch.Tensor:
@@ -160,17 +160,16 @@ def _launch(plan, block_vals, b, out_dtype, round_bf16: bool) -> torch.Tensor:
     c = torch.empty((m, n), dtype=out_dtype, device=b.device)
     if m == 0 or n == 0:
         return c
-    fn = _kernel_fn()
-    cols = plan.index_tensor("block_cols", b.device)
-    nslots = plan.index_tensor("nslots", b.device)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    rc = fn(
+    dev = b.device
+    rc = _kernel_fn()(
         block_vals.data_ptr(), _DTYPE_CODE[block_vals.dtype],
         b.data_ptr(), _DTYPE_CODE[b.dtype],
         c.data_ptr(), _DTYPE_CODE[out_dtype],
-        cols.data_ptr(), nslots.data_ptr(),
+        plan.index_tensor("block_cols", dev).data_ptr(),
+        plan.index_tensor("nslots", dev).data_ptr(),
+        plan.index_tensor("heaviest_first", dev).data_ptr(),
         m, k, n, bm, bk, plan.num_row_blocks, plan.ell_width,
-        int(round_bf16), b.device.index or 0, stream,
+        int(round_bf16), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
@@ -228,7 +227,9 @@ def resident_spmm_batched_kernel(
     (tpusparse/kernels/tiled_spmm.py:508-526): the batch on the grid, B and
     C read and written in place. The TPU kernel's VMEM fit check and its
     `block_n` and `unroll` knobs have no counterpart. C[g] is bitwise equal
-    to `resident_spmm_kernel(plan, block_vals, b3[g])`.
+    to this kernel on b3[g] alone and within the tier of
+    `resident_spmm_kernel(plan, block_vals, b3[g])`, which sums on the
+    tensor cores.
     """
     out_dtype = out_dtype or torch.result_type(block_vals, b3)
     _check(plan, block_vals, b3, out_dtype, b_ndim=3)

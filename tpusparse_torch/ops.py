@@ -242,8 +242,9 @@ def _batched_resident_ok(plan: Plan, b: torch.Tensor) -> bool:
     fit of the whole packed values. The last two are TPU constraints (128
     lanes, VMEM) and are dropped, as `_block_exec` dropped its VMEM test;
     the reuse test is kept. Both routes add each output element's products
-    over the same slots in the same order through the same FFMA tile
-    (csrc/block_tiles.cuh), so on the card they are bitwise equal."""
+    over the same slots in the same order, the batched executor on FFMA
+    (csrc/block_tiles.cuh) and the fold on the tensor cores
+    (csrc/wgmma_tiles.cuh), so on the card they agree within the tier."""
     return plan.nblocks >= plan.num_col_blocks
 
 

@@ -79,6 +79,9 @@ def _unpack(plan, block_vals: torch.Tensor) -> torch.Tensor:
 def _index_tensor(plan, name: str, device) -> torch.Tensor:
     """An index array of a plan as a tensor on `device` (`scatter_idx` as
     int64, since torch indexes with int64), copied there once."""
+    hit = plan._on_device.get((name, str(torch.device(device))))
+    if hit is not None:
+        return hit
     arr = getattr(plan, name)
     if name == "scatter_idx":
         arr = np.asarray(arr, dtype=np.int64)
@@ -115,9 +118,16 @@ class Plan:
     def num_slots(self) -> int:
         return self.num_row_blocks * self.ell_width
 
+    @property
+    def heaviest_first(self) -> np.ndarray:
+        """(nbr,) int32: the row-blocks by slot count, most first (stable),
+        the order in which the block executor starts them."""
+        return np.argsort(-np.asarray(self.nslots), kind="stable").astype(np.int32)
+
     def index_tensor(self, name: str, device) -> torch.Tensor:
-        """`block_cols` (flattened), `nslots` or `scatter_idx` as a tensor on
-        `device`, copied there once and kept with the plan."""
+        """`block_cols` (flattened), `nslots`, `scatter_idx` or
+        `heaviest_first` as a tensor on `device`, copied there once and kept
+        with the plan."""
         return _index_tensor(self, name, device)
 
     def perm_tensor(self, name: str, perm: np.ndarray, device) -> torch.Tensor:
