@@ -208,10 +208,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the flash kernels at (b, h, s, d) = (8, 12, 512, 64)
      and (8, 12, 128, 64) against their plain versions, their bounds and
      torch's scaled_dot_product_attention (forward, and its autograd
-     backward) in fp32, with the SDPA backend named, flash_fwd beside its
-     FFMA predecessor's time and also in 'default' and on bf16 operands
-     against bf16 SDPA, and at (2, 12, 4096, 64) and GPT's fused call
-     (8 x 16, 512, 64) causal; every fp32 'high' product's bound on 3xTF32
+     backward) in fp32, with the SDPA backend named, each beside its FFMA
+     predecessor's time, and also in 'default' and on bf16 operands
+     against bf16 SDPA (the backward pair, dq with dk and dv, against
+     SDPA's autograd backward), and at (2, 12, 4096, 64) (the backward in
+     fp32 'high' held against float64 too) and GPT's fused call (8 x 16,
+     512, 64) causal, forward only; every fp32 'high' product's bound on 3xTF32
      (3 x FLOP at 495 TFLOP/s tf32), the FFMA figure printed beside it as
      a design figure; the block kernels at
      the 'bigbird' shapes (bh 96, seq 512, block 64; bh 24, seq 4096, block
@@ -223,7 +225,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      beside its FFMA predecessor's time; the forward in fp32 'default' and
      on bf16 operands against bf16 SDPA with the mask, behind a sleep); the
      BERT layer's forward and step times in every variant and shape of 4d,
-     4f and 4g, the seq-512 variants' steps queued back to back in turns,
+     4f and 4g and 'flash' at 4g's seq 4096, batch 2, the seq-512 variants'
+     steps queued back to back in turns,
      and the 'flash' and 'bigbird' encoders' times; a torch.profiler trace of the layer's steps at seq 512 ('flash',
      'dense', 'bigbird': device busy and idle share, the kernels that take
      the most time); the int8 kernels at the main path's shapes against
@@ -358,6 +361,7 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "footprint_spmm low-fill": 7.981, "grouped_spmm headline": 15.112,
           "grouped_spmm low-fill": 25.642, "gemm 4096^3 high": 6.969,
           "flash_fwd (8, 12, 512, 64) high": 0.331, "spmm_int8 headline": 0.411,
+          "flash_dq (8, 12, 512, 64) high": 0.435, "flash_dkv (8, 12, 512, 64) high": 0.508,
           "blk_flash_fwd bigbird_512 high": 0.2783, "naive_spmm arxiv n 256": 0.8871,
           "block_ell_spmm headline": 1.494, "sddmm headline": 1.280, "sddmm bert4d": 40.26}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
@@ -1138,6 +1142,112 @@ def _flash_fwd_times(label, q, k, v, shape, causal=False) -> None:
               f"vs plain {err:.2e} of scale")
 
 
+def _flash_bwd_times(label, q, k, v, do, shape) -> None:
+    """flash_dq and flash_dkv at one shape in 'default' (fp32 operands) and
+    on bf16 operands, each checked against its plain version first, the
+    pair against bf16 SDPA's autograd backward; bound on bf16 tensor cores.
+    All behind a sleep (`time_ms_ahead`): an autograd backward queued from
+    the host can take longer to enqueue than to run."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch.kernels import flash_attention as fa
+
+    b, h, seq, d = shape
+    bh = b * h
+    qb, kb, vb, dob = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    o4 = [x.view(b, h, seq, d).detach().clone().requires_grad_(True) for x in (qb, kb, vb)]
+    backend = _sdpa_backend(*o4)
+    with sdpa_kernel([backend]):
+        og = torch.nn.functional.scaled_dot_product_attention(*o4)
+        lib = time_ms_ahead(lambda: torch.autograd.grad(og, o4, dob.view(b, h, seq, d),
+                                                        retain_graph=True))
+    del og, o4
+    stats = 2 * 4.0 * bh * seq
+    for tier, ops, prec in (("fp32 'default'", (q, k, v, do), "default"),
+                            ("bf16 operands", (qb, kb, vb, dob), "high")):
+        kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision=prec)
+        o, lse = fa.flash_fwd_kernel(*ops[:3], **kw)
+        delta = (ops[3].float() * o.float()).sum(-1)
+        args = (*ops, lse, delta)
+        got = (fa.flash_dq_kernel(*args, **kw), *fa.flash_dkv_kernel(*args, **kw))
+        want = (fa._flash_dq_plain(*args, **kw), *fa._flash_dkv_plain(*args, **kw))
+        err = max(rel_err(g, w)[1] for g, w in zip(got, want))
+        if not (err <= FLASH_LIMIT_ROUNDED and all(bool(torch.isfinite(g.float()).all())
+                                                   for g in got)):
+            raise AssertionError(f"flash backward {label} {tier}: kernel vs plain {err:.2e}")
+        del got, want
+        ms = {"dq": time_ms_ahead(lambda: fa.flash_dq_kernel(*args, **kw)),
+              "dkv": time_ms_ahead(lambda: fa.flash_dkv_kernel(*args, **kw))}
+        esz = ops[0].element_size()
+        work = {"dq": (6.0 * bh * seq * seq * d, 5 * esz * bh * seq * d + stats),
+                "dkv": (8.0 * bh * seq * seq * d, 6 * esz * bh * seq * d + stats)}
+        for kname, (flops, nbytes) in work.items():
+            bms, by = bound(flops, nbytes, BF16_FLOPS)
+            print(f"flash_{kname} {label} {shape} {tier}: kernel {ms[kname]:.4f} ms behind a sleep, "
+                  f"bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at bf16), kernel at "
+                  f"{flops / (ms[kname] * 1e-3) / 1e12:.2f} TFLOP/s, {bms / ms[kname]:.3f} of "
+                  f"its bound")
+        pair = ms["dq"] + ms["dkv"]
+        print(f"flash backward {label} {shape} {tier}: flash_dq + flash_dkv {pair:.4f} ms, "
+              f"sdpa bf16 ({backend.name}) autograd backward {lib:.4f} ms ({pair / lib:.2f}x "
+              f"sdpa); vs plain {err:.2e} of scale")
+        del o, lse, delta, args
+
+
+def _flash_bwd_long(label, q, k, v, do, shape) -> None:
+    """flash_dq and flash_dkv at the long-seq shape in fp32 'high': dq, dk
+    and dv against the plain version and against float64 (an fp32 plain
+    sum over seq terms carries its own error), each within
+    FLASH_LIMIT_FP32 of scale; both kernels timed, the pair beside SDPA's
+    fp32 autograd backward."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.utils.config import fp32_matmul
+
+    b, h, seq, d = shape
+    kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision="high")
+    o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = (fa.flash_dq_kernel(*args, **kw), *fa.flash_dkv_kernel(*args, **kw))
+    plain = (fa._flash_dq_plain(*args, **kw), *fa._flash_dkv_plain(*args, **kw))
+    f64 = _flash_bwd_f64(*args, sm_scale=kw["sm_scale"])
+    errs = {n: (rel_err(g, p)[1], rel_err(g, w)[1], rel_err(p, w)[1])
+            for n, g, p, w in zip(("dq", "dk", "dv"), got, plain, f64)}
+    if not all(e[0] <= FLASH_LIMIT_FP32 and e[1] <= FLASH_LIMIT_FP32 for e in errs.values()):
+        raise AssertionError(f"flash backward {label}: kernel vs plain, float64 {errs}")
+    del got, plain, f64
+    ms = {"dq": time_ms_queued(lambda: fa.flash_dq_kernel(*args, **kw)),
+          "dkv": time_ms_queued(lambda: fa.flash_dkv_kernel(*args, **kw))}
+    q4, k4, v4 = (x.view(b, h, seq, d).detach().clone().requires_grad_(True) for x in (q, k, v))
+    backend = _sdpa_backend(q4, k4, v4)
+    with sdpa_kernel([backend]), fp32_matmul():
+        og = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+        lib = time_ms_queued(lambda: torch.autograd.grad(og, (q4, k4, v4), do.view(b, h, seq, d),
+                                                         retain_graph=True))
+    print(f"flash backward {label} {shape} fp32 'high': flash_dq {ms['dq']:.4f} ms, flash_dkv "
+          f"{ms['dkv']:.4f} ms queued, pair {ms['dq'] + ms['dkv']:.4f} ms, sdpa fp32 "
+          f"({backend.name}) autograd backward {lib:.4f} ms; over scale (kernel vs plain, "
+          f"kernel vs float64, plain vs float64) " + ", ".join(
+              f"{n} {e[0]:.2e} {e[1]:.2e} {e[2]:.2e}" for n, e in errs.items()))
+
+
+def _flash_bwd_f64(q, k, v, do, lse, delta, *, sm_scale):
+    """dq, dk, dv of non-causal attention in float64 from the kernels' lse
+    and delta, q pre-scaled in fp32 as the kernels take it, one head at a
+    time."""
+    outs = [], [], []
+    for i in range(q.shape[0]):
+        qs = (q[i] * sm_scale).double()
+        kd, vd, dod = k[i].double(), v[i].double(), do[i].double()
+        p = torch.exp(qs @ kd.T - lse[i].double()[:, None])
+        ds = p * (dod @ vd.T - delta[i].double()[:, None])
+        for acc, x in zip(outs, ((ds @ kd) * sm_scale, ds.T @ qs, p.T @ dod)):
+            acc.append(x)
+    return tuple(torch.stack(x) for x in outs)
+
+
 def phase_flash_timings() -> dict:
     """The three kernels, their plain versions and bounds, and SDPA in fp32,
     at the BERT-base attention shapes; the forward also in 'default' and on
@@ -1199,25 +1309,39 @@ def phase_flash_timings() -> dict:
             og = sdpa(qg, kg, vg)
             r["sdpa_bwd_ms"] = time_ms_queued(
                 lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
+            r["sdpa_bwd_ahead_ms"] = time_ms_ahead(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
         r["sdpa_backend"] = backend.name
         out[seq] = r
         for kname in ("fwd", "dq", "dkv"):
             bms, by, ffma = r["bound"][kname]
             flops = work[kname][0]
+            old = OLD_MS.get(f"flash_{kname} {(b, h, seq, d)} high")
+            was = (f" (the FFMA kernel before its redesign {old:.3f}: "
+                   f"{old / r['ms'][kname]:.2f}x)" if old else "")
             print(f"flash_{kname} ({b}, {h}, {seq}, {d}) fp32 'high': kernel "
-                  f"{r['ms'][kname]:.4f} ms queued ({r['one_call_ms'][kname]:.4f} ms one "
+                  f"{r['ms'][kname]:.4f} ms queued{was} ({r['one_call_ms'][kname]:.4f} ms one "
                   f"call), plain {r['plain_ms'][kname]:.4f} ms, bound "
                   f"{bms:.4f} ms by {by} (3xTF32: 3 x {flops / 1e9:.2f} GFLOP at 495 TFLOP/s; "
                   f"{work[kname][1] / 1e6:.1f} MB; FFMA design figure {ffma:.4f} ms), "
                   f"kernel at {flops / (r['ms'][kname] * 1e-3) / 1e12:.2f} TFLOP/s")
         print(f"flash ({b}, {h}, {seq}, {d}): kernel vs plain over scale " + ", ".join(
             f"{n} {e[1]:.2e}" for n, e in errs.items()))
+        pair = r["ms"]["dq"] + r["ms"]["dkv"]
         print(f"sdpa ({b}, {h}, {seq}, {d}) fp32, backend {backend.name}: forward "
               f"{r['sdpa_fwd_ms']:.4f} ms (vs kernel o {lib_err:.2e} of scale), autograd "
-              f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms")
-        del qg, kg, vg, og, q4, k4, v4, do4, do
+              f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms queued, "
+              f"{r['sdpa_bwd_ahead_ms']:.4f} ms behind a sleep; flash_dq + flash_dkv "
+              f"{pair:.4f} ms ({pair / r['sdpa_bwd_ms']:.2f}x sdpa)")
+        del qg, kg, vg, og, q4, k4, v4, do4
         _flash_fwd_times("bert", q, k, v, (b, h, seq, d))
-        del q, k, v
+        _flash_bwd_times("bert", q, k, v, do, (b, h, seq, d))
+        del q, k, v, do
+    # the long-seq backward against float64: 64 tiles on each axis, so the
+    # 3xTF32 sums are banked
+    q, k, v, do = _flash_operands((2 * h, LONG_SEQ, d), 520)
+    _flash_bwd_long("long", q, k, v, do, (2, h, LONG_SEQ, d))
+    del q, k, v, do
     # the long-seq shape and GPT's fused forward (one layer's call)
     for label, shape, causal in (("long", (2, h, LONG_SEQ, d), False),
                                  ("gpt", (8, GPT["num_heads"], GPT_FUSED_SEQ,
@@ -1452,13 +1576,14 @@ def phase_block_flash_timings() -> dict:
 
 def phase_bert_timings(encoders) -> None:
     """Forward and step times by CUDA events: the layer in each variant and
-    shape the main path drives, the seq-512 variants' steps queued in turns,
-    and the encoders ({attention: (encoder, input_ids)})."""
+    shape the main path drives and 'flash' at the long-seq shape, the
+    seq-512 variants' steps queued in turns, and the encoders ({attention:
+    (encoder, input_ids)})."""
     import tpusparse_torch as tt
 
     cases = [(v, BERT_BATCH, seq, PATTERN_WINDOW) for seq in BERT_SEQS for v in ("flash", "dense")]
     cases += [(v, BERT_BATCH, 512, PATTERN_WINDOW) for v in ("bigbird", "sparse", "local")]
-    cases += [(v, LONG_BATCH, LONG_SEQ, w) for v, w in LONG_GRID]
+    cases += [(v, LONG_BATCH, LONG_SEQ, w) for v, w in (("flash", PATTERN_WINDOW), *LONG_GRID)]
     for variant, batch, seq, window in cases:
         x = _bert_input(batch, seq, 40 + seq).cuda()
         layer = _bert_layer(variant, "cuda", window=window)
@@ -4298,11 +4423,14 @@ def main() -> int:
     ]
     main_seq = max(BERT_SEQS)
     ft = flash_t[main_seq]
+    # SDPA's autograd backward behind a sleep: queued from the host, it can
+    # take longer to enqueue than to run
     flash_rows = (
         ("flash_fwd", "fwd", "53 (_flash_kernel)", ft["err"]["o"][0], ft["sdpa_fwd_ms"]),
-        ("flash_dq", "dq", "495 (_flash_dq_kernel)", ft["err"]["dq"][0], ft["sdpa_bwd_ms"]),
-        ("flash_dkv", "dkv", "538 (_flash_dkv_kernel)",
-         max(ft["err"]["dk"][0], ft["err"]["dv"][0]), ft["sdpa_bwd_ms"]),
+        ("flash_dq", "dq", "495 (_flash_dq_kernel; pallas_call l.684)", ft["err"]["dq"][0],
+         ft["sdpa_bwd_ahead_ms"]),
+        ("flash_dkv", "dkv", "538 (_flash_dkv_kernel; pallas_call l.704)",
+         max(ft["err"]["dk"][0], ft["err"]["dv"][0]), ft["sdpa_bwd_ahead_ms"]),
     )
     for kname, key, line, err, lib_ms in flash_rows:
         kernels.append({

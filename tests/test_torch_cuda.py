@@ -397,15 +397,33 @@ FLASH_CASES = {
     "ragged_d_3x150x20": ((3, 150, 20), False, 0, 0),
     "one_row_2x1x64": ((2, 1, 64), False, 0, 0),
     "kv_ahead_causal_2x1030x64": ((2, 1030, 64), True, 0, 300),
+    # 64 tiles on each axis: the 3xTF32 backward banks its sums every 8
+    "long_1x4096x64": ((1, 4096, 64), False, 0, 0),
+    "long_causal_1x4096x64": ((1, 4096, 64), True, 0, 0),
 }
 # o of the 'default' tier and of bf16 inputs: p is rounded to bf16 against
 # the running max of its tile in the kernel and against the row max in the
 # plain version, and bf16 outputs are one ulp (2^-8..2^-7) apart
 FLASH_ROUNDED_LIMIT = 1e-2
+# dq, dk, dv of the long cases in 'high'/'highest' against float64: an fp32
+# plain sum over 4096 terms carries an error of its own near this limit
+FLASH_LONG_LIMIT = 1e-5
 
 
 def _over_scale(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def _flash_bwd_f64(q, k, v, do, lse, delta, *, sm_scale, causal, q_offset, kv_offset,
+                   precision=None):
+    """dq, dk, dv in float64 from the kernels' lse and delta, q pre-scaled in
+    its own type as the kernels take it."""
+    qs = (q.float() * fa._scale_in(q.dtype, sm_scale)).to(q.dtype).double()
+    kd, vd, dod = k.double(), v.double(), do.double()
+    vis = fa._visible(q.shape[-2], causal, q_offset, kv_offset, q.device)
+    p = torch.where(vis, torch.exp(qs @ kd.transpose(-1, -2) - lse.double()[..., None]), 0.0)
+    ds = p * (dod @ vd.transpose(-1, -2) - delta.double()[..., None])
+    return (ds @ kd) * sm_scale, ds.transpose(-1, -2) @ qs, p.transpose(-1, -2) @ dod
 
 
 def _flash_args(name, device, dtype):
@@ -442,9 +460,14 @@ def test_flash_kernels_match_plain(cuda, name, dtype, precision):
         assert _over_scale(o, po) < FLASH_ROUNDED_LIMIT
     else:
         torch.testing.assert_close(o, po, **TOL)
+    long = name.startswith("long")
+    if long and not rounded:
+        pdq, pdk, pdv = _flash_bwd_f64(q, k, v, do, lse, delta, **kw)
     for gname, got, want in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
         if rounded:
             assert _over_scale(got, want) < FLASH_ROUNDED_LIMIT, gname
+        elif long:
+            assert _over_scale(got, want) < FLASH_LONG_LIMIT, gname
         else:
             torch.testing.assert_close(got, want, **TOL, msg=gname)
     if FLASH_CASES[name][3] > FLASH_CASES[name][2]:  # rows that see no key
@@ -464,10 +487,14 @@ def test_flash_forward_repeats_bit_for_bit(cuda, dtype, precision):
         assert torch.equal(a, b)
 
 
-def test_flash_backward_repeats_bit_for_bit(cuda):
-    q, k, v, do, kw = _flash_args("causal_2x384x64", cuda, torch.float32)
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+def test_flash_backward_repeats_bit_for_bit(cuda, dtype, precision):
+    q, k, v, do, kw = _flash_args("causal_2x384x64", cuda, dtype)
+    kw["precision"] = precision
     o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
-    delta = (do * o).sum(-1)
+    delta = (do.float() * o.float()).sum(-1)
     first = (fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
              *fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw))
     second = (fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
@@ -1209,6 +1236,27 @@ def test_batched_train_step_launches_and_matches_cpu(cuda):
                 **{n: 0 for n in kernels.launches_by_kernel()},
                 "resident_spmm_batched": 2, "sddmm": 1}
         runs[str(dev)] = (out.detach().cpu(), data.grad.cpu(), bb.grad.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("method", [None, "tiled", "resident"])
+@pytest.mark.parametrize("b_shape", [(3, 9, 1), (2, 2, 9, 1)])
+def test_batched_n1_backward_on_card_matches_cpu(cuda, b_shape, method):
+    """A batched b with one column: d(values) and dB of sum(spmm(A, b)) on
+    the card against the CPU (the batch folded into columns at n = 1 is
+    copied before the SDDMM of dA takes it)."""
+    import scipy.sparse
+
+    dense = scipy.sparse.random(9, 9, 0.5, random_state=18, dtype=np.float32).toarray()
+    a = tt.CSR.from_dense(dense, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(b_shape).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        data = a.data.to(dev).clone().requires_grad_(True)
+        bb = b.to(dev).clone().requires_grad_(True)
+        tt.spmm(tt.CSR(data, a.indices, a.indptr, a.shape), bb, method=method).sum().backward()
+        runs[str(dev)] = (data.grad.cpu(), bb.grad.cpu())
     for got, want in zip(runs["cuda"], runs["cpu"]):
         torch.testing.assert_close(got, want, **TOL)
 

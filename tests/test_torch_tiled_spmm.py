@@ -340,3 +340,27 @@ def test_heaviest_first_orders_row_blocks_by_slot_count():
     np.testing.assert_array_equal(order.numpy(), np.argsort(-ns, kind="stable"))
     assert sorted(order.tolist()) == list(range(plan.num_row_blocks))
     assert ns[order.numpy()[-1]] == 0
+
+
+@pytest.mark.parametrize("method", [None, "tiled", "resident"])
+@pytest.mark.parametrize("b_shape", [(3, 9, 1), (2, 2, 9, 1)])
+def test_batched_n1_backward_matches_jax_grad(b_shape, method):
+    """A batched b with one column (n = 1): d(values) and dB of
+    sum(spmm(A, b)) against jax.grad of the JAX op. The batch folded into
+    columns at n = 1 is a strided view, which the SDDMM of dA refuses unless
+    the fold copies it."""
+    import scipy.sparse
+
+    dense = scipy.sparse.random(9, 9, 0.5, random_state=18, dtype=np.float32).toarray()
+    j = JCSR.from_dense(dense)
+    t = TCSR.from_dense(dense, device="cpu")
+    b = np.random.default_rng(5).standard_normal(b_shape).astype(np.float32)
+    data = t.data.clone().requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    tops.spmm(TCSR(data, t.indices, t.indptr, t.shape), bt, method=method).sum().backward()
+    jm = "tiled" if method is None else method  # the port's None takes 'tiled' for a sum
+    d_vals, d_b = jax.grad(
+        lambda v, bb: jops.spmm(JCSR(v, j.indices, j.indptr, j.shape), bb, method=jm).sum(),
+        argnums=(0, 1))(j.data, jnp.asarray(b))
+    np.testing.assert_allclose(data.grad.numpy(), np.asarray(d_vals), **TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(d_b), **TOL)

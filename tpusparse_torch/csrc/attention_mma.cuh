@@ -1,13 +1,26 @@
 // Attention tiles on the tensor cores for NVIDIA Hopper (sm_90a), beside
-// the FFMA tiles of attention_tiles.cuh: the pieces the three tensor-core
-// attention forwards share (flash_attention_q8.cu's flash_q8,
-// flash_attention.cu's flash_fwd and block_flash_attention.cu's
-// blk_flash_fwd): a warp's 16 query rows over 64-key k-tiles, its score
-// and p.v products in each tier (bf16; 3xTF32 for fp32 'high'; bf16
-// products of fp32 operands for 'default'), the online softmax of its rows
-// in the log2 domain, the staging of q and of K/V rows, and the 3xTF32
-// bank. The instruction wrappers they are built from (mma.sync, ldmatrix,
-// cp.async) are in mma_sync.cuh.
+// the FFMA tiles of attention_tiles.cuh: the pieces the tensor-core
+// attention kernels share (flash_attention_q8.cu's flash_q8,
+// flash_attention.cu's flash_fwd, flash_dq and flash_dkv, and
+// block_flash_attention.cu's blk_flash_fwd).
+//
+// A warp owns 16 rows of a staged A tile and walks tiles of NN x 8 rows of
+// a streamed B operand (NN = 8: 64-row tiles, the forwards' k-tiles). Two
+// products, each in the three tiers (bf16; 3xTF32 for fp32 'high'; bf16
+// products of fp32 operands for 'default'):
+//   - score: C[16, 8 NN] += A[warp rows] . B^T, both contracted along their
+//     rows (q.k^T in the forwards; q.k^T and do.v^T in flash_dq; k.q^T and
+//     v.do^T in flash_dkv, whose warp rows are keys);
+//   - pv: O[16, d] += C . B, the score's C fragment taken as it stands as
+//     the A fragment and B's rows read in the same order (p.v in the
+//     forwards; dS.k in flash_dq; p^T.do and dS^T.q in flash_dkv).
+// The 3xTF32 products take B either raw (every fragment split into tf32 hi
+// and lo as it is loaded) or split at staging (hi and lo tiles, PRE). Also:
+// the online softmax of a warp's rows in the log2 domain, the backward's P
+// and dS of one tile, the staging of A tiles and of streamed rows (and the
+// backward's per-element pass over what a thread staged), and the 3xTF32
+// bank. The instruction wrappers they are built from
+// (mma.sync, ldmatrix, cp.async) are in mma_sync.cuh.
 
 #pragma once
 
@@ -26,45 +39,48 @@ constexpr int BK = 64;       // keys a tile
 constexpr int NTHR = 256;    // eight warps
 constexpr float LOG2E = 1.4426950408889634f;
 
-// k-tiles a q-tile starting at row q0 visits: all of them, or under causal
-// masking those up to the last key its last row can see.
+// Tiles of TILE keys a q-tile of BQ rows starting at row q0 visits: all of
+// them, or under causal masking those up to the last key its last row can
+// see.
+template <int TILE = BK>
 __device__ __forceinline__ int visited_k_tiles(int s, int q0, int causal, int q_off,
                                                int kv_off) {
-  const int nk = (s + BK - 1) / BK;
+  const int nk = (s + TILE - 1) / TILE;
   if (!causal) return nk;
   const long long kmax = static_cast<long long>(q_off) + q0 + BQ - 1 - kv_off;
   if (kmax < 0) return 0;
-  return static_cast<int>(min(static_cast<long long>(nk), kmax / BK + 1));
+  return static_cast<int>(min(static_cast<long long>(nk), kmax / TILE + 1));
 }
 
-// sacc[nt] += Q[warp rows] . K[keys 8 nt ..]^T over the first kd (a
-// multiple of 16) columns of the staged bf16 tiles.
-template <int DMAX, int LD>
-__device__ __forceinline__ void score_tile(float (&sacc)[BK / 8][4], const __nv_bfloat16* Qs,
-                                           const __nv_bfloat16* Kb, int kd, int wr0, int lane) {
+// sacc[nt] += A[warp rows] . B[rows 8 nt ..]^T over the first kd (a
+// multiple of 16) columns of the staged bf16 tiles (rows of LDA and LDB).
+template <int DMAX, int LDA, int LDB = LDA, int NN>
+__device__ __forceinline__ void score_tile(float (&sacc)[NN][4], const __nv_bfloat16* As,
+                                           const __nv_bfloat16* Bb, int kd, int wr0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < DMAX / 16; ++kk) {
     if (16 * kk >= kd) break;
     uint32_t a[4];
-    ldsm_x4(a, Qs + (wr0 + lane % 16) * LD + 16 * kk + 8 * (lane / 16));
+    ldsm_x4(a, As + (wr0 + lane % 16) * LDA + 16 * kk + 8 * (lane / 16));
 #pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
+    for (int np = 0; np < NN / 2; ++np) {
       uint32_t b[4];
-      ldsm_x4(b, Kb + (16 * np + lane % 8 + 8 * (lane / 16)) * LD + 16 * kk + 8 * ((lane / 8) % 2));
+      ldsm_x4(b, Bb + (16 * np + lane % 8 + 8 * (lane / 16)) * LDB + 16 * kk +
+                     8 * ((lane / 8) % 2));
       mma_bf16(sacc[2 * np], a, b[0], b[1]);
       mma_bf16(sacc[2 * np + 1], a, b[2], b[3]);
     }
   }
 }
 
-// oacc[nt] += P . V[:, 8 nt ..] over the first kd (a multiple of 16) columns
-// of the staged bf16 V; P is the warp's probabilities in sacc, rounded to
-// bf16 here.
-template <int DMAX, int LD>
-__device__ __forceinline__ void pv_tile(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
+// oacc[nt] += P . B[:, 8 nt ..] over the first kd (a multiple of 16) columns
+// of the staged bf16 B (8 NN rows of LD); P is the warp's C fragment (the
+// probabilities, or dS), rounded to bf16 here.
+template <int DMAX, int LD, int NN>
+__device__ __forceinline__ void pv_tile(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
                                         const __nv_bfloat16* Vb, int kd, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < NN / 2; ++kk) {
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
@@ -177,54 +193,63 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// sacc[nt] += Q[warp rows] . K[keys 8 nt ..]^T in 3xTF32 over the first kd
+// sacc[nt] += A[warp rows] . B[rows 8 nt ..]^T in 3xTF32 over the first kd
 // columns of fp32 tiles with rows of LD floats (4 x an odd number, so the
 // eight rows an ldmatrix reads lie on distinct banks). Each k-step issues
-// its three passes over all eight n-tiles in turn, so no mma waits on the
-// one before it.
-template <int DMAX, int LD>
-__device__ __forceinline__ void score_3xtf32(float (&sacc)[BK / 8][4], const float* Qs,
-                                             const float* Kb, int kd, int wr0, int lane) {
+// its three passes over all NN n-tiles in turn, so no mma waits on the
+// one before it. PRE: B was split at staging, its hi at Bb and its lo at
+// Bl (split_tf32's, so the sums are the same bits); else every fragment of
+// B is split as it is loaded.
+template <int DMAX, int LD, int NN, bool PRE = false>
+__device__ __forceinline__ void score_3xtf32(float (&sacc)[NN][4], const float* As,
+                                             const float* Bb, int kd, int wr0, int lane,
+                                             const float* Bl = nullptr) {
 #pragma unroll
   for (int kk = 0; kk < DMAX / 8; ++kk) {
     if (8 * kk >= kd) break;
     uint32_t a[4], ah[4], al[4];
-    ldsm_x4(a, Qs + (wr0 + lane % 16) * LD + 8 * kk + 4 * (lane / 16));
+    ldsm_x4(a, As + (wr0 + lane % 16) * LD + 8 * kk + 4 * (lane / 16));
     split_tf32(a, ah, al);
-    uint32_t bh[BK / 16][4], bl[BK / 16][4];  // n-tile 2 np: [0..1], 2 np + 1: [2..3]
+    uint32_t bh[NN / 2][4], bl[NN / 2][4];  // n-tile 2 np: [0..1], 2 np + 1: [2..3]
 #pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, Kb + (16 * np + lane % 8 + 8 * (lane / 16)) * LD + 8 * kk +
-                     4 * ((lane / 8) % 2));
-      split_tf32(b, bh[np], bl[np]);
+    for (int np = 0; np < NN / 2; ++np) {
+      const int off = (16 * np + lane % 8 + 8 * (lane / 16)) * LD + 8 * kk + 4 * ((lane / 8) % 2);
+      if constexpr (PRE) {
+        ldsm_x4(bh[np], Bb + off);
+        ldsm_x4(bl[np], Bl + off);
+      } else {
+        uint32_t b[4];
+        ldsm_x4(b, Bb + off);
+        split_tf32(b, bh[np], bl[np]);
+      }
     }
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int nt = 0; nt < NN; ++nt)
       mma_tf32(sacc[nt], al, bh[nt / 2][2 * (nt % 2)], bh[nt / 2][2 * (nt % 2) + 1]);
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int nt = 0; nt < NN; ++nt)
       mma_tf32(sacc[nt], ah, bl[nt / 2][2 * (nt % 2)], bl[nt / 2][2 * (nt % 2) + 1]);
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int nt = 0; nt < NN; ++nt)
       mma_tf32(sacc[nt], ah, bh[nt / 2][2 * (nt % 2)], bh[nt / 2][2 * (nt % 2) + 1]);
   }
 }
 
-// oacc[dn] += P . V[:, 8 dn ..] in 3xTF32 over the first kd columns of V
-// (fp32, rows of LD floats, LD % 32 == 4). The k-step j takes keys 8j + 2t
-// as k t and 8j + 2t + 1 as k t + 4, so the score C fragment p[j] is its A
-// fragment as it stands, and V's rows are read in the same order. The
-// output columns go in groups of GN = 8 n-tiles, each pass over a group in
-// turn (groups of 4 or 2 spill at d = 64 under the 128-register cap).
-template <int DMAX, int LD>
-__device__ __forceinline__ void pv_3xtf32(float (&oacc)[DMAX / 8][4],
-                                          const float (&p)[BK / 8][4], const float* Vb, int kd,
-                                          int lane) {
+// oacc[dn] += P . B[:, 8 dn ..] in 3xTF32 over the first kd columns of B
+// (fp32, 8 NN rows of LD floats, LD % 32 == 4). The k-step j takes B's rows
+// 8j + 2t as k t and 8j + 2t + 1 as k t + 4, so the score C fragment p[j]
+// is its A fragment as it stands, and B's rows are read in the same order.
+// The output columns go in groups of GN = 8 n-tiles, each pass over a group
+// in turn (groups of 4 or 2 spill at d = 64 under the 128-register cap).
+// PRE: B was split at staging, its hi at Vb and its lo at Vl.
+template <int DMAX, int LD, int NN, bool PRE = false>
+__device__ __forceinline__ void pv_3xtf32(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+                                          const float* Vb, int kd, int lane,
+                                          const float* Vl = nullptr) {
   constexpr int GN = 8;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
+  for (int j = 0; j < NN; ++j) {
     const uint32_t a[4] = {bits(p[j][0]), bits(p[j][2]), bits(p[j][1]), bits(p[j][3])};
     uint32_t ah[4], al[4];
     split_tf32(a, ah, al);
@@ -235,8 +260,16 @@ __device__ __forceinline__ void pv_3xtf32(float (&oacc)[DMAX / 8][4],
       uint32_t bh[GN][2], bl[GN][2];
 #pragma unroll
       for (int dn = 0; dn < GN; ++dn) {
-        split_tf32(bits(v0[8 * (d0 + dn)]), bh[dn][0], bl[dn][0]);
-        split_tf32(bits(v0[LD + 8 * (d0 + dn)]), bh[dn][1], bl[dn][1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int off = r * LD + 8 * (d0 + dn);
+          if constexpr (PRE) {
+            bh[dn][r] = bits(v0[off]);
+            bl[dn][r] = bits(v0[off + (Vl - Vb)]);
+          } else {
+            split_tf32(bits(v0[off]), bh[dn][r], bl[dn][r]);
+          }
+        }
       }
 #pragma unroll
       for (int dn = 0; dn < GN; ++dn)
@@ -251,13 +284,12 @@ __device__ __forceinline__ void pv_3xtf32(float (&oacc)[DMAX / 8][4],
   }
 }
 
-// sacc[nt] += Q . K^T on bf16 mma: Q staged as bf16 (rows of LDQ), K as
+// sacc[nt] += A . B^T on bf16 mma: A staged as bf16 (rows of LDQ), B as
 // raw fp32 (rows of LDK, LDK % 32 == 8 so a warp's 8-byte loads hit 32
 // banks), rounded to bf16 pairs as its fragments are loaded.
-template <int DMAX, int LDQ, int LDK>
-__device__ __forceinline__ void score_bf16_f32(float (&sacc)[BK / 8][4],
-                                               const __nv_bfloat16* Qs, const float* Kb, int kd,
-                                               int wr0, int lane) {
+template <int DMAX, int LDQ, int LDK, int NN>
+__device__ __forceinline__ void score_bf16_f32(float (&sacc)[NN][4], const __nv_bfloat16* Qs,
+                                               const float* Kb, int kd, int wr0, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int kk = 0; kk < DMAX / 16; ++kk) {
@@ -265,7 +297,7 @@ __device__ __forceinline__ void score_bf16_f32(float (&sacc)[BK / 8][4],
     uint32_t a[4];
     ldsm_x4(a, Qs + (wr0 + lane % 16) * LDQ + 16 * kk + 8 * (lane / 16));
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+    for (int nt = 0; nt < NN; ++nt) {
       const float* kr = Kb + (8 * nt + g) * LDK + 16 * kk + 2 * t;
       const float2 x0 = *reinterpret_cast<const float2*>(kr);
       const float2 x1 = *reinterpret_cast<const float2*>(kr + 8);
@@ -274,15 +306,16 @@ __device__ __forceinline__ void score_bf16_f32(float (&sacc)[BK / 8][4],
   }
 }
 
-// oacc[dn] += P . V on bf16 mma, P rounded to bf16 in registers, V raw fp32
-// (rows of LD floats, LD % 32 == 4) rounded to bf16 pairs as it is loaded.
-template <int DMAX, int LD>
-__device__ __forceinline__ void pv_bf16_f32(float (&oacc)[DMAX / 8][4],
-                                            const float (&p)[BK / 8][4], const float* Vb, int kd,
-                                            int lane) {
+// oacc[dn] += P . B on bf16 mma, P rounded to bf16 in registers, B raw
+// fp32 (8 NN rows of LD floats; LD % 32 == 4 keeps the warp's loads on 32
+// banks, LD % 32 == 8 costs two-way conflicts) rounded to bf16 pairs as it
+// is loaded.
+template <int DMAX, int LD, int NN>
+__device__ __forceinline__ void pv_bf16_f32(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+                                            const float* Vb, int kd, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < NN / 2; ++kk) {
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
@@ -297,8 +330,13 @@ __device__ __forceinline__ void pv_bf16_f32(float (&oacc)[DMAX / 8][4],
   }
 }
 
-// The three tiers: how q is staged (type TQ, rows of LDQ), K and V's rows
-// (LDK, LDV elements of the operand type T), and a warp's two products.
+// The three tiers: how an A tile is staged (type TQ, rows of LDQ: q in the
+// forwards and flash_dq, also do there; k and v in flash_dkv), the rows of
+// a streamed B tile (LDK elements of the operand type T for the score's B;
+// LDV for the forwards' V, the pv's B), and a warp's two products over a
+// B tile of 8 NN rows. The backward reads each streamed tile both as a
+// score's B and as a pv's B, so it stages them all with LDK and calls
+// pv<LDK>.
 template <bool ROUND, typename T, int DMAX>
 struct Tier;
 
@@ -306,13 +344,26 @@ template <int DMAX>  // fp32 'high'/'highest': 3xTF32
 struct Tier<false, float, DMAX> {
   using TQ = float;
   static constexpr int LDQ = DMAX + 4, LDK = DMAX + 4, LDV = DMAX + 4;
-  __device__ static void score(float (&sacc)[BK / 8][4], const TQ* Qs, const float* Kb, int kd,
+  template <int NN>
+  __device__ static void score(float (&sacc)[NN][4], const TQ* As, const float* Bb, int kd,
                                int wr0, int lane) {
-    score_3xtf32<DMAX, LDQ>(sacc, Qs, Kb, kd, wr0, lane);
+    score_3xtf32<DMAX, LDQ>(sacc, As, Bb, kd, wr0, lane);
   }
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
-                            const float* Vb, int kd, int lane) {
-    pv_3xtf32<DMAX, LDV>(oacc, p, Vb, kd, lane);
+  template <int LDB = LDV, int NN>
+  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+                            const float* Bb, int kd, int lane) {
+    pv_3xtf32<DMAX, LDB>(oacc, p, Bb, kd, lane);
+  }
+  // the same on a B tile split at staging (split_in_place): hi at Bb, lo at Bl
+  template <int NN>
+  __device__ static void score(float (&sacc)[NN][4], const TQ* As, const float* Bb,
+                               const float* Bl, int kd, int wr0, int lane) {
+    score_3xtf32<DMAX, LDQ, NN, true>(sacc, As, Bb, kd, wr0, lane, Bl);
+  }
+  template <int LDB = LDV, int NN>
+  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+                            const float* Bb, const float* Bl, int kd, int lane) {
+    pv_3xtf32<DMAX, LDB, NN, true>(oacc, p, Bb, kd, lane, Bl);
   }
 };
 
@@ -320,13 +371,15 @@ template <int DMAX>  // fp32 'default': bf16 products
 struct Tier<true, float, DMAX> {
   using TQ = __nv_bfloat16;
   static constexpr int LDQ = DMAX + 8, LDK = DMAX + 8, LDV = DMAX + 4;
-  __device__ static void score(float (&sacc)[BK / 8][4], const TQ* Qs, const float* Kb, int kd,
+  template <int NN>
+  __device__ static void score(float (&sacc)[NN][4], const TQ* As, const float* Bb, int kd,
                                int wr0, int lane) {
-    score_bf16_f32<DMAX, LDQ, LDK>(sacc, Qs, Kb, kd, wr0, lane);
+    score_bf16_f32<DMAX, LDQ, LDK>(sacc, As, Bb, kd, wr0, lane);
   }
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
-                            const float* Vb, int kd, int lane) {
-    pv_bf16_f32<DMAX, LDV>(oacc, p, Vb, kd, lane);
+  template <int LDB = LDV, int NN>
+  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+                            const float* Bb, int kd, int lane) {
+    pv_bf16_f32<DMAX, LDB>(oacc, p, Bb, kd, lane);
   }
 };
 
@@ -334,15 +387,41 @@ template <int DMAX>  // bf16 operands, any tier
 struct Tier<true, __nv_bfloat16, DMAX> {
   using TQ = __nv_bfloat16;
   static constexpr int LDQ = DMAX + 8, LDK = DMAX + 8, LDV = DMAX + 8;
-  __device__ static void score(float (&sacc)[BK / 8][4], const TQ* Qs, const __nv_bfloat16* Kb,
+  template <int NN>
+  __device__ static void score(float (&sacc)[NN][4], const TQ* As, const __nv_bfloat16* Bb,
                                int kd, int wr0, int lane) {
-    score_tile<DMAX, LDQ>(sacc, Qs, Kb, kd, wr0, lane);
+    score_tile<DMAX, LDQ, LDK>(sacc, As, Bb, kd, wr0, lane);
   }
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[BK / 8][4],
-                            const __nv_bfloat16* Vb, int kd, int lane) {
-    pv_tile<DMAX, LDV>(oacc, p, Vb, kd, lane);
+  template <int LDB = LDV, int NN>
+  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+                            const __nv_bfloat16* Bb, int kd, int lane) {
+    pv_tile<DMAX, LDB>(oacc, p, Bb, kd, lane);
   }
 };
+
+// The backward's P and dS of one tile of a warp, in place: sp holds the
+// score S (rows g + 8h, columns 8 nt + 2t + c of the C fragment) and leaves
+// with P = exp(S - lse), taken as 2^(S log2e - lse2) with lse2 = lse log2e;
+// dp holds dP and leaves with dS = P (dP - delta). stat(h, nt, c, lse2,
+// delta) gives an element's statistics (a row's in flash_dq, a column's in
+// flash_dkv). MASK: an element for which visible(h, nt, c) is false takes
+// P = 0 exactly, so its dS is 0 (a row that sees no key, lse = -1e30, adds
+// nothing anywhere).
+template <bool MASK, int NN, typename Stat, typename Visible>
+__device__ __forceinline__ void probs_ds(float (&sp)[NN][4], float (&dp)[NN][4], Stat stat,
+                                         Visible visible) {
+#pragma unroll
+  for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float lse2, dl;
+      stat(e / 2, nt, e % 2, lse2, dl);
+      float p = ex2(fmaf(sp[nt][e], LOG2E, -lse2));
+      if (MASK && !visible(e / 2, nt, e % 2)) p = 0.f;
+      sp[nt][e] = p;
+      dp[nt][e] = p * (dp[nt][e] - dl);
+    }
+}
 
 // -- staging and the 3xTF32 bank -----------------------------------------------
 
@@ -375,29 +454,58 @@ __device__ __forceinline__ void load_q(TQ* dst, const T* __restrict__ src, int r
   }
 }
 
-// Rows [r0, r0 + BK) of a (s, d) row-major matrix, all DMAX columns, into a
-// tile with rows of LD elements, by NT threads; rows at or past s (the
+// Rows [r0, r0 + ROWS) of a (s, d) row-major matrix, all DMAX columns, into
+// a tile with rows of LD elements, by NT threads; rows at or past s (the
 // caller's row bound) and columns at or past d are 0. async: 16-byte
 // cp.async copies (d a whole number of 16-byte chunks, src 16-byte
 // aligned); else one element a load.
-template <int NT, int DMAX, int LD, typename T>
+template <int NT, int DMAX, int LD, int ROWS = BK, typename T>
 __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int r0, int s,
                                            int d, bool async) {
   if (async) {
     constexpr int E = 16 / sizeof(T), C = DMAX / E;
-    for (int e = threadIdx.x; e < BK * C; e += NT) {
+    for (int e = threadIdx.x; e < ROWS * C; e += NT) {
       const int r = e / C, c = e % C;
       const bool in = r0 + r < s && c * E < d;
       cp_async16(dst + r * LD + c * E,
                         in ? src + static_cast<size_t>(r0 + r) * d + c * E : src, in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < BK * DMAX; e += NT) {
+    for (int e = threadIdx.x; e < ROWS * DMAX; e += NT) {
       const int r = e / DMAX, c = e % DMAX;
       dst[r * LD + c] =
           r0 + r < s && c < d ? src[static_cast<size_t>(r0 + r) * d + c] : from_f32<T>(0.f);
     }
   }
+}
+
+// fn(o) for the offset o of every element of a tile that this thread
+// staged with stage_rows (the same NT, DMAX, LD, ROWS, T and async): the
+// backward's work on the tiles it streams, done by the thread that copied
+// them once its copies have landed (flash_dkv's q scaled and rounded to
+// q's type as the TPU kernel pre-scales it; the 3xTF32 tiles split into
+// hi and lo once for every warp). The other threads see the result after
+// the next barrier.
+template <int NT, int DMAX, int LD, int ROWS, typename T, typename Fn>
+__device__ __forceinline__ void each_staged(bool async, Fn fn) {
+  if (async) {
+    constexpr int E = 16 / sizeof(T), C = DMAX / E;
+    for (int e = threadIdx.x; e < ROWS * C; e += NT) {
+#pragma unroll
+      for (int i = 0; i < E; ++i) fn((e / C) * LD + (e % C) * E + i);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DMAX; e += NT) fn((e / DMAX) * LD + e % DMAX);
+  }
+}
+
+// x = hi + lo in place: x's slot takes hi = tf32(x) and lo_tile's the rest,
+// as split_tf32 splits a fragment.
+__device__ __forceinline__ void split_in_place(float* x, float* lo) {
+  uint32_t h, l;
+  split_tf32(bits(*x), h, l);
+  *x = __uint_as_float(h);
+  *lo = __uint_as_float(l);
 }
 
 // The 3xTF32 path's bank. The tensor cores add an fp32 C with coarser
@@ -412,15 +520,14 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, in
 // folds; folding every 4 tiles instead cost 9 % at s = 512 on an H100.
 constexpr int FOLD = 8;
 
+// The bank's store: rows row + 8h of ob take *p f[h] + acc (acc alone the
+// first time), and acc restarts from 0.
 template <int NO>
-__device__ __forceinline__ void bank(float* ob, float (&oacc)[NO][4], const float (&m)[2],
-                                     float (&mb)[2], bool banked, int row, int rows, int d,
-                                     int t) {
+__device__ __forceinline__ void bank_add(float* ob, float (&acc)[NO][4], const float (&f)[2],
+                                         bool banked, int row, int rows, int d, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qp = row + 8 * h;
-    const float f = ex2((mb[h] - m[h]) * LOG2E);
-    mb[h] = m[h];
 #pragma unroll
     for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
@@ -428,11 +535,33 @@ __device__ __forceinline__ void bank(float* ob, float (&oacc)[NO][4], const floa
         const int col = 8 * nt + 2 * t + c;
         float* p = &ob[static_cast<size_t>(qp) * d + col];
         if (qp < rows && col < d) {
-          *p = banked ? fmaf(*p, f, oacc[nt][2 * h + c]) : oacc[nt][2 * h + c];
+          *p = banked ? fmaf(*p, f[h], acc[nt][2 * h + c]) : acc[nt][2 * h + c];
         }
-        oacc[nt][2 * h + c] = 0.f;
+        acc[nt][2 * h + c] = 0.f;
       }
   }
+}
+
+// The forwards' bank: the sum rescaled to the running max.
+template <int NO>
+__device__ __forceinline__ void bank(float* ob, float (&oacc)[NO][4], const float (&m)[2],
+                                     float (&mb)[2], bool banked, int row, int rows, int d,
+                                     int t) {
+  float f[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    f[h] = ex2((mb[h] - m[h]) * LOG2E);
+    mb[h] = m[h];
+  }
+  bank_add(ob, oacc, f, banked, row, rows, d, t);
+}
+
+// The backward's bank (flash_dq's dq, flash_dkv's dk and dv): a plain sum,
+// *p + acc (fmaf by 1 is one exact add).
+template <int NO>
+__device__ __forceinline__ void bank(float* ob, float (&acc)[NO][4], bool banked, int row,
+                                     int rows, int d, int t) {
+  bank_add(ob, acc, {1.f, 1.f}, banked, row, rows, d, t);
 }
 
 }  // namespace mma16

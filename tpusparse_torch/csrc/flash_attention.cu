@@ -27,7 +27,7 @@
 //     before dS.k (dq) and p, dS before p^T.do, dS^T.q (dk, dv); products
 //     of bf16 values are exact in fp32 and every sum is fp32. Without it
 //     ('high', 'highest' on fp32 inputs) the products are fp32-class, never
-//     one TF32 pass: 3xTF32 in the forward at d <= 128, fp32 FFMA elsewhere.
+//     one TF32 pass: 3xTF32 at d <= 128, fp32 FFMA above.
 //   - Masking on global positions: key j of a row i is visible when
 //     j < s and, if causal, kv_off + j <= q_off + i. Masked scores are
 //     -1e30 and their probabilities exactly 0; whole tiles above the
@@ -44,58 +44,84 @@
 // does 4 bh s^2 d = 6.4 GFLOP against ~50 MB of compulsory traffic (~0.015
 // ms at 3.35 TB/s); dq does 6 bh s^2 d and dk/dv 8 bh s^2 d for about 1.4x
 // and 1.7x that traffic. On the fp32-class yardstick of this card, 3xTF32
-// at 495 TFLOP/s tf32, the forward's bound is 3 x 6.4 GFLOP = 0.039 ms;
-// on FFMA (67 TFLOP/s) 0.096 ms.
+// at 495 TFLOP/s tf32, the forward's bound is 3 x 6.4 GFLOP = 0.039 ms, dq's
+// 0.059 and dk/dv's 0.078; on FFMA (67 TFLOP/s) 0.096, 0.144 and 0.192.
 //
-// flash_fwd at d <= 128 (flash_fwd_tc_kernel) runs on the tensor cores with
-// `mma.sync` (attention_mma.cuh), in the layout of flash_attention_q8.cu:
-// eight warps own a 128-row q-tile, 16 rows a warp, and the block walks the
-// 64-key k-tiles itself, the online-softmax state and the output
-// accumulator in registers, exp taken as exp2 with log2(e) folded in, a
-// mask-free softmax on tiles that every row of the warp sees whole, causal
-// q-tiles started heaviest first. K and V are copied by cp.async in two
-// stages, so tile kt + 1 streams in while tile kt computes, one barrier a
-// tile (d a multiple of 16 bytes a row and 16-byte aligned operands; other
-// d load synchronously). Per tier:
+// At d <= 128 all three run on the tensor cores with `mma.sync`, on the
+// tiles of attention_mma.cuh: eight warps own BQ = 128 rows of one (batch,
+// head), 16 rows a warp, staged once in shared memory, and the block walks
+// the tiles of the other axis itself, its sums in registers. The tiles of
+// the other axis are copied by cp.async in two stages, so tile j + 1
+// streams in while tile j computes, one barrier a tile (d a multiple of 16
+// bytes a row and 16-byte aligned operands; other d load synchronously).
+// Every product is a warp's `score` (C[16, 8 NN] += A . B^T) or `pv`
+// (O[16, d] += C . B, the score's C fragment reused as its A fragment):
+//   - flash_fwd (flash_fwd_tc_kernel): q-tiles, 64-key k-tiles. S = q k^T,
+//     the online softmax in registers (exp taken as exp2 with log2(e)
+//     folded in, a mask-free path for tiles every row of the warp sees
+//     whole), then o += P v. Causal q-tiles start heaviest first.
+//   - flash_dq (flash_dq_tc_kernel): q-tiles with q pre-scaled and do
+//     staged; K and V stream in W-key tiles, both read as a score's B and
+//     K again as the pv's B. S = q k^T and dP = do v^T, then P = exp2(S
+//     log2e - lse log2e) and dS = P (dP - delta) in registers (lse and
+//     delta of the warp's rows g, g + 8 in registers), then dq += dS k;
+//     sm_scale multiplies once at the store. A tile wholly past the warp's
+//     last row under causal masking is skipped; q-tiles heaviest first.
+//   - flash_dkv (flash_dkv_tc_kernel): k-tiles (each warp's 16 rows are
+//     keys) with k and v staged; q and do stream in W-query tiles with
+//     their lse and delta (loaded into registers as the tile is staged,
+//     stored beside it at the end of the step). The streamed q is scaled
+//     and rounded to q's type in shared memory by the threads that copied
+//     it, after their copies land. S^T = k q^T and dP^T = v do^T, P^T and
+//     dS^T with lse and delta indexed by the C fragment's column (query),
+//     then dv += P^T do and dk += dS^T q. The walk starts at the first
+//     q-tile that sees a key of the block; a warp skips a q-tile whose
+//     queries all lie before its first key.
+//   W = 64 at d <= 64 and 32 at d <= 128, where two stages of 64 rows
+//   would not fit beside the two staged tiles (fp32: 270 KB).
+// Per tier:
 //   - fp32 'high'/'highest': 3xTF32 on `mma.sync.m16n8k8` tf32: each
 //     operand x = hi + lo (hi = tf32(x), lo = x - hi), products
-//     a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, fp32 sums. The tiles are staged
-//     as raw fp32 and every warp splits the fragments it loads, in
-//     registers (three ALU operations a value): splitting at staging would
-//     double the shared memory, which two blocks an SM need under 113 KB,
-//     and the bytes that ldmatrix reads. `mma.sync` and not `wgmma`:
-//     tf32 wgmma reads both operands K-major, and V (keys x d, d
-//     contiguous) is not, for p.v. P stays in registers: the m16n8k8 C
-//     fragment holds keys (2t, 2t + 1) of a row where the A fragment wants
-//     (t, t + 4), so the p.v k-step reads its eight keys in the order
-//     2t -> t, 2t + 1 -> t + 4, and V's rows in the same order (scalar
-//     shared loads, rows padded to d + 4 floats so the warp hits 32
-//     banks); the sum over keys takes any order. Every FOLD k-tiles a warp
-//     moves its running sum into o (the bank, attention_mma.cuh), so the
-//     tensor cores' coarse fp32 accumulation never runs over more than FOLD
-//     tiles.
+//     a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, fp32 sums. The forward stages
+//     its tiles as raw fp32 and every warp splits the fragments it loads,
+//     in registers (three ALU operations a value): splitting at staging
+//     would double the shared memory, which its two blocks an SM need, and
+//     the bytes that ldmatrix reads. The backward at d <= 64 holds one
+//     block an SM anyway and splits its streamed tiles once, as they land
+//     (Layout::PRE below: the splits were a quarter of its time); the
+//     staged A tiles and P, dS are split in registers.
+//     `mma.sync` and not `wgmma`: tf32 wgmma reads both operands K-major,
+//     and the pv's B (keys x d, d contiguous) is not. The pv's k-step reads
+//     its eight C-fragment columns in the order 2t -> t, 2t + 1 -> t + 4,
+//     and B's rows in the same order (scalar shared loads, rows padded to
+//     d + 4 floats so the warp hits 32 banks); the sum takes any order.
+//     Every FOLD tiles of 64 rows (512 rows) a warp moves its running sums
+//     into the output (the bank, attention_mma.cuh), so the tensor cores'
+//     coarse fp32 accumulation never runs over more; s <= 512 never folds.
 //   - 'default' on fp32 operands: bf16 `mma.sync.m16n8k16` with fp32 sums;
-//     q is rounded to bf16 as it is staged, K and V are staged as raw fp32
-//     and rounded to bf16 pairs as their fragments are loaded.
-//   - bf16 operands: the same products, K and V staged as bf16 and read by
-//     ldmatrix (V transposed on the way), as flash_q8 reads its widened
-//     tiles.
-// The softmax state of a row stays in one quad of lanes, P never touches
-// shared memory, and no atomics are used: runs repeat bit for bit.
+//     the staged A tiles are rounded to bf16 as they are staged, the
+//     streamed tiles are staged as raw fp32 and rounded to bf16 pairs as
+//     their fragments are loaded (the backward's pv reads them with
+//     two-way bank conflicts: one row pitch serves both of its products).
+//   - bf16 operands: the same products, every tile staged as bf16 and read
+//     by ldmatrix (the pv's B transposed on the way), as flash_q8 reads
+//     its widened tiles.
+// P and dS never touch shared memory, and no atomics are used: every
+// output element is summed by one thread in one fixed order, so runs
+// repeat bit for bit.
 //
-// flash_fwd at d > 128 and flash_dq, flash_dkv stay on the first FFMA
-// design: one thread block owns one 64-row q-tile (flash_fwd, flash_dq) or
-// one 64-row k-tile (flash_dkv) of one (batch, head) and runs the whole
-// sequential loop over the other axis itself; each thread owns a 4x4 tile
-// of the 64x64 score block (rows ty + 16a, columns tx + 16j, so the 16-byte
-// shared loads of both operands are free of bank conflicts) and a 4 x d/16
-// slice of the output accumulator on the same rows, so the row max and sum
-// of the online softmax are four shuffles inside a half-warp and the rescale
-// touches only registers. Tiles are staged row-major with padded rows; the
-// score loop runs over d rounded up to 4. A head dim above 128 runs the WIDE
-// instances (attention_tiles.cuh: 128-wide output chunks on blockIdx.z, the
-// scores recomputed per chunk over d staged in 128-wide pieces). Every
-// output element is summed by one thread in ascending tile order.
+// Head dims above 128 run the first FFMA design, the WIDE kernels: one
+// thread block owns one 64-row q-tile (flash_fwd, flash_dq) or one 64-row
+// k-tile (flash_dkv) of one (batch, head) and one 128-wide output chunk a
+// blockIdx.z, and runs the whole sequential loop over the other axis
+// itself; each thread owns a 4x4 tile of the 64x64 score block (rows ty +
+// 16a, columns tx + 16j, so the 16-byte shared loads of both operands are
+// free of bank conflicts) and a 4 x 8 slice of the output accumulator on
+// the same rows, so the row max and sum of the online softmax are four
+// shuffles inside a half-warp and the rescale touches only registers. The
+// scores (and dP) are recomputed per chunk over d staged in 128-wide pieces
+// (attention_tiles.cuh). Every output element is summed by one thread in
+// ascending tile order.
 
 #include "attention_mma.cuh"
 #include "attention_tiles.cuh"
@@ -253,6 +279,417 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 
 }  // namespace tcfwd
 
+// -- flash_dq and flash_dkv at d <= 128 on the tensor cores ------------------
+namespace tcbwd {
+
+using mma16::BQ;
+using mma16::LOG2E;
+using mma16::NTHR;
+
+// Shared memory of an instance: two staged A tiles of BQ rows (flash_dq: q
+// pre-scaled and do; flash_dkv: k and v), then two stages of the two
+// streamed B tiles of W rows each (flash_dq: K then V; flash_dkv: q then
+// do), then flash_dkv's two stages of the streamed rows' lse (log2 domain)
+// and delta. W = 64 at d <= 64; 32 at d <= 128, where two stages of 64 rows
+// would not fit beside the A tiles (fp32: 270 KB).
+//
+// PRE (3xTF32 at d <= 64): the thread that copied a value of a streamed
+// tile splits it into tf32 hi and lo once, as it lands (hi in place, lo 2W
+// rows on, 209 KB in all), where otherwise all eight warps would split
+// every fragment they load. Same bits; on an H100 at (96, 512, 64) 'high'
+// it took flash_dkv 0.367 -> 0.288 ms and flash_dq 0.249 -> 0.241 (two
+// blocks an SM of the unsplit flash_dq at W = 32). At d = 128 it fits only
+// with W = 16, where flash_dq ran slower (0.385 -> 0.410 ms at (48, 512,
+// 128)); those instances split in registers.
+template <bool ROUND, typename T, int DMAX>
+struct Layout {
+  using TR = mma16::Tier<ROUND, T, DMAX>;
+  static constexpr int W = DMAX <= 64 ? 64 : 32;
+  // 3xTF32: the streamed tiles split into tf32 hi and lo once, as they
+  // land, each tile's lo 2 W rows after its hi
+  static constexpr bool PRE = !ROUND && DMAX <= 64;
+  static constexpr int lo_off = 2 * W * TR::LDK;
+  static constexpr size_t a_bytes = sizeof(typename TR::TQ) * BQ * TR::LDQ;
+  static constexpr int stage = (PRE ? 4 : 2) * W * TR::LDK;  // elements of T
+  static constexpr size_t b_off = 2 * a_bytes;
+  static constexpr size_t stat_off = b_off + 2 * sizeof(T) * stage;
+  static constexpr size_t bytes = stat_off + 2 * 2 * W * sizeof(float);
+  // 3xTF32: a warp banks its sums every 512 streamed rows (FOLD tiles), so
+  // s <= 512 never folds, as in the forward
+  static constexpr int FOLD = mma16::FOLD * mma16::BK / W;
+};
+
+// dq = sm_scale sum_k dS . k, dS = P (dP - delta), P = exp(q k^T - lse), dP
+// = do v^T: eight warps own a BQ-row q-tile, 16 rows a warp, and walk the
+// W-key tiles; the q-tiles in reverse, so the heaviest causal ones start
+// first.
+template <int DMAX, bool ROUND, typename T>
+__global__ void __launch_bounds__(NTHR, 1) flash_dq_tc_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int s, int d, float scale_q,
+    float sm_scale, int causal, int q_off, int kv_off, int async_kv) {
+  using TR = mma16::Tier<ROUND, T, DMAX>;
+  using L = Layout<ROUND, T, DMAX>;
+  using TQ = typename TR::TQ;
+  constexpr int W = L::W, NN = W / 8, NO = DMAX / 8, LDB = TR::LDK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Qs = reinterpret_cast<TQ*>(smem);
+  TQ* dOs = reinterpret_cast<TQ*>(smem + L::a_bytes);
+  T* KV = reinterpret_cast<T*>(smem + L::b_off);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * warp;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = min(DMAX, (d + 15) / 16 * 16);  // columns the products run over
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  const int nk = mma16::visited_k_tiles<W>(s, q0, causal, q_off, kv_off);
+  auto stage_kv = [&](int j) {
+    T* dst = KV + (j % 2) * L::stage;
+    mma16::stage_rows<NTHR, DMAX, LDB, W>(dst, kb, j * W, s, d, async_kv);
+    mma16::stage_rows<NTHR, DMAX, LDB, W>(dst + W * LDB, vb, j * W, s, d, async_kv);
+    if (async_kv) mma16::cp_async_commit();
+  };
+  if (nk > 0) stage_kv(0);  // in flight while q and do are loaded
+  mma16::load_q<BQ, NTHR, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
+  mma16::load_q<BQ, NTHR, DMAX, TR::LDQ>(dOs, dout + base, q0, s, d, 1.f);
+  // rows g and g + 8 of the warp: lse (log2 domain), delta, visible keys
+  float lse2[2], dlt[2];
+  int lims[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr0 + g + 8 * h;
+    const size_t i = static_cast<size_t>(bh) * s + row;
+    lse2[h] = row < s ? lse[i] * LOG2E : 0.f;
+    dlt[h] = row < s ? delta[i] : 0.f;
+    lims[h] = mma16::key_limit(row, s, causal, q_off, kv_off);
+  }
+  int since = 0;  // tiles summed since the last fold (3xTF32)
+  bool banked = false;
+  T* dqb = dq + base;
+  float acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+
+  // the products over a streamed tile, its lo at + lo_off where split
+  auto score = [&](auto& acc, const TQ* As, const T* Bb) {
+    if constexpr (L::PRE) {
+      TR::score(acc, As, Bb, Bb + L::lo_off, kd, wr0, lane);
+    } else {
+      TR::score(acc, As, Bb, kd, wr0, lane);
+    }
+  };
+  auto pv = [&](auto& acc, const auto& p, const T* Bb) {
+    if constexpr (L::PRE) {
+      TR::template pv<LDB>(acc, p, Bb, Bb + L::lo_off, kd, lane);
+    } else {
+      TR::template pv<LDB>(acc, p, Bb, kd, lane);
+    }
+  };
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * W;
+    T* Kb = KV + (kt % 2) * L::stage;
+    T* Vb = Kb + W * LDB;
+    if (async_kv) mma16::cp_async_wait_all();
+    if constexpr (L::PRE) {
+      mma16::each_staged<NTHR, DMAX, LDB, W, T>(async_kv, [&](int o) {
+        mma16::split_in_place(Kb + o, Kb + L::lo_off + o);
+        mma16::split_in_place(Vb + o, Vb + L::lo_off + o);
+      });
+    }
+    // tile kt is staged and visible to every warp; every reader of the other
+    // stage (tile kt - 1) is done, so tile kt + 1 may stream into it
+    __syncthreads();
+    if (kt + 1 < nk) stage_kv(kt + 1);
+    // under causal masking, a tile whose keys all lie past the warp's last
+    // row adds nothing to it: the warp skips it
+    if (causal && static_cast<long long>(kv_off) + k0 >
+                      static_cast<long long>(q_off) + q0 + wr0 + 15) {
+      continue;
+    }
+    float sp[NN][4], dp[NN][4];
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+    score(sp, Qs, Kb);
+    score(dp, dOs, Vb);
+    auto stat = [&](int h, int, int, float& l2, float& dl) {
+      l2 = lse2[h];
+      dl = dlt[h];
+    };
+    // a tile whose every key is visible to every row of the warp skips the
+    // mask (rows past s are never stored)
+    const bool full = k0 + W <= s &&
+        (!causal || static_cast<long long>(kv_off) + k0 + W - 1 <=
+                        static_cast<long long>(q_off) + q0 + wr0);
+    if (full) {
+      mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; });
+    } else {
+      const int key0 = k0 + 2 * t;
+      mma16::probs_ds<true>(sp, dp, stat,
+                            [&](int h, int nt, int c) { return key0 + 8 * nt + c < lims[h]; });
+    }
+    pv(acc, dp, Kb);
+    if constexpr (!ROUND) {
+      if (++since == L::FOLD && kt + 1 < nk) {
+        mma16::bank(dqb, acc, banked, q0 + wr0 + g, s, d, t);
+        since = 0;
+        banked = true;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + wr0 + g + 8 * h;
+    if (qp >= s) continue;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * nt + 2 * t + c;
+        if (col >= d) continue;
+        T* p = &dqb[static_cast<size_t>(qp) * d + col];
+        float x = acc[nt][2 * h + c];
+        if constexpr (!ROUND) {
+          if (banked) x = fmaf(*p, 1.f, x);
+        }
+        attn::store(p, x * sm_scale);
+      }
+  }
+}
+
+// dv = sum_q P^T do and dk = sum_q dS^T (scaled q): eight warps own a
+// BQ-key k-tile, 16 keys a warp, and walk the W-row q-tiles from the first
+// that sees one of its keys. The streamed q is scaled in shared memory by
+// the threads that copied it; the tile's lse and delta are loaded into
+// registers as it is staged and stored beside it at the end of the step.
+template <int DMAX, bool ROUND, typename T>
+__global__ void __launch_bounds__(NTHR, 1) flash_dkv_tc_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s, int d,
+    float scale_q, int causal, int q_off, int kv_off, int async_q) {
+  using TR = mma16::Tier<ROUND, T, DMAX>;
+  using L = Layout<ROUND, T, DMAX>;
+  using TQ = typename TR::TQ;
+  constexpr int W = L::W, NN = W / 8, NO = DMAX / 8, LDB = TR::LDK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Ks = reinterpret_cast<TQ*>(smem);
+  TQ* Vs = reinterpret_cast<TQ*>(smem + L::a_bytes);
+  T* QD = reinterpret_cast<T*>(smem + L::b_off);
+  float* ST = reinterpret_cast<float*>(smem + L::stat_off);  // stage i: lse2 then delta
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BQ;  // causal: the heaviest k-tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * warp;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = min(DMAX, (d + 15) / 16 * 16);
+  const T* qb = q + base;
+  const T* ob = dout + base;
+  const float* lseb = lse + static_cast<size_t>(bh) * s;
+  const float* dlb = delta + static_cast<size_t>(bh) * s;
+
+  // the first q-tile that holds a query seeing key k0: causal q-tiles
+  // before it see no key of this k-tile
+  const int nq = (s + W - 1) / W;
+  int qt0 = 0;
+  if (causal) {
+    const long long first = static_cast<long long>(kv_off) + k0 - q_off;
+    qt0 = first <= 0 ? 0 : static_cast<int>(min(static_cast<long long>(nq), first / W));
+  }
+  // thread i < 2W holds row q0 + i % W's lse (i < W) or delta of the tile
+  // being staged
+  float stat_next = 0.f;
+  auto stage_q = [&](int qt) {
+    T* dst = QD + ((qt - qt0) % 2) * L::stage;
+    mma16::stage_rows<NTHR, DMAX, LDB, W>(dst, qb, qt * W, s, d, async_q);
+    mma16::stage_rows<NTHR, DMAX, LDB, W>(dst + W * LDB, ob, qt * W, s, d, async_q);
+    if (async_q) mma16::cp_async_commit();
+    const int i = threadIdx.x % W, row = qt * W + i;
+    if (threadIdx.x < 2 * W) {
+      stat_next = row < s ? (threadIdx.x < W ? lseb[row] : dlb[row]) : 0.f;
+    }
+  };
+  auto store_stats = [&](int qt) {
+    if (threadIdx.x < 2 * W) {
+      ST[((qt - qt0) % 2) * 2 * W + threadIdx.x] =
+          threadIdx.x < W ? stat_next * LOG2E : stat_next;
+    }
+  };
+  if (qt0 < nq) {
+    stage_q(qt0);
+    store_stats(qt0);
+  }
+  mma16::load_q<BQ, NTHR, DMAX, TR::LDQ>(Ks, k + base, k0, s, d, 1.f);
+  mma16::load_q<BQ, NTHR, DMAX, TR::LDQ>(Vs, v + base, k0, s, d, 1.f);
+  // the first query each of the warp's keys g, g + 8 is visible to
+  long long lo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lo[h] = causal ? static_cast<long long>(kv_off) + k0 + wr0 + g + 8 * h - q_off : 0;
+  }
+  int since = 0;
+  bool banked = false;
+  T* dkb = dk + base;
+  T* dvb = dv + base;
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[nt][c] = acc_v[nt][c] = 0.f;
+
+  auto score = [&](auto& acc, const TQ* As, const T* Bb) {
+    if constexpr (L::PRE) {
+      TR::score(acc, As, Bb, Bb + L::lo_off, kd, wr0, lane);
+    } else {
+      TR::score(acc, As, Bb, kd, wr0, lane);
+    }
+  };
+  auto pv = [&](auto& acc, const auto& p, const T* Bb) {
+    if constexpr (L::PRE) {
+      TR::template pv<LDB>(acc, p, Bb, Bb + L::lo_off, kd, lane);
+    } else {
+      TR::template pv<LDB>(acc, p, Bb, kd, lane);
+    }
+  };
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * W;
+    T* Qb = QD + ((qt - qt0) % 2) * L::stage;
+    T* dOb = Qb + W * LDB;
+    if (async_q) mma16::cp_async_wait_all();
+    mma16::each_staged<NTHR, DMAX, LDB, W, T>(async_q, [&](int o) {
+      Qb[o] = mma16::from_f32<T>(attn::to_f32(Qb[o]) * scale_q);
+      if constexpr (L::PRE) {
+        mma16::split_in_place(Qb + o, Qb + L::lo_off + o);
+        mma16::split_in_place(dOb + o, dOb + L::lo_off + o);
+      }
+    });
+    // tile qt is staged, scaled and visible to every warp with its lse and
+    // delta; every reader of the other stage (tile qt - 1) is done
+    __syncthreads();
+    if (qt + 1 < nq) stage_q(qt + 1);
+    // under causal masking, a tile whose queries all lie before the warp's
+    // first key adds nothing to it: the warp skips it
+    if (!causal || static_cast<long long>(q_off) + q0 + W - 1 >=
+                       static_cast<long long>(kv_off) + k0 + wr0) {
+      const float* st = ST + ((qt - qt0) % 2) * 2 * W;
+      float sp[NN][4], dp[NN][4];
+#pragma unroll
+      for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+      score(sp, Ks, Qb);
+      score(dp, Vs, dOb);
+      auto stat = [&](int, int nt, int c, float& l2, float& dl) {
+        l2 = st[8 * nt + 2 * t + c];
+        dl = st[W + 8 * nt + 2 * t + c];
+      };
+      // every query of the tile is inside s and sees every key of the warp
+      const bool full = q0 + W <= s &&
+          (!causal || static_cast<long long>(q_off) + q0 >=
+                          static_cast<long long>(kv_off) + k0 + wr0 + 15);
+      if (full) {
+        mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; });
+      } else {
+        const int qj0 = q0 + 2 * t;
+        mma16::probs_ds<true>(sp, dp, stat, [&](int h, int nt, int c) {
+          const int qj = qj0 + 8 * nt + c;
+          return qj < s && qj >= lo[h];
+        });
+      }
+      pv(acc_v, sp, dOb);
+      pv(acc_k, dp, Qb);
+      if constexpr (!ROUND) {
+        if (++since == L::FOLD && qt + 1 < nq) {
+          mma16::bank(dkb, acc_k, banked, k0 + wr0 + g, s, d, t);
+          mma16::bank(dvb, acc_v, banked, k0 + wr0 + g, s, d, t);
+          since = 0;
+          banked = true;
+        }
+      }
+    }
+    if (qt + 1 < nq) store_stats(qt + 1);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = k0 + wr0 + g + 8 * h;
+    if (kp >= s) continue;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * nt + 2 * t + c;
+        if (col >= d) continue;
+        const size_t i = static_cast<size_t>(kp) * d + col;
+        float xk = acc_k[nt][2 * h + c], xv = acc_v[nt][2 * h + c];
+        if constexpr (!ROUND) {
+          if (banked) {
+            xk = fmaf(dkb[i], 1.f, xk);
+            xv = fmaf(dvb[i], 1.f, xv);
+          }
+        }
+        attn::store(&dkb[i], xk);
+        attn::store(&dvb[i], xv);
+      }
+  }
+}
+
+// 16-byte copies need d a whole number of 16-byte chunks and 16-byte
+// aligned operands
+template <typename T>
+bool async_ok(int d, const void* a, const void* b) {
+  return d % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, NTHR, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DMAX, bool ROUND, typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int bh, int s, int d, float scale_q, float sm_scale,
+              int causal, int q_off, int kv_off, cudaStream_t stream) {
+  return launch(flash_dq_tc_kernel<DMAX, ROUND, T>, Layout<ROUND, T, DMAX>::bytes,
+                dim3(bh, (s + BQ - 1) / BQ), stream,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<T*>(dq), s, d, scale_q, sm_scale,
+                causal, q_off, kv_off, static_cast<int>(async_ok<T>(d, k, v)));
+}
+
+template <int DMAX, bool ROUND, typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int bh, int s, int d, float scale_q,
+               int causal, int q_off, int kv_off, cudaStream_t stream) {
+  return launch(flash_dkv_tc_kernel<DMAX, ROUND, T>, Layout<ROUND, T, DMAX>::bytes,
+                dim3(bh, (s + BQ - 1) / BQ), stream,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<T*>(dk), static_cast<T*>(dv), s, d, scale_q, causal, q_off, kv_off,
+                static_cast<int>(async_ok<T>(d, q, dout)));
+}
+
+}  // namespace tcbwd
+
 // -- the FFMA kernels ---------------------------------------------------------
 
 using namespace attn;
@@ -347,35 +784,31 @@ __global__ void __launch_bounds__(NT) flash_fwd_wide_kernel(
   }
 }
 
-template <int DMAX>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
-}
+// The backward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
+// 128-wide output chunk a blockIdx.z, the scores (and dP) recomputed per
+// chunk over d staged 128 columns at a time.
+constexpr size_t dq_wide_smem =
+    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + BQ * LDP);
 
-template <int DMAX, bool ROUND, typename T, bool WIDE>
-__global__ void __launch_bounds__(NT) flash_dq_kernel(
+template <bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) flash_dq_wide_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int s, int d, float scale_q,
     float sm_scale, int causal, int q_off, int kv_off) {
-  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  constexpr int G = WD / 64;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // (BQ, LD) pre-scaled q
-  float* dOs = Qs + BQ * LD;    // (BQ, LD)
-  float* Ks = dOs + BQ * LD;    // (BK, LD)
-  float* Vs = Ks + BK * LD;     // (BK, LD)
-  float* dSs = Vs + BK * LD;    // (BQ, LDP)
+  float* Qs = smem;                 // (BQ, WD + 4) a chunk of pre-scaled q
+  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
+  float* Ks = dOs + BQ * (WD + 4);  // (BK, WD + 4)
+  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
+  float* dSs = Vs + BK * (WD + 4);  // (BQ, LDP)
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int kd = (d + 3) & ~3;
-  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
+  const int c_out = blockIdx.z * WD;  // first output column
 
-  if constexpr (!WIDE) {
-    load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
-    load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
-  }
   float lse_r[4], delta_r[4], acc[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -394,21 +827,12 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-    if constexpr (WIDE) {
-      mma_nt_chunked<DMAX, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, s, scale_q, k + base, k0, s,
-                                         1.f, d, ty, tx);
-      mma_nt_chunked<DMAX, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, s, 1.f, v + base, k0, s,
-                                         1.f, d, ty, tx);
-      __syncthreads();  // the score product's readers of Ks are done
-      load_chunk<DMAX, ROUND>(Ks, k + base, k0, s, d, c_out, 1.f);
-    } else {
-      __syncthreads();
-      load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
-      load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
-      __syncthreads();
-      mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
-      mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
-    }
+    mma_nt_chunked<WD, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, s, scale_q, k + base, k0, s, 1.f,
+                                     d, ty, tx);
+    mma_nt_chunked<WD, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, s, 1.f, v + base, k0, s, 1.f,
+                                     d, ty, tx);
+    __syncthreads();  // the score product's readers of Ks are done
+    load_chunk<WD, ROUND>(Ks, k + base, k0, s, d, c_out, 1.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -420,7 +844,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
       }
     }
     __syncthreads();
-    mma_nn<DMAX>(acc, dSs, Ks, ty, tx);
+    mma_nn<WD>(acc, dSs, Ks, ty, tx);
   }
 
   T* out = dq + base;
@@ -438,39 +862,31 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
   }
 }
 
-template <int DMAX>
-constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + 2 * BK * LDP + 2 * BQ);
-}
+constexpr size_t dkv_wide_smem =
+    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + 2 * BK * LDP + 2 * BQ);
 
-template <int DMAX, bool ROUND, typename T, bool WIDE>
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(
+template <bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) flash_dkv_wide_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s, int d,
     float scale_q, int causal, int q_off, int kv_off) {
-  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  constexpr int G = WD / 64;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;             // (BK, LD)
-  float* Vs = Ks + BK * LD;     // (BK, LD)
-  float* Qs = Vs + BK * LD;     // (BQ, LD) pre-scaled q
-  float* dOs = Qs + BQ * LD;    // (BQ, LD)
-  float* Ps = dOs + BQ * LD;    // (BK, LDP): p^T of this q-tile, keys by queries
-  float* dSs = Ps + BK * LDP;   // (BK, LDP): dS^T
-  float* lse_s = dSs + BK * LDP;  // (BQ)
-  float* delta_s = lse_s + BQ;    // (BQ)
+  float* Ks = smem;                 // (BK, WD + 4)
+  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
+  float* Qs = Vs + BK * (WD + 4);   // (BQ, WD + 4) pre-scaled q
+  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
+  float* Ps = dOs + BQ * (WD + 4);  // (BK, LDP): p^T of this q-tile, keys by queries
+  float* dSs = Ps + BK * LDP;       // (BK, LDP): dS^T
+  float* lse_s = dSs + BK * LDP;    // (BQ)
+  float* delta_s = lse_s + BQ;      // (BQ)
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int kd = (d + 3) & ~3;
-  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
+  const int c_out = blockIdx.z * WD;  // first output column
 
-  if constexpr (!WIDE) {
-    load_tile<DMAX, ROUND>(Ks, k + base, k0, s, d, 1.f);
-    load_tile<DMAX, ROUND>(Vs, v + base, k0, s, d, 1.f);
-  }
   float acc_k[4][4 * G], acc_v[4][4 * G];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -488,29 +904,19 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-    if constexpr (WIDE) {
-      mma_nt_chunked<DMAX, ROUND, ROUND>(st, Ks, Qs, k + base, k0, s, 1.f, q + base, q0, s,
-                                         scale_q, d, ty, tx);
-      mma_nt_chunked<DMAX, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, s, 1.f, dout + base, q0, s,
-                                         1.f, d, ty, tx);
-      __syncthreads();  // the score products' readers of Qs, dOs are done
-      load_chunk<DMAX, ROUND>(Qs, q + base, q0, s, d, c_out, scale_q);
-      load_chunk<DMAX, ROUND>(dOs, dout + base, q0, s, d, c_out, 1.f);
-    } else {
-      __syncthreads();
-      load_tile<DMAX, ROUND>(Qs, q + base, q0, s, d, scale_q);
-      load_tile<DMAX, ROUND>(dOs, dout + base, q0, s, d, 1.f);
-    }
+    mma_nt_chunked<WD, ROUND, ROUND>(st, Ks, Qs, k + base, k0, s, 1.f, q + base, q0, s, scale_q,
+                                     d, ty, tx);
+    mma_nt_chunked<WD, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, s, 1.f, dout + base, q0, s, 1.f,
+                                     d, ty, tx);
+    __syncthreads();  // the score products' readers of Qs, dOs are done
+    load_chunk<WD, ROUND>(Qs, q + base, q0, s, d, c_out, scale_q);
+    load_chunk<WD, ROUND>(dOs, dout + base, q0, s, d, c_out, 1.f);
     if (threadIdx.x < BQ) {
       const int qp = q0 + threadIdx.x;
       lse_s[threadIdx.x] = qp < s ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
       delta_s[threadIdx.x] = qp < s ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
     }
     __syncthreads();
-    if constexpr (!WIDE) {
-      mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
-      mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
-    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int kp = k0 + ty + 16 * i;
@@ -524,8 +930,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
       }
     }
     __syncthreads();
-    mma_nn<DMAX>(acc_v, Ps, dOs, ty, tx);
-    mma_nn<DMAX>(acc_k, dSs, Qs, ty, tx);
+    mma_nn<WD>(acc_v, Ps, dOs, ty, tx);
+    mma_nn<WD>(acc_k, dSs, Qs, ty, tx);
   }
 
   T* dkb = dk + base;
@@ -568,28 +974,39 @@ int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, i
   }
 }
 
+// d <= 128: the tensor-core backward; wider d: the FFMA WIDE instances.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, int bh, int s, int d, float scale_q, float sm_scale,
              int causal, int q_off, int kv_off, cudaStream_t stream) {
-  const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<DMAX, WIDE>(d));
-  return launch(flash_dq_kernel<DMAX, ROUND, T, WIDE>, dq_smem<DMAX>(), grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq), s, d, scale_q, sm_scale,
-                causal, q_off, kv_off);
+  if constexpr (!WIDE) {
+    return tcbwd::launch_dq<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dq, bh, s, d, scale_q,
+                                            sm_scale, causal, q_off, kv_off, stream);
+  } else {
+    const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<WD, true>(d));
+    return launch(flash_dq_wide_kernel<ROUND, T>, dq_wide_smem, grid, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq), s, d, scale_q, sm_scale,
+                  causal, q_off, kv_off);
+  }
 }
 
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dkv_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, int bh, int s, int d, float scale_q,
               int causal, int q_off, int kv_off, cudaStream_t stream) {
-  const dim3 grid((s + BK - 1) / BK, bh, out_chunks<DMAX, WIDE>(d));
-  return launch(flash_dkv_kernel<DMAX, ROUND, T, WIDE>, dkv_smem<DMAX>(), grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s,
-                d, scale_q, causal, q_off, kv_off);
+  if constexpr (!WIDE) {
+    return tcbwd::launch_dkv<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dk, dv, bh, s, d,
+                                             scale_q, causal, q_off, kv_off, stream);
+  } else {
+    const dim3 grid((s + BK - 1) / BK, bh, out_chunks<WD, true>(d));
+    return launch(flash_dkv_wide_kernel<ROUND, T>, dkv_wide_smem, grid, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s,
+                  d, scale_q, causal, q_off, kv_off);
+  }
 }
 
 }  // namespace
@@ -617,7 +1034,10 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
                         const void* lse, const void* delta, void* dq, int dtype, int bh, int s,
                         int d, float scale_q, float sm_scale, int causal, int q_off, int kv_off,
                         int round_bf16, int device, void* stream) {
-  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  // the tensor-core instances put the 128-row tiles on gridDim.y
+  if (bad_shape(bh, s, d) || (s + tcbwd::BQ - 1) / tcbwd::BQ > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
@@ -629,7 +1049,10 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void
                          const void* lse, const void* delta, void* dk, void* dv, int dtype,
                          int bh, int s, int d, float scale_q, int causal, int q_off, int kv_off,
                          int round_bf16, int device, void* stream) {
-  if (bad_shape(bh, s, d)) return static_cast<int>(cudaErrorInvalidValue);
+  // the tensor-core instances put the 128-row tiles on gridDim.y
+  if (bad_shape(bh, s, d) || (s + tcbwd::BQ - 1) / tcbwd::BQ > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);

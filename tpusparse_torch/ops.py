@@ -413,9 +413,10 @@ _FOLD_INTERMEDIATE_BYTES = 1 << 30
 
 
 def _fold_cols(b: torch.Tensor) -> torch.Tensor:
-    """(batch, k, n) -> (k, batch·n), contiguous."""
+    """(batch, k, n) -> (k, batch·n), contiguous (at n = 1 the reshape alone
+    is a strided view)."""
     batch, k, n = b.shape
-    return b.transpose(0, 1).reshape(k, batch * n)
+    return b.transpose(0, 1).reshape(k, batch * n).contiguous()
 
 
 def _unfold_cols(c: torch.Tensor, batch: int, n: int) -> torch.Tensor:
