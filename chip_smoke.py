@@ -350,9 +350,10 @@ FLASH_LIMIT_ROUNDED = 1e-2
 # footprint accumulators; the grouped executor's thread block per group; the
 # FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8; the FFMA
 # blk_flash_fwd and the whole-row naive_spmm, both behind a sleep; the FFMA
-# block_ell_spmm and sddmm), ms, measured by this script on an NVIDIA H100
-# 80GB HBM3 at 700.00 W (PERF.md: its kernel table, rows 1-2, 4-5, 7-11, 13,
-# 16 and 19, §5 for bert4d's dA, and an earlier run for the seq-4096 shape);
+# block_ell_spmm and sddmm; the FFMA blk_flash_dq and blk_flash_dkv,
+# queued), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md: its kernel table, rows 1-2, 4-5, 7-11, 13, 16-19, §5
+# for bert4d's dA, and an earlier run for the seq-4096 shape);
 # printed beside the new. SHARED_TILE_MS: the
 # footprint executor's times on its register windows before the tile moved
 # into window_tiles.cuh, which the shared tile must stay within 9 % of.
@@ -363,6 +364,7 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "flash_fwd (8, 12, 512, 64) high": 0.331, "spmm_int8 headline": 0.411,
           "flash_dq (8, 12, 512, 64) high": 0.435, "flash_dkv (8, 12, 512, 64) high": 0.508,
           "blk_flash_fwd bigbird_512 high": 0.2783, "naive_spmm arxiv n 256": 0.8871,
+          "blk_flash_dq bigbird_512 high": 0.340, "blk_flash_dkv bigbird_512 high": 0.447,
           "block_ell_spmm headline": 1.494, "sddmm headline": 1.280, "sddmm bert4d": 40.26}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
@@ -1445,11 +1447,81 @@ def phase_pattern_paths():
     return totals, enc, ids
 
 
+def _blk_bwd_f64(q, k, v, do, lse, delta, plan, *, sm_scale):
+    """dq, dk, dv of the block-pattern attention in float64 from the
+    kernels' lse and delta, over the plan's token mask, one head at a time."""
+    vis = plan.token_mask(q.device)
+    outs = [], [], []
+    for i in range(q.shape[0]):
+        qd, kd, vd, dod = q[i].double(), k[i].double(), v[i].double(), do[i].double()
+        p = torch.where(vis, torch.exp((qd @ kd.T) * sm_scale - lse[i].double()[:, None]), 0.0)
+        ds = p * (dod @ vd.T - delta[i].double()[:, None]) * sm_scale
+        for acc, x in zip(outs, (ds @ kd, ds.T @ qd, p.T @ dod)):
+            acc.append(x)
+    return tuple(torch.stack(x) for x in outs)
+
+
+def _blk_bwd_tiers(label, shape, q, k, v, do, plan, work, r) -> None:
+    """blk_flash_dq and blk_flash_dkv in fp32 'default' and on bf16
+    operands: each checked against its plain version (<= 1e-2 of scale),
+    timed queued and behind a sleep, beside bf16 SDPA's autograd backward
+    with the token mask behind a sleep; bounds on the bf16 tensor cores or
+    bytes."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+
+    b, h, seq, d = shape
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    mask = plan.token_mask(q.device)
+    b4 = [t.view(b, h, seq, d).detach().clone().requires_grad_(True) for t in (qb, kb, vb)]
+    backend = _sdpa_backend(*b4, mask)
+    with sdpa_kernel([backend]):
+        og = torch.nn.functional.scaled_dot_product_attention(*b4, attn_mask=mask)
+        lib = time_ms_ahead(lambda: torch.autograd.grad(og, b4, dob.view(b, h, seq, d),
+                                                        retain_graph=True))
+    del og, b4
+    r["bwd_tiers"] = {}
+    for tier, ops, prec in (("fp32 'default'", (q, k, v, do), "default"),
+                            ("bf16 operands", (qb, kb, vb, dob), "high")):
+        kw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+        o, lse = bfa.blk_flash_fwd_kernel(*ops[:3], plan, **kw)
+        args = (*ops, lse, _delta(ops[3], o), plan)
+        got = (bfa.blk_flash_dq_kernel(*args, **kw), *bfa.blk_flash_dkv_kernel(*args, **kw))
+        want = (bfa._blk_dq_plain(*args, **kw), *bfa._blk_dkv_plain(*args, **kw))
+        err = max(rel_err(g, w)[1] for g, w in zip(got, want))
+        if not (err <= FLASH_LIMIT_ROUNDED and all(bool(torch.isfinite(g.float()).all())
+                                                   for g in got)):
+            raise AssertionError(f"block backward {label} {tier}: kernel vs plain {err:.2e}")
+        del got, want
+        fns = {"dq": lambda: bfa.blk_flash_dq_kernel(*args, **kw),
+               "dkv": lambda: bfa.blk_flash_dkv_kernel(*args, **kw)}
+        ms = {n: (time_ms_queued(f), time_ms_ahead(f)) for n, f in fns.items()}
+        r["bwd_tiers"][tier] = (ms, err)
+        for n, (queued, ahead) in ms.items():
+            flops, nbytes = work[n]
+            if "bf16" in tier:  # q, k, v, do and the outputs in 2 bytes, not 4
+                nbytes -= (5 if n == "dq" else 6) * 2.0 * b * h * seq * d
+            bms, by = bound(flops, nbytes, BF16_FLOPS)
+            print(f"blk_flash_{n} {label} {tier}: kernel {queued:.4f} ms queued, {ahead:.4f} ms "
+                  f"behind a sleep; bound {bms:.4f} ms by {by} (bf16 tensor cores), kernel at "
+                  f"{flops / (ahead * 1e-3) / 1e12:.2f} TFLOP/s, {bms / ahead:.3f} of its "
+                  f"bound")
+        pair = ms["dq"][1] + ms["dkv"][1]
+        print(f"blk_flash backward {label} {tier} behind a sleep: dq + dkv {pair:.4f} ms, sdpa "
+              f"bf16 ({backend.name}) autograd backward with the token mask {lib:.4f} ms "
+              f"({pair / lib:.2f}x sdpa); vs plain {err:.2e} of scale")
+        del o, lse, args, fns
+    r["sdpa_bf16_bwd_ms"] = lib
+
+
 def phase_block_flash_timings() -> dict:
     """The three block kernels at the 'bigbird' layer's shapes (seq 512,
     block 64; seq 4096, block 256) and at the 'sparse' layer's masked
-    seq-4096 plan: kernel vs plain (<= 1e-5 of scale), times, bounds from the
-    covered tiles, and SDPA with the token-exact boolean mask in fp32;
+    seq-4096 plan: kernel vs plain (<= 1e-5 of scale; the backward at seq
+    4096 also against float64), times, bounds from the covered tiles, and
+    SDPA with the token-exact boolean mask in fp32; the backward also in
+    'default' and on bf16 operands beside bf16 SDPA (`_blk_bwd_tiers`);
     returns {label: results}."""
     from torch.nn.attention import sdpa_kernel
 
@@ -1476,6 +1548,18 @@ def phase_block_flash_timings() -> dict:
             raise AssertionError(f"block flash {label}: kernel vs plain {errs}")
         o, lse = got[0], got[1]
         delta = _delta(do, o)
+        if seq == LONG_SEQ:
+            # long lists: 16 listed blocks of 256 for the global rows and
+            # keys, so the 3xTF32 sums are banked; an fp32 plain sum over
+            # 4096 terms carries an error of its own
+            f64 = _blk_bwd_f64(q, k, v, do, lse, delta, plan, sm_scale=kw["sm_scale"])
+            errs64 = {n: (rel_err(g, w)[1], rel_err(p, w)[1])
+                      for n, g, p, w in zip(("dq", "dk", "dv"), got[2:], want[2:], f64)}
+            if not all(e[0] <= FLASH_LIMIT_FP32 for e in errs64.values()):
+                raise AssertionError(f"block backward {label}: kernel vs float64 {errs64}")
+            print(f"blk_flash backward {label}: over scale against float64 (kernel, plain) "
+                  + ", ".join(f"{n} {e[0]:.2e} {e[1]:.2e}" for n, e in errs64.items()))
+            del f64
         del got, want
         fns = {
             "fwd": (lambda: bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw),
@@ -1517,6 +1601,9 @@ def phase_block_flash_timings() -> dict:
             og = sdpa(qg, kg, vg, attn_mask=mask)
             r["sdpa_bwd_ms"] = time_ms_queued(
                 lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
+            r["sdpa_bwd_ahead_ms"] = time_ms_ahead(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
+        r["bwd_ahead_ms"] = {n: time_ms_ahead(fns[n][0]) for n in ("dq", "dkv")}
         r["sdpa_backend"] = backend.name
         # the forward's other tiers, each checked against its plain version,
         # behind a sleep beside bf16 SDPA with the token mask
@@ -1565,12 +1652,25 @@ def phase_block_flash_timings() -> dict:
                   f"(kernel/sdpa {ms / r['sdpa_bf16_ms']:.2f}); bound {bms:.4f} ms by {by} "
                   f"(bf16 tensor cores), kernel at {work['fwd'][0] / (ms * 1e-3) / 1e12:.2f} "
                   f"TFLOP/s; vs plain {err:.2e} of scale")
+        ahead = r["bwd_ahead_ms"]
+        for n in ("dq", "dkv"):
+            old = OLD_MS.get(f"blk_flash_{n} {label} high")
+            was = (f" (the FFMA kernel before its redesign {old:.3f} queued: "
+                   f"{old / r['ms'][n]:.2f}x)" if old else "")
+            print(f"blk_flash_{n} {label} fp32 'high': kernel {r['ms'][n]:.4f} ms queued{was}, "
+                  f"{ahead[n]:.4f} ms behind a sleep, {r['bound'][n][0] / ahead[n]:.3f} of its "
+                  f"3xTF32 bound")
         print(f"blk_flash {label}: kernel vs plain over scale " + ", ".join(
             f"{n} {e[1]:.2e}" for n, e in errs.items()))
+        pair = ahead["dq"] + ahead["dkv"]
         print(f"sdpa {label} with the token mask, fp32, backend {backend.name}: forward "
               f"{r['sdpa_fwd_ms']:.4f} ms (vs kernel o {lib_err:.2e} of scale), autograd "
-              f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms")
-        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, og, o, lse, delta, fns, qb, kb, vb, b4
+              f"backward (dq, dk, dv) {r['sdpa_bwd_ms']:.4f} ms queued, "
+              f"{r['sdpa_bwd_ahead_ms']:.4f} ms behind a sleep; blk_flash_dq + blk_flash_dkv "
+              f"{pair:.4f} ms behind a sleep ({pair / r['sdpa_bwd_ahead_ms']:.2f}x sdpa)")
+        del q4, k4, v4, do4, qg, kg, vg, og, o, lse, delta, fns, qb, kb, vb, b4
+        _blk_bwd_tiers(label, (b, h, seq, d), q, k, v, do, plan, work, r)
+        del q, k, v, do
     return out
 
 
@@ -4451,10 +4551,10 @@ def main() -> int:
         ("blk_flash_fwd", "fwd", "929 (_blk_flash_kernel; pallas_call l.1087)",
          bt["err"]["o"][0], bt["sdpa_fwd_ms"]),
         ("blk_flash_dq", "dq", "1136 (_blk_dq_kernel, _blk_dq_mask l.1171; pallas_call l.1286)",
-         bt["err"]["dq"][0], bt["sdpa_bwd_ms"]),
+         bt["err"]["dq"][0], bt["sdpa_bwd_ahead_ms"]),
         ("blk_flash_dkv", "dkv",
          "1175 (_blk_dkv_kernel, _blk_dkv_mask l.1215; pallas_call l.1339)",
-         max(bt["err"]["dk"][0], bt["err"]["dv"][0]), bt["sdpa_bwd_ms"]),
+         max(bt["err"]["dk"][0], bt["err"]["dv"][0]), bt["sdpa_bwd_ahead_ms"]),
     )
     for kname, key, line, err, lib_ms in blk_rows:
         kernels.append({

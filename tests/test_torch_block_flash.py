@@ -38,7 +38,8 @@ PLAN_ARRAYS = ("kv_list", "kv_cnt", "q_list", "q_cnt", "tile_masks", "q_slot", "
 def _plans(name):
     """(JAX plan, port plan) of one named pattern, built from the same arrays."""
     if name.startswith("block_"):  # a block mask: mask-free by construction
-        s, b = (256, 64) if name == "block_bigbird_256_b64" else (160, 64)
+        s, b = {"block_bigbird_256_b64": (256, 64), "block_bigbird_256_b32": (256, 32),
+                "block_sparse_160_b64": (160, 64)}[name]
         mask = (j_bigbird_block_mask(s, b, 3, 1, 1, seed=2) if s == 256
                 else np.array([[1, 0, 1], [0, 1, 0], [1, 0, 0]], bool))
         return jfa.BlockAttnPlan(mask, b, b, s), tbf.BlockAttnPlan(mask, b, b, s)
@@ -49,13 +50,17 @@ def _plans(name):
         "tokens_band_160_b64x32": (160, 64, 32, j_local_global_pattern(160, 20, 3)),
         # full blocks: the mask-free kernels
         "tokens_bigbird_256_b64": (256, 64, 64, j_bigbird_pattern(256, 64, 1, 1, 1, seed=0)),
+        # a band without global keys: rows past the band's start find the first
+        # sub-tile of their q-block's list wholly masked
+        "tokens_band_first_empty_256_b64": (256, 64, 64, j_local_global_pattern(256, 20, 0)),
     }[name]
     return (jfa.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk),
             tbf.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk))
 
 
-PLAN_NAMES = ["block_bigbird_256_b64", "block_sparse_160_b64", "tokens_band_256_b64",
-              "tokens_band_160_b64x32", "tokens_bigbird_256_b64"]
+PLAN_NAMES = ["block_bigbird_256_b64", "block_bigbird_256_b32", "block_sparse_160_b64",
+              "tokens_band_256_b64", "tokens_band_160_b64x32", "tokens_bigbird_256_b64",
+              "tokens_band_first_empty_256_b64"]
 
 
 @pytest.mark.parametrize("name", PLAN_NAMES)
@@ -119,6 +124,12 @@ KERNEL_CASES = {
     "masked_256_b64": ("tokens_band_256_b64", 2, 64),
     "masked_160_b64x32": ("tokens_band_160_b64x32", 3, 24),
     "bigbird_256_b64": ("block_bigbird_256_b64", 2, 64),
+    # the plan kinds the tensor-core kernels tile apart: blocks of 32 (half
+    # of each 64-row tile idle), rows whose first listed sub-tile is wholly
+    # masked, and a token pattern of full blocks at the widest tensor-core d
+    "bigbird_256_b32": ("block_bigbird_256_b32", 2, 32),
+    "masked_first_empty_256_b64": ("tokens_band_first_empty_256_b64", 2, 32),
+    "tokens_bigbird_256_b64_d128": ("tokens_bigbird_256_b64", 1, 128),
 }
 
 

@@ -648,14 +648,77 @@ def test_block_flash_forward_repeats_bit_for_bit(cuda, name, dtype, precision):
         assert torch.equal(a, b)
 
 
-def test_block_flash_backward_repeats_bit_for_bit(cuda):
-    q, k, v, do, plan, kw = _blk_args("band_masked_512_b128x256", cuda, torch.float32)
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", ["bigbird_512_b64", "band_masked_1024_b256",
+                                  "maskfree_1024_b64", "band_masked_first_empty_256_b64"])
+def test_block_flash_backward_repeats_bit_for_bit(cuda, name, dtype, precision):
+    q, k, v, do, plan, kw = _blk_args(name, cuda, dtype)
+    kw["precision"] = precision
     o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
-    delta = (do * o).sum(-1)
+    delta = (do.float() * o.float()).sum(-1).to(dtype).float()
     runs = [(bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw),
              *bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw)) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+def test_block_flash_keys_that_no_query_sees_get_zero_gradients(cuda, dtype, precision):
+    """dk = dv = 0 exactly for keys that no query sees: kv block 2 of a
+    block mask that no q-block lists (its dk/dv tiles walk nothing), and keys
+    100-109 of a band plan whose tile masks are zeroed in their columns
+    (every listed sub-tile masks them)."""
+    mask = np.array([[1, 1, 0, 0], [1, 1, 0, 1], [0, 1, 0, 1], [1, 0, 0, 1]], bool)
+    ind, ptr = tt.local_global_pattern(256, 20, 3)
+    banded = bfa.BlockAttnPlan.from_token_pattern(ind, ptr, 256, 64, 64)
+    ii, ll = np.nonzero(np.arange(banded.L)[None, :] < banded.kv_cnt[:, None])
+    for i, l in zip(ii, ll):
+        if banded.kv_list[i, l] == 1:
+            banded.tile_masks[i * banded.L + l, :, 100 - 64:110 - 64] = 0
+    rng = np.random.default_rng(43)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 256, 64)).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(4))
+    kw = dict(sm_scale=0.125, precision=precision)
+    for plan, n_unseen in ((bfa.BlockAttnPlan(mask, 64, 64, 256), 64), (banded, 10)):
+        o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+        delta = (do.float() * o.float()).sum(-1).to(dtype).float()
+        dk, dv = bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw)
+        unseen = ~plan.token_mask(cuda).any(0)
+        assert int(unseen.sum()) == n_unseen
+        assert torch.count_nonzero(dk[:, unseen]) == 0 and torch.count_nonzero(dv[:, unseen]) == 0
+        assert torch.count_nonzero(dk[:, ~unseen]) > 0
+
+
+def test_block_flash_backward_of_a_long_list_matches_float64(cuda):
+    """A band with global tokens at seq 2048, blocks of 256: q-block 0 lists
+    every kv block and every q-block lists kv block 0, so both kernels
+    stream 2048 rows for those tiles and bank their 3xTF32 sums four times.
+    dq, dk and dv against float64 from the kernels' lse and delta, within
+    FLASH_LONG_LIMIT of scale (an fp32 plain sum over 2048 terms carries an
+    error of its own near it)."""
+    ind, ptr = tt.local_global_pattern(2048, 64, 256)
+    plan = bfa.BlockAttnPlan.from_token_pattern(ind, ptr, 2048, 256, 256)
+    assert plan.tile_masks is not None and int(plan.kv_cnt[0]) == plan.nk == 8
+    rng = np.random.default_rng(41)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 2048, 64)).astype(np.float32))
+                   .to(cuda) for _ in range(4))
+    kw = dict(sm_scale=0.125, precision="high")
+    o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+    delta = (do * o).sum(-1)
+    dq = bfa.blk_flash_dq_kernel(q, k, v, do, lse, delta, plan, **kw)
+    dk, dv = bfa.blk_flash_dkv_kernel(q, k, v, do, lse, delta, plan, **kw)
+    qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
+    vis = plan.token_mask(cuda)
+    sc = (qd @ kd.transpose(-1, -2)) * kw["sm_scale"]
+    p = torch.where(vis, torch.exp(sc - lse.double()[..., None]), 0.0)
+    ds = p * (dod @ vd.transpose(-1, -2) - delta.double()[..., None]) * kw["sm_scale"]
+    want = (ds @ kd, ds.transpose(-1, -2) @ qd, p.transpose(-1, -2) @ dod)
+    for gname, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _over_scale(got, w) < FLASH_LONG_LIMIT, gname
 
 
 def test_block_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):

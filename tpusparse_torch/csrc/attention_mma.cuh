@@ -2,24 +2,27 @@
 // the FFMA tiles of attention_tiles.cuh: the pieces the tensor-core
 // attention kernels share (flash_attention_q8.cu's flash_q8,
 // flash_attention.cu's flash_fwd, flash_dq and flash_dkv, and
-// block_flash_attention.cu's blk_flash_fwd).
+// block_flash_attention.cu's blk_flash_fwd, blk_flash_dq and
+// blk_flash_dkv).
 //
 // A warp owns 16 rows of a staged A tile and walks tiles of NN x 8 rows of
 // a streamed B operand (NN = 8: 64-row tiles, the forwards' k-tiles). Two
 // products, each in the three tiers (bf16; 3xTF32 for fp32 'high'; bf16
 // products of fp32 operands for 'default'):
 //   - score: C[16, 8 NN] += A[warp rows] . B^T, both contracted along their
-//     rows (q.k^T in the forwards; q.k^T and do.v^T in flash_dq; k.q^T and
-//     v.do^T in flash_dkv, whose warp rows are keys);
+//     rows (q.k^T in the forwards; q.k^T and do.v^T in the dq kernels;
+//     k.q^T and v.do^T in the dk/dv kernels, whose warp rows are keys);
 //   - pv: O[16, d] += C . B, the score's C fragment taken as it stands as
 //     the A fragment and B's rows read in the same order (p.v in the
-//     forwards; dS.k in flash_dq; p^T.do and dS^T.q in flash_dkv).
+//     forwards; dS.k in the dq kernels; p^T.do and dS^T.q in the dk/dv
+//     kernels).
 // The 3xTF32 products take B either raw (every fragment split into tf32 hi
 // and lo as it is loaded) or split at staging (hi and lo tiles, PRE). Also:
 // the online softmax of a warp's rows in the log2 domain, the backward's P
 // and dS of one tile, the staging of A tiles and of streamed rows (and the
-// backward's per-element pass over what a thread staged), and the 3xTF32
-// bank. The instruction wrappers they are built from
+// backward's per-element pass over what a thread staged), the 3xTF32
+// bank, and the backward's shared-memory layout and streamed lse and
+// delta. The instruction wrappers they are built from
 // (mma.sync, ldmatrix, cp.async) are in mma_sync.cuh.
 
 #pragma once
@@ -400,26 +403,29 @@ struct Tier<true, __nv_bfloat16, DMAX> {
 };
 
 // The backward's P and dS of one tile of a warp, in place: sp holds the
-// score S (rows g + 8h, columns 8 nt + 2t + c of the C fragment) and leaves
-// with P = exp(S - lse), taken as 2^(S log2e - lse2) with lse2 = lse log2e;
-// dp holds dP and leaves with dS = P (dP - delta). stat(h, nt, c, lse2,
-// delta) gives an element's statistics (a row's in flash_dq, a column's in
-// flash_dkv). MASK: an element for which visible(h, nt, c) is false takes
-// P = 0 exactly, so its dS is 0 (a row that sees no key, lse = -1e30, adds
+// product S (rows g + 8h, columns 8 nt + 2t + c of the C fragment) and
+// leaves with P = exp(S scale - lse), taken as 2^((S scale) log2e - lse2)
+// with lse2 = lse log2e (the forward's score is S scale: scale 1 where q
+// was pre-scaled, sm_scale in the block kernels); dp holds dP and leaves
+// with dS = P (dP - delta) ds_scale. stat(h, nt, c, lse2, delta) gives an
+// element's statistics (a row's in the dq kernels, a column's in the dk/dv
+// ones). MASK: an element for which visible(h, nt, c) is false takes P = 0
+// exactly, so its dS is 0 (a row that sees no key, lse = -1e30, adds
 // nothing anywhere).
 template <bool MASK, int NN, typename Stat, typename Visible>
 __device__ __forceinline__ void probs_ds(float (&sp)[NN][4], float (&dp)[NN][4], Stat stat,
-                                         Visible visible) {
+                                         Visible visible, float scale = 1.f,
+                                         float ds_scale = 1.f) {
 #pragma unroll
   for (int nt = 0; nt < NN; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float lse2, dl;
       stat(e / 2, nt, e % 2, lse2, dl);
-      float p = ex2(fmaf(sp[nt][e], LOG2E, -lse2));
+      float p = ex2(fmaf(sp[nt][e] * scale, LOG2E, -lse2));
       if (MASK && !visible(e / 2, nt, e % 2)) p = 0.f;
       sp[nt][e] = p;
-      dp[nt][e] = p * (dp[nt][e] - dl);
+      dp[nt][e] = p * (dp[nt][e] - dl) * ds_scale;
     }
 }
 
@@ -563,5 +569,87 @@ __device__ __forceinline__ void bank(float* ob, float (&acc)[NO][4], bool banked
                                      int rows, int d, int t) {
   bank_add(ob, acc, {1.f, 1.f}, banked, row, rows, d, t);
 }
+
+// -- the backward's shared memory and streamed statistics -----------------------
+
+// Shared memory of a backward instance whose warps own ROWS rows: two
+// staged A tiles (the dq kernels: q and do; the dk/dv kernels: k and v),
+// then two stages of the two streamed B tiles of W rows each (the dq
+// kernels: K then V; the dk/dv kernels: q then do), then two stages of the
+// streamed rows' lse (log2 domain) and delta (the dk/dv kernels; RowStats).
+// W = 64 at d <= 64; 32 at d <= 128, where two stages of 64 rows would not
+// fit beside flash's 128-row A tiles (fp32: 270 KB).
+//
+// PRE (3xTF32 at d <= 64, where SPLIT allows it): the thread that copied a
+// value of a streamed tile splits it into tf32 hi and lo once, as it lands
+// (hi in place, lo 2W rows on), where otherwise every warp would split
+// every fragment it loads. Same bits.
+template <bool ROUND, typename T, int DMAX, int ROWS, bool SPLIT = true,
+          int W_ = (DMAX <= 64 ? 64 : 32)>
+struct BwdLayout {
+  using TR = Tier<ROUND, T, DMAX>;
+  static constexpr int W = W_;
+  static constexpr bool PRE = SPLIT && !ROUND && DMAX <= 64;
+  static constexpr int LDB = TR::LDK;  // one row pitch serves the score and the pv
+  static constexpr int lo_off = 2 * W * LDB;
+  static constexpr size_t a_bytes = sizeof(typename TR::TQ) * ROWS * TR::LDQ;
+  static constexpr int stage = (PRE ? 4 : 2) * W * LDB;  // elements of T
+  static constexpr size_t b_off = 2 * a_bytes;
+  static constexpr size_t stat_off = b_off + 2 * sizeof(T) * stage;
+  static constexpr size_t bytes = stat_off + 2 * 2 * W * sizeof(float);
+  // 3xTF32: a warp banks its sums every 512 streamed rows (FOLD tiles), so
+  // s <= 512 never folds, as in the forward
+  static constexpr int FOLD = mma16::FOLD * BK / W;
+
+  // A warp's products over a streamed tile at Bb, its lo at + lo_off where
+  // split.
+  template <int NN, typename TQ>
+  __device__ static void score(float (&acc)[NN][4], const TQ* As, const T* Bb, int kd, int wr0,
+                               int lane) {
+    if constexpr (PRE) {
+      TR::score(acc, As, Bb, Bb + lo_off, kd, wr0, lane);
+    } else {
+      TR::score(acc, As, Bb, kd, wr0, lane);
+    }
+  }
+  template <int NN>
+  __device__ static void pv(float (&acc)[DMAX / 8][4], const float (&p)[NN][4], const T* Bb,
+                            int kd, int lane) {
+    if constexpr (PRE) {
+      TR::template pv<LDB>(acc, p, Bb, Bb + lo_off, kd, lane);
+    } else {
+      TR::template pv<LDB>(acc, p, Bb, kd, lane);
+    }
+  }
+  // PRE: the thread that copied a value of the streamed tiles at B0 and B1
+  // (stage_rows by NT threads) splits it once its copies have landed.
+  template <int NT>
+  __device__ static void split_staged(T* B0, T* B1, bool async) {
+    if constexpr (PRE) {
+      each_staged<NT, DMAX, LDB, W, T>(async, [&](int o) {
+        split_in_place(B0 + o, B0 + lo_off + o);
+        split_in_place(B1 + o, B1 + lo_off + o);
+      });
+    }
+  }
+};
+
+// The lse and delta of a streamed tile's W rows: read from device memory
+// into a register of thread i < 2W as the tile is staged (row r0 + i % W's
+// lse for i < W, else its delta; 0 for rows at or past `rows`), and
+// stored beside the tile (lse log2e at [0, W), delta at [W, 2W)) once
+// every reader of that stage is done. NT >= 2W.
+template <int W>
+struct RowStats {
+  float x = 0.f;
+  __device__ __forceinline__ void load(const float* __restrict__ lse,
+                                       const float* __restrict__ delta, int r0, int rows) {
+    const int row = r0 + threadIdx.x % W;
+    if (threadIdx.x < 2 * W) x = row < rows ? (threadIdx.x < W ? lse[row] : delta[row]) : 0.f;
+  }
+  __device__ __forceinline__ void store(float* dst) const {
+    if (threadIdx.x < 2 * W) dst[threadIdx.x] = threadIdx.x < W ? x * LOG2E : x;
+  }
+};
 
 }  // namespace mma16

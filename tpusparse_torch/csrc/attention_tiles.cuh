@@ -1,6 +1,9 @@
 // Tile helpers shared by the fused attention kernels (flash_attention.cu,
 // flash_attention_q8.cu, block_flash_attention.cu) for NVIDIA Hopper
-// (sm_90a).
+// (sm_90a): the FFMA tiles of the WIDE kernels (head dims above 128; at d
+// <= 128 every attention kernel runs on the tensor cores, attention_mma.cuh)
+// and what all of them share (the masked score, type conversions, the
+// dispatch over dtype, tier and d).
 //
 // One thread block of NT = 256 threads works on a 64-row tile of queries (or
 // keys) against a 64-row tile of the other operand. Each thread owns a 4x4
@@ -22,8 +25,7 @@
 // (mma_nt_chunked), and keeps only its chunk's accumulators. That costs
 // ceil(d / 128) times the score work, and keeps shared memory and registers
 // at the 128 instance's for any d; the online-softmax statistics are
-// computed the same way by every chunk, so they agree bit for bit. The d <= 64
-// and d <= 128 instances are unchanged.
+// computed the same way by every chunk, so they agree bit for bit.
 
 #pragma once
 
@@ -111,13 +113,6 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* __restrict__ src
       x = tier<ROUND>(to_f32(src[static_cast<size_t>(r0 + r) * d + c0 + c]) * scale);
     dst[r * LD + c] = x;
   }
-}
-
-// The first DMAX columns: the whole row when d <= DMAX.
-template <int DMAX, bool ROUND, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
-                                          int s, int d, float scale) {
-  load_chunk<DMAX, ROUND>(dst, src, r0, s, d, 0, scale);
 }
 
 // acc[a][j] += sum_k A[ty + 16a][k] * B[tx + 16j][k] over k < kd (a multiple

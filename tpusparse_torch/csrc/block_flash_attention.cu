@@ -16,81 +16,112 @@
 // thread block owns one q-tile inside one plan q-block (forward: 64 or 128
 // rows, dq: 64) or one 64-row tile inside one plan kv block (dk/dv) of one
 // (batch, head), reads its block's list itself and walks, in list order,
-// every listed block's 64-row sub-tiles, keeping its accumulators in
-// registers. The plan blocks (block_q, block_k) are part of the pattern's
-// meaning and take any size (32, 64, 256, unequal); a block that is not a
-// multiple of 64 leaves the last sub-tile partly empty. No atomics: every
-// output element is summed by one thread in a fixed order, so runs repeat
-// bit for bit.
+// every listed block's sub-tiles, keeping its accumulators in registers.
+// The plan blocks (block_q, block_k) are part of the pattern's meaning and
+// take any size (32, 64, 256, unequal); a block that is not a multiple of
+// the sub-tile leaves the last sub-tile partly empty.
 //
 // Contract. q, k, v, do: (bh, s, d) row-major, one type (fp32 or bf16);
-// lse, delta: (bh, s) fp32; any d (d <= 64 and d <= 128 hold a whole row in
-// a tile, a wider d runs the WIDE instances of attention_tiles.cuh: 128-wide
-// output chunks on blockIdx.z, the scores recomputed per chunk over d staged
-// in 128-wide pieces). Plan arrays, int32 on
+// lse, delta: (bh, s) fp32; any d (d <= 128 runs on the tensor cores, a
+// wider d the WIDE FFMA instances of attention_tiles.cuh: 128-wide output
+// chunks on blockIdx.z, the scores recomputed per chunk over d staged in
+// 128-wide pieces). Plan arrays, int32 on
 // the device: kv_list (nq, L) and kv_cnt (nq) for the forward and dq,
 // q_list (nk, Lt), q_cnt (nk) and q_slot (nk * Lt) for dk/dv; tile_masks
 // (nq * L, bq, bk) int8, or null for a plan whose covered blocks are full.
 // Slots l >= count are padding and are never visited.
 //   - scores s = (q . k) * sm_scale: the scale comes after the product, as
-//     in the TPU kernels (l.957, l.1126), not pre-scaled into q;
+//     in the TPU kernels (l.957, l.1126), not pre-scaled into q; the
+//     backward recomputes p = exp(s - lse) from the same s;
 //   - key j of query row i is visible when both lie inside their plan
 //     blocks and below s, and the tile mask (if any) is set at (i, j).
 //     Masked scores are -1e30 and their probabilities exactly 0, so a
 //     sub-tile that is wholly masked (the band's partial tiles, the tail
 //     past s) adds nothing even when it is a row's first; a row with no
-//     visible key gets o = 0 and lse = m + log 1 = -1e30 (l.983-991);
-//   - dS = p * (dp - delta) * sm_scale (l.1162, l.1204); dq = dS . k with no
-//     scale after; dk = dS^T . q with the unscaled q; dv = p^T . do;
+//     visible key gets o = 0, lse = m + log 1 = -1e30 (l.983-991) and dq = 0,
+//     a key that no query sees dk = dv = 0;
+//   - dS = p * (dp - delta) * sm_scale (l.1162, l.1204), sm_scale inside dS
+//     before it is rounded; dq = dS . k with no scale after; dk = dS^T . q
+//     with the unscaled q; dv = p^T . do;
 //   - ROUND ('default' tier on fp32, or bf16 inputs): q, k, v and do are
 //     rounded to bf16 on load, and so are p and dS before their products,
 //     with fp32 sums. Without it ('high', 'highest' on fp32 inputs) every
-//     product is fp32-class, never one TF32 pass: 3xTF32 in the forward at
-//     d <= 128, fp32 FFMA elsewhere.
+//     product is fp32-class, never one TF32 pass: 3xTF32 at d <= 128, fp32
+//     FFMA above.
 //
-// The forward at d <= 128 (blk_fwd_tc_kernel) runs on the tensor cores with
-// `mma.sync`, on the tiles of flash_attention.cu's flash_fwd
-// (attention_mma.cuh: 3xTF32 m16n8k8 for fp32 'high'/'highest', the warp
-// splitting the fragments it loads and banking its sum in o every FOLD
-// sub-tiles; bf16 m16n8k16 with fp32 sums for 'default' and bf16
-// operands), P in registers, exp taken as exp2 with log2(e) folded in, the
-// softmax state of a row in one quad of lanes. Its q-tile follows the
-// plan's blocks, since two q-blocks list different kv blocks: four warps,
-// 16 rows each, own a 64-row tile of one q-block; in the bf16 tiers eight
-// warps own a 128-row tile where block_q is a multiple of 128 (3xTF32 at
-// eight warps spills at two blocks an SM and is slower at one). A tile
-// partly past its q-block (blocks of 32, s off the block) leaves its last
-// warps idle. The block reads its list once as the walk arrives at each
-// slot and streams the sub-tiles by cp.async (16-byte aligned operands
-// with d a whole number of 16-byte chunks; other d load synchronously), K
-// and V apart: V of sub-tile j comes in while its scores and softmax are
-// computed, K (and the mask rows) of sub-tile j + 1 while p.v of j is,
-// across slot boundaries too; two barriers a sub-tile. Two full K/V stages
-// would hold a four-warp block to two blocks an SM at d = 64 (87 KB of
-// fp32), eight warps; one K and one V buffer (52 KB) let three (3xTF32,
-// 149 registers) or four (bf16 products, 128) run, since the k-tile loop
-// of flash_fwd waits on latency more than it issues. A plan
-// without tile masks takes the mask-free softmax on every sub-tile wholly
-// inside its block and s. A masked plan stages the q-tile's mask rows
-// against the sub-tile's keys (64 x 64 bytes at block 64) beside K, and
-// each lane reads the two bytes at each of its C-fragment positions (rows
-// g, g + 8; keys 2t, 2t + 1 of each n8 tile) from there: no mask byte is
-// read from device memory per score. The forward at d > 128
-// (blk_fwd_wide_kernel) and the two backward kernels stay on FFMA.
+// At d <= 128 all three kernels run on the tensor cores with `mma.sync`, on
+// the tiles of flash_attention.cu (attention_mma.cuh: 3xTF32 m16n8k8 for
+// fp32 'high'/'highest', bf16 m16n8k16 with fp32 sums for 'default' and
+// bf16 operands; a warp's `score` C[16, 8 NN] += A . B^T and `pv` O[16, d]
+// += C . B with the score's C fragment as its A fragment, so P and dS never
+// leave the registers; the 3xTF32 sums banked into the output every 512
+// streamed rows, FOLD). Each block's tile follows the plan's blocks, since
+// two q-blocks list different kv blocks: four warps, 16 rows each, own a
+// 64-row tile of one plan block (a tile partly past its block or s, as
+// with blocks of 32 or s off the block, leaves its last warps idle), read
+// their block's list themselves and walk, in list order, every listed
+// block's sub-tiles (Walk), streaming them by cp.async (16-byte aligned
+// operands with d a whole number of 16-byte chunks; other d load
+// synchronously). A plan without tile masks takes the mask-free path on
+// every sub-tile wholly inside its block and s; a masked plan stages the
+// mask rows of each sub-tile beside it (rows of LDM bytes, so a warp's
+// eight rows fall on distinct banks) and each lane reads the bytes at its
+// C-fragment positions from there: no mask byte is read from device memory
+// per score.
+//   - blk_flash_fwd (blk_fwd_tc_kernel): q-tiles, 64-key sub-tiles, the
+//     online softmax in registers (exp taken as exp2 with log2(e) folded
+//     in), in the bf16 tiers eight warps on a 128-row tile where block_q is
+//     a multiple of 128 (3xTF32 at eight warps spills at two blocks an SM
+//     and is slower at one). One K and one V buffer: V of sub-tile j comes
+//     in while its scores and softmax are computed, K (and the mask rows) of
+//     sub-tile j + 1 while p.v of j is, across slot boundaries too; two
+//     barriers a sub-tile. Two full K/V stages would hold a four-warp block
+//     to two blocks an SM at d = 64 (87 KB of fp32); one K and one V buffer
+//     (52 KB) let three (3xTF32, 149 registers) or four (bf16, 128) run.
+//   - blk_flash_dq (tcbwd::blk_dq_tc_kernel): q-tiles with q and do
+//     staged, lse and delta of the warp's rows in registers; K and V of the
+//     listed blocks stream in W-key sub-tiles in two stages (with the mask
+//     rows of the q-tile against them), the next sub-tile landing across
+//     slot boundaries while this one computes, one barrier a sub-tile. S =
+//     q k^T and dP = do v^T, then P = exp2(S sm_scale log2e - lse log2e) and
+//     dS = P (dP - delta) sm_scale in registers (as blk_fwd_tc_kernel takes
+//     s, so p matches the lse it stored), then dq += dS k.
+//   - blk_flash_dkv (tcbwd::blk_dkv_tc_kernel): 64-key tiles inside one
+//     plan kv block with k and v staged; q and do of the listed q-blocks
+//     stream in W-query sub-tiles with their lse and delta (read into
+//     registers as the sub-tile is staged, stored beside it once its stage
+//     is free) and the mask rows of the forward's tile at q_slot, query-major
+//     as stored: the C fragment is keys x queries, so lane (g, t) reads rows
+//     8 nt + 2t + c, columns g, g + 8 of them (rows of 80 bytes: the four
+//     rows a load touches fall on distinct banks). S^T = k q^T and dP^T = v
+//     do^T, P^T and dS^T with lse and delta indexed by the C fragment's
+//     column, then dv += P^T do and dk += dS^T q.
+//   The streamed sub-tiles (tcbwd::Layout) are W = 32 rows on fp32
+//   operands and at d <= 128, 64 on bf16 operands at d <= 64: at d = 64
+//   every instance but 3xTF32 dk/dv runs three blocks (twelve warps) an SM,
+//   and 3xTF32 dk/dv splits its streamed tiles into tf32 hi and lo once, as
+//   they land (PRE), within two: on an H100 at 'bigbird' 512 that ran
+//   faster than a third block without the split, and than 64-row
+//   sub-tiles with the split (one block an SM) or without it (two).
+// No atomics: every output element is summed by one thread in a fixed
+// order, so runs repeat bit for bit.
 //
 // What bounds them. At BERT-base 'bigbird' (bh = 96, s = 512, block 64, 48
-// of 64 tiles covered) the forward does 4 bh T 64^2 d = 4.8 GFLOP: 0.029
-// ms on 3xTF32 (3 x 4.8 GFLOP at 495 TFLOP/s tf32), against ~50 MB of
+// of 64 tiles covered) the forward does 4 bh T 64^2 d = 4.8 GFLOP: 0.029 ms
+// on 3xTF32 (3 x 4.8 GFLOP at 495 TFLOP/s tf32), against ~50 MB of
 // compulsory traffic (~0.015 ms at 3.35 TB/s); dq does 6 and dk/dv 8 per
-// covered entry and d, on FFMA (~67 TFLOP/s): 0.11 and 0.14 ms. On an
-// H100 SXM at 700 W the forward takes 0.171 ms in 3xTF32 (28 TFLOP/s,
-// 0.17 of its bound; the FFMA forward took 0.278), 0.075 in 'default' and
-// 0.054 on bf16 operands: latency-bound, as flash_fwd is, with three
-// 3xTF32 blocks an SM. The backward kernels reuse the flash kernels'
-// register tiling
-// (attention_tiles.cuh): 4x4 scores a thread, row reductions in a
-// half-warp, the tile masks read from device memory (L1-cached) beside
-// each score.
+// covered entry and d: 0.044 and 0.059 ms. On an H100 SXM at 700 W the
+// forward takes 0.171 ms in 3xTF32 (the FFMA forward took 0.278), 0.075 in
+// 'default' and 0.054 on bf16 operands; dq 0.216 and dk/dv 0.304 in 3xTF32
+// (0.20 and 0.19 of their bounds; the FFMA kernels took 0.340 and 0.447),
+// the pair 0.93x SDPA's masked autograd backward, 0.100 and 0.137 in
+// 'default', 0.065 and 0.087 on bf16 operands (behind a sleep). Like
+// flash's, the loops wait on latency more than they issue: four warps of
+// mma.sync, three tf32 passes a product, the 3xTF32 splits and the shared
+// loads of B; a tile's walk is short (six listed blocks of 64 at 'bigbird'
+// 512), so staging the A tiles costs more than in flash.
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 #include "attention_tiles.cuh"
@@ -103,12 +134,120 @@ __device__ __forceinline__ int sub_end(int b0, int bsize, int r0, int s) {
   return min(min(b0 + bsize, s), r0 + 64);
 }
 
+// -- the walk and the tile masks of the tensor-core kernels -------------------
+
+// A block's walk over its list: the W-row sub-tile at r0 of the listed
+// block that starts at b0 (list slot `slot`), in list order; slot == cnt
+// ends it. settle() moves past sub-tiles that lie past their block or s,
+// reading each list entry once as it arrives.
+template <int W>
+struct Walk {
+  const int* list;
+  int cnt, bsize, s;
+  struct Pos {
+    int slot, b0, r0;
+  };
+  __device__ __forceinline__ void settle(Pos& p) const {
+    while (p.slot < cnt && p.r0 >= min(p.b0 + bsize, s)) {
+      if (++p.slot < cnt) p.b0 = p.r0 = list[p.slot] * bsize;
+    }
+  }
+  __device__ __forceinline__ Pos first() const {
+    Pos p{0, 0, 0};
+    if (cnt > 0) p.b0 = p.r0 = list[0] * bsize;
+    settle(p);
+    return p;
+  }
+  __device__ __forceinline__ Pos next(const Pos& c) const {
+    Pos p{c.slot, c.b0, c.r0 + W};
+    settle(p);
+    return p;
+  }
+  // the end of the sub-tile's rows: its block and s cut it
+  __device__ __forceinline__ int end(const Pos& p) const {
+    return min(min(p.b0 + bsize, s), p.r0 + W);
+  }
+};
+
+// Bytes a staged mask row of COLS columns: COLS + 16, so the eight rows a
+// warp's lanes read at once lie on distinct banks (as rows g = 0..7 in the
+// forward and dq, as rows 2t + c, t = 0..3, in dk/dv), 16-byte aligned.
+template <int COLS>
+constexpr int LDM = COLS + 16;
+
+// Rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of one (bq, bk) tile
+// mask into Ms, rows of LDM<COLS> bytes, by NT threads; rows past bq and
+// columns past bk are 0. async: 16-byte cp.async copies (bk a multiple of
+// 16, the masks 16-byte aligned); else one byte a load.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void stage_mask(int8_t* Ms, const int8_t* __restrict__ tile, int r0,
+                                           int c0, int bq, int bk, bool async) {
+  constexpr int LD = LDM<COLS>;
+  if (async) {
+    constexpr int C = COLS / 16;
+    for (int e = threadIdx.x; e < ROWS * C; e += NT) {
+      const int r = e / C, c = 16 * (e % C);
+      const bool in = r0 + r < bq && c0 + c < bk;
+      mma16::cp_async16(Ms + r * LD + c,
+                        in ? tile + static_cast<size_t>(r0 + r) * bk + c0 + c : tile, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += NT) {
+      const int r = e / COLS, c = e % COLS;
+      Ms[r * LD + c] =
+          r0 + r < bq && c0 + c < bk ? tile[static_cast<size_t>(r0 + r) * bk + c0 + c] : 0;
+    }
+  }
+}
+
+// The visible columns of a lane's two rows (warp rows g, g + 8 from row r
+// of the staged mask, NN n8 tiles of columns) in the C fragment's order:
+// bit 2 nt + c of vis[h] is column col0 + 8 nt + c (col0 = the sub-tile's
+// first column + 2t), set when it lies below lim and its mask byte is set.
+// Two bytes a load, none from global memory. The forward and dq: rows are
+// queries, columns keys.
+template <int NN>
+__device__ __forceinline__ void mask_bits(uint32_t (&vis)[2], const int8_t* Ms, int r, int t,
+                                          int col0, int lim) {
+  constexpr int LD = LDM<8 * NN>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int8_t* mr = Ms + (r + 8 * h) * LD + 2 * t;
+    uint32_t bits = 0;
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt) {
+      const uint32_t w = *reinterpret_cast<const uint16_t*>(mr + 8 * nt);
+      if ((w & 0xffu) != 0 && col0 + 8 * nt < lim) bits |= 1u << (2 * nt);
+      if ((w >> 8) != 0 && col0 + 8 * nt + 1 < lim) bits |= 2u << (2 * nt);
+    }
+    vis[h] = bits;
+  }
+}
+
+// The same where the warp's rows are keys and the columns queries (dk/dv):
+// the staged mask stays query-major (W query rows of LDM<KT> bytes, one
+// column a key of the block's key tile), so lane (g, t) reads the bytes of
+// keys r + g and r + g + 8 in rows 8 nt + 2t + c, one byte a load.
+template <int NN, int KT>
+__device__ __forceinline__ void mask_bits_t(uint32_t (&vis)[2], const int8_t* Ms, int r, int g,
+                                            int t, int col0, int lim) {
+  constexpr int LD = LDM<KT>;
+  vis[0] = vis[1] = 0;
+#pragma unroll
+  for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int8_t* mk = Ms + (8 * nt + 2 * t + c) * LD + r + g;
+      const bool in = col0 + 8 * nt + c < lim;
+      if (in && mk[0] != 0) vis[0] |= 1u << (2 * nt + c);
+      if (in && mk[8] != 0) vis[1] |= 1u << (2 * nt + c);
+    }
+}
+
 // -- blk_flash_fwd at d <= 128 on the tensor cores ----------------------------
 namespace tcfwd {
 
-using mma16::BK;          // keys a sub-tile
-constexpr int LDM = 80;   // bytes a staged mask row: 64 + 16, so the eight rows
-                          // a warp's lanes read lie on distinct banks
+using mma16::BK;  // keys a sub-tile
 
 // Shared memory of an instance whose q-tile has QT rows: the q-tile, one K
 // and one V sub-tile, and for a masked plan the mask rows of the q-tile
@@ -120,54 +259,9 @@ struct Layout {
   static constexpr size_t k_bytes = sizeof(T) * BK * TR::LDK;
   static constexpr size_t v_bytes = sizeof(T) * BK * TR::LDV;
   static constexpr size_t bytes(bool masked) {
-    return q_bytes + k_bytes + v_bytes + (masked ? static_cast<size_t>(QT) * LDM : 0);
+    return q_bytes + k_bytes + v_bytes + (masked ? static_cast<size_t>(QT) * LDM<BK> : 0);
   }
 };
-
-// Rows [r0, r0 + QT) and columns [c0, c0 + BK) of one (bq, bk) tile mask
-// into Ms, rows of LDM bytes, by NT threads; rows past bq and columns past
-// bk are 0. async: 16-byte cp.async copies (bk a multiple of 16, the masks
-// 16-byte aligned); else one byte a load.
-template <int QT, int NT>
-__device__ __forceinline__ void stage_mask(int8_t* Ms, const int8_t* __restrict__ tile, int r0,
-                                           int c0, int bq, int bk, bool async) {
-  if (async) {
-    constexpr int C = BK / 16;
-    for (int e = threadIdx.x; e < QT * C; e += NT) {
-      const int r = e / C, c = 16 * (e % C);
-      const bool in = r0 + r < bq && c0 + c < bk;
-      mma16::cp_async16(Ms + r * LDM + c,
-                        in ? tile + static_cast<size_t>(r0 + r) * bk + c0 + c : tile, in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < QT * BK; e += NT) {
-      const int r = e / BK, c = e % BK;
-      Ms[r * LDM + c] =
-          r0 + r < bq && c0 + c < bk ? tile[static_cast<size_t>(r0 + r) * bk + c0 + c] : 0;
-    }
-  }
-}
-
-// The visible keys of a lane's two rows (warp rows g, g + 8 from row r of
-// the staged mask) in the C fragment's order: bit 2 nt + c of vis[h] is key
-// key0 + 8 nt + c (key0 = the sub-tile's first key + 2t), set when it lies
-// below lim and its mask byte is set. Two bytes a load, none from global
-// memory.
-__device__ __forceinline__ void mask_bits(uint32_t (&vis)[2], const int8_t* Ms, int r, int t,
-                                          int key0, int lim) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int8_t* mr = Ms + (r + 8 * h) * LDM + 2 * t;
-    uint32_t bits = 0;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const uint32_t w = *reinterpret_cast<const uint16_t*>(mr + 8 * nt);
-      if ((w & 0xffu) != 0 && key0 + 8 * nt < lim) bits |= 1u << (2 * nt);
-      if ((w >> 8) != 0 && key0 + 8 * nt + 1 < lim) bits |= 2u << (2 * nt);
-    }
-    vis[h] = bits;
-  }
-}
 
 // Blocks an SM an instance's launch bounds ask for. At d = 64 the bf16
 // tiers fit 128 registers a thread: four four-warp or two eight-warp
@@ -217,36 +311,19 @@ __global__ void __launch_bounds__(32 * NW, min_blocks<DMAX, ROUND, NW>())
   const int kd = min(DMAX, (d + 15) / 16 * 16);  // columns the products run over
   const T* kb = k + base;
   const T* vb = v + base;
-  const int* list = kv_list + static_cast<size_t>(i) * L;
-  const int cnt = kv_cnt[i];
-
-  // The walk: the 64-key sub-tile at k0 of the listed block starting at kb0
-  // (list slot `slot`), in list order; slot == cnt ends it. settle() moves
-  // past sub-tiles that lie past the block or s, reading each list entry
-  // once as it arrives.
-  struct Pos {
-    int slot, kb0, k0;
-  };
-  auto settle = [&](Pos& p) {
-    while (p.slot < cnt && p.k0 >= min(p.kb0 + bk, s)) {
-      if (++p.slot < cnt) p.kb0 = p.k0 = list[p.slot] * bk;
-    }
-  };
-  auto k_end = [&](const Pos& p) { return min(min(p.kb0 + bk, s), p.k0 + BK); };
+  const Walk<BK> walk{kv_list + static_cast<size_t>(i) * L, kv_cnt[i], bk, s};
   // K and the mask rows of a sub-tile; rows past its block or s are 0
-  auto stage_k = [&](const Pos& p) {
-    mma16::stage_rows<NT, DMAX, TR::LDK>(Ks, kb, p.k0, k_end(p), d, async_kv);
+  auto stage_k = [&](const Walk<BK>::Pos& p) {
+    mma16::stage_rows<NT, DMAX, TR::LDK>(Ks, kb, p.r0, walk.end(p), d, async_kv);
     if (tmask != nullptr) {
-      stage_mask<QT, NT>(Ms, tmask + (static_cast<size_t>(i) * L + p.slot) * bq * bk, q0 - qb0,
-                         p.k0 - p.kb0, bq, bk, async_mask);
+      stage_mask<QT, BK, NT>(Ms, tmask + (static_cast<size_t>(i) * L + p.slot) * bq * bk,
+                             q0 - qb0, p.r0 - p.b0, bq, bk, async_mask);
     }
     mma16::cp_async_commit();
   };
 
-  Pos cur{0, 0, 0};
-  if (cnt > 0) cur.kb0 = cur.k0 = list[0] * bk;
-  settle(cur);
-  if (cur.slot < cnt) stage_k(cur);  // in flight while q is loaded
+  auto cur = walk.first();
+  if (cur.slot < walk.cnt) stage_k(cur);  // in flight while q is loaded
   mma16::load_q<QT, NT, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, 1.f);
   float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
   float mb[2] = {attn::NEG, attn::NEG};  // the bank's max (3xTF32)
@@ -259,12 +336,12 @@ __global__ void __launch_bounds__(32 * NW, min_blocks<DMAX, ROUND, NW>())
 #pragma unroll
     for (int c = 0; c < 4; ++c) oacc[nt][c] = 0.f;
 
-  while (cur.slot < cnt) {
+  while (cur.slot < walk.cnt) {
     mma16::cp_async_wait_all();
     // K and the mask rows of `cur` are staged and visible to every warp;
     // every reader of V (the last sub-tile's p.v) is done
     __syncthreads();
-    mma16::stage_rows<NT, DMAX, TR::LDV>(Vs, vb, cur.k0, k_end(cur), d, async_kv);
+    mma16::stage_rows<NT, DMAX, TR::LDV>(Vs, vb, cur.r0, walk.end(cur), d, async_kv);
     mma16::cp_async_commit();  // V streams in while the scores are computed
     float sacc[BK / 8][4];
 #pragma unroll
@@ -273,35 +350,31 @@ __global__ void __launch_bounds__(32 * NW, min_blocks<DMAX, ROUND, NW>())
       for (int c = 0; c < 4; ++c) sacc[nt][c] = 0.f;
     if (!idle) {
       TR::score(sacc, Qs, Ks, kd, wr0, lane);
-      const int lim = k_end(cur);
+      const int lim = walk.end(cur);
       if (tmask != nullptr) {
         uint32_t vis[2];
-        mask_bits(vis, Ms, wr0 + g, t, cur.k0 + 2 * t, lim);
+        mask_bits<BK / 8>(vis, Ms, wr0 + g, t, cur.r0 + 2 * t, lim);
         mma16::softmax_tile_if<true>(sacc, oacc, m, l, sm_scale, [&](int h, int nt, int c) {
           return ((vis[h] >> (2 * nt + c)) & 1u) != 0;
         });
-      } else if (lim == cur.k0 + BK) {  // every key of the sub-tile is visible
+      } else if (lim == cur.r0 + BK) {  // every key of the sub-tile is visible
         mma16::softmax_tile<false>(sacc, oacc, m, l, sm_scale, 0, {lim, lim});
       } else {
-        mma16::softmax_tile<true>(sacc, oacc, m, l, sm_scale, cur.k0 + 2 * t, {lim, lim});
+        mma16::softmax_tile<true>(sacc, oacc, m, l, sm_scale, cur.r0 + 2 * t, {lim, lim});
       }
     }
     mma16::cp_async_wait_all();
     // V of `cur` is staged and visible; every reader of K and the mask rows
     // is done, so the next sub-tile's stream in while p.v is computed
     __syncthreads();
-    const Pos nxt = [&] {
-      Pos p{cur.slot, cur.kb0, cur.k0 + BK};
-      settle(p);
-      return p;
-    }();
-    if (nxt.slot < cnt) stage_k(nxt);
+    const auto nxt = walk.next(cur);
+    if (nxt.slot < walk.cnt) stage_k(nxt);
     if (!idle) {
       TR::pv(oacc, sacc, Vs, kd, lane);
       // 3xTF32: every FOLD sub-tiles the warp moves its sum into o (the
       // bank), so the tensor cores' own accumulation never adds more
       if constexpr (!ROUND) {
-        if (++since == mma16::FOLD && nxt.slot < cnt) {
+        if (++since == mma16::FOLD && nxt.slot < walk.cnt) {
           mma16::bank(ob, oacc, m, mb, banked, q0 + wr0 + g, q_end, d, t);
           since = 0;
           banked = true;
@@ -359,6 +432,406 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
 }
 
 }  // namespace tcfwd
+
+// -- blk_flash_dq and blk_flash_dkv at d <= 128 on the tensor cores -----------
+namespace tcbwd {
+
+constexpr int NW = 4, NT = 32 * NW, RT = 16 * NW;  // warps, threads, rows a block
+
+// The shared-memory layout of an instance (mma16::BwdLayout) and the rows W
+// of its streamed sub-tiles: 64 on bf16 operands at d <= 64, else 32. The
+// fp32 operands' loops wait on latency more than they issue, and 32 rows
+// let dq and 'default' dk/dv run three blocks an SM, and 3xTF32 dk/dv split
+// its streamed tiles at staging (SPLIT) within two.
+template <bool ROUND, typename T, int DMAX, bool SPLIT>
+using Layout = mma16::BwdLayout<ROUND, T, DMAX, RT, SPLIT,
+                                (std::is_same_v<T, __nv_bfloat16> && DMAX <= 64) ? 64 : 32>;
+
+// Bytes a stage of mask rows (dq: the q-tile's RT rows against the W keys of
+// a sub-tile; dk/dv: the W queries of a sub-tile against the RT keys), and
+// the instance's shared memory: the layout, then for a masked plan two
+// stages of mask rows.
+template <typename LY, bool DKV>
+__host__ __device__ constexpr size_t mask_stage() {
+  return DKV ? static_cast<size_t>(LY::W) * LDM<RT> : static_cast<size_t>(RT) * LDM<LY::W>;
+}
+
+template <typename LY, bool DKV>
+__host__ __device__ constexpr size_t smem_bytes(bool masked) {
+  return LY::bytes + (masked ? 2 * mask_stage<LY, DKV>() : 0);
+}
+
+// Blocks an SM the launch bounds ask for: as many as the SM's 228 KB of
+// shared memory holds at the masked layout, at most three at d <= 64 (170
+// registers a thread) and two at d <= 128 (255; dk/dv's accumulators alone
+// take 128).
+template <typename LY, bool DKV, int DMAX>
+__host__ __device__ constexpr int min_blocks() {
+  const size_t per = smem_bytes<LY, DKV>(true) + 1024;
+  const int n = static_cast<int>((228 * 1024) / per), most = DMAX <= 64 ? 3 : 2;
+  return n < 1 ? 1 : n > most ? most : n;
+}
+
+// dq = dS . k, dS = P (dP - delta) sm_scale, P = exp(q k^T sm_scale - lse),
+// dP = do v^T: four warps own an RT-row q-tile inside one plan q-block, 16
+// rows a warp, and walk the listed kv blocks' W-key sub-tiles in list
+// order, K and V (and the mask rows) streaming in two stages.
+template <int DMAX, bool ROUND, typename T, typename LY>
+__global__ void __launch_bounds__(NT, min_blocks<LY, false, DMAX>())
+    blk_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq,
+                     const int* __restrict__ kv_list, const int* __restrict__ kv_cnt,
+                     const int8_t* __restrict__ tmask, int s, int d, int bq, int bk, int L,
+                     float sm_scale, int async_kv, int async_mask) {
+  using TR = mma16::Tier<ROUND, T, DMAX>;
+  using TQ = typename TR::TQ;
+  constexpr int W = LY::W, NN = W / 8, NO = DMAX / 8, LDB = LY::LDB;
+  constexpr size_t MS = mask_stage<LY, false>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Qs = reinterpret_cast<TQ*>(smem);
+  TQ* dOs = reinterpret_cast<TQ*>(smem + LY::a_bytes);
+  T* KV = reinterpret_cast<T*>(smem + LY::b_off);
+  int8_t* MK = reinterpret_cast<int8_t*>(smem + LY::bytes);
+
+  const int bh = blockIdx.y;
+  const int tiles_q = (bq + RT - 1) / RT;
+  const int i = blockIdx.x / tiles_q;  // plan q-block
+  const int qb0 = i * bq;
+  const int q0 = qb0 + (blockIdx.x % tiles_q) * RT;
+  const int q_end = min(min(qb0 + bq, s), q0 + RT);
+  if (q0 >= q_end) return;  // a row tile past s (uniform over the block)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * warp;
+  // a warp whose rows all lie past the q-block or s stages and waits with
+  // the others and computes nothing
+  const bool idle = q0 + wr0 >= q_end;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = min(DMAX, (d + 15) / 16 * 16);  // columns the products run over
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const Walk<W> walk{kv_list + static_cast<size_t>(i) * L, kv_cnt[i], bk, s};
+
+  // K, V and the mask rows of sub-tile p into stage n % 2; rows past its
+  // block or s are 0
+  auto stage = [&](const typename Walk<W>::Pos& p, int n) {
+    T* dst = KV + (n % 2) * LY::stage;
+    const int end = walk.end(p);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst, kb, p.r0, end, d, async_kv);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst + W * LDB, vb, p.r0, end, d, async_kv);
+    if (tmask != nullptr) {
+      stage_mask<RT, W, NT>(MK + (n % 2) * MS,
+                            tmask + (static_cast<size_t>(i) * L + p.slot) * bq * bk, q0 - qb0,
+                            p.r0 - p.b0, bq, bk, async_mask);
+    }
+    mma16::cp_async_commit();
+  };
+  auto cur = walk.first();
+  if (cur.slot < walk.cnt) stage(cur, 0);  // in flight while q and do are loaded
+  mma16::load_q<RT, NT, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, 1.f);
+  mma16::load_q<RT, NT, DMAX, TR::LDQ>(dOs, dout + base, q0, s, d, 1.f);
+  // rows g and g + 8 of the warp: lse (log2 domain) and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr0 + g + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * s + row;
+    lse2[h] = row < q_end ? lse[at] * mma16::LOG2E : 0.f;
+    dlt[h] = row < q_end ? delta[at] : 0.f;
+  }
+  auto stat = [&](int h, int, int, float& l2, float& dl) {
+    l2 = lse2[h];
+    dl = dlt[h];
+  };
+  int since = 0;  // sub-tiles summed since the last fold (3xTF32)
+  bool banked = false;
+  T* dqb = dq + base;
+  float acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+
+  for (int n = 0; cur.slot < walk.cnt; ++n) {
+    T* Kb = KV + (n % 2) * LY::stage;
+    T* Vb = Kb + W * LDB;
+    const int8_t* Ms = MK + (n % 2) * MS;
+    mma16::cp_async_wait_all();
+    LY::template split_staged<NT>(Kb, Vb, async_kv);
+    // sub-tile n is staged and visible to every warp; every reader of the
+    // other stage (sub-tile n - 1) is done, so sub-tile n + 1 may stream
+    // into it, across slot boundaries too
+    __syncthreads();
+    const auto nxt = walk.next(cur);
+    if (nxt.slot < walk.cnt) stage(nxt, n + 1);
+    if (!idle) {
+      float sp[NN][4], dp[NN][4];
+#pragma unroll
+      for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+      LY::score(sp, Qs, Kb, kd, wr0, lane);
+      LY::score(dp, dOs, Vb, kd, wr0, lane);
+      const int lim = walk.end(cur);
+      if (tmask != nullptr) {
+        uint32_t vis[2];
+        mask_bits<NN>(vis, Ms, wr0 + g, t, cur.r0 + 2 * t, lim);
+        mma16::probs_ds<true>(
+            sp, dp, stat,
+            [&](int h, int nt, int c) { return ((vis[h] >> (2 * nt + c)) & 1u) != 0; },
+            sm_scale, sm_scale);
+      } else if (lim == cur.r0 + W) {  // every key of the sub-tile is visible
+        mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; }, sm_scale,
+                               sm_scale);
+      } else {
+        const int key0 = cur.r0 + 2 * t;
+        mma16::probs_ds<true>(
+            sp, dp, stat, [&](int, int nt, int c) { return key0 + 8 * nt + c < lim; }, sm_scale,
+            sm_scale);
+      }
+      LY::pv(acc, dp, Kb, kd, lane);
+      // 3xTF32: every FOLD sub-tiles the warp moves its sum into dq (the
+      // bank), so the tensor cores' own accumulation never adds more
+      if constexpr (!ROUND) {
+        if (++since == LY::FOLD && nxt.slot < walk.cnt) {
+          mma16::bank(dqb, acc, banked, q0 + wr0 + g, q_end, d, t);
+          since = 0;
+          banked = true;
+        }
+      }
+    }
+    cur = nxt;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + wr0 + g + 8 * h;
+    if (qp >= q_end) continue;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * nt + 2 * t + c;
+        if (col >= d) continue;
+        T* p = &dqb[static_cast<size_t>(qp) * d + col];
+        float x = acc[nt][2 * h + c];
+        if constexpr (!ROUND) {
+          if (banked) x = fmaf(*p, 1.f, x);
+        }
+        attn::store(p, x);
+      }
+  }
+}
+
+// dv = P^T . do and dk = dS^T . q: four warps own an RT-key tile inside one
+// plan kv block, 16 keys a warp, and walk the listed q-blocks' W-query
+// sub-tiles in list order, q and do (with their lse and delta, and the mask
+// rows of the forward's tile at q_slot) streaming in two stages.
+template <int DMAX, bool ROUND, typename T, typename LY>
+__global__ void __launch_bounds__(NT, min_blocks<LY, true, DMAX>())
+    blk_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      const int* __restrict__ q_list, const int* __restrict__ q_cnt,
+                      const int* __restrict__ q_slot, const int8_t* __restrict__ tmask, int s,
+                      int d, int bq, int bk, int Lt, float sm_scale, int async_q,
+                      int async_mask) {
+  using TR = mma16::Tier<ROUND, T, DMAX>;
+  using TQ = typename TR::TQ;
+  constexpr int W = LY::W, NN = W / 8, NO = DMAX / 8, LDB = LY::LDB;
+  constexpr size_t MS = mask_stage<LY, true>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Ks = reinterpret_cast<TQ*>(smem);
+  TQ* Vs = reinterpret_cast<TQ*>(smem + LY::a_bytes);
+  T* QD = reinterpret_cast<T*>(smem + LY::b_off);
+  float* ST = reinterpret_cast<float*>(smem + LY::stat_off);  // stage i: lse2 then delta
+  int8_t* MK = reinterpret_cast<int8_t*>(smem + LY::bytes);
+
+  const int bh = blockIdx.y;
+  const int tiles_k = (bk + RT - 1) / RT;
+  const int j = blockIdx.x / tiles_k;  // plan kv block
+  const int kb0 = j * bk;
+  const int k0 = kb0 + (blockIdx.x % tiles_k) * RT;
+  const int k_end = min(min(kb0 + bk, s), k0 + RT);
+  if (k0 >= k_end) return;  // keys past s: nothing to write
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * warp;
+  const bool idle = k0 + wr0 >= k_end;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const int kd = min(DMAX, (d + 15) / 16 * 16);
+  const T* qb = q + base;
+  const T* ob = dout + base;
+  const float* lseb = lse + static_cast<size_t>(bh) * s;
+  const float* dlb = delta + static_cast<size_t>(bh) * s;
+  const Walk<W> walk{q_list + static_cast<size_t>(j) * Lt, q_cnt[j], bq, s};
+
+  mma16::RowStats<W> stat_next;  // the lse and delta of the sub-tile being staged
+  // q, do and the mask rows of sub-tile p into stage n % 2; rows past its
+  // block or s are 0
+  auto stage = [&](const typename Walk<W>::Pos& p, int n) {
+    T* dst = QD + (n % 2) * LY::stage;
+    const int end = walk.end(p);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst, qb, p.r0, end, d, async_q);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst + W * LDB, ob, p.r0, end, d, async_q);
+    if (tmask != nullptr) {
+      // the forward stored this (q-block, kv-block) tile's mask at q_slot
+      const size_t tile = q_slot[static_cast<size_t>(j) * Lt + p.slot];
+      stage_mask<W, RT, NT>(MK + (n % 2) * MS, tmask + tile * bq * bk, p.r0 - p.b0, k0 - kb0,
+                            bq, bk, async_mask);
+    }
+    mma16::cp_async_commit();
+    stat_next.load(lseb, dlb, p.r0, end);
+  };
+  auto cur = walk.first();
+  if (cur.slot < walk.cnt) {
+    stage(cur, 0);  // in flight while k and v are loaded
+    stat_next.store(ST);
+  }
+  mma16::load_q<RT, NT, DMAX, TR::LDQ>(Ks, k + base, k0, s, d, 1.f);
+  mma16::load_q<RT, NT, DMAX, TR::LDQ>(Vs, v + base, k0, s, d, 1.f);
+  int since = 0;
+  bool banked = false;
+  T* dkb = dk + base;
+  T* dvb = dv + base;
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[nt][c] = acc_v[nt][c] = 0.f;
+
+  for (int n = 0; cur.slot < walk.cnt; ++n) {
+    T* Qb = QD + (n % 2) * LY::stage;
+    T* dOb = Qb + W * LDB;
+    const int8_t* Ms = MK + (n % 2) * MS;
+    const float* st = ST + (n % 2) * 2 * W;
+    mma16::cp_async_wait_all();
+    LY::template split_staged<NT>(Qb, dOb, async_q);
+    // sub-tile n is staged and visible to every warp with its lse and
+    // delta; every reader of the other stage (sub-tile n - 1) is done
+    __syncthreads();
+    const auto nxt = walk.next(cur);
+    if (nxt.slot < walk.cnt) stage(nxt, n + 1);
+    if (!idle) {
+      float sp[NN][4], dp[NN][4];
+#pragma unroll
+      for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+      LY::score(sp, Ks, Qb, kd, wr0, lane);
+      LY::score(dp, Vs, dOb, kd, wr0, lane);
+      // the statistics of the C fragment's column (query) 8 nt + 2t + c
+      auto stat = [&](int, int nt, int c, float& l2, float& dl) {
+        l2 = st[8 * nt + 2 * t + c];
+        dl = st[W + 8 * nt + 2 * t + c];
+      };
+      const int lim = walk.end(cur);
+      if (tmask != nullptr) {
+        uint32_t vis[2];
+        mask_bits_t<NN, RT>(vis, Ms, wr0, g, t, cur.r0 + 2 * t, lim);
+        mma16::probs_ds<true>(
+            sp, dp, stat,
+            [&](int h, int nt, int c) { return ((vis[h] >> (2 * nt + c)) & 1u) != 0; },
+            sm_scale, sm_scale);
+      } else if (lim == cur.r0 + W) {  // every query of the sub-tile sees every key
+        mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; }, sm_scale,
+                               sm_scale);
+      } else {
+        const int qj0 = cur.r0 + 2 * t;
+        mma16::probs_ds<true>(
+            sp, dp, stat, [&](int, int nt, int c) { return qj0 + 8 * nt + c < lim; }, sm_scale,
+            sm_scale);
+      }
+      LY::pv(acc_v, sp, dOb, kd, lane);
+      LY::pv(acc_k, dp, Qb, kd, lane);
+      if constexpr (!ROUND) {
+        if (++since == LY::FOLD && nxt.slot < walk.cnt) {
+          mma16::bank(dkb, acc_k, banked, k0 + wr0 + g, k_end, d, t);
+          mma16::bank(dvb, acc_v, banked, k0 + wr0 + g, k_end, d, t);
+          since = 0;
+          banked = true;
+        }
+      }
+    }
+    if (nxt.slot < walk.cnt) stat_next.store(ST + ((n + 1) % 2) * 2 * W);
+    cur = nxt;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kp = k0 + wr0 + g + 8 * h;
+    if (kp >= k_end) continue;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * nt + 2 * t + c;
+        if (col >= d) continue;
+        const size_t at = static_cast<size_t>(kp) * d + col;
+        float xk = acc_k[nt][2 * h + c], xv = acc_v[nt][2 * h + c];
+        if constexpr (!ROUND) {
+          if (banked) {
+            xk = fmaf(dkb[at], 1.f, xk);
+            xv = fmaf(dvb[at], 1.f, xv);
+          }
+        }
+        attn::store(&dkb[at], xk);
+        attn::store(&dvb[at], xv);
+      }
+  }
+}
+
+// 16-byte copies need d a whole number of 16-byte chunks and 16-byte
+// aligned operands; the masks bk a multiple of 16 and a 16-byte aligned base
+template <typename T>
+bool async_ok(int d, const void* a, const void* b) {
+  return d % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+bool async_mask_ok(const int8_t* tmask, int bk) {
+  return tmask != nullptr && bk % 16 == 0 && reinterpret_cast<uintptr_t>(tmask) % 16 == 0;
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, NT, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DMAX, bool ROUND, typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, const int* kv_list, const int* kv_cnt,
+              const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq, int L,
+              float sm_scale, cudaStream_t stream) {
+  using LY = Layout<ROUND, T, DMAX, false>;
+  return launch(blk_dq_tc_kernel<DMAX, ROUND, T, LY>, smem_bytes<LY, false>(tmask != nullptr),
+                dim3(nq * ((bq + RT - 1) / RT), bh), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<T*>(dq), kv_list, kv_cnt, tmask, s, d, bq, bk, L, sm_scale,
+                static_cast<int>(async_ok<T>(d, k, v)),
+                static_cast<int>(async_mask_ok(tmask, bk)));
+}
+
+template <int DMAX, bool ROUND, typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, const int* q_list, const int* q_cnt,
+               const int* q_slot, const int8_t* tmask, int bh, int s, int d, int bq, int bk,
+               int nk, int Lt, float sm_scale, cudaStream_t stream) {
+  using LY = Layout<ROUND, T, DMAX, true>;
+  return launch(blk_dkv_tc_kernel<DMAX, ROUND, T, LY>, smem_bytes<LY, true>(tmask != nullptr),
+                dim3(nk * ((bk + RT - 1) / RT), bh), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<T*>(dk), static_cast<T*>(dv), q_list, q_cnt, q_slot, tmask, s, d,
+                bq, bk, Lt, sm_scale, static_cast<int>(async_ok<T>(d, q, dout)),
+                static_cast<int>(async_mask_ok(tmask, bk)));
+}
+
+}  // namespace tcbwd
 
 // -- the FFMA kernels ---------------------------------------------------------
 
@@ -475,25 +948,26 @@ __global__ void __launch_bounds__(NT) blk_fwd_wide_kernel(
   }
 }
 
-template <int DMAX>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + BQ * LDP);
-}
+// The backward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
+// 128-wide output chunk a blockIdx.z, the scores (and dP) recomputed per
+// chunk over d staged 128 columns at a time.
+constexpr size_t dq_wide_smem =
+    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + BQ * LDP);
 
-template <int DMAX, bool ROUND, typename T, bool WIDE>
-__global__ void __launch_bounds__(NT) blk_dq_kernel(
+template <bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) blk_dq_wide_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, const int* __restrict__ kv_list,
     const int* __restrict__ kv_cnt, const int8_t* __restrict__ tmask, int s, int d, int bq,
     int bk, int L, float sm_scale) {
-  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  constexpr int G = WD / 64;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // (BQ, LD)
-  float* dOs = Qs + BQ * LD;    // (BQ, LD)
-  float* Ks = dOs + BQ * LD;    // (BK, LD)
-  float* Vs = Ks + BK * LD;     // (BK, LD)
-  float* dSs = Vs + BK * LD;    // (BQ, LDP)
+  float* Qs = smem;                 // (BQ, WD + 4) a chunk of q
+  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
+  float* Ks = dOs + BQ * (WD + 4);  // (BK, WD + 4)
+  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
+  float* dSs = Vs + BK * (WD + 4);  // (BQ, LDP)
   const int bh = blockIdx.y;
   const int tiles_q = (bq + BQ - 1) / BQ;
   const int i = blockIdx.x / tiles_q;
@@ -503,13 +977,8 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
   if (q0 >= q_end) return;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int kd = (d + 3) & ~3;
-  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
+  const int c_out = blockIdx.z * WD;  // first output column
 
-  if constexpr (!WIDE) {
-    load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
-    load_tile<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, 1.f);
-  }
   float lse_r[4], delta_r[4], acc[4][4 * G];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -533,21 +1002,12 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[a][j] = dp[a][j] = 0.f;
-      if constexpr (WIDE) {
-        mma_nt_chunked<DMAX, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, q_end, 1.f, k + base, k0,
-                                           k_end, 1.f, d, ty, tx);
-        mma_nt_chunked<DMAX, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, q_end, 1.f, v + base,
-                                           k0, k_end, 1.f, d, ty, tx);
-        __syncthreads();  // the score product's readers of Ks are done
-        load_chunk<DMAX, ROUND>(Ks, k + base, k0, k_end, d, c_out, 1.f);
-      } else {
-        __syncthreads();
-        load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
-        load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
-        __syncthreads();
-        mma_nt<LD>(sc, Qs, Ks, kd, ty, tx);
-        mma_nt<LD>(dp, dOs, Vs, kd, ty, tx);
-      }
+      mma_nt_chunked<WD, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, q_end, 1.f, k + base, k0, k_end,
+                                       1.f, d, ty, tx);
+      mma_nt_chunked<WD, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, q_end, 1.f, v + base, k0,
+                                       k_end, 1.f, d, ty, tx);
+      __syncthreads();  // the score product's readers of Ks are done
+      load_chunk<WD, ROUND>(Ks, k + base, k0, k_end, d, c_out, 1.f);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int qp = q0 + ty + 16 * a;
@@ -560,7 +1020,7 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
         }
       }
       __syncthreads();
-      mma_nn<DMAX>(acc, dSs, Ks, ty, tx);
+      mma_nn<WD>(acc, dSs, Ks, ty, tx);
     }
   }
 
@@ -579,30 +1039,27 @@ __global__ void __launch_bounds__(NT) blk_dq_kernel(
   }
 }
 
-template <int DMAX>
-constexpr size_t dkv_smem() {
-  return sizeof(float) *
-         (static_cast<size_t>(2 * BQ + 2 * BK) * (DMAX + 4) + 2 * BK * LDP + 2 * BQ);
-}
+constexpr size_t dkv_wide_smem =
+    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + 2 * BK * LDP + 2 * BQ);
 
-template <int DMAX, bool ROUND, typename T, bool WIDE>
-__global__ void __launch_bounds__(NT) blk_dkv_kernel(
+template <bool ROUND, typename T>
+__global__ void __launch_bounds__(NT) blk_dkv_wide_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     const int* __restrict__ q_list, const int* __restrict__ q_cnt,
     const int* __restrict__ q_slot, const int8_t* __restrict__ tmask, int s, int d, int bq,
     int bk, int Lt, float sm_scale) {
-  constexpr int LD = DMAX + 4, G = DMAX / 64;
+  constexpr int G = WD / 64;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;               // (BK, LD)
-  float* Vs = Ks + BK * LD;       // (BK, LD)
-  float* Qs = Vs + BK * LD;       // (BQ, LD)
-  float* dOs = Qs + BQ * LD;      // (BQ, LD)
-  float* Ps = dOs + BQ * LD;      // (BK, LDP): p^T of this q sub-tile, keys by queries
-  float* dSs = Ps + BK * LDP;     // (BK, LDP): dS^T
-  float* lse_s = dSs + BK * LDP;  // (BQ)
-  float* delta_s = lse_s + BQ;    // (BQ)
+  float* Ks = smem;                 // (BK, WD + 4)
+  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
+  float* Qs = Vs + BK * (WD + 4);   // (BQ, WD + 4)
+  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
+  float* Ps = dOs + BQ * (WD + 4);  // (BK, LDP): p^T of this q sub-tile, keys by queries
+  float* dSs = Ps + BK * LDP;       // (BK, LDP): dS^T
+  float* lse_s = dSs + BK * LDP;    // (BQ)
+  float* delta_s = lse_s + BQ;      // (BQ)
   const int bh = blockIdx.y;
   const int tiles_k = (bk + BK - 1) / BK;
   const int j = blockIdx.x / tiles_k;  // plan kv block
@@ -612,13 +1069,8 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
   if (k0 >= k_end) return;  // keys past s: nothing to write
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int kd = (d + 3) & ~3;
-  const int c_out = WIDE ? blockIdx.z * DMAX : 0;  // first output column
+  const int c_out = blockIdx.z * WD;  // first output column
 
-  if constexpr (!WIDE) {
-    load_tile<DMAX, ROUND>(Ks, k + base, k0, k_end, d, 1.f);
-    load_tile<DMAX, ROUND>(Vs, v + base, k0, k_end, d, 1.f);
-  }
   float acc_k[4][4 * G], acc_v[4][4 * G];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -639,29 +1091,19 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) st[a][c] = dpt[a][c] = 0.f;
-      if constexpr (WIDE) {
-        mma_nt_chunked<DMAX, ROUND, ROUND>(st, Ks, Qs, k + base, k0, k_end, 1.f, q + base, q0,
-                                           q_end, 1.f, d, ty, tx);
-        mma_nt_chunked<DMAX, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, k_end, 1.f, dout + base,
-                                           q0, q_end, 1.f, d, ty, tx);
-        __syncthreads();  // the score products' readers of Qs, dOs are done
-        load_chunk<DMAX, ROUND>(Qs, q + base, q0, q_end, d, c_out, 1.f);
-        load_chunk<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, c_out, 1.f);
-      } else {
-        __syncthreads();
-        load_tile<DMAX, ROUND>(Qs, q + base, q0, q_end, d, 1.f);
-        load_tile<DMAX, ROUND>(dOs, dout + base, q0, q_end, d, 1.f);
-      }
+      mma_nt_chunked<WD, ROUND, ROUND>(st, Ks, Qs, k + base, k0, k_end, 1.f, q + base, q0, q_end,
+                                       1.f, d, ty, tx);
+      mma_nt_chunked<WD, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, k_end, 1.f, dout + base, q0,
+                                       q_end, 1.f, d, ty, tx);
+      __syncthreads();  // the score products' readers of Qs, dOs are done
+      load_chunk<WD, ROUND>(Qs, q + base, q0, q_end, d, c_out, 1.f);
+      load_chunk<WD, ROUND>(dOs, dout + base, q0, q_end, d, c_out, 1.f);
       if (threadIdx.x < BQ) {
         const int qp = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qp < q_end ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
         delta_s[threadIdx.x] = qp < q_end ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
       }
       __syncthreads();
-      if constexpr (!WIDE) {
-        mma_nt<LD>(st, Ks, Qs, kd, ty, tx);
-        mma_nt<LD>(dpt, Vs, dOs, kd, ty, tx);
-      }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int kp = k0 + ty + 16 * a;
@@ -675,8 +1117,8 @@ __global__ void __launch_bounds__(NT) blk_dkv_kernel(
         }
       }
       __syncthreads();
-      mma_nn<DMAX>(acc_v, Ps, dOs, ty, tx);
-      mma_nn<DMAX>(acc_k, dSs, Qs, ty, tx);
+      mma_nn<WD>(acc_v, Ps, dOs, ty, tx);
+      mma_nn<WD>(acc_k, dSs, Qs, ty, tx);
     }
   }
 
@@ -735,17 +1177,23 @@ int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse,
   }
 }
 
+// d <= 128: the tensor-core backward; wider d: the FFMA WIDE kernels.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, const int* kv_list, const int* kv_cnt,
              const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq, int L,
              float sm_scale, cudaStream_t stream) {
-  const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh, out_chunks<DMAX, WIDE>(d));
-  return launch(blk_dq_kernel<DMAX, ROUND, T, WIDE>, dq_smem<DMAX>(), grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq), kv_list, kv_cnt, tmask,
-                s, d, bq, bk, L, sm_scale);
+  if constexpr (!WIDE) {
+    return tcbwd::launch_dq<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dq, kv_list, kv_cnt,
+                                            tmask, bh, s, d, bq, bk, nq, L, sm_scale, stream);
+  } else {
+    const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh, out_chunks<WD, true>(d));
+    return launch(blk_dq_wide_kernel<ROUND, T>, dq_wide_smem, grid, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq), kv_list, kv_cnt, tmask,
+                  s, d, bq, bk, L, sm_scale);
+  }
 }
 
 template <int DMAX, bool ROUND, typename T, bool WIDE>
@@ -753,12 +1201,18 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout, con
               const void* delta, void* dk, void* dv, const int* q_list, const int* q_cnt,
               const int* q_slot, const int8_t* tmask, int bh, int s, int d, int bq, int bk,
               int nk, int Lt, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(nk * ((bk + BK - 1) / BK), bh, out_chunks<DMAX, WIDE>(d));
-  return launch(blk_dkv_kernel<DMAX, ROUND, T, WIDE>, dkv_smem<DMAX>(), grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-                q_list, q_cnt, q_slot, tmask, s, d, bq, bk, Lt, sm_scale);
+  if constexpr (!WIDE) {
+    return tcbwd::launch_dkv<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dk, dv, q_list, q_cnt,
+                                             q_slot, tmask, bh, s, d, bq, bk, nk, Lt, sm_scale,
+                                             stream);
+  } else {
+    const dim3 grid(nk * ((bk + BK - 1) / BK), bh, out_chunks<WD, true>(d));
+    return launch(blk_dkv_wide_kernel<ROUND, T>, dkv_wide_smem, grid, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+                  q_list, q_cnt, q_slot, tmask, s, d, bq, bk, Lt, sm_scale);
+  }
 }
 
 }  // namespace

@@ -286,38 +286,18 @@ using mma16::BQ;
 using mma16::LOG2E;
 using mma16::NTHR;
 
-// Shared memory of an instance: two staged A tiles of BQ rows (flash_dq: q
-// pre-scaled and do; flash_dkv: k and v), then two stages of the two
-// streamed B tiles of W rows each (flash_dq: K then V; flash_dkv: q then
-// do), then flash_dkv's two stages of the streamed rows' lse (log2 domain)
-// and delta. W = 64 at d <= 64; 32 at d <= 128, where two stages of 64 rows
-// would not fit beside the A tiles (fp32: 270 KB).
+// Shared memory of an instance (mma16::BwdLayout): the two staged A tiles
+// of BQ rows, two stages of the two streamed tiles of W rows, and
+// flash_dkv's streamed lse and delta. W = 64 at d <= 64, 32 at d <= 128.
 //
-// PRE (3xTF32 at d <= 64): the thread that copied a value of a streamed
-// tile splits it into tf32 hi and lo once, as it lands (hi in place, lo 2W
-// rows on, 209 KB in all), where otherwise all eight warps would split
-// every fragment they load. Same bits; on an H100 at (96, 512, 64) 'high'
-// it took flash_dkv 0.367 -> 0.288 ms and flash_dq 0.249 -> 0.241 (two
-// blocks an SM of the unsplit flash_dq at W = 32). At d = 128 it fits only
-// with W = 16, where flash_dq ran slower (0.385 -> 0.410 ms at (48, 512,
-// 128)); those instances split in registers.
+// PRE (3xTF32 at d <= 64): the streamed tiles split into tf32 hi and lo
+// once, as they land (209 KB in all). On an H100 at (96, 512, 64) 'high' it
+// took flash_dkv 0.367 -> 0.288 ms and flash_dq 0.249 -> 0.241 (two blocks
+// an SM of the unsplit flash_dq at W = 32). At d = 128 it fits only with W
+// = 16, where flash_dq ran slower (0.385 -> 0.410 ms at (48, 512, 128));
+// those instances split in registers.
 template <bool ROUND, typename T, int DMAX>
-struct Layout {
-  using TR = mma16::Tier<ROUND, T, DMAX>;
-  static constexpr int W = DMAX <= 64 ? 64 : 32;
-  // 3xTF32: the streamed tiles split into tf32 hi and lo once, as they
-  // land, each tile's lo 2 W rows after its hi
-  static constexpr bool PRE = !ROUND && DMAX <= 64;
-  static constexpr int lo_off = 2 * W * TR::LDK;
-  static constexpr size_t a_bytes = sizeof(typename TR::TQ) * BQ * TR::LDQ;
-  static constexpr int stage = (PRE ? 4 : 2) * W * TR::LDK;  // elements of T
-  static constexpr size_t b_off = 2 * a_bytes;
-  static constexpr size_t stat_off = b_off + 2 * sizeof(T) * stage;
-  static constexpr size_t bytes = stat_off + 2 * 2 * W * sizeof(float);
-  // 3xTF32: a warp banks its sums every 512 streamed rows (FOLD tiles), so
-  // s <= 512 never folds, as in the forward
-  static constexpr int FOLD = mma16::FOLD * mma16::BK / W;
-};
+using Layout = mma16::BwdLayout<ROUND, T, DMAX, BQ>;
 
 // dq = sm_scale sum_k dS . k, dS = P (dP - delta), P = exp(q k^T - lse), dP
 // = do v^T: eight warps own a BQ-row q-tile, 16 rows a warp, and walk the
@@ -377,33 +357,12 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dq_tc_kernel(
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
 
-  // the products over a streamed tile, its lo at + lo_off where split
-  auto score = [&](auto& acc, const TQ* As, const T* Bb) {
-    if constexpr (L::PRE) {
-      TR::score(acc, As, Bb, Bb + L::lo_off, kd, wr0, lane);
-    } else {
-      TR::score(acc, As, Bb, kd, wr0, lane);
-    }
-  };
-  auto pv = [&](auto& acc, const auto& p, const T* Bb) {
-    if constexpr (L::PRE) {
-      TR::template pv<LDB>(acc, p, Bb, Bb + L::lo_off, kd, lane);
-    } else {
-      TR::template pv<LDB>(acc, p, Bb, kd, lane);
-    }
-  };
-
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * W;
     T* Kb = KV + (kt % 2) * L::stage;
     T* Vb = Kb + W * LDB;
     if (async_kv) mma16::cp_async_wait_all();
-    if constexpr (L::PRE) {
-      mma16::each_staged<NTHR, DMAX, LDB, W, T>(async_kv, [&](int o) {
-        mma16::split_in_place(Kb + o, Kb + L::lo_off + o);
-        mma16::split_in_place(Vb + o, Vb + L::lo_off + o);
-      });
-    }
+    L::template split_staged<NTHR>(Kb, Vb, async_kv);
     // tile kt is staged and visible to every warp; every reader of the other
     // stage (tile kt - 1) is done, so tile kt + 1 may stream into it
     __syncthreads();
@@ -419,8 +378,8 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dq_tc_kernel(
     for (int nt = 0; nt < NN; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
-    score(sp, Qs, Kb);
-    score(dp, dOs, Vb);
+    L::score(sp, Qs, Kb, kd, wr0, lane);
+    L::score(dp, dOs, Vb, kd, wr0, lane);
     auto stat = [&](int h, int, int, float& l2, float& dl) {
       l2 = lse2[h];
       dl = dlt[h];
@@ -437,7 +396,7 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dq_tc_kernel(
       mma16::probs_ds<true>(sp, dp, stat,
                             [&](int h, int nt, int c) { return key0 + 8 * nt + c < lims[h]; });
     }
-    pv(acc, dp, Kb);
+    L::pv(acc, dp, Kb, kd, lane);
     if constexpr (!ROUND) {
       if (++since == L::FOLD && kt + 1 < nk) {
         mma16::bank(dqb, acc, banked, q0 + wr0 + g, s, d, t);
@@ -507,25 +466,15 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dkv_tc_kernel(
     const long long first = static_cast<long long>(kv_off) + k0 - q_off;
     qt0 = first <= 0 ? 0 : static_cast<int>(min(static_cast<long long>(nq), first / W));
   }
-  // thread i < 2W holds row q0 + i % W's lse (i < W) or delta of the tile
-  // being staged
-  float stat_next = 0.f;
+  mma16::RowStats<W> stat_next;  // the lse and delta of the tile being staged
   auto stage_q = [&](int qt) {
     T* dst = QD + ((qt - qt0) % 2) * L::stage;
     mma16::stage_rows<NTHR, DMAX, LDB, W>(dst, qb, qt * W, s, d, async_q);
     mma16::stage_rows<NTHR, DMAX, LDB, W>(dst + W * LDB, ob, qt * W, s, d, async_q);
     if (async_q) mma16::cp_async_commit();
-    const int i = threadIdx.x % W, row = qt * W + i;
-    if (threadIdx.x < 2 * W) {
-      stat_next = row < s ? (threadIdx.x < W ? lseb[row] : dlb[row]) : 0.f;
-    }
+    stat_next.load(lseb, dlb, qt * W, s);
   };
-  auto store_stats = [&](int qt) {
-    if (threadIdx.x < 2 * W) {
-      ST[((qt - qt0) % 2) * 2 * W + threadIdx.x] =
-          threadIdx.x < W ? stat_next * LOG2E : stat_next;
-    }
-  };
+  auto store_stats = [&](int qt) { stat_next.store(ST + ((qt - qt0) % 2) * 2 * W); };
   if (qt0 < nq) {
     stage_q(qt0);
     store_stats(qt0);
@@ -547,21 +496,6 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dkv_tc_kernel(
   for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc_k[nt][c] = acc_v[nt][c] = 0.f;
-
-  auto score = [&](auto& acc, const TQ* As, const T* Bb) {
-    if constexpr (L::PRE) {
-      TR::score(acc, As, Bb, Bb + L::lo_off, kd, wr0, lane);
-    } else {
-      TR::score(acc, As, Bb, kd, wr0, lane);
-    }
-  };
-  auto pv = [&](auto& acc, const auto& p, const T* Bb) {
-    if constexpr (L::PRE) {
-      TR::template pv<LDB>(acc, p, Bb, Bb + L::lo_off, kd, lane);
-    } else {
-      TR::template pv<LDB>(acc, p, Bb, kd, lane);
-    }
-  };
 
   for (int qt = qt0; qt < nq; ++qt) {
     const int q0 = qt * W;
@@ -589,8 +523,8 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dkv_tc_kernel(
       for (int nt = 0; nt < NN; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
-      score(sp, Ks, Qb);
-      score(dp, Vs, dOb);
+      L::score(sp, Ks, Qb, kd, wr0, lane);
+      L::score(dp, Vs, dOb, kd, wr0, lane);
       auto stat = [&](int, int nt, int c, float& l2, float& dl) {
         l2 = st[8 * nt + 2 * t + c];
         dl = st[W + 8 * nt + 2 * t + c];
@@ -608,8 +542,8 @@ __global__ void __launch_bounds__(NTHR, 1) flash_dkv_tc_kernel(
           return qj < s && qj >= lo[h];
         });
       }
-      pv(acc_v, sp, dOb);
-      pv(acc_k, dp, Qb);
+      L::pv(acc_v, sp, dOb, kd, lane);
+      L::pv(acc_k, dp, Qb, kd, lane);
       if constexpr (!ROUND) {
         if (++since == L::FOLD && qt + 1 < nq) {
           mma16::bank(dkb, acc_k, banked, k0 + wr0 + g, s, d, t);
