@@ -49,13 +49,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      seven attention entry points at head dims 192, 256 and 200 (causal with
      and without offsets, a 'bigbird' plan for the block kernels; fp32
      'high', 'default' and bf16); the batched, compact, grouped and
-     footprint kernels at blocksizes (8, 32), (32, 16), (64, 64), (128, 128)
-     and (200, 16) (taller than a grouped window), ragged m/k/n, row-blocks
-     with no slot, batch 1 and 5, fp32 'high' and 'default' and bf16: the
-     four share one FFMA chain, so the batched kernel is bitwise equal to
-     itself on every B[g] alone (the FFMA base) and the other three to that
-     base on the base plan; the base and the batched kernel on the folded B
-     within the tier of the tensor-core block_ell_spmm; windowed_gather and
+     footprint kernels at blocksizes (5, 8), (8, 32), (24, 16), (32, 16),
+     (64, 64), (72, 32), (128, 128) and (200, 16) (the n-major tile, one
+     and two warpgroups, taller than a grouped window), ragged m/k/n, n 1,
+     row-blocks with no slot, batch 1 to 5, fp32 'high' and 'default' and
+     bf16: the batched and compact kernels are block_ell_spmm's body, so
+     the batched kernel is bitwise equal to block_ell_spmm on the folded B
+     and on every B[g] alone and the compact one to it on the base plan;
+     the grouped and footprint kernels
+     share one FFMA chain, bitwise equal to each other on the base plan and
+     within the tier of block_ell_spmm; windowed_gather and
      windowed_segsum on six index maps (local with far outliers, a single
      far read, fully scattered, empty segments with n and the segment count
      off the 1024 padding, a
@@ -187,10 +190,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      and its loss dropping; the batched steps' forward and dB and the
      footprint step's against their plain versions and the batched steps'
      dA against float64 (<= 1e-5 of scale), the
-     batched kernel bitwise equal to the FFMA base at its first and last
-     batch elements and within 1e-5 of scale of the tensor-core fold at both
-     shapes, each plan executor against its plain version and bitwise equal
-     to the FFMA base at both plans; SpGEMM's C against a float64 scipy
+     batched kernel bitwise equal to block_ell_spmm at its first and last
+     batch elements and to the fold at both shapes,
+     each plan executor against its plain version, compact bitwise equal
+     to block_ell_spmm and grouped to footprint at both plans;
+     SpGEMM's C against a float64 scipy
      product and its pattern against scipy's, dA and dB against the dense
      algebra in float64, the 'dense' route against the same oracle (each
      <= 1e-5 of scale), and at 16384^2 the card against the CPU (values and
@@ -351,8 +355,8 @@ FLASH_LIMIT_ROUNDED = 1e-2
 # FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8; the FFMA
 # blk_flash_fwd and the whole-row naive_spmm, both behind a sleep; the FFMA
 # block_ell_spmm and sddmm; the FFMA blk_flash_dq and blk_flash_dkv,
-# queued), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
-# 700.00 W (PERF.md: its kernel table, rows 1-2, 4-5, 7-11, 13, 16-19, §5
+# queued; the FFMA batched and compact executors), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md: its kernel table, rows 1-11, 13, 16-19, §5
 # for bert4d's dA, and an earlier run for the seq-4096 shape);
 # printed beside the new. SHARED_TILE_MS: the
 # footprint executor's times on its register windows before the tile moved
@@ -365,7 +369,10 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "flash_dq (8, 12, 512, 64) high": 0.435, "flash_dkv (8, 12, 512, 64) high": 0.508,
           "blk_flash_fwd bigbird_512 high": 0.2783, "naive_spmm arxiv n 256": 0.8871,
           "blk_flash_dq bigbird_512 high": 0.340, "blk_flash_dkv bigbird_512 high": 0.447,
-          "block_ell_spmm headline": 1.494, "sddmm headline": 1.280, "sddmm bert4d": 40.26}
+          "block_ell_spmm headline": 1.494, "sddmm headline": 1.280, "sddmm bert4d": 40.26,
+          "resident_spmm_batched block-sparse batched": 0.822,
+          "resident_spmm_batched bert4d": 5.962, "compact_spmm headline": 1.501,
+          "compact_spmm low-fill": 2.882}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -2880,21 +2887,25 @@ def _derived_plans(plan, group_size=64, rows_per_super=16):
 
 def phase_small_plan_executors() -> None:
     """The batched, compact, grouped and footprint kernels against their
-    plain versions at small shapes: ragged m, k and n, blocksizes (8, 32),
-    (32, 16), (64, 64), (128, 128) and (200, 16) (taller than a grouped
-    window), row-blocks with no slot, batch 1 and 5, fp32 'high' and
-    'default' and bf16. The four share one FFMA chain (block_tiles.cuh), so
-    each is also held bitwise to `_ffma_base`, the batched kernel on one
-    B[g] alone: the batched kernel on every B[g], the three others on the
-    base plan. That base and the batched kernel on the folded B are held
-    within the tier of block_ell_spmm, which sums on the tensor cores in
-    another order."""
+    plain versions at small shapes: ragged m, k and n, n 1, blocksizes
+    (5, 8), (8, 32), (24, 16), (32, 16) (the n-major tile), (64, 64),
+    (72, 32), (128, 128) and (200, 16) (taller than a grouped window),
+    row-blocks with no slot, batch 1 to 5, fp32 'high' and 'default' and
+    bf16. The batched and compact kernels are block_ell_spmm's body
+    (block_ell_spmm.cuh), so they are held bitwise to it: the batched
+    kernel on the folded B and on every B[g] alone, the compact one on the
+    base plan. The grouped and
+    footprint kernels share one FFMA chain (window_tiles.cuh): each is held
+    bitwise to the other on the base plan, and within the tier of
+    block_ell_spmm (`_ffma_pair_base`)."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import tiled_spmm as tk
 
     f32, bf16 = torch.float32, torch.bfloat16
     # (m, k, n), blocksize, empty rows, batch
     shapes = [((100, 70, 130), (8, 32), (16, 40), 5), ((75, 53, 33), (32, 16), None, 1),
+              ((43, 37, 1), (5, 8), (10, 20), 4), ((100, 70, 130), (24, 16), (24, 48), 2),
+              ((150, 90, 64), (72, 32), (72, 144), 3),
               ((190, 150, 70), (64, 64), (64, 128), 5), ((300, 260, 200), (128, 128),
                                                          (128, 256), 1),
               ((610, 150, 70), (200, 16), (200, 400), 1)]
@@ -2911,44 +2922,45 @@ def phase_small_plan_executors() -> None:
                 "cuda", dt)
             label = f"{m}x{k}x{n}_{bs[0]}x{bs[1]}_b{batch}_{str(dt)[6:]}_{prec}"
             got = tk.resident_spmm_batched_kernel(plan, bv, b3, precision=prec)
-            per_g = torch.stack([_ffma_base(f"batched {label} [{g}]", plan, bv,
-                                            b3[g].contiguous(), prec) for g in range(batch)])
+            per_g = torch.stack([tk.tiled_spmm_kernel(plan, bv, b3[g].contiguous(),
+                                                      precision=prec) for g in range(batch)])
             folded = tt.ops._fold_batch(
                 lambda x: tk.tiled_spmm_kernel(plan, bv, x, precision=prec), b3)
             want = tk._block_exec_batched_plain(plan, bv, b3, precision=prec)
             torch.cuda.synchronize()
-            if not _same(got, per_g):
-                raise AssertionError(f"batched {label}: not bitwise equal to the FFMA base")
-            _check_case(f"batched {label} vs the 2-D kernel on the fold", got, folded)
-            _check_case(f"batched {label}", got, want, ", bitwise equal to the FFMA base "
-                        "per batch element")
+            if not (_same(got, folded) and _same(got, per_g)):
+                raise AssertionError(f"batched {label}: not bitwise equal to block_ell_spmm on "
+                                     "the folded B and on each B[g]")
+            _check_case(f"batched {label}", got, want, ", bitwise equal to block_ell_spmm "
+                        "on the folded B and per batch element")
             b = b3[0].contiguous()
-            base = per_g[0]
             # groups and supers of 4 row-blocks: several per plan
-            for entry, (dp, fn) in _derived_plans(plan, 4, 4).items():
+            derived = _derived_plans(plan, 4, 4)
+            outs = {}
+            for entry, (dp, fn) in derived.items():
                 dv = dp.pack_values(a.data.to(dt))
-                got = fn(dp, dv, b, precision=prec)
+                outs[entry] = got = fn(dp, dv, b, precision=prec)
                 want = tk._PLAIN[entry](dp, dv, b, precision=prec)
                 torch.cuda.synchronize()
-                if not _same(got, base):
-                    raise AssertionError(f"{entry} {label}: not bitwise equal to the FFMA base")
-                _check_case(f"{entry} {label}", got, want,
-                            ", bitwise equal to the FFMA base on the base plan")
+                _check_case(f"{entry} {label}", got, want)
+            if not _same(outs["compact_spmm"], per_g[0]):
+                raise AssertionError(f"compact_spmm {label}: not bitwise equal to block_ell_spmm")
+            _ffma_pair_base(f"small {label}", outs, per_g[0])
+            print(f"small plan executors {label}: compact bitwise equal to block_ell_spmm, "
+                  "grouped to footprint")
 
 
-def _ffma_base(label, plan, bv, b, precision=None):
-    """The bitwise base of the FFMA executors (batched, compact, grouped,
-    footprint): the batched kernel on a batch of one. Held within the tier
-    of the tensor-core block_ell_spmm on the same operands (TOL_FP32, or
-    TOL_BF16_OUT for a bf16 C)."""
-    from tpusparse_torch.kernels import tiled_spmm as tk
-
-    base = tk.resident_spmm_batched_kernel(plan, bv, b[None], precision=precision)[0]
-    tc = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
-    tol = TOL_BF16_OUT if base.dtype == torch.bfloat16 else TOL_FP32
-    if not torch.allclose(base.float(), tc.float(), **tol):
-        raise AssertionError(f"{label}: the FFMA base and block_ell_spmm differ beyond the tier")
-    return base
+def _ffma_pair_base(label, outs, tc):
+    """The grouped and footprint executors share one FFMA chain
+    (window_tiles.cuh): each output bitwise equal to the other's on the same
+    base plan, and within the tier of the tensor-core block_ell_spmm's `tc`
+    on the same operands (TOL_FP32, or TOL_BF16_OUT for a bf16 C)."""
+    got, other = outs["grouped_spmm"], outs["footprint_spmm"]
+    if not _same(got, other):
+        raise AssertionError(f"{label}: grouped and footprint not bitwise equal")
+    tol = TOL_BF16_OUT if got.dtype == torch.bfloat16 else TOL_FP32
+    if not torch.allclose(got.float(), tc.float(), **tol):
+        raise AssertionError(f"{label}: the FFMA pair and block_ell_spmm differ beyond the tier")
 
 def _sddmm_f64(plan, dc, b):
     """The SDDMM of plan's pattern in float64, (num_slots, bm, bk): the oracle
@@ -2987,8 +2999,8 @@ def phase_batched_spmm() -> dict:
     resident_spmm_batched dB where the transpose plan passes the reuse
     test), its forward and dB against the plain versions and its dA against
     float64 (the fp32 plain version's own error over n = 262,144 is larger
-    than the kernel's); the batched kernel bitwise against the FFMA base
-    and within the tier of the fold; then the times of the batched
+    than the kernel's); the batched kernel bitwise against block_ell_spmm
+    on B[g] and on the fold; then the times of the batched
     kernel, of the fold (the 2-D kernel on (k, batch·n), transposes
     included), of the plain version and of torch.matmul of the densified A
     broadcast over the batch (TF32 off), the bound and the step. Returns
@@ -3046,15 +3058,15 @@ def phase_batched_spmm() -> dict:
         def fold():
             return tt.ops._fold_batch(lambda x: tk.resident_spmm_kernel(plan, bv, x), b3)
 
-        for gi in (0, batch - 1):  # the FFMA chain: bitwise equal to one batch element alone
-            if not _same(got[gi], _ffma_base(f"batched {label} [{gi}]", plan, bv,
-                                             b3[gi].contiguous())):
-                raise AssertionError(f"batched {label}: not bitwise equal to the FFMA base")
-        fold_err = rel_err(got, fold())[1]
-        print(f"batched {label}: kernel bitwise equal to the FFMA base at elements 0 and "
-              f"{batch - 1}; against the tensor-core fold {fold_err:.3e} of scale")
-        if not fold_err <= HEADLINE_TOL:
-            raise AssertionError(f"batched {label}: kernel and fold differ beyond the tier")
+        for gi in (0, batch - 1):  # one body: bitwise equal to block_ell_spmm on B[g] alone
+            if not _same(got[gi], tk.tiled_spmm_kernel(plan, bv, b3[gi].contiguous())):
+                raise AssertionError(f"batched {label}: not bitwise equal to block_ell_spmm")
+        if not _same(got, tk.resident_spmm_batched_kernel(plan, bv, b3)):
+            raise AssertionError(f"batched {label}: a second call differs")
+        if not _same(got, fold()):
+            raise AssertionError(f"batched {label}: kernel and fold not bitwise equal")
+        print(f"batched {label}: kernel bitwise equal to block_ell_spmm on B[g] at elements 0 "
+              f"and {batch - 1}, to the fold onto it and to a second call")
         ms = time_ms(lambda: tk.resident_spmm_batched_kernel(plan, bv, b3))
         fold_ms = time_ms(fold)
         plain_ms = time_ms(lambda: tk._block_exec_batched_plain(plan, bv, b3), warmup=1, iters=3)
@@ -3074,7 +3086,10 @@ def phase_batched_spmm() -> dict:
         flops = 2.0 * plan.nblocks * bm * bk * n * batch
         nbytes = 4.0 * (plan.nblocks * bm * bk + batch * k * n + batch * shape[0] * n)
         bms, by, ffma = bound_fp32(flops, nbytes)
-        print(f"batched {label}: resident_spmm_batched {ms:.4f} ms, fold (2-D kernel on "
+        old = OLD_MS[f"resident_spmm_batched {label}"]
+        print(f"batched {label}: resident_spmm_batched {ms:.4f} ms (the FFMA kernel before its "
+              f"redesign {old:.3f}: {old / ms:.2f}x; {ms / lib_ms:.3f}x torch.matmul's time, "
+              f"{bms / ms:.3f} of the bound), fold (2-D kernel on "
               f"(k, batch*n), transposes included) {fold_ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"torch.matmul dense broadcast {lib_ms:.4f} ms (vs kernel {lib_err:.2e} of scale; "
               f"{2.0 * shape[0] * k * n * batch / 1e9:.1f} GFLOP dense), bound {bms:.4f} ms by "
@@ -3119,11 +3134,11 @@ def _grouped_geometry(gp, n) -> str:
 def phase_plan_executors(a, plan, bv, b) -> dict:
     """The compact, grouped and footprint executors at the headline and at
     the low-fill plan, each driven once with the counts set to 0 just
-    before (1 launch each), then held against its plain version and
-    bitwise against block_ell_spmm on the same plan, and timed beside
-    block_ell_spmm, its plain version, torch.matmul of the densified A (TF32
-    off) and, at the low-fill plan, torch.sparse.mm on a CSR tensor; the
-    footprint plan's B-tile fetches (ntiles) against the base plan's slots;
+    before (1 launch each), then held against its plain version, compact
+    bitwise against block_ell_spmm on the same plan and grouped against
+    footprint, and timed beside block_ell_spmm, its plain version,
+    torch.matmul of the densified A (TF32 off) and, at the low-fill plan,
+    torch.sparse.mm on a CSR tensor; the footprint plan's B-tile fetches (ntiles) against the base plan's slots;
     the grouped kernel's grid; the grouped and footprint kernels beside
     their earlier times (OLD_MS, SHARED_TILE_MS);
     then one spmm(method='footprint') step at the headline, counted (1
@@ -3157,7 +3172,8 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
         m, k = pp.shape
         n = bb.shape[1]
         bm, bk = pp.blocksize
-        base = _ffma_base(f"plan executors {label}", pp, pv, bb)
+        base = tk.tiled_spmm_kernel(pp, pv, bb)
+        _ffma_pair_base(f"plan executors {label}", outs, base)
         base_ms = time_ms(lambda: tk.tiled_spmm_kernel(pp, pv, bb))
         a_dense = pp.blocks_to_dense(pv)
         with fp32_matmul():
@@ -3189,16 +3205,26 @@ def phase_plan_executors(a, plan, bv, b) -> dict:
               f"kernel: {tk.footprint_tile(fp)} thread blocks a super; grouped kernel: "
               f"{_grouped_geometry(derived['grouped_spmm'][0], n)}")
         for e, (dp, fn) in derived.items():
-            same = _same(outs[e], base)  # the FFMA chain's base
+            # compact: block_ell_spmm's body; grouped and footprint: one FFMA
+            # chain, bitwise equal to each other (checked above)
+            same = _same(outs[e], base) if e == "compact_spmm" else True
             err, rel = over_scale(outs[e], tk._PLAIN[e](dp, packed[e], bb))
             ms = time_ms(lambda: fn(dp, packed[e], bb))
             plain_ms = time_ms(lambda: tk._PLAIN[e](dp, packed[e], bb), warmup=1, iters=3)
             print(f"  {e} {label}: {ms:.4f} ms ({ms / base_ms:.2f}x block_ell_spmm), plain "
-                  f"{plain_ms:.4f} ms; vs plain over scale {rel:.3e}; bitwise equal to the "
-                  f"FFMA base: {same}")
+                  f"{plain_ms:.4f} ms; vs plain over scale {rel:.3e}; bitwise equal to "
+                  + ("block_ell_spmm" if e == "compact_spmm" else
+                     "grouped_spmm" if e == "footprint_spmm" else "footprint_spmm")
+                  + f": {same}")
             if not (same and rel <= HEADLINE_TOL and bool(torch.isfinite(outs[e]).all())):
                 raise AssertionError(f"{e} {label}: disagrees with its plain version or with "
-                                     "the FFMA base")
+                                     "block_ell_spmm")
+            if e == "compact_spmm":
+                old = OLD_MS[f"{e} {label}"]
+                print(f"  {e} {label}: {ms:.4f} ms (the FFMA kernel before its redesign "
+                      f"{old:.3f}: {old / ms:.2f}x; torch.matmul dense {dense_ms:.4f}"
+                      + (f", torch.sparse.mm {sparse_ms:.4f}" if sparse_ms is not None else "")
+                      + f"), at {bms / ms:.3f} of its bound {bms:.4f} ms")
             if e in ("footprint_spmm", "grouped_spmm"):  # against the earlier designs
                 old = OLD_MS[f"{e} {label}"]
                 before = SHARED_TILE_MS.get(f"{e} {label}")

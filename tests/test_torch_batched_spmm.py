@@ -33,6 +33,11 @@ CASES = {
     "ragged_8x16_b3": (50, 70, 33, 3, 0.2, (8, 16), None),
     "ragged_32x8_b2_n65": (75, 53, 65, 2, 0.15, (32, 8), None),
     "empty_rowblock_16x16_b1": (64, 48, 17, 1, 0.3, (16, 16), (16, 32)),
+    # the batched executor's tile edges: bm 5 and 24 (the n-major tile), 72
+    # (two warpgroups); n 1, 130 and 64; row-blocks with no slot
+    "bm5_n1_b3_empty": (43, 37, 1, 3, 0.2, (5, 8), (10, 20)),
+    "bm24_n130_b2_empty": (100, 70, 130, 2, 0.15, (24, 16), (24, 48)),
+    "bm72_n64_b2": (150, 90, 64, 2, 0.15, (72, 32), None),
     # fewer blocks than block-columns: the forward folds, dB is batched
     "low_reuse_8x8_b4": (16, 400, 9, 4, 0.005, (8, 8), None),
     # the transpose of that: the forward is batched, dB folds

@@ -8,6 +8,9 @@ a machine that has only PyTorch:
 held against its plain PyTorch version on the same card inputs.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -32,11 +35,13 @@ NO_TK = {"tiled_spmm": 0, "resident_spmm": 0, "tiled_spmm_int8": 0, "resident_sp
          "resident_spmm_batched": 0, "compact_spmm": 0, "grouped_spmm": 0,
          "footprint_spmm": 0, "int8_kmajor": 0}
 
-# (m, k, n), blocksize, empty row range: bm 8 to 200 (one or two
-# warpgroups, slices of a taller row-block), bk 8 to 128 (a slot of less
-# than one 128-byte chunk, or four), n 1 to 512 (the 32-, 64- and
-# 128-column tiles, ragged), empty row-blocks
+# (m, k, n), blocksize, empty row range: bm 8 to 200 (the n-major tile up
+# to 56, one or two warpgroups, slices of a taller row-block), bk 8 to 128
+# (a slot of less than one 128-byte chunk, or four), n 1 to 512 (the 32-,
+# 64- and 128-column tiles, ragged), empty row-blocks
 CASES = {
+    "bm24_bk16_n130_empty": ((100, 70, 130), (24, 16), (24, 48)),
+    "bm72_bk32_n64": ((150, 90, 64), (72, 32), None),
     "ragged_8x32_n130": ((100, 70, 130), (8, 32), None),
     "ragged_32x8_n33": ((75, 53, 33), (32, 8), None),
     "empty_rowblock_128x128": ((300, 260, 40), (128, 128), (128, 256)),
@@ -1091,24 +1096,32 @@ def test_gcn_train_step_on_card_matches_cpu(cuda):
 
 # -- the batched executor and the executors of the derived plans ---------------------
 
-# name: (m, k, n), blocksize, batch, empty row range
+# name: (m, k, n), blocksize, batch, empty row range: the n-major tile at
+# bm 5, 8, 24 and 32 (N 8, 8, 24, 32), the 64-row tile at bm 72 (two
+# warpgroups; n 64 on the raw ring's 8-byte copies) and 128; n 1 to 200
 PLAN_EXEC_CASES = {
     "ragged_8x32_n130_b3": ((100, 70, 130), (8, 32), 3, (16, 40)),
     "ragged_32x16_n33_b5": ((75, 53, 33), (32, 16), 5, None),
     "rowblock_128x128_n200_b1": ((300, 260, 200), (128, 128), 1, (128, 256)),
+    "bm5_n1_b4": ((43, 37, 1), (5, 8), 4, (10, 20)),
+    "bm24_n130_b2": ((100, 70, 130), (24, 16), 2, (24, 48)),
+    "bm72_n64_b3": ((150, 90, 64), (72, 32), 3, (72, 144)),
 }
 PLAN_EXEC_TIERS = [(torch.float32, "high"), (torch.float32, "default"),
                    (torch.bfloat16, "high")]
 
 
-def _ffma_base(plan, bv, b, precision=None):
-    """The bitwise base of the FFMA executors (batched, compact, grouped,
-    footprint): the batched kernel on a batch of one, whose chain and slot
-    order are the ones all four share (block_tiles.cuh). It is held within
-    the tier of the tensor-core `tiled_spmm_kernel`, which sums in another
-    order."""
-    base = tk.resident_spmm_batched_kernel(plan, bv, b[None], precision=precision)[0]
-    tc = tk.tiled_spmm_kernel(plan, bv, b, precision=precision)
+def _ffma_pair_base(entry, plan, data, b, precision=None):
+    """The bitwise base of the grouped or the footprint executor: the other
+    one of the two FFMA executors (window_tiles.cuh's chain) on the same
+    base plan, groups and supers of 4 row-blocks. It is held within the tier
+    of the tensor-core `tiled_spmm_kernel`, which sums in another order."""
+    if entry == "grouped_spmm":
+        dp, fn = tt.footprint_plan(plan, 4), tk.footprint_spmm_kernel
+    else:
+        dp, fn = tt.group_plan(plan, 4), tk.grouped_spmm_kernel
+    base = fn(dp, dp.pack_values(data), b, precision=precision)
+    tc = tk.tiled_spmm_kernel(plan, plan.pack_values(data), b, precision=precision)
     tol = TOL_BF16 if base.dtype == torch.bfloat16 else TOL
     torch.testing.assert_close(base.float(), tc.float(), **tol)
     return base
@@ -1130,10 +1143,10 @@ def _plan_exec_inputs(name, device, dtype):
 @pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
 @pytest.mark.parametrize("name", sorted(PLAN_EXEC_CASES))
 def test_batched_kernel_matches_plain_and_2d_kernel_bitwise(cuda, name, dtype, precision):
-    """C[g] bitwise equal to the batched kernel on B[g] alone (the FFMA
-    executors' base), which is within the tier of the 2-D tensor-core
-    kernel on B[g]; C within the tier of the 2-D kernel on the folded
-    (k, batch·n) operand and of the plain version."""
+    """C bitwise equal to the 2-D kernel on the folded (k, batch·n)
+    operand (one body, one tile chooser), to a second call and to the 2-D
+    kernel on each B[g] alone (each element summed in one order); within
+    the tier of the plain version."""
     a, plan, b3 = _plan_exec_inputs(name, cuda, dtype)
     bv = plan.pack_values(a.data.to(dtype))
     tk.reset_launch_counts()
@@ -1141,11 +1154,13 @@ def test_batched_kernel_matches_plain_and_2d_kernel_bitwise(cuda, name, dtype, p
     torch.cuda.synchronize()
     assert tk.launch_counts() == {**NO_TK, "resident_spmm_batched": 1}
     tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
-    for g in range(b3.shape[0]):
-        assert torch.equal(got[g], _ffma_base(plan, bv, b3[g].contiguous(), precision))
+    assert torch.equal(got, tk.resident_spmm_batched_kernel(plan, bv, b3, precision=precision))
     folded = tt.ops._fold_batch(
         lambda bb: tk.tiled_spmm_kernel(plan, bv, bb, precision=precision), b3)
-    torch.testing.assert_close(got.float(), folded.float(), **tol)
+    assert torch.equal(got, folded)
+    for g in range(b3.shape[0]):
+        assert torch.equal(got[g], tk.tiled_spmm_kernel(plan, bv, b3[g].contiguous(),
+                                                        precision=precision))
     want = tk._block_exec_batched_plain(plan, bv, b3, precision=precision)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
@@ -1160,20 +1175,26 @@ def _derived_plans(plan):
 @pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
 @pytest.mark.parametrize("name", sorted(PLAN_EXEC_CASES))
 def test_plan_executors_match_plain_and_block_ell_bitwise(cuda, name, dtype, precision):
-    """compact, grouped and footprint: each bitwise equal to the batched
-    kernel on the base plan and a batch of one (one slot order, one FFMA
-    tile; `_ffma_base`, itself within the tier of block_ell_spmm) and within
-    the tier of its plain version; empty row-blocks written as zeros."""
+    """compact: bitwise equal to block_ell_spmm on the base plan (one body,
+    one slot order) and to a second call; grouped and footprint: bitwise
+    equal to each other (one FFMA chain; `_ffma_pair_base`, itself within
+    the tier of block_ell_spmm); each within the tier of its plain version;
+    empty row-blocks written as zeros."""
     a, plan, b3 = _plan_exec_inputs(name, cuda, dtype)
     b = b3[0].contiguous()
-    base = _ffma_base(plan, plan.pack_values(a.data.to(dtype)), b, precision)
+    data = a.data.to(dtype)
+    tc = tk.tiled_spmm_kernel(plan, plan.pack_values(data), b, precision=precision)
     for entry, dp, fn, plain in _derived_plans(plan):
-        bv = dp.pack_values(a.data.to(dtype))
+        bv = dp.pack_values(data)
         tk.reset_launch_counts()
         got = fn(dp, bv, b, precision=precision)
         torch.cuda.synchronize()
         assert tk.launch_counts() == {**NO_TK, entry: 1}
-        assert torch.equal(got, base), entry
+        if entry == "compact_spmm":
+            assert torch.equal(got, tc), entry
+            assert torch.equal(got, fn(dp, bv, b, precision=precision)), entry
+        else:
+            assert torch.equal(got, _ffma_pair_base(entry, plan, data, b, precision)), entry
         want = plain(dp, bv, b, precision=precision)
         tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL
         torch.testing.assert_close(got.float(), want.float(), **tol, msg=entry)
@@ -1182,20 +1203,20 @@ def test_plan_executors_match_plain_and_block_ell_bitwise(cuda, name, dtype, pre
 def test_footprint_kernel_takes_every_n_tile(cuda):
     """n of 5, 20, 40 and 300 (one to five 64-column n-tiles, ragged) and
     S 16 with 128 x 128 blocks (a super of 16 windows): each bitwise equal
-    to the FFMA executors' base (`_ffma_base`)."""
+    to the grouped executor on the base plan (`_ffma_pair_base`)."""
     a, plan, _ = _plan_exec_inputs("ragged_8x32_n130_b3", cuda, torch.float32)
     rng = np.random.default_rng(8)
     for n in (5, 20, 40, 300):
         b = torch.from_numpy(rng.standard_normal((a.shape[1], n)).astype(np.float32)).to(cuda)
         fp = tt.footprint_plan(plan, 4)
         got = tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b)
-        assert torch.equal(got, _ffma_base(plan, plan.pack_values(a.data), b)), n
+        assert torch.equal(got, _ffma_pair_base("footprint_spmm", plan, a.data, b)), n
     a, plan, b3 = _plan_exec_inputs("rowblock_128x128_n200_b1", cuda, torch.float32)
     fp = tt.footprint_plan(plan, 16)
     assert tk.footprint_tile(fp) == 16
     b = b3[0].contiguous()
     assert torch.equal(tk.footprint_spmm_kernel(fp, fp.pack_values(a.data), b),
-                       _ffma_base(plan, plan.pack_values(a.data), b))
+                       _ffma_pair_base("footprint_spmm", plan, a.data, b))
 
 
 # (m, k, n), blocksize, rows_per_super, rows left empty: a super of 16
@@ -1225,9 +1246,9 @@ GROUPED_CASES = {
 @pytest.mark.parametrize("name", sorted(GROUPED_CASES))
 def test_grouped_windows_bitwise(cuda, name, dtype, precision):
     """The grouped kernel's windows (one row-block each, or slices of a
-    taller one): bitwise equal to the FFMA executors' base on the base plan
-    (`_ffma_base`), row-blocks with no slot written as zeros, within the
-    tier of its plain version, one launch."""
+    taller one): bitwise equal to the footprint executor on the base plan
+    (`_ffma_pair_base`), row-blocks with no slot written as zeros, within
+    the tier of its plain version, one launch."""
     (m, k, n), bs, G, empty = GROUPED_CASES[name]
     rng = np.random.default_rng(m + G)
     mask = rng.random((m, k)) < 0.08
@@ -1237,7 +1258,7 @@ def test_grouped_windows_bitwise(cuda, name, dtype, precision):
     gp = tt.group_plan(plan, G)
     assert tk.grouped_tile(gp, n)["slices"] == (2 if bs[0] > 128 else 1)
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
-    base = _ffma_base(plan, plan.pack_values(a.data.to(dtype)), b, precision)
+    base = _ffma_pair_base("grouped_spmm", plan, a.data.to(dtype), b, precision)
     bv = gp.pack_values(a.data.to(dtype))
     tk.reset_launch_counts()
     got = tk.grouped_spmm_kernel(gp, bv, b, precision=precision)
@@ -1254,7 +1275,7 @@ def test_grouped_windows_bitwise(cuda, name, dtype, precision):
 @pytest.mark.parametrize("name", sorted(FOOTPRINT_CASES))
 def test_footprint_windows_bitwise(cuda, name, dtype, precision):
     """The footprint kernel's windows at their edges: bitwise equal to the
-    FFMA executors' base on the base plan (`_ffma_base`), within the tier
+    grouped executor on the base plan (`_ffma_pair_base`), within the tier
     of its plain version, one launch."""
     (m, k, n), bs, S, empty = FOOTPRINT_CASES[name]
     rng = np.random.default_rng(m + S)
@@ -1267,7 +1288,7 @@ def test_footprint_windows_bitwise(cuda, name, dtype, precision):
     if empty is not None:
         assert int(fp.nslots[1]) == 0
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
-    base = _ffma_base(plan, plan.pack_values(a.data.to(dtype)), b, precision)
+    base = _ffma_pair_base("footprint_spmm", plan, a.data.to(dtype), b, precision)
     bv = fp.pack_values(a.data.to(dtype))
     tk.reset_launch_counts()
     got = tk.footprint_spmm_kernel(fp, bv, b, precision=precision)
@@ -1351,10 +1372,9 @@ def test_footprint_train_step_launches_and_matches_cpu(cuda):
 
 
 def test_batched_kernel_chunks_batches_past_the_grid_limit(cuda):
-    """A batch of 65,536 + 7 runs as two launches of the grid's z limit
-    inside one entry-point call, each batch element bitwise equal to the
-    batched kernel on that element alone (`_ffma_base`, itself within the
-    tier of the 2-D kernel)."""
+    """A batch of 65,536 + 7, past the grid's y and z limits: one launch
+    over the batch folded into columns, each batch element bitwise equal
+    to the 2-D kernel on that element alone."""
     a, plan, _ = _plan_exec_inputs("ragged_32x16_n33_b5", cuda, torch.float32)
     bv = plan.pack_values(a.data)
     b3 = torch.randn(65536 + 7, a.shape[1], 3, generator=torch.Generator().manual_seed(2)).to(cuda)
@@ -1363,7 +1383,37 @@ def test_batched_kernel_chunks_batches_past_the_grid_limit(cuda):
     torch.cuda.synchronize()
     assert tk.launch_counts()["resident_spmm_batched"] == 1
     for g in (0, 65534, 65535, 65536, 65542):
-        assert torch.equal(got[g], _ffma_base(plan, bv, b3[g].contiguous())), g
+        assert torch.equal(got[g], tk.tiled_spmm_kernel(plan, bv, b3[g].contiguous())), g
+
+
+# row-blocks of at most this many rows take the n-major tile
+NMAJOR_MAX_BM = int(re.search(
+    r"constexpr int NMAJOR_MAX_BM = (\d+);",
+    (Path(tk.__file__).resolve().parents[1] / "csrc" / "block_ell_spmm.cuh").read_text()).group(1))
+
+
+@pytest.mark.parametrize("dtype,precision", PLAN_EXEC_TIERS)
+@pytest.mark.parametrize("bm", [5, 8, 24, NMAJOR_MAX_BM, NMAJOR_MAX_BM + 1])
+def test_nmajor_and_row_tiles_agree_within_the_tier(cuda, bm, dtype, precision):
+    """Row-blocks on both sides of the tile chooser's border: the n-major
+    tile (bm <= NMAJOR_MAX_BM) and the 64-row tile (bm = NMAJOR_MAX_BM +
+    1) each within the tier of the plain version, the 2-D, batched and
+    compact executors bitwise equal."""
+    rng = np.random.default_rng(bm)
+    m, k, n = 7 * bm + 3, 90, 100
+    mask = rng.random((m, k)) < 0.15
+    a = tt.CSR.from_dense((mask * rng.standard_normal((m, k))).astype(np.float32), device=cuda)
+    plan = tt.build_plan(a, (bm, 16))
+    cp = tt.compact_plan(plan)
+    bv, cv = plan.pack_values(a.data.to(dtype)), cp.pack_values(a.data.to(dtype))
+    b3 = torch.from_numpy(rng.standard_normal((2, k, n)).astype(np.float32)).to(cuda, dtype)
+    want = tk._block_exec_plain(plan, bv, b3[1].contiguous(), precision=precision)
+    tol = TOL_BF16 if want.dtype == torch.bfloat16 else TOL
+    c2 = tk.tiled_spmm_kernel(plan, bv, b3[1].contiguous(), precision=precision)
+    cb = tk.resident_spmm_batched_kernel(plan, bv, b3, precision=precision)[1]
+    cc = tk.compact_spmm_kernel(cp, cv, b3[1].contiguous(), precision=precision)
+    assert torch.equal(c2, cb) and torch.equal(c2, cc)
+    torch.testing.assert_close(c2.float(), want.float(), **tol)
 
 
 # -- the windowed gather and segment sum, and SpGEMM -----------------------------

@@ -1,5 +1,5 @@
 """The port stands alone: tpusparse_torch, chip_smoke.py and
-compare_flash_backward.py import nothing of JAX or of the JAX package, and
+compare_trees.py import nothing of JAX or of the JAX package, and
 `device=None` never runs on the CPU."""
 
 import ast
@@ -98,7 +98,7 @@ def test_import_and_cpu_forward_load_no_jax():
 
 def _sources():
     return sorted((ROOT / "tpusparse_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "compare_flash_backward.py"]
+        ROOT / "chip_smoke.py", ROOT / "compare_trees.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -166,6 +166,12 @@ EXEC_CASES = {
     "ragged_8x16_n40": (64, 96, 40, 0.1, (8, 16), (16, 32)),
     "ragged_32x8_n33": (75, 53, 33, 0.15, (32, 8), None),
     "low_fill_8x32_n24": (128, 160, 24, 0.01, (8, 32), (64, 80)),
+    # the block executors' tile edges: bm 5 and 24 (the n-major tile's N 8
+    # and 24), 72 (the 64-row tile, two warpgroups); n 1 and 130; row-blocks
+    # with no slot
+    "bm5_n1_empty": (43, 37, 1, 0.15, (5, 8), (10, 20)),
+    "bm24_n130_empty": (100, 70, 130, 0.1, (24, 16), (24, 48)),
+    "bm72_n130_empty": (150, 90, 130, 0.1, (72, 32), (72, 144)),
 }
 
 
@@ -185,6 +191,24 @@ def _derived(executor, j, t, bs):
     extra = () if arg is None else (arg,)
     return (j_make(jplan.build_plan(j, bs), *extra), t_make(tplan.build_plan(t, bs), *extra),
             t_fn, j_fn)
+
+
+@pytest.mark.parametrize("name", sorted(EXEC_CASES))
+def test_compact_plan_heaviest_first_orders_row_blocks_by_slot_count(name):
+    """The order in which the compact executor starts its row-blocks: the
+    slot counts of row_base sorted, most first, ties in row order, int32;
+    one copy a device."""
+    _, _, _, t, bs = _exec_case(name)
+    cp = tplan.compact_plan(tplan.build_plan(t, bs))
+    order = cp.index_tensor("heaviest_first", "cpu")
+    assert order.dtype == torch.int32 and order is cp.index_tensor("heaviest_first", "cpu")
+    counts = np.diff(np.asarray(cp.row_base))
+    np.testing.assert_array_equal(order.numpy(), np.argsort(-counts, kind="stable"))
+    sorted_counts = counts[order.numpy()]
+    assert (np.diff(sorted_counts) <= 0).all()
+    for c in np.unique(counts):  # ties keep row order
+        ties = order.numpy()[sorted_counts == c]
+        assert (np.diff(ties) > 0).all()
 
 
 @pytest.mark.parametrize("name", sorted(EXEC_CASES))

@@ -327,6 +327,29 @@ def test_binding_matches_the_c_entry_point(monkeypatch):
     assert len(captured["block_ell_spmm"]) == len(params) == 19
 
 
+@pytest.mark.parametrize("entry,source,fn,count", [
+    ("resident_spmm_batched", "block_ell_spmm_batched", "block_ell_spmm_batched", 20),
+    ("compact_spmm", "block_ell_spmm_compact", "compact_spmm", 18),
+])
+def test_plan_executor_bindings_match_their_c_entry_points(monkeypatch, entry, source, fn,
+                                                           count):
+    """The ctypes argument lists of the batched and compact executors have
+    one type per parameter of their C entry points (the row-block order
+    included)."""
+    import re
+    from pathlib import Path
+
+    from tpusparse_torch.kernels import _build
+
+    captured = {}
+    monkeypatch.setattr(_build, "bind",
+                        lambda name, argtypes: captured.update(argtypes) or argtypes)
+    tk._c_function.__wrapped__(entry)
+    src = (Path(tk.__file__).resolve().parents[1] / "csrc" / f"{source}.cu").read_text()
+    params = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src).group(1).split(",")
+    assert len(captured[fn]) == len(params) == count
+
+
 def test_heaviest_first_orders_row_blocks_by_slot_count():
     """The order in which the block executor starts row-blocks: slot counts
     descending, ties in row order; one int32 copy a device."""

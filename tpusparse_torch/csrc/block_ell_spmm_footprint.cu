@@ -18,11 +18,11 @@
 // ascending column order and, within a slot, over k ascending in 16-wide
 // chunks (a block's ragged k edge masked with zeros), with the operands
 // rounded to bf16 on staging in the 'default' tier: the chain of
-// block_tiles.cuh. So C is bitwise equal to the batched executor on a batch
-// of one (and the compact and grouped executors) on the plan the footprint
-// plan was derived from, and the kernel stays on FFMA in every tier (a
-// tensor-core tier would change the bits of all four FFMA executors); it is
-// within the tier of block_ell_spmm, which sums on the tensor cores.
+// window_tiles.cuh. So C is bitwise equal to the grouped executor on the
+// plan the footprint plan was derived from, and the kernel stays on FFMA in
+// every tier (a tensor-core tier would change the bits of both); it is
+// within the tier of block_ell_spmm (and the batched and compact
+// executors), which sum on the tensor cores.
 //
 // What bounds it: the FFMA work 2 * nblocks * bm * bk * n, 0.418 ms at the
 // 16384^2 headline at 67 TFLOP/s; its bytes (blocks, B, C once) take 0.05

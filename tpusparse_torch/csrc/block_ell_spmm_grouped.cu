@@ -21,11 +21,11 @@
 // chain from 0.f over its row-block's slots in the stream's order (the base
 // plan's ascending column order) and, within a slot, over k ascending in
 // 16-wide chunks (the ragged k edge masked with zeros), operands rounded to
-// bf16 on staging in the 'default' tier: block_tiles.cuh's chain. So C is
-// bitwise equal to the batched executor on a batch of one on the plan the
-// grouped plan was derived from, and to the compact and footprint
-// executors, and the kernel stays on FFMA in every tier; it is within the
-// tier of block_ell_spmm, which sums on the tensor cores.
+// bf16 on staging in the 'default' tier: window_tiles.cuh's chain. So C is
+// bitwise equal to the footprint executor on the plan the grouped plan was
+// derived from, and the kernel stays on FFMA in every tier; it is within
+// the tier of block_ell_spmm (and the batched and compact executors),
+// which sum on the tensor cores.
 //
 // What bounds it: the FFMA work 2 * nblocks * bm * bk * n (0.418 ms at the
 // headline at 67 TFLOP/s); at low fill (the 4096^2 plan at 1 % with 8x32

@@ -1,10 +1,12 @@
-// The wgmma tile of the block SpMM (block_ell_spmm.cu) and the SDDMM
-// (sddmm.cu) for NVIDIA Hopper (sm_90a): a thread block of WGS warpgroups
-// owns a (64 WGS) x BN tile of its output (BN = 128, 64 or 32) and runs a K
-// loop over chunks of 128 bytes of k, which the kernel's own loader brings
-// into registers and stages. The staging is gemm.cu's, generalised to a tile
-// that starts anywhere in its operand and ends at limits of its own (a
-// block's edge, a matrix's edge, a split's end):
+// The wgmma tile of the block SpMM (block_ell_spmm.cuh: the 2-D, batched
+// and compact executors) and the SDDMM (sddmm.cu) for NVIDIA Hopper
+// (sm_90a): a thread block of WGS warpgroups owns a (64 WGS) x BN tile of
+// its output (BN = 128, 64 or 32), or in the SpMM's n-major form the
+// transpose of a BM x (64 WGS) tile (BM a multiple of 8 under 64), and runs
+// a K loop over chunks of 128 bytes of k, which the kernel's own loader
+// brings into registers and stages. The staging is gemm.cu's, generalised
+// to a tile that starts anywhere in its operand and ends at limits of its
+// own (a block's edge, a matrix's edge, a split's end):
 //   - a chunk is loaded into registers a row of 128 bytes at a time, by
 //     16-byte vectors where the operand's rows run along k and are 16-byte
 //     aligned, else one element a load, coalesced along whichever axis is
@@ -68,13 +70,25 @@ __device__ __forceinline__ void load_vec(float (&v)[E], const __nv_bfloat16* p) 
   }
 }
 
-template <bool X3_, int WGS_, int BN_>
+// A thread block of WGS warpgroups and its tile: BM rows of the A side
+// (a row-block's rows, or dC's) by BN of the B side (columns of C, or of a
+// block), both staged K-major. Row-major (NMAJ false): wgmma's 64-row side
+// runs over BM = 64 WGS rows, a warpgroup's 64 each, and its N side over BN
+// (128, 64 or 32). n-major (NMAJ, the block SpMM's row-blocks under 64
+// rows): its 64-row side runs over BN = 64 WGS columns of C and its N side
+// over BM, a multiple of 8, so the tile computes C's transpose and no
+// product row is spent on rows past a short row-block.
+template <bool X3_, int WGS_, int BM_, int BN_, bool NMAJ_ = false>
 struct Geometry {
   static constexpr bool X3 = X3_;
   static constexpr int WGS = WGS_;
-  static constexpr int BN = BN_;
+  static constexpr bool NMAJ = NMAJ_;
   static constexpr int NT = 128 * WGS;
-  static constexpr int BM = 64 * WGS;
+  static constexpr int BM = BM_;
+  static constexpr int BN = BN_;
+  static_assert(NMAJ ? BN == 64 * WGS && BM % 8 == 0 && BM <= 64 : BM == 64 * WGS,
+                "64 rows of the wgmma side a warpgroup");
+  static constexpr int MMA_N = NMAJ ? BM : BN;  // wgmma's N
   static constexpr int E = X3 ? 4 : 8;  // staged values a 16-byte chunk
   static constexpr int KC = 8 * E;      // k a chunk: 32 fp32 or 64 bf16
   static constexpr int TILE_A = BM * ROW_BYTES;
@@ -82,7 +96,7 @@ struct Geometry {
   static constexpr int PARTS = X3 ? 2 : 1;  // hi and lo, or the bf16 tile
   static constexpr int STAGE = PARTS * (TILE_A + TILE_B);
   static constexpr int SMEM = 2 * STAGE + 1024;  // two stages, 1024-byte alignment slack
-  static constexpr int NACC = BN / 2;            // fp32 sums a thread
+  static constexpr int NACC = MMA_N / 2;         // fp32 sums a thread
   // k_loop_async's raw ring: two slots of a chunk of fp32 A rows (BM x KC)
   // and B (BN x KC K-major, or KC x BN), after the two stages (a third slot
   // ran no faster on the H100)
@@ -106,14 +120,24 @@ struct Geometry {
 // NGROUP (row V (tid / 8) + p, chunk tid % 8) for a thread that holds V
 // neighbouring rows (a 16-byte group of a row-major source) of one chunk.
 // Each keeps a warp's 16-byte shared stores conflict-free in the swizzle.
+// A tile of fewer than NT chunks (the n-major tile's short A side) is
+// staged in the KMAJ places by its first ROWS * 8 threads, and one whose
+// chunks do not divide among NT threads leaves the last p of some threads
+// empty (`has`).
 enum Map { KMAJ, NMAJ, NGROUP };
 
 // One operand's staged chunk: ROWS rows x 8 16-byte chunks of E values; NT
-// threads stage V chunks each, placed by a Map.
+// threads stage up to V chunks each, placed by a Map.
 template <typename T, int ROWS, int NT, int E>
 struct Staged {
-  static constexpr int V = ROWS * 8 / NT;
-  static_assert(V >= 1 && V * NT == ROWS * 8, "a whole number of chunks a thread");
+  static constexpr int V = (ROWS * 8 + NT - 1) / NT;
+  static constexpr bool EVEN = V * NT == ROWS * 8;  // every thread stages V chunks
+
+  // Does this thread stage a chunk p? (Always, where EVEN; NMAJ and NGROUP
+  // tiles are.)
+  __device__ static bool has(int p) {
+    return EVEN || static_cast<int>(threadIdx.x) + NT * p < ROWS * 8;
+  }
 
   __device__ static void at(int p, Map map, int& row, int& c) {
     const int t = static_cast<int>(threadIdx.x), v = t + NT * p;
@@ -132,7 +156,7 @@ struct Staged {
       const int kb = c * E;
 #pragma unroll
       for (int e = 0; e < E; ++e) r[p][e] = 0.f;
-      if (row >= R || kb >= K) continue;
+      if (!has(p) || row >= R || kb >= K) continue;
       const T* src = x + static_cast<size_t>(row) * ld + kb;
       if (vec) {
         load_vec<E>(r[p], src);
@@ -145,9 +169,11 @@ struct Staged {
     }
   }
 
-  // r[p][e] = x[(c E + e) * ld + row] (rows across k), 0 at row >= R or k >= K.
-  __device__ static void load_n(float (&r)[V][E], const T* __restrict__ x, size_t ld, int R,
-                                int K) {
+  // r[p][e] = x[(c E + e) * ld + off[p]] (rows across k, the thread's row
+  // p at offset off[p] along a row of x), 0 at row >= R or k >= K.
+  __device__ static void load_n(float (&r)[V][E], const T* __restrict__ x, size_t ld,
+                                const size_t (&off)[V], int R, int K) {
+    static_assert(EVEN, "NMAJ tiles stage V chunks a thread");
 #pragma unroll
     for (int p = 0; p < V; ++p) {
       int row, c;
@@ -158,7 +184,7 @@ struct Staged {
       if (row >= R || kb >= K) continue;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        if (kb + e < K) r[p][e] = to_f32(x[static_cast<size_t>(kb + e) * ld + row]);
+        if (kb + e < K) r[p][e] = to_f32(x[static_cast<size_t>(kb + e) * ld + off[p]]);
       }
     }
   }
@@ -169,6 +195,7 @@ struct Staged {
   __device__ static void store(uint8_t* hi, uint8_t* lo, const float (&r)[V][E], Map map) {
 #pragma unroll
     for (int p = 0; p < V; ++p) {
+      if (!has(p)) continue;
       int row, c;
       at(p, map, row, c);
       const int off = wg::sw128(row, c);
@@ -201,30 +228,39 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 
 // Issues this warpgroup's wgmmas of the chunk staged in stage `buf` and
 // commits them: 3xTF32 into a fresh sum `part` (the small products first),
-// or one bf16 pass into acc.
+// or one bf16 pass into acc. The warpgroup's 64 rows of the wgmma side are
+// rows of the A tile, or in an n-major tile rows of the B tile, which then
+// takes the A tile as its N side: a product of the A side's part x and the
+// B side's part y is the same in both.
 template <class G>
 __device__ __forceinline__ void issue_mmas(float (&acc)[G::NACC], float (&part)[G::NACC],
                                            uint32_t sbase, int buf) {
-  const uint32_t ah = sbase + buf * G::STAGE + (threadIdx.x / 128) * 64 * ROW_BYTES;
-  const uint32_t bh = sbase + buf * G::STAGE + G::PARTS * G::TILE_A;
+  const uint32_t wg_rows = (threadIdx.x / 128) * 64 * ROW_BYTES;
+  const uint32_t ah = sbase + buf * G::STAGE + (G::NMAJ ? 0 : wg_rows);
+  const uint32_t bh = sbase + buf * G::STAGE + G::PARTS * G::TILE_A + (G::NMAJ ? wg_rows : 0);
+  auto mma = [&](float (&d)[G::NACC], uint32_t a, uint32_t b, int o, int scale_d) {
+    const uint64_t da = wg::desc_k_sw128(a + o), db = wg::desc_k_sw128(b + o);
+    if constexpr (G::NMAJ) {
+      wg::mma<G::MMA_N, !G::X3>(d, db, da, scale_d);
+    } else {
+      wg::mma<G::MMA_N, !G::X3>(d, da, db, scale_d);
+    }
+  };
   wg::fence();
   if constexpr (G::X3) {
     wg::fence_regs(part);
     const uint32_t al = ah + G::TILE_A, bl = bh + G::TILE_B;
 #pragma unroll
     for (int s = 0; s < KSTEPS; ++s) {
-      const uint32_t o = 32 * s;
-      wg::mma<G::BN, false>(part, wg::desc_k_sw128(al + o), wg::desc_k_sw128(bh + o), s > 0);
-      wg::mma<G::BN, false>(part, wg::desc_k_sw128(ah + o), wg::desc_k_sw128(bl + o), 1);
-      wg::mma<G::BN, false>(part, wg::desc_k_sw128(ah + o), wg::desc_k_sw128(bh + o), 1);
+      const int o = 32 * s;
+      mma(part, al, bh, o, s > 0);
+      mma(part, ah, bl, o, 1);
+      mma(part, ah, bh, o, 1);
     }
   } else {
     wg::fence_regs(acc);
 #pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-      const uint32_t o = 32 * s;
-      wg::mma<G::BN, true>(acc, wg::desc_k_sw128(ah + o), wg::desc_k_sw128(bh + o), 1);
-    }
+    for (int s = 0; s < KSTEPS; ++s) mma(acc, ah, bh, 32 * s, 1);
   }
   wg::commit();
 }
@@ -362,33 +398,40 @@ int with_types(int a_dtype, int b_dtype, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// f(Geometry<X3, WGS, BN>{}) for a tile of an output with `rows` rows and
-// `cols` columns a tile (a row-block's or an output block's): 3xTF32 unless
-// both operands are bf16 or the tier rounds to bf16; two warpgroups (128
-// rows) for more than 64 rows, else one; BN 128 for more than 64 columns
-// (two warpgroups only: one warpgroup's 128-column 3xTF32 tile stages 8
-// chunks a thread of B and spills), 64 for more than 32, else 32.
+// f(std::bool_constant<X3>{}): 3xTF32 unless both operands are bf16 or the
+// tier rounds to bf16.
 template <typename TA, typename TB, class F>
-int with_geometry(bool round_bf16, int rows, int cols, F&& f) {
+int with_tier(bool round_bf16, F&& f) {
   constexpr bool both_bf16 =
       sizeof(TA) == sizeof(__nv_bfloat16) && sizeof(TB) == sizeof(__nv_bfloat16);
-  auto on_x3 = [&](auto x3) -> int {
+  if constexpr (!both_bf16) {
+    if (!round_bf16) return f(std::true_type{});
+  }
+  return f(std::false_type{});
+}
+
+// f(Geometry<X3, WGS, 64 WGS, BN>{}) for a row-major tile of an output with
+// `rows` rows and `cols` columns a tile (a row-block's or an output
+// block's): the tier by with_tier; two warpgroups (128 rows) for more than
+// 64 rows, else one; BN 128 for more than 64 columns (two warpgroups only:
+// one warpgroup's 128-column 3xTF32 tile stages 8 chunks a thread of B and
+// spills), 64 for more than 32, else 32.
+template <typename TA, typename TB, class F>
+int with_geometry(bool round_bf16, int rows, int cols, F&& f) {
+  return with_tier<TA, TB>(round_bf16, [&](auto x3) -> int {
     constexpr bool X3 = decltype(x3)::value;
     auto on_wgs = [&](auto wgs) -> int {
       constexpr int WGS = decltype(wgs)::value;
+      constexpr int BM = 64 * WGS;
       if constexpr (WGS == 2) {
-        if (cols > 64) return f(Geometry<X3, WGS, 128>{});
+        if (cols > 64) return f(Geometry<X3, WGS, BM, 128>{});
       }
-      if (cols > 32) return f(Geometry<X3, WGS, 64>{});
-      return f(Geometry<X3, WGS, 32>{});
+      if (cols > 32) return f(Geometry<X3, WGS, BM, 64>{});
+      return f(Geometry<X3, WGS, BM, 32>{});
     };
     return rows > 64 ? on_wgs(std::integral_constant<int, 2>{})
                      : on_wgs(std::integral_constant<int, 1>{});
-  };
-  if constexpr (!both_bf16) {
-    if (!round_bf16) return on_x3(std::true_type{});
-  }
-  return on_x3(std::false_type{});
+  });
 }
 
 }  // namespace wt

@@ -11,10 +11,14 @@
 //
 // The block walks steps, each an A chunk (WR rows x BK_T = 16 deep, staged
 // k-major) times a B chunk (16 x WN, row-major), and adds them with
-// `acc = fmaf(a, b, acc)` in ascending k: the chain of block_tiles.cuh,
-// which the batched and compact executors keep too (not block_ell_spmm.cu,
-// which runs on the tensor cores since its redesign). The
-// walk is double-buffered through registers: the next step's operands are
+// `acc = fmaf(a, b, acc)` in ascending k, slots in the base plan's order.
+// Both executors keep that one chain of roundings, so they are bitwise equal
+// to each other on the same plan; the other block executors
+// (block_ell_spmm.cuh) sum on the tensor cores, within the tier of it.
+// Precision tiers: fp32 FFMA ('high'/'highest', never TF32); in 'default'
+// both operands are rounded to bf16 (RTN) as they are staged, their
+// products exact in fp32, the sums fp32. The walk is double-buffered
+// through registers: the next step's operands are
 // loaded into registers before the current step's FFMAs and stored into the
 // other half of the buffer after them, one barrier a step, the loads
 // in flight during the arithmetic. The staging goes through registers (not
@@ -25,9 +29,63 @@
 
 #pragma once
 
-#include "block_tiles.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <type_traits>
 
 namespace tiles {
+
+constexpr int BK_T = 16;  // k of a step's chunks
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <bool ROUND_BF16>
+__device__ __forceinline__ float tier(float x) {
+  if constexpr (ROUND_BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Calls f(Tag<TA>, Tag<TB>, Tag<TC>, std::bool_constant<ROUND_BF16>) for the
+// dtype codes (0 = float32, 1 = bfloat16) of the values, B and C; returns
+// cudaErrorInvalidValue for an unknown code and 0 otherwise.
+template <typename F>
+int dispatch(int vals_dtype, int b_dtype, int c_dtype, int round_bf16, F&& f) {
+  auto on_round = [&](auto ta, auto tb, auto tc) -> int {
+    if (round_bf16) {
+      f(ta, tb, tc, std::true_type{});
+    } else {
+      f(ta, tb, tc, std::false_type{});
+    }
+    return 0;
+  };
+  auto on_c = [&](auto ta, auto tb) -> int {
+    if (c_dtype == 0) return on_round(ta, tb, Tag<float>{});
+    if (c_dtype == 1) return on_round(ta, tb, Tag<__nv_bfloat16>{});
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  auto on_b = [&](auto ta) -> int {
+    if (b_dtype == 0) return on_c(ta, Tag<float>{});
+    if (b_dtype == 1) return on_c(ta, Tag<__nv_bfloat16>{});
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (vals_dtype == 0) return on_b(Tag<float>{});
+  if (vals_dtype == 1) return on_b(Tag<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 template <int WR_, int WN_, int TR_, int NTH_>
 struct WTile {

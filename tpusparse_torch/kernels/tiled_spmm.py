@@ -8,7 +8,8 @@ bitwise-equal output, as the JAX pair does (tiled_spmm.py:286-288).
 
 Precision contract (the port of `tpusparse/kernels/mxu.py:28-103`):
 'high' and 'highest' are fp32-class, never plain TF32 (3xTF32 on the tensor
-cores in `block_ell_spmm.cu`, fp32 FFMA in the other float executors);
+cores in `block_ell_spmm.cuh`'s body, fp32 FFMA in the grouped and
+footprint executors);
 'default' rounds both operands to bf16 (round to nearest even) and sums in
 fp32. The TPU's 3-pass bf16 split is a workaround for its matrix unit and
 is not ported; 3xTF32 is the H100's counterpart.
@@ -34,13 +35,18 @@ kernel each: `compact_spmm_kernel` (`_compact_kernel`, l.1029;
 `csrc/block_ell_spmm_compact.cu`), `grouped_spmm_kernel`
 (`_grouped_kernel`, l.1186; `csrc/block_ell_spmm_grouped.cu`) and
 `footprint_spmm_kernel` (`_footprint_kernel`, l.1344;
-`csrc/block_ell_spmm_footprint.cu`). Those four add a row-block's slots in
-ascending column order through one FFMA chain (`csrc/block_tiles.cuh`), so
-on the same A and B they are bitwise equal to each other (the batched
-kernel on a batch of one is their common base). `block_ell_spmm.cu` sums
-the same slots in the same order on the tensor cores (`csrc/wgmma_tiles.cuh`),
-another chain of roundings: the four are within the tier of it. It starts
-the row-blocks with the most slots first (`Plan.heaviest_first`).
+`csrc/block_ell_spmm_footprint.cu`). The 2-D, batched and compact
+executors are one tensor-core body (`csrc/block_ell_spmm.cuh`) on the
+ELL and compact walks of a row-block's slots, with one tile chooser, so on
+the same A and B they are bitwise equal: the batched kernel, which folds
+the batch into columns in place, and the compact one on its plan give
+`tiled_spmm_kernel`'s bits on the folded B and on the base plan.
+Row-blocks of at most 48 rows take its n-major tile (C's transpose, n on
+the tensor cores' 64-row side). All three start the
+row-blocks with the most slots first (`heaviest_first` of the plan). The
+grouped and footprint executors add the same slots in the same order
+through one FFMA chain (`csrc/window_tiles.cuh`): bitwise equal to each
+other, within the tier of the tensor-core three.
 
 A wrapper given CPU tensors runs the plain PyTorch version of the same
 function (`_block_exec_plain`, `_block_exec_batched_plain`,
@@ -226,10 +232,10 @@ def resident_spmm_batched_kernel(
     The counterpart of `resident_spmm_batched_pallas`
     (tpusparse/kernels/tiled_spmm.py:508-526): the batch on the grid, B and
     C read and written in place. The TPU kernel's VMEM fit check and its
-    `block_n` and `unroll` knobs have no counterpart. C[g] is bitwise equal
-    to this kernel on b3[g] alone and within the tier of
-    `resident_spmm_kernel(plan, block_vals, b3[g])`, which sums on the
-    tensor cores.
+    `block_n` and `unroll` knobs have no counterpart. The kernel's tiles
+    run over b3 folded to (k, batch·n) in place, so C is bitwise equal to
+    `resident_spmm_kernel` on that folded operand (one kernel body, one
+    tile chooser) with no transposing copy.
     """
     out_dtype = out_dtype or torch.result_type(block_vals, b3)
     _check(plan, block_vals, b3, out_dtype, b_ndim=3)
@@ -250,6 +256,7 @@ def resident_spmm_batched_kernel(
         _DTYPE_CODE[b3.dtype], c.data_ptr(), _DTYPE_CODE[out_dtype],
         plan.index_tensor("block_cols", b3.device).data_ptr(),
         plan.index_tensor("nslots", b3.device).data_ptr(),
+        plan.index_tensor("heaviest_first", b3.device).data_ptr(),
         batch, m, k, n, bm, bk, plan.num_row_blocks, plan.ell_width,
         int(tier == "default"), b3.device.index or 0,
         torch.cuda.current_stream(b3.device).cuda_stream,
@@ -283,7 +290,8 @@ def compact_spmm_kernel(
     `cplan.pack_values`. The counterpart of `compact_spmm_pallas`
     (tpusparse/kernels/tiled_spmm.py:1091); its `block_n` knob and its
     TPU-only bk % 128 rule are not carried. Bitwise equal to
-    `tiled_spmm_kernel` on the plan `cplan` derives from."""
+    `tiled_spmm_kernel` on the plan `cplan` derives from (one kernel
+    body)."""
     return _run_derived("compact_spmm", cplan, block_vals, b, out_dtype, precision,
                         cplan.nblocks)
 
@@ -296,9 +304,10 @@ def grouped_spmm_kernel(
     `gplan.pack_values`. The counterpart of `grouped_spmm_pallas`
     (tpusparse/kernels/tiled_spmm.py:1243), with fp32 sums where the TPU
     kernel added each slot into its output block in the output's type (the
-    two differ for a bf16 C only). Bitwise equal to `tiled_spmm_kernel` on
-    the plan `gplan` derives from. A thread block owns a window of one
-    row-block (`grouped_tile`)."""
+    two differ for a bf16 C only). Bitwise equal to `footprint_spmm_kernel`
+    on the plan `gplan` derives from (one FFMA chain), within the tier of
+    `tiled_spmm_kernel`. A thread block owns a window of one row-block
+    (`grouped_tile`)."""
     return _run_derived("grouped_spmm", gplan, block_vals, b, out_dtype, precision,
                         gplan.num_slots)
 
@@ -311,7 +320,8 @@ def footprint_spmm_kernel(
     from `fplan.pack_values`. The counterpart of `footprint_spmm_pallas`
     (tpusparse/kernels/tiled_spmm.py:1418). Takes every plan: a thread block
     owns a 128-row window of a super-row (`footprint_tile`). Bitwise equal
-    to `tiled_spmm_kernel` on the plan `fplan` derives from."""
+    to `grouped_spmm_kernel` on the plan `fplan` derives from (one FFMA
+    chain), within the tier of `tiled_spmm_kernel`."""
     return _run_derived("footprint_spmm", fplan, block_vals, b, out_dtype, precision,
                         fplan.num_slots)
 
@@ -368,7 +378,7 @@ def _run_derived(entry, dplan, block_vals, b, out_dtype, precision, num_slots):
             _DTYPE_CODE[b.dtype], c.data_ptr(), _DTYPE_CODE[out_dtype])
     nbr = cdiv(m, bm)
     if entry == "compact_spmm":
-        args = (idx("cols"), idx("row_base"), m, k, n, bm, bk, nbr)
+        args = (idx("cols"), idx("row_base"), idx("heaviest_first"), m, k, n, bm, bk, nbr)
     elif entry == "grouped_spmm":
         args = (idx("block_cols"), idx("local_rb"), idx("nslots"), m, k, n, bm, bk, nbr,
                 dplan.group_size, dplan.ell_width)
@@ -388,8 +398,8 @@ _HEAD, _TAIL = [_P, _I, _P, _I, _P, _I], [_I, _I, _P]
 # the plan's index pointers, then its ints)
 _C_ENTRY = {
     "resident_spmm_batched": ("block_ell_spmm_batched", "block_ell_spmm_batched",
-                              _HEAD + [_P] * 2 + [_I] * 8 + _TAIL),
-    "compact_spmm": ("block_ell_spmm_compact", "compact_spmm", _HEAD + [_P] * 2 + [_I] * 6 + _TAIL),
+                              _HEAD + [_P] * 3 + [_I] * 8 + _TAIL),
+    "compact_spmm": ("block_ell_spmm_compact", "compact_spmm", _HEAD + [_P] * 3 + [_I] * 6 + _TAIL),
     "grouped_spmm": ("block_ell_spmm_grouped", "grouped_spmm", _HEAD + [_P] * 3 + [_I] * 8 + _TAIL),
     "footprint_spmm": ("block_ell_spmm_footprint", "footprint_spmm",
                        _HEAD + [_P] * 4 + [_I] * 10 + _TAIL),

@@ -241,10 +241,10 @@ def _batched_resident_ok(plan: Plan, b: torch.Tensor) -> bool:
     reuse, nblocks >= num_col_blocks; round_up(n, 128) >= 256; and a VMEM
     fit of the whole packed values. The last two are TPU constraints (128
     lanes, VMEM) and are dropped, as `_block_exec` dropped its VMEM test;
-    the reuse test is kept. Both routes add each output element's products
-    over the same slots in the same order, the batched executor on FFMA
-    (csrc/block_tiles.cuh) and the fold on the tensor cores
-    (csrc/wgmma_tiles.cuh), so on the card they agree within the tier."""
+    the reuse test is kept. Both routes run one tensor-core body
+    (csrc/block_ell_spmm.cuh) on B folded to (k, batch·n), the batched
+    executor in place and the fold after a transposing copy of B and C, so
+    on the card the two give the same bits."""
     return plan.nblocks >= plan.num_col_blocks
 
 

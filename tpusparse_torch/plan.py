@@ -459,7 +459,15 @@ class CompactPlan:
     def num_col_blocks(self) -> int:
         return cdiv(self.shape[1], self.blocksize[1])
 
+    @property
+    def heaviest_first(self) -> np.ndarray:
+        """(nbr,) int32: the row-blocks by slot count, most first (stable),
+        the order in which the compact executor starts them."""
+        return np.argsort(-np.diff(np.asarray(self.row_base)), kind="stable").astype(np.int32)
+
     def index_tensor(self, name: str, device) -> torch.Tensor:
+        """`cols`, `row_base`, `scatter_idx` or `heaviest_first` as a tensor
+        on `device`, copied there once and kept with the plan."""
         return _index_tensor(self, name, device)
 
     def pack_values(self, data: torch.Tensor) -> torch.Tensor:
