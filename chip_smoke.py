@@ -40,8 +40,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (64, 32) (ragged m, k, n, n 1 and 257, empty row-blocks, pad slots)
      and a 1024^2 pattern of 128^2 blocks at 10 % (both entry points
      bitwise equal to each other and to the plain version), gemm_s8 at
-     (100, 70, 33), (64, 37, 50) and
-     4096^3 (int32 equal), flash_q8 at the flash cases' six shapes, a
+     GEMM_S8_CASES' twelve shapes up to 4096^3 (int32 equal, 1 gemm_s8 and
+     1 int8_kmajor a call; both tile widths, each on a shape with more
+     tiles than the card holds blocks), flash_q8 at the flash cases' six shapes, a
      causal seq 1000 and q and kv offsets together, with fp32 and bf16 q;
      naive_spmm with every reducer and the arg of max and min (ragged m,
      n 1, 7, 64 and 300, empty rows, one long row, tied products, a bf16
@@ -111,7 +112,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
         launch and 1 int8_kmajor, which makes b_q K-major), a 4096 x 16384
         pattern with fewer blocks than block-columns (1 ring launch, 1
         int8_kmajor), quantized_matmul and
-        QuantizedDense.matmul at 4096^3 (1 gemm_s8 each), and quantize_kv +
+        QuantizedDense.matmul at 4096^3 (1 gemm_s8 and 1 int8_kmajor each),
+        and quantize_kv +
         flash_attention_q8 at (8, 16, 512, 64) causal and (2, 12, 4096, 64)
         (1 flash_q8 each);
      i. GPT serving at benchmarks/serving_benchmark.py's configuration (24
@@ -235,7 +237,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      'dense', 'bigbird': device busy and idle share, the kernels that take
      the most time); the int8 kernels at the main path's shapes against
      their plain versions, bounds and yardsticks (a bf16 torch.matmul of the
-     dequantized dense A, torch._int_mm, bf16 SDPA), spmm_int8 (the entry
+     dequantized dense A, torch._int_mm with B row-major and column-major,
+     bf16 SDPA), gemm_s8 (the entry point: int8_kmajor and the kernel; the
+     kernel alone and int8_kmajor at 4096^2 apart), spmm_int8 (the entry
      point: int8_kmajor and the executor) beside its unpipelined
      predecessor's time, the executor alone as a design figure, with
      quantize_columns and beside the fp32
@@ -1749,15 +1753,24 @@ GPT_QUALITY_STEPS, GPT_PARITY_STEPS, GPT_FUSED_SEQ = 24, 3, 512
 # ulp apart may round to the neighbouring bf16 value (2^-8 of it) before the
 # next product; expected near 1e-3
 GPT_CARD_CPU_LIMIT = 1e-2
+# gemm_s8's card cases, (m, k, n): ragged m, k and n; m under 64 with n
+# under 8; n off a multiple of 8; m and n one past a tile edge; k in 64
+# chunks of 128; k % 16 != 0 (A padded) at 4100; more tiles than the card
+# holds blocks at once at each width (128 x 256, 128 x 128: each block walks
+# several); 4096^3
+GEMM_S8_CASES = ((100, 70, 33), (64, 37, 50), (130, 259, 257), (1, 1024, 8), (37, 100, 5),
+                 (200, 256, 100), (129, 384, 257), (256, 8192, 320), (1030, 4100, 1030),
+                 (4096, 128, 4096), (40000, 128, 128), (4096, 4096, 4096))
 
 
 def phase_small_int8() -> None:
     """Each int8 kernel against its plain version on the card at small
     shapes: spmm_int8 (both entry points bitwise equal to each other and to
-    the plain version), gemm_s8 (int32 equal) and flash_q8 (within
+    the plain version), gemm_s8 (int32 equal, both tile widths) and
+    flash_q8 (within
     FLASH_LIMIT_ROUNDED of scale)."""
     import tpusparse_torch as tt
-    from tpusparse_torch import quant
+    from tpusparse_torch import kernels, quant
     from tpusparse_torch.kernels import flash_attention as fa
     from tpusparse_torch.kernels import gemm as gk
     from tpusparse_torch.kernels import tiled_spmm as tk
@@ -1801,15 +1814,25 @@ def phase_small_int8() -> None:
             raise AssertionError(f"{name}: spmm_int8 disagrees with its plain version "
                                  f"(max_abs_err {float((got_r - want).abs().max()):.3e})")
     rng = np.random.default_rng(950)
-    for m, k, n in ((100, 70, 33), (64, 37, 50), (4096, 4096, 4096)):
+    widths = set()
+    for m, k, n in GEMM_S8_CASES:
         a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).cuda()
         b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).cuda()
+        kernels.reset_launch_counts()
         got = gk.gemm_int8_kernel(a, b)
-        ok = got.dtype == torch.int32 and torch.equal(got, gk._gemm_int8_plain(a, b))
-        print(f"case gemm_s8 ({m}, {k}, {n}): int32 equal to the plain version: "
-              f"{'ok' if ok else 'FAIL'}")
+        torch.cuda.synchronize()
+        counts = kernels.launches_by_kernel()
+        ok = (got.dtype == torch.int32 and torch.equal(got, gk._gemm_int8_plain(a, b))
+              and counts["gemm_s8"] == 1 and counts["int8_kmajor"] == 1)
+        bn = gk._s8_tile_n(m, n)
+        widths.add(bn)
+        print(f"case gemm_s8 ({m}, {k}, {n}), tiles 128 x {bn}: int32 equal to the plain "
+              f"version, 1 gemm_s8 + 1 int8_kmajor: {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"gemm_s8 ({m}, {k}, {n}) disagrees with its plain version")
+            raise AssertionError(f"gemm_s8 ({m}, {k}, {n}) disagrees with its plain version "
+                                 f"or launched {counts}")
+    if widths != {128, 256}:
+        raise AssertionError(f"gemm_s8's cases ran tiles 128 x {sorted(widths)}, not both widths")
     # name, (bh, s, d), causal, q_offset, kv_offset (rows 256:512 of a causal
     # attention against keys 0:256; the tile edges of the tensor-core kernel)
     q8_cases = [
@@ -1849,7 +1872,8 @@ def phase_int8_serving(a, b, c_fp32) -> dict:
     """The int8 serving tier's main path, each part counted on its own: the
     headline QuantizedMatrix (1 resident spmm_int8 launch), a pattern with
     fewer blocks than block-columns (1 ring launch), quantized_matmul and
-    QuantizedDense.matmul at 4096 (1 gemm_s8 each), and quantize_kv +
+    QuantizedDense.matmul at 4096 (1 gemm_s8 and 1 int8_kmajor each), and
+    quantize_kv +
     flash_attention_q8 at both serving shapes (1 flash_q8 each); then the
     checks of their results. Returns what the timings and the kernels line
     need."""
@@ -1894,8 +1918,10 @@ def phase_int8_serving(a, b, c_fp32) -> dict:
     wa, wb = (torch.from_numpy(rng.standard_normal((g, g), dtype=np.float32)).cuda()
               for _ in range(2))
     qd = tt.QuantizedDense(wa)
-    ym = counted(f"quantized_matmul {g}^3", lambda: tt.quantized_matmul(wa, wb), {"gemm_s8": 1})
-    yd = counted(f"QuantizedDense.matmul {g}^3", lambda: qd @ wb, {"gemm_s8": 1})
+    ym = counted(f"quantized_matmul {g}^3", lambda: tt.quantized_matmul(wa, wb),
+                 {"gemm_s8": 1, "int8_kmajor": 1})
+    yd = counted(f"QuantizedDense.matmul {g}^3", lambda: qd @ wb,
+                 {"gemm_s8": 1, "int8_kmajor": 1})
 
     # -- checks -----------------------------------------------------------------
     m = a.shape[0]
@@ -2041,24 +2067,44 @@ def phase_int8_timings(r, plan, bv, b) -> dict:
     qa8, _ = quant.quantize_rows(r["wa"])
     qb8, _ = quant.quantize_columns(r["wb"])
     g = qa8.shape[0]
-    err = float((gk.gemm_int8_kernel(qa8, qb8) - gk._gemm_int8_plain(qa8, qb8)).abs().max())
+    got = gk.gemm_int8_kernel(qa8, qb8)
+    err = float((got - gk._gemm_int8_plain(qa8, qb8)).abs().max())
     ms = time_ms_queued(lambda: gk.gemm_int8_kernel(qa8, qb8))
     plain_ms = time_ms(lambda: gk._gemm_int8_plain(qa8, qb8))
-    lib_ms = time_ms_queued(lambda: torch._int_mm(qa8, qb8))
-    lib_err = float((torch._int_mm(qa8, qb8) - gk.gemm_int8_kernel(qa8, qb8)).abs().max())
+    # the kernel alone on B made K-major, and int8_kmajor alone at 4096^2
+    bt8 = tk.int8_kmajor_kernel(qb8, gk._s8_ldt(g))
+    bn = gk._s8_tile_n(g, g)
+    kernel_ms = time_ms_queued(lambda: gk._gemm_s8_launch(qa8, bt8, g))
+    kt8_ms = time_ms_ahead(lambda: tk.int8_kmajor_kernel(qb8, gk._s8_ldt(g)))
+    del bt8
+    # torch._int_mm with B as given, and column-major (K-major), the layout
+    # cuBLASLt's int8 tensor-core path takes; the faster is the yardstick
+    qb8_cm = qb8.t().contiguous().t()
+    lib_rm_ms = time_ms_queued(lambda: torch._int_mm(qa8, qb8))
+    lib_cm_ms = time_ms_queued(lambda: torch._int_mm(qa8, qb8_cm))
+    lib_rm_err = float((torch._int_mm(qa8, qb8) - got).abs().max())
+    lib_cm_err = float((torch._int_mm(qa8, qb8_cm) - got).abs().max())
+    lib_ms = min(lib_rm_ms, lib_cm_ms)
     ops = 2.0 * g ** 3
     bms, by = bound(ops, 2.0 * g * g + 4.0 * g * g, INT8_OPS)
-    print(f"gemm_s8 {g}^3: kernel {ms:.4f} ms queued, plain (float64) {plain_ms:.4f} ms, "
-          f"torch._int_mm {lib_ms:.4f} ms (vs kernel max_abs_err {lib_err:.0f}), bound "
-          f"{bms:.4f} ms by {by}, kernel at {ops / (ms * 1e-3) / 1e12:.2f} TOPS; kernel vs "
-          f"plain max_abs_err {err:.0f}")
+    print(f"gemm_s8 {g}^3 (tiles 128 x {bn}): entry point (int8_kmajor + kernel) {ms:.4f} ms "
+          f"queued, {ops / (ms * 1e-3) / 1e12:.2f} TOPS, {bms / ms:.3f} of its bound; the "
+          f"kernel alone {kernel_ms:.4f} ms, {ops / (kernel_ms * 1e-3) / 1e12:.2f} TOPS, "
+          f"{bms / kernel_ms:.3f} of its bound; int8_kmajor ({g}, {g}) alone {kt8_ms:.4f} ms "
+          f"behind a sleep; plain (float64) {plain_ms:.4f} ms; torch._int_mm B row-major "
+          f"{lib_rm_ms:.4f} ms (vs kernel max_abs_err {lib_rm_err:.0f}), B column-major "
+          f"{lib_cm_ms:.4f} ms (vs kernel max_abs_err {lib_cm_err:.0f}); bound {bms:.4f} ms "
+          f"by {by}; kernel vs plain max_abs_err {err:.0f}")
+    if err != 0.0 or lib_cm_err != 0.0:
+        raise AssertionError("gemm_s8 at 4096^3 disagrees with its plain version or with "
+                             "torch._int_mm on column-major B")
     rows.append({
         "name": "gemm_s8", "route": "cuda", "source": "tpusparse_torch/csrc/gemm_s8.cu",
         "replaces": "tpusparse/kernels/gemm.py:298 (_gemm_s8_kernel)",
         "launches": r["launches"]["gemm_s8"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
     })
-    del qa8, qb8
+    del qa8, qb8, qb8_cm, got
     # -- flash_q8 at both serving shapes ---------------------------------------
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q8_row = None

@@ -33,7 +33,23 @@ flash_backward
              by `chip_smoke.time_ms_queued`; then the BERT-base 'flash'
              layer's training step at batch 8, seq 512 and batch 2, seq
              4096, and the 'bigbird' layer's at batch 8, seq 512 (5 steps
-             between events)."""
+             between events).
+gemm_s8      the int8 GEMM's entry point (`gemm_int8_kernel`: int8_kmajor
+             and the kernel) by `chip_smoke.time_ms_queued` at 4096^3, at
+             (4096, 4096, n) for n 8, 64 and 512 (QuantizedDense's
+             activation panels), at the ragged (4100, 4100, 4100) and at
+             (4096, 4112, 4096) (k a multiple of 16, not of 128: A read as
+             stored, its rows off 128-byte lines); in a tree that has them,
+             also int8_kmajor alone behind a sleep, the kernel alone
+             (`_gemm_s8_launch` on B already K-major) and the kernel alone
+             built from the tree's csrc/gemm_s8.cu with its tile width or
+             grid fixed (GEMM_S8_VARIANTS, compiled into the tree's
+             build/probes/); the host's microseconds a call at n 8 and 64
+             (the entry point, and in a tree that has them int8_kmajor and
+             the kernel alone), enqueued behind a sleep so the card never
+             holds the host back; then the int8 headline's entry point (the
+             16384^2 QuantizedMatrix, 10 % of its 128^2 blocks, times B
+             16384 x 512), which this group's kernel does not run."""
 import os
 import sys
 
@@ -151,7 +167,138 @@ def flash_backward(name, cs, tt):
         del x, layer, opt
 
 
-GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward}
+GEMM_S8_SHAPES = ((4096, 4096, 4096), (4096, 4096, 8), (4096, 4096, 64), (4096, 4096, 512),
+                  (4100, 4100, 4100), (4096, 4112, 4096))
+# csrc/gemm_s8.cu's text that fixes the tile width or the grid, and the
+# variants timed beside the kernel: (label, [(text, replacement)])
+_TILE_N = "int tile_n(int m, int n, int sms) {"
+_GRID = "const long long clusters = most < units ? most : units;"
+GEMM_S8_VARIANTS = (
+    ("128 x 256 persistent", [(_TILE_N, _TILE_N + "\n  return 256;")]),
+    ("128 x 256 a tile a block", [(_TILE_N, _TILE_N + "\n  return 256;"),
+                                  (_GRID, "const long long clusters = units;")]),
+    ("128 x 128 persistent", [(_TILE_N, _TILE_N + "\n  return 128;")]),
+)
+
+
+def _gemm_s8_variants(tree):
+    """{label: the C entry point gemm_s8} of each of GEMM_S8_VARIANTS, built
+    from `tree`'s csrc/gemm_s8.cu by parallel nvcc runs into its
+    build/probes/."""
+    import ctypes
+    import hashlib
+    import subprocess
+    from pathlib import Path
+
+    from tpusparse_torch.kernels import _build
+
+    src = (_build.CSRC / "gemm_s8.cu").read_text()
+    out = Path(tree) / "build" / "probes"
+    out.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, []
+    for label, subs in GEMM_S8_VARIANTS:
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise SystemExit(f"gemm_s8.cu: {old!r} is not there once")
+            text = text.replace(old, new)
+        tag = hashlib.sha256(text.encode()).hexdigest()[:12]
+        cu, so = out / f"gemm_s8_{tag}.cu", out / f"libgemm_s8_{tag}.so"
+        if not so.exists():
+            cu.write_text(text)
+            procs.append(subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                                           str(_build.CSRC), "-o", str(so), str(cu)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        libs[label] = so
+    for proc in procs:
+        if proc.wait() != 0:
+            raise SystemExit(f"nvcc failed:\n{proc.stdout.read().decode()}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for label, so in libs.items():
+        fn = ctypes.CDLL(str(so)).gemm_s8
+        fn.restype, fn.argtypes = i, [p] * 3 + [i] * 6 + [p]
+        fns[label] = fn
+    return fns
+
+
+def _host_us(fn, calls=200, iters=3):
+    """Median host microseconds a call of `fn` over `calls` calls enqueued
+    behind a sleep that outlasts them, so the card never holds the host."""
+    import statistics
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(int(0.2 * 2e9))  # 0.1-0.2 s at 1-2 GHz
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def gemm_s8(name, cs, tt):
+    import numpy as np
+    import torch
+
+    from tpusparse_torch import quant
+    from tpusparse_torch.kernels import gemm as gk
+    from tpusparse_torch.kernels import tiled_spmm as tk
+    from tpusparse_torch.utils.matrices import block_sparse_csr
+
+    rng = np.random.default_rng(19)
+    redesigned = hasattr(gk, "_gemm_s8_launch")
+    variants = _gemm_s8_variants(name) if redesigned else {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, k, n in GEMM_S8_SHAPES:
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).cuda()
+        ms = cs.time_ms_queued(lambda: gk.gemm_int8_kernel(a, b))
+        line = f"{name} gemm_s8 ({m}, {k}, {n}): entry point {ms:.4f} ms"
+        if redesigned:
+            ldt = gk._s8_ldt(k)
+            bt, a_k = tk.int8_kmajor_kernel(b, ldt), gk._rows_for_tma(a, ldt)
+            kt = cs.time_ms_ahead(lambda: tk.int8_kmajor_kernel(b, ldt))
+            t = cs.time_ms_queued(lambda: gk._gemm_s8_launch(a_k, bt, k))
+            line += (f"; int8_kmajor {kt:.4f} ms behind a sleep; the kernel alone at 128 x "
+                     f"{gk._s8_tile_n(m, n)} {t:.4f}")
+            want = gk._gemm_s8_launch(a_k, bt, k)
+            c = torch.empty_like(want)
+            args = (a_k.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n, k, a_k.shape[1],
+                    bt.shape[1], 0, stream)
+            for label, fn in variants.items():
+                if fn(*args) != 0 or not torch.equal(c, want):
+                    raise SystemExit(f"gemm_s8 variant {label} failed or disagrees")
+                t = cs.time_ms_queued(lambda: fn(*args))
+                line += f", {label} {t:.4f}"
+            del bt, a_k, want, c
+        print(line, flush=True)
+        if n in (8, 64):
+            line = (f"{name} gemm_s8 ({m}, {k}, {n}) host us a call: entry point "
+                    f"{_host_us(lambda: gk.gemm_int8_kernel(a, b)):.1f}")
+            if redesigned:
+                bt = tk.int8_kmajor_kernel(b, ldt)
+                line += (f", int8_kmajor {_host_us(lambda: tk.int8_kmajor_kernel(b, ldt)):.1f}"
+                         f", the kernel {_host_us(lambda: gk._gemm_s8_launch(a, bt, k)):.1f}")
+                del bt
+            print(line, flush=True)
+        del a, b
+    head = block_sparse_csr(1, (16384, 16384), (128, 128), 0.10, device="cuda")
+    qa = tt.QuantizedMatrix(head, (128, 128))
+    hb = torch.from_numpy(np.random.default_rng(7).random((16384, 512), dtype=np.float32)).cuda()
+    b_q, t = quant.quantize_columns(hb)
+    args = (qa.plan, qa.qvals, qa.scales, b_q, t)
+    ms = cs.time_ms_queued(lambda: tk.resident_spmm_int8_kernel(*args))
+    print(f"{name} int8 headline entry point (int8_kmajor + spmm_int8): {ms:.4f} ms", flush=True)
+
+
+GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward, "gemm_s8": gemm_s8}
 
 if __name__ == "__main__":
     if len(sys.argv) != 3 or sys.argv[1] not in GROUPS:

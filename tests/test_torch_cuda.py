@@ -23,6 +23,7 @@ from tpusparse_torch.kernels import gemm as gk
 from tpusparse_torch.kernels import sddmm as sk
 from tpusparse_torch.kernels import tiled_spmm as tk
 from tpusparse_torch.models import serving
+from tpusparse_torch.utils.config import cdiv
 from tpusparse_torch.utils.data import synthetic_mnist
 from tpusparse_torch.utils.matrices import block_sparse_csr
 
@@ -832,17 +833,63 @@ def test_int8_kmajor_kernel_equals_plain(cuda, shape, ldt):
     assert torch.equal(got, tk._int8_kmajor_plain(b_q, ldt))
 
 
-@pytest.mark.parametrize("shape", [(100, 70, 33), (64, 37, 50), (130, 259, 257), (1, 1024, 8)])
-def test_gemm_s8_kernel_equals_plain(cuda, shape):
-    m, k, n = shape
+# (m, k, n): ragged m, k and n; m under 64 with n under 8; n off a multiple
+# of 8; m and n one past a tile edge; k in 64 chunks of 128; k % 16 != 0 (A
+# padded) at 4100
+GEMM_S8_SHAPES = [(100, 70, 33), (64, 37, 50), (130, 259, 257), (1, 1024, 8), (37, 100, 5),
+                  (200, 256, 100), (129, 384, 257), (256, 8192, 320), (1030, 4100, 1030)]
+
+
+def _int8_pair(m, k, n, device):
     rng = np.random.default_rng(m + k + n)
-    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda)
-    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
-    gk.reset_launch_counts()
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(device)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(device)
+    return a, b
+
+
+@pytest.mark.parametrize("shape", GEMM_S8_SHAPES)
+def test_gemm_s8_kernel_equals_plain(cuda, shape):
+    """Each call makes B K-major (1 int8_kmajor) and runs the kernel (1
+    gemm_s8); the int32 result equals the plain version bit for bit."""
+    a, b = _int8_pair(*shape, cuda)
+    kernels.reset_launch_counts()
     got = gk.gemm_int8_kernel(a, b)
     torch.cuda.synchronize()
-    assert gk.launch_counts() == {"gemm": 0, "gemm_s8": 1}
+    counts = kernels.launches_by_kernel()
+    assert counts["gemm_s8"] == 1 and counts["int8_kmajor"] == 1
+    assert sum(counts.values()) == 2
     assert got.dtype == torch.int32 and torch.equal(got, gk._gemm_int8_plain(a, b))
+
+
+# (m, k, n) and the width of C's tiles the kernel takes there: more tiles
+# than the card holds blocks at once (at most two an SM), so that each block
+# of the persistent grid walks several and the ring's stages and phases
+# carry across tiles
+GEMM_S8_MULTI_TILE = [((4096, 128, 4096), 256), ((40000, 128, 128), 128)]
+
+
+@pytest.mark.parametrize("shape,bn", GEMM_S8_MULTI_TILE)
+def test_gemm_s8_walks_several_tiles_a_block(cuda, shape, bn):
+    m, k, n = shape
+    assert gk._s8_tile_n(m, n) == bn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cdiv(m, 128) * cdiv(n, bn) > 2 * sms
+    a, b = _int8_pair(m, k, n, cuda)
+    assert torch.equal(gk.gemm_int8_kernel(a, b), gk._gemm_int8_plain(a, b))
+
+
+@pytest.mark.parametrize("k", [64, 40])
+def test_gemm_s8_takes_a_that_is_not_16_byte_aligned(cuda, k):
+    """A contiguous a whose base is off 16 bytes (a row slice, or a slice
+    one byte into a flat tensor): the wrapper hands the kernel an aligned,
+    zero-padded copy, and the result is the plain version's."""
+    m, n = 70, 48
+    big, b = _int8_pair(m + 1, k, n, cuda)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int8, device=cuda), big[1:].reshape(-1)])
+    assert flat[1:].data_ptr() % 16 != 0
+    for a in (big[1:], flat[1:].view(m, k)):
+        assert a.is_contiguous()
+        assert torch.equal(gk.gemm_int8_kernel(a, b), gk._gemm_int8_plain(a, b))
 
 
 # (bh, s, d), causal, q_offset, kv_offset

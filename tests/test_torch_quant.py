@@ -154,15 +154,62 @@ def test_int8_kmajor_refuses_what_the_kernel_does_not_take():
         tk.int8_kmajor_kernel(b_q.t(), 16)
 
 
-@pytest.mark.parametrize("shape", [(96, 200, 160), (37, 70, 33)])
+# (m, k, n): k % 16 != 0 (70, 200 % 16 = 8), k % 128 != 0 with k % 16 == 0
+# (144), n under 8, m 1
+@pytest.mark.parametrize("shape", [(96, 200, 160), (37, 70, 33), (40, 144, 24), (33, 64, 5),
+                                   (1, 300, 40)])
 def test_int8_gemm_plain_equals_pallas(shape):
+    """The wrapper's CPU path, the card's composition on plain parts (B made
+    K-major, A padded where its rows are off 16 bytes, the K-major
+    product), equals JAX's int8 GEMM exactly and launches nothing."""
     m, k, n = shape
-    rng = np.random.default_rng(m)
+    rng = np.random.default_rng(m + k)
     a = rng.integers(-127, 128, (m, k)).astype(np.int8)
     b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    gk.reset_launch_counts()
+    tk.reset_launch_counts()
     got = gk.gemm_int8_kernel(torch.from_numpy(a), torch.from_numpy(b))
-    assert got.dtype == torch.int32
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
     assert _equal(got, gemm_int8_pallas(jnp.asarray(a), jnp.asarray(b)))
+    assert gk.launch_counts()["gemm_s8"] == 0 and tk.launch_counts()["int8_kmajor"] == 0
+
+
+@pytest.mark.parametrize("shape,ldt", [((50, 70, 30), 80), ((50, 70, 30), 128),
+                                       ((8, 64, 3), 64), ((8, 64, 3), 96), ((1, 5, 9), 16),
+                                       ((3, 130, 2), 256)])
+def test_int8_gemm_kmajor_plain_product_equals_plain(shape, ldt):
+    """The K-major plain product on `_int8_kmajor_plain`'s B (zero past k up
+    to ldt) and A as the kernel's TMA reads it (itself, or padded to ldt)
+    equals `_gemm_int8_plain`."""
+    m, k, n = shape
+    rng = np.random.default_rng(k + ldt)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    bt = tk._int8_kmajor_plain(b, ldt)
+    want = gk._gemm_int8_plain(a, b)
+    for a_k in (a, gk._rows_for_tma(a, ldt)):
+        assert torch.equal(gk._gemm_s8_kmajor_plain(a_k, bt, k), want)
+    a_k = gk._rows_for_tma(a, ldt)
+    assert a_k.shape[1] in (k, ldt) and a_k.data_ptr() % 16 == 0
+    assert not a_k[:, k:].any()
+
+
+def test_int8_gemm_binding_matches_the_c_entry_points(monkeypatch):
+    """The ctypes argument lists of `gemm_s8` and `gemm_s8_tile_n` have one
+    type per parameter of the C entry points in csrc/gemm_s8.cu (ctypes
+    refuses a call whose count differs, and only on the card)."""
+    import re
+    from pathlib import Path
+
+    from tpusparse_torch.kernels import _build
+
+    captured = {}
+    monkeypatch.setattr(_build, "bind", lambda name, argtypes: captured.update(argtypes))
+    gk._int8_fns.__wrapped__()
+    src = (Path(gk.__file__).resolve().parents[1] / "csrc" / "gemm_s8.cu").read_text()
+    for name, count in (("gemm_s8", 10), ("gemm_s8_tile_n", 3)):
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
+        assert len(captured[name]) == len(params) == count
 
 
 # -- QuantizedMatrix, QuantizedDense, quantized_matmul -----------------------------

@@ -1,5 +1,6 @@
-// Tile helpers shared by the int8 kernels (block_ell_spmm_int8.cu,
-// gemm_s8.cu) for NVIDIA Hopper (sm_90a).
+// Tile helpers of the int8 block-ELL executor's first design
+// (block_ell_spmm_int8.cu, blocksizes off its pipelined executor) for NVIDIA
+// Hopper (sm_90a).
 //
 // One thread block of NT = 256 threads (8 warps) computes a TM x TN = 64 x
 // 128 tile of C = A @ B for int8 A (row-major, k contiguous) and int8 B

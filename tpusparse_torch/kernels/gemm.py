@@ -18,15 +18,19 @@ in the result type of A and B unless `out_dtype` says otherwise.
 The int8 GEMM of the serving tier (`gemm.py:298-378`, `_gemm_s8_kernel`
 behind `gemm_int8_pallas`) becomes `csrc/gemm_s8.cu` behind
 `gemm_int8_kernel`: int8 (m, k) @ int8 (k, n) → exact int32, the caller
-owning dequantization. Its TPU block-size knobs are not carried.
+owning dequantization. Its TPU block-size knobs are not carried. The s8
+tensor cores read both operands K-major, so the wrapper first makes B
+K-major with `int8_kmajor_kernel` (`kernels/tiled_spmm.py`, counted as
+'int8_kmajor'): each call launches one 'int8_kmajor' and one 'gemm_s8'.
 
-A wrapper given CPU tensors runs `_gemm_plain` (or `_gemm_int8_plain`), the
-plain PyTorch version: `torch.matmul` in fp32 with TF32 off (in float64 for
-int8, exact, cast to int32). For the float GEMM the same call is the
-yardstick (`library_ms`) that `chip_smoke.py` times beside the kernel, so
-there the plain version and the library call coincide. Given CUDA tensors
-the wrapper launches the kernel or raises. It counts its launches
-(`launch_counts`).
+A wrapper given CPU tensors runs the plain PyTorch version: `_gemm_plain`,
+`torch.matmul` in fp32 with TF32 off; for int8 the card's composition with
+plain parts (`_int8_kmajor_plain`, then `_gemm_s8_kmajor_plain`, the
+product in float64, exact, cast to int32), whose result is
+`_gemm_int8_plain`'s. For the float GEMM the same call is the yardstick
+(`library_ms`) that `chip_smoke.py` times beside the kernel, so there the
+plain version and the library call coincide. Given CUDA tensors the wrapper
+launches the kernel or raises. It counts its launches (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import functools
 
 import torch
 
-from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
+from tpusparse_torch.kernels.tiled_spmm import int8_kmajor_kernel
+from tpusparse_torch.utils.config import cdiv, fp32_matmul, resolve_precision
 
 KERNEL = "gemm"
 KERNEL_INT8 = "gemm_s8"
@@ -165,30 +170,78 @@ def gemm_int8_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if a.device != b.device:
         raise ValueError(f"a on {a.device} and b on {b.device}: same device needed")
-    if a.device.type == "cpu":
-        return _gemm_int8_plain(a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a.device}")
     (m, k), n = a.shape, b.shape[1]
     if min(m, n) == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.int32, device=a.device)
-    c = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    rc = _int8_kernel_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                           a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+    ldt = _s8_ldt(k)
+    bt = int8_kmajor_kernel(b, ldt)  # the card's kernel, or on the CPU its plain version
+    a_k = _rows_for_tma(a, ldt)
+    if a.device.type == "cpu":
+        return _gemm_s8_kmajor_plain(a_k, bt, k)
+    return _gemm_s8_launch(a_k, bt, k)
+
+
+def _s8_ldt(k: int) -> int:
+    """The row length of B made K-major, and of A where it is copied: k
+    rounded up to 128 bytes, so that each 128-byte chunk the kernel's TMA
+    reads is one aligned 128-byte line."""
+    return cdiv(k, 128) * 128
+
+
+def _rows_for_tma(a: torch.Tensor, ldt: int) -> torch.Tensor:
+    """A as the kernel's TMA reads it, rows a multiple of 16 bytes apart
+    from a 16-byte-aligned base: a itself where k % 16 == 0 and its base is
+    aligned, else a copy zero-padded to ldt columns."""
+    k = a.shape[1]
+    if k % 16 == 0 and a.data_ptr() % 16 == 0:
+        return a
+    padded = torch.zeros((a.shape[0], ldt), dtype=torch.int8, device=a.device)
+    padded[:, :k] = a
+    return padded
+
+
+def _gemm_s8_launch(a_k: torch.Tensor, bt: torch.Tensor, k: int) -> torch.Tensor:
+    """C (m, n) int32 = a_k[:, :k] @ bt[:, :k]ᵀ by csrc/gemm_s8.cu: a_k (m,
+    lda) from `_rows_for_tma`, bt (n, ldt) from `int8_kmajor_kernel`. One
+    launch, counted."""
+    m, n = a_k.shape[0], bt.shape[0]
+    c = torch.empty((m, n), dtype=torch.int32, device=a_k.device)
+    rc = _int8_fns()["gemm_s8"](a_k.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n, k,
+                                a_k.shape[1], bt.shape[1], a_k.device.index or 0,
+                                torch.cuda.current_stream(a_k.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL_INT8} launch failed: CUDA error {rc}")
     _LAUNCHES["gemm_s8"] += 1
     return c
 
 
+def _s8_tile_n(m: int, n: int, device: int = 0) -> int:
+    """The width of C's tiles (128 or 256) that csrc/gemm_s8.cu takes for an
+    (m, n) C on the card `device`."""
+    bn = _int8_fns()["gemm_s8_tile_n"](m, n, device)
+    if bn < 0:
+        raise RuntimeError(f"{KERNEL_INT8} tile width: CUDA error {-bn}")
+    return bn
+
+
 @functools.cache
-def _int8_kernel_fn():
-    """The C entry point of csrc/gemm_s8.cu, built on first use."""
+def _int8_fns():
+    """The C entry points of csrc/gemm_s8.cu, built on first use."""
     from tpusparse_torch.kernels import _build
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    # a, b, c, m, n, k, device, stream
-    return _build.bind(KERNEL_INT8, {"gemm_s8": [p] * 3 + [i] * 4 + [p]})["gemm_s8"]
+    # gemm_s8: a, bt, c, m, n, k, lda, ldt, device, stream; gemm_s8_tile_n: m, n, device
+    return _build.bind(KERNEL_INT8, {"gemm_s8": [p] * 3 + [i] * 6 + [p],
+                                     "gemm_s8_tile_n": [i] * 3})
+
+
+def _gemm_s8_kmajor_plain(a_k: torch.Tensor, bt: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of `_gemm_s8_launch`, on the inputs' device:
+    a_k[:, :k] @ bt[:, :k]ᵀ in float64 (exact while |sum| < 2⁵³), cast to
+    int32."""
+    return torch.matmul(a_k[:, :k].double(), bt[:, :k].double().t()).to(torch.int32)
 
 
 def _gemm_int8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
