@@ -168,6 +168,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
         solve counted: per V-cycle 14 dia_spmv, 14 dia_nonfinite (x's check
         before each walk of a tile list) and the windowed gathers and
         segment sums of the adopted plans;
+     s. `tpusparse_torch.parallel` at world size 1 on NCCL (a `file://`
+        store; the group torn down after): `sharded_spmm` and `halo_spmm` at
+        the headline (1 block_ell_spmm each), the dp×tp sparse-MLP step at
+        ShardedMLPConfig's defaults (784/256/10, density 0.1, blocks
+        (8, 128)), batch 32, 20 steps of 1 block_ell_spmm + 1 sddmm, the
+        node-sharded GCN on the Cora-shaped task (2 block_ell_spmm a
+        forward, 4 a step), sharded_dia_cg on laplace3d_64 and sharded_cg
+        on a 4096^2 SPD CSR (1 block_ell_spmm a matvec), and the scaling
+        projection at the headline on this card's fit;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -202,7 +211,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
      <= 1e-5 of scale), and at 16384^2 the card against the CPU (values and
      grads, rtol 1e-4, atol 5e-5); one AMG V-cycle on the card against the
      same hierarchy on the CPU (<= 1e-5 of scale) and AMG-CG's float64
-     relative residual after 40 iterations (< 1e-4);
+     relative residual after 40 iterations (< 1e-4); the sharded headline
+     products against the plain executor (<= 1e-5 of scale; whether each
+     equals spmm(method='tiled') bit for bit, printed), the sharded MLP's
+     loss dropping over 20 steps (last < 0.8 x first), its weights outside
+     the mask exactly 0 and 3 steps against the same steps on the CPU
+     (gloo, before NCCL comes up; rtol 1e-4, atol 5e-5), the sharded GCN
+     forward against the single-card GCN (the same tier) and its loss
+     dropping, the sharded solvers' float64 residuals (< 1e-4; sharded_dia_cg
+     after one restart from its x, its first solve within 10 % of linalg.cg's);
   6. timings with CUDA events (median after warm-up): each kernel, its
      plain version and one PyTorch call that computes the same function (a
      yardstick the port never calls), at the headline shapes and at the
@@ -286,7 +303,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      figures (the whole plane's bytes; the occupied tiles') and
      torch.sparse.mm of the same DIA part as a CSR tensor, x's nonfinite
      check alone, and windowed_segsum on the hierarchy's restriction maps
-     beside index_add_;
+     beside index_add_; the sharded headline products against one spmm
+     (the gap: the all_gather and the layer), the sharded MLP step beside
+     phase_train's 'sparse' step, the sharded GCN step, ms an iteration of
+     sharded_dia_cg beside linalg.cg on one card;
   7. each phase's wall time, the `kernels` JSON line, then the device JSON
      line, last.
 
@@ -4283,7 +4303,8 @@ def phase_calibrate(routes_at, level1_args) -> dict:
     'auto' takes at `routes_at` (label -> (CSR, n)) and laplace3d_64's level
     1 on JAX's constants (a CPU operand) and on the fit (a card operand).
     Then every constant is set back to JAX's, so that no later phase's
-    launches depend on the fit. Returns the calibration's launches."""
+    launches depend on the fit. Returns the calibration's launches and the
+    fit."""
     import os
     import tempfile
 
@@ -4328,7 +4349,7 @@ def phase_calibrate(routes_at, level1_args) -> dict:
     ops.set_cost_constants(**ops._COST_DEFAULTS)
     if ops.get_cost_constants("cuda") != ops._COST_DEFAULTS:
         raise AssertionError("calibrate: JAX's constants not restored on the card")
-    return counts
+    return counts, fit
 
 
 def phase_rigl(batches) -> dict:
@@ -4647,6 +4668,290 @@ def phase_utils(a, plan, bv, b) -> None:
         raise AssertionError("debug checks missed a malformed CSR on the card")
 
 
+# the parallel phase (world size 1 on NCCL): the sharded MLP's launches a
+# step (its forward and the dblocks; x needs no gradient, so no dB) and the
+# sharded GCN's on Cora (each of its 2 layers: the forward and the dB of
+# H W; Â's values need no gradient, so no sddmm)
+PAR_MLP_STEP = {"block_ell_spmm": 1, "sddmm": 1}
+PAR_GCN_FORWARD = {"block_ell_spmm": 2}
+PAR_GCN_STEP = {"block_ell_spmm": 4}
+# unpreconditioned CG on laplace3d_64 at tol 1e-7 (~200 loop iterations)
+PAR_CG_MAXITER = 1000
+PAR_SPD_N = 4096  # sharded_cg's SPD CSR: B + Bᵀ + (2·n·density + 1)·I, B at 0.2 %
+PAR_SPD_DENSITY = 0.002
+PAR_NDEVS = (2, 4, 8)
+
+
+def _par_mlp(cfg, mesh, batches, device, on_step=None):
+    """The dp×tp sparse-MLP step from seed 0's weights over `batches`;
+    returns (losses, params, mask, the step and its state)."""
+    from tpusparse_torch import parallel as P
+
+    params, rsp, mask, opt = P.make_sharded_train_state(cfg, mesh,
+                                                        torch.Generator().manual_seed(0))
+    step = P.make_sharded_train_step(cfg, mesh, rsp)
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        losses.append(float(step(params, opt, mask, x.to(device), y.to(device))))
+        if on_step is not None:
+            on_step(i, params)
+    return losses, params, mask, (step, opt)
+
+
+def _spd_csr(n, density, seed, device):
+    import scipy.sparse as ssp
+
+    import tpusparse_torch as tt
+
+    bm = ssp.random(n, n, density=density, random_state=seed, format="csr", dtype=np.float32)
+    a = (bm + bm.T + (2.0 * n * density + 1.0) * ssp.eye(n, dtype=np.float32)).tocsr()
+    a = a.astype(np.float32)
+    a.sort_indices()
+    return tt.CSR.from_scipy(a, device=device), a
+
+
+def phase_parallel(a, plan, bv, b, batches, cora, fit) -> dict:
+    """`tpusparse_torch.parallel` at world size 1 on NCCL (a `file://`
+    store), the group torn down at the end: `sharded_spmm` and `halo_spmm`
+    at the headline against the plain executor, each timed against one
+    `spmm`; the dp×tp sparse-MLP step at ShardedMLPConfig's defaults, batch
+    32, TRAIN_STEPS steps with the launches of each checked, the loss
+    dropping, the mask kept and PARITY_STEPS steps against the same steps on
+    the CPU (gloo, world size 1, before NCCL comes up), timed beside
+    phase_train's 'sparse' step; the node-sharded GCN on the Cora-shaped
+    task against the single-card GCN and GRAPH_STEPS Adam steps; sharded_dia_cg
+    on laplace3d_64 beside `linalg.cg` on one card (a solve, whose float64
+    residual must be within 10 % of one card's, then one restart from its
+    x, whose residual must be under AMG_RESID_LIMIT) and sharded_cg on an SPD
+    CSR with its float64 residual; the scaling projection at the headline on
+    this card's fit.
+    Returns the launches of the counted runs."""
+    import torch.distributed as dist
+
+    import tpusparse_torch as tt
+    from tpusparse_torch import ops
+    from tpusparse_torch import parallel as P
+    from tpusparse_torch.kernels.tiled_spmm import _block_exec_plain
+    from tpusparse_torch.models import gcn
+    from tpusparse_torch.parallel.projection import NVLINK_BW
+    from tpusparse_torch.utils.matrices import get_matrix
+
+    total = {"block_ell_spmm": 0, "sddmm": 0}
+
+    def counted(label, expect):
+        torch.cuda.synchronize()
+        counts = _launches()
+        _expect(label, counts, expect)
+        for kname in total:
+            total[kname] += counts[kname]
+
+    cfg = P.ShardedMLPConfig()
+    P.initialize_distributed(device="cpu")
+    try:
+        cpu_losses, cpu_params, _, _ = _par_mlp(cfg, P.make_mesh(device="cpu"),
+                                               batches[:PARITY_STEPS], "cpu")
+    finally:
+        dist.destroy_process_group()
+
+    P.initialize_distributed()
+    try:
+        mesh, mesh1 = P.make_mesh(), P.make_mesh((1,), ("model",))
+        print(f"parallel: {dist.get_backend()} at world size {dist.get_world_size()}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, on {_power_line()}")
+
+        # -- sharded_spmm and halo_spmm at the headline --------------------------
+        n = b.shape[1]
+        t0 = time.perf_counter()
+        rsp, hsp = P.shard_plan_rows(a, 1, plan.blocksize), P.shard_plan_2d(a, 1, plan.blocksize)
+        print(f"parallel plans of the headline: {time.perf_counter() - t0:.2f} s on the host")
+        if not (np.array_equal(rsp.block_cols[0], plan.block_cols)
+                and np.array_equal(hsp.nslots[0, 0], plan.nslots)):
+            raise AssertionError("the one-rank plans differ from the headline's plan")
+        kernels_reset()
+        c_rows = P.sharded_spmm(rsp, a.data, b, mesh)
+        c_halo = P.halo_spmm(hsp, a.data, b, mesh)
+        counted("sharded and halo spmm at the headline", {"block_ell_spmm": 2})
+        ref = _block_exec_plain(plan, bv, b)
+        single = tt.spmm(a, b, method="tiled")
+        for label, got in (("sharded_spmm", c_rows), ("halo_spmm", c_halo)):
+            rel = over_scale(got, ref)[1]
+            same = torch.equal(got, single)
+            print(f"{label} headline at world size 1: against the plain executor over scale "
+                  f"{rel:.3e} (limit {HEADLINE_TOL}); equal to spmm(method='tiled') bit for "
+                  f"bit: {same}")
+            if not (rel <= HEADLINE_TOL and got.shape == single.shape
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{label} disagrees with the plain executor")
+        del ref, single, c_rows, c_halo
+        # spmm looks its plans up by the pattern's fingerprint every call (a
+        # SHA-1 of 27.3M indices); tiled_spmm with the plans held is the same
+        # pack and launch without it, the yardstick of the gap
+        lookup_ms = time_ms(lambda: tt.spmm(a, b, method="tiled"), warmup=0, iters=1)
+        pair = tt.build_plan_pair(a)
+        spmm_ms = time_ms(lambda: tt.tiled_spmm(a, b, plans=pair))
+        rows_ms = time_ms(lambda: P.sharded_spmm(rsp, a.data, b, mesh))
+        halo_ms = time_ms(lambda: P.halo_spmm(hsp, a.data, b, mesh))
+        print(f"headline at world size 1 (median of 10, CUDA events): spmm(method='tiled') "
+              f"with its plans held (tiled_spmm(plans=...)) {spmm_ms:.4f} ms, sharded_spmm "
+              f"{rows_ms:.4f} ms ({rows_ms - spmm_ms:+.4f}), halo_spmm {halo_ms:.4f} ms "
+              f"({halo_ms - spmm_ms:+.4f}): the all_gather and the layer; spmm(method='tiled') "
+              f"looking its plans up {lookup_ms:.1f} ms (one call)")
+        del rsp, hsp
+
+        # -- the dp×tp sparse-MLP step --------------------------------------------
+        snap = {}
+
+        def on_step(i, params):
+            counted(f"sharded mlp step {i}", PAR_MLP_STEP)
+            kernels_reset()
+            if i + 1 == PARITY_STEPS:
+                snap.update({k: v.detach().cpu().clone() for k, v in params.items()})
+
+        kernels_reset()
+        losses, params, mask, (step, opt) = _par_mlp(cfg, mesh, batches, "cuda", on_step)
+        print(f"sharded mlp ({cfg.in_features}/{cfg.hidden}/{cfg.num_classes}, density "
+              f"{cfg.density}, blocks {cfg.blocksize}, batch {batches[0][0].shape[0]}): "
+              f"{len(losses)} "
+              f"steps, launches {json.dumps(PAR_MLP_STEP)} a step, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+        if not (all(np.isfinite(losses)) and losses[-1] < 0.8 * losses[0]):
+            raise AssertionError(f"sharded mlp: loss did not drop: {losses}")
+        outside = params["w1_blocks"].detach()[mask == 0]
+        if not bool((outside == 0).all()):
+            raise AssertionError("sharded mlp: a weight outside the mask moved")
+        np.testing.assert_allclose(losses[:PARITY_STEPS], cpu_losses, **TOL_FP32)
+        err = 0.0
+        for k_, p in cpu_params.items():
+            torch.testing.assert_close(snap[k_], p.detach(), **TOL_FP32, msg=k_)
+            err = max(err, float((snap[k_] - p.detach()).abs().max()))
+        print(f"sharded mlp: {int((mask == 0).sum())} weights outside the mask stay 0; card vs "
+              f"CPU over {PARITY_STEPS} steps: losses within tolerance, params max_abs_err "
+              f"{err:.3e} (ok)")
+        xb, yb = batches[0][0].cuda(), batches[0][1].cuda()
+        mlp_ms = time_ms(lambda: step(params, opt, mask, xb, yb), warmup=5, iters=50)
+        net = _net("sparse", "cuda")
+        net_opt = tt.make_train_state(net)
+        train_ms = time_ms(lambda: tt.train_step(net, net_opt, xb, yb), warmup=5, iters=50)
+        print(f"sharded mlp step {mlp_ms:.4f} ms against phase_train's 'sparse' step "
+              f"{train_ms:.4f} ms (batch 32, median of 50, CUDA events)")
+        del params, opt, step, net, net_opt
+
+        # -- the node-sharded GCN on the Cora-shaped task --------------------------
+        adj, (x, labels, node_mask) = cora
+        a_hat = tt.normalized_adjacency(_on(adj, "cuda"))
+        model = tt.GCN(CORA["features"], hidden=(64,), num_classes=CORA["classes"],
+                       device="cuda", generator=torch.Generator().manual_seed(31))
+        rsp = P.shard_plan_rows(a_hat, 1)
+        blocks = rsp.pack_values(a_hat.data)
+        forward = P.make_sharded_gcn_forward(model, rsp, mesh1)
+        xc, lc, mc = x.cuda(), labels.cuda(), node_mask.cuda()
+        kernels_reset()
+        with torch.no_grad():
+            out = forward(model, blocks, xc)
+        counted("sharded gcn forward", PAR_GCN_FORWARD)
+        with torch.no_grad():
+            want = model(a_hat, xc)
+        fwd_err = float((out - want).abs().max())
+        torch.testing.assert_close(out, want, **TOL_FP32)
+        step = P.make_sharded_gcn_train_step(model, rsp, mesh1)
+        opt = gcn.make_train_state(model, 1e-2)
+        losses = []
+        for i in range(GRAPH_STEPS):
+            kernels_reset()
+            losses.append(float(step(model, opt, blocks, xc, lc, mc)))
+            counted(f"sharded gcn step {i}", PAR_GCN_STEP)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"sharded gcn: loss did not drop: {losses}")
+        gcn_ms = time_ms(lambda: step(model, opt, blocks, xc, lc, mc), warmup=3, iters=20)
+        print(f"sharded gcn cora (blocks {rsp.blocksize}, {int(rsp.nslots.sum())} of them): "
+              f"forward against the single-card GCN max_abs_err {fwd_err:.3e} (ok), "
+              f"{GRAPH_STEPS} Adam steps with {json.dumps(PAR_GCN_STEP)} each, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, {gcn_ms:.4f} ms a step")
+        del model, opt, step, blocks, rsp
+
+        # -- the sharded solvers ----------------------------------------------------
+        lap = get_matrix("laplace3d_64", device="cuda")
+        op = tt.csr_to_dia(lap)
+        rhs = torch.from_numpy(np.random.default_rng(101).random(lap.shape[0],
+                                                                 dtype=np.float32)).cuda()
+        sp64, b64 = lap.to_scipy().astype(np.float64), rhs.double().cpu().numpy()
+        # one solve stops where the fp32 recursive residual passes tol; the
+        # true residual drifts from it (1.8e-4 of |b| here in both paths on
+        # the CPU), so the solve restarts once from its x, as a user does
+        res = {}
+        for label, solve in (
+                ("sharded_dia_cg", lambda M, x0: P.sharded_dia_cg(
+                    op, rhs, mesh1, x0=x0, tol=AMG_TOL, maxiter=PAR_CG_MAXITER, M=M)),
+                ("linalg.cg on one card", lambda M, x0: tt.linalg.cg(
+                    op, rhs, x0=x0, tol=AMG_TOL, maxiter=PAR_CG_MAXITER, M=M))):
+            xs = None
+            for run in ("a solve", "restarted from its x"):
+                calls = [0]
+
+                def ident(v):
+                    calls[0] += 1
+                    return v
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                xs = solve(ident, xs)[0]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                res[label, run] = float(np.linalg.norm(sp64 @ xs.double().cpu().numpy() - b64)
+                                        / np.linalg.norm(b64))
+                print(f"{label} (laplace3d_64, {op.noffsets} diagonals, tol {AMG_TOL}), {run}: "
+                      f"{calls[0] - 1} loop iterations in {secs * 1e3:.3f} ms, "
+                      f"{secs * 1e3 / calls[0]:.4f} ms an iteration (host clock), float64 "
+                      f"relative residual {res[label, run]:.3e}")
+                if not bool(torch.isfinite(xs).all()):
+                    raise AssertionError(f"{label}: x not finite")
+        one = (res["sharded_dia_cg", "a solve"], res["linalg.cg on one card", "a solve"])
+        if not (res["sharded_dia_cg", "restarted from its x"] < AMG_RESID_LIMIT
+                and abs(one[0] - one[1]) <= 0.1 * one[1]):
+            raise AssertionError(f"sharded_dia_cg: residuals {res} (limit {AMG_RESID_LIMIT} "
+                                 f"restarted; a solve within 10 % of one card's)")
+        del op, lap, rhs, sp64
+        spd, spd_host = _spd_csr(PAR_SPD_N, PAR_SPD_DENSITY, 3, "cuda")
+        rhs = torch.from_numpy(np.random.default_rng(102).random(PAR_SPD_N,
+                                                                 dtype=np.float32)).cuda()
+        calls = [0]
+
+        def ident(v):
+            calls[0] += 1
+            return v
+
+        kernels_reset()
+        xs = P.sharded_cg(spd, rhs, mesh1, tol=1e-6, maxiter=500, M=ident)[0]
+        counted("sharded_cg", {"block_ell_spmm": calls[0]})
+        b64 = rhs.double().cpu().numpy()
+        resid = float(np.linalg.norm(spd_host.astype(np.float64) @ xs.double().cpu().numpy()
+                                     - b64) / np.linalg.norm(b64))
+        print(f"sharded_cg ({PAR_SPD_N}^2 SPD CSR, nnz {spd.nnz}): {calls[0] - 1} loop "
+              f"iterations, {calls[0]} block_ell_spmm, float64 relative residual {resid:.3e} "
+              f"(limit {AMG_RESID_LIMIT})")
+        if not (resid < AMG_RESID_LIMIT and bool(torch.isfinite(xs).all())):
+            raise AssertionError(f"sharded_cg: residual {resid}")
+
+        # -- the scaling projection, on this card's fit ---------------------------
+        ops._install_fit(torch.cuda.get_device_name(0), fit)
+        try:
+            t0 = time.perf_counter()
+            print(P.projection_table(
+                P.project_sharded_spmm(a, n, PAR_NDEVS, plan.blocksize),
+                f"sharded_spmm at the headline, projected on this card's fit"))
+            print(P.projection_table(
+                P.project_halo_spmm(a, n, PAR_NDEVS, plan.blocksize),
+                f"halo_spmm at the headline, projected on this card's fit, the ring at "
+                f"{NVLINK_BW / 1e9:.0f} GB/s a direction (NVIDIA's NVLink 4 specification "
+                f"for the H100 SXM, not a measurement)"))
+            print(f"  (projections: {time.perf_counter() - t0:.1f} s on the host)")
+        finally:
+            ops.set_cost_constants(**ops._COST_DEFAULTS)
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -4780,15 +5085,16 @@ def main() -> int:
     executors = run_phase("plan executors", phase_plan_executors, a, plan, bv, b)
     spgemm = run_phase("spgemm", phase_spgemm)
     amg = run_phase("amg laplace3d_64", phase_amg_laplace3d)
-    calib_counts = run_phase("calibrate", phase_calibrate, {
+    calib_counts, fit = run_phase("calibrate", phase_calibrate, {
         "the headline (16384^2, 10 % of 128^2 blocks)": (a, n),
         "Cora's A-hat": (graph["gcn cora"]["a"], 64),
         "ogbn-arxiv's A-hat": (graph["gcn arxiv"]["a"], 256)}, amg["level1_route_args"])
+    par_counts = run_phase("parallel", phase_parallel, a, plan, bv, b, batches, cora, fit)
     rigl_counts = run_phase("rigl", phase_rigl, batches)
     patch_counts = run_phase("patched linear", phase_patched_linear)
     gpt_train = run_phase("gpt training", phase_gpt_training)
     slice_launches = {kn: calib_counts[kn] + rigl_counts[kn] + patch_counts[kn]
-                      + gpt_train["launches"][kn] for kn in NO_LAUNCH}
+                      + gpt_train["launches"][kn] + par_counts.get(kn, 0) for kn in NO_LAUNCH}
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))
@@ -5083,7 +5389,8 @@ def main() -> int:
                    for e in ("windowed_gather", "windowed_segsum"))
     kernels.extend({**amg["rows"][e], "launches": amg["launches"][e]}
                    for e in ("dia_spmv", "dia_nonfinite"))
-    for row in kernels:  # the launches of the calibrate, rigl, patch and gpt training phases
+    # the launches of the calibrate, parallel, rigl, patch and gpt training phases
+    for row in kernels:
         row["launches"] += slice_launches.get(row["name"], 0)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""The port stands alone: tpusparse_torch, chip_smoke.py and
-compare_trees.py import nothing of JAX or of the JAX package, and
+"""The port stands alone: tpusparse_torch, chip_smoke.py, compare_trees.py,
+parallel_smoke.py and the parallel tests' worker import nothing of JAX or
+of the JAX package, and
 `device=None` never runs on the CPU."""
 
 import ast
@@ -14,6 +15,7 @@ import scipy.sparse as ssp
 import torch
 
 import tpusparse_torch as tt
+from tpusparse_torch import parallel as tpar
 from tpusparse_torch.utils.matrices import block_sparse_csr, get_matrix
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -29,8 +31,9 @@ def test_import_and_cpu_forward_load_no_jax():
     sp_hadamard, from_scipy and to_torch), an AMG-CG solve on a 2-D Laplacian
     and a wide-DIA product, a RigL step and its harvested CSR, a patched
     `nn.Linear` step and `sparsify_dense_params`, a checkpoint round trip,
-    and the calibration, timing, profiling, debug and retry modules, on the
-    CPU (one thread), in a fresh interpreter, load no forbidden module."""
+    and the calibration, timing, profiling, debug and retry modules, and a
+    world-size-1 `parallel.sharded_spmm` on gloo, on the CPU (one thread),
+    in a fresh interpreter, load no forbidden module."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -105,6 +108,12 @@ def test_import_and_cpu_forward_load_no_jax():
         "d = tempfile.mkdtemp()\n"
         "checkpoint.save_checkpoint(d, 1, {'w': lin.weight.detach()})\n"
         "assert torch.equal(checkpoint.restore_checkpoint(d)['w'], lin.weight.detach())\n"
+        "from tpusparse_torch import parallel\n"
+        "mesh = parallel.make_mesh(device='cpu')\n"
+        "rsp = parallel.shard_plan_rows(s, 1, (8, 8))\n"
+        "got = parallel.sharded_spmm(rsp, s.data.detach(), torch.ones(30, 2), mesh)\n"
+        "assert torch.allclose(got, tt.spmm(s, torch.ones(30, 2)).detach(), atol=1e-6)\n"
+        "torch.distributed.destroy_process_group()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -119,7 +128,8 @@ def test_import_and_cpu_forward_load_no_jax():
 
 def _sources():
     return sorted((ROOT / "tpusparse_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "compare_trees.py"]
+        ROOT / "chip_smoke.py", ROOT / "compare_trees.py", ROOT / "parallel_smoke.py",
+        ROOT / "tests" / "torch_parallel_worker.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -170,6 +180,8 @@ ENTRY_POINTS = {
     "get_matrix": lambda: get_matrix("laplace2d_256"),
     "speye": lambda: tt.speye(3),
     "random_mask": lambda: tt.nn.rigl.random_mask(torch.Generator(), (4, 4), 0.5),
+    "parallel.initialize_distributed": lambda: tpar.initialize_distributed(),
+    "parallel.make_mesh": lambda: tpar.make_mesh(),
 }
 
 

@@ -358,6 +358,32 @@ def test_spmm_sum_with_no_method_routes_as_jax_auto(monkeypatch):
     assert seen == ["spmm_reference"] and len(routes) == 1  # the 'auto' route of a reducer
 
 
+def test_spmm_of_an_empty_csr_with_no_method_keeps_its_gradient():
+    """An empty (5, 7) CSR routes to 'dia' under 'auto' in both packages;
+    the product keeps the graph, and the gradients equal `jax.grad`'s
+    exactly: shape (0,) for the values and zeros (7, 3) for b."""
+    ind, ptr = np.zeros(0, np.int32), np.zeros(6, np.int32)
+    b = np.random.default_rng(17).standard_normal((7, 3)).astype(np.float32)
+    w = np.cos(np.arange(15, dtype=np.float32)).reshape(5, 3)
+    data = torch.zeros(0, requires_grad=True)
+    bt = torch.from_numpy(b).requires_grad_()
+    out = tops.spmm(TCSR(data=data, indices=ind, indptr=ptr, shape=(5, 7)), bt)
+    assert out.grad_fn is not None and out.shape == (5, 3)
+    (out * torch.from_numpy(w)).sum().backward()
+
+    def loss(vals, bb):
+        a = JCSR(data=vals, indices=jnp.asarray(ind), indptr=jnp.asarray(ptr), shape=(5, 7))
+        return (jops.spmm(a, bb) * w).sum()
+
+    assert jops._route_spmm(JCSR(data=jnp.zeros(0), indices=jnp.asarray(ind),
+                                 indptr=jnp.asarray(ptr), shape=(5, 7)),
+                            jnp.asarray(b), None) == "dia"
+    g_vals, g_b = jax.grad(loss, argnums=(0, 1))(jnp.zeros(0), jnp.asarray(b))
+    assert data.grad.shape == g_vals.shape == (0,)
+    np.testing.assert_array_equal(bt.grad.numpy(), np.asarray(g_b))
+    np.testing.assert_array_equal(bt.grad.numpy(), np.zeros((7, 3), np.float32))
+
+
 @pytest.mark.parametrize("fmt", ["coo", "bsr"])
 @pytest.mark.parametrize("method", ["tiled", "naive", "gather", "reference"])
 def test_spmm_takes_coo_and_bsr(fmt, method):

@@ -160,3 +160,22 @@ def test_sparsify_dense_params_threshold(rng):
     # the CSR is what SparseLinear consumes: the pruned layer's product
     x = torch.from_numpy(rng.normal(size=(3, 10)).astype(np.float32))
     torch.testing.assert_close(tt.spmm(csr, x.T).T, x @ torch.from_numpy(w * expected).T, **TOL)
+
+
+def test_sparsify_dense_params_of_bf16_matches_jax():
+    """A bf16 weight at density 0.3: JAX's 14 nonzeros and a bf16 weight,
+    exactly."""
+    w = np.random.default_rng(0).standard_normal((8, 6))
+    pruned, sparse = sparsify_dense_params({"fc.weight": torch.tensor(w, dtype=torch.bfloat16)},
+                                           ["weight"], density=0.3)
+    jpruned, jsparse = jsparsify({"params": {"fc": {"kernel": jnp.asarray(w.T, jnp.bfloat16)}}},
+                                 ["kernel"], density=0.3)
+    (csr,), (jcsr,) = sparse.values(), jsparse.values()
+    kernel = jpruned["params"]["fc"]["kernel"]
+    assert pruned["fc.weight"].dtype == torch.bfloat16 and kernel.dtype == jnp.bfloat16
+    assert csr.data.dtype == torch.bfloat16 and jcsr.data.dtype == jnp.bfloat16
+    assert csr.nnz == jcsr.nnz == 14
+    np.testing.assert_array_equal(pruned["fc.weight"].float().numpy(),
+                                  np.asarray(kernel, np.float32).T)
+    np.testing.assert_array_equal(csr.to_dense().float().numpy(),
+                                  np.asarray(jcsr.to_dense(), np.float32).T)

@@ -229,3 +229,17 @@ def test_harvest_csr_keeps_the_weight_dtype():
     ja = ts.CSR.from_dense(jnp.ones((6, 5)))
     np.testing.assert_array_equal(a.indptr, np.asarray(ja.indptr))
     np.testing.assert_array_equal(a.indices, np.asarray(ja.indices))
+
+
+def test_harvest_csr_of_bf16_matches_jax():
+    """bf16 weight and mask: JAX's 15 nonzeros, in bf16, exactly."""
+    w = np.random.default_rng(0).standard_normal((8, 6))
+    mask = np.random.default_rng(1).random((8, 6)) < 0.4
+    a = tr.harvest_csr(torch.tensor(w, dtype=torch.bfloat16),
+                       torch.tensor(mask, dtype=torch.bfloat16))
+    ja = jr.harvest_csr(jnp.asarray(w, jnp.bfloat16), jnp.asarray(mask, jnp.bfloat16))
+    assert a.data.dtype == torch.bfloat16 and ja.data.dtype == jnp.bfloat16
+    assert a.nnz == ja.nnz == 15
+    np.testing.assert_array_equal(a.data.float().numpy(), np.asarray(ja.data, np.float32))
+    np.testing.assert_array_equal(a.indices, np.asarray(ja.indices))
+    np.testing.assert_array_equal(a.indptr, np.asarray(ja.indptr))

@@ -99,3 +99,72 @@ def test_block_sparse_csr_fills_whole_blocks():
     blocks = dense.reshape(4, 16, 3, 32).transpose(0, 2, 1, 3)
     occupied = (blocks != 0).any(axis=(2, 3))
     assert ((blocks != 0).all(axis=(2, 3)) == occupied).all()
+
+
+def _bf16_matrix():
+    """The 16x16 matrix of the bf16 conversion fault: a normal draw masked
+    at 30 %, in bf16 (JAX's ml_dtypes bf16 and torch's)."""
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((16, 16)) * (rng.random((16, 16)) < 0.3)
+    return torch.tensor(d, dtype=torch.bfloat16), jnp.asarray(d, jnp.bfloat16)
+
+
+def _bf16_equal(t: torch.Tensor, j) -> None:
+    assert t.dtype == torch.bfloat16 and np.asarray(j).dtype == jnp.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, np.float32))
+
+
+def test_bf16_host_conversions_match_jax():
+    """bf16 values through every host conversion: the same bf16 values as
+    the JAX package, exactly (the host pass widens to fp32 and casts back,
+    which is exact)."""
+    from tpusparse import interop as jinterop
+
+    from tpusparse_torch import interop as tinterop
+
+    td, jd = _bf16_matrix()
+    for cls in ("COO", "CSR", "DIA"):
+        t = getattr(ttypes, cls).from_dense(td, device="cpu")
+        j = getattr(jtypes, cls).from_dense(jd)
+        _bf16_equal(t.data, j.data)
+        _bf16_equal(t.to_dense(), j.to_dense())
+    tc, jc = ttypes.CSR.from_dense(td, device="cpu"), jtypes.CSR.from_dense(jd)
+    for ts_, js_ in ((tc.to_scipy(), jc.to_scipy()),
+                     (ttypes.DIA.from_dense(td, device="cpu").to_scipy(),
+                      jtypes.DIA.from_dense(jd).to_scipy()),
+                     (tinterop.to_scipy(tc), jinterop.to_scipy(jc))):
+        assert type(ts_) is type(js_) and ts_.dtype == js_.dtype == jnp.bfloat16
+        # scipy cannot densify bf16: hold the stored arrays
+        for field in ("data", "indices", "indptr", "offsets"):
+            if hasattr(js_, field):
+                np.testing.assert_array_equal(np.asarray(getattr(ts_, field), np.float32),
+                                              np.asarray(getattr(js_, field), np.float32))
+    tb, jb = ttypes.csr_to_bsr(tc, (4, 4)), jtypes.csr_to_bsr(jc, (4, 4))
+    _bf16_equal(tb.data, jb.data)
+    np.testing.assert_array_equal(tb.indices, np.asarray(jb.indices))
+    back, jback = ttypes.bsr_to_csr(tb), jtypes.bsr_to_csr(jb)
+    _bf16_equal(back.data, jback.data)
+    np.testing.assert_array_equal(back.indices, np.asarray(jback.indices))
+    # scipy refuses bf16 COO and BSR matrices in both packages
+    for a, ja in ((ttypes.csr_to_coo(tc), jtypes.csr_to_coo(jc)), (tb, jb)):
+        with pytest.raises(ValueError, match="bfloat16"):
+            jinterop.to_scipy(ja)
+        with pytest.raises(ValueError, match="bfloat16"):
+            tinterop.to_scipy(a)
+
+
+def test_spmm_on_a_bf16_bsr_matches_jax():
+    import tpusparse.ops as jops
+
+    import tpusparse_torch.ops as tops
+
+    td, jd = _bf16_matrix()
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((16, 3)).astype(np.float32)
+    tb = ttypes.csr_to_bsr(ttypes.CSR.from_dense(td, device="cpu"), (4, 4))
+    jb = jtypes.csr_to_bsr(jtypes.CSR.from_dense(jd), (4, 4))
+    got = tops.spmm(tb, torch.tensor(b, dtype=torch.bfloat16))
+    want = jops.spmm(jb, jnp.asarray(b, jnp.bfloat16))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))

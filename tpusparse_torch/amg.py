@@ -49,7 +49,7 @@ from tpusparse_torch.kernels.windowed import (
 )
 from tpusparse_torch.linalg import Operator, _as_csr
 from tpusparse_torch.plan import build_plan
-from tpusparse_torch.types import CSR, DIA
+from tpusparse_torch.types import CSR, DIA, _host
 
 __all__ = ["AMGPreconditioner", "smoothed_aggregation_setup", "amg_preconditioner"]
 
@@ -532,7 +532,7 @@ def smoothed_aggregation_setup(
         raise ValueError(f"unknown level_dtype {level_dtype!r}")
     device = a.data.device
     plane_dtype = torch.bfloat16 if level_dtype else None
-    host_vals = a.data.detach().cpu().numpy()
+    host_vals = _host(a.data)
     dtype = host_vals.dtype
 
     def push(v):

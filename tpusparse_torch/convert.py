@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpusparse_torch.types import host_numpy
+
 
 def _tree(module: nn.Module) -> dict:
     """flax key -> (port parameter, transpose?) for a leaf, or -> subtree for
@@ -54,8 +56,8 @@ def _to_numpy(tree: dict) -> dict:
             out[key] = _to_numpy(node)
         else:
             p, transpose = node
-            arr = p.detach().cpu().numpy()
-            out[key] = np.ascontiguousarray(arr.T) if transpose else arr.copy()
+            arr = host_numpy(p)
+            out[key] = np.ascontiguousarray(arr.T) if transpose else arr
     return out
 
 
@@ -95,3 +97,29 @@ def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
         raise KeyError(f"expected {{'params': ...}}, got keys {sorted(params)}")
     _load(_tree(module), params["params"], "")
     return module
+
+
+def load_sharded_train_state(cfg, params: Mapping, mask, momentum: Mapping,
+                             model_rank: int = 0, device=None):
+    """The port's sharded-MLP state (`parallel.make_sharded_train_state`'s
+    params, mask and optimizer) from the JAX package's, as numpy arrays:
+    `params` {'w1_blocks' (tp, slots, bm, bk), 'b1', 'w2', 'b2'}, the
+    (tp, slots, bm, bk) `mask` and `momentum`, the trace of optax's sgd
+    state, keyed as `params`. Model rank `model_rank` takes its slice of the
+    blocks; everything lands on `device` (None: the card)."""
+    from tpusparse_torch.parallel.train import make_optimizer
+    from tpusparse_torch.utils.config import resolve_device
+
+    dev = resolve_device(device)
+
+    def rank_slice(name, tree):
+        arr = np.asarray(tree[name], np.float32)
+        return arr[model_rank] if name == "w1_blocks" else arr
+
+    out = {name: torch.tensor(rank_slice(name, params), device=dev).requires_grad_()
+           for name in ("w1_blocks", "b1", "w2", "b2")}
+    optimizer = make_optimizer(cfg, out)
+    for name, p in out.items():
+        optimizer.state[p]["momentum_buffer"] = torch.tensor(rank_slice(name, momentum),
+                                                             device=dev)
+    return out, torch.tensor(np.asarray(mask, np.float32)[model_rank], device=dev), optimizer

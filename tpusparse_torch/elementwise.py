@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.plan import _fingerprint
-from tpusparse_torch.types import CSR, DIA
+from tpusparse_torch.types import CSR, DIA, _host
 
 _INT = np.int32
 
@@ -157,7 +157,7 @@ def prune_csr(
     device, differentiably."""
     if (threshold is None) == (density is None):
         raise ValueError("specify exactly one of threshold / density")
-    data = a.data.detach().cpu().numpy()
+    data = _host(a.data)
     if density is not None:
         keep_n = max(1, int(round(density * data.size)))
         thr = np.partition(np.abs(data), data.size - keep_n)[data.size - keep_n]

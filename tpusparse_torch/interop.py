@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse_torch.types import BSR, COO, CSR, DIA
+from tpusparse_torch.types import BSR, COO, CSR, DIA, host_numpy
 from tpusparse_torch.utils.config import resolve_device
 
 _INT = np.int32
@@ -121,9 +121,9 @@ def to_scipy(a):
     if isinstance(a, (CSR, DIA)):
         return a.to_scipy()
     if isinstance(a, COO):
-        return ssp.coo_matrix((a.data.detach().cpu().numpy(), (a.row, a.col)), shape=a.shape)
+        return ssp.coo_matrix((host_numpy(a.data), (a.row, a.col)), shape=a.shape)
     if isinstance(a, BSR):
         _check_block_multiple(a, "to_scipy")
-        return ssp.bsr_matrix((a.data.detach().cpu().numpy(), a.indices, a.indptr),
+        return ssp.bsr_matrix((host_numpy(a.data), a.indices, a.indptr),
                               shape=a.shape, blocksize=a.blocksize)
     raise TypeError(f"to_scipy expects CSR/COO/BSR/DIA, got {type(a)}")

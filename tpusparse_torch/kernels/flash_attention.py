@@ -39,7 +39,7 @@ on its tile size (ROADMAP section 3).
 The TPU tile knobs `block_q`/`block_k` are accepted and ignored: the CUDA
 kernels use tiles of their own (128 query rows by 64 keys in the forward at
 d <= 128, 64 by 64 elsewhere). `autotune_flash` tunes those TPU
-tiles and is not carried (ROADMAP queue 1, item 13).
+tiles and is not carried (ROADMAP queue 1, item 4).
 
 The serving tier's attention over an int8 K/V cache (l.1415-1591):
 `quantize_kv` and `flash_attention_q8` keep their signatures, and the TPU

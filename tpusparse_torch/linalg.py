@@ -45,6 +45,7 @@ from tpusparse_torch.types import (
     COO,
     CSR,
     DIA,
+    _host,
     bsr_to_csr,
     coo_to_csr,
     csr_to_dia,
@@ -952,7 +953,7 @@ def _split_rows(indptr, indices, mask):
 
 
 def _host_values(a: CSR) -> np.ndarray:
-    return np.array(a.data.detach().cpu().numpy(), np.float64)
+    return np.array(_host(a.data), np.float64)
 
 
 def ilu0(a: Operator) -> tuple:

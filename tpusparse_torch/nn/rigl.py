@@ -24,7 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpusparse_torch.types import CSR
+from tpusparse_torch.types import CSR, _back, _host
 from tpusparse_torch.utils.config import resolve_device
 
 __all__ = [
@@ -136,14 +136,14 @@ def cosine_drop_fraction(step: int, total_steps: int, alpha: float = 0.3) -> flo
 def harvest_csr(w: torch.Tensor, mask: torch.Tensor) -> CSR:
     """mask ⊙ w as a CSR on w's device (a host pattern pass), for
     `SparseLinear` or `ops.spmm` at inference."""
-    mask_h = mask.detach().cpu().numpy()
-    wm = w.detach().cpu().numpy() * mask_h
+    mask_h = _host(mask)
+    wm = _host(w) * mask_h
     keep = mask_h.reshape(-1) > 0
     m_, n_ = wm.shape
     rows, cols = np.nonzero(mask_h > 0)
     indptr = np.zeros(m_ + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=m_), out=indptr[1:])
-    return CSR(data=torch.from_numpy(wm.reshape(-1)[keep].copy()).to(w.device),
+    return CSR(data=_back(wm.reshape(-1)[keep], w, w.device),
                indices=cols.astype(np.int32), indptr=indptr.astype(np.int32), shape=(m_, n_))
 
 

@@ -180,9 +180,11 @@ class _PackedSpmm(torch.autograd.Function):
 
 class _BlocksSpmm(torch.autograd.Function):
     """C = A @ B from packed ELL blocks. Backward as `_spmm_blocks_bwd`,
-    tpusparse/ops.py:426-452, with a concrete pattern; its traced branch
-    (`_db_blocks_traced`) serves `shard_map` and comes with `parallel/`
-    (ROADMAP queue 1, item 10)."""
+    tpusparse/ops.py:426-452, on the concrete pattern. JAX's traced branch
+    (`_db_blocks_traced`, tpusparse/ops.py:399-423) exists because its
+    pattern is traced under `shard_map`; the port's sharded callers
+    (`parallel.train`, `parallel.gcn`) pass each rank's concrete chunk plan,
+    so the dB always takes the transpose-plan path below."""
 
     @staticmethod
     def forward(ctx, plan, blocks, b):
@@ -525,6 +527,9 @@ def dia_spmm(a: DIA, b: torch.Tensor) -> torch.Tensor:
     bp = torch.nn.functional.pad(b, (0, 0, lo, hi))
     acc = torch.zeros((m, b.shape[1]), dtype=torch.promote_types(a.dtype, b.dtype),
                       device=b.device)
+    if nd == 0:  # no diagonal: the zeros of a product, so both operands keep their graph
+        return torch.einsum("dm,dmn->mn", data.to(acc.dtype),
+                            bp[:0, None].expand(0, m, b.shape[1]).to(acc.dtype))
     starts = (offs + lo).tolist()
     if nd > 128:  # the scan's padded tail: zero rows at offset 0
         pad = (-nd) % _SCAN_U

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from tpusparse_torch import ops
-from tpusparse_torch.types import CSR
+from tpusparse_torch.types import CSR, _back, _host
 
 
 def tpusparse_linear(x: torch.Tensor, weight: torch.Tensor,
@@ -84,14 +84,13 @@ def sparsify_dense_params(
     pruned, sparse = {}, {}
     for name, t in state_dict.items():
         if any(p in name for p in path_patterns) and t.ndim == 2:
-            w = t.detach().cpu().numpy()
+            w = _host(t)
             if density is not None:
                 k = max(1, int(round(density * w.size)))
                 thr = np.partition(np.abs(w).ravel(), w.size - k)[w.size - k]
             else:
                 thr = threshold
-            kept = w * (np.abs(w) >= thr)
-            sparse[name] = CSR.from_dense(kept, device=t.device)
-            t = torch.from_numpy(kept).to(device=t.device, dtype=t.dtype)
+            t = _back(w * (np.abs(w) >= thr), t, t.device)
+            sparse[name] = CSR.from_dense(t, device=t.device)
         pruned[name] = t
     return pruned, sparse

@@ -36,9 +36,37 @@ def _static_shape(shape) -> Shape2:
 
 
 def _host(mat) -> np.ndarray:
+    """`mat` as a host numpy array for a host pass. numpy has no bf16, so a
+    bf16 tensor is widened to fp32, which is exact; `_back` casts a result
+    back."""
     if isinstance(mat, torch.Tensor):
-        return mat.detach().cpu().numpy()
+        mat = mat.detach().cpu()
+        return (mat.float() if mat.dtype == torch.bfloat16 else mat).numpy()
     return np.asarray(mat)
+
+
+def _back(arr: np.ndarray, like, device) -> torch.Tensor:
+    """The host result `arr` as a tensor on `device`, in the dtype of `like`
+    where that is a tensor (undoing `_host`'s bf16 widening)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if isinstance(like, torch.Tensor):
+        t = t.to(like.dtype)
+    return t.to(device)
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of `t`'s values as a numpy array handed to numpy's users
+    (scipy, flax trees). A bf16 tensor comes out in `ml_dtypes.bfloat16`,
+    the numpy bf16 type that JAX hands out, where that module is
+    installed."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    try:
+        import ml_dtypes
+    except ImportError as e:
+        raise TypeError("a bf16 tensor as a numpy array needs the ml_dtypes module") from e
+    return t.float().numpy().astype(ml_dtypes.bfloat16)
 
 
 @dataclass(frozen=True)
@@ -66,11 +94,11 @@ class COO:
     @classmethod
     def from_dense(cls, mat, device=None) -> "COO":
         """Host-side conversion in row-major order, values on `device`."""
-        mat = _host(mat)
+        src, mat = mat, _host(mat)
         shape = _static_shape(mat.shape)
         row, col = np.nonzero(mat)
         return cls(
-            data=torch.as_tensor(mat[row, col]).to(resolve_device(device)),
+            data=_back(mat[row, col], src, resolve_device(device)),
             row=row.astype(np.int32),
             col=col.astype(np.int32),
             shape=shape,
@@ -133,7 +161,7 @@ class CSR:
         import scipy.sparse as ssp
 
         return ssp.csr_matrix(
-            (_host(self.data), self.indices, self.indptr), shape=self.shape
+            (host_numpy(self.data), self.indices, self.indptr), shape=self.shape
         )
 
     def row_ids(self) -> np.ndarray:
@@ -301,7 +329,7 @@ def csr_to_bsr(a: CSR, blocksize: Shape2) -> BSR:
     indptr = np.zeros(nbr + 1, dtype=np.int32)
     np.cumsum(np.bincount(ukeys // nbc, minlength=nbr), out=indptr[1:])
     return BSR(
-        data=torch.from_numpy(bdata).to(a.data.device),
+        data=_back(bdata, a.data, a.data.device),
         indices=(ukeys % nbc).astype(np.int32),
         indptr=indptr,
         shape=a.shape,
@@ -327,7 +355,7 @@ def bsr_to_csr(a: BSR) -> CSR:
     indptr = np.zeros(m + 1, dtype=np.int32)
     np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
     return CSR(
-        data=torch.from_numpy(np.ascontiguousarray(vals[order])).to(a.data.device),
+        data=_back(vals[order], a.data, a.data.device),
         indices=cols[order].astype(np.int32),
         indptr=indptr,
         shape=a.shape,
@@ -511,13 +539,13 @@ class DIA:
 
     @classmethod
     def from_dense(cls, mat, device=None) -> "DIA":
-        mat = _host(mat)
+        src, mat = mat, _host(mat)
         m, k = _static_shape(mat.shape)
         i, j = np.nonzero(mat)
         offs = np.unique(j.astype(np.int64) - i.astype(np.int64))
         data = np.zeros((offs.size, m), mat.dtype)
         data[np.searchsorted(offs, j.astype(np.int64) - i), i] = mat[i, j]
-        return cls(data=torch.from_numpy(data).to(resolve_device(device)), offsets=offs,
+        return cls(data=_back(data, src, resolve_device(device)), offsets=offs,
                    shape=(m, k))
 
     def to_dense(self) -> torch.Tensor:
@@ -579,7 +607,7 @@ class DIA:
         import scipy.sparse as ssp
 
         m, k = self.shape
-        ours = _host(self.data)
+        ours = host_numpy(self.data)
         data = np.zeros((self.noffsets, k), ours.dtype)
         for d, off in enumerate(self.offsets):
             off = int(off)
