@@ -177,6 +177,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
         forward, 4 a step), sharded_dia_cg on laplace3d_64 and sharded_cg
         on a 4096^2 SPD CSR (1 block_ell_spmm a matvec), and the scaling
         projection at the headline on this card's fit;
+     t. `tpusparse_torch.parallel` part b at world size 1 on NCCL
+        (run_parallel_models, which parallel_smoke.py runs over its cards):
+        the Megatron BERT-base layer ('flash', batch 8, seq 512, fp32
+        'high') on a (1, 1) mesh, forward (1 flash_fwd) and backward (1
+        flash_dq + 1 flash_dkv) against the one-card layer (output and
+        grads equal at one rank, at the fp32 tier over cards), and the 12-layer
+        encoder's forward (12 flash_fwd); ring-flash and fused Ulysses
+        attention at (2, 12, 4096, 64), causal and not, forward and
+        backward (1 of each flash kernel), o, dq, dk and dv equal to
+        flash_attention_diff bit for bit; ring_local_attention at (2, 12,
+        4096, 64), window 128, against LocalAttention's core (fp32 tier);
+        MoE at Switch-Base-8's widths (d 768, d_ff 3072, 8 experts, 4096
+        tokens): moe_forward and moe_forward_a2a at capacity 8.0 with their
+        gradients against moe_forward_reference (fp32 tier), capacity 2.0's
+        share of dropped tokens; pipeline_apply (d 1024, batch 512, 8
+        microbatches) against the sequential loop; TP int8 decode at the
+        serving GPT, batch 1 and 8, logits and the gathered int8 cache
+        equal to decode_step's; each timed beside its one-card form;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -4952,6 +4970,414 @@ def phase_parallel(a, plan, bv, b, batches, cora, fit) -> dict:
     return total
 
 
+# -- part b of tpusparse_torch.parallel: the sharded models -------------------------
+# (shared with parallel_smoke.py, which runs the same checks over its cards)
+
+PM_BERT_BATCH, PM_BERT_SEQ = 8, 512
+PM_ATTN_SHAPE = (2, 12, 4096, 64)      # the (b, h, s, d) flash timings' long shape
+PM_LONG_SHAPE = (1, 12, 16384, 64)     # benchmarks/longcontext_benchmark.py's
+PM_BAND_WINDOW = 128
+# Switch-Base-8 (Fedus et al. 2021, Switch Transformers): d_model 768, d_ff
+# 3072, 8 experts; 8 sequences of 512 tokens
+SWITCH_BASE_8 = dict(num_experts=8, d_model=768, d_hidden=3072)
+PM_TOKENS = 8 * 512
+PM_CAPACITY, PM_LOSSLESS = 2.0, 8.0
+PM_PIPE = dict(d=1024, batch=512, microbatches=8)
+PM_DECODE_BATCHES = (1, 8)
+PM_OUT_SCALE, PM_GRAD_SCALE = 2e-5, 2e-4   # tests/test_parallel.py:140-203
+PM_DECODE_SCALE = 5e-3                      # tests/test_serving.py:110-111
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def say(*args) -> None:
+    """print on rank 0 only."""
+    if _rank0():
+        print(*args, flush=True)
+
+
+def _counted(label, fn, expect):
+    """fn() with the launch counts set to 0 just before and checked just
+    after (`expect` and nothing else); returns (fn's result, the counts)."""
+    kernels_reset()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _launches()
+    _expect(label, counts, expect)
+    return out, counts
+
+
+def _add(total, counts) -> None:
+    for k in total:
+        total[k] += counts.get(k, 0)
+
+
+def _global_grads(local, specs, group):
+    """The rank's BERT parameter gradients gathered along their split dims."""
+    from tpusparse_torch.parallel.mesh import _gather_dim
+
+    out = {}
+    for name, p in local.items():
+        spec = specs[name]
+        out[name] = p.grad if "model" not in spec else _gather_dim(
+            p.grad.contiguous(), group, spec.index("model"))
+    return out
+
+
+def pm_bert(P, meshes, total) -> None:
+    """The Megatron BERT-base layer ('flash', batch 8, seq 512, fp32 'high')
+    on each mesh, a forward and a backward against the one-card layer; the
+    12-layer encoder's forward on the last mesh."""
+    import tpusparse_torch as tt
+
+    layer = _bert_layer("flash", "cuda", seed=61)
+    x = _bert_input(PM_BERT_BATCH, PM_BERT_SEQ, 62).cuda()
+    want = layer(x)
+    tt.bert_loss(want).backward()
+    ref = {n: p.grad.detach().clone() for n, p in layer.named_parameters()}
+    one_ms = time_ms(lambda: tt.bert_loss(layer(x)).backward())
+    for shape in meshes:
+        mesh = P.make_mesh(shape)
+        local, specs = P.shard_bert_params(layer, mesh)
+        fwd = P.make_tp_forward(layer, mesh, specs)
+        label = f"megatron bert layer mesh {shape}"
+        got, c1 = _counted(f"{label} forward", lambda: fwd(local, x), {"flash_fwd": 1})
+        _, c2 = _counted(f"{label} backward", lambda: tt.bert_loss(got).backward(),
+                         {"flash_dq": 1, "flash_dkv": 1})
+        _add(total, c1)
+        _add(total, c2)
+        # one rank runs the layer's own code on its own tensors: equal there;
+        # across ranks the fp32 tier, outputs and grads
+        exact = int(np.prod(shape)) == 1
+        err = over_scale(got, want)[1]
+        grads = _global_grads(local, specs, mesh.get_group("model"))
+        scale = max(float(g.abs().max()) for g in ref.values())
+        gerr = 0.0
+        for name, (g, w) in [("output", (got, want))] + [(n, (g, ref[n]))
+                                                         for n, g in grads.items()]:
+            if exact and not torch.equal(g, w):
+                raise AssertionError(f"{label}: {name} differs from one card's at world size 1")
+            torch.testing.assert_close(g, w, **TOL_FP32, msg=name)
+            if name != "output":
+                gerr = max(gerr, float((g - w).abs().max()) / scale)
+        ms = time_ms(lambda: tt.bert_loss(fwd(local, x)).backward())
+        say(f"{label}: forward 1 flash_fwd, backward 1 flash_dq + 1 flash_dkv a rank; output "
+            f"over scale {err:.3e}, grads over the largest {gerr:.3e} "
+            f"({'equal' if exact else 'fp32 tier'}); forward + backward {ms:.4f} ms against "
+            f"one card's layer {one_ms:.4f} ms (rank 0, median of 10)")
+        del local, fwd, got, grads
+    del layer, ref
+    enc = tt.BertEncoder(**BERT, attention="flash", device="cuda",
+                         generator=torch.Generator().manual_seed(63))
+    ids = torch.from_numpy(np.random.default_rng(64).integers(
+        0, 30522, (PM_BERT_BATCH, PM_BERT_SEQ))).cuda()
+    with torch.no_grad():
+        want = enc(ids)
+        local, specs = P.shard_bert_params(enc, mesh)
+        fwd = P.make_tp_forward(enc, mesh, specs)
+        got, c = _counted(f"megatron bert encoder mesh {shape}", lambda: fwd(local, ids),
+                          {"flash_fwd": enc.num_layers})
+        _add(total, c)
+        torch.testing.assert_close(got, want, **TOL_FP32)
+        ms, one = time_ms(lambda: fwd(local, ids), 1, 5), time_ms(lambda: enc(ids), 1, 5)
+    say(f"megatron bert encoder ({enc.num_layers} layers) mesh {shape}: forward "
+        f"{enc.num_layers} flash_fwd a rank, over scale {over_scale(got, want)[1]:.3e}; "
+        f"{ms:.3f} ms against one card's {one:.3f} ms (rank 0, median of 5)")
+
+
+def _grad_run(fn, q, k, v, do):
+    for t in (q, k, v):
+        t.grad = None
+    o = fn(q, k, v)
+    o.backward(do)
+    return o.detach(), q.grad, k.grad, v.grad
+
+
+def pm_attention(P, shape, world, total, causals=(False, True)) -> None:
+    """Ring flash and fused Ulysses over every rank, forward and backward,
+    against `flash_attention_diff` on one card: bit for bit at world size 1,
+    within 2e-5 (o) and 2e-4 (grads) of scale otherwise; P flash_fwd a rank
+    forward and P flash_dq + P flash_dkv backward for the ring, 1 of each
+    for Ulysses; the bytes and time of one hop."""
+    from tpusparse_torch.kernels.flash_attention import flash_attention_diff
+    from tpusparse_torch.parallel.mesh import ring_permute
+
+    mesh = P.make_mesh((world,), ("seq",))
+    q, k, v, do = _flash_operands(shape, 70 + shape[2] // 1024)
+    for t in (q, k, v):
+        t.requires_grad_()
+    for causal in causals:
+        want = _grad_run(lambda *a: flash_attention_diff(*a, causal), q, k, v, do)
+        one_ms = time_ms(lambda: _grad_run(lambda *a: flash_attention_diff(*a, causal),
+                                           q, k, v, do), 1, 5)
+        for name, fn, n in (("ring flash", P.ring_flash_attention, world),
+                            ("fused ulysses", lambda *a, **kw: P.ulysses_attention(
+                                *a, fused=True, **kw), 1)):
+            label = f"{name} {shape} causal={causal} over {world}"
+            o = _counted(f"{label} forward", lambda: fn(q, k, v, mesh, causal=causal),
+                         {"flash_fwd": n})[0]
+            kernels_reset()
+            got = _grad_run(lambda *a: fn(*a, mesh, causal=causal), q, k, v, do)
+            torch.cuda.synchronize()
+            c = _launches()
+            _expect(f"{label} forward + backward", c,
+                    {"flash_fwd": n, "flash_dq": n, "flash_dkv": n})
+            _add(total, c)
+            if world == 1:
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                if not same:
+                    raise AssertionError(f"{label}: not flash_attention_diff bit for bit")
+                check = "o, dq, dk, dv equal to flash_attention_diff bit for bit"
+            else:
+                errs = [rel_err(a, b)[1] for a, b in zip(got, want)]
+                if not (errs[0] <= PM_OUT_SCALE and max(errs[1:]) <= PM_GRAD_SCALE):
+                    raise AssertionError(f"{label}: over scale {errs}")
+                check = ("over scale o {:.2e} dq {:.2e} dk {:.2e} dv {:.2e} (limits 2e-5, "
+                         "2e-4)".format(*errs))
+            del o
+            ms = time_ms(lambda: _grad_run(lambda *a: fn(*a, mesh, causal=causal),
+                                           q, k, v, do), 1, 5)
+            say(f"{label}: {n} flash_fwd, {n} flash_dq, {n} flash_dkv a rank; {check}; "
+                f"forward + backward {ms:.4f} ms against flash_attention_diff on one card "
+                f"{one_ms:.4f} ms (rank 0, median of 5)")
+    if world > 1:
+        group = mesh.get_group("seq")
+        blk = tuple(t.detach()[:, :, :shape[2] // world].contiguous() for t in (k, v))
+        before = P.p2p_bytes()
+        ring_permute(blk, group, 1)
+        sent = P.p2p_bytes() - before
+        hop_ms = time_ms(lambda: ring_permute(blk, group, 1))
+        say(f"ring hop {shape} over {world}: {sent} bytes a rank (the k and v block), "
+            f"{hop_ms:.4f} ms (rank 0, median of 10), {sent / hop_ms / 1e6:.2f} GB/s")
+
+
+def pm_band(P, world) -> None:
+    """ring_local_attention (2, 12, 4096, 64), window 128, forward and
+    backward, against LocalAttention's core on one card."""
+    import torch.nn.functional as F
+
+    from tpusparse_torch.nn.attention import banded_blocks
+
+    mesh = P.make_mesh((world,), ("seq",))
+    b, h, s, d = PM_ATTN_SHAPE
+    w = PM_BAND_WINDOW
+    q, k, v, do = _flash_operands(PM_ATTN_SHAPE, 80)
+    for t in (q, k, v):
+        t.requires_grad_()
+
+    def core(q, k, v):
+        def blocks(x):
+            return x.reshape(b, h, s // w, w, d)
+
+        pad = [F.pad(blocks(x), (0, 0, 0, 0, 1, 1)) for x in (k, v)]
+        return banded_blocks(blocks(q), *pad, w, 0, s).reshape(b, h, s, d)
+
+    want = _grad_run(core, q, k, v, do)
+    got, c = _counted("ring_local_attention", lambda: _grad_run(
+        lambda *a: P.ring_local_attention(*a, w, mesh), q, k, v, do), {})
+    for a, bb, name in zip(got, want, ("o", "dq", "dk", "dv")):
+        torch.testing.assert_close(a, bb, **TOL_FP32, msg=name)
+    ms = time_ms(lambda: _grad_run(lambda *a: P.ring_local_attention(*a, w, mesh), q, k, v, do),
+                 1, 5)
+    one = time_ms(lambda: _grad_run(core, q, k, v, do), 1, 5)
+    say(f"ring_local_attention {PM_ATTN_SHAPE} window {w} over {world}: no kernel, o and grads "
+        f"within the fp32 tier of LocalAttention's core; forward + backward {ms:.4f} ms "
+        f"against one card's core {one:.4f} ms (rank 0, median of 5)")
+
+
+def pm_moe(P, world) -> None:
+    """Switch-Base-8's widths, 4096 tokens: moe_forward and its gradients,
+    moe_forward_a2a lossless (capacity 8.0) against moe_forward_reference,
+    and at capacity 2.0 with its share of dropped tokens."""
+    mesh = P.make_mesh((world,), ("expert",))
+    params = P.init_moe_params(torch.Generator().manual_seed(90), device="cuda",
+                               **SWITCH_BASE_8)
+    for t in params.values():
+        t.requires_grad_()
+    x = torch.from_numpy(np.random.default_rng(91).standard_normal(
+        (PM_TOKENS, SWITCH_BASE_8["d_model"]), dtype=np.float32)).cuda()
+
+    def run(fn):
+        for t in params.values():
+            t.grad = None
+        y = fn()
+        y.square().sum().backward()
+        return y.detach(), {n: t.grad for n, t in params.items()}
+
+    want, wg = run(lambda: P.moe_forward_reference(params, x))
+    one = time_ms(lambda: run(lambda: P.moe_forward_reference(params, x)), 1, 5)
+    for label, fn in (("moe_forward", lambda: P.moe_forward(params, x, mesh)),
+                      (f"moe_forward_a2a capacity {PM_LOSSLESS}", lambda: P.moe_forward_a2a(
+                          params, x, mesh, capacity_factor=PM_LOSSLESS))):
+        (got, gg), c = _counted(label, lambda: run(fn), {})
+        torch.testing.assert_close(got, want, **TOL_FP32)
+        for n in gg:
+            torch.testing.assert_close(gg[n], wg[n], **TOL_FP32, msg=n)
+        ms = time_ms(lambda: run(fn), 1, 5)
+        say(f"{label} (Switch-Base-8 widths, {PM_TOKENS} tokens) over {world}: output and "
+            f"router/w_in/w_out grads within the fp32 tier of moe_forward_reference; forward + "
+            f"backward {ms:.3f} ms against the reference on one card {one:.3f} ms")
+    with torch.no_grad():
+        y = P.moe_forward_a2a(params, x, mesh, capacity_factor=PM_CAPACITY)
+        dropped = (y == 0).all(dim=1)
+        kept = ~dropped
+        torch.testing.assert_close(y[kept], want[kept], **TOL_FP32)
+        ms = time_ms(lambda: P.moe_forward_a2a(params, x, mesh, capacity_factor=PM_CAPACITY))
+    say(f"moe_forward_a2a capacity {PM_CAPACITY} over {world}: {int(dropped.sum())} of "
+        f"{PM_TOKENS} tokens dropped ({float(dropped.float().mean()):.4f}), the kept ones within "
+        f"the fp32 tier of the reference; forward {ms:.3f} ms")
+
+
+def pm_pipeline(P, world) -> None:
+    """pipeline_apply, one relu(h W + b) stage a rank, d 1024, batch 512, 8
+    microbatches: forward and gradients against the sequential loop."""
+    import tpusparse_torch as tt
+
+    S, d, M = world, PM_PIPE["d"], PM_PIPE["microbatches"]
+    mesh = P.make_mesh((world,), ("stage",))
+    rng = np.random.default_rng(95)
+    ws = torch.from_numpy((rng.standard_normal((S, d, d)) / np.sqrt(d)).astype(np.float32))
+    bs = torch.from_numpy((rng.standard_normal((S, d)) * 0.1).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((PM_PIPE["batch"], d)).astype(np.float32)).cuda()
+    ws, bs = ws.cuda().requires_grad_(), bs.cuda().requires_grad_()
+
+    def stage(p, h):
+        return torch.relu(tt.mm(h, p[0]) + p[1])
+
+    def seq():
+        h = x
+        for s in range(S):
+            h = stage((ws[s], bs[s]), h)
+        return h
+
+    def run(fn):
+        ws.grad = bs.grad = None
+        y = fn()
+        y.square().sum().backward()
+        return y.detach(), ws.grad, bs.grad
+
+    def pipe():
+        return P.pipeline_apply(stage, (ws, bs), x, mesh, num_microbatches=M)
+
+    want = run(seq)
+    got, _ = _counted("pipeline", lambda: run(pipe), {})
+    for a, b, n in zip(got, want, ("out", "dW", "db")):
+        torch.testing.assert_close(a, b, **TOL_FP32, msg=n)
+    ms, one = time_ms(lambda: run(pipe), 1, 5), time_ms(lambda: run(seq), 1, 5)
+    say(f"pipeline_apply (d {d}, batch {PM_PIPE['batch']}, {M} microbatches, {S} stages): out "
+        f"and grads within the fp32 tier of the sequential loop; forward + backward {ms:.3f} ms "
+        f"against the loop on one card {one:.3f} ms; schedule utilisation M/(M+S-1) = "
+        f"{M / (M + S - 1):.3f}, measured one / (S x pipeline) {one / (S * ms):.3f}")
+
+
+def _cache_apart(full, one, pos):
+    """(values of the gathered int8 cache apart from one card's at the new
+    token's position, in layer 0 and in all; the largest gap there; whether
+    every other entry, scales included, is equal)."""
+    apart0 = apart = 0
+    most, rest = 0.0, True
+    for i, (la, lb) in enumerate(zip(full, one)):
+        for j, (a, b) in enumerate(zip(la, lb)):
+            if j % 2:  # the per-(b, h) scales, fixed at prefill
+                rest = rest and torch.equal(a, b)
+                continue
+            d = (a[:, :, pos].float() - b[:, :, pos].float()).abs()
+            n = int((d != 0).sum())
+            apart, apart0 = apart + n, apart0 + (n if i == 0 else 0)
+            most = max(most, float(d.max()))
+            keep = torch.ones(a.shape[2], dtype=torch.bool, device=a.device)
+            keep[pos] = False
+            rest = rest and a.dtype == torch.int8 and torch.equal(a[:, :, keep], b[:, :, keep])
+    return apart0, apart, most, rest
+
+
+def pm_decode(P, world) -> None:
+    """TP int8 decode at serving_benchmark.py's GPT on a (1, world) mesh,
+    batch 1 and 8, against the one-card decode_step: at world size 1 the
+    logits and the int8 cache equal; over more ranks the logits within 5e-3
+    of scale (the row-parallel partial sums reassociate), the gathered cache
+    int8 and equal but at the new token's position, where each value is
+    within 1 of one card's (its k and v come from activations that may
+    round to the neighbouring bf16 value); ms per token of both."""
+    import tpusparse_torch as tt
+
+    model = tt.GPTDecoder(**GPT, device="cuda", generator=torch.Generator().manual_seed(21))
+    qm = tt.quantize_gpt(model)
+    del model
+    mesh = P.make_mesh((1, world))
+    qs, _ = P.shard_qgpt(qm, mesh)
+    step = P.make_tp_decode_step(qs, mesh)
+    rng = np.random.default_rng(96)
+    pos = GPT_PROMPT
+
+    def copy(c):
+        return tuple(tuple(t.clone() for t in layer) for layer in c)
+
+    for batch in PM_DECODE_BATCHES:
+        ids = torch.from_numpy(rng.integers(0, GPT["vocab_size"], (batch, pos + 1))).cuda()
+        with torch.no_grad():
+            _, cache = qm.prefill(ids[:, :pos])
+            want, one_cache = qm.decode_step(ids[:, pos], copy(cache), pos)
+        got, local = _counted(f"tp decode batch {batch}",
+                              lambda: step(ids[:, pos], copy(cache), pos), {})[0]
+        full = step.gather_cache(local)
+        err = over_scale(got, want)[1]
+        apart0, apart, most, rest = _cache_apart(full, one_cache, pos)
+        exact = world == 1
+        if not (rest and (err == 0 and apart == 0 if exact else
+                          err < PM_DECODE_SCALE and most <= 1)):
+            raise AssertionError(f"tp decode batch {batch}: logits over scale {err}, cache "
+                                 f"{apart} values apart at the new token ({apart0} in layer "
+                                 f"0), by at most {most}, the rest equal: {rest}")
+        with torch.no_grad():
+            one = time_ms(lambda: qm.decode_step(ids[:, pos], one_cache, pos))
+        ms = time_ms(lambda: step(ids[:, pos], local, pos))
+        n_new = 2 * GPT["num_layers"] * batch * GPT["hidden"]
+        say(f"tp int8 decode batch {batch} over (1, {world}): logits over scale {err:.3e} "
+            f"(limit {0 if exact else PM_DECODE_SCALE}); the gathered int8 cache equal to one "
+            f"card's but {apart} of the new token's {n_new} values ({apart0} in layer 0), each "
+            f"within {most:.0f}; {ms:.4f} ms a token against one card's decode_step "
+            f"{one:.4f} ms (rank 0, median of 10)")
+
+
+def run_parallel_models(P, world, bert_meshes, long_shapes=()) -> dict:
+    """Every part b path over `world` ranks of the process group; returns
+    this rank's flash launches."""
+    total = dict(NO_FLASH)
+    for name, fn in (("megatron bert", lambda: pm_bert(P, bert_meshes, total)),
+                     ("ring flash and ulysses", lambda: pm_attention(
+                         P, PM_ATTN_SHAPE, world, total)),
+                     *((f"long context {s}", partial(pm_attention, P, s, world, total))
+                       for s in long_shapes),
+                     ("ring local", lambda: pm_band(P, world)),
+                     ("moe", lambda: pm_moe(P, world)),
+                     ("pipeline", lambda: pm_pipeline(P, world)),
+                     ("tp decode", lambda: pm_decode(P, world))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        say(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+def phase_parallel_models() -> dict:
+    """`tpusparse_torch.parallel` part b at world size 1 on NCCL (see
+    run_parallel_models); returns the flash launches."""
+    import torch.distributed as dist
+
+    from tpusparse_torch import parallel as P
+
+    P.initialize_distributed()
+    try:
+        return run_parallel_models(P, 1, [(1, 1)])
+    finally:
+        dist.destroy_process_group()
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -5090,11 +5516,13 @@ def main() -> int:
         "Cora's A-hat": (graph["gcn cora"]["a"], 64),
         "ogbn-arxiv's A-hat": (graph["gcn arxiv"]["a"], 256)}, amg["level1_route_args"])
     par_counts = run_phase("parallel", phase_parallel, a, plan, bv, b, batches, cora, fit)
+    pm_counts = run_phase("parallel models", phase_parallel_models)
     rigl_counts = run_phase("rigl", phase_rigl, batches)
     patch_counts = run_phase("patched linear", phase_patched_linear)
     gpt_train = run_phase("gpt training", phase_gpt_training)
     slice_launches = {kn: calib_counts[kn] + rigl_counts[kn] + patch_counts[kn]
-                      + gpt_train["launches"][kn] + par_counts.get(kn, 0) for kn in NO_LAUNCH}
+                      + gpt_train["launches"][kn] + par_counts.get(kn, 0)
+                      + pm_counts.get(kn, 0) for kn in NO_LAUNCH}
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))

@@ -20,7 +20,24 @@ through `parallel.initialize_distributed` from `RANK`/`WORLD_SIZE` (a
      forward and 3 Adam steps against the one-card `GCN` on the same
      weights (rtol 1e-4, atol 5e-5), the loss dropping over 20 steps;
   4. sharded_dia_cg on laplace3d_64 at tol 1e-7 (one restart from its x),
-     its float64 residual < 1e-4 and its time beside one card's.
+     its float64 residual < 1e-4 and its time beside one card's;
+  5. part b, `chip_smoke.run_parallel_models` over every rank: the
+     Megatron BERT-base layer ('flash', batch 8, seq 512) on (1, N) and
+     (2, N/2) meshes, forward and backward against the one-card layer
+     (1 flash_fwd, 1 flash_dq, 1 flash_dkv a rank), the 12-layer encoder's
+     forward; ring-flash and fused Ulysses attention at (2, 12, 4096, 64)
+     and (1, 12, 16384, 64), causal and not, forward and backward against
+     `flash_attention_diff` on one card (2e-5 of scale for o, 2e-4 for the
+     grads; the ring N flash_fwd, N flash_dq and N flash_dkv a rank), the
+     bytes and time of one ring hop; ring_local_attention at
+     (2, 12, 4096, 64), window 128; MoE at Switch-Base-8's widths (4096
+     tokens) in both forms against the reference, and the share capacity
+     2.0 drops; the pipeline, a stage a rank (d 1024, batch 512, 8
+     microbatches), against the sequential loop; TP int8 decode at the
+     serving GPT on (1, N), batch 1 and 8, logits within 5e-3 of scale of
+     one card's and the gathered int8 cache equal but at the new token
+     (within 1 there): each beside its one-card time;
+then, the ranks gone, `parallel.dryrun_multichip(N)` on the cards.
 Rank 0 prints the card's name and power limit, each result and, last, one
 JSON object {"ok": true, "world": N, "kind": ...}. Exits non-zero with no
 result when fewer than two cards are present or a rank fails; stops every
@@ -211,9 +228,12 @@ def rank_main(rank: int, world: int, port: int) -> None:
             cs.phase_build()
         dist.barrier()
         _say(f"parallel_smoke: {dist.get_backend()} over {world} ranks, one a card")
+        meshes = [(1, world)] + ([(2, world // 2)] if world % 2 == 0 else [])
         for name, fn, args in (("headline", headline, (P, tt, world)), ("mlp", mlp, (P, world)),
                                ("gcn", gcn, (P, tt, world)),
-                               ("dia cg", dia_cg, (P, tt, world))):
+                               ("dia cg", dia_cg, (P, tt, world)),
+                               ("parallel models", cs.run_parallel_models,
+                                (P, world, meshes, (cs.PM_LONG_SHAPE,)))):
             t0 = time.perf_counter()
             fn(*args)
             _say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
@@ -235,7 +255,14 @@ def main() -> int:
         port = s.getsockname()[1]
     t0 = time.perf_counter()
     mp.spawn(rank_main, args=(world, port), nprocs=world, join=True)
+    from tpusparse_torch import parallel as P
+
+    t1 = time.perf_counter()
+    P.dryrun_multichip(world)
+    print(f"dryrun_multichip({world}) on the cards: every path finite, "
+          f"{time.perf_counter() - t1:.1f} s")
     print(f"parallel_smoke: {time.perf_counter() - t0:.1f} s in all")
+    print(cs._power_line())  # again here: the build's output can push the first out of a tail
     print(json.dumps({"ok": True, "world": world, "kind": name}))
     return 0
 

@@ -31,8 +31,16 @@ CARD = "NVIDIA H100 80GB HBM3"  # a card name to stamp fits with
 
 @pytest.fixture
 def restore_constants():
+    """Each test starts from JAX's constants with nothing set and no fit
+    read (another file on the same worker may have set every constant), and
+    the state found is put back after it."""
     saved = (dict(ops._COST), set(ops._SET_KEYS), dict(ops._FITS))
     jsaved = jops.get_cost_constants()
+    ops._COST.clear()
+    ops._COST.update(ops._COST_DEFAULTS)
+    ops._SET_KEYS.clear()
+    ops._FITS.clear()
+    ops._ROUTE_CACHE.clear()
     yield
     ops._COST.clear()
     ops._COST.update(saved[0])

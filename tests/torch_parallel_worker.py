@@ -3,12 +3,13 @@
     python tests/torch_parallel_worker.py GROUP RANK WORLD STORE OUT [INPUTS]
 
 Each of WORLD processes runs this script with its RANK; they meet on a gloo
-group at the `file://` store STORE and run GROUP's cases ('spmm' or
-'train'); rank 0 writes every case's result to the `.npz` OUT. INPUTS, an
-`.npz` of weights to carry (the 'train' group), is read where a case needs
-it. The module imports torch, numpy, scipy and tpusparse_torch only, and
-its input functions are shared with the tests, which hold the results
-against the JAX package on the same inputs.
+group at the `file://` store STORE and run GROUP's cases ('spmm', 'train',
+'attention' or 'models'); rank 0 writes every case's result to the `.npz`
+OUT. INPUTS, an `.npz` of weights to carry (the 'train' and 'models'
+groups), is read where a case needs it. The module imports torch, numpy,
+scipy and tpusparse_torch only, and its input functions are shared with
+the tests, which hold the results against the JAX package on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -282,6 +283,225 @@ def _tree(flat: dict, prefix: str) -> dict:
     return tree
 
 
+# -- part b: attention and the sharded models ----------------------------------------
+
+BAND = dict(shape=(2, 2, 256, 16), window=32)  # 2 window blocks a rank
+ULYSSES_SHAPE = (1, 4, 64, 16)
+FLASH_SHAPE = (1, 4, 4 * 128, 32)  # 128 rows a rank
+BERT = dict(hidden=48, num_heads=4, intermediate=96)
+BERT_X = (4, 40, 48)
+BERT_IDS = (4, 16)
+ENCODER = dict(num_layers=2, vocab_size=100, max_position=16, **BERT)
+BERT_MESH = (2, 2)
+PIPE = dict(stages=WORLD, d=16, batch=32, microbatches=4)
+MOE = dict(num_experts=8, d_model=16, d_hidden=32, tokens=64)
+GPT_SMALL = dict(num_layers=2, hidden=64, num_heads=4, intermediate=128, vocab_size=50,
+                 max_position=32)
+GPT_MESHES = ((2, 2), (1, 4))  # the vocabulary split over 'model', and whole
+
+
+def normal(seed, shape, scale=1.0) -> np.ndarray:
+    return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
+
+
+def band_inputs():
+    return tuple(normal(20 + i, BAND["shape"]) for i in range(3))
+
+
+def ulysses_inputs():
+    """q, k, v and a per-head bool mask of (b, h, s, s)."""
+    qkv = tuple(normal(30 + i, ULYSSES_SHAPE) for i in range(3))
+    b, h, s, _ = ULYSSES_SHAPE
+    return qkv + (np.random.default_rng(33).random((b, h, s, s)) > 0.2,)
+
+
+def flash_inputs():
+    return tuple(normal(40 + i, FLASH_SHAPE) for i in range(3))
+
+
+def bert_input():
+    return normal(50, BERT_X)
+
+
+def bert_ids():
+    return np.random.default_rng(51).integers(0, ENCODER["vocab_size"], BERT_IDS)
+
+
+def pipe_inputs():
+    """(Ws (S, d, d), bs (S, d), x (batch, d)) of relu(h W + b) stages."""
+    S, d = PIPE["stages"], PIPE["d"]
+    return (normal(60, (S, d, d), 1 / np.sqrt(d)), normal(61, (S, d), 0.1),
+            normal(62, (PIPE["batch"], d)))
+
+
+def moe_x():
+    return normal(70, (MOE["tokens"], MOE["d_model"]))
+
+
+def gpt_ids():
+    return np.random.default_rng(0).integers(0, GPT_SMALL["vocab_size"], (2, 8))
+
+
+def _grads(out: dict, key: str, tensors: dict) -> None:
+    for name, t in tensors.items():
+        out[f"{key}_grad_{name}"] = t.grad.detach().clone()
+
+
+def _leaves(arrays) -> tuple:
+    return tuple(torch.from_numpy(a).requires_grad_() for a in arrays)
+
+
+def _errors(out: dict, cases: dict) -> None:
+    """The message of the ValueError each case raises ('' where none)."""
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[f"error_{name}"] = np.array("")
+        except ValueError as e:
+            out[f"error_{name}"] = np.array(str(e))
+
+
+def run_attention(out: dict) -> None:
+    from tpusparse_torch import parallel as P
+
+    mesh = P.make_mesh((WORLD,), ("seq",), device="cpu")
+
+    def with_grads(key, fn, arrays):
+        q, k, v = _leaves(arrays)
+        o = fn(q, k, v)
+        o.square().sum().backward()
+        out[key] = o.detach()
+        _grads(out, key, {"q": q, "k": k, "v": v})
+
+    with_grads("band", lambda q, k, v: P.ring_local_attention(q, k, v, BAND["window"], mesh),
+               band_inputs())
+    *qkv, mask = ulysses_inputs()
+    with_grads("ulysses_mask", lambda q, k, v: P.ulysses_attention(
+        q, k, v, mesh, mask=torch.from_numpy(mask)), qkv)
+    with_grads("ulysses_causal", lambda q, k, v: P.ulysses_attention(q, k, v, mesh, causal=True),
+               qkv)
+    for causal in (False, True):
+        with_grads(f"ring_flash_{causal}", lambda q, k, v: P.ring_flash_attention(
+            q, k, v, mesh, causal=causal), flash_inputs())
+        with_grads(f"ulysses_fused_{causal}", lambda q, k, v: P.ulysses_attention(
+            q, k, v, mesh, fused=True, causal=causal), flash_inputs())
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in flash_inputs())
+    o = P.ring_flash_attention(q, k, v, mesh)
+    out["ring_flash_bf16_dtype"] = np.array(str(o.dtype))
+    out["ring_flash_bf16"] = o.float()
+    out["ring_bytes"] = P.count_p2p_bytes(P.ring_flash_attention, *_leaves(flash_inputs()), mesh)
+    z = torch.zeros((1, 6, 64, 8))
+    _errors(out, {
+        "ulysses_heads": lambda: P.ulysses_attention(z, z, z, mesh),
+        "ring_flash_seq": lambda: P.ring_flash_attention(z[:, :, :62], z[:, :, :62],
+                                                         z[:, :, :62], mesh),
+        "band_seq": lambda: P.ring_local_attention(z[:, :, :48], z[:, :, :48], z[:, :, :48],
+                                                   16, mesh)})
+
+
+def run_models(out: dict, inputs: dict) -> None:
+    import tpusparse_torch as tt
+    from tpusparse_torch import parallel as P
+    from tpusparse_torch.convert import load_moe_params, load_stage_params
+    from tpusparse_torch.parallel.mesh import _gather_dim
+
+    # Megatron BERT: the layer at 'dense' and 'flash', the 2-layer encoder
+    mesh = P.make_mesh(BERT_MESH, device="cpu")
+    group = mesh.get_group("model")
+    for kind in ("dense", "flash", "encoder"):
+        if kind == "encoder":
+            model = tt.BertEncoder(**ENCODER, device="cpu")
+            x = torch.from_numpy(bert_ids())
+        else:
+            model = tt.BertAttentionLayer(**BERT, attention=kind, device="cpu")
+            x = torch.from_numpy(bert_input())
+        tt.load_flax_params(model, {"params": _tree(inputs, f"bert_{kind}/")})
+        local, specs = P.shard_bert_params(model, mesh)
+        y = P.make_tp_forward(model, mesh, specs)(local, x)
+        tt.bert_loss(y).backward()
+        out[f"bert_{kind}"] = y.detach()
+        for name, p in local.items():
+            dim = specs[name].index("model") if "model" in specs[name] else None
+            g = p.grad if dim is None else _gather_dim(p.grad, group, dim)
+            out[f"bert_{kind}_grad:{name}"] = g
+    _errors(out, {"bert_heads": lambda: P.validate_tp_heads(6, P.make_mesh((1, WORLD),
+                                                                             device="cpu"))})
+
+    # the pipeline: relu(h W + b) stages, one a rank
+    pmesh = P.make_mesh((WORLD,), ("stage",), device="cpu")
+    ws, bs, x = pipe_inputs()
+    params = tuple(t.requires_grad_() for t in load_stage_params((ws, bs), device="cpu"))
+    x = torch.from_numpy(x).requires_grad_()
+    y = P.pipeline_apply(lambda p, h: torch.relu(tt.mm(h, p[0]) + p[1]), params, x, pmesh,
+                         num_microbatches=PIPE["microbatches"])
+    y.square().sum().backward()
+    out["pipe"] = y.detach()
+    _grads(out, "pipe", {"ws": params[0], "bs": params[1], "x": x})
+    _errors(out, {"pipe_batch": lambda: P.pipeline_apply(
+        lambda p, h: h, torch.zeros((WORLD, 1)), torch.zeros((10, 4)), pmesh,
+        num_microbatches=4)})
+
+    # MoE, the experts over 'expert'
+    emesh = P.make_mesh((WORLD,), ("expert",), device="cpu")
+    for key, fn in (("moe", lambda p, x: P.moe_forward(p, x, emesh)),
+                    ("moe_a2a", lambda p, x: P.moe_forward_a2a(
+                        p, x, emesh, capacity_factor=float(MOE["num_experts"])))):
+        params = {k: v.requires_grad_() for k, v in
+                  load_moe_params(_tree(inputs, "moe/"), device="cpu").items()}
+        x = torch.from_numpy(moe_x()).requires_grad_()
+        y = fn(params, x)
+        y.square().sum().backward()
+        out[key] = y.detach()
+        _grads(out, key, {**params, "x": x})
+    params = load_moe_params(_tree(inputs, "moe/"), device="cpu")
+    x = torch.from_numpy(moe_x())
+    out["moe_a2a_drop"] = P.moe_forward_a2a(params, x, emesh, capacity_factor=1.0)
+    out["moe_balance"] = P.load_balance_loss(params, x)
+    six = {k: v[:6] if k != "router" else v[:, :6] for k, v in params.items()}
+    _errors(out, {"moe_experts": lambda: P.moe_forward(six, x, emesh),
+                  "moe_a2a_experts": lambda: P.moe_forward_a2a(six, x, emesh),
+                  "moe_a2a_tokens": lambda: P.moe_forward_a2a(params, x[:30], emesh)})
+
+    # TP int8 decode: the single-card step and two meshes
+    gpt = tt.GPTDecoder(**GPT_SMALL, device="cpu")
+    tt.load_flax_params(gpt, {"params": _tree(inputs, "gpt/")})
+    qm = tt.quantize_gpt(gpt)
+    ids = torch.from_numpy(gpt_ids())
+    with torch.no_grad():
+        _, cache = qm.prefill(ids[:, :4])
+
+    def copy(c):
+        return tuple(tuple(t.clone() for t in layer) for layer in c)
+
+    with torch.no_grad():
+        out["gpt_single"], single = qm.decode_step(ids[:, 4], copy(cache), 4)
+    out["gpt_single_kq0"] = single[0][0]
+    for shape in GPT_MESHES:
+        tag = "x".join(map(str, shape))
+        gmesh = P.make_mesh(shape, device="cpu")
+        qs, _ = P.shard_qgpt(qm, gmesh)
+        step = P.make_tp_decode_step(qs, gmesh)
+        logits, local = step(ids[:, 4], copy(cache), 4)
+        full = step.gather_cache(local)
+        out[f"gpt_tp_{tag}"] = logits
+        for i, name in enumerate(("kq", "ks", "vq", "vs")):
+            out[f"gpt_tp_{tag}_{name}"] = torch.stack([layer[i] for layer in full])
+        out[f"gpt_single_{tag}_match"] = np.array(all(
+            torch.equal(a, b) for la, lb in zip(full, single) for a, b in zip(la, lb)))
+    _errors(out, {"gpt_heads": lambda: P.shard_qgpt(
+        tt.quantize_gpt(tt.GPTDecoder(2, 48, 3, 96, 50, 32, device="cpu")),
+        P.make_mesh((1, WORLD), device="cpu"))})
+
+    # the dry run's body on these ranks, as `dryrun_multichip(WORLD, 'cpu')`
+    # runs it on the ranks it spawns
+    from tpusparse_torch.parallel.dryrun import _body
+    try:
+        _body(WORLD, torch.device("cpu"))
+        out["dryrun_error"] = np.array("")
+    except Exception as e:  # every rank fails alike on these shapes
+        out["dryrun_error"] = np.array(repr(e))
+
+
 def launch(group: str, tmp, inputs: dict | None = None, timeout: float = 240.0) -> dict:
     """Run GROUP on WORLD ranks, each a process of this script, and return
     rank 0's results. Raises with the ranks' output if one fails."""
@@ -326,6 +546,10 @@ def main(argv) -> int:
         out: dict = {}
         if group == "spmm":
             run_spmm(out)
+        elif group == "attention":
+            run_attention(out)
+        elif group == "models":
+            run_models(out, inputs)
         else:
             run_train(out, inputs)
         if int(rank) == 0:

@@ -20,7 +20,9 @@ except for a plain `nn.Linear` (the 'xla' variant's flax `Dense`) or a
 transpose of flax's (in, out) `kernel`; without a bias it has `kernel` only. Any missing or
 extra key, or a shape mismatch, raises, naming the path. `to_flax_params(module)` is the
 inverse: the module's parameters as that numpy tree, so that the two
-packages' parameters can be compared.
+packages' parameters can be compared. The parameters of the sharded models
+that are plain dicts or trees in both packages carry as arrays:
+`load_moe_params` (the MoE dict) and `load_stage_params` (pipeline stages).
 """
 
 from __future__ import annotations
@@ -123,3 +125,32 @@ def load_sharded_train_state(cfg, params: Mapping, mask, momentum: Mapping,
         optimizer.state[p]["momentum_buffer"] = torch.tensor(rank_slice(name, momentum),
                                                              device=dev)
     return out, torch.tensor(np.asarray(mask, np.float32)[model_rank], device=dev), optimizer
+
+
+def load_moe_params(params: Mapping, device=None) -> dict:
+    """The port's MoE parameters (`parallel.init_moe_params`' dict) from the
+    JAX package's as numpy arrays: {'router' (d, E), 'w_in' (E, d, dh),
+    'w_out' (E, dh, d)}, fp32 on `device` (None: the card). A missing or
+    extra key, or shapes that do not fit together, raise."""
+    from tpusparse_torch.utils.config import resolve_device
+
+    if set(params) != {"router", "w_in", "w_out"}:
+        raise KeyError(f"expected router, w_in and w_out, got {sorted(params)}")
+    arr = {k: np.asarray(params[k], np.float32) for k in ("router", "w_in", "w_out")}
+    (d, e), (e2, d2, dh), (e3, dh2, d3) = (arr[k].shape for k in ("router", "w_in", "w_out"))
+    if not (e == e2 == e3 and d == d2 == d3 and dh == dh2):
+        raise ValueError(f"MoE shapes do not fit: {[a.shape for a in arr.values()]}")
+    dev = resolve_device(device)
+    return {k: torch.tensor(a, device=dev) for k, a in arr.items()}
+
+
+def load_stage_params(tree, device=None):
+    """Pipeline stage parameters (each leaf with a leading stage dim) from
+    numpy: the same tuple/list/dict tree of fp32 tensors on `device` (None:
+    the card)."""
+    import torch.utils._pytree as pytree
+
+    from tpusparse_torch.utils.config import resolve_device
+
+    dev = resolve_device(device)
+    return pytree.tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=dev), tree)

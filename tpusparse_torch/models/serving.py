@@ -139,10 +139,14 @@ class QuantizedGPT:
 
     @property
     def head_dim(self) -> int:
-        return self.hidden // self.num_heads
+        # from the width of q, not the hidden width: a tensor-parallel rank's
+        # model holds num_heads of the whole model's heads
+        if not self.blocks:
+            return self.hidden // self.num_heads
+        return self.blocks[0].qkv.sw.shape[0] // (3 * self.num_heads)
 
     def _qkv(self, blk: _QBlock, h):
-        return tuple(split_heads(p, self.num_heads) for p in blk.qkv(h).split(self.hidden, -1))
+        return tuple(split_heads(p, self.num_heads) for p in blk.qkv(h).chunk(3, -1))
 
     def _embed(self, ids, pos):
         # the bf16 rows are added in bf16, then widened, as in JAX

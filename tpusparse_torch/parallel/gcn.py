@@ -9,7 +9,7 @@ on the transpose plan backward, since H W needs a gradient and Â's values
 do not), and the node blocks come back to every rank through an
 `all_gather`. The gradient is that of the global loss: the projection's
 gradient is summed over the ranks (`mesh.replicated`) and each rank's
-rows take their slice of the gathered gradient (`mesh.gather_rows`), as
+rows take their slice of the gathered gradient (`mesh.gather`), as
 JAX's global arrays make it.
 """
 
@@ -21,7 +21,7 @@ import torch
 
 from tpusparse_torch import ops
 from tpusparse_torch.models.gcn import masked_nll
-from tpusparse_torch.parallel.mesh import axis_rank, gather_rows, replicated
+from tpusparse_torch.parallel.mesh import axis_rank, gather, replicated
 from tpusparse_torch.parallel.spmm import RowShardedPlan, shard_plan_rows
 
 __all__ = ["shard_plan_rows", "make_sharded_gcn_forward", "make_sharded_gcn_train_step"]
@@ -47,7 +47,7 @@ def make_sharded_gcn_forward(model, rsp: RowShardedPlan, mesh, axis: str = "mode
 
     def aggregate(a_blocks, z):
         z = replicated(z, group).contiguous()
-        return gather_rows(ops.spmm_blocks(plan, a_blocks[i].contiguous(), z), group)[:m]
+        return gather(ops.spmm_blocks(plan, a_blocks[i].contiguous(), z), group, 0)[:m]
 
     def forward(params, a_blocks, x):
         h = x
