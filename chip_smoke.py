@@ -195,6 +195,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
         microbatches) against the sequential loop; TP int8 decode at the
         serving GPT, batch 1 and 8, logits and the gathered int8 cache
         equal to decode_step's; each timed beside its one-card form;
+     u. the examples, after the timings: each examples_torch/0*.py
+        `main()` on the card (06 at world size 1 on NCCL), the counts set
+        to 0 before each and read after: its launches by kernel and its
+        wall time; each example asserts its own figures against float64;
+     v. the tile autotuners, last, on a temporary calibration file:
+        autotune_gemm at 4096^3 in bf16 and fp32 'high' and at (512, 4096,
+        4096) 'high', autotune_flash at (96, 512, 64) fp32 'high', causal
+        and not, with each candidate tile's time; a call with no tile
+        arguments then takes the saved tile, and its output must be
+        bitwise equal to the kernel's own tile's; the tile lookup's host
+        cost (at most 2 us a call) and gemm_kernel's host time at (4096,
+        4096, 8) with and without a saved tile;
   5. checks of the main path's results: headline forward, dblocks and dB
      against their plain versions (max-abs error over scale <= 1e-5), MLP
      log-probs, and the first 3 training steps' losses and parameters,
@@ -5378,6 +5390,207 @@ def phase_parallel_models() -> dict:
         dist.destroy_process_group()
 
 
+# the autotuners' shapes: GEMM (m, k, n, dtype, tier) at 4096^3 (where the
+# kernel's own choice is the 128-row tile) and at m 512 (the 64-row one);
+# flash (seq, head_dim, bh) at the BERT-base layer's (8 x 12 heads)
+TUNE_GEMM = ((4096, 4096, 4096, torch.bfloat16, "high"), (4096, 4096, 4096, torch.float32, "high"),
+             (512, 4096, 4096, torch.float32, "high"))
+TUNE_FLASH = (512, 64, 96)
+TUNE_HOST_N = 8         # gemm_kernel's host time with and without a saved tile, at (4096, 4096, n)
+TUNE_LOOKUP_US = 2.0    # the most the tile lookup may add to a gemm_kernel call
+
+
+def host_us(fn, calls=200, iters=3):
+    """Median host microseconds a call of `fn` over `calls` calls enqueued
+    behind a sleep that outlasts them, so the card never holds the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        torch.cuda._sleep(int(0.2 * 2e9))  # 0.1-0.2 s at 1-2 GHz
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def phase_examples() -> dict:
+    """Each examples_torch/0*.py `main()` on the card (06 at world size 1 on
+    NCCL), the launch counts set to 0 just before each and read just after:
+    its launches by kernel and its wall time. An example's own check raises.
+    Returns the launches summed over the examples."""
+    import importlib.util
+    import os
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+    paths = sorted(p for p in os.listdir(d) if p.startswith("0") and p.endswith(".py"))
+    if len(paths) < 7:
+        raise AssertionError(f"examples_torch holds {len(paths)} examples, not 7")
+    sys.path.insert(0, d)
+    total = dict(NO_LAUNCH)
+    try:
+        for name in paths:
+            stem = name[:-3]
+            spec = importlib.util.spec_from_file_location(stem, os.path.join(d, name))
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[stem] = mod
+            spec.loader.exec_module(mod)
+            kernels_reset()
+            t0 = time.perf_counter()
+            mod.main(**({"world_size": 1} if stem.startswith("06") else {}))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in _launches().items() if v}
+            _add(total, counts)
+            print(f"example {stem}: {wall:.2f} s, launches by kernel {json.dumps(counts)}",
+                  flush=True)
+    finally:
+        sys.path.remove(d)
+    print(f"examples: launches by kernel in all "
+          f"{json.dumps({k: v for k, v in total.items() if v})}")
+    return total
+
+
+def phase_autotune() -> dict:
+    """autotune_gemm and autotune_flash on the card, with
+    TPUSPARSE_TORCH_CALIBRATION on a temporary file (removed after, the
+    in-process tile caches emptied, the variable restored): each candidate
+    tile's time (`time_ms_queued`, the kernel alone) and the autotuner's
+    pick; a call with no tile arguments then launches the saved tile, with
+    output bitwise equal to the kernel's own tile's; the tile lookup's host
+    cost (at most TUNE_LOOKUP_US a call) and gemm_kernel's host
+    microseconds at n TUNE_HOST_N with and without a saved tile. Returns
+    the phase's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.kernels import gemm as gk
+    from tpusparse_torch.utils import calibrate
+
+    def reread():
+        gk._TILE_CACHE.clear()
+        fa._FLASH_TILE_CACHE.clear()
+        gk._TILE_CACHE_LOADED = fa._FLASH_TILE_LOADED = False
+
+    tmp = tempfile.mkdtemp(prefix="tpusparse_torch_autotune_")
+    old = os.environ.get("TPUSPARSE_TORCH_CALIBRATION")
+    os.environ["TPUSPARSE_TORCH_CALIBRATION"] = os.path.join(tmp, "calibration.json")
+    reread()
+    total = dict(NO_LAUNCH)
+    try:
+        rng = np.random.default_rng(23)
+        for m, k, n, dtype, tier in TUNE_GEMM:
+            label = f"gemm ({m}, {k}, {n}) {str(dtype)[6:]} '{tier}'"
+            a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to("cuda", dtype)
+            b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to("cuda", dtype)
+            own = gk.default_block_m(m, n)
+            kernels_reset()
+            tile, tflops = gk.autotune_gemm(m, k, n, dtype, repeats=2, save=True, verbose=True)
+            _add(total, _launches())
+            flops = 2.0 * m * n * k
+            times = {}
+            for t in gk.gemm_tiles(dtype, dtype, tier):
+                times[t] = time_ms_queued(lambda: gk.gemm_kernel(a, b, precision=tier,
+                                                                 block_m=t[0]))
+            reread()  # the file, as a new process reads it
+            if gk.resolve_tile(m, k, n, dtype, dtype, tier) != tuple(tile):
+                raise AssertionError(f"{label}: a call does not take the saved tile {tile}")
+            kernels_reset()
+            tuned = gk.gemm_kernel(a, b, precision=tier)
+            mine = gk.gemm_kernel(a, b, precision=tier, block_m=own)
+            torch.cuda.synchronize()
+            _add(total, _launches())
+            same = torch.equal(tuned, mine)
+            print(f"autotune {label}: candidates "
+                  + ", ".join(f"{t} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+                              for t, ms in times.items())
+                  + f"; picked {tuple(tile)} at {tflops:.1f} TFLOP/s (its chain); the kernel's "
+                  f"own height {own}; a call with no tile launches the saved one, output "
+                  f"{'bitwise equal to' if same else 'DIFFERENT from'} the own tile's", flush=True)
+            if not same:
+                raise AssertionError(f"{label}: the saved tile's output differs")
+            del a, b, tuned, mine
+        seq, d, bh = TUNE_FLASH
+        for causal in (False, True):
+            label = f"flash_fwd ({bh}, {seq}, {d}) fp32 'high'{' causal' if causal else ''}"
+            kernels_reset()
+            tile, secs = fa.autotune_flash(seq, d, bh, causal=causal, dtype=torch.float32,
+                                           precision="high", repeats=2, save=True, verbose=True)
+            _add(total, _launches())
+            q, k, v = (torch.from_numpy(rng.standard_normal((bh, seq, d), dtype=np.float32)).cuda()
+                       for _ in range(3))
+            kw = dict(sm_scale=1 / d ** 0.5, causal=causal, precision="high")
+            times = {t: time_ms_queued(lambda: fa.flash_fwd_kernel(q, k, v, block_q=t[0], **kw))
+                     for t in fa.FLASH_TILES}
+            reread()
+            if fa.resolve_flash_tile(q.shape, q.dtype, causal, "high") != tuple(tile):
+                raise AssertionError(f"{label}: a call does not take the saved tile {tile}")
+            kernels_reset()
+            o_t, lse_t = fa.flash_attention(q, k, v, causal=causal, precision="high",
+                                            return_lse=True)
+            o_d, lse_d = fa.flash_fwd_kernel(q, k, v, block_q=fa.FLASH_TILES[0][0], **kw)
+            torch.cuda.synchronize()
+            _add(total, _launches())
+            same = torch.equal(o_t, o_d) and torch.equal(lse_t, lse_d)
+            print(f"autotune {label}: candidates "
+                  + ", ".join(f"{t} {ms:.4f} ms" for t, ms in times.items())
+                  + f"; picked {tuple(tile)} at {secs * 1e3:.4f} ms (its chain); a call with no "
+                  f"tile launches the saved one, o and lse "
+                  f"{'bitwise equal to' if same else 'DIFFERENT from'} the default tile's",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"{label}: the saved tile's output differs")
+            del q, k, v, o_t, o_d
+        # the lookup's host cost: a saved tile for (4096, 4096, n), and none,
+        # in turns (none, saved, saved, none): the host is shared and noisy,
+        # so the lookup alone is the best of 5 runs of 20,000 calls
+        m = k = 4096
+        n = TUNE_HOST_N
+        f32 = torch.float32
+        a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).cuda()
+        b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).cuda()
+        path = os.environ["TPUSPARSE_TORCH_CALIBRATION"]
+        tile, _ = gk.autotune_gemm(m, k, n, f32, repeats=1, save=False, verbose=False)
+
+        def lookup_us():
+            best = float("inf")
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(20000):
+                    gk.resolve_tile(m, k, n, f32, f32, None)
+                best = min(best, (time.perf_counter() - t0) / 20000 * 1e6)
+            return best
+
+        runs = {False: [], True: []}
+        for saved in (False, True, True, False):
+            if os.path.exists(path):
+                os.remove(path)
+            if saved:
+                calibrate.save_gemm_tile(gk._tile_key(m, k, n, "float32"), tile)
+            reread()
+            runs[saved].append((lookup_us(), host_us(lambda: gk.gemm_kernel(a, b))))
+        look = {sv: min(r[0] for r in rs) for sv, rs in runs.items()}
+        call = {sv: [round(r[1], 1) for r in rs] for sv, rs in runs.items()}
+        print(f"autotune: the tile lookup {look[False]:.2f} us a call with no saved tile, "
+              f"{look[True]:.2f} with one (limit {TUNE_LOOKUP_US}); gemm_kernel ({m}, {k}, {n}) "
+              f"host us a call without a saved tile {call[False]}, with one {call[True]} "
+              f"(in turns: none, saved, saved, none)")
+        if max(look.values()) > TUNE_LOOKUP_US:
+            raise AssertionError("the tile lookup adds more than 2 us a gemm_kernel call")
+    finally:
+        if old is None:
+            os.environ.pop("TPUSPARSE_TORCH_CALIBRATION", None)
+        else:
+            os.environ["TPUSPARSE_TORCH_CALIBRATION"] = old
+        reread()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def run_phase(name, fn, *args):
     """fn(*args), with its wall time printed."""
     t0 = time.perf_counter()
@@ -5711,6 +5924,8 @@ def main() -> int:
     run_phase("graph step timings", phase_graph_step_timings, graph)
     del graph
     run_phase("wide attention timings", phase_wide_timings)
+    example_counts = run_phase("examples", phase_examples)
+    tune_counts = run_phase("autotune", phase_autotune)
 
     kernels = [
         {
@@ -5817,9 +6032,11 @@ def main() -> int:
                    for e in ("windowed_gather", "windowed_segsum"))
     kernels.extend({**amg["rows"][e], "launches": amg["launches"][e]}
                    for e in ("dia_spmv", "dia_nonfinite"))
-    # the launches of the calibrate, parallel, rigl, patch and gpt training phases
+    # the launches of the calibrate, parallel, rigl, patch, gpt training,
+    # examples and autotune phases
     for row in kernels:
-        row["launches"] += slice_launches.get(row["name"], 0)
+        row["launches"] += (slice_launches.get(row["name"], 0)
+                            + example_counts.get(row["name"], 0) + tune_counts.get(row["name"], 0))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

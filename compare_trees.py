@@ -34,6 +34,12 @@ flash_backward
              layer's training step at batch 8, seq 512 and batch 2, seq
              4096, and the 'bigbird' layer's at batch 8, seq 512 (5 steps
              between events).
+gemm         the float GEMM (`gemm_kernel`) by `chip_smoke.time_ms_queued` at
+             GEMM_CASES: 4096^3 in fp32 'high' and 'default' and on bf16
+             operands, (512, 4096, 4096), a ragged transposed case and the
+             MNIST MLP's 'dense' products; each with a SHA-256 of its output
+             (equal digests: equal bits), and in a tree whose gemm_kernel
+             takes `block_m`, each block height's time.
 gemm_s8      the int8 GEMM's entry point (`gemm_int8_kernel`: int8_kmajor
              and the kernel) by `chip_smoke.time_ms_queued` at 4096^3, at
              (4096, 4096, n) for n 8, 64 and 512 (QuantizedDense's
@@ -222,25 +228,46 @@ def _gemm_s8_variants(tree):
     return fns
 
 
-def _host_us(fn, calls=200, iters=3):
-    """Median host microseconds a call of `fn` over `calls` calls enqueued
-    behind a sleep that outlasts them, so the card never holds the host."""
-    import statistics
-    import time
+def gemm(name, cs, tt):
+    import hashlib
+    import inspect
 
+    import numpy as np
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        torch.cuda._sleep(int(0.2 * 2e9))  # 0.1-0.2 s at 1-2 GHz
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-    return statistics.median(times)
+    from tpusparse_torch.kernels import gemm as gk
+
+    tiles = "block_m" in inspect.signature(gk.gemm_kernel).parameters
+    rng = np.random.default_rng(5)
+    for (m, n, k), transa, transb, dtype_name, prec in GEMM_CASES:
+        dtype = getattr(torch, dtype_name)
+        a = rng.standard_normal((k, m) if transa else (m, k)).astype(np.float32)
+        b = rng.standard_normal((n, k) if transb else (k, n)).astype(np.float32)
+        a, b = torch.from_numpy(a).to("cuda", dtype), torch.from_numpy(b).to("cuda", dtype)
+        kw = dict(transa=transa, transb=transb, precision=prec)
+        c = gk.gemm_kernel(a, b, **kw)
+        digest = hashlib.sha256(c.float().cpu().numpy().tobytes()).hexdigest()[:16]
+        label = (f"({m}, {n}, {k}){' transa' if transa else ''}{' transb' if transb else ''} "
+                 f"{dtype_name} '{prec}'")
+        ms = cs.time_ms_queued(lambda: gk.gemm_kernel(a, b, **kw))
+        line = f"{name} gemm {label}: {ms:.4f} ms, C sha256 {digest}"
+        for bm in gk.BLOCK_MS if tiles else ():
+            ms = cs.time_ms_queued(lambda: gk.gemm_kernel(a, b, block_m=bm, **kw))
+            line += f", block_m {bm} {ms:.4f} ms"
+        print(line, flush=True)
+        del a, b, c
+
+
+# gemm's cases: (m, n, k), transa, transb, operand type, tier
+GEMM_CASES = (
+    ((4096, 4096, 4096), False, False, "float32", "high"),
+    ((4096, 4096, 4096), False, False, "float32", "default"),
+    ((4096, 4096, 4096), False, False, "bfloat16", "high"),
+    ((512, 4096, 4096), False, False, "float32", "high"),
+    ((1000, 300, 777), True, True, "float32", "high"),
+    ((32, 256, 784), False, True, "float32", "high"),
+    ((256, 784, 32), True, False, "float32", "high"),
+)
 
 
 def gemm_s8(name, cs, tt):
@@ -281,11 +308,11 @@ def gemm_s8(name, cs, tt):
         print(line, flush=True)
         if n in (8, 64):
             line = (f"{name} gemm_s8 ({m}, {k}, {n}) host us a call: entry point "
-                    f"{_host_us(lambda: gk.gemm_int8_kernel(a, b)):.1f}")
+                    f"{cs.host_us(lambda: gk.gemm_int8_kernel(a, b)):.1f}")
             if redesigned:
                 bt = tk.int8_kmajor_kernel(b, ldt)
-                line += (f", int8_kmajor {_host_us(lambda: tk.int8_kmajor_kernel(b, ldt)):.1f}"
-                         f", the kernel {_host_us(lambda: gk._gemm_s8_launch(a, bt, k)):.1f}")
+                line += (f", int8_kmajor {cs.host_us(lambda: tk.int8_kmajor_kernel(b, ldt)):.1f}"
+                         f", the kernel {cs.host_us(lambda: gk._gemm_s8_launch(a, bt, k)):.1f}")
                 del bt
             print(line, flush=True)
         del a, b
@@ -298,7 +325,8 @@ def gemm_s8(name, cs, tt):
     print(f"{name} int8 headline entry point (int8_kmajor + spmm_int8): {ms:.4f} ms", flush=True)
 
 
-GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward, "gemm_s8": gemm_s8}
+GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward, "gemm": gemm,
+          "gemm_s8": gemm_s8}
 
 if __name__ == "__main__":
     if len(sys.argv) != 3 or sys.argv[1] not in GROUPS:

@@ -319,6 +319,32 @@ def test_gemm_repeats_bit_for_bit(cuda, precision):
     assert torch.equal(first, gk.gemm_kernel(a, b, precision=precision))
 
 
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("shape,transa,transb", [
+    ((4096, 4096, 4096), False, False), ((1000, 300, 777), False, False),
+    ((1000, 300, 777), True, True), ((32, 784, 256), False, True),
+])
+def test_gemm_block_heights_give_the_same_bits(cuda, shape, transa, transb, dtype, precision):
+    """Both block heights (the autotuner's candidates) sum every element's
+    k-chunks in the same order: bitwise equal outputs, one launch each, and
+    the default height csrc/gemm.cu picks is one of them."""
+    m, n, k = shape
+    rng = np.random.default_rng(m + k)
+    a = rng.standard_normal((k, m) if transa else (m, k)).astype(np.float32)
+    b = rng.standard_normal((n, k) if transb else (k, n)).astype(np.float32)
+    a, b = torch.from_numpy(a).to(cuda, dtype), torch.from_numpy(b).to(cuda, dtype)
+    kw = dict(transa=transa, transb=transb, precision=precision)
+    gk.reset_launch_counts()
+    outs = [gk.gemm_kernel(a, b, block_m=bm, **kw) for bm in gk.BLOCK_MS]
+    default = gk.gemm_kernel(a, b, **kw)
+    torch.cuda.synchronize()
+    assert gk.launch_counts()["gemm"] == 3
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], default)
+    assert gk.default_block_m(m, n) == (128 if cdiv(m, 128) * cdiv(n, 128) >= 264 else 64)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     plan, dc, b = _sddmm_inputs("ragged_8x16_n33", cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -507,6 +533,30 @@ def test_flash_backward_repeats_bit_for_bit(cuda, dtype, precision):
               *fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", ["6x256x64", "causal_2x384x64", "ragged_causal_1x200x64",
+                                  "narrow_8x128x24", "wide_causal_2x128x128",
+                                  "kv_ahead_causal_2x1030x64", "long_causal_1x4096x64",
+                                  "long_1x4096x64"])
+def test_flash_q_tiles_give_the_same_bits(cuda, name, dtype, precision):
+    """The forward's 64-row q-tile (four warps) and its 128-row one (eight)
+    sum each row in one warp over the same k-tiles in the same order: o and
+    lse bitwise equal, causal or not, in every tier (the long cases bank
+    their 3xTF32 sums every 8 k-tiles)."""
+    q, k, v, _, kw = _flash_args(name, cuda, dtype)
+    kw["precision"] = precision
+    fa.reset_launch_counts()
+    o128, lse128 = fa.flash_fwd_kernel(q, k, v, block_q=128, **kw)
+    o64, lse64 = fa.flash_fwd_kernel(q, k, v, block_q=64, **kw)
+    o0, lse0 = fa.flash_fwd_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_fwd"] == 3
+    assert torch.equal(o64, o128) and torch.equal(lse64, lse128)
+    assert torch.equal(o0, o128) and torch.equal(lse0, lse128)
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):

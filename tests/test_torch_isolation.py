@@ -1,6 +1,6 @@
 """The port stands alone: tpusparse_torch, chip_smoke.py, compare_trees.py,
-parallel_smoke.py and the parallel tests' worker import nothing of JAX or
-of the JAX package, and
+parallel_smoke.py, the parallel tests' worker and the examples
+(examples_torch/) import nothing of JAX or of the JAX package, and
 `device=None` never runs on the CPU."""
 
 import ast
@@ -129,7 +129,22 @@ def test_import_and_cpu_forward_load_no_jax():
 def _sources():
     return sorted((ROOT / "tpusparse_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "compare_trees.py", ROOT / "parallel_smoke.py",
-        ROOT / "tests" / "torch_parallel_worker.py"]
+        ROOT / "tests" / "torch_parallel_worker.py"] + sorted(
+        (ROOT / "examples_torch").glob("*.py"))
+
+
+def _example_main(stem: str):
+    """examples_torch/<stem>.py's main, imported from its file."""
+    import importlib.util
+
+    sys.path.insert(0, str(ROOT / "examples_torch"))
+    try:
+        spec = importlib.util.spec_from_file_location(stem, ROOT / "examples_torch" / f"{stem}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(str(ROOT / "examples_torch"))
+    return mod.main
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -182,6 +197,10 @@ ENTRY_POINTS = {
     "random_mask": lambda: tt.nn.rigl.random_mask(torch.Generator(), (4, 4), 0.5),
     "parallel.initialize_distributed": lambda: tpar.initialize_distributed(),
     "parallel.make_mesh": lambda: tpar.make_mesh(),
+    "autotune_gemm": lambda: tt.kernels.gemm.autotune_gemm(64, 64, 64),
+    "autotune_flash": lambda: tt.kernels.flash_attention.autotune_flash(128, 64, 2),
+    **{f"examples_torch/{p.stem}": (lambda stem=p.stem: _example_main(stem)())
+       for p in sorted((ROOT / "examples_torch").glob("0*.py"))},
 }
 
 

@@ -42,15 +42,15 @@ constexpr int BK = 64;       // keys a tile
 constexpr int NTHR = 256;    // eight warps
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Tiles of TILE keys a q-tile of BQ rows starting at row q0 visits: all of
+// Tiles of TILE keys a q-tile of QT rows starting at row q0 visits: all of
 // them, or under causal masking those up to the last key its last row can
 // see.
-template <int TILE = BK>
+template <int TILE = BK, int QT = BQ>
 __device__ __forceinline__ int visited_k_tiles(int s, int q0, int causal, int q_off,
                                                int kv_off) {
   const int nk = (s + TILE - 1) / TILE;
   if (!causal) return nk;
-  const long long kmax = static_cast<long long>(q_off) + q0 + BQ - 1 - kv_off;
+  const long long kmax = static_cast<long long>(q_off) + q0 + QT - 1 - kv_off;
   if (kmax < 0) return 0;
   return static_cast<int>(min(static_cast<long long>(nk), kmax / TILE + 1));
 }

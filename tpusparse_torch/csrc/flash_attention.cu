@@ -132,26 +132,41 @@ namespace {
 namespace tcfwd {
 
 using mma16::BK;
-using mma16::BQ;
-using mma16::NTHR;
 
-// Shared memory of an instance: the q-tile, then two stages of the K and V
-// tiles (stage i: K at KV + i * stage, V after it).
-template <bool ROUND, typename T, int DMAX>
+// Shared memory of an instance whose q-tile has QT rows: the q-tile, then
+// two stages of the K and V tiles (stage i: K at KV + i * stage, V after it).
+template <bool ROUND, typename T, int DMAX, int QT>
 struct Layout {
   using TR = mma16::Tier<ROUND, T, DMAX>;
-  static constexpr size_t q_bytes = sizeof(typename TR::TQ) * BQ * TR::LDQ;
+  static constexpr size_t q_bytes = sizeof(typename TR::TQ) * QT * TR::LDQ;
   static constexpr int stage = BK * (TR::LDK + TR::LDV);  // elements of T
   static constexpr size_t bytes = q_bytes + 2 * sizeof(T) * stage;
 };
 
-template <int DMAX, bool ROUND, typename T>
-__global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
+// Blocks an SM an instance's launch bounds ask for, as the block kernel's
+// forward (block_flash_attention.cu) asks: eight warps two at d <= 64, one
+// above; four warps four at d <= 64 in the bf16 tiers, three in 3xTF32
+// (~150 registers a thread), two at d <= 128.
+template <int DMAX, bool ROUND, int NW>
+__host__ __device__ constexpr int min_blocks() {
+  if (DMAX > 64) return NW == 4 ? 2 : 1;
+  if (NW == 8) return 2;
+  return ROUND ? 4 : 3;
+}
+
+// A q-tile of QT = 16 NW rows, NW warps of 16 rows: eight warps own a
+// 128-row tile (the default), four a 64-row tile. Every row is summed by
+// one warp over the same k-tiles in the same order either way, so the two
+// give the same bits (the grid, the staging and which warps share a block
+// differ); `autotune_flash` (kernels/flash_attention.py) times them.
+template <int DMAX, bool ROUND, typename T, int NW>
+__global__ void __launch_bounds__(32 * NW, min_blocks<DMAX, ROUND, NW>()) flash_fwd_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int s, int d, float scale_q, int causal,
     int q_off, int kv_off, int async_kv) {
+  constexpr int NT = 32 * NW, QT = 16 * NW;
   using TR = mma16::Tier<ROUND, T, DMAX>;
-  using L = Layout<ROUND, T, DMAX>;
+  using L = Layout<ROUND, T, DMAX, QT>;
   using TQ = typename TR::TQ;
   constexpr int NO = DMAX / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -161,7 +176,7 @@ __global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
   // the (batch, head) on x, the q-tile on y in reverse: blocks start in the
   // order of their linear index, so every heavy causal q-tile starts first
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, wr0 = 16 * warp;
   const size_t base = static_cast<size_t>(bh) * s * d;
@@ -169,15 +184,15 @@ __global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
   const T* kb = k + base;
   const T* vb = v + base;
 
-  const int nk = mma16::visited_k_tiles(s, q0, causal, q_off, kv_off);
+  const int nk = mma16::visited_k_tiles<BK, QT>(s, q0, causal, q_off, kv_off);
   auto stage_kv = [&](int j) {
     T* dst = KV + (j % 2) * L::stage;
-    mma16::stage_rows<NTHR, DMAX, TR::LDK>(dst, kb, j * BK, s, d, async_kv);
-    mma16::stage_rows<NTHR, DMAX, TR::LDV>(dst + BK * TR::LDK, vb, j * BK, s, d, async_kv);
+    mma16::stage_rows<NT, DMAX, TR::LDK>(dst, kb, j * BK, s, d, async_kv);
+    mma16::stage_rows<NT, DMAX, TR::LDV>(dst + BK * TR::LDK, vb, j * BK, s, d, async_kv);
     if (async_kv) mma16::cp_async_commit();
   };
   if (nk > 0) stage_kv(0);  // in flight while q is loaded
-  mma16::load_q<BQ, NTHR, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
+  mma16::load_q<QT, NT, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
   float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
   float mb[2] = {attn::NEG, attn::NEG};  // the bank's max (3xTF32)
   int since = 0;                         // tiles summed since the last fold
@@ -258,23 +273,36 @@ __global__ void __launch_bounds__(NTHR, DMAX <= 64 ? 2 : 1) flash_fwd_tc_kernel(
   }
 }
 
-template <int DMAX, bool ROUND, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
-           int d, float scale_q, int causal, int q_off, int kv_off, cudaStream_t stream) {
-  constexpr int E = 16 / sizeof(T);
+template <int DMAX, bool ROUND, typename T, int NW>
+int launch_nw(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
+              int d, float scale_q, int causal, int q_off, int kv_off, cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(T), QT = 16 * NW;
   const bool async_kv = d % E == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                         reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const size_t smem = Layout<ROUND, T, DMAX>::bytes;
-  auto* kern = flash_fwd_tc_kernel<DMAX, ROUND, T>;
+  const size_t smem = Layout<ROUND, T, DMAX, QT>::bytes;
+  auto* kern = flash_fwd_tc_kernel<DMAX, ROUND, T, NW>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (s + BQ - 1) / BQ);
-  kern<<<grid, NTHR, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), static_cast<T*>(o),
-                                     static_cast<float*>(lse), s, d, scale_q, causal, q_off,
-                                     kv_off, static_cast<int>(async_kv));
+  const dim3 grid(bh, (s + QT - 1) / QT);
+  kern<<<grid, 32 * NW, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                        static_cast<const T*>(v), static_cast<T*>(o),
+                                        static_cast<float*>(lse), s, d, scale_q, causal, q_off,
+                                        kv_off, static_cast<int>(async_kv));
   return static_cast<int>(cudaGetLastError());
+}
+
+// block_q: the q-tile's rows, 128 (eight warps) or 64 (four).
+template <int DMAX, bool ROUND, typename T>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
+           int d, float scale_q, int causal, int q_off, int kv_off, int block_q,
+           cudaStream_t stream) {
+  if (block_q == 64) {
+    return launch_nw<DMAX, ROUND, T, 4>(q, k, v, o, lse, bh, s, d, scale_q, causal, q_off,
+                                        kv_off, stream);
+  }
+  return launch_nw<DMAX, ROUND, T, 8>(q, k, v, o, lse, bh, s, d, scale_q, causal, q_off, kv_off,
+                                      stream);
 }
 
 }  // namespace tcfwd
@@ -895,10 +923,11 @@ bool bad_shape(int bh, int s, int d) {
 // d <= 128: the tensor-core forward; wider d: the FFMA WIDE instance.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
-              int d, float scale_q, int causal, int q_off, int kv_off, cudaStream_t stream) {
+              int d, float scale_q, int causal, int q_off, int kv_off, int block_q,
+              cudaStream_t stream) {
   if constexpr (!WIDE) {
     return tcfwd::launch<DMAX, ROUND, T>(q, k, v, o, lse, bh, s, d, scale_q, causal, q_off,
-                                         kv_off, stream);
+                                         kv_off, block_q, stream);
   } else {
     const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<WD, true>(d));
     return launch(flash_fwd_wide_kernel<ROUND, T>, fwd_wide_smem, grid, stream,
@@ -953,15 +982,20 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout, con
 // launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int bh, int s, int d, float scale_q, int causal, int q_off,
-                         int kv_off, int round_bf16, int device, void* stream) {
-  // the tensor-core instances put the q-tiles on gridDim.y
-  if (bad_shape(bh, s, d) || (s + tcfwd::BQ - 1) / tcfwd::BQ > 65535) {
+                         int kv_off, int round_bf16, int block_q, int device, void* stream) {
+  // block_q: the tensor-core instances' q-tile, 128 or 64 rows (0: 128);
+  // d > 128 takes the WIDE kernel's own tile. The tensor-core instances put
+  // the q-tiles on gridDim.y.
+  if (block_q == 0) block_q = mma16::BQ;
+  if (bad_shape(bh, s, d) || (block_q != 64 && block_q != 128) ||
+      (s + block_q - 1) / block_q > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto st = static_cast<cudaStream_t>(stream);
-  ATTN_DISPATCH(fwd_typed, q, k, v, o, lse, bh, s, d, scale_q, causal, q_off, kv_off, st);
+  ATTN_DISPATCH(fwd_typed, q, k, v, o, lse, bh, s, d, scale_q, causal, q_off, kv_off, block_q,
+                st);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -1,12 +1,13 @@
-// The wgmma tile of the block SpMM (block_ell_spmm.cuh: the 2-D, batched
-// and compact executors) and the SDDMM (sddmm.cu) for NVIDIA Hopper
-// (sm_90a): a thread block of WGS warpgroups owns a (64 WGS) x BN tile of
-// its output (BN = 128, 64 or 32), or in the SpMM's n-major form the
-// transpose of a BM x (64 WGS) tile (BM a multiple of 8 under 64), and runs
-// a K loop over chunks of 128 bytes of k, which the kernel's own loader
-// brings into registers and stages. The staging is gemm.cu's, generalised
-// to a tile that starts anywhere in its operand and ends at limits of its
-// own (a block's edge, a matrix's edge, a split's end):
+// The wgmma tile of the dense GEMM (gemm.cu), the block SpMM
+// (block_ell_spmm.cuh: the 2-D, batched and compact executors) and the
+// SDDMM (sddmm.cu) for NVIDIA Hopper (sm_90a): a thread block of WGS
+// warpgroups owns a (64 WGS) x BN tile of its output (BN = 128, 64 or 32),
+// or in the SpMM's n-major form the transpose of a BM x (64 WGS) tile (BM a
+// multiple of 8 under 64), and runs a K loop over chunks of 128 bytes of k,
+// which the kernel's own loader brings into registers and stages. The
+// staging was gemm.cu's first, generalised to a tile that starts anywhere
+// in its operand and ends at limits of its own (a block's edge, a matrix's
+// edge, a split's end):
 //   - a chunk is loaded into registers a row of 128 bytes at a time, by
 //     16-byte vectors where the operand's rows run along k and are 16-byte
 //     aligned, else one element a load, coalesced along whichever axis is

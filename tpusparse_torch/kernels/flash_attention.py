@@ -36,10 +36,20 @@ lse = -1e30 and no gradient. The TPU kernel gives such a row the mean of
 v over the tiles it visits, since exp(-1e30 - (-1e30)) = 1, which depends
 on its tile size (ROADMAP section 3).
 
-The TPU tile knobs `block_q`/`block_k` are accepted and ignored: the CUDA
-kernels use tiles of their own (128 query rows by 64 keys in the forward at
-d <= 128, 64 by 64 elsewhere). `autotune_flash` tunes those TPU
-tiles and is not carried (ROADMAP queue 1, item 4).
+Tiles. The forward at d <= 128 runs q-tiles of 128 rows (eight warps, the
+default) or 64 (four) by k-tiles of 64 keys: `FLASH_TILES`, as (block_q,
+block_k). Every row is summed by one warp in the same order in both, so
+the tile moves the time and not the bits. `flash_attention` (and so
+`flash_attention_diff`'s forward) resolves it as JAX's does
+(flash_attention.py:327-352): `block_q`/`block_k` where they name one of
+`FLASH_TILES` (a missing `block_k` is 64), else the tile `autotune_flash`
+saved for JAX's key (`_flash_tile_key`: bh, s, d, dtype, causal, tier) in
+the calibration file's 'flash_tiles' section for this card, read once into
+`_FLASH_TILE_CACHE`, else (128, 64). Other values are the TPU's tile knobs
+and are accepted and ignored, as JAX's callers pass them. The backward
+kernels and d > 128 keep tiles of their own (64 by 64 at d > 128; the
+backward's 128-row A tiles and W-row streamed tiles): JAX's backward
+shares the forward's key (flash_attention.py:602), the port's does not.
 
 The serving tier's attention over an int8 K/V cache (l.1415-1591):
 `quantize_kv` and `flash_attention_q8` keep their signatures, and the TPU
@@ -66,13 +76,17 @@ import functools
 
 import torch
 
-from tpusparse_torch.utils.config import fp32_matmul, resolve_precision
+from tpusparse_torch.utils.config import dtype_name, fp32_matmul, resolve_precision
 
 KERNEL = "flash_attention"
 KERNEL_Q8 = "flash_attention_q8"
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_q8": 0}
+FLASH_TILES = ((128, 64), (64, 64))  # the forward's (block_q, block_k) at d <= 128, default first
+# autotuned forward tiles by `_flash_tile_key`, read once from the calibration file
+_FLASH_TILE_CACHE: dict = {}
+_FLASH_TILE_LOADED = False
 
 
 def launch_counts() -> dict:
@@ -145,10 +159,14 @@ def _check_kernel_args(tensors: dict, stats: dict) -> None:
 def flash_fwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float,
     causal: bool = False, q_offset: int = 0, kv_offset: int = 0,
-    precision: str | None = None,
+    precision: str | None = None, block_q: int = 0,
 ):
     """(o, lse) of softmax(q kᵀ sm_scale) v for contiguous (bh, s, d)
-    operands: o in q's type, lse fp32 (bh, s)."""
+    operands: o in q's type, lse fp32 (bh, s). `block_q`: the q-tile's rows
+    at d <= 128, 128 or 64 (0: 128); d > 128 takes the wide kernel's own."""
+    if block_q not in (0,) + tuple(bq for bq, _ in FLASH_TILES):
+        raise ValueError(f"flash_fwd has q-tiles of {[bq for bq, _ in FLASH_TILES]} rows, "
+                         f"not {block_q}")
     _check_kernel_args({"q": q, "k": k, "v": v}, {})
     kw = dict(sm_scale=sm_scale, causal=causal, q_offset=int(q_offset),
               kv_offset=int(kv_offset), precision=precision)
@@ -162,7 +180,7 @@ def flash_fwd_kernel(
     rc = _kernel_fns()["flash_fwd"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _DTYPE_CODE[q.dtype], bh, s, d, _scale_in(q.dtype, sm_scale), int(causal),
-        kw["q_offset"], kw["kv_offset"], int(_rounds(q.dtype, precision)),
+        kw["q_offset"], kw["kv_offset"], int(_rounds(q.dtype, precision)), block_q,
         q.device.index or 0, _stream(q),
     )
     _raise_on(rc, "flash_fwd")
@@ -237,9 +255,9 @@ def _kernel_fns() -> dict:
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # pointers..., dtype, bh, s, d, scale_q, [sm_scale,] causal, q_off,
-    # kv_off, round_bf16, device, stream
+    # kv_off, round_bf16, [block_q,] device, stream
     return _build.bind(KERNEL, {
-        "flash_fwd": [p] * 5 + [i, i, i, i, f, i, i, i, i, i, p],
+        "flash_fwd": [p] * 5 + [i, i, i, i, f, i, i, i, i, i, i, p],
         "flash_dq": [p] * 7 + [i, i, i, i, f, f, i, i, i, i, i, p],
         "flash_dkv": [p] * 8 + [i, i, i, i, f, i, i, i, i, i, p],
     })
@@ -356,15 +374,17 @@ def flash_attention(
     """softmax(q·kᵀ·sm_scale)·v for (..., s, d) operands, on the forward
     kernel. Returns o, or (o, lse) with `return_lse`. q_offset/kv_offset
     shift the global positions of causal masking (ring attention passes its
-    shard bases). `block_q`/`block_k` are the TPU kernel's tile knobs,
-    accepted and ignored: the CUDA kernel picks its own tile."""
-    del block_q, block_k
+    shard bases). `block_q`/`block_k` pick the forward's tile where they
+    name one of `FLASH_TILES`; other values are the TPU's knobs, accepted
+    and ignored (module docstring: the saved tile, else the default)."""
     _check_qkv(q, k, v)
     *lead, s, d = q.shape
     sm_scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    tile = resolve_flash_tile(q.shape, q.dtype, causal, precision, block_q, block_k)
     o, lse = flash_fwd_kernel(
         _flat(q), _flat(k), _flat(v), sm_scale=sm_scale, causal=causal,
-        q_offset=q_offset, kv_offset=kv_offset, precision=precision)
+        q_offset=q_offset, kv_offset=kv_offset, precision=precision,
+        block_q=tile[0] if tile else 0)
     o = o.reshape(*lead, s, d)
     return (o, lse.reshape(*lead, s)) if return_lse else o
 
@@ -382,7 +402,8 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv) from the saved per-row logsumexp, on the dq and dk/dv
     kernels. `precision` must be the forward's. do is taken in q's type.
-    `block_q`/`block_k` are accepted and ignored, as in `flash_attention`."""
+    `block_q`/`block_k` are accepted and ignored: the backward kernels keep
+    their own tiles, where JAX's backward resolves the forward's key."""
     del block_q, block_k
     _check_qkv(q, k, v)
     *lead, s, d = q.shape
@@ -397,6 +418,105 @@ def flash_attention_bwd(
     dq = flash_dq_kernel(*args, **kw)
     dk, dv = flash_dkv_kernel(*args, **kw)
     return tuple(x.reshape(*lead, s, d) for x in (dq, dk, dv))
+
+
+def _flash_tile_key(bh, s, d, dtype_name, causal, tier) -> str:
+    """JAX's key of a saved flash tile (tpusparse/kernels/flash_attention.py:323)."""
+    return f"{bh}x{s}x{d}x{dtype_name}x{'c' if causal else 'f'}x{tier}"
+
+
+def _saved_flash_tiles() -> dict:
+    """The 'flash_tiles' section of the calibration file for this card, read
+    once into `_FLASH_TILE_CACHE`."""
+    global _FLASH_TILE_LOADED
+    if not _FLASH_TILE_LOADED:
+        from tpusparse_torch.utils.calibrate import load_tile_section
+
+        _FLASH_TILE_CACHE.update(load_tile_section("flash_tiles"))
+        _FLASH_TILE_LOADED = True
+    return _FLASH_TILE_CACHE
+
+
+def resolve_flash_tile(shape, dtype, causal, precision, block_q=None, block_k=None):
+    """The forward's (block_q, block_k) for (..., s, d) operands of `dtype`,
+    or None for the default (128, 64) (and at d > 128, whose kernel has a
+    tile of its own): explicit arguments where they name one of
+    `FLASH_TILES` (block_k defaulting to 64), else the saved tile for JAX's
+    key where it is one, else None."""
+    *lead, s, d = shape
+    if d > 128:
+        return None
+    if block_q is not None and (int(block_q), int(block_k or 64)) in FLASH_TILES:
+        return int(block_q), int(block_k or 64)
+    saved = _saved_flash_tiles()
+    if not saved:
+        return None
+    bh = 1
+    for x in lead:
+        bh *= int(x)
+    key = _flash_tile_key(bh, s, d, dtype_name(dtype), causal,
+                          resolve_precision(precision))
+    hit = saved.get(key)
+    return tuple(hit) if hit and tuple(hit) in FLASH_TILES else None
+
+
+def autotune_flash(seq: int, head_dim: int, bh: int, *, causal: bool = False,
+                   dtype=torch.float32, precision: str | None = None, repeats: int = 2,
+                   save: bool = True, verbose: bool = True, candidates=None):
+    """Time the forward's tiles (`candidates`, default `FLASH_TILES`; a tile
+    the kernel lacks raises ValueError) for (bh, seq, head_dim) operands on
+    the card and keep the fastest for JAX's key (`_flash_tile_key`, at the
+    resolved tier); with `save`, also in the calibration file's
+    'flash_tiles' section, stamped with the card's name. Later
+    `flash_attention` calls at the shape take it. Returns ((bq, bk),
+    seconds a call). Raises without a card, as JAX's raises on the CPU.
+
+    Each tile is timed by `utils.timing.device_time_per_iter` on a chain
+    that feeds q's next value through a scalar of o (JAX's), the median of
+    `repeats`. The backward keeps its own tiles, so only the forward is
+    tuned."""
+    import numpy as np
+
+    from tpusparse_torch.utils.timing import device_time_per_iter
+
+    tier = resolve_precision(precision)
+    cands = []
+    for bq, bk in candidates or FLASH_TILES:
+        tile = (int(bq), int(bk))
+        if tile not in FLASH_TILES:
+            raise ValueError(f"flash_fwd has no tile {tile}; its tiles are {list(FLASH_TILES)}")
+        if tile not in cands:
+            cands.append(tile)
+    if not torch.cuda.is_available():
+        raise RuntimeError("autotune_flash runs on the CUDA card; no CUDA device is available")
+
+    def mk(seed):
+        x = np.random.default_rng(seed).standard_normal((bh, seq, head_dim))
+        return torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+
+    q, k, v = mk(0), mk(1), mk(2)
+    best, best_t = None, float("inf")
+    for bq, bk in cands:
+        def step(x, bq=bq, bk=bk):
+            y = flash_attention(x, k, v, causal=causal, block_q=bq, block_k=bk,
+                                precision=tier)
+            return x * (1.0 + 0.0 * y.abs().max().to(x.dtype))
+
+        t = float(np.median([device_time_per_iter(step, q, iters_lo=2, iters_hi=6)
+                             for _ in range(repeats)]))
+        if verbose:
+            print(f"[autotune-flash] ({bq},{bk}): {t * 1e3:.4f} ms", flush=True)
+        if t < best_t:
+            best, best_t = (bq, bk), t
+    key = _flash_tile_key(bh, seq, head_dim, dtype_name(dtype), causal, tier)
+    _saved_flash_tiles()[key] = list(best)
+    if save:
+        from tpusparse_torch.utils.calibrate import save_tile_entry
+
+        save_tile_entry("flash_tiles", key, best)
+    if verbose:
+        print(f"[autotune-flash] best {best} = {best_t * 1e3:.4f} ms", flush=True)
+    return best, best_t
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -3,10 +3,22 @@
 Counterpart of `tpusparse/kernels/gemm.py:31-159` (`_gemm_kernel` behind
 `gemm_pallas`). The TPU kernel becomes the CUDA kernel `csrc/gemm.cu`, on
 the H100's tensor cores (`wgmma`), which takes the transpose flags itself
-(row-major strides), so a transposed operand is never copied. Its tile
-sizes are its own; the TPU tile heuristics, the `gemm_block_*` config
-fields and `autotune_gemm` (gemm.py:43-93, 175-295) tune the TPU's tiles
-and are not carried.
+(row-major strides), so a transposed operand is never copied.
+
+Tiles. A thread block owns a (bm, bn) tile of C and walks k in chunks of
+bk: bm 64 or 128 (one or two warpgroups), bn 128, and bk the tier's chunk
+of 128 bytes (32 in 3xTF32, 64 in one bf16 pass; `gemm_tiles`). The
+(bm, bn, bk) tile is resolved as JAX's (gemm.py:43-93), in this order:
+explicit `block_m`/`block_n`/`block_k` (a tile the kernel lacks raises
+ValueError naming the ones it has); the tile `autotune_gemm` saved for
+JAX's key `f"{m}x{k}x{n}x{dtype}"` (`_tile_key`) in the calibration
+file's 'gemm_tiles' section, stamped with the card's name and read once
+into `_TILE_CACHE`, where it names a tile of this call's tier; else the
+kernel's own choice (csrc/gemm.cu `default_block_m`: 128 rows where the
+grid of 128-row tiles has two blocks an SM, else 64). Both heights sum
+every element in the same order, so the tile changes the time and not
+the bits. JAX's `gemm_block_*` config fields tune the TPU's tiles and are
+not carried.
 
 Precision tiers, fp32-class and never plain TF32: 'high'/'highest' with an
 fp32 operand run 3xTF32 (each value split into a tf32 high part and a tf32
@@ -41,12 +53,17 @@ import functools
 import torch
 
 from tpusparse_torch.kernels.tiled_spmm import int8_kmajor_kernel
-from tpusparse_torch.utils.config import cdiv, fp32_matmul, resolve_precision
+from tpusparse_torch.utils.config import cdiv, dtype_name, fp32_matmul, resolve_precision
 
 KERNEL = "gemm"
 KERNEL_INT8 = "gemm_s8"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"gemm": 0, "gemm_s8": 0}
+BLOCK_MS = (64, 128)  # the heights of C's tiles (csrc/gemm.cu: one or two warpgroups)
+BLOCK_N = 128         # the width of C's tiles (one wgmma's n)
+# autotuned tiles by `_tile_key`, read once from the calibration file
+_TILE_CACHE: dict = {}
+_TILE_CACHE_LOADED = False
 
 
 def launch_counts() -> dict:
@@ -61,25 +78,134 @@ def reset_launch_counts() -> None:
 
 def gemm_kernel(
     a: torch.Tensor, b: torch.Tensor, *, transa: bool = False, transb: bool = False,
-    out_dtype=None, precision: str | None = None,
+    out_dtype=None, precision: str | None = None, block_m: int | None = None,
+    block_n: int | None = None, block_k: int | None = None,
 ) -> torch.Tensor:
     """op(a) @ op(b), op = transpose where the flag is set.
 
     a is stored (m, k), or (k, m) with transa; b is stored (k, n), or (n, k)
     with transb; both contiguous. Returns (m, n) in `out_dtype` (default:
-    the result type of a and b), accumulated in fp32.
+    the result type of a and b), accumulated in fp32. `block_m`/`block_n`/
+    `block_k` pick the kernel's tile (module docstring); the plain version
+    on the CPU has none, but a tile the kernel lacks raises there too.
     """
     out_dtype = out_dtype or torch.result_type(a, b)
     m, n, k = _check(a, b, transa, transb, out_dtype)
     tier = resolve_precision(precision)
+    tile = resolve_tile(m, k, n, a.dtype, b.dtype, tier, block_m, block_n, block_k)
     if a.device.type == "cpu":
         return _gemm_plain(a, b, transa=transa, transb=transb, out_dtype=out_dtype,
                            precision=tier)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    c = _launch(a, b, m, n, k, transa, transb, out_dtype, round_bf16=tier == "default")
+    c = _launch(a, b, m, n, k, transa, transb, out_dtype, round_bf16=tier == "default",
+                block_m=tile[0] if tile else 0)
     _LAUNCHES["gemm"] += 1
     return c
+
+
+def _tile_key(m: int, k: int, n: int, dtype_name: str) -> str:
+    """JAX's key of a saved GEMM tile (tpusparse/kernels/gemm.py:178)."""
+    return f"{m}x{k}x{n}x{dtype_name}"
+
+
+def _chunk_k(a_dtype, b_dtype, tier: str) -> int:
+    """The k a staged chunk holds: 128 bytes of the tier's staged values, 32
+    fp32 in 3xTF32, 64 bf16 in one bf16 pass (bf16 operand pairs and
+    'default')."""
+    return 64 if tier == "default" or a_dtype == b_dtype == torch.bfloat16 else 32
+
+
+def gemm_tiles(a_dtype=torch.float32, b_dtype=None, precision: str | None = None) -> list:
+    """The (bm, bn, bk) tiles the kernel has for these operand types and
+    tier: each height by BLOCK_N, bk the tier's chunk (`_chunk_k`)."""
+    bk = _chunk_k(a_dtype, b_dtype or a_dtype, resolve_precision(precision))
+    return [(bm, BLOCK_N, bk) for bm in BLOCK_MS]
+
+
+def _saved_tiles() -> dict:
+    """The 'gemm_tiles' section of the calibration file for this card, read
+    once into `_TILE_CACHE` (JAX's `_tuned_tile`)."""
+    global _TILE_CACHE_LOADED
+    if not _TILE_CACHE_LOADED:
+        from tpusparse_torch.utils.calibrate import load_gemm_tiles
+
+        _TILE_CACHE.update(load_gemm_tiles())
+        _TILE_CACHE_LOADED = True
+    return _TILE_CACHE
+
+
+def resolve_tile(m: int, k: int, n: int, a_dtype, b_dtype, precision, block_m=None,
+                 block_n=None, block_k=None):
+    """The (bm, bn, bk) tile a call launches, or None for the kernel's own
+    choice: explicit arguments (the missing ones from the kernel's default,
+    bm then its own; a tile it lacks raises ValueError), else the saved tile
+    for JAX's key where it is a tile of this tier, else None. Every
+    `gemm_kernel` call takes this path, so the saved-tile branch is kept to
+    a dict lookup and a few compares."""
+    if block_m is None and block_n is None and block_k is None:
+        saved = _saved_tiles()
+        hit = saved.get(_tile_key(m, k, n, dtype_name(a_dtype))) if saved else None
+        if hit is None:
+            return None
+        bm, bn, bk = hit
+        ok = (bm in BLOCK_MS and bn == BLOCK_N
+              and bk == _chunk_k(a_dtype, b_dtype, resolve_precision(precision)))
+        return (bm, bn, bk) if ok else None
+    tiles = gemm_tiles(a_dtype, b_dtype, precision)
+    tile = (block_m, block_n or BLOCK_N, block_k or tiles[0][2])
+    if not any(tile[1:] == t[1:] and tile[0] in (None, t[0]) for t in tiles):
+        raise ValueError(f"gemm has no tile {tile} for {dtype_name(a_dtype)} x "
+                         f"{dtype_name(b_dtype)} at '{resolve_precision(precision)}'; "
+                         f"its tiles are {tiles}")
+    return tile if block_m is not None else None
+
+
+def autotune_gemm(m: int, k: int, n: int, dtype=torch.bfloat16, *, repeats: int = 2,
+                  save: bool = True, verbose: bool = True):
+    """Time each of the kernel's tiles (`gemm_tiles`, at the config's tier)
+    for an (m, k) @ (k, n) product of `dtype` on the card and keep the
+    fastest for JAX's key (`_tile_key`); with `save`, also in the
+    calibration file's 'gemm_tiles' section, stamped with the card's name.
+    Later `gemm_kernel` calls at this exact shape and type take it.
+    Returns (tile, tflops). Raises without a card, as JAX's raises on the
+    CPU.
+
+    Each tile is timed by `utils.timing.device_time_per_iter` on a chain
+    that feeds a's next value through a scalar of C (JAX's), the median of
+    `repeats`; the two heights give the same bits, so the choice moves only
+    time."""
+    import numpy as np
+
+    from tpusparse_torch.utils.timing import device_time_per_iter
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("autotune_gemm runs on the CUDA card; no CUDA device is available")
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to("cuda", dtype)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to("cuda", dtype)
+    flops = 2.0 * m * n * k
+    best, best_t = None, float("inf")
+    for tile in gemm_tiles(dtype, dtype):
+        def chained(x, tile=tile):
+            y = gemm_kernel(x, b, block_m=tile[0], block_n=tile[1], block_k=tile[2])
+            return x * (1.0 + 0.0 * y.abs().max().to(x.dtype))
+
+        t = float(np.median([device_time_per_iter(chained, a, iters_lo=2, iters_hi=6)
+                             for _ in range(repeats)]))
+        if verbose:
+            print(f"[autotune] {tile}: {flops / t / 1e12:.1f} TFLOP/s", flush=True)
+        if t < best_t:
+            best, best_t = tile, t
+    key = _tile_key(m, k, n, dtype_name(dtype))
+    _saved_tiles()[key] = list(best)
+    if save:
+        from tpusparse_torch.utils.calibrate import save_gemm_tile
+
+        save_gemm_tile(key, best)
+    if verbose:
+        print(f"[autotune] best {best} = {flops / best_t / 1e12:.1f} TFLOP/s", flush=True)
+    return best, flops / best_t / 1e12
 
 
 def _check(a, b, transa, transb, out_dtype):
@@ -105,32 +231,34 @@ def _check(a, b, transa, transb, out_dtype):
 
 
 @functools.cache
-def _kernel_fn():
-    """The C entry point of csrc/gemm.cu, built on first use."""
+def _kernel_fns() -> dict:
+    """The C entry points of csrc/gemm.cu, built on first use."""
     from tpusparse_torch.kernels import _build
 
-    fn = _build.load(KERNEL).gemm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # gemm: a, a_dtype, b, b_dtype, c, c_dtype, m, n, k, transa, transb,
+    # round_bf16, block_m, device, stream; gemm_default_block_m: m, n
+    return _build.bind(KERNEL, {"gemm": [p, i, p, i, p, i] + [i] * 8 + [p],
+                                "gemm_default_block_m": [i, i]})
 
 
-def _launch(a, b, m, n, k, transa, transb, out_dtype, round_bf16: bool):
+def default_block_m(m: int, n: int) -> int:
+    """The height of C's tiles that csrc/gemm.cu picks for an (m, n) C when
+    none is asked for (builds the source: the card's machine only)."""
+    return _kernel_fns()["gemm_default_block_m"](m, n)
+
+
+def _launch(a, b, m, n, k, transa, transb, out_dtype, round_bf16: bool, block_m: int = 0):
     if min(m, n) == 0:
         return torch.empty((m, n), dtype=out_dtype, device=a.device)
     if k == 0:  # an empty sum
         return torch.zeros((m, n), dtype=out_dtype, device=a.device)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _kernel_fn()(
+    rc = _kernel_fns()["gemm"](
         a.data_ptr(), _DTYPE_CODE[a.dtype], b.data_ptr(), _DTYPE_CODE[b.dtype],
         c.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k, int(transa), int(transb),
-        int(round_bf16), a.device.index or 0, stream,
+        int(round_bf16), block_m, a.device.index or 0, stream,
     )
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import torch
 
@@ -27,6 +28,13 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
+
+
+@functools.cache
+def dtype_name(dtype: torch.dtype) -> str:
+    """The name JAX gives a dtype ('float32', 'bfloat16'), as the saved
+    tiles' keys spell it (cached: every GEMM call asks)."""
+    return str(dtype).removeprefix("torch.")
 
 
 @dataclasses.dataclass
