@@ -409,7 +409,8 @@ FLASH_LIMIT_ROUNDED = 1e-2
 # FFMA gemm; the FFMA flash_fwd; the unpipelined spmm_int8; the FFMA
 # blk_flash_fwd and the whole-row naive_spmm, both behind a sleep; the FFMA
 # block_ell_spmm and sddmm; the FFMA blk_flash_dq and blk_flash_dkv,
-# queued; the FFMA batched and compact executors), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
+# queued; the FFMA batched and compact executors; the FFMA forwards at d
+# 256, queued), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
 # 700.00 W (PERF.md: its kernel table, rows 1-11, 13, 16-19, §5
 # for bert4d's dA, and an earlier run for the seq-4096 shape);
 # printed beside the new. SHARED_TILE_MS: the
@@ -426,7 +427,8 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "block_ell_spmm headline": 1.494, "sddmm headline": 1.280, "sddmm bert4d": 40.26,
           "resident_spmm_batched block-sparse batched": 0.822,
           "resident_spmm_batched bert4d": 5.962, "compact_spmm headline": 1.501,
-          "compact_spmm low-fill": 2.882}
+          "compact_spmm low-fill": 2.882, "flash_fwd d 256 high": 0.573,
+          "blk_flash_fwd d 256 high": 0.428}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -2469,36 +2471,65 @@ def phase_small_naive() -> None:
 
 
 def phase_small_wide_attention() -> None:
-    """The seven attention entry points at head dims above 128 (192, 256 and
-    a ragged 200: the WIDE instances) against their plain versions: flash
-    causal with and without offsets, the block kernels on a 'bigbird' plan,
-    flash_q8; fp32 'high', fp32 'default' and bf16; the existing limits."""
+    """The seven attention entry points at head dims above 128 against their
+    plain versions: flash causal with and without offsets at d 136 (S wider
+    than one 128-column slice of the forward's teams), 192, 200, 256 (also
+    at s 1100, where the 3xTF32 bank folds, and with rows that see no key),
+    320 and 330 (off 16 bytes; beyond one 256-wide accumulator) and 640
+    (512-wide chunks of o); the block kernels on a 'bigbird' plan at d 136,
+    192, 256, 320, 330 and 640, a mask-free plan of 1024 keys a row and a
+    band plan with rows that see no key; flash_q8; fp32 'high', fp32
+    'default' and bf16; the existing limits. Each forward is run twice and
+    must repeat bit for bit."""
     import tpusparse_torch as tt
+    from tpusparse_torch.kernels import block_flash_attention as bfa
     from tpusparse_torch.kernels import flash_attention as fa
 
-    # name, (bh, s, d), causal, q_offset
-    cases = [("wide_2x256x192", (2, 256, 192), False, 0),
-             ("wide_causal_2x256x256", (2, 256, 256), True, 0),
-             ("wide_ragged_offsets_1x200x200_q64", (1, 200, 200), True, 64)]
+    # name, (bh, s, d), causal, q_offset, kv_offset
+    cases = [("wide_2x256x136", (2, 256, 136), False, 0, 0),
+             ("wide_2x256x192", (2, 256, 192), False, 0, 0),
+             ("wide_causal_2x256x256", (2, 256, 256), True, 0, 0),
+             ("wide_ragged_offsets_1x200x200_q64", (1, 200, 200), True, 64, 0),
+             ("wide_causal_2x256x256_q64", (2, 256, 256), True, 64, 0),
+             ("wide_fold_1x1100x256", (1, 1100, 256), False, 0, 0),
+             ("wide_no_key_rows_1x128x256_kv100", (1, 128, 256), True, 0, 100),
+             ("wide_causal_2x256x320", (2, 256, 320), True, 0, 0),
+             ("wide_2x256x330", (2, 256, 330), False, 0, 0),
+             ("wide_causal_2x256x640", (2, 256, 640), True, 0, 0)]
     tiers = ((torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"))
     plan = tt.BlockAttnPlan(tt.bigbird_block_mask(256, 64), 64, 64, 256)
-    for seed, (name, shape, causal, q_off) in enumerate(cases):
+
+    def check_repeat(label, first, again):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{label}: the forward does not repeat bit for bit")
+
+    for seed, (name, shape, causal, q_off, kv_off) in enumerate(cases):
         for dtype, prec in tiers:
             q, k, v, do = _flash_operands(shape, 1200 + seed, dtype)
             d = shape[-1]
             tag = f"{str(dtype).split('.')[1]}_{prec}"
             rounded = dtype == torch.bfloat16 or prec == "default"
-            kw = dict(sm_scale=1 / d ** 0.5, causal=causal, q_offset=q_off, kv_offset=0,
+            kw = dict(sm_scale=1 / d ** 0.5, causal=causal, q_offset=q_off, kv_offset=kv_off,
                       precision=prec)
             got, want = _flash_pair(q, k, v, do, kw)
-            _check_attention_case(f"flash_{name}_{tag}", got, want, rounded)
-            if shape[1] == plan.seq:
+            check_repeat(f"flash_{name}_{tag}", got[:2], fa.flash_fwd_kernel(q, k, v, **kw))
+            _check_attention_case(f"flash_{name}_{tag}", got, want, rounded,
+                                  ", o/lse repeat bitwise")
+            blind = min(max(kv_off - q_off, 0), shape[1])  # rows that see no key
+            if blind and not (torch.count_nonzero(got[0][:, :blind]) == 0
+                              and bool((got[1][:, :blind] == -1e30).all())):
+                raise AssertionError(f"flash {name}: rows that see no key are not 0, -1e30")
+            if shape[1] == plan.seq and q_off == 0:
                 bkw = dict(sm_scale=1 / d ** 0.5, precision=prec)
                 got, want = _blk_pair(q, k, v, do, plan, bkw)
-                _check_attention_case(f"blk_bigbird_256_b64_d{d}_{tag}", got, want, rounded)
+                label = f"blk_bigbird_256_b64_d{d}_{tag}"
+                check_repeat(label, got[:2], bfa.blk_flash_fwd_kernel(q, k, v, plan, **bkw))
+                _check_attention_case(label, got, want, rounded, ", o/lse repeat bitwise")
         q, k, v, _ = _flash_operands(shape, 1250 + seed)
         kq, ks, vq, vs = fa.quantize_kv(k, v)
-        kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off)
+        kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
+                  kv_offset=kv_off)
         for dtype in (torch.float32, torch.bfloat16):
             got = fa.flash_q8_kernel(q.to(dtype), kq, vq, ks, vs, **kw)
             want = fa._flash_q8_plain(q.to(dtype), kq, vq, ks, vs, **kw)
@@ -2510,6 +2541,27 @@ def phase_small_wide_attention() -> None:
                   f"(limit {FLASH_LIMIT_ROUNDED:.0e}), {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_q8 {name}: kernel disagrees with its plain version")
+    # the block forward's bank folding (a mask-free plan, 1024 keys a row) and
+    # rows that see no key (a band plan, rows 70-89 of q-block 1 masked out)
+    ind, ptr = tt.local_global_pattern(256, 20, 3)
+    blind_plan = tt.BlockAttnPlan.from_token_pattern(ind, ptr, 256, 64, 64)
+    blind_plan.tile_masks[blind_plan.L:2 * blind_plan.L, 70 - 64:90 - 64] = 0
+    for seed, (name, bplan, d) in enumerate((
+            ("maskfree_1024_b64", tt.BlockAttnPlan(np.ones((16, 16), bool), 64, 64, 1024), 256),
+            ("blind_rows_256_b64", blind_plan, 256))):
+        for dtype, prec in tiers:
+            q, k, v, do = _flash_operands((1, bplan.seq, d), 1280 + seed, dtype)
+            tag = f"{str(dtype).split('.')[1]}_{prec}"
+            bkw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+            got, want = _blk_pair(q, k, v, do, bplan, bkw)
+            label = f"blk_{name}_d{d}_{tag}"
+            check_repeat(label, got[:2], bfa.blk_flash_fwd_kernel(q, k, v, bplan, **bkw))
+            _check_attention_case(label, got, want, dtype == torch.bfloat16 or prec == "default",
+                                  ", o/lse repeat bitwise")
+            blind = ~bplan.token_mask(q.device).any(-1)
+            if not (torch.count_nonzero(got[0][:, blind]) == 0
+                    and bool((got[1][:, blind] == -1e30).all())):
+                raise AssertionError(f"{label}: rows that see no key are not 0, -1e30")
 
 
 def _graph_task(cfg, seed):
@@ -2845,7 +2897,8 @@ def phase_graph_step_timings(runs) -> None:
 def phase_wide_timings() -> None:
     """The seven attention entry points at (b, h, s, d) = WIDE_SHAPE, fp32
     'high' (flash_q8 at its own tier): kernel against plain and bound, SDPA
-    as the yardstick (the block kernels' with the token-exact mask)."""
+    as the yardstick (the block kernels' with the token-exact mask); then
+    the two forwards in fp32 'default' and on bf16 operands."""
     from torch.nn.attention import sdpa_kernel
 
     import tpusparse_torch as tt
@@ -2941,8 +2994,10 @@ def phase_wide_timings() -> None:
         key = "q8" if name == "flash_q8" else ("masked" if name.startswith("blk") else "full")
         fwd_ms, bwd_ms, backend = lib[key]
         lib_ms = fwd_ms if name.endswith(("fwd", "q8")) else bwd_ms
-        was = (f" (first port {OLD_MS['flash_q8 d 256']:.3f})" if name == "flash_q8" and d == 256
-               else "")
+        old = OLD_MS.get(f"{name} d {d} high" if name.endswith("fwd") else f"{name} d {d}")
+        was = ((f" (first port {old:.3f})" if name == "flash_q8" else
+                f" (the FFMA forward before its redesign {old:.3f}: {old / ms:.2f}x)")
+               if old else "")
         print(f"{name} {WIDE_SHAPE} d {d} ({'bigbird block 64, ' if key == 'masked' else ''}"
               f"{'int8 K/V' if key == 'q8' else 'fp32 high'}): kernel {ms:.4f} ms queued{was}, "
               f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP"
@@ -2951,9 +3006,60 @@ def phase_wide_timings() -> None:
               f"sdpa ({backend}) "
               f"{'forward' if name.endswith(('fwd', 'q8')) else 'autograd backward'} "
               f"{lib_ms:.4f} ms")
+    _wide_forward_tiers(q, k, v, plan, mask, work)
     print(f"d {d} kernel vs plain over scale: flash " + ", ".join(
         f"{n} {e:.2e}" for n, e in errs.items()) + "; block " + ", ".join(
         f"{n} {e:.2e}" for n, e in berrs.items()) + f"; flash_q8 o {q8_err:.2e}")
+
+
+def _wide_forward_tiers(q, k, v, plan, mask, work) -> None:
+    """flash_fwd and blk_flash_fwd at WIDE_SHAPE in fp32 'default' and on
+    bf16 operands (fp32 'high' is phase_wide_timings' own row), each checked
+    against its plain version, timed beside bf16 SDPA (the block kernel's
+    with the token-exact mask) and bound on the bf16 tensor cores."""
+    from torch.nn.attention import sdpa_kernel
+
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+    from tpusparse_torch.kernels import flash_attention as fa
+
+    b, h, s, d = WIDE_SHAPE
+    bh = b * h
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = [x.to(torch.bfloat16) for x in (q, k, v)]
+    lib = {}
+    for key, attn_mask in (("full", None), ("masked", mask)):
+        o4 = [x.view(b, h, s, d) for x in bf]
+        backend = _sdpa_backend(*o4, attn_mask=attn_mask)
+        with sdpa_kernel([backend]):
+            lib[key] = (time_ms_queued(lambda: sdpa(*o4, attn_mask=attn_mask)), backend.name)
+    for tier, ops, prec in (("fp32 'default'", (q, k, v), "default"),
+                            ("bf16 operands", bf, "high")):
+        runs = {
+            "flash_fwd": (lambda: fa.flash_fwd_kernel(*ops, sm_scale=1 / d ** 0.5, precision=prec),
+                          lambda: fa._flash_fwd_plain(*ops, sm_scale=1 / d ** 0.5,
+                                                      precision=prec), "full"),
+            "blk_flash_fwd": (
+                lambda: bfa.blk_flash_fwd_kernel(*ops, plan, sm_scale=1 / d ** 0.5,
+                                                 precision=prec),
+                lambda: bfa._blk_fwd_plain(*ops, plan, sm_scale=1 / d ** 0.5, precision=prec),
+                "masked"),
+        }
+        for name, (kern, plain, key) in runs.items():
+            got, want = kern(), plain()
+            err = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+            if not (err <= FLASH_LIMIT_ROUNDED and bool(torch.isfinite(got[0].float()).all())):
+                raise AssertionError(f"{name} at d {d} {tier}: kernel vs plain {err:.2e}")
+            del got, want
+            ms = time_ms_queued(kern)
+            flops = work[name][0]
+            nbytes = 4 * ops[0].element_size() * bh * s * d + 4.0 * bh * s
+            bms, by = bound(flops, nbytes, BF16_FLOPS)
+            lib_ms, backend = lib[key]
+            print(f"{name} {WIDE_SHAPE} d {d} ({'bigbird block 64, ' if key == 'masked' else ''}"
+                  f"{tier}): kernel {ms:.4f} ms queued, bound {bms:.4f} ms by {by} "
+                  f"({flops / 1e9:.2f} GFLOP), kernel at {flops / (ms * 1e-3) / 1e12:.2f} "
+                  f"TFLOP/s, {bms / ms:.3f} of the bound; sdpa bf16 ({backend}) forward "
+                  f"{lib_ms:.4f} ms (kernel/sdpa {ms / lib_ms:.2f}); vs plain {err:.2e} of scale")
 
 
 # -- batched (3-D) block SpMM and the executors of the derived plans ---------------

@@ -55,7 +55,15 @@ gemm_s8      the int8 GEMM's entry point (`gemm_int8_kernel`: int8_kmajor
              the kernel alone), enqueued behind a sleep so the card never
              holds the host back; then the int8 headline's entry point (the
              16384^2 QuantizedMatrix, 10 % of its 128^2 blocks, times B
-             16384 x 512), which this group's kernel does not run."""
+             16384 x 512), which this group's kernel does not run.
+flash_wide_forward
+             the attention forwards at head dims above 128: flash_fwd and
+             blk_flash_fwd (on 'bigbird', window 64) at chip_smoke's
+             WIDE_SHAPE and at the same (b, h, s) with d 384, 512 and 640
+             (512-wide chunks of o), after the d = 64 flash_fwd at (96, 512,
+             64), each in fp32 'high', fp32 'default' and on bf16 operands,
+             by `chip_smoke.time_ms_queued`, with a SHA-256 of o and lse
+             (equal digests: equal bits)."""
 import os
 import sys
 
@@ -325,8 +333,46 @@ def gemm_s8(name, cs, tt):
     print(f"{name} int8 headline entry point (int8_kmajor + spmm_int8): {ms:.4f} ms", flush=True)
 
 
+def flash_wide_forward(name, cs, tt):
+    import hashlib
+
+    import torch
+
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+    from tpusparse_torch.kernels import flash_attention as fa
+
+    def digest(o, lse):
+        h = hashlib.sha256(o.float().cpu().numpy().tobytes())
+        h.update(lse.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    tiers = ((torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"))
+    b, h, s, _ = cs.WIDE_SHAPE
+    plan = tt.BlockAttnPlan(tt.bigbird_block_mask(s, cs.PATTERN_WINDOW), cs.PATTERN_WINDOW,
+                            cs.PATTERN_WINDOW, s)
+    for dtype, prec in tiers:
+        q, k, v, _ = cs._flash_operands((96, 512, 64), 1400, dtype)
+        kw = dict(sm_scale=1 / 8, causal=False, precision=prec)
+        ms = cs.time_ms_queued(lambda: fa.flash_fwd_kernel(q, k, v, **kw))
+        print(f"{name} flash_fwd (96, 512, 64) {str(dtype)[6:]} '{prec}': {ms:.4f} ms, o+lse "
+              f"sha256 {digest(*fa.flash_fwd_kernel(q, k, v, **kw))}", flush=True)
+        del q, k, v
+    for d in (cs.WIDE_SHAPE[-1], 384, 512, 640):
+        for dtype, prec in tiers:
+            q, k, v, _ = cs._flash_operands((b * h, s, d), 1300, dtype)
+            kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision=prec)
+            bkw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+            runs = {"flash_fwd": lambda: fa.flash_fwd_kernel(q, k, v, **kw),
+                    "blk_flash_fwd": lambda: bfa.blk_flash_fwd_kernel(q, k, v, plan, **bkw)}
+            for kern, run in runs.items():
+                ms = cs.time_ms_queued(run)
+                print(f"{name} {kern} {(b, h, s, d)} {str(dtype)[6:]} '{prec}': {ms:.4f} ms, "
+                      f"o+lse sha256 {digest(*run())}", flush=True)
+            del q, k, v
+
+
 GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward, "gemm": gemm,
-          "gemm_s8": gemm_s8}
+          "gemm_s8": gemm_s8, "flash_wide_forward": flash_wide_forward}
 
 if __name__ == "__main__":
     if len(sys.argv) != 3 or sys.argv[1] not in GROUPS:

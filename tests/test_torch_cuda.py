@@ -417,10 +417,22 @@ FLASH_CASES = {
     "ragged_causal_1x200x64": ((1, 200, 64), True, 0, 0),
     "narrow_8x128x24": ((8, 128, 24), False, 0, 0),
     "wide_causal_2x128x128": ((2, 128, 128), True, 0, 0),
-    # head dims above 128: the WIDE instances, 128-wide output chunks
+    # head dims above 128: the forward's teams of warps on the tensor cores,
+    # the backward's WIDE instances in 128-wide output chunks
     "wider_causal_2x128x192": ((2, 128, 192), True, 0, 0),
     "wider_2x130x256": ((2, 130, 256), False, 0, 0),
     "wider_ragged_offsets_1x200x200": ((1, 200, 200), True, 64, 0),
+    # S wider than one 128-column slice; the 3xTF32 bank folding (s > 512);
+    # beyond one 256-wide accumulator (d 320; d 330 off 16 bytes, staged
+    # synchronously); d 640 in 512-wide chunks of o, S over d in pieces;
+    # causal with a q offset; rows that see no key
+    "wider_d136_2x200x136": ((2, 200, 136), False, 0, 0),
+    "wider_fold_1x1100x256": ((1, 1100, 256), False, 0, 0),
+    "wider_causal_d320_2x130x320": ((2, 130, 320), True, 0, 0),
+    "wider_ragged_d330_1x150x330": ((1, 150, 330), False, 0, 0),
+    "wider_causal_d640_1x130x640": ((1, 130, 640), True, 0, 0),
+    "wider_causal_qoff64_2x256x256": ((2, 256, 256), True, 64, 0),
+    "wider_no_key_rows_1x128x256": ((1, 128, 256), True, 0, 100),
     "ragged_wide_2x130x100": ((2, 130, 100), False, 0, 0),
     "offsets_1x256x64": ((1, 256, 64), True, 256, 0),
     "no_key_rows_1x128x64": ((1, 128, 64), True, 0, 100),
@@ -515,6 +527,28 @@ def test_flash_forward_repeats_bit_for_bit(cuda, dtype, precision):
     q, k, v, _, kw = _flash_args("kv_ahead_causal_2x1030x64", cuda, dtype)
     first = fa.flash_fwd_kernel(q, k, v, precision=precision, **kw)
     second = fa.flash_fwd_kernel(q, k, v, precision=precision, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", ["wider_fold_1x1100x256", "wider_causal_d320_2x130x320",
+                                  "wider_causal_d640_1x130x640", "wider_maskfree_1024_b64",
+                                  "wider_band_masked_256_b64",
+                                  "wider_maskfree_unpadded_160_b64"])
+def test_wide_forwards_repeat_bit_for_bit(cuda, name, dtype, precision):
+    """The forwards at d > 128 (a team's warps sum their partial scores in
+    one order) give the same bits twice: flash and the block kernel."""
+    if name in FLASH_CASES:
+        q, k, v, _, kw = _flash_args(name, cuda, dtype)
+        runs = [fa.flash_fwd_kernel(q, k, v, precision=precision, **kw) for _ in range(2)]
+    else:
+        q, k, v, _, plan, kw = _blk_args(name, cuda, dtype)
+        runs = [bfa.blk_flash_fwd_kernel(q, k, v, plan, precision=precision, **kw)
+                for _ in range(2)]
+    first, second = runs
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -647,6 +681,15 @@ BLK_CASES = {  # name: (bh, d)
     "wider_bigbird_256_b32": (2, 192),
     "wider_band_masked_unpadded_160_b64x32": (2, 200),
     "wider_band_masked_512_b128x256": (1, 256),
+    # the forward's teams: S wider than one 128-column slice, the 3xTF32 bank
+    # folding (1024 keys a row), beyond one 256-wide accumulator (d 320 and
+    # 520; d 640 in 512-wide chunks of o), rows that see no key
+    "wider_bigbird_512_b64": (2, 136),
+    "wider_maskfree_1024_b64": (1, 256),
+    "wider_band_masked_256_b64": (2, 320),
+    "wider_band_masked_first_empty_256_b64": (2, 520),
+    "wider_maskfree_unpadded_160_b64": (1, 640),
+    "wider_blind_rows_256_b64": (2, 256),
 }
 
 

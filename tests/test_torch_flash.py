@@ -259,10 +259,46 @@ def test_kernel_wrappers_check_their_operands_and_launch_nothing_on_cpu():
 # multiple of 128 (tpusparse/kernels/flash_attention.py:232, 634, 1036, 1232,
 # 1541); the port's kernels take any d, in 128-wide chunks on the card.
 WIDE_SHAPE = (1, 2, 64, 192)
+# the forwards alone at the widths the card's wide forward splits apart:
+# (kind, (b, h, s, d), causal, q_offset); d 136 takes a second 128-column
+# slice of 8 columns, d 256 two whole slices, d 320 and 640 more than one
+# 256-wide chunk of o; every row sees at least one key
+WIDE_FORWARDS = {
+    "flash_d136": ("flash", (1, 2, 80, 136), False, 0),
+    "flash_causal_d256_q64": ("flash", (1, 2, 64, 256), True, 64),
+    "flash_causal_d320": ("flash", (1, 1, 72, 320), True, 0),
+    "flash_causal_d640": ("flash", (1, 1, 64, 640), True, 0),
+    "block_d136": ("block", (1, 2, 64, 136), False, 0),
+    "block_d320": ("block", (1, 2, 64, 320), False, 0),
+}
 
 
-@pytest.mark.parametrize("path", ["flash", "diff", "block", "q8", "self_attention"])
+def _wide_forward_matches_jax(path):
+    kind, shape, causal, q_off = WIDE_FORWARDS[path]
+    q, k, v, _ = _inputs(shape, seed=shape[-1])
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    if kind == "flash":
+        kw = dict(causal=causal, q_offset=q_off, precision="highest")
+        jo, jlse = jfa.flash_attention(jq, jk, jv, return_lse=True, **kw)
+        to, tlse = tfa.flash_attention(_t(q), _t(k), _t(v), return_lse=True, **kw)
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+    else:
+        from tpusparse.nn import bigbird_block_mask as j_bigbird_block_mask
+
+        from tpusparse_torch.kernels import block_flash_attention as tbf
+
+        mask = j_bigbird_block_mask(64, 16, 3, 1, 1, seed=5)
+        jplan, tplan = jfa.BlockAttnPlan(mask, 16, 16, 64), tbf.BlockAttnPlan(mask, 16, 16, 64)
+        jo = jfa.block_flash_attention(jq, jk, jv, jplan, precision="highest")
+        to = tbf.block_flash_attention(_t(q), _t(k), _t(v), tplan, precision="highest")
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+
+
+@pytest.mark.parametrize("path", ["flash", "diff", "block", "q8", "self_attention",
+                                  *WIDE_FORWARDS])
 def test_head_dims_above_128_match_jax(path):
+    if path in WIDE_FORWARDS:
+        return _wide_forward_matches_jax(path)
     q, k, v, do = _inputs(WIDE_SHAPE, seed=41)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     kw = dict(precision="highest")

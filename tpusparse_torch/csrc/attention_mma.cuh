@@ -126,22 +126,22 @@ __device__ __forceinline__ int key_limit(int qp, int s, int causal, int q_off, i
   return static_cast<int>(max(-(1LL << 30), min(static_cast<long long>(s), lim)));
 }
 
-// The online softmax of a warp's 16 rows over one k-tile: sacc holds q.k
-// (rows g and g + 8, keys 8 nt + 2 t + c), and leaves with p = exp(s - m),
-// s = q.k * scale_s, in fp32; m, l and oacc are brought up to date. MASK:
-// a key for which visible(h, nt, c) is false (row g + 8h) scores -1e30 and
-// takes p = 0 exactly, so a wholly masked tile leaves m, l and oacc as they
+// The online softmax of a warp's 16 rows over one k-tile of 8 NN keys: sacc
+// holds q.k (rows g and g + 8, keys 8 nt + 2 t + c), and leaves with p =
+// exp(s - m), s = q.k * scale_s, in fp32; m, l and oacc are brought up to
+// date. MASK: a key for which visible(h, nt, c) is false (row g + 8h) scores
+// -1e30 and takes p = 0 exactly, so a wholly masked tile leaves m, l and oacc as they
 // were, even as a row's first (corr = 2^0 = 1 while m is -1e30). exp(x - m)
 // is taken as 2^(x log2e - m log2e), one FFMA and one MUFU op.
-template <bool MASK, int NO, typename Visible>
-__device__ __forceinline__ void softmax_tile_if(float (&sacc)[BK / 8][4], float (&oacc)[NO][4],
+template <bool MASK, int NN, int NO, typename Visible>
+__device__ __forceinline__ void softmax_tile_if(float (&sacc)[NN][4], float (&oacc)[NO][4],
                                                 float (&m)[2], float (&l)[2], float scale_s,
                                                 Visible visible) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = attn::NEG;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int nt = 0; nt < NN; ++nt)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         float x = sacc[nt][2 * h + c] * scale_s;
@@ -154,7 +154,7 @@ __device__ __forceinline__ void softmax_tile_if(float (&sacc)[BK / 8][4], float 
     const float corr = ex2((m[h] - m_new) * LOG2E);  // 1 while both are -1e30
     float rs = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int nt = 0; nt < NN; ++nt)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         float p = ex2(fmaf(sacc[nt][2 * h + c], LOG2E, -mb));
@@ -175,8 +175,8 @@ __device__ __forceinline__ void softmax_tile_if(float (&sacc)[BK / 8][4], float 
 // The same with the mask on key positions: key key0 + 8 nt + c (key0 =
 // the tile's first key + 2t) is visible to row g + 8h when it lies below
 // lims[h].
-template <bool MASK, int NO>
-__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 8][4], float (&oacc)[NO][4],
+template <bool MASK, int NN, int NO>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[NN][4], float (&oacc)[NO][4],
                                              float (&m)[2], float (&l)[2], float scale_s,
                                              int key0, const int (&lims)[2]) {
   softmax_tile_if<MASK>(sacc, oacc, m, l, scale_s,
@@ -339,66 +339,67 @@ __device__ __forceinline__ void pv_bf16_f32(float (&oacc)[DMAX / 8][4], const fl
 // LDV for the forwards' V, the pv's B), and a warp's two products over a
 // B tile of 8 NN rows. The backward reads each streamed tile both as a
 // score's B and as a pv's B, so it stages them all with LDK and calls
-// pv<LDK>.
-template <bool ROUND, typename T, int DMAX>
+// pv<LDK>. Rows hold DMAX columns; the products run over DW of them (the
+// wide forwards' warps each take a DW-wide slice, the tiles offset to it).
+template <bool ROUND, typename T, int DMAX, int DW = DMAX>
 struct Tier;
 
-template <int DMAX>  // fp32 'high'/'highest': 3xTF32
-struct Tier<false, float, DMAX> {
+template <int DMAX, int DW>  // fp32 'high'/'highest': 3xTF32
+struct Tier<false, float, DMAX, DW> {
   using TQ = float;
   static constexpr int LDQ = DMAX + 4, LDK = DMAX + 4, LDV = DMAX + 4;
   template <int NN>
   __device__ static void score(float (&sacc)[NN][4], const TQ* As, const float* Bb, int kd,
                                int wr0, int lane) {
-    score_3xtf32<DMAX, LDQ>(sacc, As, Bb, kd, wr0, lane);
+    score_3xtf32<DW, LDQ>(sacc, As, Bb, kd, wr0, lane);
   }
   template <int LDB = LDV, int NN>
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+  __device__ static void pv(float (&oacc)[DW / 8][4], const float (&p)[NN][4],
                             const float* Bb, int kd, int lane) {
-    pv_3xtf32<DMAX, LDB>(oacc, p, Bb, kd, lane);
+    pv_3xtf32<DW, LDB>(oacc, p, Bb, kd, lane);
   }
   // the same on a B tile split at staging (split_in_place): hi at Bb, lo at Bl
   template <int NN>
   __device__ static void score(float (&sacc)[NN][4], const TQ* As, const float* Bb,
                                const float* Bl, int kd, int wr0, int lane) {
-    score_3xtf32<DMAX, LDQ, NN, true>(sacc, As, Bb, kd, wr0, lane, Bl);
+    score_3xtf32<DW, LDQ, NN, true>(sacc, As, Bb, kd, wr0, lane, Bl);
   }
   template <int LDB = LDV, int NN>
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+  __device__ static void pv(float (&oacc)[DW / 8][4], const float (&p)[NN][4],
                             const float* Bb, const float* Bl, int kd, int lane) {
-    pv_3xtf32<DMAX, LDB, NN, true>(oacc, p, Bb, kd, lane, Bl);
+    pv_3xtf32<DW, LDB, NN, true>(oacc, p, Bb, kd, lane, Bl);
   }
 };
 
-template <int DMAX>  // fp32 'default': bf16 products
-struct Tier<true, float, DMAX> {
+template <int DMAX, int DW>  // fp32 'default': bf16 products
+struct Tier<true, float, DMAX, DW> {
   using TQ = __nv_bfloat16;
   static constexpr int LDQ = DMAX + 8, LDK = DMAX + 8, LDV = DMAX + 4;
   template <int NN>
   __device__ static void score(float (&sacc)[NN][4], const TQ* As, const float* Bb, int kd,
                                int wr0, int lane) {
-    score_bf16_f32<DMAX, LDQ, LDK>(sacc, As, Bb, kd, wr0, lane);
+    score_bf16_f32<DW, LDQ, LDK>(sacc, As, Bb, kd, wr0, lane);
   }
   template <int LDB = LDV, int NN>
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+  __device__ static void pv(float (&oacc)[DW / 8][4], const float (&p)[NN][4],
                             const float* Bb, int kd, int lane) {
-    pv_bf16_f32<DMAX, LDB>(oacc, p, Bb, kd, lane);
+    pv_bf16_f32<DW, LDB>(oacc, p, Bb, kd, lane);
   }
 };
 
-template <int DMAX>  // bf16 operands, any tier
-struct Tier<true, __nv_bfloat16, DMAX> {
+template <int DMAX, int DW>  // bf16 operands, any tier
+struct Tier<true, __nv_bfloat16, DMAX, DW> {
   using TQ = __nv_bfloat16;
   static constexpr int LDQ = DMAX + 8, LDK = DMAX + 8, LDV = DMAX + 8;
   template <int NN>
   __device__ static void score(float (&sacc)[NN][4], const TQ* As, const __nv_bfloat16* Bb,
                                int kd, int wr0, int lane) {
-    score_tile<DMAX, LDQ, LDK>(sacc, As, Bb, kd, wr0, lane);
+    score_tile<DW, LDQ, LDK>(sacc, As, Bb, kd, wr0, lane);
   }
   template <int LDB = LDV, int NN>
-  __device__ static void pv(float (&oacc)[DMAX / 8][4], const float (&p)[NN][4],
+  __device__ static void pv(float (&oacc)[DW / 8][4], const float (&p)[NN][4],
                             const __nv_bfloat16* Bb, int kd, int lane) {
-    pv_tile<DMAX, LDB>(oacc, p, Bb, kd, lane);
+    pv_tile<DW, LDB>(oacc, p, Bb, kd, lane);
   }
 };
 
@@ -434,12 +435,13 @@ __device__ __forceinline__ void probs_ds(float (&sp)[NN][4], float (&dp)[NN][4],
 
 // A q-tile (ROWS rows from r0, all DMAX columns) into Qs by NT threads:
 // q * scale rounded to q's type, then to the tier's TQ; rows at or past s
-// and columns at or past d are 0. Up to 32 loads a thread are issued
-// before their stores.
-template <int ROWS, int NT, int DMAX, int LD, typename TQ, typename T>
+// and columns at or past w are 0 (w: d, or the width of a column window
+// whose first column src points at, the rows still d apart). Up to MAXB
+// loads a thread are issued before their stores.
+template <int ROWS, int NT, int DMAX, int LD, int MAXB = 32, typename TQ, typename T>
 __device__ __forceinline__ void load_q(TQ* dst, const T* __restrict__ src, int r0, int s, int d,
-                                       float scale) {
-  constexpr int PER = ROWS * DMAX / NT, BATCH = PER < 32 ? PER : 32;
+                                       float scale, int w) {
+  constexpr int PER = ROWS * DMAX / NT, BATCH = PER < MAXB ? PER : MAXB;
 #pragma unroll
   for (int i0 = 0; i0 < PER; i0 += BATCH) {
     float x[BATCH];
@@ -447,7 +449,7 @@ __device__ __forceinline__ void load_q(TQ* dst, const T* __restrict__ src, int r
     for (int j = 0; j < BATCH; ++j) {
       const int e = threadIdx.x + (i0 + j) * NT, r = e / DMAX, c = e % DMAX;
       x[j] = 0.f;
-      if (r0 + r < s && c < d) {
+      if (r0 + r < s && c < w) {
         x[j] = attn::to_f32(from_f32<T>(attn::to_f32(src[static_cast<size_t>(r0 + r) * d + c]) *
                                         scale));
       }
@@ -460,19 +462,26 @@ __device__ __forceinline__ void load_q(TQ* dst, const T* __restrict__ src, int r
   }
 }
 
+template <int ROWS, int NT, int DMAX, int LD, typename TQ, typename T>
+__device__ __forceinline__ void load_q(TQ* dst, const T* __restrict__ src, int r0, int s, int d,
+                                       float scale) {
+  load_q<ROWS, NT, DMAX, LD>(dst, src, r0, s, d, scale, d);
+}
+
 // Rows [r0, r0 + ROWS) of a (s, d) row-major matrix, all DMAX columns, into
 // a tile with rows of LD elements, by NT threads; rows at or past s (the
-// caller's row bound) and columns at or past d are 0. async: 16-byte
+// caller's row bound) and columns at or past w are 0 (w: d, or the width of
+// a column window whose first column src points at). async: 16-byte
 // cp.async copies (d a whole number of 16-byte chunks, src 16-byte
 // aligned); else one element a load.
 template <int NT, int DMAX, int LD, int ROWS = BK, typename T>
 __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int r0, int s,
-                                           int d, bool async) {
+                                           int d, bool async, int w) {
   if (async) {
     constexpr int E = 16 / sizeof(T), C = DMAX / E;
     for (int e = threadIdx.x; e < ROWS * C; e += NT) {
       const int r = e / C, c = e % C;
-      const bool in = r0 + r < s && c * E < d;
+      const bool in = r0 + r < s && c * E < w;
       cp_async16(dst + r * LD + c * E,
                         in ? src + static_cast<size_t>(r0 + r) * d + c * E : src, in ? 16 : 0);
     }
@@ -480,9 +489,15 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, in
     for (int e = threadIdx.x; e < ROWS * DMAX; e += NT) {
       const int r = e / DMAX, c = e % DMAX;
       dst[r * LD + c] =
-          r0 + r < s && c < d ? src[static_cast<size_t>(r0 + r) * d + c] : from_f32<T>(0.f);
+          r0 + r < s && c < w ? src[static_cast<size_t>(r0 + r) * d + c] : from_f32<T>(0.f);
     }
   }
+}
+
+template <int NT, int DMAX, int LD, int ROWS = BK, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int r0, int s,
+                                           int d, bool async) {
+  stage_rows<NT, DMAX, LD, ROWS>(dst, src, r0, s, d, async, d);
 }
 
 // fn(o) for the offset o of every element of a tile that this thread
@@ -527,10 +542,12 @@ __device__ __forceinline__ void split_in_place(float* x, float* lo) {
 constexpr int FOLD = 8;
 
 // The bank's store: rows row + 8h of ob take *p f[h] + acc (acc alone the
-// first time), and acc restarts from 0.
+// first time), and acc restarts from 0. The warp's columns start at c0 (a
+// wide forward's slice).
 template <int NO>
 __device__ __forceinline__ void bank_add(float* ob, float (&acc)[NO][4], const float (&f)[2],
-                                         bool banked, int row, int rows, int d, int t) {
+                                         bool banked, int row, int rows, int d, int t,
+                                         int c0 = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qp = row + 8 * h;
@@ -538,7 +555,7 @@ __device__ __forceinline__ void bank_add(float* ob, float (&acc)[NO][4], const f
     for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = 8 * nt + 2 * t + c;
+        const int col = c0 + 8 * nt + 2 * t + c;
         float* p = &ob[static_cast<size_t>(qp) * d + col];
         if (qp < rows && col < d) {
           *p = banked ? fmaf(*p, f[h], acc[nt][2 * h + c]) : acc[nt][2 * h + c];
@@ -552,14 +569,14 @@ __device__ __forceinline__ void bank_add(float* ob, float (&acc)[NO][4], const f
 template <int NO>
 __device__ __forceinline__ void bank(float* ob, float (&oacc)[NO][4], const float (&m)[2],
                                      float (&mb)[2], bool banked, int row, int rows, int d,
-                                     int t) {
+                                     int t, int c0 = 0) {
   float f[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     f[h] = ex2((mb[h] - m[h]) * LOG2E);
     mb[h] = m[h];
   }
-  bank_add(ob, oacc, f, banked, row, rows, d, t);
+  bank_add(ob, oacc, f, banked, row, rows, d, t, c0);
 }
 
 // The backward's bank (flash_dq's dq, flash_dkv's dk and dv): a plain sum,
@@ -569,6 +586,185 @@ __device__ __forceinline__ void bank(float* ob, float (&acc)[NO][4], bool banked
                                      int rows, int d, int t) {
   bank_add(ob, acc, {1.f, 1.f}, banked, row, rows, d, t);
 }
+
+// -- the forwards at head dims above 128 ----------------------------------------
+
+// The tensor-core forward at d > 128 (flash_attention.cu's
+// flash_fwd_wide_tc_kernel, block_flash_attention.cu's
+// blk_fwd_wide_tc_kernel): a q-tile of QT = 16 NRG rows, each 16-row group
+// served by a team of WPR warps. Warp h of a team owns the DW = DMAX / WPR
+// output columns [c0 + DW h, c0 + DW h + DW) of the block's DMAX-wide chunk
+// of o (c0 = 0 at d <= DMAX) and the same slice of S's contraction: per key
+// tile of W keys it takes its partial S_h = q[:, slice] k[:, slice]^T,
+// stores it in shared memory, and after the team's barrier every warp of
+// the team sums S = S_0 + S_1 + ... in that order, so all of them hold the
+// same bits, run the same online softmax and add P v[:, slice] into their
+// own columns. At d <= DMAX the q-tile is staged once and K and V stream in
+// two stages of W rows. A wider d (CHUNK) takes one DMAX-wide chunk of o a
+// block (blockIdx.z) and S over all of d, DMAX columns at a time
+// (score_chunked): ceil(d / DMAX) times one chunk's score work.
+template <bool ROUND, typename T, int DMAX_, int WPR_, int NRG_, int W_>
+struct WideFwd {
+  static constexpr int DMAX = DMAX_, WPR = WPR_, NRG = NRG_, W = W_;
+  static constexpr int DW = DMAX / WPR, NW = WPR * NRG, NT = 32 * NW, QT = 16 * NRG;
+  static constexpr int NN = W / 8, NO = DW / 8;
+  using TR = Tier<ROUND, T, DMAX, DW>;
+  using TQ = typename TR::TQ;
+  static constexpr size_t q_bytes = sizeof(TQ) * QT * TR::LDQ;
+  static constexpr int stage = W * (TR::LDK + TR::LDV);  // elements of T: K, then V
+  static constexpr size_t x_off = q_bytes + 2 * sizeof(T) * stage;
+  // then the teams' partial scores, one C fragment a warp
+  static constexpr size_t bytes = x_off + sizeof(float) * NW * 16 * W;
+  // 3xTF32: a warp banks its sums every 512 keys, as the d <= 128 forward does
+  static constexpr int FOLD = mma16::FOLD * BK / W;
+
+  // The columns of slice h the products run over in a staged piece w wide:
+  // w rounded up to 16, cut to the slice (0 for a slice past w; the staged
+  // columns past w are 0).
+  __device__ static int kd(int w, int h) { return max(0, min(DW, (w + 15) / 16 * 16 - DW * h)); }
+
+  // The team's sum of its warps' partial scores, in every warp the same
+  // bits. X: the teams' partials.
+  __device__ static void team_sum(float (&sacc)[NN][4], float* X, int rg, int h, int lane) {
+    float4* team = reinterpret_cast<float4*>(X) + rg * WPR * NN * 32;
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt) {
+      team[(h * NN + nt) * 32 + lane] =
+          make_float4(sacc[nt][0], sacc[nt][1], sacc[nt][2], sacc[nt][3]);
+    }
+    bar_sync(1 + rg, 32 * WPR);
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt) {
+      float4 x = team[nt * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < WPR; ++w) {
+        const float4 y = team[(w * NN + nt) * 32 + lane];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+      }
+      sacc[nt][0] = x.x;
+      sacc[nt][1] = x.y;
+      sacc[nt][2] = x.z;
+      sacc[nt][3] = x.w;
+    }
+  }
+
+  // S of the warp's 16 rows (team rg, slice h) against the staged K tile
+  // at d <= DMAX.
+  __device__ static void score(float (&sacc)[NN][4], const TQ* Qs, const T* Kb, float* X, int d,
+                               int rg, int h, int wr0, int lane) {
+    TR::score(sacc, Qs + DW * h, Kb + DW * h, kd(d, h), wr0, lane);
+    team_sum(sacc, X, rg, h, lane);
+  }
+
+  // CHUNK: columns [0, w) of the q-tile's rows q0.. at qb (a piece of q,
+  // rows d apart) into Qs as load_q stages them: q * scale rounded to q's
+  // type, then to TQ; rows at or past s and columns past w 0. async: 16-byte
+  // cp.async copies of q as it is (fp32 q on the bf16 tier into Y, the K/V
+  // stage score_chunked leaves free), which convert_q turns into that by the
+  // thread that copied them once they land, so a piece waits for one round
+  // trip; else loads 8 elements a thread at a time, for o's sums are live.
+  static constexpr bool RAW_IN_QS = sizeof(TQ) == sizeof(T);
+  static constexpr int LY = RAW_IN_QS ? TR::LDQ : DMAX + 4;  // row pitch of the copies
+  static_assert(RAW_IN_QS || QT * LY <= stage, "fp32 q's piece must fit in a K/V stage");
+
+  __device__ static void stage_q(TQ* Qs, T* Y, const T* qb, int q0, int s, int d, int w,
+                                 float scale, bool async) {
+    if (!async) {
+      load_q<QT, NT, DMAX, TR::LDQ, 8>(Qs, qb, q0, s, d, scale, w);
+      return;
+    }
+    T* dst = RAW_IN_QS ? reinterpret_cast<T*>(Qs) : Y;
+    stage_rows<NT, DMAX, LY, QT>(dst, qb, q0, s, d, true, w);
+  }
+
+  __device__ static void convert_q(TQ* Qs, const T* Y, float scale) {
+    const T* src = RAW_IN_QS ? reinterpret_cast<const T*>(Qs) : Y;
+    constexpr int E = 16 / sizeof(T), C = DMAX / E;
+    for (int e = threadIdx.x; e < QT * C; e += NT) {
+      const int r = e / C, c = (e % C) * E;
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const float x = attn::to_f32(from_f32<T>(attn::to_f32(src[r * LY + c + i]) * scale));
+        Qs[r * TR::LDQ + c + i] = from_f32<TQ>(x);
+      }
+    }
+  }
+
+  // CHUNK: S of key rows [r0, r0 + W) (those at or past `end` 0) over all of
+  // d, DMAX columns at a time: each piece's columns of the q-tile (stage_q)
+  // and of the keys staged into Qs and Kb and the warp's partial taken, then
+  // the team's sum. extra() stages what else the tile needs (V's chunk, the
+  // mask rows) with the first piece; cp.async is awaited before each piece's
+  // barrier. Every thread of the block calls it, for it holds the block's
+  // barriers; a warp with `skip` set stages and takes no product.
+  template <typename Extra>
+  __device__ static void score_chunked(float (&sacc)[NN][4], TQ* Qs, T* Kb, T* Y, float* X,
+                                       const T* qb, int q0, int s, float scale_q, const T* kb,
+                                       int r0, int end, int d, bool async, bool skip, int rg,
+                                       int h, int wr0, int lane, Extra extra) {
+    for (int c = 0; c < d; c += DMAX) {
+      const int w = min(DMAX, d - c);
+      __syncthreads();  // every reader of the last piece, of V and of the mask is done
+      stage_q(Qs, Y, qb + c, q0, s, d, w, scale_q, async);
+      stage_rows<NT, DMAX, TR::LDK, W>(Kb, kb + c, r0, end, d, async, w);
+      if (c == 0) extra();
+      cp_async_commit();
+      cp_async_wait_all();
+      if (async) convert_q(Qs, Y, scale_q);
+      __syncthreads();
+      if (!skip) TR::score(sacc, Qs + DW * h, Kb + DW * h, kd(w, h), wr0, lane);
+    }
+    if (!skip) team_sum(sacc, X, rg, h, lane);
+  }
+
+  // o[:, slice h of the chunk] += P . V[:, slice h], V staged at the
+  // chunk's w columns
+  __device__ static void pv(float (&oacc)[NO][4], const float (&p)[NN][4], const T* Vb, int w,
+                            int h, int lane) {
+    TR::pv(oacc, p, Vb + DW * h, kd(w, h), lane);
+  }
+
+  // o's rows row, row + 8 below `rows`, the warp's columns from c0 below d:
+  // the sum over l (the bank's sum added, rescaled to the final max); with
+  // `first` (the team's first warp in the first chunk), lse = m + log(l), or
+  // -1e30 for a row that saw no key.
+  __device__ static void store(T* ob, float* lse, const float (&oacc)[NO][4], const float (&m)[2],
+                               const float (&l)[2], const float (&mb)[2], bool banked, int row,
+                               int rows, int d, int c0, bool first, int t) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qp = row + 8 * hh;
+      if (qp >= rows) continue;
+      const float den = l[hh] == 0.f ? 1.f : l[hh];
+      const float f = ex2((mb[hh] - m[hh]) * LOG2E);  // the bank's factor
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = c0 + 8 * nt + 2 * t + c;
+          if (col >= d) continue;
+          T* p = &ob[static_cast<size_t>(qp) * d + col];
+          float x = oacc[nt][2 * hh + c];
+          if constexpr (!ROUND) {
+            if (banked) x = fmaf(*p, f, x);
+          }
+          attn::store(p, x / den);
+        }
+      if (first && t == 0) lse[qp] = l[hh] > 0.f ? m[hh] + logf(l[hh]) : attn::NEG;
+    }
+  }
+};
+
+// The two instances. d <= 256: four teams of two warps on a 64-row q-tile,
+// 32-key tiles (fp32: 216 KB of shared memory). d > 256: two teams of four
+// on a 32-row q-tile, 16-key tiles (206 KB; a 64-row tile at 512 columns
+// would not fit), above 512 in 512-wide chunks of o.
+template <bool ROUND, typename T, int DMAX>
+using WideFwdFor = WideFwd<ROUND, T, DMAX, DMAX <= 256 ? 2 : 4, DMAX <= 256 ? 4 : 2,
+                           DMAX <= 256 ? 32 : 16>;
 
 // -- the backward's shared memory and streamed statistics -----------------------
 

@@ -1,9 +1,9 @@
 // Tile helpers shared by the fused attention kernels (flash_attention.cu,
 // flash_attention_q8.cu, block_flash_attention.cu) for NVIDIA Hopper
-// (sm_90a): the FFMA tiles of the WIDE kernels (head dims above 128; at d
-// <= 128 every attention kernel runs on the tensor cores, attention_mma.cuh)
-// and what all of them share (the masked score, type conversions, the
-// dispatch over dtype, tier and d).
+// (sm_90a): the FFMA tiles of the WIDE backward kernels (head dims above
+// 128; every forward, and the backward at d <= 128, runs on the tensor
+// cores, attention_mma.cuh) and what all of them share (the masked score,
+// type conversions, the dispatch over dtype, tier and d).
 //
 // One thread block of NT = 256 threads works on a 64-row tile of queries (or
 // keys) against a 64-row tile of the other operand. Each thread owns a 4x4
@@ -20,12 +20,12 @@
 // block may have, and its output accumulators alone would take 64 (dk/dv:
 // 128) registers a thread. So a wider d runs the WIDE instances: DMAX = 128
 // with an outer split of the output columns into 128-wide chunks, one chunk
-// per blockIdx.z. Each block recomputes the scores (and in the backward
-// dP) over the whole d, staging q, k (and do, v) 128 columns at a time
-// (mma_nt_chunked), and keeps only its chunk's accumulators. That costs
-// ceil(d / 128) times the score work, and keeps shared memory and registers
-// at the 128 instance's for any d; the online-softmax statistics are
-// computed the same way by every chunk, so they agree bit for bit.
+// per blockIdx.z. Each block recomputes the scores and dP over the whole d,
+// staging q, k, do and v 128 columns at a time (mma_nt_chunked), and keeps
+// only its chunk's accumulators. That costs ceil(d / 128) times the score
+// work, and keeps shared memory and registers at the 128 instance's for any
+// d; the probabilities are computed the same way by every chunk, so they
+// agree bit for bit.
 
 #pragma once
 
@@ -64,18 +64,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 
 __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // Causal masking on global positions, as the dense flash kernels take it:
@@ -211,7 +199,8 @@ constexpr unsigned out_chunks(int d) {
 // (dtype, d, round_bf16): bf16 inputs always round (their p and dS are
 // rounded to bf16 in every tier, as on the TPU's non-3-pass tiers). A head
 // dim up to 64 takes the 64 instance, up to 128 the 128 instance, and any
-// wider one the WIDE 128 instance, which loops over d in 128-wide chunks.
+// wider one WIDE = true: the backward's 128 instance, which loops over d in
+// 128-wide chunks, or the wide tensor-core forward (its own instances).
 #define ATTN_DISPATCH_ONE(FN, ROUND, T, ...)                                   \
   do {                                                                         \
     if (d <= 64) return FN<64, ROUND, T, false>(__VA_ARGS__);                  \

@@ -22,10 +22,15 @@
 // the sub-tile leaves the last sub-tile partly empty.
 //
 // Contract. q, k, v, do: (bh, s, d) row-major, one type (fp32 or bf16);
-// lse, delta: (bh, s) fp32; any d (d <= 128 runs on the tensor cores, a
-// wider d the WIDE FFMA instances of attention_tiles.cuh: 128-wide output
-// chunks on blockIdx.z, the scores recomputed per chunk over d staged in
-// 128-wide pieces). Plan arrays, int32 on
+// lse, delta: (bh, s) fp32; any d (at d <= 128 all three kernels on the
+// tensor cores; above it the forward on the tensor cores in
+// flash_attention.cu's design, attention_mma.cuh's WideFwd: teams of warps
+// a 16-row group, each warp a 128-wide slice of o and of S's contraction,
+// the partial scores summed through shared memory, and above d 512 one
+// 512-wide chunk of o a blockIdx.z, S taken over d in 512-wide pieces; the
+// backward on the WIDE FFMA instances of attention_tiles.cuh,
+// 128-wide output chunks on blockIdx.z, the scores recomputed per chunk
+// over d staged in 128-wide pieces). Plan arrays, int32 on
 // the device: kv_list (nq, L) and kv_cnt (nq) for the forward and dq,
 // q_list (nk, Lt), q_cnt (nk) and q_slot (nk * Lt) for dk/dv; tile_masks
 // (nq * L, bq, bk) int8, or null for a plan whose covered blocks are full.
@@ -46,8 +51,8 @@
 //   - ROUND ('default' tier on fp32, or bf16 inputs): q, k, v and do are
 //     rounded to bf16 on load, and so are p and dS before their products,
 //     with fp32 sums. Without it ('high', 'highest' on fp32 inputs) every
-//     product is fp32-class, never one TF32 pass: 3xTF32 at d <= 128, fp32
-//     FFMA above.
+//     product is fp32-class, never one TF32 pass: 3xTF32, and fp32 FFMA in
+//     the backward at d > 128.
 //
 // At d <= 128 all three kernels run on the tensor cores with `mma.sync`, on
 // the tiles of flash_attention.cu (attention_mma.cuh: 3xTF32 m16n8k8 for
@@ -833,6 +838,184 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace tcbwd
 
+// -- blk_flash_fwd at d > 128 on the tensor cores ------------------------------
+namespace widefwd {
+
+// Shared memory: mma16::WideFwd's, then two stages of the mask rows of the
+// q-tile against a W-key sub-tile.
+template <typename F>
+constexpr size_t mask_stage = static_cast<size_t>(F::QT) * LDM<F::W>;
+
+// The forward of mma16::WideFwd's teams on a q-tile inside one plan q-block:
+// the listed blocks' W-key sub-tiles in list order (Walk). d <= DMAX: K, V
+// and the mask rows streamed in two stages across slot boundaries, one
+// barrier a sub-tile. CHUNK (d > DMAX): the block's DMAX-wide chunk of o on
+// z, and per sub-tile q's and k's columns staged a DMAX-wide piece at a time
+// for S, V's chunk and the mask rows with the first piece.
+template <bool ROUND, typename T, int DMAX, bool CHUNK>
+__global__ void __launch_bounds__(mma16::WideFwdFor<ROUND, T, DMAX>::NT, 1)
+    blk_fwd_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                           const int* __restrict__ kv_list, const int* __restrict__ kv_cnt,
+                           const int8_t* __restrict__ tmask, int s, int d, int bq, int bk, int L,
+                           float sm_scale, int async_kv, int async_mask) {
+  using FW = mma16::WideFwdFor<ROUND, T, DMAX>;
+  using TR = typename FW::TR;
+  using TQ = typename FW::TQ;
+  constexpr int NT = FW::NT, QT = FW::QT, W = FW::W, NN = FW::NN, NO = FW::NO;
+  constexpr size_t MS = mask_stage<FW>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Qs = reinterpret_cast<TQ*>(smem);
+  T* KV = reinterpret_cast<T*>(smem + FW::q_bytes);
+  float* X = reinterpret_cast<float*>(smem + FW::x_off);
+  int8_t* MK = reinterpret_cast<int8_t*>(smem + FW::bytes);
+
+  const int bh = blockIdx.y;
+  const int tiles_q = (bq + QT - 1) / QT;
+  const int i = blockIdx.x / tiles_q;  // plan q-block
+  const int qb0 = i * bq;
+  const int q0 = qb0 + (blockIdx.x % tiles_q) * QT;
+  const int q_end = min(min(qb0 + bq, s), q0 + QT);
+  if (q0 >= q_end) return;  // a row tile past s (uniform over the block)
+  const int c_out = CHUNK ? blockIdx.z * FW::DMAX : 0;  // the block's chunk of o
+  const int wv = min(FW::DMAX, d - c_out);               // and its width
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % (QT / 16), h = warp / (QT / 16);  // the warp's team and slice
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * rg;
+  // a team whose rows all lie past the q-block or s stages and waits with
+  // the others and computes nothing
+  const bool idle = q0 + wr0 >= q_end;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const Walk<W> walk{kv_list + static_cast<size_t>(i) * L, kv_cnt[i], bk, s};
+
+  auto stage_mask_rows = [&](const typename Walk<W>::Pos& p, int8_t* dst) {
+    if (tmask != nullptr) {
+      stage_mask<QT, W, NT>(dst, tmask + (static_cast<size_t>(i) * L + p.slot) * bq * bk,
+                            q0 - qb0, p.r0 - p.b0, bq, bk, async_mask);
+    }
+  };
+  // K, V and the mask rows of sub-tile p into stage n % 2; rows past its
+  // block or s are 0
+  auto stage = [&](const typename Walk<W>::Pos& p, int n) {
+    T* dst = KV + (n % 2) * FW::stage;
+    const int end = walk.end(p);
+    mma16::stage_rows<NT, FW::DMAX, TR::LDK, W>(dst, kb, p.r0, end, d, async_kv);
+    mma16::stage_rows<NT, FW::DMAX, TR::LDV, W>(dst + W * TR::LDK, vb, p.r0, end, d, async_kv);
+    stage_mask_rows(p, MK + (n % 2) * MS);
+    mma16::cp_async_commit();
+  };
+  auto cur = walk.first();
+  if constexpr (!CHUNK) {
+    if (cur.slot < walk.cnt) stage(cur, 0);  // in flight while q is loaded
+    mma16::load_q<QT, NT, FW::DMAX, TR::LDQ>(Qs, q + base, q0, s, d, 1.f);
+  }
+  float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
+  float mb[2] = {attn::NEG, attn::NEG};  // the bank's max (3xTF32)
+  int since = 0;                         // sub-tiles summed since the last fold
+  bool banked = false;
+  T* ob = o + base;
+  float oacc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) oacc[nt][c] = 0.f;
+
+  for (int n = 0; cur.slot < walk.cnt; ++n) {
+    const auto nxt = walk.next(cur);
+    float sacc[NN][4];
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sacc[nt][c] = 0.f;
+    const T* Vb;
+    const int8_t* Ms;
+    if constexpr (CHUNK) {
+      Vb = KV + W * TR::LDK;
+      Ms = MK;
+      FW::score_chunked(sacc, Qs, KV, KV + FW::stage, X, q + base, q0, s, 1.f, kb, cur.r0,
+                        walk.end(cur), d, async_kv, idle, rg, h, wr0, lane, [&] {
+                          mma16::stage_rows<NT, FW::DMAX, TR::LDV, W>(
+                              KV + W * TR::LDK, vb + c_out, cur.r0, walk.end(cur), d, async_kv,
+                              wv);
+                          stage_mask_rows(cur, MK);
+                        });
+    } else {
+      const T* Kb = KV + (n % 2) * FW::stage;
+      Vb = Kb + W * TR::LDK;
+      Ms = MK + (n % 2) * MS;
+      mma16::cp_async_wait_all();
+      // sub-tile n is staged and visible to every warp; every reader of the
+      // other stage (sub-tile n - 1) and of the teams' partials is done, so
+      // sub-tile n + 1 may stream into it, across slot boundaries too
+      __syncthreads();
+      if (nxt.slot < walk.cnt) stage(nxt, n + 1);
+      if (!idle) FW::score(sacc, Qs, Kb, X, d, rg, h, wr0, lane);
+    }
+    if (!idle) {
+      const int lim = walk.end(cur);
+      if (tmask != nullptr) {
+        uint32_t vis[2];
+        mask_bits<NN>(vis, Ms, wr0 + g, t, cur.r0 + 2 * t, lim);
+        mma16::softmax_tile_if<true>(sacc, oacc, m, l, sm_scale, [&](int hh, int nt, int c) {
+          return ((vis[hh] >> (2 * nt + c)) & 1u) != 0;
+        });
+      } else if (lim == cur.r0 + W) {  // every key of the sub-tile is visible
+        mma16::softmax_tile<false>(sacc, oacc, m, l, sm_scale, 0, {lim, lim});
+      } else {
+        mma16::softmax_tile<true>(sacc, oacc, m, l, sm_scale, cur.r0 + 2 * t, {lim, lim});
+      }
+      FW::pv(oacc, sacc, Vb, wv, h, lane);
+      // 3xTF32: every FOLD sub-tiles the warp moves its sum into o (the
+      // bank), so the tensor cores' own accumulation never adds more
+      if constexpr (!ROUND) {
+        if (++since == FW::FOLD && nxt.slot < walk.cnt) {
+          mma16::bank(ob, oacc, m, mb, banked, q0 + wr0 + g, q_end, d, t, c_out + FW::DW * h);
+          since = 0;
+          banked = true;
+        }
+      }
+    }
+    cur = nxt;
+  }
+  FW::store(ob, lse + static_cast<size_t>(bh) * s, oacc, m, l, mb, banked, q0 + wr0 + g, q_end,
+            d, c_out + FW::DW * h, h == 0 && c_out == 0, t);
+}
+
+// d <= 256: the 256 instance; wider d the 512 instance, above 512 in
+// 512-wide chunks of o
+template <bool ROUND, typename T, int DMAX>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const int* kv_list,
+           const int* kv_cnt, const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq,
+           int L, float sm_scale, cudaStream_t stream) {
+  using FW = mma16::WideFwdFor<ROUND, T, DMAX>;
+  const long long tiles = static_cast<long long>(nq) * ((bq + FW::QT - 1) / FW::QT);
+  const int chunks = (d + FW::DMAX - 1) / FW::DMAX;
+  if (tiles > 0x7fffffffLL || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int E = 16 / sizeof(T);
+  // the chunks also stage q by cp.async
+  const bool async_kv = d % E == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                        (chunks == 1 || reinterpret_cast<uintptr_t>(q) % 16 == 0);
+  const bool async_mask =
+      tmask != nullptr && bk % 16 == 0 && reinterpret_cast<uintptr_t>(tmask) % 16 == 0;
+  const size_t smem = FW::bytes + (tmask != nullptr ? 2 * mask_stage<FW> : 0);
+  constexpr bool CHUNKS = DMAX == 512;  // the 256 instance serves d <= 256 alone
+  auto* kern = chunks > 1 ? blk_fwd_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                          : blk_fwd_wide_tc_kernel<ROUND, T, DMAX, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(static_cast<unsigned>(tiles), bh, chunks), FW::NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), kv_list, kv_cnt, tmask, s, d, bq, bk, L,
+      sm_scale, static_cast<int>(async_kv), static_cast<int>(async_mask));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace widefwd
+
 // -- the FFMA kernels ---------------------------------------------------------
 
 using namespace attn;
@@ -847,110 +1030,10 @@ __device__ __forceinline__ bool visible(int qp, int q_end, int kp, int k_end,
          (tile == nullptr || tile[static_cast<size_t>(qp - qb0) * bk + (kp - kb0)] != 0);
 }
 
-// The forward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
-// 128-wide output chunk a blockIdx.z (the scores recomputed per chunk).
-constexpr int WD = 128;
-constexpr size_t fwd_wide_smem =
-    sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (WD + 4) + BQ * LDP);
-
-template <bool ROUND, typename T>
-__global__ void __launch_bounds__(NT) blk_fwd_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ kv_list,
-    const int* __restrict__ kv_cnt, const int8_t* __restrict__ tmask, int s, int d, int bq,
-    int bk, int L, float sm_scale) {
-  constexpr int G = WD / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                // (BQ, WD + 4) a chunk of q
-  float* Ks = Qs + BQ * (WD + 4);  // (BK, WD + 4)
-  float* Vs = Ks + BK * (WD + 4);  // (BK, WD + 4)
-  float* Ps = Vs + BK * (WD + 4);  // (BQ, LDP) probabilities of this sub-tile
-  const int bh = blockIdx.y;
-  const int tiles_q = (bq + BQ - 1) / BQ;
-  const int i = blockIdx.x / tiles_q;  // plan q-block
-  const int qb0 = i * bq;
-  const int q0 = qb0 + (blockIdx.x % tiles_q) * BQ;
-  const int q_end = sub_end(qb0, bq, q0, s);
-  if (q0 >= q_end) return;  // a row tile past s (uniform over the block)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t base = static_cast<size_t>(bh) * s * d;
-  const int c_out = blockIdx.z * WD;  // first output column
-
-  float m[4], l[4], acc[4][4 * G];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = NEG;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc[a][c] = 0.f;
-  }
-
-  const int cnt = kv_cnt[i];
-  for (int slot = 0; slot < cnt; ++slot) {
-    const int kb0 = kv_list[i * L + slot] * bk;
-    const int8_t* tile =
-        tmask == nullptr ? nullptr : tmask + static_cast<size_t>(i * L + slot) * bq * bk;
-    for (int k0 = kb0; k0 < kb0 + bk; k0 += BK) {
-      const int k_end = sub_end(kb0, bk, k0, s);
-      if (k0 >= k_end) break;  // the rest of this block lies past s
-      float sc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[a][j] = 0.f;
-      mma_nt_chunked<WD, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, q_end, 1.f, k + base, k0, k_end,
-                                       1.f, d, ty, tx);
-      load_chunk<WD, ROUND>(Vs, v + base, k0, k_end, d, c_out, 1.f);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int qp = q0 + ty + 16 * a;
-        bool vis[4];
-        float mx = NEG;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          vis[j] = visible(qp, q_end, k0 + tx + 16 * j, k_end, tile, qb0, kb0, bk);
-          sc[a][j] = vis[j] ? sc[a][j] * sm_scale : NEG;
-          mx = fmaxf(mx, sc[a][j]);
-        }
-        const float m_new = fmaxf(m[a], half_warp_max(mx));
-        const float corr = expf(m[a] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = vis[j] ? expf(sc[a][j] - m_new) : 0.f;
-          rs += p;
-          Ps[(ty + 16 * a) * LDP + tx + 16 * j] = tier<ROUND>(p);
-        }
-        l[a] = corr * l[a] + half_warp_sum(rs);
-        m[a] = m_new;
-#pragma unroll
-        for (int c = 0; c < 4 * G; ++c) acc[a][c] *= corr;
-      }
-      __syncthreads();
-      mma_nn<WD>(acc, Ps, Vs, ty, tx);
-    }
-  }
-
-  T* ob = o + base;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    if (qp >= q_end) continue;
-    const float den = l[a] == 0.f ? 1.f : l[a];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c_out + 64 * g + 4 * tx + c;
-        if (col < d) store(&ob[static_cast<size_t>(qp) * d + col], acc[a][4 * g + c] / den);
-      }
-    if (tx == 0 && c_out == 0) lse[static_cast<size_t>(bh) * s + qp] = m[a] + logf(den);
-  }
-}
-
 // The backward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
 // 128-wide output chunk a blockIdx.z, the scores (and dP) recomputed per
 // chunk over d staged 128 columns at a time.
+constexpr int WD = 128;
 constexpr size_t dq_wide_smem =
     sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + BQ * LDP);
 
@@ -1154,7 +1237,7 @@ bool bad_shape(int bh, int s, int d, int bq, int bk, int nq, int nk, int L) {
 // d <= 128: the tensor-core forward, eight warps a q-tile for the bf16
 // tiers' q-blocks of a multiple of 128 rows and four for the rest (3xTF32
 // at eight warps would spill at two blocks an SM or run one); wider d: the
-// FFMA WIDE kernel.
+// teams of the wide tensor-core forward.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse,
               const int* kv_list, const int* kv_cnt, const int8_t* tmask, int bh, int s, int d,
@@ -1169,11 +1252,12 @@ int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse,
     return tcfwd::launch<DMAX, ROUND, T, 4>(q, k, v, o, lse, kv_list, kv_cnt, tmask, bh, s, d,
                                             bq, bk, nq, L, sm_scale, stream);
   } else {
-    const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh, out_chunks<WD, true>(d));
-    return launch(blk_fwd_wide_kernel<ROUND, T>, fwd_wide_smem, grid, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<T*>(o), static_cast<float*>(lse), kv_list, kv_cnt, tmask, s, d, bq,
-                  bk, L, sm_scale);
+    if (d <= 256) {
+      return widefwd::launch<ROUND, T, 256>(q, k, v, o, lse, kv_list, kv_cnt, tmask, bh, s, d,
+                                            bq, bk, nq, L, sm_scale, stream);
+    }
+    return widefwd::launch<ROUND, T, 512>(q, k, v, o, lse, kv_list, kv_cnt, tmask, bh, s, d, bq,
+                                          bk, nq, L, sm_scale, stream);
   }
 }
 

@@ -27,7 +27,7 @@
 //     before dS.k (dq) and p, dS before p^T.do, dS^T.q (dk, dv); products
 //     of bf16 values are exact in fp32 and every sum is fp32. Without it
 //     ('high', 'highest' on fp32 inputs) the products are fp32-class, never
-//     one TF32 pass: 3xTF32 at d <= 128, fp32 FFMA above.
+//     one TF32 pass: 3xTF32, and fp32 FFMA in the backward at d > 128.
 //   - Masking on global positions: key j of a row i is visible when
 //     j < s and, if causal, kv_off + j <= q_off + i. Masked scores are
 //     -1e30 and their probabilities exactly 0; whole tiles above the
@@ -110,18 +110,30 @@
 // output element is summed by one thread in one fixed order, so runs
 // repeat bit for bit.
 //
-// Head dims above 128 run the first FFMA design, the WIDE kernels: one
-// thread block owns one 64-row q-tile (flash_fwd, flash_dq) or one 64-row
-// k-tile (flash_dkv) of one (batch, head) and one 128-wide output chunk a
+// Head dims above 128. The forward (flash_fwd_wide_tc_kernel) runs on the
+// same tensor-core products and tiers, in attention_mma.cuh's WideFwd: each
+// 16-row group of the q-tile is served by a team of warps, each warp owning
+// a 128-wide slice of the output columns and the same slice of S's
+// contraction. Per 32-key tile every warp takes its partial score over its
+// slice, the team sums the partials through shared memory in one order
+// after a barrier of its own, and each warp runs the same online softmax on
+// the same bits and adds P v[:, slice] into its own 64 registers of o. So S
+// is computed once and no warp holds more than a 128-wide accumulator. d <=
+// 256: teams of two, 64-row q-tiles (eight warps), 32-key tiles in two
+// cp.async stages (fp32: 216 KB of shared memory, one block an SM); d <=
+// 512: teams of four, 32-row q-tiles, 16-key tiles; above 512 the same in
+// 512-wide chunks of o on blockIdx.z, each block taking S over all of d in
+// 512-wide pieces, q's and k's columns of each staged in turn.
+// The backward at d > 128 runs the first FFMA design, the WIDE kernels:
+// one thread block owns one 64-row q-tile (flash_dq) or one 64-row k-tile
+// (flash_dkv) of one (batch, head) and one 128-wide output chunk a
 // blockIdx.z, and runs the whole sequential loop over the other axis
 // itself; each thread owns a 4x4 tile of the 64x64 score block (rows ty +
 // 16a, columns tx + 16j, so the 16-byte shared loads of both operands are
 // free of bank conflicts) and a 4 x 8 slice of the output accumulator on
-// the same rows, so the row max and sum of the online softmax are four
-// shuffles inside a half-warp and the rescale touches only registers. The
-// scores (and dP) are recomputed per chunk over d staged in 128-wide pieces
-// (attention_tiles.cuh). Every output element is summed by one thread in
-// ascending tile order.
+// the same rows. The scores and dP are recomputed per chunk over d staged
+// in 128-wide pieces (attention_tiles.cuh). Every output element is summed
+// by one thread in ascending tile order.
 
 #include "attention_mma.cuh"
 #include "attention_tiles.cuh"
@@ -652,103 +664,157 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace tcbwd
 
+// -- flash_fwd at d > 128 on the tensor cores ----------------------------------
+namespace widefwd {
+
+// The forward of mma16::WideFwd's teams: the q-tiles of one (batch, head)
+// on y in reverse (the heavy causal ones first). d <= DMAX: W-key tiles
+// streamed in two stages, one barrier a tile, q pre-scaled as it is staged
+// once. CHUNK (d > DMAX): the block's DMAX-wide chunk of o on z, and per key
+// tile q's and k's columns staged a DMAX-wide piece at a time for S, V's
+// chunk with the first piece.
+template <bool ROUND, typename T, int DMAX, bool CHUNK>
+__global__ void __launch_bounds__(mma16::WideFwdFor<ROUND, T, DMAX>::NT, 1)
+    flash_fwd_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             float* __restrict__ lse, int s, int d, float scale_q, int causal,
+                             int q_off, int kv_off, int async_kv) {
+  using F = mma16::WideFwdFor<ROUND, T, DMAX>;
+  using TR = typename F::TR;
+  using TQ = typename F::TQ;
+  constexpr int NT = F::NT, QT = F::QT, W = F::W, NN = F::NN, NO = F::NO;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Qs = reinterpret_cast<TQ*>(smem);
+  T* KV = reinterpret_cast<T*>(smem + F::q_bytes);
+  float* X = reinterpret_cast<float*>(smem + F::x_off);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;
+  const int c_out = CHUNK ? blockIdx.z * F::DMAX : 0;  // the block's chunk of o
+  const int wv = min(F::DMAX, d - c_out);               // and its width
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % (QT / 16), h = warp / (QT / 16);  // the warp's team and slice
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * rg;
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const T* kb = k + base;
+  const T* vb = v + base;
+
+  const int nk = mma16::visited_k_tiles<W, QT>(s, q0, causal, q_off, kv_off);
+  auto stage_kv = [&](int j) {
+    T* dst = KV + (j % 2) * F::stage;
+    mma16::stage_rows<NT, F::DMAX, TR::LDK, W>(dst, kb, j * W, s, d, async_kv);
+    mma16::stage_rows<NT, F::DMAX, TR::LDV, W>(dst + W * TR::LDK, vb, j * W, s, d, async_kv);
+    if (async_kv) mma16::cp_async_commit();
+  };
+  if constexpr (!CHUNK) {
+    if (nk > 0) stage_kv(0);  // in flight while q is loaded
+    mma16::load_q<QT, NT, F::DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
+  }
+  float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
+  float mb[2] = {attn::NEG, attn::NEG};  // the bank's max (3xTF32)
+  int since = 0;                         // tiles summed since the last fold
+  bool banked = false;
+  T* ob = o + base;
+  float oacc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) oacc[nt][c] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * W;
+    // under causal masking, a tile whose keys all lie past the team's last
+    // row adds nothing to it: the whole team skips it
+    const bool skip = causal && static_cast<long long>(kv_off) + k0 >
+                                    static_cast<long long>(q_off) + q0 + wr0 + 15;
+    float sacc[NN][4];
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sacc[nt][c] = 0.f;
+    const T* Vb;
+    if constexpr (CHUNK) {
+      Vb = KV + W * TR::LDK;
+      F::score_chunked(sacc, Qs, KV, KV + F::stage, X, q + base, q0, s, scale_q, kb, k0, s, d,
+                       async_kv, skip, rg, h, wr0, lane, [&] {
+                         mma16::stage_rows<NT, F::DMAX, TR::LDV, W>(KV + W * TR::LDK, vb + c_out,
+                                                                    k0, s, d, async_kv, wv);
+                       });
+      if (skip) continue;
+    } else {
+      if (async_kv) mma16::cp_async_wait_all();
+      // tile kt is staged and visible to every warp; every reader of the
+      // other stage (tile kt - 1) and of the teams' partials is done
+      __syncthreads();
+      if (kt + 1 < nk) stage_kv(kt + 1);
+      if (skip) continue;
+      const T* Kb = KV + (kt % 2) * F::stage;
+      Vb = Kb + W * TR::LDK;
+      F::score(sacc, Qs, Kb, X, d, rg, h, wr0, lane);
+    }
+    const bool full = k0 + W <= s &&
+        (!causal || static_cast<long long>(kv_off) + k0 + W - 1 <=
+                        static_cast<long long>(q_off) + q0 + wr0);
+    const int row = q0 + wr0 + g;
+    const int lims[2] = {full ? s : mma16::key_limit(row, s, causal, q_off, kv_off),
+                         full ? s : mma16::key_limit(row + 8, s, causal, q_off, kv_off)};
+    if (full) {
+      mma16::softmax_tile<false>(sacc, oacc, m, l, 1.f, 0, lims);
+    } else {
+      mma16::softmax_tile<true>(sacc, oacc, m, l, 1.f, k0 + 2 * t, lims);
+    }
+    F::pv(oacc, sacc, Vb, wv, h, lane);
+    if constexpr (!ROUND) {
+      if (++since == F::FOLD && kt + 1 < nk) {
+        mma16::bank(ob, oacc, m, mb, banked, row, s, d, t, c_out + F::DW * h);
+        since = 0;
+        banked = true;
+      }
+    }
+  }
+  F::store(ob, lse + static_cast<size_t>(bh) * s, oacc, m, l, mb, banked, q0 + wr0 + g, s, d,
+           c_out + F::DW * h, h == 0 && c_out == 0, t);
+}
+
+// d <= 256: the 256 instance; wider d the 512 instance, above 512 in
+// 512-wide chunks of o
+template <bool ROUND, typename T, int DMAX>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
+           int d, float scale_q, int causal, int q_off, int kv_off, cudaStream_t stream) {
+  using F = mma16::WideFwdFor<ROUND, T, DMAX>;
+  const int chunks = (d + F::DMAX - 1) / F::DMAX;
+  if ((s + F::QT - 1) / F::QT > 65535 || chunks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int E = 16 / sizeof(T);
+  // the chunks also stage q by cp.async
+  const bool async_kv = d % E == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                        (chunks == 1 || reinterpret_cast<uintptr_t>(q) % 16 == 0);
+  constexpr bool CHUNKS = DMAX == 512;  // the 256 instance serves d <= 256 alone
+  auto* kern = chunks > 1 ? flash_fwd_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                          : flash_fwd_wide_tc_kernel<ROUND, T, DMAX, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(F::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (s + F::QT - 1) / F::QT, chunks);
+  kern<<<grid, F::NT, F::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), s, d, scale_q, causal, q_off, kv_off,
+      static_cast<int>(async_kv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace widefwd
+
 // -- the FFMA kernels ---------------------------------------------------------
 
 using namespace attn;
 
-// The forward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
-// 128-wide output chunk a blockIdx.z (the scores recomputed per chunk).
-constexpr int WD = 128;
-constexpr size_t fwd_wide_smem =
-    sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (WD + 4) + BQ * LDP);
-
-template <bool ROUND, typename T>
-__global__ void __launch_bounds__(NT) flash_fwd_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int s, int d, float scale_q, int causal,
-    int q_off, int kv_off) {
-  constexpr int G = WD / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // (BQ, WD + 4) a chunk of pre-scaled q
-  float* Ks = Qs + BQ * (WD + 4);  // (BK, WD + 4)
-  float* Vs = Ks + BK * (WD + 4);  // (BK, WD + 4)
-  float* Ps = Vs + BK * (WD + 4);  // (BQ, LDP) probabilities of this k-tile
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t base = static_cast<size_t>(bh) * s * d;
-  const int c_out = blockIdx.z * WD;  // first output column
-
-  float m[4], l[4], acc[4][4 * G];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
-  }
-
-  const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    mma_nt_chunked<WD, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, s, scale_q, k + base, k0, s, 1.f,
-                                     d, ty, tx);
-    load_chunk<WD, ROUND>(Vs, v + base, k0, s, d, c_out, 1.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      bool vis[4];
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        vis[j] = causal_visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
-        if (!vis[j]) sc[i][j] = NEG;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = vis[j] ? expf(sc[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = tier<ROUND>(p);
-      }
-      l[i] = corr * l[i] + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * G; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    mma_nn<WD>(acc, Ps, Vs, ty, tx);
-  }
-
-  T* ob = o + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= s) continue;
-    const float den = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c_out + 64 * g + 4 * tx + c;
-        if (col < d) store(&ob[static_cast<size_t>(qp) * d + col], acc[i][4 * g + c] / den);
-      }
-    if (tx == 0 && c_out == 0)
-      lse[static_cast<size_t>(bh) * s + qp] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG;
-  }
-}
-
 // The backward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
 // 128-wide output chunk a blockIdx.z, the scores (and dP) recomputed per
 // chunk over d staged 128 columns at a time.
+constexpr int WD = 128;
 constexpr size_t dq_wide_smem =
     sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + BQ * LDP);
 
@@ -920,7 +986,8 @@ bool bad_shape(int bh, int s, int d) {
          static_cast<long long>(bh) * s * d > (1LL << 40);
 }
 
-// d <= 128: the tensor-core forward; wider d: the FFMA WIDE instance.
+// d <= 128: the tensor-core forward on its q-tile; wider d: the teams of
+// the wide tensor-core forward.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s,
               int d, float scale_q, int causal, int q_off, int kv_off, int block_q,
@@ -929,11 +996,12 @@ int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, i
     return tcfwd::launch<DMAX, ROUND, T>(q, k, v, o, lse, bh, s, d, scale_q, causal, q_off,
                                          kv_off, block_q, stream);
   } else {
-    const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<WD, true>(d));
-    return launch(flash_fwd_wide_kernel<ROUND, T>, fwd_wide_smem, grid, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<T*>(o), static_cast<float*>(lse), s, d, scale_q, causal, q_off,
-                  kv_off);
+    if (d <= 256) {
+      return widefwd::launch<ROUND, T, 256>(q, k, v, o, lse, bh, s, d, scale_q, causal, q_off,
+                                            kv_off, stream);
+    }
+    return widefwd::launch<ROUND, T, 512>(q, k, v, o, lse, bh, s, d, scale_q, causal, q_off,
+                                          kv_off, stream);
   }
 }
 
@@ -983,9 +1051,9 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout, con
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int dtype, int bh, int s, int d, float scale_q, int causal, int q_off,
                          int kv_off, int round_bf16, int block_q, int device, void* stream) {
-  // block_q: the tensor-core instances' q-tile, 128 or 64 rows (0: 128);
-  // d > 128 takes the WIDE kernel's own tile. The tensor-core instances put
-  // the q-tiles on gridDim.y.
+  // block_q: the q-tile of the instances at d <= 128, 128 or 64 rows (0:
+  // 128); d > 128 takes the wide forward's own (64 rows at d <= 256, 32
+  // above). Every instance puts the q-tiles on gridDim.y.
   if (block_q == 0) block_q = mma16::BQ;
   if (bad_shape(bh, s, d) || (block_q != 64 && block_q != 128) ||
       (s + block_q - 1) / block_q > 65535) {

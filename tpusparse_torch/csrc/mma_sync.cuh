@@ -1,8 +1,8 @@
 // Warp-level tensor-core and staging instructions for NVIDIA Hopper
 // (sm_90a), wrapped one to a function: the `mma.sync` products (m16n8k16
 // bf16 and m16n8k8 tf32 with fp32 accumulators, m16n8k32 s8 with int32
-// ones), `ldmatrix` operand loads, `cp.async` staging, the 3xTF32 split and
-// two exact conversions. The attention tiles (attention_mma.cuh), the int8
+// ones), `ldmatrix` operand loads, `cp.async` staging, a named barrier, the
+// 3xTF32 split and two exact conversions. The attention tiles (attention_mma.cuh), the int8
 // tiles (int8_tiles.cuh) and the int8 executor (block_ell_spmm_int8.cu)
 // build on them.
 //
@@ -144,6 +144,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') over the first `n` threads to
+// reach it (a multiple of 32): a team of warps waits for its own members
+// only, and their shared-memory writes before it are visible after it.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 }  // namespace mma16
