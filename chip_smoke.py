@@ -410,9 +410,10 @@ FLASH_LIMIT_ROUNDED = 1e-2
 # blk_flash_fwd and the whole-row naive_spmm, both behind a sleep; the FFMA
 # block_ell_spmm and sddmm; the FFMA blk_flash_dq and blk_flash_dkv,
 # queued; the FFMA batched and compact executors; the FFMA forwards at d
-# 256, queued), ms, measured by this script on an NVIDIA H100 80GB HBM3 at
-# 700.00 W (PERF.md: its kernel table, rows 1-11, 13, 16-19, §5
-# for bert4d's dA, and an earlier run for the seq-4096 shape);
+# 256, queued; the FFMA flash_dq and flash_dkv at d 256, queued), ms,
+# measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md:
+# its kernel table, rows 1-11, 13-19, §5 for bert4d's dA, and an earlier
+# run for the seq-4096 shape);
 # printed beside the new. SHARED_TILE_MS: the
 # footprint executor's times on its register windows before the tile moved
 # into window_tiles.cuh, which the shared tile must stay within 9 % of.
@@ -428,7 +429,8 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "resident_spmm_batched block-sparse batched": 0.822,
           "resident_spmm_batched bert4d": 5.962, "compact_spmm headline": 1.501,
           "compact_spmm low-fill": 2.882, "flash_fwd d 256 high": 0.573,
-          "blk_flash_fwd d 256 high": 0.428}
+          "blk_flash_fwd d 256 high": 0.428, "flash_dq d 256": 0.8606,
+          "flash_dkv d 256": 1.0665}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -2475,12 +2477,13 @@ def phase_small_wide_attention() -> None:
     plain versions: flash causal with and without offsets at d 136 (S wider
     than one 128-column slice of the forward's teams), 192, 200, 256 (also
     at s 1100, where the 3xTF32 bank folds, and with rows that see no key),
-    320 and 330 (off 16 bytes; beyond one 256-wide accumulator) and 640
-    (512-wide chunks of o); the block kernels on a 'bigbird' plan at d 136,
+    320 and 330 (off 16 bytes; beyond one 256-wide accumulator), 384 at s
+    512 (the wide backward's bank folds once) and 640 (512-wide chunks of
+    o; also at s 1100); the block kernels on a 'bigbird' plan at d 136,
     192, 256, 320, 330 and 640, a mask-free plan of 1024 keys a row and a
     band plan with rows that see no key; flash_q8; fp32 'high', fp32
-    'default' and bf16; the existing limits. Each forward is run twice and
-    must repeat bit for bit."""
+    'default' and bf16; the existing limits. Each forward, and the flash
+    backward, is run twice and must repeat bit for bit."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import block_flash_attention as bfa
     from tpusparse_torch.kernels import flash_attention as fa
@@ -2495,14 +2498,16 @@ def phase_small_wide_attention() -> None:
              ("wide_no_key_rows_1x128x256_kv100", (1, 128, 256), True, 0, 100),
              ("wide_causal_2x256x320", (2, 256, 320), True, 0, 0),
              ("wide_2x256x330", (2, 256, 330), False, 0, 0),
-             ("wide_causal_2x256x640", (2, 256, 640), True, 0, 0)]
+             ("wide_causal_2x256x640", (2, 256, 640), True, 0, 0),
+             ("wide_2x512x384", (2, 512, 384), False, 0, 0),
+             ("wide_fold_1x1100x640", (1, 1100, 640), False, 0, 0)]
     tiers = ((torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"))
     plan = tt.BlockAttnPlan(tt.bigbird_block_mask(256, 64), 64, 64, 256)
 
-    def check_repeat(label, first, again):
+    def check_repeat(label, first, again, what="the forward"):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"{label}: the forward does not repeat bit for bit")
+            raise AssertionError(f"{label}: {what} does not repeat bit for bit")
 
     for seed, (name, shape, causal, q_off, kv_off) in enumerate(cases):
         for dtype, prec in tiers:
@@ -2514,8 +2519,12 @@ def phase_small_wide_attention() -> None:
                       precision=prec)
             got, want = _flash_pair(q, k, v, do, kw)
             check_repeat(f"flash_{name}_{tag}", got[:2], fa.flash_fwd_kernel(q, k, v, **kw))
+            bwd = (q, k, v, do, got[1], (do.float() * got[0].float()).sum(-1).to(dtype).float())
+            check_repeat(f"flash_{name}_{tag}", got[2:], (fa.flash_dq_kernel(*bwd, **kw),
+                                                          *fa.flash_dkv_kernel(*bwd, **kw)),
+                         "the backward")
             _check_attention_case(f"flash_{name}_{tag}", got, want, rounded,
-                                  ", o/lse repeat bitwise")
+                                  ", o/lse and dq/dk/dv repeat bitwise")
             blind = min(max(kv_off - q_off, 0), shape[1])  # rows that see no key
             if blind and not (torch.count_nonzero(got[0][:, :blind]) == 0
                               and bool((got[1][:, :blind] == -1e30).all())):
@@ -2897,8 +2906,9 @@ def phase_graph_step_timings(runs) -> None:
 def phase_wide_timings() -> None:
     """The seven attention entry points at (b, h, s, d) = WIDE_SHAPE, fp32
     'high' (flash_q8 at its own tier): kernel against plain and bound, SDPA
-    as the yardstick (the block kernels' with the token-exact mask); then
-    the two forwards in fp32 'default' and on bf16 operands."""
+    as the yardstick (the block kernels' with the token-exact mask; its
+    autograd backward behind a sleep); then the two forwards and the flash
+    backward in fp32 'default' and on bf16 operands."""
     from torch.nn.attention import sdpa_kernel
 
     import tpusparse_torch as tt
@@ -2973,7 +2983,7 @@ def phase_wide_timings() -> None:
             fwd_ms = time_ms_queued(lambda: sdpa(q4, k4, v4, attn_mask=attn_mask))
             qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
             og = sdpa(qg, kg, vg, attn_mask=attn_mask)
-            bwd_ms = time_ms_queued(
+            bwd_ms = time_ms_ahead(  # its host work would bound a queued time
                 lambda: torch.autograd.grad(og, (qg, kg, vg), do4, retain_graph=True))
         lib[key] = (fwd_ms, bwd_ms, backend.name)
         del qg, kg, vg, og
@@ -2996,7 +3006,7 @@ def phase_wide_timings() -> None:
         lib_ms = fwd_ms if name.endswith(("fwd", "q8")) else bwd_ms
         old = OLD_MS.get(f"{name} d {d} high" if name.endswith("fwd") else f"{name} d {d}")
         was = ((f" (first port {old:.3f})" if name == "flash_q8" else
-                f" (the FFMA forward before its redesign {old:.3f}: {old / ms:.2f}x)")
+                f" (the FFMA kernel before its redesign {old:.3f}: {old / ms:.2f}x)")
                if old else "")
         print(f"{name} {WIDE_SHAPE} d {d} ({'bigbird block 64, ' if key == 'masked' else ''}"
               f"{'int8 K/V' if key == 'q8' else 'fp32 high'}): kernel {ms:.4f} ms queued{was}, "
@@ -3004,9 +3014,10 @@ def phase_wide_timings() -> None:
               f"{design}), "
               f"kernel at {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {bms / ms:.3f} of the bound; "
               f"sdpa ({backend}) "
-              f"{'forward' if name.endswith(('fwd', 'q8')) else 'autograd backward'} "
-              f"{lib_ms:.4f} ms")
+              f"{'forward' if name.endswith(('fwd', 'q8')) else 'autograd backward behind a sleep'}"
+              f" {lib_ms:.4f} ms")
     _wide_forward_tiers(q, k, v, plan, mask, work)
+    _flash_bwd_times("wide", q, k, v, do, WIDE_SHAPE)
     print(f"d {d} kernel vs plain over scale: flash " + ", ".join(
         f"{n} {e:.2e}" for n, e in errs.items()) + "; block " + ", ".join(
         f"{n} {e:.2e}" for n, e in berrs.items()) + f"; flash_q8 o {q8_err:.2e}")

@@ -63,7 +63,20 @@ flash_wide_forward
              (512-wide chunks of o), after the d = 64 flash_fwd at (96, 512,
              64), each in fp32 'high', fp32 'default' and on bf16 operands,
              by `chip_smoke.time_ms_queued`, with a SHA-256 of o and lse
-             (equal digests: equal bits)."""
+             (equal digests: equal bits).
+flash_wide_backward
+             the flash backward at head dims above 128: flash_dq and
+             flash_dkv at WIDE_SHAPE's (b, h, s) with d 256, 384, 512 and 640
+             (512-wide chunks of the output), in fp32 'high', fp32 'default'
+             and on bf16 operands, by `chip_smoke.time_ms_queued`, each with
+             a SHA-256 of its outputs; first the digests of the kernels it
+             must leave alone: flash_dq/flash_dkv and blk_flash_dq/
+             blk_flash_dkv ('bigbird', window 64) at (96, 512, 64), and at
+             WIDE_SHAPE flash_fwd, blk_flash_fwd and blk_flash_dq/
+             blk_flash_dkv, in the three tiers. Every output is held against
+             the plain version (printed with the limit it is within), and in
+             fp32 'high' the kernel's and the plain version's dq, dk and dv
+             against float64."""
 import os
 import sys
 
@@ -371,8 +384,84 @@ def flash_wide_forward(name, cs, tt):
             del q, k, v
 
 
+def flash_wide_backward(name, cs, tt):
+    import hashlib
+
+    import torch
+
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+    from tpusparse_torch.kernels import flash_attention as fa
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for x in ts:
+            h.update(x.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    tiers = ((torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"))
+    b, h, s, _ = cs.WIDE_SHAPE
+    bplans = {n: tt.BlockAttnPlan(tt.bigbird_block_mask(n, cs.PATTERN_WINDOW), cs.PATTERN_WINDOW,
+                                  cs.PATTERN_WINDOW, n) for n in {512, s}}
+
+    def backward(q, k, v, do, kw, plan=None):
+        """(flash or block) forward, then dq and (dk, dv) and their runs"""
+        if plan is None:
+            o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+            args = (q, k, v, do, lse, cs._delta(do, o))
+            return (o, lse), args, (lambda: fa.flash_dq_kernel(*args, **kw),
+                                    lambda: fa.flash_dkv_kernel(*args, **kw))
+        o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+        args = (q, k, v, do, lse, cs._delta(do, o), plan)
+        return (o, lse), args, (lambda: bfa.blk_flash_dq_kernel(*args, **kw),
+                                lambda: bfa.blk_flash_dkv_kernel(*args, **kw))
+
+    for label, shape, d in (("(96, 512, 64)", (96, 512, 64), 64),
+                            (f"{cs.WIDE_SHAPE}", (b * h, s, cs.WIDE_SHAPE[-1]),
+                             cs.WIDE_SHAPE[-1])):
+        for dtype, prec in tiers:
+            q, k, v, do = cs._flash_operands(shape, 1500 + d, dtype)
+            kw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+            plan = bplans[shape[1]]
+            fwd, _, (dq, dkv) = backward(q, k, v, do, dict(kw, causal=False))
+            bfwd, _, (bdq, bdkv) = backward(q, k, v, do, kw, plan)
+            line = f"{name} digests {label} {str(dtype)[6:]} '{prec}': "
+            if d == 64:
+                line += (f"flash dq+dk+dv {digest(dq(), *dkv())}, "
+                         f"blk dq+dk+dv {digest(bdq(), *bdkv())}")
+            else:
+                line += (f"flash_fwd o+lse {digest(*fwd)}, blk_flash_fwd o+lse {digest(*bfwd)}, "
+                         f"blk dq+dk+dv {digest(bdq(), *bdkv())}")
+            print(line, flush=True)
+            del q, k, v, do, fwd, bfwd
+
+    for d in (cs.WIDE_SHAPE[-1], 384, 512, 640):
+        for dtype, prec in tiers:
+            q, k, v, do = cs._flash_operands((b * h, s, d), 1300, dtype)
+            kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision=prec)
+            _, args, (dq, dkv) = backward(q, k, v, do, kw)
+            got, want = cs._flash_pair(q, k, v, do, kw)
+            err = max(cs.rel_err(g_, w_)[1] for g_, w_ in zip(got[2:], want[2:]))
+            high = dtype == torch.float32 and prec == "high"
+            limit = cs.FLASH_LIMIT_FP32 if high else cs.FLASH_LIMIT_ROUNDED
+            witness = ""
+            if high:  # which side is farther from float64: kernel, plain
+                f64 = cs._flash_bwd_f64(*args, sm_scale=kw["sm_scale"])
+                witness = "; over scale vs float64 (kernel, plain) " + ", ".join(
+                    f"{n} {cs.rel_err(g_, w_)[1]:.2e} {cs.rel_err(p_, w_)[1]:.2e}"
+                    for n, g_, p_, w_ in zip(("dq", "dk", "dv"), got[2:], want[2:], f64))
+                del f64
+            del got, want
+            dq_ms, dkv_ms = cs.time_ms_queued(dq), cs.time_ms_queued(dkv)
+            print(f"{name} {(b, h, s, d)} {str(dtype)[6:]} '{prec}': flash_dq {dq_ms:.4f} ms, "
+                  f"sha256 {digest(dq())}; flash_dkv {dkv_ms:.4f} ms, sha256 {digest(*dkv())}; "
+                  f"pair {dq_ms + dkv_ms:.4f}; dq/dk/dv vs plain {err:.2e} (limit {limit:.0e}"
+                  f"{'' if err <= limit else ', OVER'}){witness}", flush=True)
+            del q, k, v, do, args
+
+
 GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward, "gemm": gemm,
-          "gemm_s8": gemm_s8, "flash_wide_forward": flash_wide_forward}
+          "gemm_s8": gemm_s8, "flash_wide_forward": flash_wide_forward,
+          "flash_wide_backward": flash_wide_backward}
 
 if __name__ == "__main__":
     if len(sys.argv) != 3 or sys.argv[1] not in GROUPS:

@@ -417,8 +417,8 @@ FLASH_CASES = {
     "ragged_causal_1x200x64": ((1, 200, 64), True, 0, 0),
     "narrow_8x128x24": ((8, 128, 24), False, 0, 0),
     "wide_causal_2x128x128": ((2, 128, 128), True, 0, 0),
-    # head dims above 128: the forward's teams of warps on the tensor cores,
-    # the backward's WIDE instances in 128-wide output chunks
+    # head dims above 128: the forward's and the backward's teams of warps
+    # on the tensor cores
     "wider_causal_2x128x192": ((2, 128, 192), True, 0, 0),
     "wider_2x130x256": ((2, 130, 256), False, 0, 0),
     "wider_ragged_offsets_1x200x200": ((1, 200, 200), True, 64, 0),
@@ -428,6 +428,8 @@ FLASH_CASES = {
     # causal with a q offset; rows that see no key
     "wider_d136_2x200x136": ((2, 200, 136), False, 0, 0),
     "wider_fold_1x1100x256": ((1, 1100, 256), False, 0, 0),
+    "wider_fold_1x1100x384": ((1, 1100, 384), False, 0, 0),
+    "wider_fold_1x1100x640": ((1, 1100, 640), False, 0, 0),
     "wider_causal_d320_2x130x320": ((2, 130, 320), True, 0, 0),
     "wider_ragged_d330_1x150x330": ((1, 150, 330), False, 0, 0),
     "wider_causal_d640_1x130x640": ((1, 130, 640), True, 0, 0),
@@ -550,6 +552,25 @@ def test_wide_forwards_repeat_bit_for_bit(cuda, name, dtype, precision):
                 for _ in range(2)]
     first, second = runs
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("name", sorted(n for n in FLASH_CASES if n.startswith("wider_")))
+def test_wide_flash_backward_repeats_bit_for_bit(cuda, name, dtype, precision):
+    """dq, dk and dv at d > 128 (a team's warps sum their partial S and dP
+    in one order; above d 512 in chunks of the output) give the same bits
+    twice."""
+    q, k, v, do, kw = _flash_args(name, cuda, dtype)
+    kw["precision"] = precision
+    o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [(fa.flash_dq_kernel(q, k, v, do, lse, delta, **kw),
+             *fa.flash_dkv_kernel(q, k, v, do, lse, delta, **kw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 

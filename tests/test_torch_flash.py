@@ -271,6 +271,16 @@ WIDE_FORWARDS = {
     "block_d136": ("block", (1, 2, 64, 136), False, 0),
     "block_d320": ("block", (1, 2, 64, 320), False, 0),
 }
+# the flash backward at the widths the card's wide backward splits apart:
+# ((b, h, s, d), causal, q_offset); d 136 takes a 64-column slice of 8
+# columns, d 256 the four slices of two teams, d 320 the one-team instance,
+# d 640 two 512-wide chunks of the output with S and dP over d in pieces
+WIDE_BACKWARDS = {
+    "d136": ((1, 2, 80, 136), False, 0),
+    "causal_d256_q64": ((1, 2, 64, 256), True, 64),
+    "causal_d320": ((1, 1, 72, 320), True, 0),
+    "causal_d640": ((1, 1, 64, 640), True, 0),
+}
 
 
 def _wide_forward_matches_jax(path):
@@ -357,3 +367,19 @@ def test_head_dims_above_128_match_jax(path):
         got = tmod(torch.from_numpy(x))
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(jmod.apply(params, x)),
                                    **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_BACKWARDS))
+def test_wide_backward_matches_jax(name):
+    """The port's flash_attention_bwd (its plain versions on the CPU) from
+    JAX's o and lse, against JAX's flash_attention_bwd at 'highest'."""
+    shape, causal, q_off = WIDE_BACKWARDS[name]
+    q, k, v, do = _inputs(shape, seed=shape[-1] + 1)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    kw = dict(causal=causal, q_offset=q_off, precision="highest")
+    jo, jlse = jfa.flash_attention(jq, jk, jv, return_lse=True, **kw)
+    jgrads = jfa.flash_attention_bwd(jq, jk, jv, jo, jlse, jnp.asarray(do), **kw)
+    tgrads = tfa.flash_attention_bwd(_t(q), _t(k), _t(v), _t(jo), _t(jlse), _t(do), **kw)
+    for gname, got, want in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert got.shape == shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL, err_msg=gname)

@@ -848,4 +848,204 @@ struct RowStats {
   }
 };
 
+// -- the backward at head dims above 128 ----------------------------------------
+
+// The tensor-core backward at d > 128 (flash_attention.cu's
+// flash_dq_wide_tc_kernel and flash_dkv_wide_tc_kernel) on WideFwd's teams:
+// the block's RT = 16 NRG staged rows (dq: queries; dk/dv: keys) are served
+// a 16-row group by a team of WPR warps, and warp h of a team owns the DW =
+// DMAX / WPR output columns [DW h, DW h + DW) and the same slice of the two
+// scores' contraction. Per streamed tile of W rows it takes its partial
+// S_h and dP_h over its slice (dq: q k^T and do v^T; dk/dv: k q^T and
+// v do^T), stores both, and after the team's one barrier every warp sums
+// each in warp order, so all of them hold the same bits of S and dP, take
+// the same P and dS, and add their products into their own columns (dq:
+// dS k[:, slice]; dk/dv: P^T do[:, slice] and dS^T q[:, slice]).
+//
+// Shared memory: the two staged A tiles (dq: q and do; dk/dv: k and v),
+// two stages of the two streamed tiles (dq: K then V; dk/dv: q then do),
+// one row pitch for the score's B and the pv's B as the d <= 128 backward
+// has, the teams' partials (S's, then dP's), and dk/dv's streamed lse and
+// delta (RowStats).
+template <bool ROUND, typename T, int DMAX_, int WPR_, int NRG_, int W_>
+struct WideBwd {
+  static constexpr int DMAX = DMAX_, WPR = WPR_, NRG = NRG_, W = W_;
+  static constexpr int DW = DMAX / WPR, NW = WPR * NRG, NT = 32 * NW, RT = 16 * NRG;
+  static constexpr int NN = W / 8, NO = DW / 8;
+  using TR = Tier<ROUND, T, DMAX, DW>;
+  using TQ = typename TR::TQ;
+  static constexpr int LDB = TR::LDK;
+  static constexpr size_t a_bytes = sizeof(TQ) * RT * TR::LDQ;
+  static constexpr int stage = 2 * W * LDB;  // elements of T
+  static constexpr size_t b_off = 2 * a_bytes;
+  static constexpr size_t x_off = b_off + 2 * sizeof(T) * stage;
+  static constexpr size_t stat_off = x_off + sizeof(float) * 2 * NW * 16 * W;
+  static constexpr size_t bytes = stat_off + 2 * 2 * W * sizeof(float);
+  // 3xTF32: a warp banks its sums every 256 streamed rows, half the d <=
+  // 128 backward's 512. Summed through the tensor cores over 512 rows,
+  // dq, dk and dv drifted 1.01e-5 of scale from the plain version at d 384
+  // and 640 on an H100, over FLASH_LIMIT_FP32 (compare_trees.py
+  // flash_wide_backward).
+  static constexpr int FOLD = mma16::FOLD * BK / (2 * W);
+  static_assert(NN % 2 == 0 && NT >= 2 * W, "W: a multiple of 16, at most NT / 2");
+
+  // The columns of slice h the products run over: d rounded up to 16, cut
+  // to the slice (0 for a slice past d; the staged columns past d are 0).
+  __device__ static int kd(int d, int h) { return max(0, min(DW, (d + 15) / 16 * 16 - DW * h)); }
+
+  // The warp's partial S += A0 . B0^T and dP += A1 . B1^T over its slice
+  // (team rg, slice h, cols: kd(w, h) of a staged piece w wide).
+  template <typename TB>
+  __device__ static void partials(float (&sp)[NN][4], float (&dp)[NN][4], const TQ* A0,
+                                  const TQ* A1, const TB* B0, const TB* B1, int cols, int h,
+                                  int wr0, int lane) {
+    TR::score(sp, A0 + DW * h, B0 + DW * h, cols, wr0, lane);
+    TR::score(dp, A1 + DW * h, B1 + DW * h, cols, wr0, lane);
+  }
+
+  // The team's sums of its warps' partial S and dP behind one barrier, in
+  // every warp the same bits. X: the teams' partials.
+  __device__ static void team_sum(float (&sp)[NN][4], float (&dp)[NN][4], float* X, int rg,
+                                  int h, int lane) {
+    float4* team = reinterpret_cast<float4*>(X) + rg * 2 * WPR * NN * 32;
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt) {
+      team[(h * NN + nt) * 32 + lane] = make_float4(sp[nt][0], sp[nt][1], sp[nt][2], sp[nt][3]);
+      team[((WPR + h) * NN + nt) * 32 + lane] =
+          make_float4(dp[nt][0], dp[nt][1], dp[nt][2], dp[nt][3]);
+    }
+    bar_sync(1 + rg, 32 * WPR);
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt) {
+      float4 x = team[nt * 32 + lane], y = team[(WPR * NN + nt) * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < WPR; ++w) {
+        const float4 a = team[(w * NN + nt) * 32 + lane];
+        const float4 b = team[((WPR + w) * NN + nt) * 32 + lane];
+        x.x += a.x;
+        x.y += a.y;
+        x.z += a.z;
+        x.w += a.w;
+        y.x += b.x;
+        y.y += b.y;
+        y.z += b.z;
+        y.w += b.w;
+      }
+      sp[nt][0] = x.x;
+      sp[nt][1] = x.y;
+      sp[nt][2] = x.z;
+      sp[nt][3] = x.w;
+      dp[nt][0] = y.x;
+      dp[nt][1] = y.y;
+      dp[nt][2] = y.z;
+      dp[nt][3] = y.w;
+    }
+  }
+
+  // CHUNK (d > DMAX): S = A0 . B0^T and dP = A1 . B1^T over all of d, DMAX
+  // columns at a time, then the team's sums. Each piece's columns of the
+  // staged rows (RT rows from a_r0 of a0 and a1, into A0 and A1) and of the
+  // streamed ones (W rows from b_r0 of b0 and b1, into Bs and Bs + W LDB)
+  // are staged, a0's times a_scale and b0's times b_scale rounded to their
+  // type, as the tiles at d <= DMAX are taken. extra() stages what else the
+  // tile needs with the first piece (the pv's operands in the output chunk,
+  // the statistics) and fix() runs once its copies have landed (it scales
+  // them). The A pieces come by cp.async where TQ is T (scaled in place by
+  // the thread that copied them), else by loads 8 elements at a time. Every
+  // thread of the block calls it, for it holds the block's barriers; a team
+  // with `skip` set stages and takes no product.
+  template <typename Extra, typename Fix>
+  __device__ static void scores_chunked(float (&sp)[NN][4], float (&dp)[NN][4], TQ* A0, TQ* A1,
+                                        T* Bs, float* X, const T* a0, const T* a1, int a_r0,
+                                        float a_scale, const T* b0, const T* b1, int b_r0,
+                                        float b_scale, int s, int d, bool async, bool skip,
+                                        int rg, int h, int wr0, int lane, Extra extra, Fix fix) {
+    constexpr bool RAW = sizeof(TQ) == sizeof(T);
+    const bool async_a = async && RAW;
+    auto stage_a = [&](TQ* dst, const T* src, float scale, int w) {
+      if (async_a) {
+        stage_rows<NT, DMAX, TR::LDQ, RT>(reinterpret_cast<T*>(dst), src, a_r0, s, d, true, w);
+      } else {
+        load_q<RT, NT, DMAX, TR::LDQ, 8>(dst, src, a_r0, s, d, scale, w);
+      }
+    };
+    auto scale_in_place = [](T* x, float scale) { *x = from_f32<T>(attn::to_f32(*x) * scale); };
+    for (int c = 0; c < d; c += DMAX) {
+      const int w = min(DMAX, d - c);
+      __syncthreads();  // every reader of the last piece and of extra()'s tiles is done
+      stage_a(A0, a0 + c, a_scale, w);
+      stage_a(A1, a1 + c, 1.f, w);
+      stage_rows<NT, DMAX, LDB, W>(Bs, b0 + c, b_r0, s, d, async, w);
+      stage_rows<NT, DMAX, LDB, W>(Bs + W * LDB, b1 + c, b_r0, s, d, async, w);
+      if (c == 0) extra();
+      cp_async_commit();
+      cp_async_wait_all();
+      if (async_a && a_scale != 1.f) {
+        T* a = reinterpret_cast<T*>(A0);
+        each_staged<NT, DMAX, TR::LDQ, RT, T>(true,
+                                              [&](int o) { scale_in_place(a + o, a_scale); });
+      }
+      if (b_scale != 1.f) {
+        each_staged<NT, DMAX, LDB, W, T>(async, [&](int o) { scale_in_place(Bs + o, b_scale); });
+      }
+      if (c == 0) fix();
+      __syncthreads();
+      if (!skip) partials(sp, dp, A0, A1, static_cast<const T*>(Bs), Bs + W * LDB, kd(w, h), h,
+                          wr0, lane);
+    }
+    if (!skip) team_sum(sp, dp, X, rg, h, lane);
+  }
+
+  // acc[:, slice h] += C . B[:, slice h] over a streamed tile at Bb (cols:
+  // kd(w, h) of a tile w wide)
+  __device__ static void pv(float (&acc)[NO][4], const float (&c)[NN][4], const T* Bb, int cols,
+                            int h, int lane) {
+    TR::template pv<LDB>(acc, c, Bb + DW * h, cols, lane);
+  }
+
+  // The warp's rows row, row + 8 below `rows`, its columns from c0 (the
+  // block's chunk) below d: the sum (the bank's added where it banked)
+  // times `scale`.
+  __device__ static void store(T* ob, const float (&acc)[NO][4], bool banked, int row, int rows,
+                               int d, int c0, int h, int t, float scale) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rp = row + 8 * hh;
+      if (rp >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = c0 + DW * h + 8 * nt + 2 * t + c;
+          if (col >= d) continue;
+          T* p = &ob[static_cast<size_t>(rp) * d + col];
+          float x = acc[nt][2 * hh + c];
+          if constexpr (!ROUND) {
+            if (banked) x = fmaf(*p, 1.f, x);
+          }
+          attn::store(p, x * scale);
+        }
+    }
+  }
+
+  // The bank (3xTF32): the warp's sums added into its rows and columns of
+  // the output, restarting from 0.
+  __device__ static void bank(T* ob, float (&acc)[NO][4], bool banked, int row, int rows, int d,
+                              int c0, int h, int t) {
+    if constexpr (!ROUND) bank_add(ob, acc, {1.f, 1.f}, banked, row, rows, d, t, c0 + DW * h);
+  }
+};
+
+// The instances, 256 threads, one block an SM: a warp owns 64 columns (dq's
+// sums take 32 registers, dk's and dv's 2 x 32). d <= 256: two teams of
+// four on 32 rows, dq's keys streamed 32 a tile, dk/dv's queries 16 (fp32
+// 'high': 232,448 and 149,760 bytes of shared memory); d <= 512: one team
+// of eight on 16 rows, 16 a tile (214,528 and 214,784 bytes), above 512 in
+// 512-wide chunks of the output.
+template <bool ROUND, typename T, int DMAX>
+using WideDqFor = WideBwd<ROUND, T, DMAX, DMAX <= 256 ? 4 : 8, DMAX <= 256 ? 2 : 1,
+                          DMAX <= 256 ? 32 : 16>;
+template <bool ROUND, typename T, int DMAX>
+using WideDkvFor = WideBwd<ROUND, T, DMAX, DMAX <= 256 ? 4 : 8, DMAX <= 256 ? 2 : 1, 16>;
+
 }  // namespace mma16

@@ -1,9 +1,10 @@
 // Tile helpers shared by the fused attention kernels (flash_attention.cu,
 // flash_attention_q8.cu, block_flash_attention.cu) for NVIDIA Hopper
-// (sm_90a): the FFMA tiles of the WIDE backward kernels (head dims above
-// 128; every forward, and the backward at d <= 128, runs on the tensor
-// cores, attention_mma.cuh) and what all of them share (the masked score,
-// type conversions, the dispatch over dtype, tier and d).
+// (sm_90a): the FFMA tiles of the block kernels' WIDE backward (head dims
+// above 128; every forward, the flash backward and the block backward at
+// d <= 128 run on the tensor cores, attention_mma.cuh) and what all of them
+// share (the masked score, type conversions, the dispatch over dtype, tier
+// and d).
 //
 // One thread block of NT = 256 threads works on a 64-row tile of queries (or
 // keys) against a 64-row tile of the other operand. Each thread owns a 4x4
@@ -199,8 +200,9 @@ constexpr unsigned out_chunks(int d) {
 // (dtype, d, round_bf16): bf16 inputs always round (their p and dS are
 // rounded to bf16 in every tier, as on the TPU's non-3-pass tiers). A head
 // dim up to 64 takes the 64 instance, up to 128 the 128 instance, and any
-// wider one WIDE = true: the backward's 128 instance, which loops over d in
-// 128-wide chunks, or the wide tensor-core forward (its own instances).
+// wider one WIDE = true: the block backward's 128 instance, which loops
+// over d in 128-wide chunks, or the wide tensor-core forwards and flash
+// backward (their own instances).
 #define ATTN_DISPATCH_ONE(FN, ROUND, T, ...)                                   \
   do {                                                                         \
     if (d <= 64) return FN<64, ROUND, T, false>(__VA_ARGS__);                  \

@@ -27,7 +27,7 @@
 //     before dS.k (dq) and p, dS before p^T.do, dS^T.q (dk, dv); products
 //     of bf16 values are exact in fp32 and every sum is fp32. Without it
 //     ('high', 'highest' on fp32 inputs) the products are fp32-class, never
-//     one TF32 pass: 3xTF32, and fp32 FFMA in the backward at d > 128.
+//     one TF32 pass: 3xTF32.
 //   - Masking on global positions: key j of a row i is visible when
 //     j < s and, if causal, kv_off + j <= q_off + i. Masked scores are
 //     -1e30 and their probabilities exactly 0; whole tiles above the
@@ -124,16 +124,20 @@
 // 512: teams of four, 32-row q-tiles, 16-key tiles; above 512 the same in
 // 512-wide chunks of o on blockIdx.z, each block taking S over all of d in
 // 512-wide pieces, q's and k's columns of each staged in turn.
-// The backward at d > 128 runs the first FFMA design, the WIDE kernels:
-// one thread block owns one 64-row q-tile (flash_dq) or one 64-row k-tile
-// (flash_dkv) of one (batch, head) and one 128-wide output chunk a
-// blockIdx.z, and runs the whole sequential loop over the other axis
-// itself; each thread owns a 4x4 tile of the 64x64 score block (rows ty +
-// 16a, columns tx + 16j, so the 16-byte shared loads of both operands are
-// free of bank conflicts) and a 4 x 8 slice of the output accumulator on
-// the same rows. The scores and dP are recomputed per chunk over d staged
-// in 128-wide pieces (attention_tiles.cuh). Every output element is summed
-// by one thread in ascending tile order.
+// The backward at d > 128 (flash_dq_wide_tc_kernel, flash_dkv_wide_tc_kernel)
+// runs on the same teams, attention_mma.cuh's WideBwd: per streamed tile
+// each warp takes its partial S and dP (dq: q k^T and do v^T; dk/dv: k q^T
+// and v do^T) over its slice of d, the team sums both behind one barrier,
+// and every warp takes the same P and dS in registers and adds its
+// products into its own slice of the output (dq: dS k; dk/dv: P^T do and
+// dS^T q). Each warp owns 64 columns of the output. d <= 256: two teams of
+// four on a 32-row tile, dq's keys streamed 32 a tile and dk/dv's queries
+// 16; d <= 512: one team of eight on a 16-row tile, 16 a tile; the
+// streamed tiles in two cp.async stages. Above 512 the same in 512-wide
+// chunks of the output on blockIdx.z, each block taking S and dP over all
+// of d in 512-wide pieces, both operands' pieces staged in turn. In
+// 3xTF32 a warp banks its sums every 256 streamed rows, so s = 512 folds
+// once.
 
 #include "attention_mma.cuh"
 #include "attention_tiles.cuh"
@@ -807,179 +811,367 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 
 }  // namespace widefwd
 
-// -- the FFMA kernels ---------------------------------------------------------
+// -- flash_dq and flash_dkv at 128 < d <= 512 on the tensor cores ---------------
+namespace widebwd {
 
-using namespace attn;
+using mma16::LOG2E;
 
-// The backward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
-// 128-wide output chunk a blockIdx.z, the scores (and dP) recomputed per
-// chunk over d staged 128 columns at a time.
-constexpr int WD = 128;
-constexpr size_t dq_wide_smem =
-    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + BQ * LDP);
+// Blocks on x, one a (tile, batch-head): tile i of every head before tile
+// i + 1, so the heaviest causal tiles start first, and any s the entry
+// points take fits the grid.
+__device__ __forceinline__ int tile_rank(int nbh) { return blockIdx.x / nbh; }
 
-template <bool ROUND, typename T>
-__global__ void __launch_bounds__(NT) flash_dq_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int s, int d, float scale_q,
-    float sm_scale, int causal, int q_off, int kv_off) {
-  constexpr int G = WD / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                 // (BQ, WD + 4) a chunk of pre-scaled q
-  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
-  float* Ks = dOs + BQ * (WD + 4);  // (BK, WD + 4)
-  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
-  float* dSs = Vs + BK * (WD + 4);  // (BQ, LDP)
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// dq = sm_scale sum_k dS . k on mma16::WideBwd's teams: a q-tile of RT rows
+// (q pre-scaled and do staged once), K and V streamed in W-key tiles, two
+// cp.async stages, one block barrier a tile. S = q k^T and dP = do v^T
+// summed over the team's slices, then P and dS in registers as
+// flash_dq_tc_kernel takes them, then dq[:, slice] += dS k[:, slice]. Under
+// causal masking a team skips a tile wholly past its last row. CHUNK (d >
+// DMAX): the block's DMAX-wide chunk of dq on z, and per key tile the
+// pieces of q, do, K and V staged in turn for S and dP over all of d, K's
+// chunk with the first piece (stage 1).
+template <bool ROUND, typename T, int DMAX, bool CHUNK>
+__global__ void __launch_bounds__(mma16::WideDqFor<ROUND, T, DMAX>::NT, 1)
+    flash_dq_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            T* __restrict__ dq, int nbh, int s, int d, float scale_q,
+                            float sm_scale, int causal, int q_off, int kv_off, int async_kv) {
+  using B = mma16::WideDqFor<ROUND, T, DMAX>;
+  using TQ = typename B::TQ;
+  using TR = typename B::TR;
+  constexpr int NT = B::NT, QT = B::RT, W = B::W, NN = B::NN, NO = B::NO, LDB = B::LDB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Qs = reinterpret_cast<TQ*>(smem);
+  TQ* dOs = reinterpret_cast<TQ*>(smem + B::a_bytes);
+  T* KV = reinterpret_cast<T*>(smem + B::b_off);
+  float* X = reinterpret_cast<float*>(smem + B::x_off);
+
+  const int bh = blockIdx.x % nbh;
+  const int q0 = ((gridDim.x / nbh) - 1 - tile_rank(nbh)) * QT;
+  const int c_out = CHUNK ? blockIdx.z * DMAX : 0;  // the block's chunk of dq
+  const int wv = min(DMAX, d - c_out);              // and its width
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % B::NRG, h = warp / B::NRG;  // the warp's team and slice
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * rg;
+  const int kd = B::kd(wv, h);
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int c_out = blockIdx.z * WD;  // first output column
+  const T* kb = k + base;
+  const T* vb = v + base;
 
-  float lse_r[4], delta_r[4], acc[4][4 * G];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    lse_r[i] = qp < s ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
-    delta_r[i] = qp < s ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
+  const int nk = mma16::visited_k_tiles<W, QT>(s, q0, causal, q_off, kv_off);
+  auto stage_kv = [&](int j) {
+    T* dst = KV + (j % 2) * B::stage;
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst, kb, j * W, s, d, async_kv);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst + W * LDB, vb, j * W, s, d, async_kv);
+    if (async_kv) mma16::cp_async_commit();
+  };
+  if constexpr (!CHUNK) {
+    if (nk > 0) stage_kv(0);  // in flight while q and do are loaded
+    mma16::load_q<QT, NT, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, scale_q);
+    mma16::load_q<QT, NT, DMAX, TR::LDQ>(dOs, dout + base, q0, s, d, 1.f);
   }
+  // rows g and g + 8 of the team: lse (log2 domain), delta, visible keys
+  float lse2[2], dlt[2];
+  int lims[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + wr0 + g + 8 * hh;
+    const size_t i = static_cast<size_t>(bh) * s + row;
+    lse2[hh] = row < s ? lse[i] * LOG2E : 0.f;
+    dlt[hh] = row < s ? delta[i] : 0.f;
+    lims[hh] = mma16::key_limit(row, s, causal, q_off, kv_off);
+  }
+  int since = 0;  // tiles summed since the last fold (3xTF32)
+  bool banked = false;
+  T* dqb = dq + base;
+  float acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
 
-  const int nk = visited_k_tiles(s, q0, causal, q_off, kv_off);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    float sc[4][4], dp[4][4];
+    const int k0 = kt * W;
+    // a tile whose keys all lie past the team's last row adds nothing to it:
+    // the whole team skips it
+    const bool skip = causal && static_cast<long long>(kv_off) + k0 >
+                                    static_cast<long long>(q_off) + q0 + wr0 + 15;
+    float sp[NN][4], dp[NN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < NN; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-    mma_nt_chunked<WD, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, s, scale_q, k + base, k0, s, 1.f,
-                                     d, ty, tx);
-    mma_nt_chunked<WD, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, s, 1.f, v + base, k0, s, 1.f,
-                                     d, ty, tx);
-    __syncthreads();  // the score product's readers of Ks are done
-    load_chunk<WD, ROUND>(Ks, k + base, k0, s, d, c_out, 1.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool vis = causal_visible(qp, k0 + tx + 16 * j, s, causal, q_off, kv_off);
-        const float p = vis ? expf(sc[i][j] - lse_r[i]) : 0.f;
-        dSs[(ty + 16 * i) * LDP + tx + 16 * j] = tier<ROUND>(p * (dp[i][j] - delta_r[i]));
+      for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+    const T* Kb;  // the tile's K in the block's columns: the pv's B
+    if constexpr (CHUNK) {
+      T* Kc = KV + B::stage;
+      B::scores_chunked(
+          sp, dp, Qs, dOs, KV, X, q + base, dout + base, q0, scale_q, kb, vb, k0, 1.f, s, d,
+          async_kv, skip, rg, h, wr0, lane,
+          [&] { mma16::stage_rows<NT, DMAX, LDB, W>(Kc, kb + c_out, k0, s, d, async_kv, wv); },
+          [] {});
+      if (skip) continue;
+      Kb = Kc;
+    } else {
+      T* Kt = KV + (kt % 2) * B::stage;
+      if (async_kv) mma16::cp_async_wait_all();
+      // tile kt is staged and visible to every warp; every reader of the
+      // other stage (tile kt - 1) and of the teams' partials is done
+      __syncthreads();
+      Kb = Kt;
+      if (kt + 1 < nk) stage_kv(kt + 1);
+      if (skip) continue;
+      B::partials(sp, dp, Qs, dOs, Kb, Kb + W * LDB, kd, h, wr0, lane);
+      B::team_sum(sp, dp, X, rg, h, lane);
+    }
+    auto stat = [&](int hh, int, int, float& l2, float& dl) {
+      l2 = lse2[hh];
+      dl = dlt[hh];
+    };
+    const bool full = k0 + W <= s &&
+        (!causal || static_cast<long long>(kv_off) + k0 + W - 1 <=
+                        static_cast<long long>(q_off) + q0 + wr0);
+    if (full) {
+      mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; });
+    } else {
+      const int key0 = k0 + 2 * t;
+      mma16::probs_ds<true>(sp, dp, stat,
+                            [&](int hh, int nt, int c) { return key0 + 8 * nt + c < lims[hh]; });
+    }
+    B::pv(acc, dp, Kb, kd, h, lane);
+    if constexpr (!ROUND) {
+      if (++since == B::FOLD && kt + 1 < nk) {
+        B::bank(dqb, acc, banked, q0 + wr0 + g, s, d, c_out, h, t);
+        since = 0;
+        banked = true;
       }
     }
-    __syncthreads();
-    mma_nn<WD>(acc, dSs, Ks, ty, tx);
   }
-
-  T* out = dq + base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= s) continue;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c_out + 64 * g + 4 * tx + c;
-        if (col < d) store(&out[static_cast<size_t>(qp) * d + col], acc[i][4 * g + c] * sm_scale);
-      }
-  }
+  B::store(dqb, acc, banked, q0 + wr0 + g, s, d, c_out, h, t, sm_scale);
 }
 
-constexpr size_t dkv_wide_smem =
-    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + 2 * BK * LDP + 2 * BQ);
+// dv = sum_q P^T do and dk = sum_q dS^T (scaled q) on mma16::WideBwd's
+// teams: a k-tile of RT keys (k and v staged once), q and do streamed in
+// W-row tiles with their lse and delta, q scaled and rounded to q's type by
+// the threads that copied it, as flash_dkv_tc_kernel takes it. S^T = k q^T
+// and dP^T = v do^T summed over the team's slices, P^T and dS^T, then
+// dv[:, slice] += P^T do[:, slice] and dk[:, slice] += dS^T q[:, slice].
+// The walk starts at the first q-tile that sees a key of the block; a team
+// skips a tile whose queries all lie before its first key. CHUNK (d >
+// DMAX): the block's DMAX-wide chunk of dk and dv on z, and per q-tile the
+// pieces of k, v, q and do staged in turn for S^T and dP^T over all of d,
+// q's and do's chunks and the statistics with the first piece (stage 1).
+template <bool ROUND, typename T, int DMAX, bool CHUNK>
+__global__ void __launch_bounds__(mma16::WideDkvFor<ROUND, T, DMAX>::NT, 1)
+    flash_dkv_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int nbh, int s, int d,
+                             float scale_q, int causal, int q_off, int kv_off, int async_q) {
+  using B = mma16::WideDkvFor<ROUND, T, DMAX>;
+  using TQ = typename B::TQ;
+  using TR = typename B::TR;
+  constexpr int NT = B::NT, KT = B::RT, W = B::W, NN = B::NN, NO = B::NO, LDB = B::LDB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Ks = reinterpret_cast<TQ*>(smem);
+  TQ* Vs = reinterpret_cast<TQ*>(smem + B::a_bytes);
+  T* QD = reinterpret_cast<T*>(smem + B::b_off);
+  float* X = reinterpret_cast<float*>(smem + B::x_off);
+  float* ST = reinterpret_cast<float*>(smem + B::stat_off);  // stage i: lse2 then delta
 
-template <bool ROUND, typename T>
-__global__ void __launch_bounds__(NT) flash_dkv_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s, int d,
-    float scale_q, int causal, int q_off, int kv_off) {
-  constexpr int G = WD / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                 // (BK, WD + 4)
-  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
-  float* Qs = Vs + BK * (WD + 4);   // (BQ, WD + 4) pre-scaled q
-  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
-  float* Ps = dOs + BQ * (WD + 4);  // (BK, LDP): p^T of this q-tile, keys by queries
-  float* dSs = Ps + BK * LDP;       // (BK, LDP): dS^T
-  float* lse_s = dSs + BK * LDP;    // (BQ)
-  float* delta_s = lse_s + BQ;      // (BQ)
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int bh = blockIdx.x % nbh;
+  const int k0 = tile_rank(nbh) * KT;  // causal: the heaviest k-tiles first
+  const int c_out = CHUNK ? blockIdx.z * DMAX : 0;  // the block's chunk of dk, dv
+  const int wv = min(DMAX, d - c_out);              // and its width
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % B::NRG, h = warp / B::NRG;
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * rg;
+  const int kd = B::kd(wv, h);
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int c_out = blockIdx.z * WD;  // first output column
+  const T* qb = q + base;
+  const T* ob = dout + base;
+  const float* lseb = lse + static_cast<size_t>(bh) * s;
+  const float* dlb = delta + static_cast<size_t>(bh) * s;
 
-  float acc_k[4][4 * G], acc_v[4][4 * G];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  const int nq = (s + BQ - 1) / BQ;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    // q-tiles whose last row sees no key of this k-tile (uniform per block)
-    if (causal && static_cast<long long>(q_off) + q0 + BQ - 1 < static_cast<long long>(kv_off) + k0)
-      continue;
-    float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16j
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-    mma_nt_chunked<WD, ROUND, ROUND>(st, Ks, Qs, k + base, k0, s, 1.f, q + base, q0, s, scale_q,
-                                     d, ty, tx);
-    mma_nt_chunked<WD, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, s, 1.f, dout + base, q0, s, 1.f,
-                                     d, ty, tx);
-    __syncthreads();  // the score products' readers of Qs, dOs are done
-    load_chunk<WD, ROUND>(Qs, q + base, q0, s, d, c_out, scale_q);
-    load_chunk<WD, ROUND>(dOs, dout + base, q0, s, d, c_out, 1.f);
-    if (threadIdx.x < BQ) {
-      const int qp = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = qp < s ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
-      delta_s[threadIdx.x] = qp < s ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qj = tx + 16 * j;
-        const bool vis = causal_visible(q0 + qj, kp, s, causal, q_off, kv_off);
-        const float p = vis ? expf(st[i][j] - lse_s[qj]) : 0.f;
-        Ps[(ty + 16 * i) * LDP + qj] = tier<ROUND>(p);
-        dSs[(ty + 16 * i) * LDP + qj] = tier<ROUND>(p * (dpt[i][j] - delta_s[qj]));
-      }
-    }
-    __syncthreads();
-    mma_nn<WD>(acc_v, Ps, dOs, ty, tx);
-    mma_nn<WD>(acc_k, dSs, Qs, ty, tx);
+  // the first q-tile that holds a query seeing key k0
+  const int nq = (s + W - 1) / W;
+  int qt0 = 0;
+  if (causal) {
+    const long long first = static_cast<long long>(kv_off) + k0 - q_off;
+    qt0 = first <= 0 ? 0 : static_cast<int>(min(static_cast<long long>(nq), first / W));
   }
-
+  mma16::RowStats<W> stat_next;  // the lse and delta of the tile being staged
+  auto stage_q = [&](int qt) {
+    T* dst = QD + ((qt - qt0) % 2) * B::stage;
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst, qb, qt * W, s, d, async_q);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst + W * LDB, ob, qt * W, s, d, async_q);
+    if (async_q) mma16::cp_async_commit();
+    stat_next.load(lseb, dlb, qt * W, s);
+  };
+  auto store_stats = [&](int qt) { stat_next.store(ST + ((qt - qt0) % 2) * 2 * W); };
+  auto scale_q_tile = [&](T* Qb) {
+    mma16::each_staged<NT, DMAX, LDB, W, T>(async_q, [&](int o) {
+      Qb[o] = mma16::from_f32<T>(attn::to_f32(Qb[o]) * scale_q);
+    });
+  };
+  if constexpr (!CHUNK) {
+    if (qt0 < nq) {
+      stage_q(qt0);
+      store_stats(qt0);
+    }
+    mma16::load_q<KT, NT, DMAX, TR::LDQ>(Ks, k + base, k0, s, d, 1.f);
+    mma16::load_q<KT, NT, DMAX, TR::LDQ>(Vs, v + base, k0, s, d, 1.f);
+  }
+  // the first query each of the team's keys g, g + 8 is visible to
+  long long lo[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    lo[hh] = causal ? static_cast<long long>(kv_off) + k0 + wr0 + g + 8 * hh - q_off : 0;
+  }
+  int since = 0;
+  bool banked = false;
   T* dkb = dk + base;
   T* dvb = dv + base;
+  float acc_k[NO][4], acc_v[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= s) continue;
+  for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int c = 0; c < 4; ++c) acc_k[nt][c] = acc_v[nt][c] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * W;
+    // a tile whose queries all lie before the team's first key adds nothing
+    // to it: the whole team skips it
+    const bool skip = causal && static_cast<long long>(q_off) + q0 + W - 1 <
+                                    static_cast<long long>(kv_off) + k0 + wr0;
+    float sp[NN][4], dp[NN][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c_out + 64 * g + 4 * tx + c;
-        if (col < d) {
-          store(&dkb[static_cast<size_t>(kp) * d + col], acc_k[i][4 * g + c]);
-          store(&dvb[static_cast<size_t>(kp) * d + col], acc_v[i][4 * g + c]);
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+    const T* Qb;  // the tile's q (scaled) and do in the block's columns: the pvs' B
+    const float* st = ST;
+    if constexpr (CHUNK) {
+      T* Qc = QD + B::stage;
+      B::scores_chunked(
+          sp, dp, Ks, Vs, QD, X, k + base, v + base, k0, 1.f, qb, ob, q0, scale_q, s, d, async_q,
+          skip, rg, h, wr0, lane,
+          [&] {
+            mma16::stage_rows<NT, DMAX, LDB, W>(Qc, qb + c_out, q0, s, d, async_q, wv);
+            mma16::stage_rows<NT, DMAX, LDB, W>(Qc + W * LDB, ob + c_out, q0, s, d, async_q, wv);
+            stat_next.load(lseb, dlb, q0, s);
+            stat_next.store(ST);
+          },
+          [&] { scale_q_tile(Qc); });
+      if (skip) continue;
+      Qb = Qc;
+    } else {
+      T* Qt = QD + ((qt - qt0) % 2) * B::stage;
+      if (async_q) mma16::cp_async_wait_all();
+      scale_q_tile(Qt);
+      // tile qt is staged, scaled and visible to every warp with its lse and
+      // delta; every reader of the other stage (tile qt - 1) and of the
+      // teams' partials is done
+      __syncthreads();
+      if (qt + 1 < nq) stage_q(qt + 1);
+      Qb = Qt;
+      st = ST + ((qt - qt0) % 2) * 2 * W;
+      if (!skip) {
+        B::partials(sp, dp, Ks, Vs, Qb, Qb + W * LDB, kd, h, wr0, lane);
+        B::team_sum(sp, dp, X, rg, h, lane);
+      }
+    }
+    if (!skip) {
+      auto stat = [&](int, int nt, int c, float& l2, float& dl) {
+        l2 = st[8 * nt + 2 * t + c];
+        dl = st[W + 8 * nt + 2 * t + c];
+      };
+      // every query of the tile is inside s and sees every key of the team
+      const bool full = q0 + W <= s &&
+          (!causal || static_cast<long long>(q_off) + q0 >=
+                          static_cast<long long>(kv_off) + k0 + wr0 + 15);
+      if (full) {
+        mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; });
+      } else {
+        const int qj0 = q0 + 2 * t;
+        mma16::probs_ds<true>(sp, dp, stat, [&](int hh, int nt, int c) {
+          const int qj = qj0 + 8 * nt + c;
+          return qj < s && qj >= lo[hh];
+        });
+      }
+      B::pv(acc_v, sp, Qb + W * LDB, kd, h, lane);
+      B::pv(acc_k, dp, Qb, kd, h, lane);
+      if constexpr (!ROUND) {
+        if (++since == B::FOLD && qt + 1 < nq) {
+          B::bank(dkb, acc_k, banked, k0 + wr0 + g, s, d, c_out, h, t);
+          B::bank(dvb, acc_v, banked, k0 + wr0 + g, s, d, c_out, h, t);
+          since = 0;
+          banked = true;
         }
       }
+    }
+    if (!CHUNK && qt + 1 < nq) store_stats(qt + 1);
   }
+  B::store(dkb, acc_k, banked, k0 + wr0 + g, s, d, c_out, h, t, 1.f);
+  B::store(dvb, acc_v, banked, k0 + wr0 + g, s, d, c_out, h, t, 1.f);
 }
+
+// A kernel of this namespace over tiles of `rows` rows of every (batch,
+// head) and `chunks` chunks of the output, with its shared memory allowed
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, size_t smem, int nt, int bh, int s, int rows, int chunks,
+           cudaStream_t stream, Args... args) {
+  const long long blocks = static_cast<long long>(bh) * ((s + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(static_cast<unsigned>(blocks), 1, chunks), nt, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using tcbwd::async_ok;
+
+// d <= 256: the 256 instance; wider d the 512 instance, above 512 in
+// 512-wide chunks of the output
+template <bool ROUND, typename T, int DMAX>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int bh, int s, int d, float scale_q, float sm_scale,
+              int causal, int q_off, int kv_off, cudaStream_t stream) {
+  using B = mma16::WideDqFor<ROUND, T, DMAX>;
+  const int chunks = (d + DMAX - 1) / DMAX;
+  constexpr bool CHUNKS = DMAX == 512;  // the 256 instance serves d <= 256 alone
+  // the chunks also stage q and do by cp.async
+  const bool async = async_ok<T>(d, k, v) && (chunks == 1 || async_ok<T>(d, q, dout));
+  // dq streams no lse or delta: its shared memory ends at stat_off
+  return launch(chunks > 1 ? flash_dq_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                           : flash_dq_wide_tc_kernel<ROUND, T, DMAX, false>,
+                B::stat_off, B::NT, bh, s, B::RT, chunks, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<T*>(dq), bh, s, d, scale_q, sm_scale, causal, q_off, kv_off,
+                static_cast<int>(async));
+}
+
+template <bool ROUND, typename T, int DMAX>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int bh, int s, int d, float scale_q,
+               int causal, int q_off, int kv_off, cudaStream_t stream) {
+  using B = mma16::WideDkvFor<ROUND, T, DMAX>;
+  const int chunks = (d + DMAX - 1) / DMAX;
+  constexpr bool CHUNKS = DMAX == 512;
+  // the chunks also stage k and v by cp.async
+  const bool async = async_ok<T>(d, q, dout) && (chunks == 1 || async_ok<T>(d, k, v));
+  return launch(chunks > 1 ? flash_dkv_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                           : flash_dkv_wide_tc_kernel<ROUND, T, DMAX, false>,
+                B::bytes, B::NT, bh, s, B::RT, chunks, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<T*>(dk), static_cast<T*>(dv), bh, s, d, scale_q, causal, q_off,
+                kv_off, static_cast<int>(async));
+}
+
+}  // namespace widebwd
 
 bool bad_shape(int bh, int s, int d) {
   return bh <= 0 || s <= 0 || d <= 0 || bh > 65535 ||
@@ -1005,7 +1197,8 @@ int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse, i
   }
 }
 
-// d <= 128: the tensor-core backward; wider d: the FFMA WIDE instances.
+// d <= 128: the tensor-core backward; wider d: the teams of the wide
+// tensor-core backward.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, int bh, int s, int d, float scale_q, float sm_scale,
@@ -1014,12 +1207,12 @@ int dq_typed(const void* q, const void* k, const void* v, const void* dout, cons
     return tcbwd::launch_dq<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dq, bh, s, d, scale_q,
                                             sm_scale, causal, q_off, kv_off, stream);
   } else {
-    const dim3 grid((s + BQ - 1) / BQ, bh, out_chunks<WD, true>(d));
-    return launch(flash_dq_wide_kernel<ROUND, T>, dq_wide_smem, grid, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dq), s, d, scale_q, sm_scale,
-                  causal, q_off, kv_off);
+    if (d <= 256) {
+      return widebwd::launch_dq<ROUND, T, 256>(q, k, v, dout, lse, delta, dq, bh, s, d, scale_q,
+                                               sm_scale, causal, q_off, kv_off, stream);
+    }
+    return widebwd::launch_dq<ROUND, T, 512>(q, k, v, dout, lse, delta, dq, bh, s, d, scale_q,
+                                             sm_scale, causal, q_off, kv_off, stream);
   }
 }
 
@@ -1031,12 +1224,12 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout, con
     return tcbwd::launch_dkv<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dk, dv, bh, s, d,
                                              scale_q, causal, q_off, kv_off, stream);
   } else {
-    const dim3 grid((s + BK - 1) / BK, bh, out_chunks<WD, true>(d));
-    return launch(flash_dkv_wide_kernel<ROUND, T>, dkv_wide_smem, grid, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s,
-                  d, scale_q, causal, q_off, kv_off);
+    if (d <= 256) {
+      return widebwd::launch_dkv<ROUND, T, 256>(q, k, v, dout, lse, delta, dk, dv, bh, s, d,
+                                                scale_q, causal, q_off, kv_off, stream);
+    }
+    return widebwd::launch_dkv<ROUND, T, 512>(q, k, v, dout, lse, delta, dk, dv, bh, s, d,
+                                              scale_q, causal, q_off, kv_off, stream);
   }
 }
 

@@ -21,16 +21,16 @@ Contracts carried over (l.207-308, l.618-734):
     skipped; keys at or past s are masked, as are padded q rows in the
     backward;
   - tiers: 'high' and 'highest' are fp32-class, never one TF32 pass:
-    3xTF32 on the tensor cores, and fp32 FFMA in the backward at d > 128.
+    3xTF32 on the tensor cores.
     'default' on fp32 inputs stores the pre-scaled q, k, v (and do) as bf16
     and rounds p (forward) and dS (dq, dk) to bf16 before their products,
     with fp32 sums (on bf16 tensor cores where 3xTF32 would run); bf16
     inputs do so in every tier (the TPU's non-3-pass tiers cast p and dS to
     the operands' type).
   - d is taken as it is, any size (the TPU wrapper padded it to a multiple
-    of 128). The forward above 128 runs teams of warps that split d into
-    128-wide slices, above 512 in 512-wide output chunks; the backward
-    kernels run d above 128 in 128-wide chunks.
+    of 128). Above 128 the forward and the backward run teams of warps
+    that split d into slices (the forward's 128 wide, the backward's 64),
+    above 512 in 512-wide output chunks.
 
 One deliberate difference: a row that sees no key (reachable only through
 the offsets, e.g. causal with kv_offset > q_offset) gets o = 0,
@@ -51,8 +51,10 @@ the calibration file's 'flash_tiles' section for this card, read once into
 and are accepted and ignored, as JAX's callers pass them. The backward
 kernels and d > 128 keep tiles of their own (the forward's teams at d >
 128: 64 rows by 32 keys up to d 256, 32 by 16 above; the backward's 128-row
-A tiles and W-row streamed tiles, 64 by 64 at d > 128): JAX's backward
-shares the forward's key (flash_attention.py:602), the port's does not.
+A tiles and W-row streamed tiles, and its teams at d > 128: 32 rows by 32
+keys (dq) or 16 queries (dk/dv) up to d 256, 16 by 16 above): JAX's
+backward shares the forward's key (flash_attention.py:602), the port's
+does not.
 
 The serving tier's attention over an int8 K/V cache (l.1415-1591):
 `quantize_kv` and `flash_attention_q8` keep their signatures, and the TPU
