@@ -410,7 +410,8 @@ FLASH_LIMIT_ROUNDED = 1e-2
 # blk_flash_fwd and the whole-row naive_spmm, both behind a sleep; the FFMA
 # block_ell_spmm and sddmm; the FFMA blk_flash_dq and blk_flash_dkv,
 # queued; the FFMA batched and compact executors; the FFMA forwards at d
-# 256, queued; the FFMA flash_dq and flash_dkv at d 256, queued), ms,
+# 256, queued; the FFMA flash_dq and flash_dkv, and blk_flash_dq and
+# blk_flash_dkv, at d 256, queued), ms,
 # measured by this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md:
 # its kernel table, rows 1-11, 13-19, §5 for bert4d's dA, and an earlier
 # run for the seq-4096 shape);
@@ -430,7 +431,8 @@ OLD_MS = {"flash_q8 (8, 16, 512, 64)": 0.292, "flash_q8 (2, 12, 4096, 64)": 4.79
           "resident_spmm_batched bert4d": 5.962, "compact_spmm headline": 1.501,
           "compact_spmm low-fill": 2.882, "flash_fwd d 256 high": 0.573,
           "blk_flash_fwd d 256 high": 0.428, "flash_dq d 256": 0.8606,
-          "flash_dkv d 256": 1.0665}
+          "flash_dkv d 256": 1.0665, "blk_flash_dq d 256": 0.7430,
+          "blk_flash_dkv d 256": 0.8159}
 SHARED_TILE_MS = {"footprint_spmm headline": 1.160, "footprint_spmm low-fill": 0.868}
 BERT = dict(hidden=768, num_heads=12, intermediate=3072)  # BERT-base
 BERT_BATCH = 8
@@ -1142,6 +1144,93 @@ def phase_bert_card_vs_cpu(attention="flash", seq=128, method=None) -> None:
           f"max_abs_err {err:.3e} (ok)")
 
 
+def phase_wide_bigbird() -> dict:
+    """`BigBirdAttention` at WIDE_BIGBIRD's widths, batch and seq, from one
+    seed on the card and on the CPU (the card's module loaded from the CPU
+    module's state dict): the forward, then the backward of one upstream
+    gradient, with the launch counts set to 0 just before and read just
+    after (1 blk_flash_fwd, 1 blk_flash_dq, 1 blk_flash_dkv and no other
+    kernel); the output and the input's gradient on the card against the
+    CPU at the fp32 tier; then the step's time on the card, a profile of
+    the step (its block kernels' share of the device time) and the three
+    block kernels alone at the step's shape. Returns the launches."""
+    import tpusparse_torch as tt
+    from tpusparse_torch import kernels
+
+    cfg = WIDE_BIGBIRD
+    b, s = cfg["batch"], cfg["seq"]
+    mods = {"cpu": tt.BigBirdAttention(cfg["num_heads"], cfg["head_dim"], block=cfg["block"],
+                                       hidden=cfg["hidden"], device="cpu",
+                                       generator=torch.Generator().manual_seed(26))}
+    mods["cuda"] = tt.BigBirdAttention(cfg["num_heads"], cfg["head_dim"], block=cfg["block"],
+                                       hidden=cfg["hidden"], device="cuda")
+    mods["cuda"].load_state_dict(mods["cpu"].state_dict())
+    rng = np.random.default_rng(26)
+    x, g = (torch.from_numpy(rng.standard_normal((b, s, cfg["hidden"]), dtype=np.float32))
+            for _ in range(2))
+    plan = mods["cuda"].plan(s)  # drawn once, on the host
+    xs = {d: x.detach().to(d).requires_grad_(True) for d in mods}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = mods["cuda"](xs["cuda"])
+    out.backward(g.cuda())
+    torch.cuda.synchronize()
+    counts = _launches()
+    expect = {**NO_LAUNCH, "blk_flash_fwd": 1, "blk_flash_dq": 1, "blk_flash_dkv": 1}
+    if counts != expect:
+        raise AssertionError(f"wide bigbird attention: launches {counts}, expected {expect}")
+    want = mods["cpu"](xs["cpu"])
+    want.backward(g)
+    label = (f"wide bigbird attention (hidden {cfg['hidden']}, {cfg['num_heads']} heads of "
+             f"{cfg['head_dim']}, block {cfg['block']}, batch {b}, seq {s}; "
+             f"{plan.covered_tiles} of {plan.nq * plan.nk} tiles)")
+    errs = {}
+    for name, got_, want_ in (("output", out, want), ("input grad", xs["cuda"].grad,
+                                                       xs["cpu"].grad)):
+        got_ = got_.detach().cpu()
+        errs[name] = float((got_ - want_.detach()).abs().max())
+        if not (got_.shape == want_.shape and bool(torch.isfinite(got_).all())
+                and torch.allclose(got_, want_.detach(), **TOL_FP32)):
+            raise AssertionError(f"{label}: card vs CPU {name} max_abs_err {errs[name]:.3e}")
+    gc = g.cuda()
+
+    def step():
+        xs["cuda"].grad = None
+        mods["cuda"](xs["cuda"]).backward(gc)
+
+    ms = time_ms(step)
+    print(f"{label}: launches {json.dumps(_only(counts, BLK))}; card vs CPU max_abs_err "
+          f"output {errs['output']:.3e}, input grad {errs['input grad']:.3e} (rtol "
+          f"{TOL_FP32['rtol']}, atol {TOL_FP32['atol']}), ok; forward + backward {ms:.4f} ms")
+    # where the step's device time goes, and the three block kernels alone at
+    # the step's own shape and plan
+    by_name = _profile(label, step, 3, top=10)
+    blk_ms = sum(t for n_, t in by_name.items() if "blk_" in n_)
+    if by_name:
+        busy = sum(by_name.values())
+        print(f"{label}: device busy {busy:.4f} ms a step, its block kernels {blk_ms:.4f} ms "
+              f"({blk_ms / busy:.1%}), the rest {busy - blk_ms:.4f} ms")
+    _bigbird_kernels_alone(label, (b * cfg["num_heads"], s, cfg["head_dim"]), plan)
+    return _only(counts, BLK)
+
+
+def _bigbird_kernels_alone(label, shape, plan) -> None:
+    """blk_flash_fwd, blk_flash_dq and blk_flash_dkv queued at `shape` on
+    `plan` in the module's tier, on operands from a seed."""
+    from tpusparse_torch.kernels import block_flash_attention as bfa
+
+    q, k, v, do = _flash_operands(shape, 1600)
+    kw = dict(sm_scale=1 / shape[-1] ** 0.5, precision=bfa.resolve_precision(None))
+    o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
+    args = (q, k, v, do, lse, _delta(do, o), plan)
+    ms = {"blk_flash_fwd": time_ms_queued(lambda: bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)),
+          "blk_flash_dq": time_ms_queued(lambda: bfa.blk_flash_dq_kernel(*args, **kw)),
+          "blk_flash_dkv": time_ms_queued(lambda: bfa.blk_flash_dkv_kernel(*args, **kw))}
+    print(f"{label}: the block kernels alone at {shape} fp32 '{kw['precision']}', queued: "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items())
+          + f"; together {sum(ms.values()):.4f} ms")
+
+
 def _sdpa_backend(q, k, v, attn_mask=None):
     """The first SDPA backend, in the order flash, efficient, cudnn, math,
     that takes these fp32 inputs (and this mask)."""
@@ -1436,12 +1525,13 @@ def phase_bert_profile(seq: int = 512, steps: int = 3) -> None:
                  lambda: tt.bert_train_step(layer, opt, x), steps)
 
 
-def _profile(label, step, steps, top=8) -> None:
+def _profile(label, step, steps, top=8) -> dict:
     """torch.profiler over `steps` calls of `step`, after one call that the
     profiler runs but does not record (its schedule's warm-up; without it
     the first recorded call can lose its kernels): the device's busy and
     idle share of the span from the first to the last kernel, and the
-    kernels that take the most time."""
+    kernels that take the most time. Returns each kernel's ms a step by
+    name (empty where no device time was recorded)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -1457,7 +1547,7 @@ def _profile(label, step, steps, top=8) -> None:
                and not e.name.startswith("ProfilerStep")]  # the schedule's step spans
     if not kernels:
         print(f"profile {label}: no device time recorded")
-        return
+        return {}
     busy = sum(e.time_range.end - e.time_range.start for e in kernels)
     span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
     print(f"profile {label}, {steps} steps: {len(kernels)} kernels, device busy "
@@ -1468,6 +1558,7 @@ def _profile(label, step, steps, top=8) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
     for name_, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {t / 1e3 / steps:.4f} ms/step ({t / busy:.1%}) {name_[:90]}")
+    return {n: t / 1e3 / steps for n, t in by_name.items()}
 
 
 def phase_pattern_paths():
@@ -2408,6 +2499,10 @@ NAIVE_TIMING_N = (256, 40)
 NAIVE_STRIP_SWEEP = (16, 32, 64)
 # attention kernels at a head dim above 128: (b, h, s, d)
 WIDE_SHAPE = (2, 8, 512, 256)
+# BigBirdAttention at Gemma-7B's attention widths (google/gemma-7b
+# config.json: hidden_size 3072, num_attention_heads 16, head_dim 256),
+# block 64 with the module's default window, global and random blocks
+WIDE_BIGBIRD = dict(hidden=3072, num_heads=16, head_dim=256, block=64, batch=2, seq=512)
 
 
 def kernels_reset() -> None:
@@ -2480,10 +2575,11 @@ def phase_small_wide_attention() -> None:
     320 and 330 (off 16 bytes; beyond one 256-wide accumulator), 384 at s
     512 (the wide backward's bank folds once) and 640 (512-wide chunks of
     o; also at s 1100); the block kernels on a 'bigbird' plan at d 136,
-    192, 256, 320, 330 and 640, a mask-free plan of 1024 keys a row and a
-    band plan with rows that see no key; flash_q8; fp32 'high', fp32
-    'default' and bf16; the existing limits. Each forward, and the flash
-    backward, is run twice and must repeat bit for bit."""
+    192, 256, 320, 330 and 640, a mask-free plan of 1024 keys a row at d 256,
+    384 and 640, and a band plan with rows that see no key at d 256, 320 and
+    640; flash_q8; fp32 'high', fp32
+    'default' and bf16; the existing limits. Each forward and each backward
+    is run twice and must repeat bit for bit."""
     import tpusparse_torch as tt
     from tpusparse_torch.kernels import block_flash_attention as bfa
     from tpusparse_torch.kernels import flash_attention as fa
@@ -2509,6 +2605,12 @@ def phase_small_wide_attention() -> None:
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{label}: {what} does not repeat bit for bit")
 
+    def check_blk_repeat(label, q, k, v, do, bplan, bkw, got):
+        check_repeat(label, got[:2], bfa.blk_flash_fwd_kernel(q, k, v, bplan, **bkw))
+        bwd = (q, k, v, do, got[1], _delta(do, got[0]), bplan)
+        check_repeat(label, got[2:], (bfa.blk_flash_dq_kernel(*bwd, **bkw),
+                                      *bfa.blk_flash_dkv_kernel(*bwd, **bkw)), "the backward")
+
     for seed, (name, shape, causal, q_off, kv_off) in enumerate(cases):
         for dtype, prec in tiers:
             q, k, v, do = _flash_operands(shape, 1200 + seed, dtype)
@@ -2533,8 +2635,9 @@ def phase_small_wide_attention() -> None:
                 bkw = dict(sm_scale=1 / d ** 0.5, precision=prec)
                 got, want = _blk_pair(q, k, v, do, plan, bkw)
                 label = f"blk_bigbird_256_b64_d{d}_{tag}"
-                check_repeat(label, got[:2], bfa.blk_flash_fwd_kernel(q, k, v, plan, **bkw))
-                _check_attention_case(label, got, want, rounded, ", o/lse repeat bitwise")
+                check_blk_repeat(label, q, k, v, do, plan, bkw, got)
+                _check_attention_case(label, got, want, rounded,
+                                      ", o/lse and dq/dk/dv repeat bitwise")
         q, k, v, _ = _flash_operands(shape, 1250 + seed)
         kq, ks, vq, vs = fa.quantize_kv(k, v)
         kw = dict(sm_scale=1 / shape[-1] ** 0.5, causal=causal, q_offset=q_off,
@@ -2555,22 +2658,30 @@ def phase_small_wide_attention() -> None:
     ind, ptr = tt.local_global_pattern(256, 20, 3)
     blind_plan = tt.BlockAttnPlan.from_token_pattern(ind, ptr, 256, 64, 64)
     blind_plan.tile_masks[blind_plan.L:2 * blind_plan.L, 70 - 64:90 - 64] = 0
+    # (also on the 512 instance and in its chunks, where the backward's masks
+    # are staged beside dk/dv's sub-tiles and held in dq's registers, and the
+    # backward's bank folds there too)
+    maskfree = tt.BlockAttnPlan(np.ones((16, 16), bool), 64, 64, 1024)
     for seed, (name, bplan, d) in enumerate((
-            ("maskfree_1024_b64", tt.BlockAttnPlan(np.ones((16, 16), bool), 64, 64, 1024), 256),
-            ("blind_rows_256_b64", blind_plan, 256))):
+            ("maskfree_1024_b64", maskfree, 256),
+            ("blind_rows_256_b64", blind_plan, 256), ("blind_rows_256_b64", blind_plan, 320),
+            ("blind_rows_256_b64", blind_plan, 640), ("maskfree_1024_b64", maskfree, 384),
+            ("maskfree_1024_b64", maskfree, 640))):
         for dtype, prec in tiers:
             q, k, v, do = _flash_operands((1, bplan.seq, d), 1280 + seed, dtype)
             tag = f"{str(dtype).split('.')[1]}_{prec}"
             bkw = dict(sm_scale=1 / d ** 0.5, precision=prec)
             got, want = _blk_pair(q, k, v, do, bplan, bkw)
             label = f"blk_{name}_d{d}_{tag}"
-            check_repeat(label, got[:2], bfa.blk_flash_fwd_kernel(q, k, v, bplan, **bkw))
+            check_blk_repeat(label, q, k, v, do, bplan, bkw, got)
             _check_attention_case(label, got, want, dtype == torch.bfloat16 or prec == "default",
-                                  ", o/lse repeat bitwise")
+                                  ", o/lse and dq/dk/dv repeat bitwise")
             blind = ~bplan.token_mask(q.device).any(-1)
             if not (torch.count_nonzero(got[0][:, blind]) == 0
+                    and torch.count_nonzero(got[2][:, blind]) == 0
                     and bool((got[1][:, blind] == -1e30).all())):
-                raise AssertionError(f"{label}: rows that see no key are not 0, -1e30")
+                raise AssertionError(f"{label}: rows that see no key are not o = dq = 0, "
+                                     "lse = -1e30")
 
 
 def _graph_task(cfg, seed):
@@ -2907,8 +3018,8 @@ def phase_wide_timings() -> None:
     """The seven attention entry points at (b, h, s, d) = WIDE_SHAPE, fp32
     'high' (flash_q8 at its own tier): kernel against plain and bound, SDPA
     as the yardstick (the block kernels' with the token-exact mask; its
-    autograd backward behind a sleep); then the two forwards and the flash
-    backward in fp32 'default' and on bf16 operands."""
+    autograd backward behind a sleep); then the two forwards and both
+    backwards in fp32 'default' and on bf16 operands."""
     from torch.nn.attention import sdpa_kernel
 
     import tpusparse_torch as tt
@@ -3018,6 +3129,8 @@ def phase_wide_timings() -> None:
               f" {lib_ms:.4f} ms")
     _wide_forward_tiers(q, k, v, plan, mask, work)
     _flash_bwd_times("wide", q, k, v, do, WIDE_SHAPE)
+    _blk_bwd_tiers("wide", WIDE_SHAPE, q, k, v, do, plan,
+                   {n: work[f"blk_flash_{n}"][:2] for n in ("dq", "dkv")}, {})
     print(f"d {d} kernel vs plain over scale: flash " + ", ".join(
         f"{n} {e:.2e}" for n, e in errs.items()) + "; block " + ", ".join(
         f"{n} {e:.2e}" for n, e in berrs.items()) + f"; flash_q8 o {q8_err:.2e}")
@@ -5828,6 +5941,7 @@ def main() -> int:
     blk_launches, bb_enc, bb_ids = run_phase("pattern paths", phase_pattern_paths)
     run_phase("bigbird card vs cpu", phase_bert_card_vs_cpu, "bigbird", 512)
     run_phase("sparse card vs cpu", phase_bert_card_vs_cpu, "sparse", 512, "blockflash")
+    wide_bb = run_phase("wide bigbird attention", phase_wide_bigbird)
     int8_r = run_phase("int8 serving", phase_int8_serving, a, b, c)
     run_phase("gpt serving", phase_gpt_serving)
     cora = _graph_task(CORA, 30)
@@ -5852,7 +5966,7 @@ def main() -> int:
     gpt_train = run_phase("gpt training", phase_gpt_training)
     slice_launches = {kn: calib_counts[kn] + rigl_counts[kn] + patch_counts[kn]
                       + gpt_train["launches"][kn] + par_counts.get(kn, 0)
-                      + pm_counts.get(kn, 0) for kn in NO_LAUNCH}
+                      + pm_counts.get(kn, 0) + wide_bb.get(kn, 0) for kn in NO_LAUNCH}
 
     # -- timings: block_ell_spmm at the headline -------------------------------
     kernel_ms = time_ms(lambda: resident_spmm_kernel(plan, bv, b))

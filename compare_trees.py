@@ -46,11 +46,9 @@ gemm_s8      the int8 GEMM's entry point (`gemm_int8_kernel`: int8_kmajor
              activation panels), at the ragged (4100, 4100, 4100) and at
              (4096, 4112, 4096) (k a multiple of 16, not of 128: A read as
              stored, its rows off 128-byte lines); in a tree that has them,
-             also int8_kmajor alone behind a sleep, the kernel alone
-             (`_gemm_s8_launch` on B already K-major) and the kernel alone
-             built from the tree's csrc/gemm_s8.cu with its tile width or
-             grid fixed (GEMM_S8_VARIANTS, compiled into the tree's
-             build/probes/); the host's microseconds a call at n 8 and 64
+             also int8_kmajor alone behind a sleep and the kernel alone
+             (`_gemm_s8_launch` on B already K-major); the host's
+             microseconds a call at n 8 and 64
              (the entry point, and in a tree that has them int8_kmajor and
              the kernel alone), enqueued behind a sleep so the card never
              holds the host back; then the int8 headline's entry point (the
@@ -69,14 +67,21 @@ flash_wide_backward
              flash_dkv at WIDE_SHAPE's (b, h, s) with d 256, 384, 512 and 640
              (512-wide chunks of the output), in fp32 'high', fp32 'default'
              and on bf16 operands, by `chip_smoke.time_ms_queued`, each with
-             a SHA-256 of its outputs; first the digests of the kernels it
-             must leave alone: flash_dq/flash_dkv and blk_flash_dq/
-             blk_flash_dkv ('bigbird', window 64) at (96, 512, 64), and at
-             WIDE_SHAPE flash_fwd, blk_flash_fwd and blk_flash_dq/
-             blk_flash_dkv, in the three tiers. Every output is held against
-             the plain version (printed with the limit it is within), and in
-             fp32 'high' the kernel's and the plain version's dq, dk and dv
-             against float64."""
+             a SHA-256 of its outputs and its bound (3xTF32 in 'high', else
+             the bf16 tensor cores), beside SDPA's autograd backward behind a
+             sleep (fp32 for 'high', bf16 for the other two); first the
+             digests of the kernels it must leave alone: flash_dq/flash_dkv
+             and blk_flash_dq/blk_flash_dkv ('bigbird', window 64) at (96,
+             512, 64), and at WIDE_SHAPE flash_fwd, blk_flash_fwd and
+             blk_flash_dq/blk_flash_dkv, in the three tiers. Every output is
+             held against the plain version (printed with the limit it is
+             within), and in fp32 'high' the kernel's and the plain
+             version's dq, dk and dv against float64.
+block_wide_backward
+             the same for blk_flash_dq and blk_flash_dkv on 'bigbird',
+             window 64 (SDPA with the plan's token mask), after the same
+             digests at d 64 and, at WIDE_SHAPE, of flash_fwd, blk_flash_fwd
+             and flash_dq/flash_dkv."""
 import os
 import sys
 
@@ -196,57 +201,6 @@ def flash_backward(name, cs, tt):
 
 GEMM_S8_SHAPES = ((4096, 4096, 4096), (4096, 4096, 8), (4096, 4096, 64), (4096, 4096, 512),
                   (4100, 4100, 4100), (4096, 4112, 4096))
-# csrc/gemm_s8.cu's text that fixes the tile width or the grid, and the
-# variants timed beside the kernel: (label, [(text, replacement)])
-_TILE_N = "int tile_n(int m, int n, int sms) {"
-_GRID = "const long long clusters = most < units ? most : units;"
-GEMM_S8_VARIANTS = (
-    ("128 x 256 persistent", [(_TILE_N, _TILE_N + "\n  return 256;")]),
-    ("128 x 256 a tile a block", [(_TILE_N, _TILE_N + "\n  return 256;"),
-                                  (_GRID, "const long long clusters = units;")]),
-    ("128 x 128 persistent", [(_TILE_N, _TILE_N + "\n  return 128;")]),
-)
-
-
-def _gemm_s8_variants(tree):
-    """{label: the C entry point gemm_s8} of each of GEMM_S8_VARIANTS, built
-    from `tree`'s csrc/gemm_s8.cu by parallel nvcc runs into its
-    build/probes/."""
-    import ctypes
-    import hashlib
-    import subprocess
-    from pathlib import Path
-
-    from tpusparse_torch.kernels import _build
-
-    src = (_build.CSRC / "gemm_s8.cu").read_text()
-    out = Path(tree) / "build" / "probes"
-    out.mkdir(parents=True, exist_ok=True)
-    libs, procs = {}, []
-    for label, subs in GEMM_S8_VARIANTS:
-        text = src
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise SystemExit(f"gemm_s8.cu: {old!r} is not there once")
-            text = text.replace(old, new)
-        tag = hashlib.sha256(text.encode()).hexdigest()[:12]
-        cu, so = out / f"gemm_s8_{tag}.cu", out / f"libgemm_s8_{tag}.so"
-        if not so.exists():
-            cu.write_text(text)
-            procs.append(subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                                           str(_build.CSRC), "-o", str(so), str(cu)],
-                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-        libs[label] = so
-    for proc in procs:
-        if proc.wait() != 0:
-            raise SystemExit(f"nvcc failed:\n{proc.stdout.read().decode()}")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fns = {}
-    for label, so in libs.items():
-        fn = ctypes.CDLL(str(so)).gemm_s8
-        fn.restype, fn.argtypes = i, [p] * 3 + [i] * 6 + [p]
-        fns[label] = fn
-    return fns
 
 
 def gemm(name, cs, tt):
@@ -302,8 +256,6 @@ def gemm_s8(name, cs, tt):
 
     rng = np.random.default_rng(19)
     redesigned = hasattr(gk, "_gemm_s8_launch")
-    variants = _gemm_s8_variants(name) if redesigned else {}
-    stream = torch.cuda.current_stream().cuda_stream
     for m, k, n in GEMM_S8_SHAPES:
         a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
         b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).cuda()
@@ -316,16 +268,7 @@ def gemm_s8(name, cs, tt):
             t = cs.time_ms_queued(lambda: gk._gemm_s8_launch(a_k, bt, k))
             line += (f"; int8_kmajor {kt:.4f} ms behind a sleep; the kernel alone at 128 x "
                      f"{gk._s8_tile_n(m, n)} {t:.4f}")
-            want = gk._gemm_s8_launch(a_k, bt, k)
-            c = torch.empty_like(want)
-            args = (a_k.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n, k, a_k.shape[1],
-                    bt.shape[1], 0, stream)
-            for label, fn in variants.items():
-                if fn(*args) != 0 or not torch.equal(c, want):
-                    raise SystemExit(f"gemm_s8 variant {label} failed or disagrees")
-                t = cs.time_ms_queued(lambda: fn(*args))
-                line += f", {label} {t:.4f}"
-            del bt, a_k, want, c
+            del bt, a_k
         print(line, flush=True)
         if n in (8, 64):
             line = (f"{name} gemm_s8 ({m}, {k}, {n}) host us a call: entry point "
@@ -384,13 +327,16 @@ def flash_wide_forward(name, cs, tt):
             del q, k, v
 
 
-def flash_wide_backward(name, cs, tt):
+def _wide_backward(name, cs, tt, block):
+    """flash_wide_backward (`block` False) and block_wide_backward (True)."""
     import hashlib
 
     import torch
+    from torch.nn.attention import sdpa_kernel
 
     from tpusparse_torch.kernels import block_flash_attention as bfa
     from tpusparse_torch.kernels import flash_attention as fa
+    from tpusparse_torch.utils.config import fp32_matmul
 
     def digest(*ts):
         h = hashlib.sha256()
@@ -400,12 +346,13 @@ def flash_wide_backward(name, cs, tt):
 
     tiers = ((torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"))
     b, h, s, _ = cs.WIDE_SHAPE
-    bplans = {n: tt.BlockAttnPlan(tt.bigbird_block_mask(n, cs.PATTERN_WINDOW), cs.PATTERN_WINDOW,
-                                  cs.PATTERN_WINDOW, n) for n in {512, s}}
+    plans = {n: tt.BlockAttnPlan(tt.bigbird_block_mask(n, cs.PATTERN_WINDOW), cs.PATTERN_WINDOW,
+                                 cs.PATTERN_WINDOW, n) for n in {512, s}}
 
     def backward(q, k, v, do, kw, plan=None):
         """(flash or block) forward, then dq and (dk, dv) and their runs"""
         if plan is None:
+            kw = dict(kw, causal=False)
             o, lse = fa.flash_fwd_kernel(q, k, v, **kw)
             args = (q, k, v, do, lse, cs._delta(do, o))
             return (o, lse), args, (lambda: fa.flash_dq_kernel(*args, **kw),
@@ -415,53 +362,104 @@ def flash_wide_backward(name, cs, tt):
         return (o, lse), args, (lambda: bfa.blk_flash_dq_kernel(*args, **kw),
                                 lambda: bfa.blk_flash_dkv_kernel(*args, **kw))
 
+    # the digests of the kernels this group must leave alone: both backwards
+    # at d 64, both forwards and the other backward at WIDE_SHAPE
     for label, shape, d in (("(96, 512, 64)", (96, 512, 64), 64),
                             (f"{cs.WIDE_SHAPE}", (b * h, s, cs.WIDE_SHAPE[-1]),
                              cs.WIDE_SHAPE[-1])):
         for dtype, prec in tiers:
             q, k, v, do = cs._flash_operands(shape, 1500 + d, dtype)
             kw = dict(sm_scale=1 / d ** 0.5, precision=prec)
-            plan = bplans[shape[1]]
-            fwd, _, (dq, dkv) = backward(q, k, v, do, dict(kw, causal=False))
-            bfwd, _, (bdq, bdkv) = backward(q, k, v, do, kw, plan)
+            fwd, _, (dq, dkv) = backward(q, k, v, do, kw)
+            bfwd, _, (bdq, bdkv) = backward(q, k, v, do, kw, plans[shape[1]])
             line = f"{name} digests {label} {str(dtype)[6:]} '{prec}': "
             if d == 64:
                 line += (f"flash dq+dk+dv {digest(dq(), *dkv())}, "
                          f"blk dq+dk+dv {digest(bdq(), *bdkv())}")
             else:
+                other, (odq, odkv) = ("flash", (dq, dkv)) if block else ("blk", (bdq, bdkv))
                 line += (f"flash_fwd o+lse {digest(*fwd)}, blk_flash_fwd o+lse {digest(*bfwd)}, "
-                         f"blk dq+dk+dv {digest(bdq(), *bdkv())}")
+                         f"{other} dq+dk+dv {digest(odq(), *odkv())}")
             print(line, flush=True)
             del q, k, v, do, fwd, bfwd
 
+    plan = plans[s] if block else None
+    kind = "blk_flash" if block else "flash"
+    plain = ((bfa._blk_dq_plain, bfa._blk_dkv_plain) if block
+             else (fa._flash_dq_plain, fa._flash_dkv_plain))
+    f64 = cs._blk_bwd_f64 if block else cs._flash_bwd_f64
+    bh = b * h
+    entries = float(bh * (plan.covered_tiles * plan.block_q * plan.block_k if block else s * s))
+    mask = plan.token_mask("cuda") if block else None
     for d in (cs.WIDE_SHAPE[-1], 384, 512, 640):
+        # (flops, bytes) of dq and dk/dv: each input read once, each output
+        # written once
+        qkv, stat = 4.0 * bh * s * d, 4.0 * bh * s
+        work = {"dq": (6 * entries * d, 5 * qkv + 2 * stat),
+                "dkv": (8 * entries * d, 6 * qkv + 2 * stat)}
+        sdpa_ms = {}  # SDPA's autograd backward behind a sleep, by operand type
         for dtype, prec in tiers:
-            q, k, v, do = cs._flash_operands((b * h, s, d), 1300, dtype)
-            kw = dict(sm_scale=1 / d ** 0.5, causal=False, precision=prec)
-            _, args, (dq, dkv) = backward(q, k, v, do, kw)
-            got, want = cs._flash_pair(q, k, v, do, kw)
-            err = max(cs.rel_err(g_, w_)[1] for g_, w_ in zip(got[2:], want[2:]))
+            q, k, v, do = cs._flash_operands((bh, s, d), 1300, dtype)
+            kw = dict(sm_scale=1 / d ** 0.5, precision=prec)
+            _, args, (dq, dkv) = backward(q, k, v, do, kw, plan)
+            pkw = kw if block else dict(kw, causal=False)
+            got = (dq(), *dkv())
+            want = (plain[0](*args, **pkw), *plain[1](*args, **pkw))
+            err = max(cs.rel_err(g_, w_)[1] for g_, w_ in zip(got, want))
             high = dtype == torch.float32 and prec == "high"
             limit = cs.FLASH_LIMIT_FP32 if high else cs.FLASH_LIMIT_ROUNDED
             witness = ""
             if high:  # which side is farther from float64: kernel, plain
-                f64 = cs._flash_bwd_f64(*args, sm_scale=kw["sm_scale"])
+                ref = f64(*args, sm_scale=kw["sm_scale"])
                 witness = "; over scale vs float64 (kernel, plain) " + ", ".join(
                     f"{n} {cs.rel_err(g_, w_)[1]:.2e} {cs.rel_err(p_, w_)[1]:.2e}"
-                    for n, g_, p_, w_ in zip(("dq", "dk", "dv"), got[2:], want[2:], f64))
-                del f64
+                    for n, g_, p_, w_ in zip(("dq", "dk", "dv"), got, want, ref))
+                del ref
+            sha = digest(got[0]), digest(*got[1:])
             del got, want
             dq_ms, dkv_ms = cs.time_ms_queued(dq), cs.time_ms_queued(dkv)
-            print(f"{name} {(b, h, s, d)} {str(dtype)[6:]} '{prec}': flash_dq {dq_ms:.4f} ms, "
-                  f"sha256 {digest(dq())}; flash_dkv {dkv_ms:.4f} ms, sha256 {digest(*dkv())}; "
-                  f"pair {dq_ms + dkv_ms:.4f}; dq/dk/dv vs plain {err:.2e} (limit {limit:.0e}"
+            bounds = {}
+            for n, (flops, nbytes) in work.items():
+                if high:
+                    bounds[n] = f"{cs.bound_fp32(flops, nbytes)[0]:.4f} ms 3xTF32"
+                else:
+                    if dtype == torch.bfloat16:  # q, k, v, do and the outputs in 2 bytes
+                        nbytes -= (5 if n == "dq" else 6) * 2.0 * bh * s * d
+                    bounds[n] = f"{cs.bound(flops, nbytes, cs.BF16_FLOPS)[0]:.4f} ms bf16"
+            lib_dtype = torch.float32 if high else torch.bfloat16
+            if lib_dtype not in sdpa_ms:
+                b4 = [t.to(lib_dtype).view(b, h, s, d).detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                do4 = do.to(lib_dtype).view(b, h, s, d)
+                backend = cs._sdpa_backend(*b4, mask)
+                with sdpa_kernel([backend]), fp32_matmul():
+                    og = torch.nn.functional.scaled_dot_product_attention(*b4, attn_mask=mask)
+                    sdpa_ms[lib_dtype] = (cs.time_ms_ahead(
+                        lambda: torch.autograd.grad(og, b4, do4, retain_graph=True)),
+                        backend.name)
+                del b4, do4, og
+            lib_ms, backend = sdpa_ms[lib_dtype]
+            print(f"{name} {(b, h, s, d)} {str(dtype)[6:]} '{prec}': {kind}_dq {dq_ms:.4f} ms "
+                  f"(bound {bounds['dq']}), sha256 {sha[0]}; {kind}_dkv {dkv_ms:.4f} ms (bound "
+                  f"{bounds['dkv']}), sha256 {sha[1]}; pair {dq_ms + dkv_ms:.4f}; sdpa "
+                  f"{str(lib_dtype)[6:]} ({backend}) autograd backward"
+                  f"{' with the token mask' if block else ''} behind a sleep {lib_ms:.4f} ms; "
+                  f"dq/dk/dv vs plain {err:.2e} (limit {limit:.0e}"
                   f"{'' if err <= limit else ', OVER'}){witness}", flush=True)
             del q, k, v, do, args
 
 
+def flash_wide_backward(name, cs, tt):
+    _wide_backward(name, cs, tt, block=False)
+
+
+def block_wide_backward(name, cs, tt):
+    _wide_backward(name, cs, tt, block=True)
+
+
 GROUPS = {"block_spmm": block_spmm, "flash_backward": flash_backward, "gemm": gemm,
           "gemm_s8": gemm_s8, "flash_wide_forward": flash_wide_forward,
-          "flash_wide_backward": flash_wide_backward}
+          "flash_wide_backward": flash_wide_backward, "block_wide_backward": block_wide_backward}
 
 if __name__ == "__main__":
     if len(sys.argv) != 3 or sys.argv[1] not in GROUPS:

@@ -130,6 +130,15 @@ KERNEL_CASES = {
     "bigbird_256_b32": ("block_bigbird_256_b32", 2, 32),
     "masked_first_empty_256_b64": ("tokens_band_first_empty_256_b64", 2, 32),
     "tokens_bigbird_256_b64_d128": ("tokens_bigbird_256_b64", 1, 128),
+    # head dims above 128, where the card runs the wide teams: S wider than
+    # one slice (136), beyond one 256-wide instance (320), and 512-wide
+    # chunks of the output (640); mask-free and tile-masked plans
+    "wide_maskfree_160_b64_d136": ("block_sparse_160_b64", 2, 136),
+    "wide_masked_160_b64x32_d136": ("tokens_band_160_b64x32", 2, 136),
+    "wide_bigbird_256_b32_d320": ("block_bigbird_256_b32", 1, 320),
+    "wide_masked_first_empty_256_b64_d320": ("tokens_band_first_empty_256_b64", 2, 320),
+    "wide_maskfree_160_b64_d640": ("block_sparse_160_b64", 1, 640),
+    "wide_masked_160_b64x32_d640": ("tokens_band_160_b64x32", 1, 640),
 }
 
 

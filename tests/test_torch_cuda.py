@@ -661,7 +661,9 @@ def _blk_plan(name):
     first listed sub-tile wholly masked; rows that see no key (the band with
     some rows cleared from its tile masks); rows of 16 sub-tiles and more,
     past the forward's bank of 8."""
-    name = name.removeprefix("wider_")  # the same plans at head dims above 128
+    # the same plans at head dims above 128 ("wider_"), "dNNN_" where one
+    # plan runs at more than one of them
+    name = re.sub(r"^wider_(d\d+_)?", "", name)
     if name == "bigbird_512_b64":
         return bfa.BlockAttnPlan(tt.bigbird_block_mask(512, 64), 64, 64, 512)
     if name == "bigbird_256_b32":
@@ -679,6 +681,7 @@ def _blk_plan(name):
         "band_masked_unpadded_160_b64x32": (160, 64, 32, 20, 3),
         "band_masked_512_b128x256": (512, 128, 256, 40, 2),
         "band_masked_1024_b256": (1024, 256, 256, 64, 0),
+        "band_masked_unaligned_200_b40x24": (200, 40, 24, 20, 3),
     }[name]
     ind, ptr = tt.local_global_pattern(s, window, glob)
     plan = bfa.BlockAttnPlan.from_token_pattern(ind, ptr, s, bq, bk)
@@ -711,6 +714,14 @@ BLK_CASES = {  # name: (bh, d)
     "wider_band_masked_first_empty_256_b64": (2, 520),
     "wider_maskfree_unpadded_160_b64": (1, 640),
     "wider_blind_rows_256_b64": (2, 256),
+    # mask rows of 24 bytes (no 16-byte copies of the masks), q-blocks of 40
+    # rows (the wide tiles' teams partly idle)
+    "wider_band_masked_unaligned_200_b40x24": (2, 136),
+    # the backward's 3xTF32 bank (every 256 streamed rows) on the 512
+    # instance and in the 512-wide chunks; mask rows of 24 bytes there
+    "wider_d384_maskfree_1024_b64": (1, 384),
+    "wider_d640_maskfree_1024_b64": (1, 640),
+    "wider_d320_band_masked_unaligned_200_b40x24": (2, 320),
 }
 
 
@@ -772,7 +783,17 @@ def test_block_flash_forward_repeats_bit_for_bit(cuda, name, dtype, precision):
     (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
 ])
 @pytest.mark.parametrize("name", ["bigbird_512_b64", "band_masked_1024_b256",
-                                  "maskfree_1024_b64", "band_masked_first_empty_256_b64"])
+                                  "maskfree_1024_b64", "band_masked_first_empty_256_b64",
+                                  # the wide teams: masked at d 256 (dq's shared
+                                  # memory full), the 3xTF32 bank, d 320, d 520 and
+                                  # d 640 (chunks)
+                                  "wider_band_masked_512_b128x256", "wider_maskfree_1024_b64",
+                                  "wider_band_masked_256_b64",
+                                  "wider_band_masked_first_empty_256_b64",
+                                  "wider_maskfree_unpadded_160_b64",
+                                  # the bank on the 512 instance and in the chunks
+                                  "wider_d384_maskfree_1024_b64",
+                                  "wider_d640_maskfree_1024_b64"])
 def test_block_flash_backward_repeats_bit_for_bit(cuda, name, dtype, precision):
     q, k, v, do, plan, kw = _blk_args(name, cuda, dtype)
     kw["precision"] = precision
@@ -792,6 +813,19 @@ def test_block_flash_keys_that_no_query_sees_get_zero_gradients(cuda, dtype, pre
     block mask that no q-block lists (its dk/dv tiles walk nothing), and keys
     100-109 of a band plan whose tile masks are zeroed in their columns
     (every listed sub-tile masks them)."""
+    _unseen_keys_get_zero_gradients(cuda, dtype, precision, 64)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "high"), (torch.float32, "default"), (torch.bfloat16, "high"),
+])
+@pytest.mark.parametrize("d", [256, 640])
+def test_block_flash_wide_keys_that_no_query_sees_get_zero_gradients(cuda, d, dtype, precision):
+    """The same on the wide teams (d 256) and in their chunks (d 640)."""
+    _unseen_keys_get_zero_gradients(cuda, dtype, precision, d)
+
+
+def _unseen_keys_get_zero_gradients(cuda, dtype, precision, d):
     mask = np.array([[1, 1, 0, 0], [1, 1, 0, 1], [0, 1, 0, 1], [1, 0, 0, 1]], bool)
     ind, ptr = tt.local_global_pattern(256, 20, 3)
     banded = bfa.BlockAttnPlan.from_token_pattern(ind, ptr, 256, 64, 64)
@@ -800,9 +834,9 @@ def test_block_flash_keys_that_no_query_sees_get_zero_gradients(cuda, dtype, pre
         if banded.kv_list[i, l] == 1:
             banded.tile_masks[i * banded.L + l, :, 100 - 64:110 - 64] = 0
     rng = np.random.default_rng(43)
-    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 256, 64)).astype(np.float32))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 256, d)).astype(np.float32))
                    .to(cuda, dtype) for _ in range(4))
-    kw = dict(sm_scale=0.125, precision=precision)
+    kw = dict(sm_scale=d ** -0.5, precision=precision)
     for plan, n_unseen in ((bfa.BlockAttnPlan(mask, 64, 64, 256), 64), (banded, 10)):
         o, lse = bfa.blk_flash_fwd_kernel(q, k, v, plan, **kw)
         delta = (do.float() * o.float()).sum(-1).to(dtype).float()

@@ -227,13 +227,24 @@ def test_sparse_self_attention_refuses_as_jax_does():
         layer(torch.zeros(1, 96, 16))
 
 
-def test_bigbird_attention_matches_flax():
+def _bigbird_parity(head_dim):
     x = _x((2, 128, 32), 6)
     kw = dict(block=32, window_blocks=3, num_global_blocks=1, num_random_blocks=1)
-    tmod = tt.BigBirdAttention(2, 16, **kw, hidden=32, device="cpu")
-    _module_parity(jnn.BigBirdAttention(num_heads=2, head_dim=16, **kw), tmod, x)
+    tmod = tt.BigBirdAttention(2, head_dim, **kw, hidden=32, device="cpu")
+    _module_parity(jnn.BigBirdAttention(num_heads=2, head_dim=head_dim, **kw), tmod, x)
     plan = tmod.plan(128)
     assert plan.tile_masks is None and 0 < plan.density < 1
+
+
+def test_bigbird_attention_matches_flax():
+    _bigbird_parity(16)
+
+
+@pytest.mark.parametrize("head_dim", [136])
+def test_bigbird_attention_matches_flax_above_head_dim_128(head_dim):
+    """The module's output and every gradient at a head dim where the card
+    runs the block kernels' wide teams."""
+    _bigbird_parity(head_dim)
 
 
 # -- the BERT layer's pattern variants and a 'bigbird' encoder -------------------------

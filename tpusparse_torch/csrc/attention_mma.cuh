@@ -1,6 +1,5 @@
-// Attention tiles on the tensor cores for NVIDIA Hopper (sm_90a), beside
-// the FFMA tiles of attention_tiles.cuh: the pieces the tensor-core
-// attention kernels share (flash_attention_q8.cu's flash_q8,
+// Attention tiles on the tensor cores for NVIDIA Hopper (sm_90a): the
+// pieces the attention kernels share (flash_attention_q8.cu's flash_q8,
 // flash_attention.cu's flash_fwd, flash_dq and flash_dkv, and
 // block_flash_attention.cu's blk_flash_fwd, blk_flash_dq and
 // blk_flash_dkv).
@@ -851,11 +850,13 @@ struct RowStats {
 // -- the backward at head dims above 128 ----------------------------------------
 
 // The tensor-core backward at d > 128 (flash_attention.cu's
-// flash_dq_wide_tc_kernel and flash_dkv_wide_tc_kernel) on WideFwd's teams:
-// the block's RT = 16 NRG staged rows (dq: queries; dk/dv: keys) are served
-// a 16-row group by a team of WPR warps, and warp h of a team owns the DW =
-// DMAX / WPR output columns [DW h, DW h + DW) and the same slice of the two
-// scores' contraction. Per streamed tile of W rows it takes its partial
+// flash_dq_wide_tc_kernel and flash_dkv_wide_tc_kernel,
+// block_flash_attention.cu's blk_dq_wide_tc_kernel and
+// blk_dkv_wide_tc_kernel) on WideFwd's teams: the block's RT = 16 NRG
+// staged rows (dq: queries; dk/dv: keys) are served a 16-row group by a
+// team of WPR warps, and warp h of a team owns the DW = DMAX / WPR output
+// columns [DW h, DW h + DW) and the same slice of the two scores'
+// contraction. Per streamed tile of W rows it takes its partial
 // S_h and dP_h over its slice (dq: q k^T and do v^T; dk/dv: k q^T and
 // v do^T), stores both, and after the team's one barrier every warp sums
 // each in warp order, so all of them hold the same bits of S and dP, take
@@ -944,22 +945,25 @@ struct WideBwd {
 
   // CHUNK (d > DMAX): S = A0 . B0^T and dP = A1 . B1^T over all of d, DMAX
   // columns at a time, then the team's sums. Each piece's columns of the
-  // staged rows (RT rows from a_r0 of a0 and a1, into A0 and A1) and of the
-  // streamed ones (W rows from b_r0 of b0 and b1, into Bs and Bs + W LDB)
-  // are staged, a0's times a_scale and b0's times b_scale rounded to their
-  // type, as the tiles at d <= DMAX are taken. extra() stages what else the
-  // tile needs with the first piece (the pv's operands in the output chunk,
-  // the statistics) and fix() runs once its copies have landed (it scales
-  // them). The A pieces come by cp.async where TQ is T (scaled in place by
-  // the thread that copied them), else by loads 8 elements at a time. Every
-  // thread of the block calls it, for it holds the block's barriers; a team
-  // with `skip` set stages and takes no product.
+  // staged rows (RT rows from a_r0 of a0 and a1, into A0 and A1; rows at or
+  // past s 0) and of the streamed ones (W rows from b_r0 of b0 and b1, into
+  // Bs and Bs + W LDB; rows at or past b_end 0: s, or the end of a block
+  // kernel's sub-tile) are staged, a0's times a_scale and b0's times
+  // b_scale rounded to their type, as the tiles at d <= DMAX are taken.
+  // extra() stages what else the tile needs with the first piece (the pv's
+  // operands in the output chunk, the statistics, the mask rows) and fix()
+  // runs once its copies have landed (it scales them). The A pieces come by
+  // cp.async where TQ is T (scaled in place by the thread that copied them),
+  // else by loads 8 elements at a time. Every thread of the block calls it,
+  // for it holds the block's barriers; a team with `skip` set stages and
+  // takes no product.
   template <typename Extra, typename Fix>
   __device__ static void scores_chunked(float (&sp)[NN][4], float (&dp)[NN][4], TQ* A0, TQ* A1,
                                         T* Bs, float* X, const T* a0, const T* a1, int a_r0,
                                         float a_scale, const T* b0, const T* b1, int b_r0,
-                                        float b_scale, int s, int d, bool async, bool skip,
-                                        int rg, int h, int wr0, int lane, Extra extra, Fix fix) {
+                                        int b_end, float b_scale, int s, int d, bool async,
+                                        bool skip, int rg, int h, int wr0, int lane, Extra extra,
+                                        Fix fix) {
     constexpr bool RAW = sizeof(TQ) == sizeof(T);
     const bool async_a = async && RAW;
     auto stage_a = [&](TQ* dst, const T* src, float scale, int w) {
@@ -975,8 +979,8 @@ struct WideBwd {
       __syncthreads();  // every reader of the last piece and of extra()'s tiles is done
       stage_a(A0, a0 + c, a_scale, w);
       stage_a(A1, a1 + c, 1.f, w);
-      stage_rows<NT, DMAX, LDB, W>(Bs, b0 + c, b_r0, s, d, async, w);
-      stage_rows<NT, DMAX, LDB, W>(Bs + W * LDB, b1 + c, b_r0, s, d, async, w);
+      stage_rows<NT, DMAX, LDB, W>(Bs, b0 + c, b_r0, b_end, d, async, w);
+      stage_rows<NT, DMAX, LDB, W>(Bs + W * LDB, b1 + c, b_r0, b_end, d, async, w);
       if (c == 0) extra();
       cp_async_commit();
       cp_async_wait_all();

@@ -22,15 +22,13 @@
 // the sub-tile leaves the last sub-tile partly empty.
 //
 // Contract. q, k, v, do: (bh, s, d) row-major, one type (fp32 or bf16);
-// lse, delta: (bh, s) fp32; any d (at d <= 128 all three kernels on the
-// tensor cores; above it the forward on the tensor cores in
-// flash_attention.cu's design, attention_mma.cuh's WideFwd: teams of warps
-// a 16-row group, each warp a 128-wide slice of o and of S's contraction,
-// the partial scores summed through shared memory, and above d 512 one
-// 512-wide chunk of o a blockIdx.z, S taken over d in 512-wide pieces; the
-// backward on the WIDE FFMA instances of attention_tiles.cuh,
-// 128-wide output chunks on blockIdx.z, the scores recomputed per chunk
-// over d staged in 128-wide pieces). Plan arrays, int32 on
+// lse, delta: (bh, s) fp32; any d, every kernel on the tensor cores (at d
+// <= 128 on the tiles below; above it in flash_attention.cu's designs,
+// attention_mma.cuh's WideFwd and WideBwd: teams of warps a 16-row group,
+// each warp a slice of the output and of the scores' contraction, the
+// partial scores summed through shared memory, and above d 512 one
+// 512-wide chunk of the output a blockIdx.z, the scores taken over d in
+// 512-wide pieces). Plan arrays, int32 on
 // the device: kv_list (nq, L) and kv_cnt (nq) for the forward and dq,
 // q_list (nk, Lt), q_cnt (nk) and q_slot (nk * Lt) for dk/dv; tile_masks
 // (nq * L, bq, bk) int8, or null for a plan whose covered blocks are full.
@@ -51,8 +49,7 @@
 //   - ROUND ('default' tier on fp32, or bf16 inputs): q, k, v and do are
 //     rounded to bf16 on load, and so are p and dS before their products,
 //     with fp32 sums. Without it ('high', 'highest' on fp32 inputs) every
-//     product is fp32-class, never one TF32 pass: 3xTF32, and fp32 FFMA in
-//     the backward at d > 128.
+//     product is fp32-class, never one TF32 pass: 3xTF32.
 //
 // At d <= 128 all three kernels run on the tensor cores with `mma.sync`, on
 // the tiles of flash_attention.cu (attention_mma.cuh: 3xTF32 m16n8k8 for
@@ -108,6 +105,19 @@
 //   they land (PRE), within two: on an H100 at 'bigbird' 512 that ran
 //   faster than a third block without the split, and than 64-row
 //   sub-tiles with the split (one block an SM) or without it (two).
+// At d > 128 the forward runs blk_fwd_wide_tc_kernel (WideFwd's teams) and
+// the backward blk_dq_wide_tc_kernel and blk_dkv_wide_tc_kernel, WideBwd's
+// teams wrapped in the same list walk and tile masks: per streamed sub-tile
+// each warp takes its partial S and dP over its 64 columns of d, the team
+// sums both behind one named barrier, and every warp takes the same P and
+// dS and adds its products into its own 64 columns of the output. d <= 256:
+// two teams of four on 32 rows, dq's keys streamed 32 a sub-tile, dk/dv's
+// queries 16; d <= 512: one team of eight on 16 rows, 16 a sub-tile; above
+// 512 the same in 512-wide chunks of the output on blockIdx.z. The 3xTF32
+// sums are banked every 256 streamed rows. dq's shared memory is full at d
+// 256 in 3xTF32, so its mask rows stay in registers (MaskHalves: each lane
+// holds half a row's bytes and the warp shuffles them into bits); dk/dv
+// stages them beside its sub-tiles as the d <= 128 kernels do.
 // No atomics: every output element is summed by one thread in a fixed
 // order, so runs repeat bit for bit.
 //
@@ -124,7 +134,11 @@
 // flash's, the loops wait on latency more than they issue: four warps of
 // mma.sync, three tf32 passes a product, the 3xTF32 splits and the shared
 // loads of B; a tile's walk is short (six listed blocks of 64 at 'bigbird'
-// 512), so staging the A tiles costs more than in flash.
+// 512), so staging the A tiles costs more than in flash. At d > 128 (the
+// same pattern at (b, h, s, d) = (2, 8, 512, 256)) dq takes 0.222-0.225 ms
+// and dk/dv 0.373-0.380 in 3xTF32, 0.13 and 0.10 of their bounds (0.0293 and
+// 0.0390 ms; the FFMA kernels took 0.740 and 0.811), 0.125 and 0.180 in
+// 'default' and 0.097 and 0.152 on bf16 operands.
 
 #include <type_traits>
 
@@ -132,12 +146,6 @@
 #include "attention_tiles.cuh"
 
 namespace {
-
-// Rows of one 64-row sub-tile: [r0, r_end) of the block [b0, b0 + bsize),
-// clipped to s. r_end <= r0 means the sub-tile lies past s.
-__device__ __forceinline__ int sub_end(int b0, int bsize, int r0, int s) {
-  return min(min(b0 + bsize, s), r0 + 64);
-}
 
 // -- the walk and the tile masks of the tensor-core kernels -------------------
 
@@ -247,6 +255,40 @@ __device__ __forceinline__ void mask_bits_t(uint32_t (&vis)[2], const int8_t* Ms
       if (in && mk[0] != 0) vis[0] |= 1u << (2 * nt + c);
       if (in && mk[8] != 0) vis[1] |= 1u << (2 * nt + c);
     }
+}
+
+// -- launching ------------------------------------------------------------------
+
+// The x extent of a grid of `rows`-row tiles over n plan blocks of b rows,
+// or 0 where it passes the grid's limit.
+unsigned tiles_x(int n, int b, int rows) {
+  const long long x = static_cast<long long>(n) * ((b + rows - 1) / rows);
+  return x > 0x7fffffffLL ? 0u : static_cast<unsigned>(x);
+}
+
+// 16-byte copies need d a whole number of 16-byte chunks and 16-byte
+// aligned operands; the masks bk a multiple of 16 and a 16-byte aligned base
+template <typename T>
+bool async_ok(int d, const void* a, const void* b) {
+  return d % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+bool async_mask_ok(const int8_t* tmask, int bk) {
+  return tmask != nullptr && bk % 16 == 0 && reinterpret_cast<uintptr_t>(tmask) % 16 == 0;
+}
+
+// kern on `grid` with nt threads and its dynamic shared memory allowed (an
+// error, and no launch, where the card has less), on `stream`; returns
+// cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kern, size_t smem, dim3 grid, int nt, cudaStream_t stream,
+                  Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, nt, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -- blk_flash_fwd at d <= 128 on the tensor cores ----------------------------
@@ -418,22 +460,16 @@ template <int DMAX, bool ROUND, typename T, int NW>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, const int* kv_list,
            const int* kv_cnt, const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq,
            int L, float sm_scale, cudaStream_t stream) {
-  constexpr int E = 16 / sizeof(T), QT = 16 * NW;
-  const bool async_kv = d % E == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                        reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const bool async_mask =
-      tmask != nullptr && bk % 16 == 0 && reinterpret_cast<uintptr_t>(tmask) % 16 == 0;
-  const size_t smem = Layout<ROUND, T, DMAX, QT>::bytes(tmask != nullptr);
-  auto* kern = blk_fwd_tc_kernel<DMAX, ROUND, T, NW>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nq * ((bq + QT - 1) / QT), bh);
-  kern<<<grid, 32 * NW, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), kv_list, kv_cnt, tmask, s, d, bq, bk, L,
-      sm_scale, static_cast<int>(async_kv), static_cast<int>(async_mask));
-  return static_cast<int>(cudaGetLastError());
+  constexpr int QT = 16 * NW;
+  const bool async_kv = async_ok<T>(d, k, v), async_mask = async_mask_ok(tmask, bk);
+  const unsigned tiles = tiles_x(nq, bq, QT);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kernel(blk_fwd_tc_kernel<DMAX, ROUND, T, NW>,
+                       Layout<ROUND, T, DMAX, QT>::bytes(tmask != nullptr), dim3(tiles, bh),
+                       32 * NW, stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+                       kv_list, kv_cnt, tmask, s, d, bq, bk, L, sm_scale,
+                       static_cast<int>(async_kv), static_cast<int>(async_mask));
 }
 
 }  // namespace tcfwd
@@ -785,40 +821,22 @@ __global__ void __launch_bounds__(NT, min_blocks<LY, true, DMAX>())
   }
 }
 
-// 16-byte copies need d a whole number of 16-byte chunks and 16-byte
-// aligned operands; the masks bk a multiple of 16 and a 16-byte aligned base
-template <typename T>
-bool async_ok(int d, const void* a, const void* b) {
-  return d % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0;
-}
-
-bool async_mask_ok(const int8_t* tmask, int bk) {
-  return tmask != nullptr && bk % 16 == 0 && reinterpret_cast<uintptr_t>(tmask) % 16 == 0;
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kern, size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<grid, NT, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int DMAX, bool ROUND, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, const int* kv_list, const int* kv_cnt,
               const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq, int L,
               float sm_scale, cudaStream_t stream) {
   using LY = Layout<ROUND, T, DMAX, false>;
-  return launch(blk_dq_tc_kernel<DMAX, ROUND, T, LY>, smem_bytes<LY, false>(tmask != nullptr),
-                dim3(nq * ((bq + RT - 1) / RT), bh), stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<T*>(dq), kv_list, kv_cnt, tmask, s, d, bq, bk, L, sm_scale,
-                static_cast<int>(async_ok<T>(d, k, v)),
-                static_cast<int>(async_mask_ok(tmask, bk)));
+  const unsigned tiles = tiles_x(nq, bq, RT);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kernel(blk_dq_tc_kernel<DMAX, ROUND, T, LY>,
+                       smem_bytes<LY, false>(tmask != nullptr), dim3(tiles, bh), NT, stream,
+                       static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<const T*>(dout),
+                       static_cast<const float*>(lse), static_cast<const float*>(delta),
+                       static_cast<T*>(dq), kv_list, kv_cnt, tmask, s, d, bq, bk, L, sm_scale,
+                       static_cast<int>(async_ok<T>(d, k, v)),
+                       static_cast<int>(async_mask_ok(tmask, bk)));
 }
 
 template <int DMAX, bool ROUND, typename T>
@@ -827,13 +845,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                const int* q_slot, const int8_t* tmask, int bh, int s, int d, int bq, int bk,
                int nk, int Lt, float sm_scale, cudaStream_t stream) {
   using LY = Layout<ROUND, T, DMAX, true>;
-  return launch(blk_dkv_tc_kernel<DMAX, ROUND, T, LY>, smem_bytes<LY, true>(tmask != nullptr),
-                dim3(nk * ((bk + RT - 1) / RT), bh), stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<T*>(dk), static_cast<T*>(dv), q_list, q_cnt, q_slot, tmask, s, d,
-                bq, bk, Lt, sm_scale, static_cast<int>(async_ok<T>(d, q, dout)),
-                static_cast<int>(async_mask_ok(tmask, bk)));
+  const unsigned tiles = tiles_x(nk, bk, RT);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kernel(blk_dkv_tc_kernel<DMAX, ROUND, T, LY>,
+                       smem_bytes<LY, true>(tmask != nullptr), dim3(tiles, bh), NT, stream,
+                       static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<const T*>(dout),
+                       static_cast<const float*>(lse), static_cast<const float*>(delta),
+                       static_cast<T*>(dk), static_cast<T*>(dv), q_list, q_cnt, q_slot, tmask, s,
+                       d, bq, bk, Lt, sm_scale, static_cast<int>(async_ok<T>(d, q, dout)),
+                       static_cast<int>(async_mask_ok(tmask, bk)));
 }
 
 }  // namespace tcbwd
@@ -990,247 +1011,511 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
            const int* kv_cnt, const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq,
            int L, float sm_scale, cudaStream_t stream) {
   using FW = mma16::WideFwdFor<ROUND, T, DMAX>;
-  const long long tiles = static_cast<long long>(nq) * ((bq + FW::QT - 1) / FW::QT);
+  const unsigned tiles = tiles_x(nq, bq, FW::QT);
   const int chunks = (d + FW::DMAX - 1) / FW::DMAX;
-  if (tiles > 0x7fffffffLL || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int E = 16 / sizeof(T);
+  if (tiles == 0 || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // the chunks also stage q by cp.async
-  const bool async_kv = d % E == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                        reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
-                        (chunks == 1 || reinterpret_cast<uintptr_t>(q) % 16 == 0);
-  const bool async_mask =
-      tmask != nullptr && bk % 16 == 0 && reinterpret_cast<uintptr_t>(tmask) % 16 == 0;
+  const bool async_kv =
+      async_ok<T>(d, k, v) && (chunks == 1 || reinterpret_cast<uintptr_t>(q) % 16 == 0);
   const size_t smem = FW::bytes + (tmask != nullptr ? 2 * mask_stage<FW> : 0);
   constexpr bool CHUNKS = DMAX == 512;  // the 256 instance serves d <= 256 alone
-  auto* kern = chunks > 1 ? blk_fwd_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
-                          : blk_fwd_wide_tc_kernel<ROUND, T, DMAX, false>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(static_cast<unsigned>(tiles), bh, chunks), FW::NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), kv_list, kv_cnt, tmask, s, d, bq, bk, L,
-      sm_scale, static_cast<int>(async_kv), static_cast<int>(async_mask));
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(chunks > 1 ? blk_fwd_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                                  : blk_fwd_wide_tc_kernel<ROUND, T, DMAX, false>,
+                       smem, dim3(tiles, bh, chunks), FW::NT, stream, static_cast<const T*>(q),
+                       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+                       static_cast<float*>(lse), kv_list, kv_cnt, tmask, s, d, bq, bk, L,
+                       sm_scale, static_cast<int>(async_kv),
+                       static_cast<int>(async_mask_ok(tmask, bk)));
 }
 
 }  // namespace widefwd
 
-// -- the FFMA kernels ---------------------------------------------------------
+// -- blk_flash_dq and blk_flash_dkv at d > 128 on the tensor cores ------------
+namespace widebwd {
 
-using namespace attn;
+using mma16::LOG2E;
 
-// Whether (query qp, key kp) is visible: inside the rows [.., q_end) and
-// keys [.., k_end) of this sub-tile pair, and set in the tile mask `tile`
-// (bq x bk, rows from qb0, columns from kb0) when there is one.
-__device__ __forceinline__ bool visible(int qp, int q_end, int kp, int k_end,
-                                        const int8_t* __restrict__ tile, int qb0, int kb0,
-                                        int bk) {
-  return qp < q_end && kp < k_end &&
-         (tile == nullptr || tile[static_cast<size_t>(qp - qb0) * bk + (kp - kb0)] != 0);
-}
+constexpr size_t SMEM_MAX = 232448;  // the shared memory an H100 block may have
 
-// The backward at head dims above 128 on FFMA: the DMAX = 128 tiles, one
-// 128-wide output chunk a blockIdx.z, the scores (and dP) recomputed per
-// chunk over d staged 128 columns at a time.
-constexpr int WD = 128;
-constexpr size_t dq_wide_smem =
-    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + BQ * LDP);
+// The tile-mask rows of a team's 16 queries against a W-key sub-tile, held
+// in registers: the wide dq's shared memory is full (fp32 'high' at d 256
+// takes all of SMEM_MAX). Lane l reads half of row l / 2, its bytes
+// (l % 2) W / 2 onwards, from device memory as the sub-tile is staged (the
+// team's warps each read the same rows) and turns them into bits when the
+// sub-tile is computed. Rows past bq and columns past bk are 0.
+template <int W>
+struct MaskHalves {
+  static_assert(W == 16 || W == 32, "a row of a sub-tile's mask: at most 32 bits");
+  static constexpr int HB = W / 2, NWD = HB / 4;  // bytes, and 32-bit words, a lane
+  uint32_t raw[NWD];
 
-template <bool ROUND, typename T>
-__global__ void __launch_bounds__(NT) blk_dq_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, const int* __restrict__ kv_list,
-    const int* __restrict__ kv_cnt, const int8_t* __restrict__ tmask, int s, int d, int bq,
-    int bk, int L, float sm_scale) {
-  constexpr int G = WD / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                 // (BQ, WD + 4) a chunk of q
-  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
-  float* Ks = dOs + BQ * (WD + 4);  // (BK, WD + 4)
-  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
-  float* dSs = Vs + BK * (WD + 4);  // (BQ, LDP)
-  const int bh = blockIdx.y;
-  const int tiles_q = (bq + BQ - 1) / BQ;
-  const int i = blockIdx.x / tiles_q;
-  const int qb0 = i * bq;
-  const int q0 = qb0 + (blockIdx.x % tiles_q) * BQ;
-  const int q_end = sub_end(qb0, bq, q0, s);
-  if (q0 >= q_end) return;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t base = static_cast<size_t>(bh) * s * d;
-  const int c_out = blockIdx.z * WD;  // first output column
-
-  float lse_r[4], delta_r[4], acc[4][4 * G];
+  // tile: the (bq, bk) mask; r0: the tile row of the team's first query;
+  // c0: the sub-tile's first column. vec: rows of a multiple of 16 bytes
+  // from a 16-byte aligned tile (async_mask_ok), read HB bytes a load.
+  __device__ __forceinline__ void load(const int8_t* __restrict__ tile, int r0, int c0, int bq,
+                                       int bk, bool vec, int lane) {
+    const int r = r0 + lane / 2, c = c0 + (lane % 2) * HB;
+    const int8_t* src = tile + static_cast<size_t>(r) * bk + c;
+    if (vec) {
+      const bool in = r < bq && c < bk;  // bk % 16 == 0: the whole half or none of it
+      if constexpr (NWD == 4) {
+        const uint4 x = in ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0, 0, 0, 0);
+        raw[0] = x.x;
+        raw[1] = x.y;
+        raw[2] = x.z;
+        raw[3] = x.w;
+      } else {
+        const uint2 x = in ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0, 0);
+        raw[0] = x.x;
+        raw[1] = x.y;
+      }
+    } else {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    lse_r[a] = qp < q_end ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
-    delta_r[a] = qp < q_end ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
+      for (int w = 0; w < NWD; ++w) {
+        raw[w] = 0;
 #pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc[a][c] = 0.f;
-  }
-
-  const int cnt = kv_cnt[i];
-  for (int slot = 0; slot < cnt; ++slot) {
-    const int kb0 = kv_list[i * L + slot] * bk;
-    const int8_t* tile =
-        tmask == nullptr ? nullptr : tmask + static_cast<size_t>(i * L + slot) * bq * bk;
-    for (int k0 = kb0; k0 < kb0 + bk; k0 += BK) {
-      const int k_end = sub_end(kb0, bk, k0, s);
-      if (k0 >= k_end) break;
-      float sc[4][4], dp[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[a][j] = dp[a][j] = 0.f;
-      mma_nt_chunked<WD, ROUND, ROUND>(sc, Qs, Ks, q + base, q0, q_end, 1.f, k + base, k0, k_end,
-                                       1.f, d, ty, tx);
-      mma_nt_chunked<WD, ROUND, ROUND>(dp, dOs, Vs, dout + base, q0, q_end, 1.f, v + base, k0,
-                                       k_end, 1.f, d, ty, tx);
-      __syncthreads();  // the score product's readers of Ks are done
-      load_chunk<WD, ROUND>(Ks, k + base, k0, k_end, d, c_out, 1.f);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int qp = q0 + ty + 16 * a;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool vis = visible(qp, q_end, k0 + tx + 16 * j, k_end, tile, qb0, kb0, bk);
-          const float p = vis ? expf(sc[a][j] * sm_scale - lse_r[a]) : 0.f;
-          dSs[(ty + 16 * a) * LDP + tx + 16 * j] =
-              tier<ROUND>(p * (dp[a][j] - delta_r[a]) * sm_scale);
+        for (int b = 0; b < 4; ++b) {
+          const int j = 4 * w + b;
+          if (r < bq && c + j < bk) raw[w] |= static_cast<uint32_t>(src[j] != 0) << (8 * b);
         }
       }
-      __syncthreads();
-      mma_nn<WD>(acc, dSs, Ks, ty, tx);
     }
   }
 
-  T* out = dq + base;
+  // The visible keys of the lane's rows g and g + 8 in mask_bits' order:
+  // bit 2 nt + c of vis[h] is column 2t + 8 nt + c of the sub-tile, cleared
+  // at or past column n (the end of the sub-tile's block, or s). Every lane
+  // of the warp calls it: the rows' halves come by shuffles.
+  __device__ __forceinline__ void bits(uint32_t (&vis)[2], int g, int t, int n) const {
+    uint32_t half = 0;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    if (qp >= q_end) continue;
+    for (int w = 0; w < NWD; ++w)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+      for (int b = 0; b < 4; ++b)
+        if (((raw[w] >> (8 * b)) & 0xffu) != 0) half |= 1u << (4 * w + b);
+    const uint32_t keep = n >= 32 ? 0xffffffffu : (1u << n) - 1u;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c_out + 64 * g + 4 * tx + c;
-        if (col < d) store(&out[static_cast<size_t>(qp) * d + col], acc[a][4 * g + c]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = g + 8 * h;
+      const uint32_t lo = __shfl_sync(0xffffffffu, half, 2 * row);
+      const uint32_t hi = __shfl_sync(0xffffffffu, half, 2 * row + 1);
+      const uint32_t w = (lo | (hi << HB)) & keep;
+      uint32_t v = 0;
+#pragma unroll
+      for (int nt = 0; nt < W / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if ((w >> (2 * t + 8 * nt + c)) & 1u) v |= 1u << (2 * nt + c);
+      vis[h] = v;
+    }
   }
+};
+
+// dq = dS . k, dS = P (dP - delta) sm_scale, P = exp(q k^T sm_scale - lse),
+// dP = do v^T on mma16::WideBwd's teams: a tile of RT queries inside one
+// plan q-block (q and do staged once, unscaled) walks the listed kv blocks'
+// W-key sub-tiles in list order (Walk), K and V streamed in two cp.async
+// stages across slot boundaries, one block barrier a sub-tile, the mask
+// rows in registers (MaskHalves). S and dP are summed over the team's
+// slices, P and dS taken as blk_dq_tc_kernel takes them, then dq[:, slice]
+// += dS k[:, slice], stored with no scale. A team whose rows all lie past
+// the q-block or s stages and waits with the others and computes nothing.
+// CHUNK (d > DMAX): the block's DMAX-wide chunk of dq on z, and per
+// sub-tile the pieces of q, do, K and V staged in turn for S and dP over
+// all of d, K's chunk with the first piece (stage 1).
+template <bool ROUND, typename T, int DMAX, bool CHUNK>
+__global__ void __launch_bounds__(mma16::WideDqFor<ROUND, T, DMAX>::NT, 1)
+    blk_dq_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dq, const int* __restrict__ kv_list,
+                          const int* __restrict__ kv_cnt, const int8_t* __restrict__ tmask, int s,
+                          int d, int bq, int bk, int L, float sm_scale, int async_kv,
+                          int async_mask) {
+  using B = mma16::WideDqFor<ROUND, T, DMAX>;
+  using TQ = typename B::TQ;
+  using TR = typename B::TR;
+  constexpr int NT = B::NT, RT = B::RT, W = B::W, NN = B::NN, NO = B::NO, LDB = B::LDB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Qs = reinterpret_cast<TQ*>(smem);
+  TQ* dOs = reinterpret_cast<TQ*>(smem + B::a_bytes);
+  T* KV = reinterpret_cast<T*>(smem + B::b_off);
+  float* X = reinterpret_cast<float*>(smem + B::x_off);
+
+  const int bh = blockIdx.y;
+  const int tiles_q = (bq + RT - 1) / RT;
+  const int i = blockIdx.x / tiles_q;  // plan q-block
+  const int qb0 = i * bq;
+  const int q0 = qb0 + (blockIdx.x % tiles_q) * RT;
+  const int q_end = min(min(qb0 + bq, s), q0 + RT);
+  if (q0 >= q_end) return;  // a row tile past s (uniform over the block)
+  const int c_out = CHUNK ? blockIdx.z * DMAX : 0;  // the block's chunk of dq
+  const int wv = min(DMAX, d - c_out);              // and its width
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % B::NRG, h = warp / B::NRG;  // the warp's team and slice
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * rg;
+  // a team whose rows all lie past the q-block or s stages and waits with
+  // the others and computes nothing
+  const bool idle = q0 + wr0 >= q_end;
+  const int kd = B::kd(wv, h);
+  const size_t base = static_cast<size_t>(bh) * s * d;
+  const T* kb = k + base;
+  const T* vb = v + base;
+  const Walk<W> walk{kv_list + static_cast<size_t>(i) * L, kv_cnt[i], bk, s};
+
+  MaskHalves<W> mk;  // the mask rows of the sub-tile staged last
+  auto load_mask = [&](const typename Walk<W>::Pos& p) {
+    if (tmask != nullptr) {
+      mk.load(tmask + (static_cast<size_t>(i) * L + p.slot) * bq * bk, q0 - qb0 + wr0,
+              p.r0 - p.b0, bq, bk, async_mask, lane);
+    }
+  };
+  // K and V of sub-tile p into stage n % 2 (rows past its block or s 0),
+  // and its mask rows
+  auto stage = [&](const typename Walk<W>::Pos& p, int n) {
+    T* dst = KV + (n % 2) * B::stage;
+    const int end = walk.end(p);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst, kb, p.r0, end, d, async_kv);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst + W * LDB, vb, p.r0, end, d, async_kv);
+    mma16::cp_async_commit();
+    load_mask(p);
+  };
+  auto cur = walk.first();
+  if constexpr (!CHUNK) {
+    if (cur.slot < walk.cnt) stage(cur, 0);  // in flight while q and do are loaded
+    mma16::load_q<RT, NT, DMAX, TR::LDQ>(Qs, q + base, q0, s, d, 1.f);
+    mma16::load_q<RT, NT, DMAX, TR::LDQ>(dOs, dout + base, q0, s, d, 1.f);
+  }
+  // rows g and g + 8 of the team: lse (log2 domain) and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + wr0 + g + 8 * hh;
+    const size_t at = static_cast<size_t>(bh) * s + row;
+    lse2[hh] = row < q_end ? lse[at] * LOG2E : 0.f;
+    dlt[hh] = row < q_end ? delta[at] : 0.f;
+  }
+  auto stat = [&](int hh, int, int, float& l2, float& dl) {
+    l2 = lse2[hh];
+    dl = dlt[hh];
+  };
+  int since = 0;  // sub-tiles summed since the last fold (3xTF32)
+  bool banked = false;
+  T* dqb = dq + base;
+  float acc[NO][4];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+
+  for (int n = 0; cur.slot < walk.cnt; ++n) {
+    const auto nxt = walk.next(cur);
+    const int lim = walk.end(cur);
+    float sp[NN][4], dp[NN][4];
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+    uint32_t vis[2] = {0u, 0u};
+    const T* Kb;  // the sub-tile's K in the block's columns: the pv's B
+    if constexpr (CHUNK) {
+      T* Kc = KV + B::stage;
+      load_mask(cur);  // in flight while the pieces are staged
+      B::scores_chunked(
+          sp, dp, Qs, dOs, KV, X, q + base, dout + base, q0, 1.f, kb, vb, cur.r0, lim, 1.f, s,
+          d, async_kv, idle, rg, h, wr0, lane,
+          [&] {
+            mma16::stage_rows<NT, DMAX, LDB, W>(Kc, kb + c_out, cur.r0, lim, d, async_kv, wv);
+          },
+          [] {});
+      if (tmask != nullptr) mk.bits(vis, g, t, lim - cur.r0);
+      Kb = Kc;
+    } else {
+      Kb = KV + (n % 2) * B::stage;
+      mma16::cp_async_wait_all();
+      // sub-tile n is staged and visible to every warp; every reader of the
+      // other stage (sub-tile n - 1) and of the teams' partials is done, so
+      // sub-tile n + 1 may stream into it, across slot boundaries too
+      __syncthreads();
+      if (tmask != nullptr) mk.bits(vis, g, t, lim - cur.r0);  // before nxt's rows are read
+      if (nxt.slot < walk.cnt) stage(nxt, n + 1);
+      if (!idle) {
+        B::partials(sp, dp, Qs, dOs, Kb, Kb + W * LDB, kd, h, wr0, lane);
+        B::team_sum(sp, dp, X, rg, h, lane);
+      }
+    }
+    if (!idle) {
+      if (tmask != nullptr) {
+        mma16::probs_ds<true>(
+            sp, dp, stat,
+            [&](int hh, int nt, int c) { return ((vis[hh] >> (2 * nt + c)) & 1u) != 0; },
+            sm_scale, sm_scale);
+      } else if (lim == cur.r0 + W) {  // every key of the sub-tile is visible
+        mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; }, sm_scale,
+                               sm_scale);
+      } else {
+        const int key0 = cur.r0 + 2 * t;
+        mma16::probs_ds<true>(
+            sp, dp, stat, [&](int, int nt, int c) { return key0 + 8 * nt + c < lim; }, sm_scale,
+            sm_scale);
+      }
+      B::pv(acc, dp, Kb, kd, h, lane);
+      // 3xTF32: every FOLD sub-tiles the warp moves its sums into dq
+      if constexpr (!ROUND) {
+        if (++since == B::FOLD && nxt.slot < walk.cnt) {
+          B::bank(dqb, acc, banked, q0 + wr0 + g, q_end, d, c_out, h, t);
+          since = 0;
+          banked = true;
+        }
+      }
+    }
+    cur = nxt;
+  }
+  B::store(dqb, acc, banked, q0 + wr0 + g, q_end, d, c_out, h, t, 1.f);
 }
 
-constexpr size_t dkv_wide_smem =
-    sizeof(float) * (static_cast<size_t>(2 * BQ + 2 * BK) * (WD + 4) + 2 * BK * LDP + 2 * BQ);
+// Bytes a stage of dk/dv's mask rows: the W queries of a sub-tile against
+// the block's RT keys, query-major as the forward stored them.
+template <typename B>
+constexpr size_t dkv_mask_stage = static_cast<size_t>(B::W) * LDM<B::RT>;
 
-template <bool ROUND, typename T>
-__global__ void __launch_bounds__(NT) blk_dkv_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    const int* __restrict__ q_list, const int* __restrict__ q_cnt,
-    const int* __restrict__ q_slot, const int8_t* __restrict__ tmask, int s, int d, int bq,
-    int bk, int Lt, float sm_scale) {
-  constexpr int G = WD / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                 // (BK, WD + 4)
-  float* Vs = Ks + BK * (WD + 4);   // (BK, WD + 4)
-  float* Qs = Vs + BK * (WD + 4);   // (BQ, WD + 4)
-  float* dOs = Qs + BQ * (WD + 4);  // (BQ, WD + 4)
-  float* Ps = dOs + BQ * (WD + 4);  // (BK, LDP): p^T of this q sub-tile, keys by queries
-  float* dSs = Ps + BK * LDP;       // (BK, LDP): dS^T
-  float* lse_s = dSs + BK * LDP;    // (BQ)
-  float* delta_s = lse_s + BQ;      // (BQ)
+// dv = P^T do and dk = dS^T q on mma16::WideBwd's teams: a tile of RT keys
+// inside one plan kv block (k and v staged once) walks the listed q-blocks'
+// W-query sub-tiles in list order, q and do (unscaled) streamed in two
+// cp.async stages with their lse and delta (RowStats) and the mask rows of
+// the forward's tile at q_slot, query-major as stored and read transposed
+// (mask_bits_t). S^T = k q^T and dP^T = v do^T are summed over the team's
+// slices, P^T and dS^T taken as blk_dkv_tc_kernel takes them, then
+// dv[:, slice] += P^T do[:, slice] and dk[:, slice] += dS^T q[:, slice].
+// CHUNK (d > DMAX): the block's DMAX-wide chunk of dk and dv on z, and per
+// sub-tile the pieces of k, v, q and do staged in turn for S^T and dP^T
+// over all of d, q's and do's chunks, the statistics and the mask rows with
+// the first piece (stage 1).
+template <bool ROUND, typename T, int DMAX, bool CHUNK>
+__global__ void __launch_bounds__(mma16::WideDkvFor<ROUND, T, DMAX>::NT, 1)
+    blk_dkv_wide_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv,
+                           const int* __restrict__ q_list, const int* __restrict__ q_cnt,
+                           const int* __restrict__ q_slot, const int8_t* __restrict__ tmask,
+                           int s, int d, int bq, int bk, int Lt, float sm_scale, int async_q,
+                           int async_mask) {
+  using B = mma16::WideDkvFor<ROUND, T, DMAX>;
+  using TQ = typename B::TQ;
+  using TR = typename B::TR;
+  constexpr int NT = B::NT, KT = B::RT, W = B::W, NN = B::NN, NO = B::NO, LDB = B::LDB;
+  constexpr size_t MS = dkv_mask_stage<B>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TQ* Ks = reinterpret_cast<TQ*>(smem);
+  TQ* Vs = reinterpret_cast<TQ*>(smem + B::a_bytes);
+  T* QD = reinterpret_cast<T*>(smem + B::b_off);
+  float* X = reinterpret_cast<float*>(smem + B::x_off);
+  float* ST = reinterpret_cast<float*>(smem + B::stat_off);  // stage i: lse2 then delta
+  int8_t* MK = reinterpret_cast<int8_t*>(smem + B::bytes);
+
   const int bh = blockIdx.y;
-  const int tiles_k = (bk + BK - 1) / BK;
+  const int tiles_k = (bk + KT - 1) / KT;
   const int j = blockIdx.x / tiles_k;  // plan kv block
   const int kb0 = j * bk;
-  const int k0 = kb0 + (blockIdx.x % tiles_k) * BK;
-  const int k_end = sub_end(kb0, bk, k0, s);
+  const int k0 = kb0 + (blockIdx.x % tiles_k) * KT;
+  const int k_end = min(min(kb0 + bk, s), k0 + KT);
   if (k0 >= k_end) return;  // keys past s: nothing to write
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int c_out = CHUNK ? blockIdx.z * DMAX : 0;  // the block's chunk of dk, dv
+  const int wv = min(DMAX, d - c_out);              // and its width
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % B::NRG, h = warp / B::NRG;
+  const int g = lane / 4, t = lane % 4, wr0 = 16 * rg;
+  const bool idle = k0 + wr0 >= k_end;
+  const int kd = B::kd(wv, h);
   const size_t base = static_cast<size_t>(bh) * s * d;
-  const int c_out = blockIdx.z * WD;  // first output column
+  const T* qb = q + base;
+  const T* ob = dout + base;
+  const float* lseb = lse + static_cast<size_t>(bh) * s;
+  const float* dlb = delta + static_cast<size_t>(bh) * s;
+  const Walk<W> walk{q_list + static_cast<size_t>(j) * Lt, q_cnt[j], bq, s};
 
-  float acc_k[4][4 * G], acc_v[4][4 * G];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4 * G; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
-
-  const int cnt = q_cnt[j];
-  for (int slot = 0; slot < cnt; ++slot) {
-    const int qb0 = q_list[j * Lt + slot] * bq;
-    // the forward stored this (q-block, kv-block) tile's mask at q_slot
-    const int8_t* tile =
-        tmask == nullptr ? nullptr : tmask + static_cast<size_t>(q_slot[j * Lt + slot]) * bq * bk;
-    for (int q0 = qb0; q0 < qb0 + bq; q0 += BQ) {
-      const int q_end = sub_end(qb0, bq, q0, s);
-      if (q0 >= q_end) break;
-      float st[4][4], dpt[4][4];  // rows: keys ty + 16a; columns: queries tx + 16c
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) st[a][c] = dpt[a][c] = 0.f;
-      mma_nt_chunked<WD, ROUND, ROUND>(st, Ks, Qs, k + base, k0, k_end, 1.f, q + base, q0, q_end,
-                                       1.f, d, ty, tx);
-      mma_nt_chunked<WD, ROUND, ROUND>(dpt, Vs, dOs, v + base, k0, k_end, 1.f, dout + base, q0,
-                                       q_end, 1.f, d, ty, tx);
-      __syncthreads();  // the score products' readers of Qs, dOs are done
-      load_chunk<WD, ROUND>(Qs, q + base, q0, q_end, d, c_out, 1.f);
-      load_chunk<WD, ROUND>(dOs, dout + base, q0, q_end, d, c_out, 1.f);
-      if (threadIdx.x < BQ) {
-        const int qp = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qp < q_end ? lse[static_cast<size_t>(bh) * s + qp] : 0.f;
-        delta_s[threadIdx.x] = qp < q_end ? delta[static_cast<size_t>(bh) * s + qp] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int kp = k0 + ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qj = tx + 16 * c;
-          const bool vis = visible(q0 + qj, q_end, kp, k_end, tile, qb0, kb0, bk);
-          const float p = vis ? expf(st[a][c] * sm_scale - lse_s[qj]) : 0.f;
-          Ps[(ty + 16 * a) * LDP + qj] = tier<ROUND>(p);
-          dSs[(ty + 16 * a) * LDP + qj] = tier<ROUND>(p * (dpt[a][c] - delta_s[qj]) * sm_scale);
-        }
-      }
-      __syncthreads();
-      mma_nn<WD>(acc_v, Ps, dOs, ty, tx);
-      mma_nn<WD>(acc_k, dSs, Qs, ty, tx);
+  mma16::RowStats<W> stat_next;  // the lse and delta of the sub-tile being staged
+  auto stage_mask_rows = [&](const typename Walk<W>::Pos& p, int8_t* dst) {
+    if (tmask != nullptr) {
+      // the forward stored this (q-block, kv-block) tile's mask at q_slot
+      const size_t tile = q_slot[static_cast<size_t>(j) * Lt + p.slot];
+      stage_mask<W, KT, NT>(dst, tmask + tile * bq * bk, p.r0 - p.b0, k0 - kb0, bq, bk,
+                            async_mask);
     }
+  };
+  // q, do and the mask rows of sub-tile p into stage n % 2 (rows past its
+  // block or s 0), its statistics into registers
+  auto stage = [&](const typename Walk<W>::Pos& p, int n) {
+    T* dst = QD + (n % 2) * B::stage;
+    const int end = walk.end(p);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst, qb, p.r0, end, d, async_q);
+    mma16::stage_rows<NT, DMAX, LDB, W>(dst + W * LDB, ob, p.r0, end, d, async_q);
+    stage_mask_rows(p, MK + (n % 2) * MS);
+    mma16::cp_async_commit();
+    stat_next.load(lseb, dlb, p.r0, end);
+  };
+  auto cur = walk.first();
+  if constexpr (!CHUNK) {
+    if (cur.slot < walk.cnt) {
+      stage(cur, 0);  // in flight while k and v are loaded
+      stat_next.store(ST);
+    }
+    mma16::load_q<KT, NT, DMAX, TR::LDQ>(Ks, k + base, k0, s, d, 1.f);
+    mma16::load_q<KT, NT, DMAX, TR::LDQ>(Vs, v + base, k0, s, d, 1.f);
   }
-
+  int since = 0;
+  bool banked = false;
   T* dkb = dk + base;
   T* dvb = dv + base;
+  float acc_k[NO][4], acc_v[NO][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int kp = k0 + ty + 16 * a;
-    if (kp >= k_end) continue;
+  for (int nt = 0; nt < NO; ++nt)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int c = 0; c < 4; ++c) acc_k[nt][c] = acc_v[nt][c] = 0.f;
+
+  for (int n = 0; cur.slot < walk.cnt; ++n) {
+    const auto nxt = walk.next(cur);
+    const int lim = walk.end(cur);
+    float sp[NN][4], dp[NN][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c_out + 64 * g + 4 * tx + c;
-        if (col < d) {
-          store(&dkb[static_cast<size_t>(kp) * d + col], acc_k[a][4 * g + c]);
-          store(&dvb[static_cast<size_t>(kp) * d + col], acc_v[a][4 * g + c]);
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sp[nt][c] = dp[nt][c] = 0.f;
+    const T* Qb;  // the sub-tile's q and do in the block's columns: the pvs' B
+    const float* st;
+    const int8_t* Ms;
+    if constexpr (CHUNK) {
+      T* Qc = QD + B::stage;
+      B::scores_chunked(
+          sp, dp, Ks, Vs, QD, X, k + base, v + base, k0, 1.f, qb, ob, cur.r0, lim, 1.f, s, d,
+          async_q, idle, rg, h, wr0, lane,
+          [&] {
+            mma16::stage_rows<NT, DMAX, LDB, W>(Qc, qb + c_out, cur.r0, lim, d, async_q, wv);
+            mma16::stage_rows<NT, DMAX, LDB, W>(Qc + W * LDB, ob + c_out, cur.r0, lim, d,
+                                                async_q, wv);
+            stage_mask_rows(cur, MK);
+            stat_next.load(lseb, dlb, cur.r0, lim);
+            stat_next.store(ST);
+          },
+          [] {});
+      Qb = Qc;
+      st = ST;
+      Ms = MK;
+    } else {
+      Qb = QD + (n % 2) * B::stage;
+      st = ST + (n % 2) * 2 * W;
+      Ms = MK + (n % 2) * MS;
+      mma16::cp_async_wait_all();
+      // sub-tile n is staged and visible to every warp with its lse and
+      // delta; every reader of the other stage (sub-tile n - 1) and of the
+      // teams' partials is done
+      __syncthreads();
+      if (nxt.slot < walk.cnt) stage(nxt, n + 1);
+      if (!idle) {
+        B::partials(sp, dp, Ks, Vs, Qb, Qb + W * LDB, kd, h, wr0, lane);
+        B::team_sum(sp, dp, X, rg, h, lane);
+      }
+    }
+    if (!idle) {
+      // the statistics of the C fragment's column (query) 8 nt + 2t + c
+      auto stat = [&](int, int nt, int c, float& l2, float& dl) {
+        l2 = st[8 * nt + 2 * t + c];
+        dl = st[W + 8 * nt + 2 * t + c];
+      };
+      if (tmask != nullptr) {
+        uint32_t vis[2];
+        mask_bits_t<NN, KT>(vis, Ms, wr0, g, t, cur.r0 + 2 * t, lim);
+        mma16::probs_ds<true>(
+            sp, dp, stat,
+            [&](int hh, int nt, int c) { return ((vis[hh] >> (2 * nt + c)) & 1u) != 0; },
+            sm_scale, sm_scale);
+      } else if (lim == cur.r0 + W) {  // every query of the sub-tile sees every key
+        mma16::probs_ds<false>(sp, dp, stat, [](int, int, int) { return true; }, sm_scale,
+                               sm_scale);
+      } else {
+        const int qj0 = cur.r0 + 2 * t;
+        mma16::probs_ds<true>(
+            sp, dp, stat, [&](int, int nt, int c) { return qj0 + 8 * nt + c < lim; }, sm_scale,
+            sm_scale);
+      }
+      B::pv(acc_v, sp, Qb + W * LDB, kd, h, lane);
+      B::pv(acc_k, dp, Qb, kd, h, lane);
+      if constexpr (!ROUND) {
+        if (++since == B::FOLD && nxt.slot < walk.cnt) {
+          B::bank(dkb, acc_k, banked, k0 + wr0 + g, k_end, d, c_out, h, t);
+          B::bank(dvb, acc_v, banked, k0 + wr0 + g, k_end, d, c_out, h, t);
+          since = 0;
+          banked = true;
         }
       }
+    }
+    if (!CHUNK && nxt.slot < walk.cnt) stat_next.store(ST + ((n + 1) % 2) * 2 * W);
+    cur = nxt;
   }
+  B::store(dkb, acc_k, banked, k0 + wr0 + g, k_end, d, c_out, h, t, 1.f);
+  B::store(dvb, acc_v, banked, k0 + wr0 + g, k_end, d, c_out, h, t, 1.f);
 }
 
-// The plan's blocks must cover s, and the grid's x and y must fit.
+// d <= 256: the 256 instance; wider d the 512 instance, above 512 in
+// 512-wide chunks of the output. dq streams no lse or delta and holds its
+// mask rows in registers, so its shared memory ends at stat_off.
+template <bool ROUND, typename T, int DMAX>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, const int* kv_list, const int* kv_cnt,
+              const int8_t* tmask, int bh, int s, int d, int bq, int bk, int nq, int L,
+              float sm_scale, cudaStream_t stream) {
+  using B = mma16::WideDqFor<ROUND, T, DMAX>;
+  static_assert(B::stat_off <= SMEM_MAX, "dq's shared memory");
+  const unsigned tiles = tiles_x(nq, bq, B::RT);
+  const int chunks = (d + DMAX - 1) / DMAX;
+  if (tiles == 0 || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool CHUNKS = DMAX == 512;  // the 256 instance serves d <= 256 alone
+  // the chunks also stage q and do by cp.async
+  const bool async = async_ok<T>(d, k, v) && (chunks == 1 || async_ok<T>(d, q, dout));
+  return launch_kernel(chunks > 1 ? blk_dq_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                                  : blk_dq_wide_tc_kernel<ROUND, T, DMAX, false>,
+                       B::stat_off, dim3(tiles, bh, chunks), B::NT, stream,
+                       static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<const T*>(dout),
+                       static_cast<const float*>(lse), static_cast<const float*>(delta),
+                       static_cast<T*>(dq), kv_list, kv_cnt, tmask, s, d, bq, bk, L, sm_scale,
+                       static_cast<int>(async), static_cast<int>(async_mask_ok(tmask, bk)));
+}
+
+template <bool ROUND, typename T, int DMAX>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, const int* q_list, const int* q_cnt,
+               const int* q_slot, const int8_t* tmask, int bh, int s, int d, int bq, int bk,
+               int nk, int Lt, float sm_scale, cudaStream_t stream) {
+  using B = mma16::WideDkvFor<ROUND, T, DMAX>;
+  constexpr size_t masked = B::bytes + 2 * dkv_mask_stage<B>;
+  static_assert(masked <= SMEM_MAX, "dk/dv's shared memory with the mask rows");
+  const unsigned tiles = tiles_x(nk, bk, B::RT);
+  const int chunks = (d + DMAX - 1) / DMAX;
+  if (tiles == 0 || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool CHUNKS = DMAX == 512;
+  // the chunks also stage k and v by cp.async
+  const bool async = async_ok<T>(d, q, dout) && (chunks == 1 || async_ok<T>(d, k, v));
+  return launch_kernel(chunks > 1 ? blk_dkv_wide_tc_kernel<ROUND, T, DMAX, CHUNKS>
+                                  : blk_dkv_wide_tc_kernel<ROUND, T, DMAX, false>,
+                       tmask != nullptr ? masked : B::bytes, dim3(tiles, bh, chunks), B::NT,
+                       stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<const T*>(dout),
+                       static_cast<const float*>(lse), static_cast<const float*>(delta),
+                       static_cast<T*>(dk), static_cast<T*>(dv), q_list, q_cnt, q_slot, tmask, s,
+                       d, bq, bk, Lt, sm_scale, static_cast<int>(async),
+                       static_cast<int>(async_mask_ok(tmask, bk)));
+}
+
+}  // namespace widebwd
+
+// The plan's blocks must cover s, and bh fit the grid's y; each launcher
+// checks its own x extent (tiles_x).
 bool bad_shape(int bh, int s, int d, int bq, int bk, int nq, int nk, int L) {
   return bh <= 0 || s <= 0 || d <= 0 || bh > 65535 || bq <= 0 || bk <= 0 ||
          nq <= 0 || nk <= 0 || L <= 0 || static_cast<long long>(nq) * bq < s ||
          static_cast<long long>(nk) * bk < s ||
-         static_cast<long long>(nq) * ((bq + BQ - 1) / BQ) > 0x7fffffffLL ||
-         static_cast<long long>(nk) * ((bk + BK - 1) / BK) > 0x7fffffffLL ||
          static_cast<long long>(bh) * s * d > (1LL << 40);
 }
 
@@ -1261,7 +1546,8 @@ int fwd_typed(const void* q, const void* k, const void* v, void* o, void* lse,
   }
 }
 
-// d <= 128: the tensor-core backward; wider d: the FFMA WIDE kernels.
+// d <= 128: the tensor-core backward; wider d: the teams of the wide
+// tensor-core backward.
 template <int DMAX, bool ROUND, typename T, bool WIDE>
 int dq_typed(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq, const int* kv_list, const int* kv_cnt,
@@ -1271,12 +1557,12 @@ int dq_typed(const void* q, const void* k, const void* v, const void* dout, cons
     return tcbwd::launch_dq<DMAX, ROUND, T>(q, k, v, dout, lse, delta, dq, kv_list, kv_cnt,
                                             tmask, bh, s, d, bq, bk, nq, L, sm_scale, stream);
   } else {
-    const dim3 grid(nq * ((bq + BQ - 1) / BQ), bh, out_chunks<WD, true>(d));
-    return launch(blk_dq_wide_kernel<ROUND, T>, dq_wide_smem, grid, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dq), kv_list, kv_cnt, tmask,
-                  s, d, bq, bk, L, sm_scale);
+    if (d <= 256) {
+      return widebwd::launch_dq<ROUND, T, 256>(q, k, v, dout, lse, delta, dq, kv_list, kv_cnt,
+                                               tmask, bh, s, d, bq, bk, nq, L, sm_scale, stream);
+    }
+    return widebwd::launch_dq<ROUND, T, 512>(q, k, v, dout, lse, delta, dq, kv_list, kv_cnt,
+                                             tmask, bh, s, d, bq, bk, nq, L, sm_scale, stream);
   }
 }
 
@@ -1290,12 +1576,14 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout, con
                                              q_slot, tmask, bh, s, d, bq, bk, nk, Lt, sm_scale,
                                              stream);
   } else {
-    const dim3 grid(nk * ((bk + BK - 1) / BK), bh, out_chunks<WD, true>(d));
-    return launch(blk_dkv_wide_kernel<ROUND, T>, dkv_wide_smem, grid, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-                  q_list, q_cnt, q_slot, tmask, s, d, bq, bk, Lt, sm_scale);
+    if (d <= 256) {
+      return widebwd::launch_dkv<ROUND, T, 256>(q, k, v, dout, lse, delta, dk, dv, q_list,
+                                                q_cnt, q_slot, tmask, bh, s, d, bq, bk, nk, Lt,
+                                                sm_scale, stream);
+    }
+    return widebwd::launch_dkv<ROUND, T, 512>(q, k, v, dout, lse, delta, dk, dv, q_list, q_cnt,
+                                              q_slot, tmask, bh, s, d, bq, bk, nk, Lt, sm_scale,
+                                              stream);
   }
 }
 

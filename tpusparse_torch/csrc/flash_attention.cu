@@ -906,7 +906,7 @@ __global__ void __launch_bounds__(mma16::WideDqFor<ROUND, T, DMAX>::NT, 1)
     if constexpr (CHUNK) {
       T* Kc = KV + B::stage;
       B::scores_chunked(
-          sp, dp, Qs, dOs, KV, X, q + base, dout + base, q0, scale_q, kb, vb, k0, 1.f, s, d,
+          sp, dp, Qs, dOs, KV, X, q + base, dout + base, q0, scale_q, kb, vb, k0, s, 1.f, s, d,
           async_kv, skip, rg, h, wr0, lane,
           [&] { mma16::stage_rows<NT, DMAX, LDB, W>(Kc, kb + c_out, k0, s, d, async_kv, wv); },
           [] {});
@@ -1054,8 +1054,8 @@ __global__ void __launch_bounds__(mma16::WideDkvFor<ROUND, T, DMAX>::NT, 1)
     if constexpr (CHUNK) {
       T* Qc = QD + B::stage;
       B::scores_chunked(
-          sp, dp, Ks, Vs, QD, X, k + base, v + base, k0, 1.f, qb, ob, q0, scale_q, s, d, async_q,
-          skip, rg, h, wr0, lane,
+          sp, dp, Ks, Vs, QD, X, k + base, v + base, k0, 1.f, qb, ob, q0, s, scale_q, s, d,
+          async_q, skip, rg, h, wr0, lane,
           [&] {
             mma16::stage_rows<NT, DMAX, LDB, W>(Qc, qb + c_out, q0, s, d, async_q, wv);
             mma16::stage_rows<NT, DMAX, LDB, W>(Qc + W * LDB, ob + c_out, q0, s, d, async_q, wv);

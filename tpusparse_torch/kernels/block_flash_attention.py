@@ -23,16 +23,16 @@ Contracts carried over:
     entry whose tile mask is 0 are masked (-1e30) and their probabilities
     are exactly 0; a row with no visible key gets o = 0, lse = -1e30;
   - tiers: 'high' and 'highest' are fp32-class, never one TF32 pass
-    (3xTF32 on the tensor cores, fp32 FFMA in the backward at d > 128).
+    (3xTF32 on the tensor cores).
     'default' on fp32 inputs rounds every product's operands to bf16 (q, k,
     v, do, and p, dS) with fp32 sums: what the TPU's DEFAULT
     dot does to the fp32 operands that the JAX wrapper leaves uncast. bf16
     inputs round p and dS to bf16 in every tier (l.979, l.1163, l.1201,
     l.1206);
   - d is taken as it is, any size (the TPU wrapper padded it to a multiple
-    of 128): the forward above 128 on teams of warps that split d into
-    128-wide slices, above 512 in 512-wide output chunks; the backward
-    kernels above 128 in 128-wide chunks.
+    of 128): above 128 all three kernels run on teams of warps that split d
+    into slices (128 wide in the forward, 64 in the backward), above 512 in
+    512-wide output chunks.
 
 A wrapper given CPU tensors runs the plain PyTorch version of its kernel
 (`_blk_fwd_plain`, `_blk_dq_plain`, `_blk_dkv_plain`: a dense masked
